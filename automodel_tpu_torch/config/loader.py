@@ -1,19 +1,25 @@
-"""YAML configs with ``_target_`` instantiation (counterpart:
-``automodel_tpu/config/loader.py``; the part the serve entry needs).
+"""YAML configs with ``_target_`` instantiation and CLI overrides
+(counterparts: ``automodel_tpu/config/loader.py`` and
+``automodel_tpu/config/arg_parser.py``).
 
 A :class:`ConfigNode` wraps a YAML mapping with attribute access, dotted
 ``get`` / ``set_by_dotted`` and recursive ``instantiate()``, which resolves
 a ``_target_`` import path and calls it with the node's other fields.
 Targets under ``automodel_tpu.`` are remapped to ``automodel_tpu_torch.``,
-so the JAX package's serving YAMLs load unchanged and build the port's
-objects.
+so the JAX package's YAMLs load unchanged and build the port's objects.
+Values of ``*_fn`` keys (``collate_fn: pkg.mod.fn``) resolve to the
+callable at load time.  :func:`parse_args_and_load_config` reads
+``--config/-c`` and dotted overrides (``--optimizer.lr 1e-4``,
+``--a.b=v``, a bare ``--flag`` is True).
 """
 
 from __future__ import annotations
 
+import argparse
+import ast
 import copy
 import importlib
-from typing import Any
+from typing import Any, List, Optional, Sequence, Tuple
 
 import yaml
 
@@ -133,6 +139,84 @@ def _instantiate_value(v: Any) -> Any:
     return v
 
 
+def _resolve_fn_keys(node: ConfigNode) -> None:
+    """Resolve string values of ``*_fn`` / ``*_func`` keys to callables
+    (left as strings when nothing importable has the name)."""
+    for k, v in list(node._data.items()):
+        if isinstance(v, ConfigNode):
+            _resolve_fn_keys(v)
+        elif isinstance(v, str) and k.endswith(("_fn", "_func")):
+            try:
+                node._data[k] = resolve_target(v)
+            except TargetResolutionError:
+                pass
+
+
 def load_yaml_config(path: str) -> ConfigNode:
     with open(path) as f:
-        return ConfigNode(yaml.safe_load(f) or {})
+        node = ConfigNode(yaml.safe_load(f) or {})
+    _resolve_fn_keys(node)
+    return node
+
+
+def translate_value(value: str) -> Any:
+    """Literal reading of a CLI override: ``"1e-4"`` -> float, ``"[1,2]"``
+    -> list, ``true``/``false`` -> bool, ``null``/``none`` -> None, else
+    the string."""
+    low = value.lower()
+    if low in ("true", "yes"):
+        return True
+    if low in ("false", "no"):
+        return False
+    if low in ("null", "none", "~"):
+        return None
+    try:
+        return ast.literal_eval(value)
+    except (ValueError, SyntaxError):
+        pass
+    for cast in (int, float):
+        try:
+            return cast(value)
+        except ValueError:
+            pass
+    return value
+
+
+def parse_cli_overrides(argv: Sequence[str]) -> List[Tuple[str, Any]]:
+    """``--a.b.c v`` / ``--a.b=v`` / ``--flag`` -> (dotted, value) pairs."""
+    overrides: List[Tuple[str, Any]] = []
+    argv = list(argv)
+    i = 0
+    while i < len(argv):
+        tok = argv[i]
+        if not tok.startswith("--"):
+            raise ValueError(
+                f"Unexpected argument {tok!r}; overrides start with --")
+        body = tok[2:]
+        if "=" in body:
+            key, _, raw = body.partition("=")
+            overrides.append((key, translate_value(raw)))
+            i += 1
+        elif i + 1 < len(argv) and not argv[i + 1].startswith("--"):
+            overrides.append((body, translate_value(argv[i + 1])))
+            i += 2
+        else:
+            overrides.append((body, True))
+            i += 1
+    return overrides
+
+
+def parse_args_and_load_config(argv: Optional[Sequence[str]] = None,
+                               default_config: Optional[str] = None
+                               ) -> ConfigNode:
+    """Load the ``--config/-c`` YAML and apply dotted CLI overrides."""
+    parser = argparse.ArgumentParser(add_help=False)
+    parser.add_argument("--config", "-c", default=default_config)
+    known, rest = parser.parse_known_args(argv)
+    if known.config is None:
+        raise SystemExit("Missing required --config/-c argument")
+    cfg = load_yaml_config(known.config)
+    for dotted, value in parse_cli_overrides(rest):
+        cfg.set_by_dotted(dotted, value)
+    _resolve_fn_keys(cfg)
+    return cfg

@@ -18,7 +18,9 @@ def build_model(config: Any, *, seed: int = 0, device=None,
                 **model_kwargs) -> LlamaForCausalLM:
     """Build from an inline HF-style config dict (or ``LlamaConfig``).
     ``param_dtype`` defaults to the config's ``torch_dtype``, as in the JAX
-    package."""
+    package.  ``device`` None is ``cuda`` and raises without a card (the
+    YAML ``model._target_`` is an entry point); pass ``device="cpu"`` to
+    build on the CPU."""
     if hasattr(config, "to_dict"):
         config = config.to_dict()
     if isinstance(config, dict):

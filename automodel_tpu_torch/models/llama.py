@@ -9,12 +9,15 @@ Projections are ``nn.Linear`` weights ``[out, in]`` (the JAX kernels are
 weights live in ``param_dtype`` and each projection casts its weight to
 ``compute_dtype``.
 
-Two forwards: without a cache (dense causal attention over the given
-tokens -- the oracle the tests hold against the JAX model), and with a
-:class:`~automodel_tpu_torch.serving.kv_cache.PagedKVView` (the serving
-path: each layer writes its k/v into the paged pools, then attends
-through ``ops/paged_attention.py``).  LoRA, quantized compute, remat and
-sharding constraints wait for later port slices.
+Two forwards: without a cache (training and scoring: packed ``segment_ids``,
+a padding mask and per-sample ``position_ids``, attention through
+``ops/attention.py`` -- the hand-written CUDA kernels on the card -- and
+each layer rematerialized under ``torch.utils.checkpoint`` when gradients
+are recorded, as the JAX model's ``nothing_saveable`` default does), and
+with a :class:`~automodel_tpu_torch.serving.kv_cache.PagedKVView` (the
+serving path: each layer writes its k/v into the paged pools, then attends
+through ``ops/paged_attention.py``).  LoRA, quantized compute and sharding
+constraints wait for later port slices.
 """
 
 from __future__ import annotations
@@ -26,8 +29,14 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from automodel_tpu_torch.ops.attention import (
+    attention,
+    fold_padding_into_segments,
+)
 from automodel_tpu_torch.ops.norms import rms_norm
+from automodel_tpu_torch.ops.remat import checkpoint_layer, resolve_remat_policy
 from automodel_tpu_torch.ops.rotary import apply_rope, rope_parameters
+from automodel_tpu_torch.utils.device import resolve_device
 
 
 @dataclasses.dataclass
@@ -103,26 +112,6 @@ def _sliding_window(cfg: LlamaConfig) -> Optional[int]:
         "mixed sliding/full layer stacks are not supported")
 
 
-def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                     scale: Optional[float] = None,
-                     local_window_size: Optional[int] = None) -> torch.Tensor:
-    """Dense causal GQA attention over ``[B, S, H, D]`` in fp32 (no cache)."""
-    B, S, Hq, D = q.shape
-    Hk = k.shape[2]
-    G = Hq // Hk
-    scale = D ** -0.5 if scale is None else scale
-    qg = q.reshape(B, S, Hk, G, D).float()
-    logits = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) * scale
-    i = torch.arange(S, device=q.device)
-    mask = i[:, None] >= i[None, :]
-    if local_window_size is not None:
-        mask &= i[:, None] - i[None, :] < local_window_size
-    logits = logits.masked_fill(~mask, float("-inf"))
-    probs = torch.softmax(logits, dim=-1)
-    out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v.float())
-    return out.reshape(B, S, Hq, D).to(q.dtype)
-
-
 class RMSNorm(nn.Module):
     def __init__(self, size: int, eps: float, dtype, device):
         super().__init__()
@@ -155,16 +144,25 @@ class LlamaDecoderLayer(nn.Module):
 
 
 class LlamaForCausalLM(nn.Module):
+    """``device`` None is ``cuda`` (raises without a card); tests pass
+    ``device="cpu"``.  ``remat`` recomputes each layer in the backward
+    pass (policy ``nothing_saveable``, the JAX model's default)."""
+
     def __init__(self, config: LlamaConfig,
                  param_dtype=torch.float32, compute_dtype=torch.bfloat16,
+                 remat: bool = True,
+                 remat_policy: Optional[str] = "nothing_saveable",
                  device=None):
         super().__init__()
         if config.attention_bias or config.qk_norm:
             raise NotImplementedError(
                 "attention_bias / qk_norm (Qwen families) are not ported")
+        device = resolve_device(device)
         self.config = config
         self.param_dtype = as_dtype(param_dtype)
         self.compute_dtype = as_dtype(compute_dtype)
+        self.remat = bool(remat)
+        self.remat_policy = resolve_remat_policy(remat_policy)
         self.sliding_window = _sliding_window(config)
         cfg, dt = config, self.param_dtype
         self.embed_tokens = nn.Embedding(cfg.vocab_size, cfg.hidden_size,
@@ -199,7 +197,7 @@ class LlamaForCausalLM(nn.Module):
         return F.linear(x, lin.weight.to(self.compute_dtype))
 
     def _layer(self, layer: LlamaDecoderLayer, hidden, position_ids,
-               kv_cache):
+               segment_ids, kv_cache, attn_impl):
         cfg = self.config
         B, S, _ = hidden.shape
         D, Hq, Hk = cfg.head_dim, cfg.num_attention_heads, \
@@ -213,29 +211,78 @@ class LlamaForCausalLM(nn.Module):
             kv_cache.write(k, v)
             attn = kv_cache.attend(q, local_window_size=self.sliding_window)
         else:
-            attn = causal_attention(q, k, v,
-                                    local_window_size=self.sliding_window)
+            attn = attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                             causal=True, segment_ids=segment_ids,
+                             local_window_size=self.sliding_window,
+                             impl=attn_impl)
         hidden = hidden + self._proj(layer.o_proj, attn.reshape(B, S, Hq * D))
         x = layer.post_attention_layernorm(hidden)
         act = F.silu(self._proj(layer.gate_proj, x)) \
             * self._proj(layer.up_proj, x)
         return hidden + self._proj(layer.down_proj, act)
 
+    def flops_per_token(self) -> float:
+        """Training FLOPs per token of the matmul parameters (fwd + bwd =
+        6N; the JAX model's convention)."""
+        cfg = self.config
+        per_layer = (
+            2 * cfg.hidden_size * (cfg.num_attention_heads
+                                   + 2 * cfg.num_key_value_heads)
+            * cfg.head_dim
+            + 2 * cfg.num_attention_heads * cfg.head_dim * cfg.hidden_size
+            + 6 * cfg.hidden_size * cfg.intermediate_size)
+        embed = 2 * cfg.vocab_size * cfg.hidden_size
+        return 3.0 * (cfg.num_hidden_layers * per_layer + embed)
+
+    def attention_flops_per_token(self, seq_len: int,
+                                  causal: bool = True) -> float:
+        """Training FLOPs per token of the attention score and value
+        products at a row length (causal rows average S/2 keys; fwd + bwd =
+        3 x fwd, the remat re-forward not counted; the JAX model's
+        convention)."""
+        cfg = self.config
+        s_avg = seq_len / 2 if causal else seq_len
+        fwd = 2 * 2 * cfg.num_attention_heads * cfg.head_dim * s_avg
+        return 3.0 * cfg.num_hidden_layers * fwd
+
     def forward(self, input_ids: torch.Tensor,
                 position_ids: Optional[torch.Tensor] = None,
-                kv_cache=None) -> Dict[str, torch.Tensor]:
+                segment_ids: Optional[torch.Tensor] = None,
+                attention_mask: Optional[torch.Tensor] = None,
+                kv_cache=None, return_hidden: bool = False,
+                attn_impl: Optional[str] = None) -> Dict[str, torch.Tensor]:
         """``input_ids [B, S]`` -> ``{"logits": [B, S, V]}`` in the compute
-        dtype.  ``kv_cache`` is a ``PagedKVView`` (pools updated in place)
-        or None."""
+        dtype, or with ``return_hidden`` ``{"hidden_states": [B, S, H],
+        "lm_head_kernel": [H, V]}`` (the JAX layout) for a loss that applies
+        the head itself.
+
+        Without a cache: ``segment_ids [B, S]`` (packed samples, 0 = pad),
+        ``attention_mask [B, S]`` (folded into the segments) and
+        ``position_ids [B, S]`` (restarting per packed sample) reach the
+        attention; ``attn_impl`` is passed to ``ops.attention.attention``
+        (None: the kernels on CUDA tensors, the plain versions on CPU).
+        ``kv_cache`` is a ``PagedKVView`` (pools updated in place) or
+        None."""
         B, S = input_ids.shape
         if position_ids is None:
             position_ids = torch.arange(S, device=input_ids.device).expand(
                 B, S)
+        if kv_cache is None:
+            segment_ids = fold_padding_into_segments((B, S), segment_ids,
+                                                     attention_mask)
+        remat = (self.remat and kv_cache is None
+                 and torch.is_grad_enabled())
         hidden = self.embed_tokens.weight[input_ids].to(self.compute_dtype)
         for i, layer in enumerate(self.layers):
             view = kv_cache.layer_view(i) if kv_cache is not None else None
-            hidden = self._layer(layer, hidden, position_ids, view)
+            args = (layer, hidden, position_ids, segment_ids, view,
+                    attn_impl)
+            hidden = (checkpoint_layer(self._layer, *args) if remat
+                      else self._layer(*args))
         hidden = self.norm(hidden)
+        # tied: the head is the embedding, whose gradient sums both uses
         head = (self.embed_tokens.weight if self.lm_head is None
                 else self.lm_head.weight)
+        if return_hidden:
+            return {"hidden_states": hidden, "lm_head_kernel": head.t()}
         return {"logits": F.linear(hidden, head.to(self.compute_dtype))}

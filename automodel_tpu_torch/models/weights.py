@@ -1,6 +1,7 @@
 """Carry the JAX package's Llama parameters into the port's module
 (counterpart: the param tree of ``automodel_tpu/models/llama.py``
-``LlamaForCausalLM.init``).
+``LlamaForCausalLM.init``), and into the port's SFT recipe, so that the
+two packages can train from the same weights.
 
 The JAX tree stacks every layer's leaf along a leading ``[L, ...]`` axis
 and stores projection kernels as ``[in, out]`` (applied as ``x @ w``).
@@ -77,8 +78,7 @@ def load_jax_params(model: LlamaForCausalLM, tree: Dict[str, Any]) -> None:
         else:
             slices = [arr]
         for p, a in zip(targets, slices):
-            t = torch.from_numpy(np.ascontiguousarray(a.T if transposed
-                                                      else a))
+            t = torch.from_numpy(np.array(a.T if transposed else a))
             if tuple(t.shape) != tuple(p.shape):
                 raise ValueError(
                     f"{'.'.join(path)}: shape {tuple(t.shape)} does not fit "
@@ -87,3 +87,12 @@ def load_jax_params(model: LlamaForCausalLM, tree: Dict[str, Any]) -> None:
     extra = sorted(".".join(k) for k in set(flat) - seen)
     if extra:
         raise KeyError(f"JAX params carry keys the port does not use: {extra}")
+
+
+def load_jax_recipe_params(recipe, tree: Dict[str, Any]) -> None:
+    """Start the port's set-up SFT recipe (``recipes/llm/train_ft.py``)
+    from the JAX recipe's initialised params (numpy, as for
+    :func:`load_jax_params`): fills ``recipe.model`` and drops any
+    optimizer state, so the first step starts from these weights."""
+    load_jax_params(recipe.model, tree)
+    recipe.optimizer.state.clear()

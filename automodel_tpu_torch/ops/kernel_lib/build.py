@@ -3,9 +3,11 @@
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled on its own
 by ``nvcc`` for Hopper (``sm_90a``) into a shared library under
 ``automodel_tpu_torch/_build/`` (listed in ``.gitignore``).  The library's
-file name carries a hash of the source and the flags, so an edited source
-is rebuilt and an unchanged one is loaded as built.  A failed build raises
-with nvcc's stderr; nothing falls back to another implementation.
+file name carries a hash of the source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source is rebuilt and an
+unchanged one is loaded as built.  :func:`build_many` runs one ``nvcc``
+per source, all at once.  A failed build raises with nvcc's stderr;
+nothing falls back to another implementation.
 
 Nothing here runs at import time: the CPU test suite imports every module
 of the port on a machine with no ``nvcc``.
@@ -47,31 +49,51 @@ def find_nvcc() -> str:
 
 
 def library_path(name: str) -> str:
-    """Where ``csrc/<name>.cu`` builds to under the current source and
-    flags."""
-    with open(os.path.join(CSRC_DIR, name + ".cu"), "rb") as f:
-        digest = hashlib.sha256(f.read())
+    """Where ``csrc/<name>.cu`` builds to under the current source, shared
+    headers and flags."""
+    digest = hashlib.sha256()
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for fname in [name + ".cu", *headers]:
+        with open(os.path.join(CSRC_DIR, fname), "rb") as f:
+            digest.update(f.read())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
+
+
+def build_many(names: List[str]) -> List[str]:
+    """Compile every ``csrc/<name>.cu`` whose current build is missing, one
+    ``nvcc`` process per source, all started together; returns the library
+    paths in order.  Raises ``RuntimeError`` with nvcc's stderr of every
+    failed source."""
+    outs = [library_path(n) for n in names]
+    jobs = []
+    for name, out in zip(names, outs):
+        if os.path.exists(out):
+            continue
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        tmp = f"{out}.{os.getpid()}.tmp"
+        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp,
+               os.path.join(CSRC_DIR, name + ".cu")]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+        jobs.append((name, cmd, tmp, out, proc))
+    errors = []
+    for name, cmd, tmp, out, proc in jobs:
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            errors.append(f"nvcc failed to build {name}.cu (exit "
+                          f"{proc.returncode}):\n{' '.join(cmd)}\n{err}")
+        else:
+            os.replace(tmp, out)   # atomic: a concurrent build sees all or none
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return outs
 
 
 def build(name: str) -> str:
     """Compile ``csrc/<name>.cu`` unless its current build exists; returns
     the library path.  Raises ``RuntimeError`` with nvcc's stderr."""
-    out = library_path(name)
-    if os.path.exists(out):
-        return out
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           os.path.join(CSRC_DIR, name + ".cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed to build {name}.cu (exit {proc.returncode}):\n"
-            f"{' '.join(cmd)}\n{proc.stderr}")
-    os.replace(tmp, out)        # atomic: a concurrent build sees all or none
-    return out
+    return build_many([name])[0]
 
 
 def load(name: str) -> ctypes.CDLL:

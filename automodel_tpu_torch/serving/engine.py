@@ -47,6 +47,7 @@ from automodel_tpu_torch.serving.kv_cache import (
     slot_for,
 )
 from automodel_tpu_torch.serving.scheduler import Request, Scheduler, StepPlan
+from automodel_tpu_torch.utils.device import resolve_device
 
 # ``serving:`` keys of the JAX engine that this slice does not implement:
 # each must be absent, null or (where the JAX key is a mode) off / the
@@ -136,17 +137,6 @@ def build_serving_config(cfg: Any) -> ServingConfig:
             f"unknown serving config key(s) {unknown}; known: "
             f"{sorted(known)}")
     return ServingConfig(**data)
-
-
-def resolve_device(device=None) -> torch.device:
-    """``None`` -> ``cuda``.  A CUDA device without a card raises: the port
-    never quietly runs on the CPU."""
-    device = torch.device("cuda" if device is None else device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device is available; pass device='cpu' explicitly to "
-            "run the port on the CPU")
-    return device
 
 
 @torch.inference_mode()

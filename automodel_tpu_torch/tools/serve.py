@@ -39,7 +39,7 @@ def main(argv=None) -> int:
     from automodel_tpu_torch.config.loader import load_yaml_config
     from automodel_tpu_torch.generation import GenerationConfig
     from automodel_tpu_torch.serving import DecodeEngine, build_serving_config
-    from automodel_tpu_torch.serving.engine import resolve_device
+    from automodel_tpu_torch.utils.device import resolve_device
 
     device = resolve_device(args.device)
     cfg = load_yaml_config(args.config)

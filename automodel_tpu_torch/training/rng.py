@@ -1,0 +1,38 @@
+"""Seeded random streams (counterpart: ``automodel_tpu/training/rng.py``).
+
+One seed drives Python's ``random``, numpy's global state and ``torch``'s
+default generator.  Where the JAX package folds a key per stream
+(``key_for(step, ...)``), the port derives a seed per stream from (seed,
+stream coordinates) with ``np.random.SeedSequence``; the consumer seeds its
+own ``torch.Generator`` with it (``LlamaForCausalLM.init_weights`` does),
+so a stream never depends on how much another one has drawn.  ``ranked``
+offsets the seed by the process rank (0 without ``torch.distributed``).
+The checkpoint round-trip waits for the port's checkpointing.
+"""
+
+from __future__ import annotations
+
+import random
+
+import numpy as np
+import torch
+
+
+class StatefulRNG:
+    def __init__(self, seed: int = 42, ranked: bool = False):
+        self.seed = int(seed)
+        self.ranked = bool(ranked)
+        offset = 0
+        if ranked and torch.distributed.is_available() \
+                and torch.distributed.is_initialized():
+            offset = torch.distributed.get_rank()
+        self._effective_seed = self.seed + offset
+        random.seed(self._effective_seed)
+        np.random.seed(self._effective_seed % (2 ** 32))
+        torch.manual_seed(self._effective_seed)
+
+    def seed_for(self, *stream: int) -> int:
+        """A 63-bit seed for the stream at these coordinates."""
+        seq = np.random.SeedSequence([self._effective_seed,
+                                      *[int(s) for s in stream]])
+        return int(seq.generate_state(1, np.uint64)[0] >> np.uint64(1))

@@ -49,9 +49,16 @@ def test_no_jax_or_jax_package_imports():
 
 
 def test_engine_import_loads_no_jax():
-    code = ("import sys\n"
-            "import automodel_tpu_torch.serving.engine\n"
-            "import automodel_tpu_torch.tools.serve\n"
+    """Importing every module of the port (the engine, the serve CLI, the
+    SFT recipe and all they use) loads no JAX."""
+    mods = sorted(
+        os.path.relpath(p, REPO)[:-3].replace(os.sep, ".")
+        .removesuffix(".__init__")
+        for p in _port_sources() if p.startswith(PORT + os.sep))
+    assert "automodel_tpu_torch.recipes.llm.train_ft" in mods
+    code = ("import importlib, sys\n"
+            f"for m in {mods!r}:\n"
+            "    importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'automodel_tpu' or "
             "m.startswith('automodel_tpu.')]\n"

@@ -156,3 +156,128 @@ def test_cuda_long_queries_take_the_gather_by_shape(cuda_device):
     assert (tpak.launches, tpa.long_q_gather_calls) == (launches,
                                                         gathers + 1)
     torch.testing.assert_close(out, tpa.paged_attention_plain(*t, **kw))
+
+
+# ---------------------------------------------------------------------------
+# training attention (csrc/flash_attn_fwd.cu, csrc/flash_attn_bwd.cu)
+# ---------------------------------------------------------------------------
+ATTN_CASES = [
+    # (name, B, S, Hq, Hk, D, segments, window, soft cap)
+    ("causal_gqa_d64", 2, 256, 8, 2, 64, False, None, None),
+    ("packed_gqa_d64", 2, 256, 8, 2, 64, True, None, None),
+    ("packed_mha_d128", 2, 192, 4, 4, 128, True, None, None),
+    ("ragged_window_d64", 1, 200, 4, 2, 64, False, 16, None),
+    ("ragged_cap_d128", 1, 200, 4, 2, 128, True, None, 30.0),
+]
+
+
+def make_attn_case(B, S, Hq, Hk, D, segments, seed=0):
+    """bf16 operands on the card; with ``segments`` every row holds 3 packed
+    samples and a padding tail (segment 0)."""
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(B, S, Hq, D)).astype(np.float32)
+    k = rng.normal(size=(B, S, Hk, D)).astype(np.float32)
+    v = rng.normal(size=(B, S, Hk, D)).astype(np.float32)
+    dout = rng.normal(size=(B, S, Hq, D)).astype(np.float32)
+    seg = None
+    if segments:
+        seg = np.zeros((B, S), np.int32)
+        for b in range(B):
+            cuts = np.sort(rng.choice(np.arange(8, S - 8), 3, replace=False))
+            for i, (lo, hi) in enumerate(zip([0, *cuts[:2]], cuts)):
+                seg[b, lo:hi] = i + 1
+    dev = torch.device("cuda")
+    t = [torch.from_numpy(a).to(dev, torch.bfloat16) for a in (q, k, v, dout)]
+    return (*t, None if seg is None else torch.from_numpy(seg).to(dev))
+
+
+def rel_l2(a, b):
+    return float((a.float() - b.float()).norm() / b.float().norm())
+
+
+# bf16 output: one ulp at |x| in [2, 4) is 1.6e-2 and the two versions sum
+# in another order.  Gradients: the kernel rounds P and dS to bf16 before
+# its products (the plain version keeps fp32), which moves each element by
+# ~2^-9 relative, about 0.5 % in relative L2 over the whole tensor; a wrong
+# formula moves it by O(1).
+ATTN_ATOL = ATTN_RTOL = 2e-2
+GRAD_REL_L2 = 2e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ATTN_CASES, ids=[c[0] for c in ATTN_CASES])
+def test_cuda_flash_attn_matches_plain(case, cuda_device):
+    """Forward and backward kernels against the plain versions on the same
+    bf16 operands; rows with segment 0 must give 0 / zero gradient."""
+    from automodel_tpu_torch.ops import splash_attention as sa
+
+    _, B, S, Hq, Hk, D, segments, window, cap = case
+    q, k, v, dout, seg = make_attn_case(B, S, Hq, Hk, D, segments)
+    kw = dict(causal=True, segment_ids=seg, logits_soft_cap=cap,
+              local_window_size=window)
+    f0, b0 = sa.fwd_launches, sa.bwd_launches
+    out, lse = sa.flash_attn_fwd_cuda(q, k, v, **kw)
+    dq, dk, dv = sa.flash_attn_bwd_cuda(q, k, v, out, lse, dout, **kw)
+    torch.cuda.synchronize()
+    assert (sa.fwd_launches, sa.bwd_launches) == (f0 + 1, b0 + 1)
+    ref_out, ref_lse = sa.splash_attention_plain(q, k, v, **kw)
+    torch.testing.assert_close(out.float(), ref_out.float(), atol=ATTN_ATOL,
+                               rtol=ATTN_RTOL)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-2, rtol=1e-3)
+    refs = sa.splash_attention_bwd_plain(q, k, v, ref_out, ref_lse, dout,
+                                         **kw)
+    for name, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), refs):
+        assert bool(torch.isfinite(got).all()), name
+        assert rel_l2(got, ref) < GRAD_REL_L2, (name, rel_l2(got, ref))
+    if seg is not None:
+        pad = seg == 0
+        assert bool((out[pad] == 0).all()) and bool((lse.transpose(1, 2)[pad]
+                                                     == 0).all())
+        assert bool((dq[pad] == 0).all()) and bool((dk[pad] == 0).all())
+
+
+@pytest.mark.cuda
+def test_cuda_training_step_through_the_kernels(cuda_device):
+    """A small bf16 Llama (head_dim 64) on packed rows: loss and gradients
+    through the attention kernels against the plain attention, with
+    ``2 x layers`` forward launches (remat recomputes each layer) and
+    ``layers`` backward launches per step.  bf16 through 2 layers: the
+    loss within 1 %, the whole gradient within 5 % relative L2."""
+    from automodel_tpu_torch.loss.masked_ce import MaskedCrossEntropy
+    from automodel_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from automodel_tpu_torch.ops import splash_attention as sa
+    from automodel_tpu_torch.training.train_step import microbatch_loss
+
+    cfg = LlamaConfig(vocab_size=512, hidden_size=256, intermediate_size=512,
+                      num_hidden_layers=2, num_attention_heads=4,
+                      num_key_value_heads=2, rope_theta=10000.0)
+    model = LlamaForCausalLM(cfg, param_dtype=torch.bfloat16,
+                             device=cuda_device).init_weights(0)
+    rng = np.random.default_rng(1)
+    B, S = 2, 300
+    seg = np.zeros((B, S), np.int32)
+    pos = np.zeros((B, S), np.int32)
+    for b, cuts in enumerate(([0, 120, 250], [0, 60, 280])):
+        for i, (lo, hi) in enumerate(zip(cuts[:-1], cuts[1:])):
+            seg[b, lo:hi] = i + 1
+            pos[b, lo:hi] = np.arange(hi - lo)
+    ids = rng.integers(1, 512, (B, S)).astype(np.int32)
+    mb = {"input_ids": ids, "position_ids": pos, "segment_ids": seg,
+          "labels": np.where(seg > 0, ids, -100).astype(np.int32)}
+    mb = {k: torch.from_numpy(v).to(cuda_device) for k, v in mb.items()}
+    out = {}
+    for impl in ("plain", "kernel"):
+        model.zero_grad(set_to_none=True)
+        f0, b0 = sa.fwd_launches, sa.bwd_launches
+        loss = microbatch_loss(model, MaskedCrossEntropy(), mb,
+                               attn_impl=impl)
+        loss.backward()
+        torch.cuda.synchronize()
+        launches = (sa.fwd_launches - f0, sa.bwd_launches - b0)
+        assert launches == ((4, 2) if impl == "kernel" else (0, 0))
+        out[impl] = (float(loss.detach()),
+                     torch.cat([p.grad.float().flatten()
+                                for p in model.parameters()]))
+    (lk, gk), (lp, gp) = out["kernel"], out["plain"]
+    assert abs(lk - lp) <= 1e-2 * abs(lp)
+    assert rel_l2(gk, gp) < 5e-2

@@ -48,7 +48,7 @@ def _jax_model(tied: bool):
 def _port_model(params, tied: bool):
     m = LlamaForCausalLM(LlamaConfig(**SMALL, tie_word_embeddings=tied),
                          param_dtype=torch.float32,
-                         compute_dtype=torch.float32)
+                         compute_dtype=torch.float32, device="cpu")
     load_jax_params(m, params)
     return m
 
