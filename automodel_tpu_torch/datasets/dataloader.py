@@ -6,9 +6,10 @@ same order as the JAX package's loader for the same seed: the epoch
 permutation is ``np.random.default_rng(seed + epoch).permutation(n)``.  As
 there, the position advances before each batch is yielded, so a loop that
 stops mid-epoch (``max_steps``) and iterates again resumes at the next
-batch.  Per-host input sharding (``host_rows``), length bucketing,
-iterable datasets and the saved resume state wait for the port's
-checkpointing and multi-GPU slices.
+batch; ``state_dict()`` / ``load_state_dict()`` carry that position
+(``datasets/prefetch.py`` snapshots it with every batch it produces).
+Per-host input sharding (``host_rows``), length bucketing and iterable
+datasets wait for the port's checkpointing and multi-GPU slices.
 """
 
 from __future__ import annotations
@@ -82,3 +83,14 @@ class StatefulDataLoader:
         n = len(self.dataset)
         return (n // self.batch_size if self.drop_last
                 else -(-n // self.batch_size))
+
+    # -- resume state (the async input pipeline snapshots it per batch) ---
+    def state_dict(self) -> dict:
+        return {"epoch": self.epoch, "index": self._index,
+                "seed": self.seed, "shuffle": self.shuffle}
+
+    def load_state_dict(self, sd: dict) -> None:
+        self.epoch = sd["epoch"]
+        self._index = sd["index"]
+        self.seed = sd.get("seed", self.seed)
+        self.shuffle = sd.get("shuffle", self.shuffle)

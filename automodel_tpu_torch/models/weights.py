@@ -67,6 +67,8 @@ def load_jax_params(model: LlamaForCausalLM, tree: Dict[str, Any]) -> None:
         if path not in flat:
             raise KeyError(f"JAX params lack {'.'.join(path)}")
         arr = np.asarray(flat[path])
+        if arr.dtype.name == "bfloat16":    # ml_dtypes; torch cannot read it
+            arr = arr.astype(np.float32)    # exact
         seen.add(path)
         targets = target if isinstance(target, list) else [target]
         if isinstance(target, list):

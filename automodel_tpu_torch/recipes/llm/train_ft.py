@@ -4,20 +4,34 @@ Same YAML schema and the same ``setup()`` + ``run_train_validation_loop()``
 surface as the JAX recipe: ``step_scheduler``, ``rng``, ``model``,
 ``loss_fn``, ``dataset``, ``packed_sequence``, ``dataloader``,
 ``validation_dataset`` / ``validation_dataloader``, ``optimizer``,
-``lr_scheduler``, ``training``, plus a top-level ``device`` (default
-``cuda``; the recipe raises without a card unless ``device: cpu``).  The
-hot loop is eager PyTorch (``training/train_step.py``): stack the
-microbatches, move them to the device, one forward/backward per
-microbatch, one optimizer step, then log ``loss``, ``grad_norm``, ``lr``,
-tokens/s and the peak device memory.
+``lr_scheduler``, ``training``, ``compile``, ``kernels``, plus a top-level
+``device`` (default ``cuda``; the recipe raises without a card unless
+``device: cpu``).  The hot loop is eager PyTorch
+(``training/train_step.py``): stack the microbatches, move them to the
+device, one forward/backward per microbatch, one optimizer step, then log
+``loss``, ``grad_norm``, ``lr``, tokens/s and the peak device memory.
+
+The losses are the JAX package's: ``MaskedCrossEntropy`` (default),
+``ChunkedCrossEntropy`` and ``FusedLinearCrossEntropy`` (the bench YAML's;
+on the card its LM head and CE run through the hand-written linear-CE
+kernels, and no ``[T, V]`` logits tensor exists).
+
+``dataloader.prefetch_depth > 0`` wraps the loaders in the async input
+pipeline (``datasets/prefetch.py``): a producer thread reads and collates
+the next batches while the card runs; host-to-device copies stay on the
+training thread.  Each step takes the loader's pending resume snapshot
+before it runs and commits it when it is done, as the JAX recipe does.
+
+``compile`` is accepted and does nothing: the port runs eagerly and has no
+compiled program to cache (logged once; nothing is ``torch.compile``d).
+``kernels.autotune: off`` (or absent) means the kernels' hand-chosen
+tiles; ``on`` / ``force`` raise.
 
 Left out of this slice, each raising ``NotImplementedError`` when its
 knob is set (ROADMAP Queue 1 names where each lands): checkpointing,
-pipeline / tensor / context / data parallelism, PEFT, fp8 compute, the
-async input pipeline (``prefetch_depth > 0``), remat policies other than
-``nothing_saveable``, ``FusedLinearCrossEntropy`` (the next slice, with
-its kernels), gradient clipping, freezing, profiling, elastic recovery and
-W&B logging.
+pipeline / tensor / context / data parallelism, PEFT, fp8 compute, kernel
+autotuning, remat policies other than ``nothing_saveable``, gradient
+clipping, freezing, profiling, elastic recovery and W&B logging.
 
     python -m automodel_tpu_torch.recipes.llm.train_ft \\
         -c automodel_tpu_torch/examples/tiny_llama_sft.yaml --device cpu
@@ -40,6 +54,7 @@ from automodel_tpu_torch.config.loader import (
 )
 from automodel_tpu_torch.datasets.dataloader import StatefulDataLoader
 from automodel_tpu_torch.datasets.llm.packed_sequence import PackedSequence
+from automodel_tpu_torch.datasets.prefetch import wrap_prefetch
 from automodel_tpu_torch.loss.masked_ce import IGNORE_INDEX, MaskedCrossEntropy
 from automodel_tpu_torch.models.llama import as_dtype
 from automodel_tpu_torch.optim.builder import build_optimizer, set_hyperparams
@@ -59,7 +74,7 @@ _SECTIONS = {
     "step_scheduler", "dist_env", "rng", "model", "checkpoint",
     "distributed", "loss_fn", "dataset", "packed_sequence", "dataloader",
     "validation_dataset", "validation_dataloader", "optimizer",
-    "lr_scheduler", "training", "device",
+    "lr_scheduler", "training", "device", "compile", "kernels",
 }
 _LATER = {
     "checkpoint": "checkpointing (ROADMAP Queue 1 item 7)",
@@ -67,9 +82,8 @@ _LATER = {
     "fp8": "quantized compute (ROADMAP Queue 1 item 6)",
     "pipeline": "pipeline parallelism (ROADMAP Queue 1 item 12)",
     "distributed": "multi-GPU (ROADMAP Queue 1 item 9)",
-    "prefetch": "the async input pipeline (ROADMAP Queue 1 item 4)",
-    "linear_ce": "FusedLinearCrossEntropy (the next port slice, with the "
-                 "linear-CE kernels)",
+    "autotune": "kernel block-size autotuning (ROADMAP Queue 1 item 3; "
+                "the kernels run their hand-chosen tiles)",
 }
 
 
@@ -99,12 +113,9 @@ def check_ported(cfg: ConfigNode) -> None:
             raise _later("distributed")
     if cfg.get("distributed.sequence_parallel"):
         raise _later("distributed")
-    for key in ("dataloader", "validation_dataloader"):
-        if int(cfg.get(f"{key}.prefetch_depth", 0) or 0) > 0:
-            raise _later("prefetch")
-    target = cfg.get("loss_fn._target_")
-    if isinstance(target, str) and target.endswith("FusedLinearCrossEntropy"):
-        raise _later("linear_ce")
+    # YAML 1.1 reads ``off`` / ``on`` as booleans
+    if cfg.get("kernels.autotune") not in (None, False, "off", "none"):
+        raise _later("autotune")
 
 
 def count_tokens(batches: List[Dict[str, np.ndarray]]) -> int:
@@ -119,9 +130,10 @@ def count_tokens(batches: List[Dict[str, np.ndarray]]) -> int:
 
 
 def build_dataloader(cfg: ConfigNode, dataset, cfg_key: str,
-                     batch_size: int, seed: int) -> StatefulDataLoader:
+                     batch_size: int, seed: int):
     """Dataset (+ packing when ``packed_sequence.packed_sequence_size`` >
-    0) -> loader built from ``cfg[cfg_key]``."""
+    0) -> loader built from ``cfg[cfg_key]``, wrapped in the async input
+    pipeline when its ``prefetch_depth`` is > 0."""
     size = int(cfg.get("packed_sequence.packed_sequence_size", 0) or 0)
     if size > 0:
         dataset = PackedSequence(
@@ -135,9 +147,11 @@ def build_dataloader(cfg: ConfigNode, dataset, cfg_key: str,
                   if k not in ("_target_", "prefetch_depth")}
     kwargs.setdefault("batch_size", batch_size)
     kwargs.setdefault("seed", seed)
+    depth = int((dl_cfg.get("prefetch_depth") if isinstance(dl_cfg, ConfigNode)
+                 else 0) or 0)
     target = dl_cfg.get("_target_") if isinstance(dl_cfg, ConfigNode) else None
     cls = resolve_target(target) if target else StatefulDataLoader
-    return cls(dataset, **kwargs)
+    return wrap_prefetch(cls(dataset, **kwargs), depth)
 
 
 def build_lr_scheduler(cfg_lr: Optional[ConfigNode],
@@ -172,6 +186,11 @@ class TrainFinetuneRecipeForNextTokenPrediction:
     def setup(self):
         cfg = self.cfg
         check_ported(cfg)
+        if cfg.get("compile") is not None and \
+                cfg.get("compile.enabled", True) is not False:
+            logger.info("compile: the port runs eagerly and keeps no "
+                        "compiled program to cache; the section does "
+                        "nothing here")
         self.device = resolve_device(cfg.get("device"))
         rng_cfg = cfg.get("rng")
         if isinstance(rng_cfg, ConfigNode) and "_target_" in rng_cfg.to_dict():
@@ -245,6 +264,9 @@ class TrainFinetuneRecipeForNextTokenPrediction:
         """One optimizer step over the grad-accumulation group; returns its
         metrics (fetched at the end of the step: one sync)."""
         num_tokens = count_tokens(batches)
+        # resume point after this group, committed once its step has run
+        dl_state = (self.dataloader.pending_state()
+                    if hasattr(self.dataloader, "pending_state") else None)
         self.lr_scheduler.step(1)
         set_hyperparams(self.optimizer, lr=self.lr_scheduler.current_lr,
                         wd=self.lr_scheduler.current_wd)
@@ -252,6 +274,8 @@ class TrainFinetuneRecipeForNextTokenPrediction:
         metrics = self.step_fns.train_step(to_device_batch(batches,
                                                            self.device))
         dt = time.perf_counter() - t0
+        if dl_state is not None:
+            self.dataloader.commit_state(dl_state)
         if self._check_for_nan and not (np.isfinite(metrics["loss"])
                                         and np.isfinite(metrics["grad_norm"])):
             raise FloatingPointError(

@@ -13,9 +13,12 @@ before the update.
 Gradients accumulate in the parameters' dtype, which must be
 ``grad_dtype`` (checked at build time): the bf16 bench YAML (bf16 params,
 ``grad_dtype: bfloat16``) and the fp32 tiny YAML both satisfy it.  The
-division by the token count runs in that dtype too; the JAX step divides
-by an fp32 count, which promotes bf16 gradients to fp32 from there on (a
-rounding difference of the bf16 path only).
+division by the token count is the JAX step's: each gradient is divided by
+the fp32 count in fp32 and the global norm is taken from those fp32
+quotients, one tensor at a time (no fp32 copy of the whole gradient
+exists); the quotient is then written back in the parameter dtype for the
+optimizer.  What still differs on the bf16 path: torch's AdamW sees those
+bf16 quotients, optax the fp32 ones.
 """
 
 from __future__ import annotations
@@ -58,10 +61,21 @@ def microbatch_loss(model, loss_fn, mb: Dict[str, torch.Tensor],
     return loss_fn(out["logits"], labels)
 
 
-def grad_norm(params: List[torch.Tensor]) -> torch.Tensor:
-    """Global L2 norm of the gradients, summed in fp32."""
-    norms = [torch.linalg.vector_norm(p.grad, dtype=torch.float32)
-             for p in params if p.grad is not None]
+@torch.no_grad()
+def normalize_grads(params: List[torch.Tensor],
+                    denom: torch.Tensor) -> torch.Tensor:
+    """Divide every gradient by the fp32 token count in fp32, write the
+    quotient back in place (in the parameter dtype) and return the global
+    L2 norm of the fp32 quotients; one fp32 gradient tensor exists at a
+    time."""
+    norms = []
+    for p in params:
+        if p.grad is None:
+            continue
+        q = p.grad.float() / denom
+        norms.append(torch.linalg.vector_norm(q))
+        p.grad.copy_(q)
+        del q
     return torch.linalg.vector_norm(torch.stack(norms))
 
 
@@ -107,11 +121,7 @@ class TrainStep:
             loss = microbatch_loss(self.model, self.loss_fn, mb)
             loss.backward()
             loss_sum += loss.detach().float()
-        with torch.no_grad():
-            for p in self.params:
-                if p.grad is not None:
-                    p.grad.div_(denom.to(p.grad.dtype))
-            norm = grad_norm(self.params)
+        norm = normalize_grads(self.params, denom)
         self.optimizer.step()
         loss, gn, n = torch.stack([loss_sum / denom, norm,
                                    num_label_tokens]).tolist()

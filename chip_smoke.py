@@ -28,12 +28,27 @@ Phases (any failure exits non-zero without the final ``ok`` line):
    requests (prompts of 64-1024 tokens, 64 new tokens each) with the
    launch counts zeroed just before and read just after, then a shorter
    int8-KV run the same way, then two profiled windows;
-6. sft: Llama-3.2-1B at full width and depth trained by the port's recipe
-   on ``automodel_tpu_torch/examples/llama3_2_1b_sft.yaml``: the first
-   step's loss and gradient (2 rows of the first batch) through the
-   attention kernels against the plain attention, 2 warm-up steps, then
-   the timed steps with the launch counts zeroed just before and read just
-   after (step time, tokens/s, MFU, peak memory), then a profiled window.
+6. linear-CE kernels (forward; backward as dlogits, dh and dW launches
+   per chunk of rows): each against its plain version at the bench SFT
+   path's shape (T 16384 = 8 x 2048, H 2048, V 128256, the labels of the
+   bench YAML's first batch) and at a GPT-2 vocabulary, ragged rows,
+   H 4096 and all-ignored labels, with the kernel, plain, library and bound
+   times;
+7. sft: Llama-3.2-1B at full width and depth trained by the port's recipe
+   on ``automodel_tpu_torch/examples/llama3_2_1b_sft.yaml`` (MaskedCE):
+   the first step's loss and gradient (2 rows of the first batch) through
+   the attention kernels against the plain attention, 2 warm-up steps,
+   then the timed steps with the launch counts zeroed just before and read
+   just after (step time, tokens/s, MFU, peak memory), then a profiled
+   window;
+8. sft_bench: the same on ``automodel_tpu_torch/examples/
+   llama3_2_1b_bench.yaml`` as written (FusedLinearCrossEntropy through the
+   linear-CE kernels, the async input pipeline at depth 2): the first
+   step's loss and gradient through the kernels against the fused loss's
+   plain route and against MaskedCE on the same weights, then the timed
+   steps with the attention and linear-CE launch counts zeroed just before
+   and read just after, the producer thread's host seconds, and a profiled
+   window; its peak memory must stay below the MaskedCE phase's.
 
 The second-to-last line is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.
@@ -75,7 +90,17 @@ SFT_LOSS_REL_TOL = 1e-2
 SFT_GRAD_REL_L2 = 1e-1
 SFT_YAML = os.path.join(REPO, "automodel_tpu_torch", "examples",
                         "llama3_2_1b_sft.yaml")
+BENCH_YAML = os.path.join(REPO, "automodel_tpu_torch", "examples",
+                          "llama3_2_1b_bench.yaml")
 SFT_WARMUP, SFT_STEPS, SFT_PROFILED = 2, 6, 2
+# linear-CE forward: one bf16 product of K = H against the same product in
+# fp32, summed in another order (2e-2 + 2e-2 |ref|, as the other kernels)
+LCE_ATOL = LCE_RTOL = 2e-2
+# linear-CE backward, relative L2 of dh and dW over the whole tensor: both
+# versions round dlogits to bf16 before the products (the TPU kernel's own
+# rounding, automodel_tpu/ops/linear_ce_kernel.py:231, :258) and the
+# kernels write bf16 results; a wrong formula moves them by O(1)
+LCE_GRAD_REL_L2 = 2e-2
 
 
 def fail(msg):
@@ -88,13 +113,13 @@ def check(cond, msg):
         fail(msg)
 
 
-def time_ms(fn, iters, flush=None):
+def time_ms(fn, iters, flush=None, warmup=3):
     """Mean device time of ``fn`` over ``iters`` launches (CUDA events),
-    after a warm-up; ``flush`` (a large buffer) is rewritten before each
-    launch so the L2 holds none of its inputs."""
+    after ``warmup`` calls; ``flush`` (a large buffer) is rewritten before
+    each launch so the L2 holds none of its inputs."""
     import torch
 
-    for _ in range(3):
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     total = 0.0
@@ -109,6 +134,14 @@ def time_ms(fn, iters, flush=None):
         end.synchronize()
         total += start.elapsed_time(end)
     return total / iters
+
+
+def roofline_ms(ops, nbytes):
+    """(bound_ms, bound_by): the larger of ``nbytes`` over HBM bandwidth and
+    ``ops`` over the bf16 tensor-core peak."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / BF16_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
 
 
 # ---------------------------------------------------------------------------
@@ -181,9 +214,7 @@ def paged_bound(q, k, ks, tables, ctx, pos, window):
         keys = hi - first
         nbytes += keys * kv_bytes + (-(-hi // BS) - first // BS) * 4
         ops += 4 * S * Hq * D * keys
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / BF16_OPS_PER_S
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
-                                       else "operations")
+    return roofline_ms(ops, nbytes)
 
 
 def library_call(q, k, v, tables, ctx, pos, window):
@@ -277,18 +308,18 @@ ATTN_CASES = [
 ]
 
 
-def sft_segment_ids():
-    """The segment ids [8, 2048] of the first batch the SFT recipe's loader
-    yields for ``llama3_2_1b_sft.yaml`` (its mock data, packed)."""
+def first_batch(yaml_path):
+    """The first batch [8, 2048] the SFT recipe's loader yields for
+    ``yaml_path`` (its mock data, packed)."""
     from automodel_tpu_torch.config.loader import parse_args_and_load_config
     from automodel_tpu_torch.recipes.llm import train_ft
 
-    cfg = parse_args_and_load_config(["-c", SFT_YAML])
+    cfg = parse_args_and_load_config(["-c", yaml_path])
     loader = train_ft.build_dataloader(
         cfg, cfg.dataset.instantiate(), "dataloader",
         int(cfg.get("step_scheduler.local_batch_size")),
         int(cfg.get("rng.seed")))
-    return next(iter(loader))["segment_ids"]
+    return next(iter(loader))
 
 
 def attn_bound(q, k, seg, pairs, backward):
@@ -303,9 +334,7 @@ def attn_bound(q, k, seg, pairs, backward):
     if backward:
         nbytes += 2 * nq + nkv                # dout, dq; dk, dv
     ops = (10 if backward else 4) * D * Hq * pairs
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / BF16_OPS_PER_S
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
-                                       else "operations")
+    return roofline_ms(ops, nbytes)
 
 
 def attn_library(q, k, v, dout, mask, causal_only, scale):
@@ -422,6 +451,221 @@ def attention_phase(flush, seg_np):
         print("attention_case " + json.dumps(row), flush=True)
         rows.append(row)
         del q, k, v, dout, out, lse, ref, ref_lse, mask
+        torch.cuda.empty_cache()
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# linear-CE kernel phase
+# ---------------------------------------------------------------------------
+LCE_CASES = [
+    # (name, T, H, V, labels); the first is the bench SFT path's case (the
+    # LM head over 8 x 2048 rows) and stands for the kernels in the JSON line
+    ("sft_bench", 16384, 2048, 128256, "bench"),
+    ("vocab_tail", 4096, 2048, 50257, "random"),       # GPT-2's vocabulary
+    ("ragged_rows", 1000, 2048, 128256, "random"),
+    ("h4096", 4096, 4096, 128256, "random"),           # Llama-3-8B's width
+    ("all_ignored", 4096, 2048, 128256, "ignored"),
+]
+LCE_PARTS = ("dlogits", "dh", "dw")
+
+
+def lce_bounds(T, H, V):
+    """(bound_ms, bound_by) of each linear-CE function on these shapes: 2
+    T H V operations per product (the forward's logits; the backward's
+    recompute, dh and dW: 6 T H V in all) against the bytes each must move
+    once -- h, W, the row vectors (labels, lse, pick / dlse, dpick), the
+    bf16 dlogits between the backward's launches, dh and dW."""
+    prod = 2.0 * T * H * V
+    h, w, dl = 2.0 * T * H, 2.0 * V * H, 2.0 * T * V
+    return {
+        "fwd": roofline_ms(prod, h + w + 12 * T),
+        "bwd": roofline_ms(3 * prod, 2 * h + 2 * w + 16 * T),
+        "dlogits": roofline_ms(prod, h + w + 16 * T + dl),
+        "dh": roofline_ms(prod, dl + w + h),
+        "dw": roofline_ms(prod, dl + h + w),
+    }
+
+
+def plain_bwd_parts_ms(h, w, labels, lse, dlse, dpick):
+    """Device time of each piece of the plain backward (dlogits, dh, dW
+    products), summed over its row chunks in one pass (CUDA events)."""
+    import torch
+
+    from automodel_tpu_torch.ops import linear_ce_kernel as lce
+
+    total = dict.fromkeys(LCE_PARTS, 0.0)
+    dw = torch.zeros(w.shape, dtype=torch.float32, device=w.device)
+    C = lce.CHUNK_ROWS
+    for r0 in range(0, h.shape[0], C):
+        sl = slice(r0, r0 + C)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        d = lce.dlogits_plain(h[sl], w, labels[sl], lse[sl], dlse[sl],
+                              dpick[sl])
+        ev[1].record()
+        lce.dh_plain(d, w)
+        ev[2].record()
+        dw += lce.dw_plain(h[sl], d)
+        ev[3].record()
+        ev[3].synchronize()
+        for i, part in enumerate(LCE_PARTS):
+            total[part] += ev[i].elapsed_time(ev[i + 1])
+        del d
+    return total
+
+
+def lce_case(name, T, H, V, kind, bench_labels, flush, seed, parts):
+    """One linear-CE case: kernels against plain versions on the card,
+    then the times; ``parts`` also times each backward kernel alone."""
+    import torch
+    import torch.nn.functional as F
+
+    from automodel_tpu_torch.ops import linear_ce_kernel as lce
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    h = torch.randn(T, H, device=dev, generator=g).bfloat16()
+    ws = (torch.randn(V, H, device=dev, generator=g) * 0.02).bfloat16()
+    w = ws.t()                     # the model's [H, V] view of [V, H]
+    if kind == "bench":
+        labels = torch.from_numpy(bench_labels.reshape(-1)).to(dev).int()
+        check(labels.numel() == T, f"{name}: {labels.numel()} labels != {T}")
+    elif kind == "random":
+        labels = torch.randint(0, V, (T,), device=dev, generator=g,
+                               dtype=torch.int32)
+    else:
+        labels = torch.full((T,), -100, dtype=torch.int32, device=dev)
+    valid = (labels != -100).float()
+    dlse, dpick = valid, -valid          # the summed loss's cotangents
+
+    lse, pick = lce.linear_ce_fwd_cuda(h, w, labels)
+    torch.cuda.synchronize()
+    ref_lse, ref_pick = lce.lse_and_pick_plain(h, w, labels)
+    fwd_err = {}
+    for vname, got, ref in (("lse", lse, ref_lse), ("pick", pick, ref_pick)):
+        check(bool(torch.isfinite(got).all()), f"{name}: non-finite {vname}")
+        diff = (got - ref).abs()
+        fwd_err[vname] = float(diff.max())
+        bad = diff > LCE_ATOL + LCE_RTOL * ref.abs()
+        check(not bool(bad.any()),
+              f"{name}: forward kernel {vname} disagrees with the plain "
+              f"version (max_abs_err {fwd_err[vname]:.3e}, "
+              f"{int(bad.sum())} rows)")
+
+    rows = min(lce.CHUNK_ROWS, T)
+    dl = torch.empty(rows, lce.padded_vocab(V), dtype=torch.bfloat16,
+                     device=dev)
+    lce.linear_ce_dlogits_cuda(h, ws, labels, ref_lse, dlse, dpick, 0, rows,
+                               dl)
+    torch.cuda.synchronize()
+    ref_dl = lce.dlogits_plain(h[:rows], w, labels[:rows], ref_lse[:rows],
+                               dlse[:rows], dpick[:rows]).float()
+    diff = (dl[:, :V].float() - ref_dl).abs()
+    dl_err = float(diff.max())
+    check(not bool((diff > LCE_ATOL + LCE_RTOL * ref_dl.abs()).any()),
+          f"{name}: dlogits kernel disagrees with the plain version "
+          f"(max_abs_err {dl_err:.3e})")
+    check(bool((dl[:, V:] == 0).all()), f"{name}: dlogits pad columns not 0")
+    del ref_dl, diff
+
+    dh, dw = lce.linear_ce_bwd_cuda(h, w, labels, ref_lse, dlse, dpick)
+    torch.cuda.synchronize()
+    ref_dh, ref_dw = lce.lse_and_pick_bwd_plain(h, w, labels, ref_lse, dlse,
+                                                dpick)
+    bwd = {}
+    for gname, got, ref in (("dh", dh, ref_dh), ("dw", dw, ref_dw)):
+        check(bool(torch.isfinite(got).all()), f"{name}: non-finite {gname}")
+        err = float((got.float() - ref.float()).abs().max())
+        if kind == "ignored":
+            check(bool((got == 0).all()) and bool((ref == 0).all()),
+                  f"{name}: {gname} is not exactly 0 with every label "
+                  f"ignored")
+            rel = 0.0
+        else:
+            rel = float((got.float() - ref.float()).norm()
+                        / ref.float().norm())
+            check(rel <= LCE_GRAD_REL_L2,
+                  f"{name}: backward kernel {gname} relative L2 error "
+                  f"{rel:.3e} > {LCE_GRAD_REL_L2}")
+        bwd[gname] = dict(rel_l2=rel, max_abs_err=err)
+    del dh, dw, ref_dh, ref_dw
+
+    args = (h, w, labels, ref_lse, dlse, dpick)
+    t = dict(
+        fwd=time_ms(lambda: lce.linear_ce_fwd_cuda(h, w, labels), 5, flush),
+        bwd=time_ms(lambda: lce.linear_ce_bwd_cuda(*args), 3, flush),
+        fwd_plain=time_ms(lambda: lce.lse_and_pick_plain(h, w, labels), 1,
+                          flush, warmup=1),
+        bwd_plain=time_ms(lambda: lce.lse_and_pick_bwd_plain(*args), 1,
+                          flush, warmup=1))
+
+    # the library yardstick, never called by the port: two library calls,
+    # F.cross_entropy over F.linear's logits, forward and backward
+    lab64 = labels.long()
+
+    def lib_fwd():
+        return F.cross_entropy(F.linear(h, ws).float(), lab64,
+                               ignore_index=-100, reduction="sum")
+
+    ref_loss = float((valid * (ref_lse - ref_pick)).sum())
+    lib_loss = float(lib_fwd())
+    check(abs(lib_loss - ref_loss) <= 1e-2 * max(abs(ref_loss), 1.0),
+          f"{name}: the library yardstick computes something else "
+          f"({lib_loss} vs {ref_loss})")
+    t["fwd_library"] = time_ms(lib_fwd, 3, flush)
+    hl, wl = h.detach().requires_grad_(), ws.detach().requires_grad_()
+    out = F.cross_entropy(F.linear(hl, wl).float(), lab64, ignore_index=-100,
+                          reduction="sum")
+    t["bwd_library"] = time_ms(
+        lambda: torch.autograd.grad(out, (hl, wl), retain_graph=True), 3,
+        flush)
+    del out, hl, wl
+    torch.cuda.empty_cache()
+
+    bounds = lce_bounds(T, H, V)
+    row = dict(case=name, T=T, H=H, V=V, labels=kind,
+               valid_rows=int(valid.sum()),
+               fwd=dict(ms=t["fwd"], plain_ms=t["fwd_plain"],
+                        library_ms=t["fwd_library"], bound_ms=bounds["fwd"][0],
+                        bound_by=bounds["fwd"][1],
+                        lse_max_abs_err=fwd_err["lse"],
+                        pick_max_abs_err=fwd_err["pick"]),
+               bwd=dict(ms=t["bwd"], plain_ms=t["bwd_plain"],
+                        library_ms=t["bwd_library"], bound_ms=bounds["bwd"][0],
+                        bound_by=bounds["bwd"][1], **{
+                            f"{k}_{m}": v[m] for k, v in bwd.items()
+                            for m in v}),
+               dlogits_max_abs_err=dl_err)
+    if parts:
+        _, _, plan = lce.bwd_launch_plan(*args)
+        chunks = [(r0, min(lce.CHUNK_ROWS, T - r0))
+                  for r0 in range(0, T, lce.CHUNK_ROWS)]
+        plain = plain_bwd_parts_ms(*args)
+        library = dict(
+            dlogits=None,
+            dh=time_ms(lambda: [torch.mm(dl[:n, :V], ws) for _, n in chunks],
+                       3, flush),
+            dw=time_ms(lambda: [torch.mm(dl[:n, :V].t(), h[r0:r0 + n])
+                                for r0, n in chunks], 3, flush))
+        for part in LCE_PARTS:
+            row[part] = dict(
+                ms=time_ms(lambda: [f() for k, f in plan if k == part], 3,
+                           flush),
+                plain_ms=plain[part], library_ms=library[part],
+                bound_ms=bounds[part][0], bound_by=bounds[part][1])
+        del plan
+    print("linear_ce_case " + json.dumps(row), flush=True)
+    return row
+
+
+def linear_ce_phase(flush, bench_labels):
+    import torch
+
+    rows = []
+    for i, (name, T, H, V, kind) in enumerate(LCE_CASES):
+        rows.append(lce_case(name, T, H, V, kind, bench_labels, flush,
+                             seed=200 + i, parts=i == 0))
         torch.cuda.empty_cache()
     return rows
 
@@ -552,6 +796,7 @@ def engine_phase():
 
 # device-time buckets of a profiled window, by kernel name (first match)
 KERNEL_KINDS = [
+    ("linear_ce", ("lce_",)),           # before gemm: not cuBLAS GEMMs
     ("gemm", ("nvjet", "gemm", "cutlass", "sm90_xmma")),
     ("loss", ("softmax", "nll_loss", "cross_entropy")),    # lower case
     ("optimizer", ("multi_tensor_apply", "foreach", "adam")),
@@ -610,11 +855,13 @@ def profile_window(run, steps, label, attn_names):
 # ---------------------------------------------------------------------------
 # sft phase
 # ---------------------------------------------------------------------------
-def sft_first_step_check(recipe):
+def first_step_check(recipe, label, routes, compare):
     """Loss and whole gradient of the first step (2 rows of the first batch,
-    the recipe's initial weights), attention kernels vs the plain
-    attention; nothing is updated.  A second kernel pass measures the
-    run-to-run floor (the dQ atomics sum in another order each run)."""
+    the recipe's initial weights) through each route ``(name, loss_fn,
+    attn_impl)``; nothing is updated.  Each pair in ``compare`` must agree
+    within the loss and gradient limits; ``kernel_again`` (a second kernel
+    pass) measures the run-to-run floor (the dQ atomics of the attention
+    backward sum in another order each run)."""
     import torch
 
     from automodel_tpu_torch.training.train_step import (
@@ -628,16 +875,15 @@ def sft_first_step_check(recipe):
     mb = {k: v[0] for k, v in to_device_batch(
         [{k: v[:2] for k, v in first.items()}], recipe.device).items()}
     losses, grads = {}, {}
-    for impl in ("plain", "kernel", "kernel_again"):
+    for name, loss_fn, attn_impl in routes:
         model.zero_grad(set_to_none=True)
-        loss = microbatch_loss(model, recipe.loss_fn, mb,
-                               attn_impl=impl.split("_")[0])
+        loss = microbatch_loss(model, loss_fn, mb, attn_impl=attn_impl)
         loss.backward()
         torch.cuda.synchronize()
-        losses[impl] = float(loss.detach())
-        grads[impl] = [p.grad for p in model.parameters()]
-        check(all(bool(torch.isfinite(g).all()) for g in grads[impl]),
-              f"first step ({impl}): non-finite gradient")
+        losses[name] = float(loss.detach())
+        grads[name] = [p.grad for p in model.parameters()]
+        check(all(bool(torch.isfinite(g).all()) for g in grads[name]),
+              f"{label} first step ({name}): non-finite gradient")
     model.zero_grad(set_to_none=True)
 
     def rel_l2(a, b):
@@ -650,92 +896,151 @@ def sft_first_step_check(recipe):
             per.append(((d / max(w, 1e-30)) ** 0.5, n))
         return (num / den) ** 0.5, sorted(per, reverse=True)[:3]
 
-    rel_grad, worst = rel_l2("kernel", "plain")
-    floor, _ = rel_l2("kernel_again", "kernel")
+    out = dict(rows=2, losses=losses, loss_tol=SFT_LOSS_REL_TOL,
+               grad_tol=SFT_GRAD_REL_L2,
+               grad_rel_l2_kernel_vs_kernel=rel_l2("kernel_again",
+                                                   "kernel")[0])
+    for a, b in compare:
+        rel_grad, worst = rel_l2(a, b)
+        rel_loss = abs(losses[a] - losses[b]) / abs(losses[b])
+        out[f"{a}_vs_{b}"] = dict(
+            loss_rel_err=rel_loss, grad_rel_l2=rel_grad,
+            worst_params=[dict(name=n, rel_l2=r) for r, n in worst])
     del grads
     torch.cuda.empty_cache()
-    rel_loss = abs(losses["kernel"] - losses["plain"]) / abs(losses["plain"])
-    print("sft first step: " + json.dumps(dict(
-        rows=2, loss_kernel=losses["kernel"], loss_plain=losses["plain"],
-        loss_rel_err=rel_loss, grad_rel_l2=rel_grad,
-        grad_rel_l2_kernel_vs_kernel=floor,
-        worst_params=[dict(name=n, rel_l2=r) for r, n in worst],
-        loss_tol=SFT_LOSS_REL_TOL, grad_tol=SFT_GRAD_REL_L2)), flush=True)
-    check(rel_loss <= SFT_LOSS_REL_TOL,
-          f"first-step loss kernel vs plain: relative error {rel_loss:.3e}")
-    check(rel_grad <= SFT_GRAD_REL_L2,
-          f"first-step gradient kernel vs plain: relative L2 {rel_grad:.3e}")
+    print(f"{label} first step: " + json.dumps(out), flush=True)
+    for a, b in compare:
+        got = out[f"{a}_vs_{b}"]
+        check(got["loss_rel_err"] <= SFT_LOSS_REL_TOL,
+              f"{label} first-step loss {a} vs {b}: relative error "
+              f"{got['loss_rel_err']:.3e}")
+        check(got["grad_rel_l2"] <= SFT_GRAD_REL_L2,
+              f"{label} first-step gradient {a} vs {b}: relative L2 "
+              f"{got['grad_rel_l2']:.3e}")
 
 
-def sft_phase():
+def train_phase(label, yaml_path):
+    """Set up the SFT recipe on ``yaml_path``, check its first step, run
+    2 warm-up steps, then the timed steps with every launch count zeroed
+    just before and read just after, then a profiled window.  With the
+    fused linear CE (the bench YAML) the linear-CE counts are held to one
+    forward per microbatch and one launch of each backward kernel per
+    chunk of rows, and the loader must be the async input pipeline."""
     import torch
 
     from automodel_tpu_torch.config.loader import parse_args_and_load_config
+    from automodel_tpu_torch.datasets.prefetch import PrefetchDataLoader
+    from automodel_tpu_torch.loss.linear_ce import FusedLinearCrossEntropy
+    from automodel_tpu_torch.loss.masked_ce import MaskedCrossEntropy
+    from automodel_tpu_torch.ops import linear_ce_kernel as lce
     from automodel_tpu_torch.ops import splash_attention as sa
     from automodel_tpu_torch.recipes.llm import train_ft
 
     cfg = parse_args_and_load_config(
-        ["-c", SFT_YAML, "--step_scheduler.max_steps", str(SFT_WARMUP)])
+        ["-c", yaml_path, "--step_scheduler.max_steps", str(SFT_WARMUP)])
     t0 = time.perf_counter()
     recipe = train_ft.TrainFinetuneRecipeForNextTokenPrediction(cfg).setup()
     torch.cuda.synchronize()
     mcfg = recipe.model.config
     L = mcfg.num_hidden_layers
-    print(f"sft: Llama-3.2-1B widths (vocab {mcfg.vocab_size}, hidden "
+    fused = isinstance(recipe.loss_fn, FusedLinearCrossEntropy)
+    print(f"{label}: Llama-3.2-1B widths (vocab {mcfg.vocab_size}, hidden "
           f"{mcfg.hidden_size}, ffn {mcfg.intermediate_size}, layers {L}, "
           f"heads {mcfg.num_attention_heads}/{mcfg.num_key_value_heads}, "
           f"head_dim {mcfg.head_dim}), "
           f"{sum(p.numel() for p in recipe.model.parameters())} params "
           f"{recipe.model.param_dtype}, remat {recipe.model.remat_policy}, "
+          f"loss {type(recipe.loss_fn).__name__}, loader "
+          f"{type(recipe.dataloader).__name__}, "
           f"set up in {time.perf_counter() - t0:.1f} s", flush=True)
-    sft_first_step_check(recipe)
+    if fused:
+        check(isinstance(recipe.dataloader, PrefetchDataLoader),
+              f"{label}: the loader is {type(recipe.dataloader).__name__}, "
+              "not the async input pipeline")
+        plain = FusedLinearCrossEntropy(chunk_len=recipe.loss_fn.chunk_len,
+                                        impl="plain")
+        first_step_check(
+            recipe, label,
+            [("kernel", recipe.loss_fn, "kernel"),
+             ("plain", plain, "kernel"),
+             ("masked_ce", MaskedCrossEntropy(), "kernel"),
+             ("kernel_again", recipe.loss_fn, "kernel")],
+            [("kernel", "plain"), ("kernel", "masked_ce")])
+    else:
+        first_step_check(
+            recipe, label,
+            [("plain", recipe.loss_fn, "plain"),
+             ("kernel", recipe.loss_fn, "kernel"),
+             ("kernel_again", recipe.loss_fn, "kernel")],
+            [("kernel", "plain")])
 
     recipe.run_train_validation_loop()                   # warm-up steps
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    sa.fwd_launches = sa.bwd_launches = 0   # counts zeroed just before
+    produced_s = getattr(recipe.dataloader, "produce_s", 0.0)
+    # counts zeroed just before the timed steps
+    sa.fwd_launches = sa.bwd_launches = 0
+    lce.fwd_launches = lce.dlogits_launches = lce.dh_launches = 0
+    lce.dw_launches = 0
     recipe.step_scheduler.max_steps = SFT_WARMUP + SFT_STEPS
     t0 = time.perf_counter()
     recipe.run_train_validation_loop()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     fwd, bwd = sa.fwd_launches, sa.bwd_launches
+    lce_counts = dict(fwd=lce.fwd_launches, dlogits=lce.dlogits_launches,
+                      dh=lce.dh_launches, dw=lce.dw_launches)
     peak = torch.cuda.max_memory_allocated()
     timed = recipe.history[SFT_WARMUP:]
-    check(len(timed) == SFT_STEPS, f"sft ran {len(timed)} timed steps")
+    check(len(timed) == SFT_STEPS, f"{label} ran {len(timed)} timed steps")
     check(fwd == 2 * L * SFT_STEPS,
-          f"sft: {fwd} forward kernel launches != 2 x {L} layers x "
+          f"{label}: {fwd} forward kernel launches != 2 x {L} layers x "
           f"{SFT_STEPS} steps (forward + remat recompute)")
     check(bwd == L * SFT_STEPS,
-          f"sft: {bwd} backward kernel launches != {L} layers x "
+          f"{label}: {bwd} backward kernel launches != {L} layers x "
           f"{SFT_STEPS} steps")
-    for m in recipe.history:
-        check(all(map(math.isfinite, (m["loss"], m["grad_norm"]))),
-              f"sft step {m['step']}: non-finite loss/grad_norm")
-        print(f"sft step {m['step']}: loss {m['loss']:.4f} grad_norm "
-              f"{m['grad_norm']:.4f} step_time {m['step_time']:.4f} s",
-              flush=True)
     B = int(cfg.get("step_scheduler.global_batch_size"))
     S = int(cfg.get("packed_sequence.packed_sequence_size"))
+    micro = SFT_STEPS * recipe.step_scheduler.grad_acc_steps
+    rows = B * S // recipe.step_scheduler.grad_acc_steps
+    per_call = lce.bwd_launches_per_call(rows)
+    want = (dict(fwd=micro, dlogits=micro * per_call, dh=micro * per_call,
+                 dw=micro * per_call) if fused
+            else dict.fromkeys(lce_counts, 0))
+    check(lce_counts == want,
+          f"{label}: linear-CE launches {lce_counts} != {want} ({micro} "
+          f"microbatches of {rows} rows, {per_call} backward chunks each)")
+    for m in recipe.history:
+        check(all(map(math.isfinite, (m["loss"], m["grad_norm"]))),
+              f"{label} step {m['step']}: non-finite loss/grad_norm")
+        print(f"{label} step {m['step']}: loss {m['loss']:.4f} grad_norm "
+              f"{m['grad_norm']:.4f} step_time {m['step_time']:.4f} s",
+              flush=True)
     tok_s = B * S * SFT_STEPS / wall
     flops_per_token = (recipe.model.flops_per_token()
                        + recipe.model.attention_flops_per_token(S))
     report = dict(
+        yaml=os.path.relpath(yaml_path, REPO), loss=type(
+            recipe.loss_fn).__name__,
+        loader=type(recipe.dataloader).__name__,
         steps=SFT_STEPS, batch=B, seq_len=S, wall_s=wall,
         step_ms=wall * 1e3 / SFT_STEPS, tokens_per_s=tok_s,
         nonpad_tokens_per_s=sum(m["tps"] * m["step_time"] for m in timed)
         / wall, flops_per_token=flops_per_token,
         mfu=tok_s * flops_per_token / BF16_OPS_PER_S,
-        fwd_launches=fwd, bwd_launches=bwd, peak_mem_bytes=peak,
+        fwd_launches=fwd, bwd_launches=bwd, linear_ce_launches=lce_counts,
+        producer_host_s=getattr(recipe.dataloader, "produce_s", 0.0)
+        - produced_s,
+        peak_mem_bytes=peak,
         losses=[m["loss"] for m in recipe.history],
         grad_norms=[m["grad_norm"] for m in recipe.history])
-    print("sft_run " + json.dumps(report), flush=True)
+    print(f"{label}_run " + json.dumps(report), flush=True)
 
     def more():
         recipe.step_scheduler.max_steps += SFT_PROFILED
         recipe.run_train_validation_loop()
 
-    profile_window(more, SFT_PROFILED, "sft_b8_s2048", ("flash_",))
+    profile_window(more, SFT_PROFILED, f"{label}_b8_s2048", ("flash_",))
     return report
 
 
@@ -764,19 +1069,27 @@ def main():
           else f"nvidia-smi failed: {smi.stderr.strip()}", flush=True)
 
     t0 = time.perf_counter()
-    sources = ["paged_decode", "flash_attn_fwd", "flash_attn_bwd"]
+    sources = ["paged_decode", "flash_attn_fwd", "flash_attn_bwd",
+               "linear_ce_fwd", "linear_ce_bwd"]
     build.build_many(sources)
     print(f"build: {', '.join(n + '.cu' for n in sources)} (one nvcc each, "
           f"in parallel) in {time.perf_counter() - t0:.1f} s", flush=True)
 
-    seg = sft_segment_ids()
+    seg = first_batch(SFT_YAML)["segment_ids"]
+    bench_labels = first_batch(BENCH_YAML)["labels"]
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     cases = kernel_phase(flush)
     attn_cases = attention_phase(flush, seg)
+    lce_cases = linear_ce_phase(flush, bench_labels)
     del flush
     main_run = engine_phase()
     torch.cuda.empty_cache()
-    sft = sft_phase()
+    sft = train_phase("sft", SFT_YAML)
+    torch.cuda.empty_cache()
+    bench = train_phase("sft_bench", BENCH_YAML)
+    check(bench["peak_mem_bytes"] < sft["peak_mem_bytes"],
+          f"sft_bench peak memory {bench['peak_mem_bytes']} is not below the "
+          f"MaskedCE sft phase's {sft['peak_mem_bytes']}")
 
     rep = cases[0]
     kernels = [{
@@ -801,6 +1114,27 @@ def main():
             "ms": rep["ms"], "plain_ms": rep["plain_ms"],
             "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],
             "library_ms": rep["library_ms"],
+        })
+    rep = lce_cases[0]
+    errs = dict(
+        fwd=max(max(c["fwd"]["lse_max_abs_err"], c["fwd"]["pick_max_abs_err"])
+                for c in lce_cases),
+        dlogits=max(c["dlogits_max_abs_err"] for c in lce_cases),
+        dh=max(c["bwd"]["dh_max_abs_err"] for c in lce_cases),
+        dw=max(c["bwd"]["dw_max_abs_err"] for c in lce_cases))
+    lce_src = "automodel_tpu_torch/csrc/linear_ce_{}.cu"
+    for part, src, line in (("fwd", "fwd", 132), ("dlogits", "bwd", 209),
+                            ("dh", "bwd", 222), ("dw", "bwd", 248)):
+        got = rep[part]
+        kernels.append({
+            "name": f"linear_ce_{part}", "route": "cuda",
+            "source": lce_src.format(src),
+            "replaces": f"automodel_tpu/ops/linear_ce_kernel.py:{line}",
+            "launches": bench["linear_ce_launches"][part],
+            "max_abs_err": errs[part],
+            "ms": got["ms"], "plain_ms": got["plain_ms"],
+            "bound_ms": got["bound_ms"], "bound_by": got["bound_by"],
+            "library_ms": got["library_ms"],
         })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -281,3 +281,121 @@ def test_cuda_training_step_through_the_kernels(cuda_device):
     (lk, gk), (lp, gp) = out["kernel"], out["plain"]
     assert abs(lk - lp) <= 1e-2 * abs(lp)
     assert rel_l2(gk, gp) < 5e-2
+
+
+# ---------------------------------------------------------------------------
+# fused linear cross-entropy (csrc/linear_ce_fwd.cu, csrc/linear_ce_bwd.cu)
+# ---------------------------------------------------------------------------
+LCE_CASES = [
+    # (name, T, H, V, label low, label high)
+    ("aligned", 256, 128, 384, 0, 384),
+    ("ragged_vocab_tail_oob_labels", 300, 256, 1000, -5, 1040),
+    ("gpt2_vocab", 1000, 512, 50257, 0, 50257),
+    ("all_ignored", 200, 128, 512, -100, -99),
+]
+
+
+def make_lce_case(T, H, V, lo, hi, seed=0):
+    """bf16 ``h [T, H]``, the head as the ``[H, V]`` view of a row-major
+    ``[V, H]`` tensor (the model's layout), int32 labels in ``[lo, hi)``
+    and the cotangents the loss gives (``dlse = g``, ``dpick = -g`` on
+    rows with a label, 0 elsewhere)."""
+    rng = np.random.default_rng(seed)
+    dev = torch.device("cuda")
+    h = torch.from_numpy(rng.normal(size=(T, H)).astype(np.float32))
+    ws = torch.from_numpy((rng.normal(size=(V, H)) * 0.05).astype(np.float32))
+    labels = rng.integers(lo, hi, T).astype(np.int32)
+    g = rng.uniform(0.5, 1.5, T).astype(np.float32) * (labels != -100)
+    return (h.to(dev, torch.bfloat16), ws.to(dev, torch.bfloat16).t(),
+            torch.from_numpy(labels).to(dev), torch.from_numpy(g).to(dev),
+            torch.from_numpy(-g).to(dev))
+
+
+# forward: one bf16 product against the same product in fp32, summed in
+# another order (2e-2 + 2e-2 |ref|, as the other kernels).  Backward: the
+# kernels and the plain version both round dlogits to bf16 before the
+# products (the TPU kernel's own rounding), the kernels also write bf16;
+# relative L2 over the whole tensor within 2e-2.
+LCE_ATOL = LCE_RTOL = 2e-2
+LCE_GRAD_REL_L2 = 2e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk_rows", [2048, 96], ids=["one_chunk", "chunks"])
+@pytest.mark.parametrize("case", LCE_CASES, ids=[c[0] for c in LCE_CASES])
+def test_cuda_linear_ce_matches_plain(case, chunk_rows, cuda_device):
+    """Forward (lse, pick) and backward (dh, dW) kernels against the plain
+    versions on the same bf16 operands, one launch each per call / chunk;
+    all-ignored rows give exactly zero gradients."""
+    from automodel_tpu_torch.ops import linear_ce_kernel as lce
+
+    name, T, H, V, lo, hi = case
+    h, w, labels, dlse, dpick = make_lce_case(T, H, V, lo, hi)
+    f0, c0 = lce.fwd_launches, (lce.dlogits_launches, lce.dh_launches,
+                                lce.dw_launches)
+    lse, pick = lce.linear_ce_fwd_cuda(h, w, labels)
+    dh, dw = lce.linear_ce_bwd_cuda(h, w, labels, lse, dlse, dpick,
+                                    chunk_rows=chunk_rows)
+    torch.cuda.synchronize()
+    n = lce.bwd_launches_per_call(T, chunk_rows)
+    assert lce.fwd_launches == f0 + 1
+    assert (lce.dlogits_launches, lce.dh_launches, lce.dw_launches) == tuple(
+        c + n for c in c0)
+    ref_lse, ref_pick = lce.lse_and_pick_plain(h, w, labels)
+    torch.testing.assert_close(lse, ref_lse, atol=LCE_ATOL, rtol=LCE_RTOL)
+    torch.testing.assert_close(pick, ref_pick, atol=LCE_ATOL, rtol=LCE_RTOL)
+    assert dh.shape == h.shape and dw.shape == w.shape
+    assert dw.t().is_contiguous()
+    if name == "all_ignored":
+        assert bool((dh == 0).all()) and bool((dw == 0).all())
+        return
+    ref_dh, ref_dw = lce.lse_and_pick_bwd_plain(h, w, labels, ref_lse, dlse,
+                                                dpick)
+    for gname, got, ref in (("dh", dh, ref_dh), ("dw", dw, ref_dw)):
+        assert bool(torch.isfinite(got).all()), gname
+        assert rel_l2(got, ref) < LCE_GRAD_REL_L2, (gname, rel_l2(got, ref))
+
+
+@pytest.mark.cuda
+def test_cuda_training_step_through_linear_ce(cuda_device):
+    """A small bf16 Llama with the fused linear CE: loss and gradients
+    through the linear-CE kernels against their plain versions (attention
+    on its kernels in both), with one forward launch per microbatch and
+    one launch of each backward kernel per chunk.  bf16 through 2 layers:
+    the loss within 1 %, the whole gradient within 5 % relative L2."""
+    from automodel_tpu_torch.loss.linear_ce import FusedLinearCrossEntropy
+    from automodel_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from automodel_tpu_torch.ops import linear_ce_kernel as lce
+    from automodel_tpu_torch.training.train_step import microbatch_loss
+
+    cfg = LlamaConfig(vocab_size=1000, hidden_size=256, intermediate_size=512,
+                      num_hidden_layers=2, num_attention_heads=4,
+                      num_key_value_heads=2, rope_theta=10000.0)
+    model = LlamaForCausalLM(cfg, param_dtype=torch.bfloat16,
+                             device=cuda_device).init_weights(0)
+    rng = np.random.default_rng(2)
+    B, S = 2, 300
+    ids = rng.integers(1, 1000, (B, S)).astype(np.int32)
+    labels = ids.copy()
+    labels[:, -40:] = -100
+    mb = {"input_ids": ids, "labels": labels}
+    mb = {k: torch.from_numpy(v).to(cuda_device) for k, v in mb.items()}
+    out = {}
+    for impl in ("plain", "kernel"):
+        model.zero_grad(set_to_none=True)
+        loss_fn = FusedLinearCrossEntropy(chunk_len=1024, impl=impl)
+        counts = (lce.fwd_launches, lce.dlogits_launches, lce.dh_launches,
+                  lce.dw_launches)
+        loss = microbatch_loss(model, loss_fn, mb)
+        loss.backward()
+        torch.cuda.synchronize()
+        got = tuple(a - b for a, b in zip(
+            (lce.fwd_launches, lce.dlogits_launches, lce.dh_launches,
+             lce.dw_launches), counts))
+        assert got == ((1, 1, 1, 1) if impl == "kernel" else (0, 0, 0, 0))
+        out[impl] = (float(loss.detach()),
+                     torch.cat([p.grad.float().flatten()
+                                for p in model.parameters()]))
+    (lk, gk), (lp, gp) = out["kernel"], out["plain"]
+    assert abs(lk - lp) <= 1e-2 * abs(lp)
+    assert rel_l2(gk, gp) < 5e-2

@@ -117,10 +117,12 @@ UNPORTED = [
     ("pp", ["--distributed.pp_size", "2"]),
     ("peft", ["--peft.dim", "8"]),
     ("fp8", ["--fp8.enabled", "true"]),
-    ("prefetch", ["--dataloader.prefetch_depth", "2"]),
+    ("autotune", ["--kernels.autotune", "on"]),
     ("remat_policy", ["--model.remat_policy", "save_names:attn_core"]),
-    ("linear_ce", ["--loss_fn._target_",
-                   "automodel_tpu.loss.linear_ce.FusedLinearCrossEntropy"]),
+    ("linear_ce_xla_bwd", ["--loss_fn._target_",
+                           "automodel_tpu.loss.linear_ce."
+                           "FusedLinearCrossEntropy",
+                           "--loss_fn.bwd_mode", "xla"]),
     ("grad_clip", ["--max_grad_norm", "1.0"]),
 ]
 
@@ -143,3 +145,58 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card(monkeypatch):
         build_model(cfg.model.config)
     assert build_model(cfg.model.config, device="cpu").embed_tokens \
         .weight.device.type == "cpu"
+
+
+BF16 = ["--model.config.torch_dtype", "bfloat16",
+        "--training.grad_dtype", "bfloat16",
+        "--optimizer.mu_dtype", "bfloat16",
+        "--step_scheduler.max_steps", "6"]
+
+
+def test_bf16_recipe_follows_jax_within_the_measured_deviation():
+    """bf16 params, gradients and moments on both sides (the bench YAML's
+    regime) from the same weights, 6 steps.  The port divides each bf16
+    gradient by the fp32 token count in fp32 and takes the norm of those
+    fp32 quotients, as JAX does; the optimizer then sees them rounded to
+    bf16 (optax keeps fp32), which is what still differs.  Measured when
+    this test was written: loss within 2.2e-4 and grad_norm within 3.1e-4
+    relative over the 6 steps, the first step's grad_norm within 3.1e-5
+    (dividing in bf16, as before, gave 1.1e-3 there and 2.1e-3 over the 6
+    steps).  Limits: 5e-4 over the run, 1e-4 on the first grad_norm."""
+    jcfg = jax_config(["--config", JAX_YAML, "--checkpoint.enabled", "false",
+                       "--dataloader.prefetch_depth", "0", *BF16])
+    real = jax.devices
+    mp = pytest.MonkeyPatch()
+    mp.setattr(jax, "devices", lambda *a: real(*a)[:1])    # one device
+    try:
+        jr = JaxRecipe(jcfg).setup()
+    finally:
+        mp.undo()
+    jsteps = []
+    finalize = jr._finalize_metrics
+
+    def record_step(pending):
+        out = finalize(pending)
+        jsteps.append(out)
+        return out
+
+    jr._finalize_metrics = record_step
+    weights = jax.tree.map(np.asarray, jr.params)
+    jr.run_train_validation_loop()
+
+    pr = train_ft.TrainFinetuneRecipeForNextTokenPrediction(
+        parse_args_and_load_config(["-c", PORT_YAML, "--device", "cpu",
+                                    "--model.compute_dtype", "bfloat16",
+                                    *BF16]))
+    pr.setup()
+    assert next(pr.model.parameters()).dtype == torch.bfloat16
+    load_jax_recipe_params(pr, weights)
+    pr.run_train_validation_loop()
+    assert [m["num_label_tokens"] for m in pr.history] == [
+        m["num_label_tokens"] for m in jsteps]
+    for key in ("loss", "grad_norm"):
+        got = np.array([m[key] for m in pr.history])
+        want = np.array([float(m[key]) for m in jsteps])
+        np.testing.assert_allclose(got, want, rtol=5e-4, err_msg=key)
+    np.testing.assert_allclose(pr.history[0]["grad_norm"],
+                               float(jsteps[0]["grad_norm"]), rtol=1e-4)
