@@ -156,6 +156,7 @@ def load_yaml_config(path: str) -> ConfigNode:
     with open(path) as f:
         node = ConfigNode(yaml.safe_load(f) or {})
     _resolve_fn_keys(node)
+    validate_config_enums(node)
     return node
 
 
@@ -206,6 +207,19 @@ def parse_cli_overrides(argv: Sequence[str]) -> List[Tuple[str, Any]]:
     return overrides
 
 
+def validate_config_enums(cfg: ConfigNode) -> None:
+    """Raise ``ValueError`` for an enum-valued field outside its allowed set
+    (null spellings mean the default), at load time and again after the
+    CLI overrides, as the JAX loader does; the port checks
+    ``moe.dispatch``."""
+    from automodel_tpu_torch.ops.moe import (
+        normalize_moe_dispatch,
+        validate_moe_dispatch,
+    )
+
+    validate_moe_dispatch(normalize_moe_dispatch(cfg.get("moe.dispatch")))
+
+
 def parse_args_and_load_config(argv: Optional[Sequence[str]] = None,
                                default_config: Optional[str] = None
                                ) -> ConfigNode:
@@ -219,4 +233,5 @@ def parse_args_and_load_config(argv: Optional[Sequence[str]] = None,
     for dotted, value in parse_cli_overrides(rest):
         cfg.set_by_dotted(dotted, value)
     _resolve_fn_keys(cfg)
+    validate_config_enums(cfg)
     return cfg

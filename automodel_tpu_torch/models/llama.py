@@ -16,14 +16,17 @@ each layer rematerialized under ``torch.utils.checkpoint`` when gradients
 are recorded, as the JAX model's ``nothing_saveable`` default does), and
 with a :class:`~automodel_tpu_torch.serving.kv_cache.PagedKVView` (the
 serving path: each layer writes its k/v into the paged pools, then attends
-through ``ops/paged_attention.py``).  LoRA, quantized compute and sharding
+through ``ops/paged_attention.py``).  The feed-forward block is a hook
+(``_mlp_block``) that the MoE families (``models/mixtral.py``) replace with
+routed experts; their per-layer routing statistics come back through remat
+and fold into ``out["aux_loss"]``.  LoRA, quantized compute and sharding
 constraints wait for later port slices.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 import torch
 import torch.nn.functional as F
@@ -112,6 +115,10 @@ def _sliding_window(cfg: LlamaConfig) -> Optional[int]:
         "mixed sliding/full layer stacks are not supported")
 
 
+def _linear(i: int, o: int, dtype, device) -> nn.Linear:
+    return nn.Linear(i, o, bias=False, dtype=dtype, device=device)
+
+
 class RMSNorm(nn.Module):
     def __init__(self, size: int, eps: float, dtype, device):
         super().__init__()
@@ -123,24 +130,31 @@ class RMSNorm(nn.Module):
 
 
 class LlamaDecoderLayer(nn.Module):
+    """Attention projections (with Qwen3's per-head ``q_norm`` / ``k_norm``
+    when ``cfg.qk_norm``) and the feed-forward block that ``init_mlp``
+    builds: the dense SwiGLU here, routed experts in the MoE families."""
+
     def __init__(self, cfg: LlamaConfig, dtype: torch.dtype, device):
         super().__init__()
-        H, I, D = cfg.hidden_size, cfg.intermediate_size, cfg.head_dim
+        H, D = cfg.hidden_size, cfg.head_dim
         Hq, Hk = cfg.num_attention_heads, cfg.num_key_value_heads
-
-        def linear(i, o):
-            return nn.Linear(i, o, bias=False, dtype=dtype, device=device)
-
         self.input_layernorm = RMSNorm(H, cfg.rms_norm_eps, dtype, device)
-        self.q_proj = linear(H, Hq * D)
-        self.k_proj = linear(H, Hk * D)
-        self.v_proj = linear(H, Hk * D)
-        self.o_proj = linear(Hq * D, H)
+        self.q_proj = _linear(H, Hq * D, dtype, device)
+        self.k_proj = _linear(H, Hk * D, dtype, device)
+        self.v_proj = _linear(H, Hk * D, dtype, device)
+        self.o_proj = _linear(Hq * D, H, dtype, device)
+        if cfg.qk_norm:
+            self.q_norm = RMSNorm(D, cfg.rms_norm_eps, dtype, device)
+            self.k_norm = RMSNorm(D, cfg.rms_norm_eps, dtype, device)
         self.post_attention_layernorm = RMSNorm(H, cfg.rms_norm_eps, dtype,
                                                 device)
-        self.gate_proj = linear(H, I)
-        self.up_proj = linear(H, I)
-        self.down_proj = linear(I, H)
+        self.init_mlp(cfg, dtype, device)
+
+    def init_mlp(self, cfg: LlamaConfig, dtype: torch.dtype, device) -> None:
+        H, I = cfg.hidden_size, cfg.intermediate_size
+        self.gate_proj = _linear(H, I, dtype, device)
+        self.up_proj = _linear(H, I, dtype, device)
+        self.down_proj = _linear(I, H, dtype, device)
 
 
 class LlamaForCausalLM(nn.Module):
@@ -148,15 +162,17 @@ class LlamaForCausalLM(nn.Module):
     ``device="cpu"``.  ``remat`` recomputes each layer in the backward
     pass (policy ``nothing_saveable``, the JAX model's default)."""
 
+    layer_cls = LlamaDecoderLayer
+
     def __init__(self, config: LlamaConfig,
                  param_dtype=torch.float32, compute_dtype=torch.bfloat16,
                  remat: bool = True,
                  remat_policy: Optional[str] = "nothing_saveable",
                  device=None):
         super().__init__()
-        if config.attention_bias or config.qk_norm:
+        if config.attention_bias:
             raise NotImplementedError(
-                "attention_bias / qk_norm (Qwen families) are not ported")
+                "attention_bias (the Qwen2 family) is not ported")
         device = resolve_device(device)
         self.config = config
         self.param_dtype = as_dtype(param_dtype)
@@ -168,7 +184,7 @@ class LlamaForCausalLM(nn.Module):
         self.embed_tokens = nn.Embedding(cfg.vocab_size, cfg.hidden_size,
                                          dtype=dt, device=device)
         self.layers = nn.ModuleList(
-            [LlamaDecoderLayer(cfg, dt, device)
+            [self.layer_cls(cfg, dt, device)
              for _ in range(cfg.num_hidden_layers)])
         self.norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, dt, device)
         self.lm_head = None
@@ -182,12 +198,12 @@ class LlamaForCausalLM(nn.Module):
 
     @torch.no_grad()
     def init_weights(self, seed: int = 0) -> "LlamaForCausalLM":
-        """Random weights drawn from ``seed``: N(0, 0.02) for embeddings and
-        projections, ones for the norms (the JAX ``init``'s distribution;
-        not its numbers)."""
+        """Random weights drawn from ``seed``: N(0, 0.02) for embeddings,
+        projections, routers and experts, ones for the norms (the JAX
+        ``init``'s distribution; not its numbers)."""
         gen = torch.Generator(device=self.inv_freq.device).manual_seed(seed)
         for name, p in self.named_parameters():
-            if name.endswith("layernorm.weight") or name == "norm.weight":
+            if name.endswith("norm.weight"):
                 p.fill_(1.0)
             else:
                 p.normal_(0.0, 0.02, generator=gen)
@@ -196,8 +212,9 @@ class LlamaForCausalLM(nn.Module):
     def _proj(self, lin: nn.Linear, x: torch.Tensor) -> torch.Tensor:
         return F.linear(x, lin.weight.to(self.compute_dtype))
 
-    def _layer(self, layer: LlamaDecoderLayer, hidden, position_ids,
-               segment_ids, kv_cache, attn_impl):
+    def _attention_block(self, layer: LlamaDecoderLayer, hidden,
+                         position_ids, segment_ids, kv_cache, attn_impl):
+        """``hidden`` plus the layer's attention output."""
         cfg = self.config
         B, S, _ = hidden.shape
         D, Hq, Hk = cfg.head_dim, cfg.num_attention_heads, \
@@ -206,6 +223,8 @@ class LlamaForCausalLM(nn.Module):
         q = self._proj(layer.q_proj, x).view(B, S, Hq, D)
         k = self._proj(layer.k_proj, x).view(B, S, Hk, D)
         v = self._proj(layer.v_proj, x).view(B, S, Hk, D)
+        if cfg.qk_norm:
+            q, k = layer.q_norm(q), layer.k_norm(k)
         q, k = apply_rope(q, k, position_ids, self.inv_freq)
         if kv_cache is not None:
             kv_cache.write(k, v)
@@ -215,11 +234,30 @@ class LlamaForCausalLM(nn.Module):
                              causal=True, segment_ids=segment_ids,
                              local_window_size=self.sliding_window,
                              impl=attn_impl)
-        hidden = hidden + self._proj(layer.o_proj, attn.reshape(B, S, Hq * D))
-        x = layer.post_attention_layernorm(hidden)
+        return hidden + self._proj(layer.o_proj, attn.reshape(B, S, Hq * D))
+
+    def _mlp_block(self, x: torch.Tensor, layer: LlamaDecoderLayer):
+        """Post-norm feed-forward of one layer -> ``(out, aux | None)``: the
+        seam the MoE families replace (routed experts return the layer's
+        routing statistics for the load-balancing loss; dense gives
+        None)."""
         act = F.silu(self._proj(layer.gate_proj, x)) \
             * self._proj(layer.up_proj, x)
-        return hidden + self._proj(layer.down_proj, act)
+        return self._proj(layer.down_proj, act), None
+
+    def _layer(self, layer: LlamaDecoderLayer, hidden, position_ids,
+               segment_ids, kv_cache, attn_impl):
+        """One decoder layer -> ``(hidden, aux | None)``."""
+        hidden = self._attention_block(layer, hidden, position_ids,
+                                       segment_ids, kv_cache, attn_impl)
+        out, aux = self._mlp_block(layer.post_attention_layernorm(hidden),
+                                   layer)
+        return hidden + out, aux
+
+    def _combine_aux(self, aux_losses: List[Any]) -> torch.Tensor:
+        """Fold the layers' aux values into the scalar ``aux_loss`` output
+        (the JAX model's mean); the MoE families override."""
+        return torch.stack(aux_losses).mean()
 
     def flops_per_token(self) -> float:
         """Training FLOPs per token of the matmul parameters (fwd + bwd =
@@ -254,7 +292,8 @@ class LlamaForCausalLM(nn.Module):
         """``input_ids [B, S]`` -> ``{"logits": [B, S, V]}`` in the compute
         dtype, or with ``return_hidden`` ``{"hidden_states": [B, S, H],
         "lm_head_kernel": [H, V]}`` (the JAX layout) for a loss that applies
-        the head itself.
+        the head itself; models whose layers return aux values (MoE) add
+        ``"aux_loss"``.
 
         Without a cache: ``segment_ids [B, S]`` (packed samples, 0 = pad),
         ``attention_mask [B, S]`` (folded into the segments) and
@@ -273,16 +312,23 @@ class LlamaForCausalLM(nn.Module):
         remat = (self.remat and kv_cache is None
                  and torch.is_grad_enabled())
         hidden = self.embed_tokens.weight[input_ids].to(self.compute_dtype)
+        aux_losses = []
         for i, layer in enumerate(self.layers):
             view = kv_cache.layer_view(i) if kv_cache is not None else None
             args = (layer, hidden, position_ids, segment_ids, view,
                     attn_impl)
-            hidden = (checkpoint_layer(self._layer, *args) if remat
-                      else self._layer(*args))
+            hidden, aux = (checkpoint_layer(self._layer, *args) if remat
+                           else self._layer(*args))
+            if aux is not None:
+                aux_losses.append(aux)
         hidden = self.norm(hidden)
         # tied: the head is the embedding, whose gradient sums both uses
         head = (self.embed_tokens.weight if self.lm_head is None
                 else self.lm_head.weight)
         if return_hidden:
-            return {"hidden_states": hidden, "lm_head_kernel": head.t()}
-        return {"logits": F.linear(hidden, head.to(self.compute_dtype))}
+            out = {"hidden_states": hidden, "lm_head_kernel": head.t()}
+        else:
+            out = {"logits": F.linear(hidden, head.to(self.compute_dtype))}
+        if aux_losses:
+            out["aux_loss"] = self._combine_aux(aux_losses)
+        return out

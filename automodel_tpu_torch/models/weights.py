@@ -1,13 +1,17 @@
-"""Carry the JAX package's Llama parameters into the port's module
-(counterpart: the param tree of ``automodel_tpu/models/llama.py``
-``LlamaForCausalLM.init``), and into the port's SFT recipe, so that the
-two packages can train from the same weights.
+"""Carry the JAX package's Llama, Mixtral and Qwen3-MoE parameters into the
+port's modules (counterpart: the param trees of ``LlamaForCausalLM.init``
+in ``automodel_tpu/models/llama.py`` and of its MoE subclasses in
+``mixtral.py`` / ``qwen3_moe.py``), and into the port's SFT recipe, so
+that the two packages can train from the same weights.
 
 The JAX tree stacks every layer's leaf along a leading ``[L, ...]`` axis
 and stores projection kernels as ``[in, out]`` (applied as ``x @ w``).
 The port keeps ``nn.Linear`` weights ``[out, in]``, so each kernel slice
 is TRANSPOSED on the way in; embeddings and norm weights copy as they
-are.  Values are cast to the module's parameter dtype.
+are.  The MoE families' router kernel ``[L, H, E]`` is transposed into
+an ``nn.Linear`` ``[E, H]``; their expert stacks ``[L, E, H, I]`` /
+``[L, E, I, H]`` and Qwen3's ``q_norm`` / ``k_norm`` ``[L, D]`` copy as
+they are.  Values are cast to the module's parameter dtype.
 """
 
 from __future__ import annotations
@@ -36,9 +40,24 @@ def jax_leaves(model: LlamaForCausalLM
     for proj in _ATTN:
         yield (("layers", "self_attn", proj, "kernel"),
                [getattr(l, proj).weight for l in layers], True)
-    for proj in _MLP:
-        yield (("layers", "mlp", proj, "kernel"),
-               [getattr(l, proj).weight for l in layers], True)
+    if model.config.qk_norm:
+        for norm in ("q_norm", "k_norm"):
+            yield (("layers", "self_attn", norm, "weight"),
+                   [getattr(l, norm).weight for l in layers], False)
+    block = getattr(layers[0], "moe_block", None)
+    if block is None:
+        for proj in _MLP:
+            yield (("layers", "mlp", proj, "kernel"),
+                   [getattr(l, proj).weight for l in layers], True)
+    else:
+        # routed experts: the router [L, H, E] (an nn.Linear [E, H] here)
+        # and the expert stacks [L, E, ...], which keep the JAX layout
+        blocks = [getattr(l, block) for l in layers]
+        yield (("layers", block, "gate", "kernel"),
+               [b.gate.weight for b in blocks], True)
+        for name in layers[0].expert_names:
+            yield (("layers", block, "experts", name, "kernel"),
+                   [getattr(b.experts, name) for b in blocks], False)
     yield ("norm", "weight"), model.norm.weight, False
     if model.lm_head is not None:
         yield ("lm_head", "kernel"), model.lm_head.weight, True

@@ -4,7 +4,9 @@ Same YAML schema and the same ``setup()`` + ``run_train_validation_loop()``
 surface as the JAX recipe: ``step_scheduler``, ``rng``, ``model``,
 ``loss_fn``, ``dataset``, ``packed_sequence``, ``dataloader``,
 ``validation_dataset`` / ``validation_dataloader``, ``optimizer``,
-``lr_scheduler``, ``training``, ``compile``, ``kernels``, plus a top-level
+``lr_scheduler``, ``training``, ``compile``, ``kernels``, ``moe``
+(``moe.dispatch``: ``sorted`` | ``onehot`` for the MoE families, an error
+on a dense model), plus a top-level
 ``device`` (default ``cuda``; the recipe raises without a card unless
 ``device: cpu``).  The hot loop is eager PyTorch
 (``training/train_step.py``): stack the microbatches, move them to the
@@ -14,7 +16,11 @@ device, one forward/backward per microbatch, one optimizer step, then log
 The losses are the JAX package's: ``MaskedCrossEntropy`` (default),
 ``ChunkedCrossEntropy`` and ``FusedLinearCrossEntropy`` (the bench YAML's;
 on the card its LM head and CE run through the hand-written linear-CE
-kernels, and no ``[T, V]`` logits tensor exists).
+kernels, and no ``[T, V]`` logits tensor exists).  The model families are
+``models/auto_model.py``'s: Llama, and the MoE families Mixtral and
+Qwen3-MoE, whose expert FFNs run through the grouped-matmul kernels on the
+card and whose load-balancing loss the train step folds into each
+microbatch's loss.
 
 ``dataloader.prefetch_depth > 0`` wraps the loaders in the async input
 pipeline (``datasets/prefetch.py``): a producer thread reads and collates
@@ -57,6 +63,10 @@ from automodel_tpu_torch.datasets.llm.packed_sequence import PackedSequence
 from automodel_tpu_torch.datasets.prefetch import wrap_prefetch
 from automodel_tpu_torch.loss.masked_ce import IGNORE_INDEX, MaskedCrossEntropy
 from automodel_tpu_torch.models.llama import as_dtype
+from automodel_tpu_torch.ops.moe import (
+    normalize_moe_dispatch,
+    validate_moe_dispatch,
+)
 from automodel_tpu_torch.optim.builder import build_optimizer, set_hyperparams
 from automodel_tpu_torch.optim.scheduler import OptimizerParamScheduler
 from automodel_tpu_torch.training.rng import StatefulRNG
@@ -74,7 +84,7 @@ _SECTIONS = {
     "step_scheduler", "dist_env", "rng", "model", "checkpoint",
     "distributed", "loss_fn", "dataset", "packed_sequence", "dataloader",
     "validation_dataset", "validation_dataloader", "optimizer",
-    "lr_scheduler", "training", "device", "compile", "kernels",
+    "lr_scheduler", "training", "device", "compile", "kernels", "moe",
 }
 _LATER = {
     "checkpoint": "checkpointing (ROADMAP Queue 1 item 7)",
@@ -202,6 +212,7 @@ class TrainFinetuneRecipeForNextTokenPrediction:
 
         self.model = cfg.get("model").instantiate(
             seed=self.rng.seed_for(_MODEL_INIT_STREAM), device=self.device)
+        self._apply_moe_dispatch_policy()
 
         loss_cfg = cfg.get("loss_fn")
         self.loss_fn = (loss_cfg.instantiate()
@@ -240,6 +251,24 @@ class TrainFinetuneRecipeForNextTokenPrediction:
         self.lr_scheduler = build_lr_scheduler(cfg.get("lr_scheduler"),
                                                opt_cfg, total)
         return self
+
+    def _apply_moe_dispatch_policy(self) -> None:
+        """Thread the top-level ``moe.dispatch`` knob (``sorted`` |
+        ``onehot``; checked at config load) into the model config; on a
+        model without routed experts it raises instead of doing nothing."""
+        dispatch = validate_moe_dispatch(
+            normalize_moe_dispatch(self.cfg.get("moe.dispatch")))
+        if dispatch is None:
+            return
+        model_cfg = getattr(self.model, "config", None)
+        if not hasattr(model_cfg, "moe_dispatch"):
+            raise ValueError(
+                f"moe.dispatch={dispatch!r} set but "
+                f"{type(self.model).__name__} has no routed-expert block "
+                "(no model.config.moe_dispatch): remove the knob or pick an "
+                "MoE model family")
+        model_cfg.moe_dispatch = dispatch
+        logger.info("MoE expert dispatch: %s", dispatch)
 
     def _setup_data(self, batch_size: int) -> None:
         cfg = self.cfg

@@ -38,7 +38,8 @@ _STEP_KEYS = ("labels",)
 
 def microbatch_loss(model, loss_fn, mb: Dict[str, torch.Tensor],
                     attn_impl: Optional[str] = None) -> torch.Tensor:
-    """Sum-CE of one microbatch.  A loss that wants hidden states
+    """Sum-CE of one microbatch (plus the MoE aux loss times its
+    label-token count).  A loss that wants hidden states
     (``needs_hidden``) gets ``(hidden_states, lm_head_kernel, labels)``.
     ``attn_impl`` reaches the model's attention (None: the kernels on CUDA
     tensors, the plain versions on CPU tensors; ``"plain"`` forces them)."""
@@ -56,9 +57,18 @@ def microbatch_loss(model, loss_fn, mb: Dict[str, torch.Tensor],
     if getattr(loss_fn, "needs_hidden", False):
         out = model(mb["input_ids"], return_hidden=True, attn_impl=attn_impl,
                     **kwargs)
-        return loss_fn(out["hidden_states"], out["lm_head_kernel"], labels)
-    out = model(mb["input_ids"], attn_impl=attn_impl, **kwargs)
-    return loss_fn(out["logits"], labels)
+        loss = loss_fn(out["hidden_states"], out["lm_head_kernel"], labels)
+    else:
+        out = model(mb["input_ids"], attn_impl=attn_impl, **kwargs)
+        loss = loss_fn(out["logits"], labels)
+    if "aux_loss" in out:
+        # MoE load-balancing penalty (coef-scaled by the model) times this
+        # microbatch's label-token count: after the step divides by the
+        # global count, the loss is CE_mean + the token-weighted mean of the
+        # aux values (HF's ``loss + coef * aux``), as in JAX
+        n_mb = (labels != IGNORE_INDEX).sum().to(loss.dtype)
+        loss = loss + out["aux_loss"].to(loss.dtype) * n_mb
+    return loss
 
 
 @torch.no_grad()

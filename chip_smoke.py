@@ -48,7 +48,19 @@ Phases (any failure exits non-zero without the final ``ok`` line):
    plain route and against MaskedCE on the same weights, then the timed
    steps with the attention and linear-CE launch counts zeroed just before
    and read just after, the producer thread's host seconds, and a profiled
-   window; its peak memory must stay below the MaskedCE phase's.
+   window; its peak memory must stay below the MaskedCE phase's;
+9. sft_moe: Qwen3-30B-A3B at its published widths and 4 of its 48 layers
+   (``automodel_tpu_torch/examples/qwen3_30b_a3b_sft.yaml``, the bench
+   YAML's data, optimizer and fused loss): first the grouped-matmul
+   kernels (gmm, its transposed-rhs form for the backward's dlhs, tgmm)
+   against their plain versions at the path's shapes -- the group sizes of
+   the first batch routed through layer 0 (m 147456 block-padded rows, k, n
+   = 2048, 768 and 768, 2048, 128 experts), one expert holding every routed
+   row, ragged sizes with empty experts, each with rows past the groups --
+   with kernel, plain, library (``torch._grouped_mm`` where torch has it)
+   and bound times; then the first step through every kernel against every
+   plain version, and the timed steps with the gmm / tgmm counts held to
+   9 / 3 per layer and microbatch.
 
 The second-to-last line is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.
@@ -96,6 +108,12 @@ SFT_WARMUP, SFT_STEPS, SFT_PROFILED = 2, 6, 2
 # linear-CE forward: one bf16 product of K = H against the same product in
 # fp32, summed in another order (2e-2 + 2e-2 |ref|, as the other kernels)
 LCE_ATOL = LCE_RTOL = 2e-2
+# grouped matmuls, relative L2 over the whole output: bf16 operands, fp32
+# sums taken in another order, bf16 output (~2^-9 relative per element); a
+# wrong group or tile moves it by O(1)
+GMM_REL_L2 = 2e-2
+MOE_YAML = os.path.join(REPO, "automodel_tpu_torch", "examples",
+                        "qwen3_30b_a3b_sft.yaml")
 # linear-CE backward, relative L2 of dh and dW over the whole tensor: both
 # versions round dlogits to bf16 before the products (the TPU kernel's own
 # rounding, automodel_tpu/ops/linear_ce_kernel.py:231, :258) and the
@@ -305,6 +323,8 @@ ATTN_CASES = [
     # the Pallas flash kernel's case (ops/flash_attention.py): MHA,
     # head_dim 128, segment ids
     ("mha_packed_d128", 8, 2048, 16, 16, 128, True, None, None),
+    # Qwen3-30B-A3B's attention on the MoE SFT path: GQA 32/4, head_dim 128
+    ("qwen3_gqa_d128", 8, 2048, 32, 4, 128, True, None, None),
 ]
 
 
@@ -671,6 +691,194 @@ def linear_ce_phase(flush, bench_labels):
 
 
 # ---------------------------------------------------------------------------
+# grouped-matmul kernel phase
+# ---------------------------------------------------------------------------
+def routed_group_sizes(recipe, batch):
+    """Route ``batch`` (the MoE YAML's first batch) through layer 0 of the
+    recipe's model (its seeded weights, dropless): ``(raw sizes [E],
+    block-padded sizes [E], n_pad, routed assignments)`` as
+    ``sorted_expert_ffn`` lays them out."""
+    import torch
+
+    from automodel_tpu_torch.ops import moe
+
+    model, cfg = recipe.model, recipe.model.config
+    layer = model.layers[0]
+    block = getattr(layer, layer.moe_block)
+    dev = recipe.device
+    t = {k: torch.from_numpy(batch[k]).to(dev)
+         for k in ("input_ids", "position_ids", "segment_ids")}
+    with torch.no_grad():
+        h = model._attention_block(
+            layer, model.embed_tokens.weight[t["input_ids"]].to(
+                model.compute_dtype), t["position_ids"], t["segment_ids"],
+            None, None)
+        _, _, idx, _, _, _ = moe.route(
+            layer.post_attention_layernorm(h), block.gate.weight.t(),
+            num_experts_per_tok=cfg.num_experts_per_tok,
+            group_size=cfg.moe_group_size, norm_topk=model._norm_topk())
+    check(cfg.moe_capacity_factor is None,
+          "the MoE YAML must route dropless (moe_capacity_factor null)")
+    _, sizes, padded, n_pad = moe.expert_segments(
+        idx.reshape(-1), cfg.num_local_experts, 128)
+    return sizes.int(), padded.int(), n_pad, idx.numel()
+
+
+def gmm_bounds(sizes, m, k, n):
+    """(bound_ms, bound_by) of gmm and tgmm on these group sizes: 2 (sum of
+    sizes) k n operations against the bytes each must move once -- gmm:
+    the grouped lhs rows, the weights of the non-empty groups and the whole
+    output [m, n]; tgmm: the grouped rows of lhs and dout and the output
+    [E, k, n]."""
+    S = int(sizes.sum())
+    nonempty = int((sizes > 0).sum())
+    ops = 2.0 * S * k * n
+    return {
+        "gmm": roofline_ms(ops, 2.0 * (S * k + nonempty * k * n + m * n)),
+        "tgmm": roofline_ms(ops, 2.0 * (S * k + S * n
+                                        + sizes.numel() * k * n)),
+    }
+
+
+def gmm_library(kind, lhs, rhs, dout, ends):
+    """One PyTorch call computing the same function, as a yardstick the
+    port never calls: ``torch._grouped_mm`` where this torch has it (rows
+    past the groups are not defined there, so only the grouped rows are
+    compared).  ``(run, None)`` or ``(None, reason)``."""
+    import torch
+
+    fn = getattr(torch, "_grouped_mm", None)
+    if fn is None:
+        return None, f"torch {torch.__version__} has no torch._grouped_mm"
+    if kind == "gmm":
+        def run():
+            return fn(lhs, rhs, offs=ends)
+    elif kind == "dlhs":
+        def run():
+            return fn(dout, rhs.transpose(-2, -1), offs=ends)
+    else:
+        def run():
+            return fn(lhs.t(), dout, offs=ends)
+    try:
+        run()
+        torch.cuda.synchronize()
+    except Exception as e:       # a yardstick that refuses these operands
+        return None, f"torch._grouped_mm refused: {str(e).splitlines()[0]}"
+    return run, None
+
+
+def gmm_case(name, sizes, m, k, n, flush, seed):
+    """One grouped-matmul case at the main path's widths: gmm, its
+    transposed-rhs form (the backward's dlhs) and tgmm against the plain
+    versions, then the kernel, plain, library and bound times."""
+    import torch
+
+    from automodel_tpu_torch.ops import gmm_kernel as gk
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    E = sizes.numel()
+    lhs = torch.randn(m, k, device=dev, generator=g).bfloat16()
+    rhs = (torch.randn(E, k, n, device=dev, generator=g) * 0.02).bfloat16()
+    dout = torch.randn(m, n, device=dev, generator=g).bfloat16()
+    gs = sizes.to(dev)
+    total = int(sizes.sum())
+    empty = [int(e) for e in torch.nonzero(sizes == 0)[:, 0]]
+    runs = {
+        "gmm": (lambda: gk.gmm_cuda(lhs, rhs, gs),
+                lambda: gk.gmm_plain(lhs, rhs, gs)),
+        "dlhs": (lambda: gk.gmm_cuda(dout, rhs, gs, trans_rhs=True),
+                 lambda: gk.gmm_plain(dout, rhs, gs, trans_rhs=True)),
+        "tgmm": (lambda: gk.tgmm_cuda(lhs, dout, gs),
+                 lambda: gk.tgmm_plain(lhs, dout, gs)),
+    }
+    ends = torch.cumsum(gs, 0, dtype=torch.int32)
+    bounds = gmm_bounds(sizes, m, k, n)
+    # dlhs is gmm(dout [m, n], rhs^T): the same work with k and n swapped
+    bounds["dlhs"] = gmm_bounds(sizes, m, n, k)["gmm"]
+    row = dict(case=name, m=m, k=k, n=n, E=E, rows_in_groups=total,
+               empty_groups=len(empty), max_group=int(sizes.max()))
+    for kind, (kernel, plain) in runs.items():
+        got = kernel()
+        torch.cuda.synchronize()
+        ref = plain()
+        check(bool(torch.isfinite(got).all()), f"{name} {kind}: non-finite")
+        rel = float((got.float() - ref.float()).norm()
+                    / ref.float().norm().clamp(min=1e-30))
+        err = float((got.float() - ref.float()).abs().max())
+        check(rel <= GMM_REL_L2,
+              f"{name} {kind}: kernel vs plain relative L2 {rel:.3e} > "
+              f"{GMM_REL_L2}")
+        if kind == "tgmm":
+            check(all(bool((got[e] == 0).all()) for e in empty),
+                  f"{name}: an empty group's tgmm block is not exactly 0")
+        else:
+            check(bool((got[total:] == 0).all()),
+                  f"{name} {kind}: rows past the groups are not 0")
+        lib, why = gmm_library(kind, lhs, rhs, dout, ends)
+        lib_ms = None
+        if lib is not None:
+            lib_out, lib_ref = lib(), ref
+            if kind != "tgmm":
+                lib_out, lib_ref = lib_out[:total], ref[:total]
+            lib_rel = float((lib_out.float() - lib_ref.float()).norm()
+                            / lib_ref.float().norm().clamp(min=1e-30))
+            if lib_rel <= 4 * GMM_REL_L2:
+                lib_ms = time_ms(lib, 10, flush)
+            else:
+                why = (f"torch._grouped_mm computes something else here "
+                       f"(relative L2 {lib_rel:.3e})")
+            del lib_out
+        del got, ref
+        row[kind] = dict(
+            ms=time_ms(kernel, 10, flush),
+            plain_ms=time_ms(plain, 1, flush, warmup=1),
+            library_ms=lib_ms, library_note=why,
+            bound_ms=bounds[kind][0], bound_by=bounds[kind][1],
+            rel_l2=rel, max_abs_err=err)
+    print("gmm_case " + json.dumps(row), flush=True)
+    del lhs, rhs, dout
+    torch.cuda.empty_cache()
+    return row
+
+
+def gmm_phase(recipe, batch):
+    """The grouped-matmul kernels at the MoE SFT path's shapes: the group
+    sizes of the first batch routed through layer 0 (both expert products:
+    k, n = 2048, 768 and 768, 2048), then ragged cases -- one expert taking
+    every routed row, the raw (unpadded) routed sizes with empty experts
+    (the first, two inside and the last two) so that row tiles straddle
+    groups, each with rows past the groups."""
+    import torch
+
+    cfg = recipe.model.config
+    H, I = cfg.hidden_size, recipe.model.layer_cls.expert_inter(cfg)
+    sizes, padded, n_pad, routed = routed_group_sizes(recipe, batch)
+    sizes, padded = sizes.cpu(), padded.cpu()
+    check(int(sizes.sum()) == routed,
+          f"layer 0 routed {int(sizes.sum())} assignments of {routed} "
+          "(dropless: none may drop)")
+    print(f"gmm: layer 0 of the first batch routes {routed} assignments "
+          f"(T x k) to {int((sizes > 0).sum())} experts, {int(sizes.min())}"
+          f"-{int(sizes.max())} each; {int(padded.sum())} block-padded rows "
+          f"in a buffer of {n_pad}", flush=True)
+    hot = torch.zeros_like(sizes)
+    hot[37] = routed
+    ragged = sizes.clone()
+    ragged[[0, 5, 64, 126, 127]] = 0
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    cases = [("routed_gate_up", padded, n_pad, H, I),
+             ("routed_down", padded, n_pad, I, H),
+             ("hot_expert", hot, n_pad, H, I),
+             ("ragged_empty", ragged, n_pad, H, I)]
+    rows = [gmm_case(name, gs, m, k, n, flush, seed=300 + i)
+            for i, (name, gs, m, k, n) in enumerate(cases)]
+    del flush
+    torch.cuda.empty_cache()
+    return rows
+
+
+# ---------------------------------------------------------------------------
 # engine phase
 # ---------------------------------------------------------------------------
 def engine_phase():
@@ -796,6 +1004,7 @@ def engine_phase():
 
 # device-time buckets of a profiled window, by kernel name (first match)
 KERNEL_KINDS = [
+    ("grouped_mm", ("gmm_kernel",)),    # gmm and tgmm (csrc/gmm.cu)
     ("linear_ce", ("lce_",)),           # before gemm: not cuBLAS GEMMs
     ("gemm", ("nvjet", "gemm", "cutlass", "sm90_xmma")),
     ("loss", ("softmax", "nll_loss", "cross_entropy")),    # lower case
@@ -858,7 +1067,7 @@ def profile_window(run, steps, label, attn_names):
 def first_step_check(recipe, label, routes, compare):
     """Loss and whole gradient of the first step (2 rows of the first batch,
     the recipe's initial weights) through each route ``(name, loss_fn,
-    attn_impl)``; nothing is updated.  Each pair in ``compare`` must agree
+    attn_impl[, gmm_impl])``; nothing is updated.  Each pair in ``compare`` must agree
     within the loss and gradient limits; ``kernel_again`` (a second kernel
     pass) measures the run-to-run floor (the dQ atomics of the attention
     backward sum in another order each run)."""
@@ -875,7 +1084,9 @@ def first_step_check(recipe, label, routes, compare):
     mb = {k: v[0] for k, v in to_device_batch(
         [{k: v[:2] for k, v in first.items()}], recipe.device).items()}
     losses, grads = {}, {}
-    for name, loss_fn, attn_impl in routes:
+    for name, loss_fn, attn_impl, *gmm_impl in routes:
+        if hasattr(model, "gmm_impl"):        # the MoE models' experts
+            model.gmm_impl = gmm_impl[0] if gmm_impl else None
         model.zero_grad(set_to_none=True)
         loss = microbatch_loss(model, loss_fn, mb, attn_impl=attn_impl)
         loss.backward()
@@ -885,6 +1096,8 @@ def first_step_check(recipe, label, routes, compare):
         check(all(bool(torch.isfinite(g).all()) for g in grads[name]),
               f"{label} first step ({name}): non-finite gradient")
     model.zero_grad(set_to_none=True)
+    if hasattr(model, "gmm_impl"):
+        model.gmm_impl = None
 
     def rel_l2(a, b):
         num = den = 0.0
@@ -923,15 +1136,21 @@ def train_phase(label, yaml_path):
     """Set up the SFT recipe on ``yaml_path``, check its first step, run
     2 warm-up steps, then the timed steps with every launch count zeroed
     just before and read just after, then a profiled window.  With the
-    fused linear CE (the bench YAML) the linear-CE counts are held to one
-    forward per microbatch and one launch of each backward kernel per
-    chunk of rows, and the loader must be the async input pipeline."""
+    fused linear CE (the bench and MoE YAMLs) the linear-CE counts are held
+    to one forward per microbatch and one launch of each backward kernel
+    per chunk of rows, and the loader must be the async input pipeline.
+    An MoE model (the MoE YAML) first runs the grouped-matmul kernel phase
+    on its routed group sizes; its first step is held against every kernel's
+    plain version, and its grouped-matmul counts to 9 gmm launches (3
+    forward, 3 in the remat re-forward, 3 dlhs) and 3 tgmm launches per
+    layer and microbatch; a dense model launches none."""
     import torch
 
     from automodel_tpu_torch.config.loader import parse_args_and_load_config
     from automodel_tpu_torch.datasets.prefetch import PrefetchDataLoader
     from automodel_tpu_torch.loss.linear_ce import FusedLinearCrossEntropy
     from automodel_tpu_torch.loss.masked_ce import MaskedCrossEntropy
+    from automodel_tpu_torch.ops import gmm_kernel as gk
     from automodel_tpu_torch.ops import linear_ce_kernel as lce
     from automodel_tpu_torch.ops import splash_attention as sa
     from automodel_tpu_torch.recipes.llm import train_ft
@@ -944,21 +1163,36 @@ def train_phase(label, yaml_path):
     mcfg = recipe.model.config
     L = mcfg.num_hidden_layers
     fused = isinstance(recipe.loss_fn, FusedLinearCrossEntropy)
-    print(f"{label}: Llama-3.2-1B widths (vocab {mcfg.vocab_size}, hidden "
-          f"{mcfg.hidden_size}, ffn {mcfg.intermediate_size}, layers {L}, "
-          f"heads {mcfg.num_attention_heads}/{mcfg.num_key_value_heads}, "
-          f"head_dim {mcfg.head_dim}), "
+    is_moe = hasattr(recipe.model, "gmm_impl")
+    ffn = (f"{mcfg.num_local_experts} experts of "
+           f"{recipe.model.layer_cls.expert_inter(mcfg)}, top-"
+           f"{mcfg.num_experts_per_tok}" if is_moe
+           else str(mcfg.intermediate_size))
+    print(f"{label}: {type(recipe.model).__name__} widths (vocab "
+          f"{mcfg.vocab_size}, hidden {mcfg.hidden_size}, ffn {ffn}, layers "
+          f"{L}, heads {mcfg.num_attention_heads}/"
+          f"{mcfg.num_key_value_heads}, head_dim {mcfg.head_dim}), "
           f"{sum(p.numel() for p in recipe.model.parameters())} params "
           f"{recipe.model.param_dtype}, remat {recipe.model.remat_policy}, "
           f"loss {type(recipe.loss_fn).__name__}, loader "
           f"{type(recipe.dataloader).__name__}, "
           f"set up in {time.perf_counter() - t0:.1f} s", flush=True)
+    gmm_rows = gmm_phase(recipe, first_batch(yaml_path)) if is_moe else None
     if fused:
         check(isinstance(recipe.dataloader, PrefetchDataLoader),
               f"{label}: the loader is {type(recipe.dataloader).__name__}, "
               "not the async input pipeline")
         plain = FusedLinearCrossEntropy(chunk_len=recipe.loss_fn.chunk_len,
                                         impl="plain")
+    if is_moe:
+        # every kernel of the path against its plain version
+        first_step_check(
+            recipe, label,
+            [("kernel", recipe.loss_fn, "kernel", "kernel"),
+             ("plain", plain, "plain", "plain"),
+             ("kernel_again", recipe.loss_fn, "kernel", "kernel")],
+            [("kernel", "plain")])
+    elif fused:
         first_step_check(
             recipe, label,
             [("kernel", recipe.loss_fn, "kernel"),
@@ -982,6 +1216,7 @@ def train_phase(label, yaml_path):
     sa.fwd_launches = sa.bwd_launches = 0
     lce.fwd_launches = lce.dlogits_launches = lce.dh_launches = 0
     lce.dw_launches = 0
+    gk.gmm_launches = gk.tgmm_launches = 0
     recipe.step_scheduler.max_steps = SFT_WARMUP + SFT_STEPS
     t0 = time.perf_counter()
     recipe.run_train_validation_loop()
@@ -990,6 +1225,7 @@ def train_phase(label, yaml_path):
     fwd, bwd = sa.fwd_launches, sa.bwd_launches
     lce_counts = dict(fwd=lce.fwd_launches, dlogits=lce.dlogits_launches,
                       dh=lce.dh_launches, dw=lce.dw_launches)
+    gmm_counts = dict(gmm=gk.gmm_launches, tgmm=gk.tgmm_launches)
     peak = torch.cuda.max_memory_allocated()
     timed = recipe.history[SFT_WARMUP:]
     check(len(timed) == SFT_STEPS, f"{label} ran {len(timed)} timed steps")
@@ -1010,6 +1246,12 @@ def train_phase(label, yaml_path):
     check(lce_counts == want,
           f"{label}: linear-CE launches {lce_counts} != {want} ({micro} "
           f"microbatches of {rows} rows, {per_call} backward chunks each)")
+    want = (dict(gmm=9 * L * micro, tgmm=3 * L * micro) if is_moe
+            else dict(gmm=0, tgmm=0))
+    check(gmm_counts == want,
+          f"{label}: grouped-matmul launches {gmm_counts} != {want} ({L} "
+          f"layers x {micro} microbatches; per layer 3 forward, 3 remat "
+          "re-forward and 3 dlhs gmm, 3 tgmm)")
     for m in recipe.history:
         check(all(map(math.isfinite, (m["loss"], m["grad_norm"]))),
               f"{label} step {m['step']}: non-finite loss/grad_norm")
@@ -1029,6 +1271,7 @@ def train_phase(label, yaml_path):
         / wall, flops_per_token=flops_per_token,
         mfu=tok_s * flops_per_token / BF16_OPS_PER_S,
         fwd_launches=fwd, bwd_launches=bwd, linear_ce_launches=lce_counts,
+        gmm_launches=gmm_counts,
         producer_host_s=getattr(recipe.dataloader, "produce_s", 0.0)
         - produced_s,
         peak_mem_bytes=peak,
@@ -1041,6 +1284,7 @@ def train_phase(label, yaml_path):
         recipe.run_train_validation_loop()
 
     profile_window(more, SFT_PROFILED, f"{label}_b8_s2048", ("flash_",))
+    report["gmm_cases"] = gmm_rows
     return report
 
 
@@ -1070,7 +1314,7 @@ def main():
 
     t0 = time.perf_counter()
     sources = ["paged_decode", "flash_attn_fwd", "flash_attn_bwd",
-               "linear_ce_fwd", "linear_ce_bwd"]
+               "linear_ce_fwd", "linear_ce_bwd", "gmm"]
     build.build_many(sources)
     print(f"build: {', '.join(n + '.cu' for n in sources)} (one nvcc each, "
           f"in parallel) in {time.perf_counter() - t0:.1f} s", flush=True)
@@ -1090,6 +1334,8 @@ def main():
     check(bench["peak_mem_bytes"] < sft["peak_mem_bytes"],
           f"sft_bench peak memory {bench['peak_mem_bytes']} is not below the "
           f"MaskedCE sft phase's {sft['peak_mem_bytes']}")
+    torch.cuda.empty_cache()
+    moe = train_phase("sft_moe", MOE_YAML)
 
     rep = cases[0]
     kernels = [{
@@ -1132,6 +1378,21 @@ def main():
             "replaces": f"automodel_tpu/ops/linear_ce_kernel.py:{line}",
             "launches": bench["linear_ce_launches"][part],
             "max_abs_err": errs[part],
+            "ms": got["ms"], "plain_ms": got["plain_ms"],
+            "bound_ms": got["bound_ms"], "bound_by": got["bound_by"],
+            "library_ms": got["library_ms"],
+        })
+    gmm_cases = moe["gmm_cases"]
+    for kname, parts, line in (("gmm", ("gmm", "dlhs"), 187),
+                               ("tgmm", ("tgmm",), 256)):
+        got = gmm_cases[0][kname]        # routed rows, gate/up projection
+        kernels.append({
+            "name": kname, "route": "cuda",
+            "source": "automodel_tpu_torch/csrc/gmm.cu",
+            "replaces": f"automodel_tpu/ops/gmm_kernel.py:{line}",
+            "launches": moe["gmm_launches"][kname],
+            "max_abs_err": max(c[p]["max_abs_err"] for c in gmm_cases
+                               for p in parts),
             "ms": got["ms"], "plain_ms": got["plain_ms"],
             "bound_ms": got["bound_ms"], "bound_by": got["bound_by"],
             "library_ms": got["library_ms"],

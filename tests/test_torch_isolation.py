@@ -55,7 +55,9 @@ def test_engine_import_loads_no_jax():
         os.path.relpath(p, REPO)[:-3].replace(os.sep, ".")
         .removesuffix(".__init__")
         for p in _port_sources() if p.startswith(PORT + os.sep))
-    assert "automodel_tpu_torch.recipes.llm.train_ft" in mods
+    for mod in ("recipes.llm.train_ft", "ops.gmm_kernel", "ops.moe",
+                "models.mixtral", "models.qwen3_moe"):
+        assert "automodel_tpu_torch." + mod in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"

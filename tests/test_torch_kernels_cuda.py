@@ -399,3 +399,99 @@ def test_cuda_training_step_through_linear_ce(cuda_device):
     (lk, gk), (lp, gp) = out["kernel"], out["plain"]
     assert abs(lk - lp) <= 1e-2 * abs(lp)
     assert rel_l2(gk, gp) < 5e-2
+
+
+# ---------------------------------------------------------------------------
+# grouped matmuls (csrc/gmm.cu)
+# ---------------------------------------------------------------------------
+GMM_CASES = [
+    # (name, group sizes, m, k, n): straddling row tiles with an empty
+    # group, one group holding every row with dropped tail rows, leading
+    # and trailing empty groups, block-aligned segments (the sorted MoE
+    # path's layout), a trailing empty group with the buffer exactly full,
+    # and ragged k / n (not multiples of the tiles)
+    ("straddles", [130, 0, 277, 1, 100], 512, 256, 384),
+    ("one_group_tail", [0, 700, 0, 0], 1000, 128, 256),
+    ("leading_trailing_empty", [0, 0, 300, 250, 0, 0], 640, 192, 128),
+    ("block_aligned", [256, 128, 0, 384, 128], 1024, 512, 768),
+    ("full_buffer_trailing_empty", [384, 256, 0], 640, 128, 128),
+    ("ragged_kn", [50, 90, 0, 60], 256, 136, 72),
+]
+# bf16 operands, fp32 sums in another order, bf16 output: relative L2 over
+# the whole tensor; a wrong group or tile moves it by O(1)
+GMM_REL_L2 = 2e-2
+
+
+def make_gmm_case(sizes, m, k, n, seed=0, device="cuda"):
+    rng = np.random.default_rng(seed)
+    E = len(sizes)
+    t = [torch.from_numpy(a).to(device, torch.bfloat16) for a in (
+        rng.normal(size=(m, k)).astype(np.float32),
+        rng.normal(size=(E, k, n)).astype(np.float32) * 0.1,
+        rng.normal(size=(m, n)).astype(np.float32))]
+    return (*t, torch.tensor(sizes, dtype=torch.int32, device=device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", GMM_CASES, ids=[c[0] for c in GMM_CASES])
+def test_cuda_gmm_and_tgmm_match_plain(case, cuda_device):
+    """``gmm``, its transposed-rhs form (the backward's dlhs) and ``tgmm``
+    against the plain versions; rows past the groups and an empty group's
+    ``tgmm`` block exactly 0; one launch each."""
+    from automodel_tpu_torch.ops import gmm_kernel as gk
+
+    _, sizes, m, k, n = case
+    lhs, rhs, dout, gs = make_gmm_case(sizes, m, k, n, device=cuda_device)
+    before = (gk.gmm_launches, gk.tgmm_launches)
+    out = gk.gmm_cuda(lhs, rhs, gs)
+    dlhs = gk.gmm_cuda(dout, rhs, gs, trans_rhs=True)
+    drhs = gk.tgmm_cuda(lhs, dout, gs)
+    torch.cuda.synchronize()
+    assert (gk.gmm_launches - before[0], gk.tgmm_launches - before[1]) == \
+        (2, 1)
+    for name, got, ref in (
+            ("gmm", out, gk.gmm_plain(lhs, rhs, gs)),
+            ("dlhs", dlhs, gk.gmm_plain(dout, rhs, gs, trans_rhs=True)),
+            ("tgmm", drhs, gk.tgmm_plain(lhs, dout, gs))):
+        assert bool(torch.isfinite(got).all()), name
+        assert rel_l2(got, ref) < GMM_REL_L2, (name, rel_l2(got, ref))
+    total = sum(sizes)
+    assert bool((out[total:] == 0).all()) and bool((dlhs[total:] == 0).all())
+    for g, size in enumerate(sizes):
+        if size == 0:
+            assert bool((drhs[g] == 0).all()), g
+
+
+@pytest.mark.cuda
+def test_cuda_gmm_autograd_launches_and_matches_plain(cuda_device):
+    """The autograd Function on the card: forward one gmm, backward one gmm
+    (dlhs) and one tgmm, against the plain route's gradients."""
+    from automodel_tpu_torch.ops import gmm_kernel as gk
+
+    lhs, rhs, dout, gs = make_gmm_case([130, 0, 277, 1, 100], 512, 256, 384,
+                                       seed=1, device=cuda_device)
+    grads = {}
+    for impl in ("plain", "kernel"):
+        a, b = lhs.clone().requires_grad_(), rhs.clone().requires_grad_()
+        before = (gk.gmm_launches, gk.tgmm_launches)
+        (gk.gmm(a, b, gs, impl=impl).float() * dout.float()).sum().backward()
+        torch.cuda.synchronize()
+        launched = (gk.gmm_launches - before[0],
+                    gk.tgmm_launches - before[1])
+        assert launched == ((2, 1) if impl == "kernel" else (0, 0))
+        grads[impl] = (a.grad, b.grad)
+    for got, ref in zip(grads["kernel"], grads["plain"]):
+        assert rel_l2(got, ref) < GMM_REL_L2
+
+
+@pytest.mark.cuda
+def test_cuda_gmm_refuses_what_it_does_not_take(cuda_device):
+    """No fallback: fp32 operands or k / n that are no multiple of 8 raise
+    on the card."""
+    from automodel_tpu_torch.ops import gmm_kernel as gk
+
+    lhs, rhs, _, gs = make_gmm_case([8, 8], 16, 16, 16, device=cuda_device)
+    with pytest.raises(ValueError, match="bfloat16"):
+        gk.gmm(lhs.float(), rhs.float(), gs)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        gk.gmm(lhs[:, :12].contiguous(), rhs[:, :12].contiguous(), gs)
