@@ -211,13 +211,21 @@ def validate_config_enums(cfg: ConfigNode) -> None:
     """Raise ``ValueError`` for an enum-valued field outside its allowed set
     (null spellings mean the default), at load time and again after the
     CLI overrides, as the JAX loader does; the port checks
-    ``moe.dispatch``."""
+    ``moe.dispatch``, ``fp8.dtype`` and ``fp8.recipe_name``."""
     from automodel_tpu_torch.ops.moe import (
         normalize_moe_dispatch,
         validate_moe_dispatch,
     )
+    from automodel_tpu_torch.ops.quant import (
+        normalize_quant_dtype,
+        normalize_quant_recipe,
+        validate_quant_dtype,
+        validate_quant_recipe,
+    )
 
     validate_moe_dispatch(normalize_moe_dispatch(cfg.get("moe.dispatch")))
+    validate_quant_dtype(normalize_quant_dtype(cfg.get("fp8.dtype")))
+    validate_quant_recipe(normalize_quant_recipe(cfg.get("fp8.recipe_name")))
 
 
 def parse_args_and_load_config(argv: Optional[Sequence[str]] = None,

@@ -19,8 +19,12 @@ serving path: each layer writes its k/v into the paged pools, then attends
 through ``ops/paged_attention.py``).  The feed-forward block is a hook
 (``_mlp_block``) that the MoE families (``models/mixtral.py``) replace with
 routed experts; their per-layer routing statistics come back through remat
-and fold into ``out["aux_loss"]``.  LoRA, quantized compute and sharding
-constraints wait for later port slices.
+and fold into ``out["aux_loss"]``.  Quantized compute
+(``quantization/fp8.py::apply_fp8_to_model`` sets ``quant``) sends every
+projection through ``ops/quant.py::maybe_qdot`` under the JAX names
+(``self_attn.q_proj`` ... ``mlp.down_proj``), so ``filter_fqns`` matches
+the same products; the head never does.  LoRA and sharding constraints
+wait for later port slices.
 """
 
 from __future__ import annotations
@@ -37,6 +41,7 @@ from automodel_tpu_torch.ops.attention import (
     fold_padding_into_segments,
 )
 from automodel_tpu_torch.ops.norms import rms_norm
+from automodel_tpu_torch.ops.quant import maybe_qdot
 from automodel_tpu_torch.ops.remat import checkpoint_layer, resolve_remat_policy
 from automodel_tpu_torch.ops.rotary import apply_rope, rope_parameters
 from automodel_tpu_torch.utils.device import resolve_device
@@ -174,6 +179,8 @@ class LlamaForCausalLM(nn.Module):
             raise NotImplementedError(
                 "attention_bias (the Qwen2 family) is not ported")
         device = resolve_device(device)
+        self.quant = None        # set by quantization.fp8.apply_fp8_to_model
+        self.qdot_impl: Optional[str] = None   # "plain" forces qdot's plain
         self.config = config
         self.param_dtype = as_dtype(param_dtype)
         self.compute_dtype = as_dtype(compute_dtype)
@@ -209,8 +216,15 @@ class LlamaForCausalLM(nn.Module):
                 p.normal_(0.0, 0.02, generator=gen)
         return self
 
-    def _proj(self, lin: nn.Linear, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x, lin.weight.to(self.compute_dtype))
+    def _proj(self, lin: nn.Linear, x: torch.Tensor, name: str
+              ) -> torch.Tensor:
+        """``x @ W^T`` in the compute dtype; with quantized compute on,
+        through ``maybe_qdot`` on the ``[in, out]`` view of the weight
+        (the JAX kernel's layout, read in place)."""
+        w = lin.weight.to(self.compute_dtype)
+        if self.quant is None:
+            return F.linear(x, w)
+        return maybe_qdot(x, w.t(), self.quant, name, impl=self.qdot_impl)
 
     def _attention_block(self, layer: LlamaDecoderLayer, hidden,
                          position_ids, segment_ids, kv_cache, attn_impl):
@@ -220,9 +234,9 @@ class LlamaForCausalLM(nn.Module):
         D, Hq, Hk = cfg.head_dim, cfg.num_attention_heads, \
             cfg.num_key_value_heads
         x = layer.input_layernorm(hidden)
-        q = self._proj(layer.q_proj, x).view(B, S, Hq, D)
-        k = self._proj(layer.k_proj, x).view(B, S, Hk, D)
-        v = self._proj(layer.v_proj, x).view(B, S, Hk, D)
+        q = self._proj(layer.q_proj, x, "self_attn.q_proj").view(B, S, Hq, D)
+        k = self._proj(layer.k_proj, x, "self_attn.k_proj").view(B, S, Hk, D)
+        v = self._proj(layer.v_proj, x, "self_attn.v_proj").view(B, S, Hk, D)
         if cfg.qk_norm:
             q, k = layer.q_norm(q), layer.k_norm(k)
         q, k = apply_rope(q, k, position_ids, self.inv_freq)
@@ -234,16 +248,17 @@ class LlamaForCausalLM(nn.Module):
                              causal=True, segment_ids=segment_ids,
                              local_window_size=self.sliding_window,
                              impl=attn_impl)
-        return hidden + self._proj(layer.o_proj, attn.reshape(B, S, Hq * D))
+        return hidden + self._proj(layer.o_proj, attn.reshape(B, S, Hq * D),
+                                   "self_attn.o_proj")
 
     def _mlp_block(self, x: torch.Tensor, layer: LlamaDecoderLayer):
         """Post-norm feed-forward of one layer -> ``(out, aux | None)``: the
         seam the MoE families replace (routed experts return the layer's
         routing statistics for the load-balancing loss; dense gives
         None)."""
-        act = F.silu(self._proj(layer.gate_proj, x)) \
-            * self._proj(layer.up_proj, x)
-        return self._proj(layer.down_proj, act), None
+        act = F.silu(self._proj(layer.gate_proj, x, "mlp.gate_proj")) \
+            * self._proj(layer.up_proj, x, "mlp.up_proj")
+        return self._proj(layer.down_proj, act, "mlp.down_proj"), None
 
     def _layer(self, layer: LlamaDecoderLayer, hidden, position_ids,
                segment_ids, kv_cache, attn_impl):
@@ -303,6 +318,10 @@ class LlamaForCausalLM(nn.Module):
         ``kv_cache`` is a ``PagedKVView`` (pools updated in place) or
         None."""
         B, S = input_ids.shape
+        if kv_cache is not None and getattr(self.quant, "enabled", False):
+            raise NotImplementedError(
+                "quantized compute while serving (fp8 serving) is not "
+                "ported yet: ROADMAP Queue 1 item 6")
         if position_ids is None:
             position_ids = torch.arange(S, device=input_ids.device).expand(
                 B, S)

@@ -16,8 +16,10 @@ over the layers before the load-balancing product (HF concatenates every
 layer's tokens) and scales by ``router_aux_loss_coef`` when
 ``output_router_logits`` is on.  ``gmm_impl`` reaches the grouped matmuls
 (None: the kernels on CUDA tensors; ``"plain"`` forces the plain
-versions).  Serving an MoE model through ``DecodeEngine`` is not ported:
-a forward with a KV cache raises.
+versions).  With quantized compute on, the experts' grouped matmuls are
+quantized unless ``filter_fqns`` names ``block_sparse_moe.experts``
+(``mlp.experts`` in Qwen3-MoE), the JAX names.  Serving an MoE model
+through ``DecodeEngine`` is not ported: a forward with a KV cache raises.
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ from automodel_tpu_torch.models.llama import (
     LlamaForCausalLM,
 )
 from automodel_tpu_torch.ops import moe
+from automodel_tpu_torch.ops.quant import quant_for
 
 
 @dataclasses.dataclass
@@ -112,6 +115,7 @@ class MixtralForCausalLM(LlamaForCausalLM):
             compute_dtype=self.compute_dtype,
             norm_topk=self._norm_topk(),
             dispatch=cfg.moe_dispatch,
+            quant=quant_for(self.quant, f"{layer.moe_block}.experts"),
             impl=self.gmm_impl)
 
     def _combine_aux(self, aux_losses):

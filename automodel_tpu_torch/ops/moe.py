@@ -22,8 +22,11 @@ The router product, top-k, the sort, the counts and the scatter are plain
 torch ops, as they are XLA ops outside Pallas in JAX.  On the card none of
 them reads a value back to the host: the counts are a ``scatter_add_``
 (``torch.bincount`` would synchronise) and the segment layout comes from
-``cumsum`` and ``searchsorted``.  Quantized expert compute (``quant=``)
-and the DeepSeek routers wait for later slices.
+``cumsum`` and ``searchsorted``.  With quantized compute on (``quant=``,
+``fp8.enabled``) the sorted path's grouped matmuls are
+``ops/gmm_quant_kernel.py``'s (``csrc/gmm_quant.cu`` on the card); the
+onehot oracle ignores ``quant``, as JAX's does.  The DeepSeek routers wait
+for a later slice.
 """
 
 from __future__ import annotations
@@ -188,11 +191,8 @@ def moe_mlp_block(
 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """Top-k routed SwiGLU expert FFN -> ``(out [B, S, H],
     (tokens_per_expert [k, E], router_prob [E]))``.  ``impl`` reaches the
-    grouped matmuls (None: the kernels on CUDA tensors)."""
-    if quant is not None:
-        raise NotImplementedError(
-            "quantized expert compute (gmm_quant, TPU kernel 7) is not "
-            "ported yet: ROADMAP Queue 2")
+    grouped matmuls (None: the kernels on CUDA tensors); ``quant`` (a
+    ``QuantConfig`` or None) quantizes the sorted path's."""
     B, S, H = x.shape
     E = gate_kernel.shape[-1]
     k = int(num_experts_per_tok)
@@ -203,7 +203,7 @@ def moe_mlp_block(
     aux = routing_stats(probs, idx, E, valid_tokens=valid)
     out = expert_ffn(xg, weights, idx, w_gate, w_up, w_down, capacity=C,
                      dispatch=dispatch, compute_dtype=compute_dtype,
-                     impl=impl)
+                     quant=quant, impl=impl)
     out = out.reshape(-1, H)
     if pad:
         out = out[:B * S]
@@ -213,16 +213,17 @@ def moe_mlp_block(
 def expert_ffn(xg, weights, idx, w_gate, w_up, w_down, *, capacity: int,
                dispatch: Optional[str] = None,
                compute_dtype: torch.dtype = torch.bfloat16,
-               impl: Optional[str] = None) -> torch.Tensor:
+               quant=None, impl: Optional[str] = None) -> torch.Tensor:
     """The ``sorted`` grouped-matmul path by default, ``onehot`` as the
-    oracle."""
+    oracle; ``quant`` applies to the sorted path only (the onehot
+    formulation is the bf16 oracle and never quantizes)."""
     if resolve_moe_dispatch(dispatch) == "onehot":
         return expert_dispatch_ffn(xg, weights, idx, w_gate, w_up, w_down,
                                    capacity=capacity,
                                    compute_dtype=compute_dtype)
     return sorted_expert_ffn(xg, weights, idx, w_gate, w_up, w_down,
                              capacity=capacity, compute_dtype=compute_dtype,
-                             impl=impl)
+                             quant=quant, impl=impl)
 
 
 def expert_dispatch_ffn(xg, weights, idx, w_gate, w_up, w_down, *,
@@ -293,16 +294,20 @@ def expert_segments(eid: torch.Tensor, num_experts: int, block_rows: int):
 def sorted_expert_ffn(xg, weights, idx, w_gate, w_up, w_down, *,
                       capacity: Optional[int] = None,
                       compute_dtype: torch.dtype = torch.bfloat16,
-                      block_rows: int = 128,
+                      block_rows: int = 128, quant=None,
                       impl: Optional[str] = None) -> torch.Tensor:
     """Sort-based expert FFN over ``xg [G, M, H]``: drops decided with the
     oracle's priority (skipped when dropless), a stable sort of the
     assignments by expert, block-aligned segments, a gather, three grouped
-    matmuls, SiLU x up, and a weighted ``index_add`` back to the tokens."""
+    matmuls (quantized when ``quant`` is on and H and I are multiples of
+    16, the JAX package's rule), SiLU x up, and a weighted ``index_add``
+    back to the tokens."""
     from automodel_tpu_torch.ops.gmm_kernel import gmm
+    from automodel_tpu_torch.ops.gmm_quant_kernel import gmm_quant
 
     G, M, H = xg.shape
     E = w_gate.shape[0]
+    I_mlp = w_gate.shape[-1]
     k = idx.shape[-1]
     T, N = G * M, G * M * k
     cd = compute_dtype
@@ -335,9 +340,16 @@ def sorted_expert_ffn(xg, weights, idx, w_gate, w_up, w_down, *,
     wg, wu, wd = (w.to(cd) for w in (w_gate, w_up, w_down))
     group_sizes = padded.to(torch.int32)
 
-    def mm(lhs, rhs):
-        return gmm(lhs, rhs, group_sizes, block_aligned=True, block_rows=B,
-                   impl=impl)
+    if (quant is not None and getattr(quant, "enabled", False)
+            and H % 16 == 0 and I_mlp % 16 == 0):
+        def mm(lhs, rhs):
+            return gmm_quant(lhs, rhs, group_sizes, quant.dtype,
+                             quant.recipe_name, block_aligned=True,
+                             block_rows=B, impl=impl)
+    else:
+        def mm(lhs, rhs):
+            return gmm(lhs, rhs, group_sizes, block_aligned=True,
+                       block_rows=B, impl=impl)
 
     h_act = F.silu(mm(x_sorted, wg)) * mm(x_sorted, wu)
     out_sorted = mm(h_act, wd)

@@ -6,7 +6,12 @@ surface as the JAX recipe: ``step_scheduler``, ``rng``, ``model``,
 ``validation_dataset`` / ``validation_dataloader``, ``optimizer``,
 ``lr_scheduler``, ``training``, ``compile``, ``kernels``, ``moe``
 (``moe.dispatch``: ``sorted`` | ``onehot`` for the MoE families, an error
-on a dense model), plus a top-level
+on a dense model), ``fp8`` (quantized compute: ``enabled``, ``dtype``
+``float8`` | ``int8``, ``recipe_name`` ``tensorwise`` | ``rowwise``,
+``filter_fqns``; applied by ``quantization/fp8.py::apply_fp8_to_model``
+as in the JAX recipe, so every dense projection runs through the ``qdot``
+kernel and the MoE experts through ``gmm_quant`` on the card), plus a
+top-level
 ``device`` (default ``cuda``; the recipe raises without a card unless
 ``device: cpu``).  The hot loop is eager PyTorch
 (``training/train_step.py``): stack the microbatches, move them to the
@@ -35,7 +40,7 @@ tiles; ``on`` / ``force`` raise.
 
 Left out of this slice, each raising ``NotImplementedError`` when its
 knob is set (ROADMAP Queue 1 names where each lands): checkpointing,
-pipeline / tensor / context / data parallelism, PEFT, fp8 compute, kernel
+pipeline / tensor / context / data parallelism, PEFT, kernel
 autotuning, remat policies other than ``nothing_saveable``, gradient
 clipping, freezing, profiling, elastic recovery and W&B logging.
 
@@ -68,6 +73,10 @@ from automodel_tpu_torch.ops.moe import (
     validate_moe_dispatch,
 )
 from automodel_tpu_torch.optim.builder import build_optimizer, set_hyperparams
+from automodel_tpu_torch.quantization.fp8 import (
+    apply_fp8_to_model,
+    build_fp8_config,
+)
 from automodel_tpu_torch.optim.scheduler import OptimizerParamScheduler
 from automodel_tpu_torch.training.rng import StatefulRNG
 from automodel_tpu_torch.training.step_scheduler import StepScheduler
@@ -85,11 +94,11 @@ _SECTIONS = {
     "distributed", "loss_fn", "dataset", "packed_sequence", "dataloader",
     "validation_dataset", "validation_dataloader", "optimizer",
     "lr_scheduler", "training", "device", "compile", "kernels", "moe",
+    "fp8",
 }
 _LATER = {
     "checkpoint": "checkpointing (ROADMAP Queue 1 item 7)",
     "peft": "PEFT (ROADMAP Queue 1 item 8)",
-    "fp8": "quantized compute (ROADMAP Queue 1 item 6)",
     "pipeline": "pipeline parallelism (ROADMAP Queue 1 item 12)",
     "distributed": "multi-GPU (ROADMAP Queue 1 item 9)",
     "autotune": "kernel block-size autotuning (ROADMAP Queue 1 item 3; "
@@ -213,6 +222,11 @@ class TrainFinetuneRecipeForNextTokenPrediction:
         self.model = cfg.get("model").instantiate(
             seed=self.rng.seed_for(_MODEL_INIT_STREAM), device=self.device)
         self._apply_moe_dispatch_policy()
+
+        # FP8/int8 quantized compute (optional)
+        fp8_cfg = cfg.get("fp8")
+        if fp8_cfg is not None:
+            apply_fp8_to_model(self.model, build_fp8_config(fp8_cfg))
 
         loss_cfg = cfg.get("loss_fn")
         self.loss_fn = (loss_cfg.instantiate()

@@ -34,6 +34,13 @@ Phases (any failure exits non-zero without the final ``ok`` line):
    bench YAML's first batch) and at a GPT-2 vocabulary, ragged rows,
    H 4096 and all-ignored labels, with the kernel, plain, library and bound
    times;
+   then the fused quantized matmul (qdot) against its plain version at the
+   sft_fp8 path's shapes (m 8 x 2048 tokens; every Llama-3.2-1B projection
+   forward, dgrad and wgrad in float8 tensorwise; all four operand pairs
+   with both recipes; ragged m; the int8 products of Qwen3-30B-A3B's
+   attention): int8 bit-identical, fp8 within a relative L2 limit, with
+   kernel, plain, library (torch._scaled_mm / torch._int_mm), bf16
+   torch.matmul and bound times (``qdot_case`` lines);
 7. sft: Llama-3.2-1B at full width and depth trained by the port's recipe
    on ``automodel_tpu_torch/examples/llama3_2_1b_sft.yaml`` (MaskedCE):
    the first step's loss and gradient (2 rows of the first batch) through
@@ -49,6 +56,11 @@ Phases (any failure exits non-zero without the final ``ok`` line):
    steps with the attention and linear-CE launch counts zeroed just before
    and read just after, the producer thread's host seconds, and a profiled
    window; its peak memory must stay below the MaskedCE phase's;
+   sft_fp8: the same YAML with ``--fp8.enabled true --fp8.dtype float8``
+   (float8 tensorwise quantized compute): every projection through qdot
+   (28 launches per layer and microbatch), the first step through every
+   kernel against every plain version, and the loss after 8 steps beside
+   the bf16 phase's;
 9. sft_moe: Qwen3-30B-A3B at its published widths and 4 of its 48 layers
    (``automodel_tpu_torch/examples/qwen3_30b_a3b_sft.yaml``, the bench
    YAML's data, optimizer and fused loss): first the grouped-matmul
@@ -60,12 +72,18 @@ Phases (any failure exits non-zero without the final ``ok`` line):
    with kernel, plain, library (``torch._grouped_mm`` where torch has it)
    and bound times; then the first step through every kernel against every
    plain version, and the timed steps with the gmm / tgmm counts held to
-   9 / 3 per layer and microbatch.
+   9 / 3 per layer and microbatch;
+10. sft_moe_fp8: the same with ``--fp8.enabled true --fp8.dtype int8``:
+   first the quantized grouped matmul (gmm_quant) against its plain version
+   at the same four group layouts, int8 and e4m3, and the backward's dlhs
+   (``gmm_quant_case`` lines), then the training with gmm_quant 9, tgmm 3,
+   bf16 gmm 0 and qdot 16 launches per layer and microbatch.
 
 The second-to-last line is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.
 """
 
+import dataclasses
 import json
 import math
 import os
@@ -76,6 +94,7 @@ import time
 REPO = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 BF16_OPS_PER_S = 989e12            # H100 SXM dense bf16 tensor-core peak
+INT8_FP8_OPS_PER_S = 1979e12       # H100 SXM dense fp8 / int8 peak
 L2_FLUSH_BYTES = 64 << 20          # > the 50 MB L2: each timed launch is cold
 
 # bf16 output: one ulp at |x| in [2, 4) is 1.6e-2, and the two versions
@@ -100,6 +119,22 @@ GRAD_REL_L2 = 2e-2
 # run of this script).  A wrong kernel moves both by O(1).
 SFT_LOSS_REL_TOL = 1e-2
 SFT_GRAD_REL_L2 = 1e-1
+# The same check under quantized compute (sft_fp8, sft_moe_fp8).  8-bit
+# codes are coarse, so a perturbation of a few ulps upstream of a
+# quantization flips the codes of the values that sit near a rounding
+# midpoint, and each flip moves a product by a whole step; over the layers
+# the flips compound.  Two equally right computations then differ by far
+# more than 10 %: under float8 on the H100, the kernels against themselves
+# (the dQ atomics' order) by 19 % (relative L2 of the whole gradient) and
+# against the plain versions by 33 %; on the CPU, a 16-layer tiny Llama
+# whose fp8 products sum in fp32 instead of float64 differs by 7 % (16 % at
+# layer 0).  So the quantized limit is QUANT_GRAD_FLOOR_FACTOR times this
+# run's kernel-vs-kernel floor, at least SFT_GRAD_REL_L2 and at most
+# QUANT_GRAD_REL_L2_CAP: an unrelated gradient is ~141 % off, a wrong
+# kernel O(1).  The kernels themselves are held exactly (int8) or to 1e-3
+# (fp8) by their own cases.
+QUANT_GRAD_FLOOR_FACTOR = 3.0
+QUANT_GRAD_REL_L2_CAP = 0.6
 SFT_YAML = os.path.join(REPO, "automodel_tpu_torch", "examples",
                         "llama3_2_1b_sft.yaml")
 BENCH_YAML = os.path.join(REPO, "automodel_tpu_torch", "examples",
@@ -114,6 +149,13 @@ LCE_ATOL = LCE_RTOL = 2e-2
 GMM_REL_L2 = 2e-2
 MOE_YAML = os.path.join(REPO, "automodel_tpu_torch", "examples",
                         "qwen3_30b_a3b_sft.yaml")
+# quantized matmuls (qdot, gmm_quant), fp8 operands: the kernel and the
+# plain version multiply the same codes, the kernel summing in the tensor
+# cores' fp32 accumulator, the plain version in float64 (measured ~1e-7
+# apart); relative L2 over the whole output.  A
+# wrong code, scale or tile moves it by O(1e-2) to O(1).  int8 products are
+# held bit-identical instead (exact int32 sums, the same fp32 rescale).
+QDOT_FP8_REL_L2 = 1e-3
 # linear-CE backward, relative L2 of dh and dW over the whole tensor: both
 # versions round dlogits to bf16 before the products (the TPU kernel's own
 # rounding, automodel_tpu/ops/linear_ce_kernel.py:231, :258) and the
@@ -154,10 +196,11 @@ def time_ms(fn, iters, flush=None, warmup=3):
     return total / iters
 
 
-def roofline_ms(ops, nbytes):
+def roofline_ms(ops, nbytes, ops_per_s=BF16_OPS_PER_S):
     """(bound_ms, bound_by): the larger of ``nbytes`` over HBM bandwidth and
-    ``ops`` over the bf16 tensor-core peak."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / BF16_OPS_PER_S
+    ``ops`` over the tensor-core peak (bf16 unless ``ops_per_s`` says
+    otherwise)."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / ops_per_s
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -879,6 +922,334 @@ def gmm_phase(recipe, batch):
 
 
 # ---------------------------------------------------------------------------
+# quantized-matmul kernel phases
+# ---------------------------------------------------------------------------
+QDOT_SHAPES = [
+    # (projection, k, n) of Llama-3.2-1B's layers at m = 8 x 2048 tokens
+    ("q_o_proj", 2048, 2048), ("k_v_proj", 2048, 512),
+    ("gate_up_proj", 2048, 8192), ("down_proj", 8192, 2048)]
+QDOT_PAIRS = {   # (a, b) operand types of each product (_gemm_dtypes)
+    ("float8", "forward"): ("float8_e4m3fn", "float8_e4m3fn"),
+    ("float8", "dgrad"): ("float8_e5m2", "float8_e4m3fn"),
+    ("float8", "wgrad"): ("float8_e4m3fn", "float8_e5m2"),
+    ("int8", "forward"): ("int8", "int8"),
+    ("int8", "dgrad"): ("int8", "int8"),
+    ("int8", "wgrad"): ("int8", "int8"),
+}
+
+
+def qdot_cases_list():
+    """(name, dtype, recipe, orientation, m, k, n) of the qdot cases: the
+    sft_fp8 products (float8 tensorwise; each Llama projection forward,
+    dgrad and wgrad); the four operand pairs x both recipes at the gate/up
+    shape; a ragged m for each pair; the int8 products of the sft_moe_fp8
+    path (Qwen3-30B-A3B attention: q 2048 -> 4096, o 4096 -> 2048).  A
+    projection K_in -> N_out gives the forward (k, n) = (K_in, N_out), the
+    dgrad (N_out, K_in) and the wgrad (K_in, N_out) contracting over the m
+    tokens.  The first stands for the kernel in the JSON line."""
+    M = 16384
+
+    def kn(o, k_in, n_out):
+        return (n_out, k_in) if o == "dgrad" else (k_in, n_out)
+
+    cases = [(f"sft_fp8_{p}_{o}", "float8", "tensorwise", o, M,
+              *kn(o, k, n))
+             for p, k, n in QDOT_SHAPES
+             for o in ("forward", "dgrad", "wgrad")]
+    for dtype, o in (("float8", "forward"), ("float8", "dgrad"),
+                     ("float8", "wgrad"), ("int8", "forward")):
+        pair = "_".join(t.removeprefix("float8_")
+                        for t in QDOT_PAIRS[(dtype, o)])
+        cases.append((f"{pair}_rowwise_gate_up", dtype, "rowwise", o, M,
+                      *kn(o, 2048, 8192)))
+        cases.append((f"{pair}_ragged_m", dtype, "tensorwise", o, M - 37,
+                      2048, 2048))
+    cases += [(f"sft_moe_fp8_{p}_{o}", "int8", "tensorwise", o, M,
+               *kn(o, k, n))
+              for p, k, n in (("q_proj", 2048, 4096), ("o_proj", 4096, 2048))
+              for o in ("forward", "dgrad", "wgrad")]
+    return cases
+
+
+def qdot_operands(orientation, m, k, n, seed):
+    """bf16 operands as the training products hand them to qdot: forward
+    x [m, k] @ W^T (W [n, k], an nn.Linear weight), dgrad g [m, k] @ W
+    (W [k, n]), wgrad x^T @ g contracting over the m token rows (a is the
+    [k, m] view of x [m, k], b is g [m, n]; the product is [k, n])."""
+    import torch
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def t(*shape, scale=1.0):
+        return (torch.randn(*shape, device=dev, generator=g)
+                * scale).bfloat16()
+
+    if orientation == "forward":
+        return t(m, k), t(n, k, scale=0.02).t()
+    if orientation == "dgrad":
+        return t(m, k), t(k, n, scale=0.02)
+    return t(m, k).t(), t(m, n)       # [k, m] M-major, [m, n]: K = m
+
+
+def qdot_library(a, b, sa, sb, a_q, b_q):
+    """One PyTorch call on the quantized operands, a yardstick the port
+    never calls: ``torch._scaled_mm`` for fp8 (a row-major, b column-major,
+    the scales; bf16 out), ``torch._int_mm`` for int8 (int32 out, unscaled).
+    Quantizing is not timed.  ``(run, to_fp32, None)`` or ``(None, None,
+    reason)``."""
+    import torch
+
+    from automodel_tpu_torch.ops.quant import quant_cast
+
+    aq = quant_cast(a, sa, a_q).contiguous()
+    bq = quant_cast(b, sb, b_q).t().contiguous().t()
+    if a_q == torch.int8:
+        fn = getattr(torch, "_int_mm", None)
+        if fn is None:
+            return None, None, f"torch {torch.__version__} has no _int_mm"
+
+        def run():
+            return fn(aq, bq)
+
+        def to_fp32(out):
+            return out.float() * sa * sb
+    else:
+        fn = getattr(torch, "_scaled_mm", None)
+        if fn is None:
+            return None, None, f"torch {torch.__version__} has no _scaled_mm"
+        # tensorwise: 0-dim scales; rowwise: [m, 1] and [1, n]
+        scale_a = sa.reshape(()) if sa.numel() == 1 else sa.contiguous()
+        scale_b = sb.reshape(()) if sb.numel() == 1 else sb.contiguous()
+
+        def run():
+            return fn(aq, bq, scale_a=scale_a, scale_b=scale_b,
+                      out_dtype=torch.bfloat16)
+
+        def to_fp32(out):
+            return out.float()
+    try:
+        run()
+        torch.cuda.synchronize()
+    except Exception as e:       # a yardstick that refuses these operands
+        return None, None, (f"{fn.__name__} refused: "
+                            f"{str(e).splitlines()[0][:160]}")
+    return run, to_fp32, None
+
+
+def qdot_case(name, dtype, recipe, orientation, m, k, n, flush, seed):
+    """One qdot case: the kernel (fp32 out) against the plain version on
+    the same scales -- int8 bit-identical, fp8 within QDOT_FP8_REL_L2 --
+    then the kernel's time writing bf16 (as the training path does), the
+    plain version's, the library call's, bf16 torch.matmul's and the
+    bound."""
+    import torch
+
+    from automodel_tpu_torch.ops import qdot_kernel as qk
+    from automodel_tpu_torch.ops.quant import _operand_scales
+
+    a_q, b_q = (getattr(torch, t) for t in QDOT_PAIRS[(dtype, orientation)])
+    a, b = qdot_operands(orientation, m, k, n, seed)
+    sa, sb = _operand_scales(a, b, a_q, b_q, recipe == "rowwise")
+    got = qk.qdot_cuda(a, b, sa, sb, a_q, b_q)
+    torch.cuda.synchronize()
+    ref = qk.qdot_plain(a, b, sa, sb, a_q, b_q)
+    check(bool(torch.isfinite(got).all()), f"qdot {name}: non-finite")
+    err = float((got - ref).abs().max())
+    rel = float((got - ref).norm() / ref.norm().clamp(min=1e-30))
+    if a_q == torch.int8:
+        check(torch.equal(got, ref),
+              f"qdot {name}: int8 kernel is not bit-identical to the plain "
+              f"version (max_abs_err {err:.3e})")
+    else:
+        check(rel <= QDOT_FP8_REL_L2,
+              f"qdot {name}: kernel vs plain relative L2 {rel:.3e} > "
+              f"{QDOT_FP8_REL_L2}")
+    lib, to_fp32, why = qdot_library(a, b, sa, sb, a_q, b_q)
+    lib_ms = None
+    if lib is not None:
+        lib_rel = float((to_fp32(lib()) - ref).norm()
+                        / ref.norm().clamp(min=1e-30))
+        if lib_rel <= 1e-2:
+            lib_ms = time_ms(lib, 10, flush)
+        else:
+            why = f"the library computes something else ({lib_rel:.3e})"
+    del got, ref
+    kernel = lambda: qk.qdot_cuda(a, b, sa, sb, a_q, b_q,    # noqa: E731
+                                  out_dtype=torch.bfloat16)
+    nbytes = 2.0 * (m * k + k * n + m * n) + 4.0 * (sa.numel() + sb.numel())
+    bound_ms, bound_by = roofline_ms(2.0 * m * k * n, nbytes,
+                                     ops_per_s=INT8_FP8_OPS_PER_S)
+    row = dict(case=name, dtype=dtype, recipe=recipe,
+               orientation=orientation, a=str(a_q).removeprefix("torch."),
+               b=str(b_q).removeprefix("torch."), m=m, k=k, n=n,
+               max_abs_err=err, rel_l2=rel,
+               bit_identical=a_q == torch.int8,
+               ms=time_ms(kernel, 10, flush),
+               plain_ms=time_ms(lambda: qk.qdot_plain(a, b, sa, sb, a_q, b_q),
+                                1, flush, warmup=1),
+               library_ms=lib_ms, library_note=why,
+               bf16_matmul_ms=time_ms(lambda: torch.matmul(a, b), 10, flush),
+               bound_ms=bound_ms, bound_by=bound_by)
+    print("qdot_case " + json.dumps(row), flush=True)
+    del a, b
+    torch.cuda.empty_cache()
+    return row
+
+
+def qdot_phase(flush):
+    return [qdot_case(*c, flush, seed=400 + i)
+            for i, c in enumerate(qdot_cases_list())]
+
+
+def gmm_quant_case(name, sizes, m, k, n, qdtype, flush, seed,
+                   dlhs=False):
+    """One gmm_quant case at the MoE path's widths, tensorwise per-group
+    scales (the path's recipe): the kernel (its quantize pass, grouped
+    product and rescale) against the plain version on the same scales --
+    int8 bit-identical, fp8 within QDOT_FP8_REL_L2, rows past the groups
+    exactly 0 -- then the kernel's time writing bf16, the whole wrapper's
+    (scales and kernel), the plain version's, the library's (on codes
+    quantized beforehand, not timed), the bf16 gmm kernel's and the bound.
+    ``dlhs``: the backward's product, an e5m2 gradient against the experts
+    read as the transpose view of their own storage."""
+    import torch
+
+    from automodel_tpu_torch.ops import gmm_kernel as gk
+    from automodel_tpu_torch.ops import gmm_quant_kernel as gq
+    from automodel_tpu_torch.ops.quant import quant_cast
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    E = sizes.numel()
+    total = int(sizes.sum())
+    lhs = torch.randn(m, k, device=dev, generator=g).bfloat16()
+    lhs[total:] = 0                    # the sorted buffer's tail rows
+    experts = (torch.randn(E, n, k, device=dev, generator=g)
+               * 0.02).bfloat16()
+    # the forward's experts [E, k, n]; the backward's rhs^T is the transpose
+    # view of its own [E, n, k] weights
+    rhs = experts.transpose(1, 2) if dlhs else \
+        experts.transpose(1, 2).contiguous()
+    gs = sizes.to(dev)
+    a_q = torch.float8_e5m2 if dlhs else qdtype
+    s_lhs = gq.lhs_scales(lhs, gs, a_q, "tensorwise")
+    s_rhs = gq.rhs_scales(rhs, qdtype, "tensorwise").contiguous()
+    args = (lhs, rhs, gs, s_lhs, s_rhs, a_q, qdtype)
+    got = gq.gmm_quant_cuda(*args)
+    torch.cuda.synchronize()
+    ref = gq.gmm_quant_plain(*args)
+    check(bool(torch.isfinite(got).all()), f"gmm_quant {name}: non-finite")
+    check(bool((got[total:] == 0).all()),
+          f"gmm_quant {name}: rows past the groups are not 0")
+    err = float((got - ref).abs().max())
+    rel = float((got - ref).norm() / ref.norm().clamp(min=1e-30))
+    if qdtype == torch.int8:
+        check(torch.equal(got, ref),
+              f"gmm_quant {name}: int8 kernel is not bit-identical to the "
+              f"plain version (max_abs_err {err:.3e})")
+    else:
+        check(rel <= QDOT_FP8_REL_L2,
+              f"gmm_quant {name}: kernel vs plain relative L2 {rel:.3e} > "
+              f"{QDOT_FP8_REL_L2}")
+    why = None
+    lib_ms = None
+    fn = getattr(torch, "_scaled_grouped_mm", None)
+    if qdtype == torch.int8:
+        why = "no PyTorch grouped int8 product"
+    elif fn is None:
+        why = f"torch {torch.__version__} has no _scaled_grouped_mm"
+    else:
+        ends = torch.cumsum(gs, 0, dtype=torch.int32)
+        lhs_q = quant_cast(lhs, s_lhs, a_q)
+        # [E, k, n] column-major codes and rowwise scales, as it takes them
+        rhs_q = quant_cast(experts.transpose(1, 2), s_rhs, qdtype)
+        sa_lib = s_lhs[:, 0].contiguous()
+        sb_lib = s_rhs.expand(E, 1, n)[:, 0].contiguous()
+
+        def lib():
+            return fn(lhs_q, rhs_q, sa_lib, sb_lib, offs=ends,
+                      out_dtype=torch.bfloat16)
+        try:
+            out = lib()
+            torch.cuda.synchronize()
+            lib_rel = float((out[:total].float() - ref[:total]).norm()
+                            / ref[:total].norm().clamp(min=1e-30))
+            del out
+            if lib_rel <= 1e-2:
+                lib_ms = time_ms(lib, 10, flush)
+            else:
+                why = (f"_scaled_grouped_mm computes something else here "
+                       f"({lib_rel:.3e})")
+        except Exception as e:   # a yardstick that refuses these operands
+            why = f"_scaled_grouped_mm refused: {str(e).splitlines()[0][:160]}"
+    del got, ref
+    nonempty = int((sizes > 0).sum())
+    bound_ms, bound_by = roofline_ms(
+        2.0 * total * k * n, 2.0 * (total * k + nonempty * k * n + m * n)
+        + 4.0 * (m + E * n), ops_per_s=INT8_FP8_OPS_PER_S)
+    bf16_rhs = experts if dlhs else rhs
+    row = dict(
+        case=name, a=str(a_q).removeprefix("torch."),
+        b=str(qdtype).removeprefix("torch."), m=m, k=k, n=n, E=E,
+        rows_in_groups=total, empty_groups=int((sizes == 0).sum()),
+        max_group=int(sizes.max()), max_abs_err=err, rel_l2=rel,
+        bit_identical=qdtype == torch.int8,
+        ms=time_ms(lambda: gq.gmm_quant_cuda(*args[:-1], qdtype,
+                                             torch.bfloat16), 10, flush),
+        wrapper_ms=time_ms(lambda: gq._quantized_gmm(
+            lhs, rhs, gs, a_qdtype=a_q, b_qdtype=qdtype,
+            recipe="tensorwise", out_dtype=torch.bfloat16, impl="kernel"),
+            5, flush),
+        plain_ms=time_ms(lambda: gq.gmm_quant_plain(*args), 1, flush,
+                         warmup=1),
+        library_ms=lib_ms, library_note=why,
+        bf16_gmm_ms=time_ms(lambda: gk.gmm_cuda(lhs, bf16_rhs, gs,
+                                                trans_rhs=dlhs), 10, flush),
+        bound_ms=bound_ms, bound_by=bound_by, recipe="tensorwise",
+        dtype="int8" if qdtype == torch.int8 else "float8",
+        product="dlhs" if dlhs else "forward")
+    print("gmm_quant_case " + json.dumps(row), flush=True)
+    del lhs, experts, rhs, args
+    torch.cuda.empty_cache()
+    return row
+
+
+def gmm_quant_phase(recipe, batch):
+    """gmm_quant at the four gmm_case group layouts of the MoE path
+    (routed gate/up, routed down, one hot expert, ragged with empty
+    experts), int8 (the sft_moe_fp8 recipe) and e4m3 each, plus the
+    backward's dlhs product (e5m2 x e4m3) on the routed gate/up layout."""
+    import torch
+
+    cfg = recipe.model.config
+    H, I = cfg.hidden_size, recipe.model.layer_cls.expert_inter(cfg)
+    sizes, padded, n_pad, routed = routed_group_sizes(recipe, batch)
+    sizes, padded = sizes.cpu(), padded.cpu()
+    hot = torch.zeros_like(sizes)
+    hot[37] = routed
+    ragged = sizes.clone()
+    ragged[[0, 5, 64, 126, 127]] = 0
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    layouts = [("routed_gate_up", padded, H, I),
+               ("routed_down", padded, I, H),
+               ("hot_expert", hot, H, I),
+               ("ragged_empty", ragged, H, I)]
+    rows = []
+    for qdtype in (torch.int8, torch.float8_e4m3fn):
+        for i, (name, gs, k, n) in enumerate(layouts):
+            label = f"{name}_{'int8' if qdtype == torch.int8 else 'e4m3'}"
+            rows.append(gmm_quant_case(label, gs, n_pad, k, n, qdtype, flush,
+                                       seed=500 + len(rows)))
+    rows.append(gmm_quant_case("routed_gate_up_dlhs_e5m2_e4m3", padded,
+                               n_pad, I, H, torch.float8_e4m3fn, flush,
+                               seed=500 + len(rows), dlhs=True))
+    del flush
+    torch.cuda.empty_cache()
+    return rows
+
+
+# ---------------------------------------------------------------------------
 # engine phase
 # ---------------------------------------------------------------------------
 def engine_phase():
@@ -1004,6 +1375,9 @@ def engine_phase():
 
 # device-time buckets of a profiled window, by kernel name (first match)
 KERNEL_KINDS = [
+    # qdot, gmm_quant and their quantize pass (csrc/qdot.cu, gmm_quant.cu,
+    # gemm8.cuh)
+    ("quantized_mm", ("qdotk::", "gmmq::", "g8::")),
     ("grouped_mm", ("gmm_kernel",)),    # gmm and tgmm (csrc/gmm.cu)
     ("linear_ce", ("lce_",)),           # before gemm: not cuBLAS GEMMs
     ("gemm", ("nvjet", "gemm", "cutlass", "sm90_xmma")),
@@ -1064,10 +1438,13 @@ def profile_window(run, steps, label, attn_names):
 # ---------------------------------------------------------------------------
 # sft phase
 # ---------------------------------------------------------------------------
-def first_step_check(recipe, label, routes, compare):
+def first_step_check(recipe, label, routes, compare, quantized=False):
     """Loss and whole gradient of the first step (2 rows of the first batch,
     the recipe's initial weights) through each route ``(name, loss_fn,
-    attn_impl[, gmm_impl])``; nothing is updated.  Each pair in ``compare`` must agree
+    attn_impl[, gmm_impl[, qdot_impl]])`` (the grouped matmuls' and the
+    quantized projections' routes); nothing is updated.  Each pair in
+    ``compare`` must agree (``quantized``: the gradient within the
+    quantized limit, derived from the run's own kernel-vs-kernel floor)
     within the loss and gradient limits; ``kernel_again`` (a second kernel
     pass) measures the run-to-run floor (the dQ atomics of the attention
     backward sum in another order each run)."""
@@ -1084,9 +1461,10 @@ def first_step_check(recipe, label, routes, compare):
     mb = {k: v[0] for k, v in to_device_batch(
         [{k: v[:2] for k, v in first.items()}], recipe.device).items()}
     losses, grads = {}, {}
-    for name, loss_fn, attn_impl, *gmm_impl in routes:
+    for name, loss_fn, attn_impl, *impls in routes:
         if hasattr(model, "gmm_impl"):        # the MoE models' experts
-            model.gmm_impl = gmm_impl[0] if gmm_impl else None
+            model.gmm_impl = impls[0] if impls else None
+        model.qdot_impl = impls[1] if len(impls) > 1 else None
         model.zero_grad(set_to_none=True)
         loss = microbatch_loss(model, loss_fn, mb, attn_impl=attn_impl)
         loss.backward()
@@ -1098,6 +1476,7 @@ def first_step_check(recipe, label, routes, compare):
     model.zero_grad(set_to_none=True)
     if hasattr(model, "gmm_impl"):
         model.gmm_impl = None
+    model.qdot_impl = None
 
     def rel_l2(a, b):
         num = den = 0.0
@@ -1121,19 +1500,26 @@ def first_step_check(recipe, label, routes, compare):
             worst_params=[dict(name=n, rel_l2=r) for r, n in worst])
     del grads
     torch.cuda.empty_cache()
+    grad_tol = SFT_GRAD_REL_L2
+    if quantized:
+        grad_tol = min(QUANT_GRAD_REL_L2_CAP, max(
+            SFT_GRAD_REL_L2,
+            QUANT_GRAD_FLOOR_FACTOR * out["grad_rel_l2_kernel_vs_kernel"]))
+        out["grad_tol"] = grad_tol
     print(f"{label} first step: " + json.dumps(out), flush=True)
     for a, b in compare:
         got = out[f"{a}_vs_{b}"]
         check(got["loss_rel_err"] <= SFT_LOSS_REL_TOL,
               f"{label} first-step loss {a} vs {b}: relative error "
               f"{got['loss_rel_err']:.3e}")
-        check(got["grad_rel_l2"] <= SFT_GRAD_REL_L2,
+        check(got["grad_rel_l2"] <= grad_tol,
               f"{label} first-step gradient {a} vs {b}: relative L2 "
-              f"{got['grad_rel_l2']:.3e}")
+              f"{got['grad_rel_l2']:.3e} > {grad_tol:.3e}")
 
 
-def train_phase(label, yaml_path):
-    """Set up the SFT recipe on ``yaml_path``, check its first step, run
+def train_phase(label, yaml_path, overrides=(), bf16=None):
+    """Set up the SFT recipe on ``yaml_path`` (plus CLI ``overrides``),
+    check its first step, run
     2 warm-up steps, then the timed steps with every launch count zeroed
     just before and read just after, then a profiled window.  With the
     fused linear CE (the bench and MoE YAMLs) the linear-CE counts are held
@@ -1143,7 +1529,13 @@ def train_phase(label, yaml_path):
     on its routed group sizes; its first step is held against every kernel's
     plain version, and its grouped-matmul counts to 9 gmm launches (3
     forward, 3 in the remat re-forward, 3 dlhs) and 3 tgmm launches per
-    layer and microbatch; a dense model launches none."""
+    layer and microbatch; a dense model launches none.  With quantized
+    compute on (``--fp8.enabled true``) every dense projection launches
+    qdot 4 times per layer and microbatch (forward, remat re-forward, dx,
+    dw), the MoE experts run gmm_quant 9 times (and no bf16 gmm) beside
+    the 3 bf16 tgmm, the first step is held against every kernel's plain
+    version, and ``bf16`` (the same YAML's unquantized report) gives the
+    loss after 8 steps to print beside this one's."""
     import torch
 
     from automodel_tpu_torch.config.loader import parse_args_and_load_config
@@ -1151,12 +1543,15 @@ def train_phase(label, yaml_path):
     from automodel_tpu_torch.loss.linear_ce import FusedLinearCrossEntropy
     from automodel_tpu_torch.loss.masked_ce import MaskedCrossEntropy
     from automodel_tpu_torch.ops import gmm_kernel as gk
+    from automodel_tpu_torch.ops import gmm_quant_kernel as gq
     from automodel_tpu_torch.ops import linear_ce_kernel as lce
+    from automodel_tpu_torch.ops import qdot_kernel as qk
     from automodel_tpu_torch.ops import splash_attention as sa
     from automodel_tpu_torch.recipes.llm import train_ft
 
     cfg = parse_args_and_load_config(
-        ["-c", yaml_path, "--step_scheduler.max_steps", str(SFT_WARMUP)])
+        ["-c", yaml_path, "--step_scheduler.max_steps", str(SFT_WARMUP),
+         *overrides])
     t0 = time.perf_counter()
     recipe = train_ft.TrainFinetuneRecipeForNextTokenPrediction(cfg).setup()
     torch.cuda.synchronize()
@@ -1164,6 +1559,8 @@ def train_phase(label, yaml_path):
     L = mcfg.num_hidden_layers
     fused = isinstance(recipe.loss_fn, FusedLinearCrossEntropy)
     is_moe = hasattr(recipe.model, "gmm_impl")
+    quant = recipe.model.quant
+    quantized = quant is not None and quant.enabled
     ffn = (f"{mcfg.num_local_experts} experts of "
            f"{recipe.model.layer_cls.expert_inter(mcfg)}, top-"
            f"{mcfg.num_experts_per_tok}" if is_moe
@@ -1174,24 +1571,33 @@ def train_phase(label, yaml_path):
           f"{mcfg.num_key_value_heads}, head_dim {mcfg.head_dim}), "
           f"{sum(p.numel() for p in recipe.model.parameters())} params "
           f"{recipe.model.param_dtype}, remat {recipe.model.remat_policy}, "
+          f"quantized compute {quant if quantized else 'off'}, "
           f"loss {type(recipe.loss_fn).__name__}, loader "
           f"{type(recipe.dataloader).__name__}, "
           f"set up in {time.perf_counter() - t0:.1f} s", flush=True)
-    gmm_rows = gmm_phase(recipe, first_batch(yaml_path)) if is_moe else None
+    gmm_rows = None
+    if is_moe:
+        gmm_rows = (gmm_quant_phase if quantized else gmm_phase)(
+            recipe, first_batch(yaml_path))
     if fused:
         check(isinstance(recipe.dataloader, PrefetchDataLoader),
               f"{label}: the loader is {type(recipe.dataloader).__name__}, "
               "not the async input pipeline")
         plain = FusedLinearCrossEntropy(chunk_len=recipe.loss_fn.chunk_len,
                                         impl="plain")
-    if is_moe:
+    if is_moe or quantized:
         # every kernel of the path against its plain version
         first_step_check(
             recipe, label,
-            [("kernel", recipe.loss_fn, "kernel", "kernel"),
-             ("plain", plain, "plain", "plain"),
-             ("kernel_again", recipe.loss_fn, "kernel", "kernel")],
-            [("kernel", "plain")])
+            [("kernel", recipe.loss_fn, "kernel", "kernel", "kernel"),
+             ("plain", plain, "plain", "plain", "plain"),
+             ("kernel_again", recipe.loss_fn, "kernel", "kernel", "kernel")]
+            # the quantized products alone through their plain versions
+            + ([("quant_plain", recipe.loss_fn, "kernel", "kernel", "plain")]
+               if quantized else []),
+            [("kernel", "plain")]
+            + ([("kernel", "quant_plain")] if quantized else []),
+            quantized=quantized)
     elif fused:
         first_step_check(
             recipe, label,
@@ -1217,6 +1623,7 @@ def train_phase(label, yaml_path):
     lce.fwd_launches = lce.dlogits_launches = lce.dh_launches = 0
     lce.dw_launches = 0
     gk.gmm_launches = gk.tgmm_launches = 0
+    qk.qdot_launches = gq.gmm_quant_launches = 0
     recipe.step_scheduler.max_steps = SFT_WARMUP + SFT_STEPS
     t0 = time.perf_counter()
     recipe.run_train_validation_loop()
@@ -1225,7 +1632,9 @@ def train_phase(label, yaml_path):
     fwd, bwd = sa.fwd_launches, sa.bwd_launches
     lce_counts = dict(fwd=lce.fwd_launches, dlogits=lce.dlogits_launches,
                       dh=lce.dh_launches, dw=lce.dw_launches)
-    gmm_counts = dict(gmm=gk.gmm_launches, tgmm=gk.tgmm_launches)
+    gmm_counts = dict(gmm=gk.gmm_launches, tgmm=gk.tgmm_launches,
+                      gmm_quant=gq.gmm_quant_launches)
+    qdot_count = qk.qdot_launches
     peak = torch.cuda.max_memory_allocated()
     timed = recipe.history[SFT_WARMUP:]
     check(len(timed) == SFT_STEPS, f"{label} ran {len(timed)} timed steps")
@@ -1246,12 +1655,22 @@ def train_phase(label, yaml_path):
     check(lce_counts == want,
           f"{label}: linear-CE launches {lce_counts} != {want} ({micro} "
           f"microbatches of {rows} rows, {per_call} backward chunks each)")
-    want = (dict(gmm=9 * L * micro, tgmm=3 * L * micro) if is_moe
-            else dict(gmm=0, tgmm=0))
+    experts = ("gmm_quant" if quantized else "gmm")
+    want = dict(gmm=0, tgmm=0, gmm_quant=0)
+    if is_moe:
+        want.update({experts: 9 * L * micro, "tgmm": 3 * L * micro})
     check(gmm_counts == want,
           f"{label}: grouped-matmul launches {gmm_counts} != {want} ({L} "
           f"layers x {micro} microbatches; per layer 3 forward, 3 remat "
-          "re-forward and 3 dlhs gmm, 3 tgmm)")
+          f"re-forward and 3 dlhs {experts}, 3 tgmm)")
+    # the projections through maybe_qdot: q, k, v, o, and the dense
+    # SwiGLU's gate, up, down (every width here a multiple of 16)
+    projections = 4 if is_moe else 7
+    want_qdot = 4 * projections * L * micro if quantized else 0
+    check(qdot_count == want_qdot,
+          f"{label}: qdot launches {qdot_count} != {want_qdot} ({L} layers "
+          f"x {micro} microbatches x {projections} projections x 4: "
+          "forward, remat re-forward, dx, dw)")
     for m in recipe.history:
         check(all(map(math.isfinite, (m["loss"], m["grad_norm"]))),
               f"{label} step {m['step']}: non-finite loss/grad_norm")
@@ -1271,7 +1690,11 @@ def train_phase(label, yaml_path):
         / wall, flops_per_token=flops_per_token,
         mfu=tok_s * flops_per_token / BF16_OPS_PER_S,
         fwd_launches=fwd, bwd_launches=bwd, linear_ce_launches=lce_counts,
-        gmm_launches=gmm_counts,
+        gmm_launches=gmm_counts, qdot_launches=qdot_count,
+        quant=dataclasses.asdict(quant) if quantized else None,
+        loss_after_8_steps=recipe.history[7]["loss"],
+        bf16_loss_after_8_steps=(bf16["loss_after_8_steps"] if bf16
+                                 else None),
         producer_host_s=getattr(recipe.dataloader, "produce_s", 0.0)
         - produced_s,
         peak_mem_bytes=peak,
@@ -1314,7 +1737,7 @@ def main():
 
     t0 = time.perf_counter()
     sources = ["paged_decode", "flash_attn_fwd", "flash_attn_bwd",
-               "linear_ce_fwd", "linear_ce_bwd", "gmm"]
+               "linear_ce_fwd", "linear_ce_bwd", "gmm", "qdot", "gmm_quant"]
     build.build_many(sources)
     print(f"build: {', '.join(n + '.cu' for n in sources)} (one nvcc each, "
           f"in parallel) in {time.perf_counter() - t0:.1f} s", flush=True)
@@ -1325,6 +1748,7 @@ def main():
     cases = kernel_phase(flush)
     attn_cases = attention_phase(flush, seg)
     lce_cases = linear_ce_phase(flush, bench_labels)
+    q_cases = qdot_phase(flush)
     del flush
     main_run = engine_phase()
     torch.cuda.empty_cache()
@@ -1335,7 +1759,15 @@ def main():
           f"sft_bench peak memory {bench['peak_mem_bytes']} is not below the "
           f"MaskedCE sft phase's {sft['peak_mem_bytes']}")
     torch.cuda.empty_cache()
+    fp8 = train_phase("sft_fp8", BENCH_YAML,
+                      ["--fp8.enabled", "true", "--fp8.dtype", "float8"],
+                      bf16=bench)
+    torch.cuda.empty_cache()
     moe = train_phase("sft_moe", MOE_YAML)
+    torch.cuda.empty_cache()
+    moe_fp8 = train_phase("sft_moe_fp8", MOE_YAML,
+                          ["--fp8.enabled", "true", "--fp8.dtype", "int8"],
+                          bf16=moe)
 
     rep = cases[0]
     kernels = [{
@@ -1397,6 +1829,29 @@ def main():
             "bound_ms": got["bound_ms"], "bound_by": got["bound_by"],
             "library_ms": got["library_ms"],
         })
+    rep = q_cases[0]          # the sft_fp8 forward of q_proj
+    kernels.append({
+        "name": "qdot", "route": "cuda",
+        "source": "automodel_tpu_torch/csrc/qdot.cu",
+        "replaces": "automodel_tpu/ops/qdot_kernel.py:89",
+        "launches": fp8["qdot_launches"],
+        "max_abs_err": max(c["max_abs_err"] for c in q_cases),
+        "ms": rep["ms"], "plain_ms": rep["plain_ms"],
+        "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],
+        "library_ms": rep["library_ms"],
+    })
+    gq_cases = moe_fp8["gmm_cases"]
+    rep = gq_cases[0]         # routed gate/up rows, int8
+    kernels.append({
+        "name": "gmm_quant", "route": "cuda",
+        "source": "automodel_tpu_torch/csrc/gmm_quant.cu",
+        "replaces": "automodel_tpu/ops/gmm_quant_kernel.py:182",
+        "launches": moe_fp8["gmm_launches"]["gmm_quant"],
+        "max_abs_err": max(c["max_abs_err"] for c in gq_cases),
+        "ms": rep["ms"], "plain_ms": rep["plain_ms"],
+        "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],
+        "library_ms": rep["library_ms"],
+    })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

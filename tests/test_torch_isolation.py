@@ -56,7 +56,9 @@ def test_engine_import_loads_no_jax():
         .removesuffix(".__init__")
         for p in _port_sources() if p.startswith(PORT + os.sep))
     for mod in ("recipes.llm.train_ft", "ops.gmm_kernel", "ops.moe",
-                "models.mixtral", "models.qwen3_moe"):
+                "models.mixtral", "models.qwen3_moe", "ops.quant",
+                "ops.qdot_kernel", "ops.gmm_quant_kernel",
+                "quantization.fp8"):
         assert "automodel_tpu_torch." + mod in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"

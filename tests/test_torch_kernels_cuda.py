@@ -495,3 +495,185 @@ def test_cuda_gmm_refuses_what_it_does_not_take(cuda_device):
         gk.gmm(lhs.float(), rhs.float(), gs)
     with pytest.raises(ValueError, match="multiples of 8"):
         gk.gmm(lhs[:, :12].contiguous(), rhs[:, :12].contiguous(), gs)
+
+
+# ---------------------------------------------------------------------------
+# quantized matmuls (csrc/qdot.cu, csrc/gmm_quant.cu)
+# ---------------------------------------------------------------------------
+QPAIRS = [("e4m3_e4m3", torch.float8_e4m3fn, torch.float8_e4m3fn),
+          ("e5m2_e4m3", torch.float8_e5m2, torch.float8_e4m3fn),
+          ("e4m3_e5m2", torch.float8_e4m3fn, torch.float8_e5m2),
+          ("int8_int8", torch.int8, torch.int8)]
+# the three orientations the training products read in place, at a ragged
+# m (forward, dgrad) and a ragged contraction (wgrad: k = token rows)
+QDOT_ORIENTATIONS = ["forward", "dgrad", "wgrad"]
+# fp8: both versions multiply the same codes; the kernel sums in fp32, the
+# plain version in float64, so they differ by fp32 rounding of the sums
+# (~1e-7 relative L2 on the H100); a wrong tile, scale or
+# code moves the result by O(1).  int8: int32 sums are exact and the
+# rescale is the same fp32 product, so the results are bit-identical.
+QDOT_FP8_REL_L2 = 1e-3
+
+
+def make_qdot_case(orientation, m=300, k=256, n=384, seed=0, device="cuda"):
+    """bf16 ``(a [m, k], b [k, n])`` views as the training products give
+    them: forward x @ W^T (W [n, k] row-major), dgrad g @ W (W [k, n]), and
+    wgrad x^T @ g with the contraction over ``m`` token rows."""
+    rng = np.random.default_rng(seed)
+
+    def t(*shape, scale=1.0):
+        return torch.from_numpy(
+            (rng.normal(size=shape) * scale).astype(np.float32)).to(
+            device, torch.bfloat16)
+
+    if orientation == "forward":
+        return t(m, k), t(n, k, scale=0.05).t()
+    if orientation == "dgrad":
+        return t(m, k), t(k, n, scale=0.05)
+    return t(m, k).t(), t(m, n)          # a [k, m] M-major, b [m, n]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rowwise", [False, True], ids=["tensorwise",
+                                                        "rowwise"])
+@pytest.mark.parametrize("pair", QPAIRS, ids=[p[0] for p in QPAIRS])
+@pytest.mark.parametrize("orientation", QDOT_ORIENTATIONS)
+def test_cuda_qdot_matches_plain(orientation, pair, rowwise, cuda_device):
+    """``qdot`` against its plain version on the same scales, fp32 and
+    bf16 out, and into a transposed output; one launch per call; int8
+    bit-identical."""
+    from automodel_tpu_torch.ops import qdot_kernel as qk
+    from automodel_tpu_torch.ops.quant import _operand_scales
+
+    _, a_q, b_q = pair
+    a, b = make_qdot_case(orientation, device=cuda_device)
+    sa, sb = _operand_scales(a, b, a_q, b_q, rowwise)
+    ref = qk.qdot_plain(a, b, sa, sb, a_q, b_q)
+    before = qk.qdot_launches
+    got = qk.qdot_cuda(a, b, sa, sb, a_q, b_q)
+    got_bf16 = qk.qdot_cuda(a, b, sa, sb, a_q, b_q, out_dtype=torch.bfloat16)
+    got_t = torch.empty(b.shape[1], a.shape[0], device=cuda_device).t()
+    qk.qdot_cuda(a, b, sa, sb, a_q, b_q, out=got_t)
+    torch.cuda.synchronize()
+    assert qk.qdot_launches - before == 3
+    assert bool(torch.isfinite(got).all())
+    if a_q == torch.int8:
+        assert torch.equal(got, ref)
+        assert torch.equal(got_t, ref)
+        assert torch.equal(got_bf16, ref.bfloat16())
+    else:
+        assert rel_l2(got, ref) < QDOT_FP8_REL_L2, rel_l2(got, ref)
+        assert rel_l2(got_t, ref) < QDOT_FP8_REL_L2
+        assert rel_l2(got_bf16, ref) < 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float8", "int8"])
+def test_cuda_qdot_autograd_launches_and_matches_plain(dtype, cuda_device):
+    """The autograd Function on the card: 1 launch forward, 2 backward
+    (dx, dw), each against the plain route."""
+    from automodel_tpu_torch.ops import qdot_kernel as qk
+    from automodel_tpu_torch.ops.quant import qdot
+
+    x, wt = make_qdot_case("forward", seed=3, device=cuda_device)
+    dout = torch.randn(x.shape[0], wt.shape[1], device=cuda_device)
+    res = {}
+    for impl in ("plain", "kernel"):
+        xi = x.clone().requires_grad_()
+        W = wt.t().clone().requires_grad_()       # [n, k] as nn.Linear
+        before = qk.qdot_launches
+        out = qdot(xi, W.t(), "rowwise", dtype, impl=impl)
+        (out.float() * dout).sum().backward()
+        torch.cuda.synchronize()
+        assert qk.qdot_launches - before == (3 if impl == "kernel" else 0)
+        res[impl] = (out, xi.grad, W.grad)
+    for got, ref in zip(res["kernel"], res["plain"]):
+        assert got.dtype == ref.dtype == torch.bfloat16
+        if dtype == "int8":
+            assert torch.equal(got, ref)
+        else:
+            assert rel_l2(got, ref) < 1e-2
+
+
+@pytest.mark.cuda
+def test_cuda_qdot_refuses_what_it_does_not_take(cuda_device):
+    """No fallback: fp32 operands, an operand in neither orientation, or a
+    dtype pair _gemm_dtypes never makes raise on the card."""
+    from automodel_tpu_torch.ops import qdot_kernel as qk
+    from automodel_tpu_torch.ops.quant import _operand_scales
+
+    a, b = make_qdot_case("dgrad", m=64, k=64, n=64, device=cuda_device)
+    e4 = torch.float8_e4m3fn
+    sa, sb = _operand_scales(a, b, e4, e4, False)
+    with pytest.raises(ValueError, match="bfloat16"):
+        qk.qdot(a.float(), b.float(), sa, sb, e4, e4)
+    strided = torch.zeros(64, 64, 2, dtype=a.dtype, device=a.device)[..., 0]
+    with pytest.raises(ValueError, match="row-major"):
+        qk.qdot(strided, b, sa, sb, e4, e4)
+    with pytest.raises(ValueError, match="pair"):
+        qk.qdot(a, b, sa, sb, torch.int8, e4)
+
+
+QGMM_CASES = [c for c in GMM_CASES if c[3] % 16 == 0 and c[4] % 16 == 0]
+# the (lhs, rhs) pairs of gmm_quant: forward e4m3 x e4m3, dlhs e5m2 x e4m3,
+# int8 x int8 (each also under the other recipe)
+QGMM_PAIRS = [p for p in QPAIRS if p[0] != "e4m3_e5m2"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("recipe", ["tensorwise", "rowwise"])
+@pytest.mark.parametrize("pair", QGMM_PAIRS, ids=[p[0] for p in QGMM_PAIRS])
+@pytest.mark.parametrize("case", QGMM_CASES, ids=[c[0] for c in QGMM_CASES])
+def test_cuda_gmm_quant_matches_plain(case, pair, recipe, cuda_device):
+    """``gmm_quant`` (its quantize pass and grouped product) against the
+    plain version on the same scales: rows past the groups exactly 0, int8
+    bit-identical, fp8 within ``QDOT_FP8_REL_L2``; one launch.  The e5m2
+    pair (the backward's dlhs) reads the experts as the transpose view of
+    ``[E, n, k]`` storage, the others as ``[E, k, n]``."""
+    from automodel_tpu_torch.ops import gmm_quant_kernel as gq
+
+    _, sizes, m, k, n = case
+    _, a_q, b_q = pair
+    lhs, rhs, _, gs = make_gmm_case(sizes, m, k, n, device=cuda_device)
+    lhs[sum(sizes):] = 0               # the sorted buffer's tail rows
+    if a_q == torch.float8_e5m2:
+        rhs = rhs.transpose(1, 2).contiguous().transpose(1, 2)
+    s_lhs = gq.lhs_scales(lhs, gs, a_q, recipe)
+    s_rhs = gq.rhs_scales(rhs, b_q, recipe).contiguous()
+    before = gq.gmm_quant_launches
+    got = gq.gmm_quant_cuda(lhs, rhs, gs, s_lhs, s_rhs, a_q, b_q)
+    torch.cuda.synchronize()
+    assert gq.gmm_quant_launches - before == 1
+    ref = gq.gmm_quant_plain(lhs, rhs, gs, s_lhs, s_rhs, a_q, b_q)
+    assert bool(torch.isfinite(got).all())
+    assert bool((got[sum(sizes):] == 0).all())
+    if a_q == torch.int8:
+        assert torch.equal(got, ref)
+    else:
+        assert rel_l2(got, ref) < QDOT_FP8_REL_L2, rel_l2(got, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float8", "int8"])
+def test_cuda_gmm_quant_autograd_launches_and_matches_plain(dtype,
+                                                            cuda_device):
+    """The autograd Function on the card: forward one gmm_quant, backward
+    one gmm_quant (dlhs) and one bf16 tgmm, against the plain route."""
+    from automodel_tpu_torch.ops import gmm_kernel as gk
+    from automodel_tpu_torch.ops import gmm_quant_kernel as gq
+
+    lhs, rhs, dout, gs = make_gmm_case([130, 0, 277, 1, 100], 512, 256, 384,
+                                       seed=1, device=cuda_device)
+    res = {}
+    for impl in ("plain", "kernel"):
+        a, b = lhs.clone().requires_grad_(), rhs.clone().requires_grad_()
+        before = (gq.gmm_quant_launches, gk.tgmm_launches, gk.gmm_launches)
+        out = gq.gmm_quant(a, b, gs, dtype, "tensorwise", impl=impl)
+        (out.float() * dout.float()).sum().backward()
+        torch.cuda.synchronize()
+        launched = (gq.gmm_quant_launches - before[0],
+                    gk.tgmm_launches - before[1], gk.gmm_launches - before[2])
+        assert launched == ((2, 1, 0) if impl == "kernel" else (0, 0, 0))
+        res[impl] = (out, a.grad, b.grad)
+    for got, ref in zip(res["kernel"], res["plain"]):
+        assert rel_l2(got, ref) < GMM_REL_L2

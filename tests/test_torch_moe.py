@@ -195,8 +195,18 @@ def test_dispatch_enum_quant_and_sentinel():
     assert moe.MOE_DISPATCHES == jmoe.MOE_DISPATCHES
     with pytest.raises(ValueError, match="moe.dispatch"):
         moe.resolve_moe_dispatch("blocktree")
+    # quantized compute: the onehot oracle ignores ``quant`` and the sorted
+    # path keeps its bf16 grouped matmuls when I (24 here) is no multiple
+    # of 16, as in JAX; both give the unquantized result exactly
+    from automodel_tpu_torch.ops.quant import QuantConfig
+
     gate, wg, wu, wd = _t(*weights(80))
-    x = torch.zeros(1, 4, H)
-    with pytest.raises(NotImplementedError, match="gmm_quant"):
-        moe.moe_mlp_block(x, gate, wg, wu, wd, num_experts_per_tok=2,
-                          quant=object())
+    x = torch.from_numpy(np.random.default_rng(81).normal(
+        size=(1, 4, H)).astype(np.float32))
+    quant = QuantConfig(enabled=True, dtype="int8")
+    for dispatch in ("onehot", "sorted"):
+        ref, _ = moe.moe_mlp_block(x, gate, wg, wu, wd, num_experts_per_tok=2,
+                                   dispatch=dispatch)
+        got, _ = moe.moe_mlp_block(x, gate, wg, wu, wd, num_experts_per_tok=2,
+                                   dispatch=dispatch, quant=quant)
+        torch.testing.assert_close(got, ref, atol=0, rtol=0, msg=dispatch)

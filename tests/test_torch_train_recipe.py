@@ -116,7 +116,6 @@ UNPORTED = [
     ("cp", ["--distributed.cp_size", "2"]),
     ("pp", ["--distributed.pp_size", "2"]),
     ("peft", ["--peft.dim", "8"]),
-    ("fp8", ["--fp8.enabled", "true"]),
     ("autotune", ["--kernels.autotune", "on"]),
     ("remat_policy", ["--model.remat_policy", "save_names:attn_core"]),
     ("linear_ce_xla_bwd", ["--loss_fn._target_",
