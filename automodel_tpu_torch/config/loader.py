@@ -243,3 +243,21 @@ def parse_args_and_load_config(argv: Optional[Sequence[str]] = None,
     _resolve_fn_keys(cfg)
     validate_config_enums(cfg)
     return cfg
+
+
+def dump_yaml_config(data: dict, path: str) -> None:
+    """Write a config (``ConfigNode.to_dict()``) as YAML; leaves YAML cannot
+    represent (a resolved callable) are written as their dotted names, as
+    the JAX package's ``dump_yaml_config`` does."""
+
+    class _Dumper(yaml.SafeDumper):
+        pass
+
+    def _by_name(dumper: yaml.SafeDumper, value: Any):
+        name = getattr(value, "__module__", "") + "." + getattr(
+            value, "__qualname__", getattr(value, "__name__", str(value)))
+        return dumper.represent_str(name.strip("."))
+
+    _Dumper.add_multi_representer(object, _by_name)
+    with open(path, "w") as f:
+        yaml.dump(data, f, Dumper=_Dumper, sort_keys=False)

@@ -3,16 +3,22 @@
 
 Sequence packing uses *segment ids* ``[B, S]`` int (1-based per packed
 sample, 0 = padding), as in the JAX package: a query attends only keys of
-its own segment, and segment 0 never attends nor is attended.  A padding
+its own segment; on the splash rung segment 0 never attends nor is
+attended, on the flash rung it attends itself.  A padding
 mask folds into the segment ids (:func:`fold_padding_into_segments`).
 
-:func:`attention` is the entry point the model calls.  It runs
-``ops/splash_attention.py``: the hand-written CUDA kernels on CUDA tensors,
-the plain PyTorch versions on CPU tensors, and the plain versions on any
-device when the caller asks for ``impl="plain"``.  The JAX package's other
-rungs (XLA SDPA, Pallas flash, ring attention) are not ported: one CUDA
-kernel pair covers the cases splash and flash cover, and ring attention
-waits for multi-GPU.
+:func:`attention` is the entry point the model calls; ``impl`` names the
+rung, as the JAX registry chain is resolved from its head
+(``automodel_tpu/ops/kernel_lib/registry.py``).  By default it runs
+``ops/splash_attention.py`` (the splash rung): the hand-written CUDA
+kernels on CUDA tensors, the plain PyTorch versions on CPU tensors, and the
+plain versions on any device when the caller asks for ``impl="plain"``.
+``impl="flash"`` runs ``ops/flash_attention.py`` (the Pallas MHA flash
+rung's counterpart: kv heads repeated to the query heads, segment 0
+attending segment 0), its kernels on CUDA tensors and its plain versions
+on CPU tensors; like the JAX rung it refuses a soft cap or a window.  The
+JAX package's XLA SDPA and ring-attention rungs are not ported (ring
+attention waits for multi-GPU).
 """
 
 from __future__ import annotations
@@ -89,12 +95,27 @@ def attention(
     """Grouped-query attention over ``[B, S, H, D]`` with causal, segment,
     padding, window and soft-cap masks; differentiable.
 
-    ``impl``: None runs the CUDA kernels on CUDA tensors and the plain
-    PyTorch versions on CPU tensors; ``"plain"`` runs the plain versions
-    on any device (the reference a card run is held against); ``"kernel"``
-    runs the kernels and raises on CPU tensors."""
+    ``impl``: None runs the splash rung's CUDA kernels on CUDA tensors and
+    its plain PyTorch versions on CPU tensors; ``"plain"`` runs the plain
+    versions on any device (the reference a card run is held against);
+    ``"kernel"`` runs the kernels and raises on CPU tensors; ``"flash"``
+    runs the flash rung (its kernels on CUDA tensors, its plain versions
+    on CPU tensors), which raises on a soft cap or a window."""
     from automodel_tpu_torch.ops.splash_attention import splash_attention_bshd
 
+    if impl == "flash":
+        from automodel_tpu_torch.ops.flash_attention import (
+            flash_attention_bshd,
+        )
+
+        if logits_soft_cap is not None or local_window_size is not None:
+            raise NotImplementedError(
+                "the flash rung takes no soft cap and no sliding window "
+                "(the Pallas MHA flash kernel has neither); use the splash "
+                "rung (impl=None)")
+        return flash_attention_bshd(
+            q, k, v, causal=causal, segment_ids=segment_ids,
+            attention_mask=attention_mask, scale=scale)
     if local_window_size is not None and not causal:
         raise NotImplementedError(
             "local_window_size is defined for causal attention only (the "

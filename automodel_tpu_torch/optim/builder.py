@@ -1,32 +1,46 @@
 """Optimizer construction from the YAML ``optimizer`` block (counterpart:
 ``automodel_tpu/optim/builder.py``).
 
-The JAX builder turns ``_target_: torch.optim.AdamW`` into an optax chain
-``scale_by_adam -> add_decayed_weights -> scale(-lr)``:
-``p -= lr * (m_hat / (sqrt(v_hat) + eps) + wd * p)``.  That is
-``torch.optim.AdamW``'s update (decoupled decay ``p *= 1 - lr * wd``, then
-the Adam step), so the port builds the torch optimizer itself; ``Adam``
-maps to ``torch.optim.Adam`` (optax's ``adam`` has no weight decay, so a
-non-zero one raises rather than change meaning).  Weight decay goes on
-every parameter except those named in ``_NO_WEIGHT_DECAY_LEAF_NAMES``, as
-in the JAX decay mask.  The schedule sets ``lr`` and ``weight_decay`` on
-the param groups before each step (:func:`set_hyperparams`).
+The JAX package turns ``_target_: torch.optim.AdamW`` into the optax chain
+``scale_by_adam(mu_dtype) -> add_decayed_weights (masked) ->
+scale_by_learning_rate`` and ``torch.optim.Adam`` into the same chain
+without the decay (a ``weight_decay`` given to Adam is dropped, as there).
+:class:`OptaxAdam` is that chain written out in PyTorch, one parameter at
+a time, with optax's dtypes and the JAX step's arithmetic:
 
-The dtype rule.  optax keeps its moments in ``mu_dtype`` (first) and in
-the gradient dtype (second; the JAX step initialises the state from the
-parameters cast to ``grad_dtype``); torch keeps both in the parameter's
-dtype.  The two agree when every parameter is in ``grad_dtype`` and
-``mu_dtype`` is unset or equal to it -- the bf16 Llama-3.2-1B YAML
-(bf16 params, ``grad_dtype: bfloat16``, ``mu_dtype: bfloat16``) and the
-fp32 tiny YAML -- and :func:`build_optimizer` raises otherwise.  With bf16
-parameters this is the JAX step at ``grad_dtype: bfloat16``: bf16 moments
-and no fp32 master weights.
+* the gradient it takes is the fp32 quotient ``g / token_count`` (the
+  train step divides in fp32, whatever ``grad_dtype`` is);
+* ``mu`` is kept in ``mu_dtype`` (fp32 when unset: the fp32 quotients
+  promote it), ``nu`` in fp32 (optax initialises it in ``grad_dtype`` and
+  the first fp32 update promotes it); ``b1`` multiplies ``mu`` in ``mu``'s
+  dtype, as a weak-typed Python scalar does in JAX;
+* ``mu = fma(1 - b1, g, b1 mu)``, ``nu = fma(1 - b2, g g, b2 nu)``,
+  ``u = mu / ((1 - b1^n) (sqrt(nu / (1 - b2^n)) + eps))``, then
+  ``u = fma(wd, p, u)`` (AdamW) and ``p = fma(u, -lr, p)`` in fp32, cast
+  to the parameter dtype.  That is the program XLA compiles from the optax
+  chain (it folds ``mu_hat / (sqrt(nu_hat) + eps)`` into one division and
+  contracts the multiply-adds); ``torch.addcmul`` is the fused
+  multiply-add here, and 0-dim device tensors keep every scalar in fp32
+  (a Python-number divisor becomes a reciprocal multiply on the card).
+* the learning rate and weight decay are optax's injected hyperparameters:
+  before the first update they are held in ``grad_dtype`` (optax's state
+  is initialised from the parameters cast to it), in fp32 after.
+
+Weight decay goes on every parameter except those named in
+``_NO_WEIGHT_DECAY_LEAF_NAMES``, as in the JAX decay mask; each param
+group carries ``wd_mult`` (1, or 0 for no-decay leaves and for Adam), and
+the schedule sets ``lr`` and ``weight_decay`` on the groups before each
+step (:func:`set_hyperparams`).  ``nu`` in fp32 costs 2 bytes per
+parameter more than bf16 moments; the update runs one parameter at a time,
+so no fp32 copy of the whole gradient exists.
 """
 
 from __future__ import annotations
 
+from collections import defaultdict
 from typing import Iterable, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 _IGNORED_TORCH_KWARGS = {
@@ -48,6 +62,131 @@ def _dtype(d) -> Optional[torch.dtype]:
     return dtype
 
 
+def _bias_correction(decay: float, count: int) -> float:
+    """``1 - decay ** count`` in fp32: the power rounded once from the
+    exact value (XLA's ``pow``), then the fp32 subtraction."""
+    d = np.float32(decay)
+    return float(np.float32(1.0) - np.float32(np.float64(d) ** count))
+
+
+def _round(x: float, dtype: torch.dtype) -> float:
+    return float(torch.tensor(float(x), dtype=torch.float64).to(dtype))
+
+
+class OptaxAdam(torch.optim.Optimizer):
+    """optax's Adam / AdamW chain, applied by :meth:`update` one parameter
+    at a time from its fp32 gradient quotient (see the module docstring
+    for the arithmetic).  State per parameter: ``step`` (optax's count),
+    ``mu`` and ``nu``; ``state_dict`` / ``load_state_dict`` keep their
+    dtypes."""
+
+    def __init__(self, groups, *, lr: float, betas: Tuple[float, float],
+                 eps: float, decoupled_weight_decay: bool,
+                 mu_dtype: Optional[torch.dtype], grad_dtype: torch.dtype):
+        super().__init__(groups, dict(lr=lr, betas=betas, eps=eps,
+                                      weight_decay=0.0))
+        self.decoupled_weight_decay = decoupled_weight_decay
+        self.mu_dtype = mu_dtype
+        self.grad_dtype = grad_dtype
+        self._groups_of = {}
+        self._scalars = (None, None)
+
+    def _step_scalars(self, group: dict, count: int, mu_dtype, device):
+        """The fp32 scalars of one step as 0-dim views of one device
+        tensor, made once per (group, step) and shared by its parameters:
+        ``(b1 in mu's dtype, 1 - b1, b2, 1 - b2, 1 - b2^n, eps, 1 - b1^n,
+        wd, -lr)``."""
+        b1, b2 = group["betas"]
+        hp = self.grad_dtype if count == 1 else torch.float32
+        key = (id(group), count, mu_dtype, device, group["lr"],
+               group["weight_decay"], b1, b2, group["eps"])
+        if self._scalars[0] != key:
+            values = [float(torch.tensor(b1, dtype=mu_dtype)),
+                      np.float32(1 - b1), b2, np.float32(1 - b2),
+                      _bias_correction(b2, count), group["eps"],
+                      _bias_correction(b1, count),
+                      _round(group["weight_decay"], hp),
+                      -_round(group["lr"], hp)]
+            t = torch.tensor([float(v) for v in values], dtype=torch.float32,
+                             device=device)
+            self._scalars = (key, t.unbind())
+        return self._scalars[1]
+
+    def _group(self, p: torch.Tensor) -> dict:
+        if not self._groups_of:
+            self._groups_of = {id(q): g for g in self.param_groups
+                               for q in g["params"]}
+        return self._groups_of[id(p)]
+
+    @torch.no_grad()
+    def update(self, p: torch.Tensor, g: torch.Tensor) -> None:
+        """One optax update of ``p`` from ``g``, its fp32 gradient quotient
+        (consumed: ``g`` is overwritten)."""
+        group = self._group(p)
+        state = self.state[p]
+        if not state:
+            state["step"] = 0
+            state["mu"] = torch.zeros_like(
+                p, dtype=self.mu_dtype or torch.float32)
+            state["nu"] = torch.zeros_like(p, dtype=torch.float32)
+        mu, nu = state["mu"], state["nu"]
+        count = state["step"] + 1
+        (b1, c1, b2, c2, bc2, eps, bc1, wd,
+         neg_lr) = self._step_scalars(group, count, mu.dtype, p.device)
+        # mu = (1 - b1) g + b1 mu; nu = (1 - b2) g^2 + b2 nu (one rounding
+        # each: the multiply-adds are fused)
+        if mu.dtype == torch.float32:
+            m = mu.mul_(b1).addcmul_(g, c1)
+        else:
+            m = mu.float().mul_(b1).addcmul_(g, c1)
+            mu.copy_(m)
+        g.mul_(g)
+        nu.mul_(b2).addcmul_(g, c2)
+        del g
+        # u = mu_hat / (sqrt(nu_hat) + eps), as one division
+        u = torch.div(nu, bc2).sqrt_().add_(eps).mul_(bc1)
+        torch.div(m, u, out=u)
+        del m
+        pf = p if p.dtype == torch.float32 else p.float()
+        if self.decoupled_weight_decay and group["wd_mult"] != 0.0:
+            u.addcmul_(pf, wd)
+        pf.addcmul_(u, neg_lr)
+        if pf is not p:
+            p.copy_(pf)
+        state["step"] = count
+
+    def load_state_dict(self, state_dict) -> None:
+        """Restore ``state_dict()``'s state with the saved dtypes (torch's
+        own load casts every floating state to the parameter's dtype,
+        which would round fp32 ``nu`` to bf16)."""
+        params = [p for g in self.param_groups for p in g["params"]]
+        saved_groups = state_dict["param_groups"]
+        ids = [i for g in saved_groups for i in g["params"]]
+        if len(ids) != len(params) or len(saved_groups) != len(
+                self.param_groups):
+            raise ValueError(
+                f"optimizer state holds {len(ids)} parameters in "
+                f"{len(saved_groups)} groups; this optimizer has "
+                f"{len(params)} in {len(self.param_groups)}")
+        state = defaultdict(dict)
+        for i, p in zip(ids, params):
+            saved = state_dict["state"].get(i)
+            if saved is None:
+                continue
+            for key, value in saved.items():
+                if torch.is_tensor(value):
+                    if value.shape != p.shape:
+                        raise ValueError(
+                            f"optimizer state {key} of parameter {i} is "
+                            f"{tuple(value.shape)}, the parameter "
+                            f"{tuple(p.shape)}")
+                    value = value.to(p.device, copy=True)
+                state[p][key] = value
+        self.state = state
+        for group, saved in zip(self.param_groups, saved_groups):
+            group.update({k: v for k, v in saved.items() if k != "params"})
+
+
 def build_optimizer(
     named_params: Iterable[Tuple[str, torch.nn.Parameter]],
     name: str = "adamw",
@@ -58,10 +197,9 @@ def build_optimizer(
     mu_dtype=None,
     grad_dtype=torch.float32,
     **kwargs,
-) -> torch.optim.Optimizer:
+) -> OptaxAdam:
     """``name`` is the YAML target's last component (``AdamW``, ``Adam``);
-    ``lr``/``weight_decay`` are the base values the schedule starts from.
-    Each param group carries ``wd_mult`` (1, or 0 for no-decay leaves)."""
+    ``lr``/``weight_decay`` are the base values the schedule starts from."""
     for k in list(kwargs):
         if k in _IGNORED_TORCH_KWARGS:
             kwargs.pop(k)
@@ -70,40 +208,23 @@ def build_optimizer(
             f"optimizer kwargs {sorted(kwargs)} are not ported (grad clip, "
             "param_groups and masks come with later port slices)")
     name = name.lower().replace("torch.optim.", "")
-    grad_dtype, mu_dtype = _dtype(grad_dtype), _dtype(mu_dtype)
+    if name not in ("adamw", "adam"):
+        raise NotImplementedError(
+            f"optimizer {name!r} is not ported (AdamW and Adam are)")
     params = [(n, p) for n, p in named_params if p.requires_grad]
-    for n, p in params:
-        if p.dtype != grad_dtype or (mu_dtype is not None
-                                     and mu_dtype != grad_dtype):
-            raise NotImplementedError(
-                f"parameter {n} is {p.dtype}, grad_dtype {grad_dtype}, "
-                f"mu_dtype {mu_dtype}: torch keeps the Adam moments in the "
-                "parameter's dtype and optax in grad_dtype/mu_dtype, so the "
-                "port needs them equal (fp32 master weights for low-precision "
-                "parameters come with a later slice)")
     decay = [p for n, p in params
              if not any(x in n.split(".") for x in _NO_WEIGHT_DECAY_LEAF_NAMES)]
     no_decay = [p for n, p in params
                 if any(x in n.split(".") for x in _NO_WEIGHT_DECAY_LEAF_NAMES)]
-    groups = [{"params": decay, "wd_mult": 1.0}]
+    adamw = name == "adamw"
+    # Adam: no decay whatever the schedule says (the JAX chain has none)
+    groups = [{"params": decay, "wd_mult": 1.0 if adamw else 0.0}]
     if no_decay:
         groups.append({"params": no_decay, "wd_mult": 0.0})
-    b1, b2 = float(betas[0]), float(betas[1])
-    if name == "adamw":
-        opt = torch.optim.AdamW(groups, lr=float(lr), betas=(b1, b2),
-                                eps=float(eps), weight_decay=0.0)
-    elif name == "adam":
-        if float(weight_decay or 0.0) != 0.0:
-            raise NotImplementedError(
-                "Adam with weight_decay != 0: the JAX builder's adam has no "
-                "weight decay; use AdamW")
-        for group in groups:          # no decay, whatever the schedule says
-            group["wd_mult"] = 0.0
-        opt = torch.optim.Adam(groups, lr=float(lr), betas=(b1, b2),
-                               eps=float(eps))
-    else:
-        raise NotImplementedError(
-            f"optimizer {name!r} is not ported (AdamW and Adam are)")
+    opt = OptaxAdam(groups, lr=float(lr),
+                    betas=(float(betas[0]), float(betas[1])), eps=float(eps),
+                    decoupled_weight_decay=adamw, mu_dtype=_dtype(mu_dtype),
+                    grad_dtype=_dtype(grad_dtype))
     set_hyperparams(opt, lr=float(lr), wd=float(weight_decay or 0.0))
     return opt
 

@@ -4,8 +4,9 @@
 Host-side math over the optimizer-step count: warmup, then constant,
 linear, cosine, inverse-square-root or WSD decay; weight decay constant or
 ramped.  Read :attr:`current_lr` / :attr:`current_wd` after :meth:`step`
-and set them on the optimizer (``optim.builder.set_hyperparams``).  The
-checkpoint round-trip waits for the port's checkpointing.
+and set them on the optimizer (``optim.builder.set_hyperparams``).
+``state_dict`` / ``load_state_dict`` carry every field and the step count
+through a checkpoint; the checkpoint's values win, as by default in JAX.
 """
 
 from __future__ import annotations
@@ -121,3 +122,16 @@ class OptimizerParamScheduler:
         self.num_steps += increment
         self.current_wd = self.get_wd()
         self.current_lr = self.get_lr()
+
+    _FIELDS = ("init_lr", "max_lr", "min_lr", "lr_warmup_steps",
+               "lr_decay_steps", "lr_decay_style", "wsd_decay_steps",
+               "lr_wsd_decay_style", "start_wd", "end_wd", "wd_incr_steps",
+               "wd_incr_style", "num_steps")
+
+    def state_dict(self) -> dict:
+        return {a: getattr(self, a) for a in self._FIELDS}
+
+    def load_state_dict(self, sd: dict) -> None:
+        for a in self._FIELDS:
+            setattr(self, a, sd[a])
+        self.step(0)

@@ -38,11 +38,20 @@ compiled program to cache (logged once; nothing is ``torch.compile``d).
 ``kernels.autotune: off`` (or absent) means the kernels' hand-chosen
 tiles; ``on`` / ``force`` raise.
 
+``checkpoint`` (on unless ``enabled: false``, as in JAX): saves at
+``step_scheduler.ckpt_every_steps``, at the end of an epoch and at
+``max_steps``, crash-safe and by default asynchronous, and resumes at
+set-up from ``restore_from`` or the newest committed checkpoint of
+``checkpoint_dir`` (``recipes/base_recipe.py``); the model is written as
+consolidated HF safetensors, the only ``model_save_format`` ported.  With
+checkpointing off nothing is saved and nothing resumed.
+
 Left out of this slice, each raising ``NotImplementedError`` when its
-knob is set (ROADMAP Queue 1 names where each lands): checkpointing,
-pipeline / tensor / context / data parallelism, PEFT, kernel
-autotuning, remat policies other than ``nothing_saveable``, gradient
-clipping, freezing, profiling, elastic recovery and W&B logging.
+knob is set (ROADMAP Queue 1 names where each lands): other checkpoint
+formats and PEFT checkpoints, pipeline / tensor / context / data
+parallelism, PEFT, kernel autotuning, remat policies other than
+``nothing_saveable``, gradient clipping, freezing, profiling, elastic
+recovery and W&B logging.
 
     python -m automodel_tpu_torch.recipes.llm.train_ft \\
         -c automodel_tpu_torch/examples/tiny_llama_sft.yaml --device cpu
@@ -57,6 +66,9 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
+from automodel_tpu_torch.checkpoint.checkpointing import (
+    build_checkpoint_config,
+)
 from automodel_tpu_torch.config.loader import (
     ConfigNode,
     parse_args_and_load_config,
@@ -73,11 +85,12 @@ from automodel_tpu_torch.ops.moe import (
     validate_moe_dispatch,
 )
 from automodel_tpu_torch.optim.builder import build_optimizer, set_hyperparams
+from automodel_tpu_torch.optim.scheduler import OptimizerParamScheduler
 from automodel_tpu_torch.quantization.fp8 import (
     apply_fp8_to_model,
     build_fp8_config,
 )
-from automodel_tpu_torch.optim.scheduler import OptimizerParamScheduler
+from automodel_tpu_torch.recipes.base_recipe import BaseRecipe
 from automodel_tpu_torch.training.rng import StatefulRNG
 from automodel_tpu_torch.training.step_scheduler import StepScheduler
 from automodel_tpu_torch.training.train_step import TrainStep, to_device_batch
@@ -97,7 +110,8 @@ _SECTIONS = {
     "fp8",
 }
 _LATER = {
-    "checkpoint": "checkpointing (ROADMAP Queue 1 item 7)",
+    "checkpoint_format": "Orbax / non-consolidated checkpoints (ROADMAP "
+                         "Queue 1 item 7)",
     "peft": "PEFT (ROADMAP Queue 1 item 8)",
     "pipeline": "pipeline parallelism (ROADMAP Queue 1 item 12)",
     "distributed": "multi-GPU (ROADMAP Queue 1 item 9)",
@@ -123,9 +137,10 @@ def check_ported(cfg: ConfigNode) -> None:
         raise NotImplementedError(
             f"config section {name!r} is not ported by the PyTorch port's "
             f"SFT recipe (it reads {sorted(_SECTIONS)})")
-    if cfg.get("checkpoint.enabled", True) is not False:
-        # the JAX recipe checkpoints unless told not to
-        raise _later("checkpoint")
+    ck = build_checkpoint_config(cfg.get("checkpoint"))
+    if ck.enabled and (ck.model_save_format != "safetensors"
+                       or not ck.save_consolidated):
+        raise _later("checkpoint_format")
     for axis in ("dp_size", "dp_replicate_size", "dcn_dp_size", "tp_size",
                  "cp_size", "pp_size"):
         if cfg.get(f"distributed.{axis}") not in (None, 1):
@@ -193,7 +208,7 @@ def build_lr_scheduler(cfg_lr: Optional[ConfigNode],
     return OptimizerParamScheduler(**kwargs)
 
 
-class TrainFinetuneRecipeForNextTokenPrediction:
+class TrainFinetuneRecipeForNextTokenPrediction(BaseRecipe):
     """``setup()`` then ``run_train_validation_loop()``.  ``history`` holds
     every step's metrics and ``val_history`` every ``(step, val_loss)``."""
 
@@ -264,6 +279,10 @@ class TrainFinetuneRecipeForNextTokenPrediction:
                           * max(self.step_scheduler.num_epochs, 1), 1))
         self.lr_scheduler = build_lr_scheduler(cfg.get("lr_scheduler"),
                                                opt_cfg, total)
+        self.checkpoint_config = build_checkpoint_config(
+            cfg.get("checkpoint"))
+        if self.checkpoint_config.enabled:
+            self.load_checkpoint()
         return self
 
     def _apply_moe_dispatch_policy(self) -> None:
@@ -346,23 +365,42 @@ class TrainFinetuneRecipeForNextTokenPrediction:
         return loss_sum / max(tokens, 1.0)
 
     def run_train_validation_loop(self):
+        """Train to ``max_steps`` (or the last epoch), validating and
+        checkpointing on the step scheduler's cadence; an asynchronous save
+        still in flight is joined before this returns."""
         sched = self.step_scheduler
-        for epoch in sched.epochs:
-            self.dataloader.set_epoch(epoch)
-            for batches in sched:
-                m = self._run_train_optim_step(batches)
-                logger.info(
-                    "step %d | loss %.4f | grad_norm %.3f | lr %.2e | "
-                    "tps %.0f | tokens %d", m["step"], m["loss"],
-                    m["grad_norm"], m["lr"], m["tps"], m["num_label_tokens"])
-                if sched.is_val_step:
-                    val_loss = self._run_validation_epoch()
-                    if val_loss is not None:
-                        self.val_history.append((sched.step, val_loss))
-                        logger.info("step %d | val_loss %.4f", sched.step,
-                                    val_loss)
-            if sched.finished:
-                break
+        saving = self.checkpoint_config.enabled
+        try:
+            for epoch in sched.epochs:
+                self.dataloader.set_epoch(epoch)
+                for batches in sched:
+                    m = self._run_train_optim_step(batches)
+                    logger.info(
+                        "step %d | loss %.4f | grad_norm %.3f | lr %.2e | "
+                        "tps %.0f | tokens %d", m["step"], m["loss"],
+                        m["grad_norm"], m["lr"], m["tps"],
+                        m["num_label_tokens"])
+                    if sched.is_val_step:
+                        val_loss = self._run_validation_epoch()
+                        if val_loss is not None:
+                            self.val_history.append((sched.step, val_loss))
+                            logger.info("step %d | val_loss %.4f",
+                                        sched.step, val_loss)
+                    if saving and sched.is_ckpt_step:
+                        self.save_checkpoint(epoch, sched.step)
+                        self._last_ckpt_step = sched.step
+                # the epoch's end (a partial last group never yields)
+                if (saving and sched.is_ckpt_step
+                        and getattr(self, "_last_ckpt_step", -1)
+                        != sched.step):
+                    self.save_checkpoint(epoch, sched.step)
+                    self._last_ckpt_step = sched.step
+                if sched.finished:
+                    break
+        except BaseException:
+            self.join_pending_save(raise_error=False)
+            raise
+        self.join_pending_save()
         return self
 
 

@@ -7,7 +7,8 @@ stream coordinates) with ``np.random.SeedSequence``; the consumer seeds its
 own ``torch.Generator`` with it (``LlamaForCausalLM.init_weights`` does),
 so a stream never depends on how much another one has drawn.  ``ranked``
 offsets the seed by the process rank (0 without ``torch.distributed``).
-The checkpoint round-trip waits for the port's checkpointing.
+``state_dict`` / ``load_state_dict`` carry the seed and the three global
+generators' states through a checkpoint.
 """
 
 from __future__ import annotations
@@ -36,3 +37,18 @@ class StatefulRNG:
         seq = np.random.SeedSequence([self._effective_seed,
                                       *[int(s) for s in stream]])
         return int(seq.generate_state(1, np.uint64)[0] >> np.uint64(1))
+
+    def state_dict(self) -> dict:
+        return {"seed": self.seed, "ranked": self.ranked,
+                "effective_seed": self._effective_seed,
+                "py_random": random.getstate(),
+                "np_random": np.random.get_state(),
+                "torch_random": torch.get_rng_state()}
+
+    def load_state_dict(self, sd: dict) -> None:
+        self.seed = sd["seed"]
+        self.ranked = sd["ranked"]
+        self._effective_seed = sd["effective_seed"]
+        random.setstate(sd["py_random"])
+        np.random.set_state(sd["np_random"])
+        torch.set_rng_state(sd["torch_random"])

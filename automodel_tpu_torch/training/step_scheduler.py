@@ -4,8 +4,9 @@ windows (counterpart: ``automodel_tpu/training/step_scheduler.py``).
 ``grad_acc_steps = global_batch_size / (local_batch_size * dp_size)``;
 iteration yields lists of microbatches, one list per optimizer step (a
 last partial group is dropped); ``max_steps`` ends the run; validation
-runs every ``val_every_steps``.  Checkpoint cadence and the state
-round-trip wait for the port's checkpointing.
+runs every ``val_every_steps``; a checkpoint is due every
+``ckpt_every_steps``, at the end of an epoch and at ``max_steps``
+(:attr:`is_ckpt_step`).  ``state_dict`` carries the step and epoch.
 """
 
 from __future__ import annotations
@@ -44,6 +45,7 @@ class StepScheduler:
         self.dataloader = dataloader
         self.step = 0          # optimizer steps taken
         self.epoch = 0
+        self._epoch_exhausted = False
 
     @property
     def epochs(self) -> Iterator[int]:
@@ -60,6 +62,7 @@ class StepScheduler:
             raise RuntimeError("StepScheduler has no dataloader")
         if self.finished:
             return
+        self._epoch_exhausted = False
         group: List[Any] = []
         for batch in self.dataloader:
             group.append(batch)
@@ -69,6 +72,20 @@ class StepScheduler:
                 group = []
                 if self.finished:
                     return
+        self._epoch_exhausted = True
+
+    @property
+    def is_ckpt_step(self) -> bool:
+        if self.ckpt_every_steps and self.step % self.ckpt_every_steps == 0:
+            return True
+        return self._epoch_exhausted or self.finished
+
+    def state_dict(self) -> dict:
+        return {"step": self.step, "epoch": self.epoch}
+
+    def load_state_dict(self, sd: dict) -> None:
+        self.step = sd["step"]
+        self.epoch = sd["epoch"]
 
     @property
     def is_val_step(self) -> bool:

@@ -10,15 +10,14 @@ summed gradients (and the summed loss) are divided once by the label-token
 count of the whole optimizer step; the global gradient norm is taken
 before the update.
 
-Gradients accumulate in the parameters' dtype, which must be
-``grad_dtype`` (checked at build time): the bf16 bench YAML (bf16 params,
-``grad_dtype: bfloat16``) and the fp32 tiny YAML both satisfy it.  The
-division by the token count is the JAX step's: each gradient is divided by
-the fp32 count in fp32 and the global norm is taken from those fp32
-quotients, one tensor at a time (no fp32 copy of the whole gradient
-exists); the quotient is then written back in the parameter dtype for the
-optimizer.  What still differs on the bf16 path: torch's AdamW sees those
-bf16 quotients, optax the fp32 ones.
+Gradients accumulate in ``grad_dtype``, as the JAX ``micro`` scan's
+``a + g.astype(grad_dtype)`` does: in ``.grad`` when the parameter has
+that dtype (autograd's in-place sum), else in one buffer of that dtype per
+parameter.  After the microbatches each accumulated gradient is divided by
+the fp32 token count in fp32, the global norm is taken from those fp32
+quotients, and the optimizer (``optim/builder.py::OptaxAdam``, optax's
+chain) updates the parameter from the quotient -- one parameter at a time,
+so no fp32 copy of the whole gradient exists.
 """
 
 from __future__ import annotations
@@ -71,21 +70,39 @@ def microbatch_loss(model, loss_fn, mb: Dict[str, torch.Tensor],
     return loss
 
 
+def accumulate_grads(params: List[torch.Tensor],
+                     acc: List[Optional[torch.Tensor]],
+                     grad_dtype: torch.dtype) -> None:
+    """After one microbatch's backward: move each gradient of a parameter
+    not in ``grad_dtype`` into its ``grad_dtype`` buffer in ``acc``
+    (``a + g.astype(grad_dtype)``); a parameter in ``grad_dtype`` keeps
+    summing in its ``.grad``."""
+    with torch.no_grad():
+        for i, p in enumerate(params):
+            if p.grad is None or p.dtype == grad_dtype:
+                continue
+            g = p.grad.to(grad_dtype)
+            p.grad = None
+            acc[i] = g if acc[i] is None else acc[i].add_(g)
+
+
 @torch.no_grad()
-def normalize_grads(params: List[torch.Tensor],
-                    denom: torch.Tensor) -> torch.Tensor:
-    """Divide every gradient by the fp32 token count in fp32, write the
-    quotient back in place (in the parameter dtype) and return the global
-    L2 norm of the fp32 quotients; one fp32 gradient tensor exists at a
-    time."""
+def apply_updates(params: List[torch.Tensor],
+                  acc: List[Optional[torch.Tensor]], denom: torch.Tensor,
+                  optimizer) -> torch.Tensor:
+    """Divide every accumulated gradient by the fp32 token count in fp32,
+    hand the quotient to ``optimizer.update`` and return the global L2
+    norm of the quotients; one fp32 quotient exists at a time.  A
+    parameter without a gradient is updated from zeros, as in the JAX
+    step."""
     norms = []
-    for p in params:
-        if p.grad is None:
-            continue
-        q = p.grad.float() / denom
+    for i, p in enumerate(params):
+        g = acc[i] if acc[i] is not None else p.grad
+        q = (torch.zeros_like(p, dtype=torch.float32) if g is None
+             else g.to(torch.float32, copy=True).div_(denom))
+        acc[i] = p.grad = None
         norms.append(torch.linalg.vector_norm(q))
-        p.grad.copy_(q)
-        del q
+        optimizer.update(p, q)
     return torch.linalg.vector_norm(torch.stack(norms))
 
 
@@ -93,10 +110,12 @@ class TrainStep:
     """``train_step(batch) -> {"loss", "grad_norm", "num_label_tokens"}``
     and ``eval_step(batch) -> {"loss", "num_label_tokens"}`` over batches
     of ``[A, B, S]`` tensors on the model's device (``A`` = grad
-    accumulation)."""
+    accumulation).  ``attn_impl`` reaches the model's attention
+    (``ops/attention.py::attention``'s ``impl``: None, ``"plain"``,
+    ``"kernel"`` or ``"flash"``)."""
 
     def __init__(self, model, optimizer, loss_fn=None,
-                 grad_dtype=torch.float32):
+                 grad_dtype=torch.float32, attn_impl: Optional[str] = None):
         loss_fn = loss_fn if loss_fn is not None else MaskedCrossEntropy()
         for attr in ("reduction", "needs_hidden"):
             if not hasattr(loss_fn, attr):
@@ -109,30 +128,27 @@ class TrainStep:
                 "itself; configure the loss with reduction='sum' (got "
                 f"{loss_fn.reduction!r})")
         self.params = [p for p in model.parameters() if p.requires_grad]
-        for p in self.params:
-            if p.dtype != grad_dtype:
-                raise NotImplementedError(
-                    f"parameters in {p.dtype} with grad_dtype {grad_dtype}: "
-                    "the port accumulates gradients in the parameters' "
-                    "dtype, so grad_dtype must equal it (a separate "
-                    "accumulation buffer comes with a later slice)")
         self.model = model
         self.optimizer = optimizer
         self.loss_fn = loss_fn
+        self.grad_dtype = grad_dtype
+        self.attn_impl = attn_impl
 
     def train_step(self, batch: Dict[str, torch.Tensor]) -> Dict[str, float]:
         labels = batch["labels"]
         num_label_tokens = (labels != IGNORE_INDEX).sum().float()
         denom = num_label_tokens.clamp(min=1.0)
         self.optimizer.zero_grad(set_to_none=True)
+        acc: List[Optional[torch.Tensor]] = [None] * len(self.params)
         loss_sum = torch.zeros((), dtype=torch.float32, device=labels.device)
         for a in range(labels.shape[0]):
             mb = {k: v[a] for k, v in batch.items()}
-            loss = microbatch_loss(self.model, self.loss_fn, mb)
+            loss = microbatch_loss(self.model, self.loss_fn, mb,
+                                   attn_impl=self.attn_impl)
             loss.backward()
             loss_sum += loss.detach().float()
-        norm = normalize_grads(self.params, denom)
-        self.optimizer.step()
+            accumulate_grads(self.params, acc, self.grad_dtype)
+        norm = apply_updates(self.params, acc, denom, self.optimizer)
         loss, gn, n = torch.stack([loss_sum / denom, norm,
                                    num_label_tokens]).tolist()
         return {"loss": loss, "grad_norm": gn, "num_label_tokens": int(n)}
@@ -144,8 +160,8 @@ class TrainStep:
         total = torch.zeros((), dtype=torch.float32, device=labels.device)
         for a in range(labels.shape[0]):
             total += microbatch_loss(self.model, self.loss_fn,
-                                     {k: v[a] for k, v in batch.items()}
-                                     ).float()
+                                     {k: v[a] for k, v in batch.items()},
+                                     attn_impl=self.attn_impl).float()
         loss, n = torch.stack([total / num_label_tokens.clamp(min=1.0),
                                num_label_tokens]).tolist()
         return {"loss": loss, "num_label_tokens": int(n)}

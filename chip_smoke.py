@@ -17,7 +17,11 @@ Phases (any failure exits non-zero without the final ``ok`` line):
    version at the SFT path's shapes (batch 8, S 2048, 32/8 heads, head_dim
    64, the segment ids of a packed batch of the SFT YAML's mock data), plus
    pure causal, head_dim 128, window 256, soft cap 30, S 1000 and the
-   MHA head_dim-128 case of the Pallas flash kernel;
+   MHA head_dim-128 case of the Pallas flash kernel; then the flash rung's
+   kernels (``flash_case`` lines) at sft_flash's shape (batch 8, S 2048,
+   32 heads over kv repeated from 8, head_dim 64, the bench YAML's first
+   batch of segment ids, padding rows included, all rows compared), pure
+   causal, non-causal and MHA head_dim 128;
    for every kernel case: the kernel's time, the plain version's, one
    PyTorch library call's where one computes the same function, and the
    least time the card could take (bound);
@@ -56,6 +60,19 @@ Phases (any failure exits non-zero without the final ``ok`` line):
    steps with the attention and linear-CE launch counts zeroed just before
    and read just after, the producer thread's host seconds, and a profiled
    window; its peak memory must stay below the MaskedCE phase's;
+   sft_flash: the same YAML with the train step's attention on the flash
+   rung (``attn_impl="flash"``): the first step against the plain
+   attention, then the timed steps with the flash kernels held to 2
+   forward and 1 backward launches per layer and microbatch and the
+   splash kernels to none;
+   ckpt: the same YAML with ``--checkpoint.enabled true`` (a temporary
+   directory, ``keep_last_k`` 1): inline saves, then asynchronous ones,
+   each with its train-loop stall, background commit time and bytes
+   (``ckpt_save`` lines), every committed directory verified; then a fresh
+   recipe resumes from the last one with weights, optimizer state,
+   schedule, RNG, step and loader position bitwise equal to the saved
+   ones, and its next step's loss within 1 % of the uninterrupted run's
+   (``ckpt_run`` line);
    sft_fp8: the same YAML with ``--fp8.enabled true --fp8.dtype float8``
    (float8 tensorwise quantized compute): every projection through qdot
    (28 launches per layer and microbatch), the first step through every
@@ -519,6 +536,132 @@ def attention_phase(flush, seg_np):
 
 
 # ---------------------------------------------------------------------------
+# flash-rung kernel phase (csrc/flash_mha_fwd.cu, csrc/flash_mha_bwd.cu)
+# ---------------------------------------------------------------------------
+FLASH_CASES = [
+    # (name, B, S, Hq, Hk, D, causal, packed); the kernels see MHA (kv
+    # repeated to Hq, as flash_attention_bshd hands them over).  The first
+    # is sft_flash's case (the bench YAML's first batch, padding rows
+    # included) and stands for the kernels in the JSON line.
+    ("sft_flash_packed_d64", 8, 2048, 32, 8, 64, True, True),
+    ("causal_d64", 8, 2048, 32, 8, 64, True, False),
+    ("full_packed_d64", 8, 2048, 32, 8, 64, False, True),
+    # row 10's case: MHA, head_dim 128, segment ids
+    ("mha_packed_d128", 8, 2048, 16, 16, 128, True, True),
+]
+
+
+def flash_phase(flush, seg_np):
+    """Each flash kernel against its plain version on every row (segment 0
+    attends segment 0, so padding rows are live), with kernel, plain,
+    library (SDPA on the dense equality mask) and bound times."""
+    import torch
+    import torch.nn.functional as F
+
+    from automodel_tpu_torch.ops import flash_attention as fa
+
+    dev = torch.device("cuda")
+    rows = []
+    for i, (name, B, S, Hq, Hk, D, causal, packed) in enumerate(FLASH_CASES):
+        g = torch.Generator(device=dev).manual_seed(300 + i)
+
+        def mk(h):
+            return torch.randn(B, h, S, D, device=dev, generator=g).bfloat16()
+
+        q, dout = mk(Hq), mk(Hq)
+        k, v = (mk(Hk).repeat_interleave(Hq // Hk, dim=1).contiguous()
+                for _ in range(2))
+        seg = (torch.from_numpy(seg_np[:B, :S]).to(dev).contiguous()
+               if packed else None)
+        scale = D ** -0.5
+        mask = fa.mha_mask(S, causal, seg, dev)
+        pairs = (B * S * S if mask is None
+                 else int(mask.expand(B, 1, S, S).sum()))
+        pad_rows = 0 if seg is None else int((seg == 0).sum())
+
+        out, lse = fa.flash_mha_fwd_cuda(q, k, v, seg, causal, scale)
+        torch.cuda.synchronize()
+        ref, ref_lse = fa.flash_mha_plain(q, k, v, seg, causal, scale)
+        check(bool(torch.isfinite(out).all()), f"{name}: non-finite output")
+        diff = (out.float() - ref.float()).abs()
+        fwd_err = float(diff.max())
+        bad = diff > KERNEL_ATOL + KERNEL_RTOL * ref.float().abs()
+        check(not bool(bad.any()),
+              f"{name}: flash forward kernel disagrees with the plain "
+              f"version (max_abs_err {fwd_err:.3e}, {int(bad.sum())} "
+              "elements, padding rows included)")
+        lse_err = float((lse - ref_lse).abs().max())
+        check(lse_err <= 1e-2, f"{name}: lse max_abs_err {lse_err:.3e}")
+
+        grads = fa.flash_mha_bwd_cuda(q, k, v, ref, ref_lse, dout, seg,
+                                      causal, scale)
+        torch.cuda.synchronize()
+        refs = fa.flash_mha_bwd_plain(q, k, v, ref, ref_lse, dout, seg,
+                                      causal, scale)
+        bwd_err, rel = 0.0, {}
+        for gname, got, want in zip(("dq", "dk", "dv"), grads, refs):
+            check(bool(torch.isfinite(got).all()),
+                  f"{name}: non-finite {gname}")
+            rel[gname] = float((got.float() - want.float()).norm()
+                               / want.float().norm())
+            bwd_err = max(bwd_err, float((got.float() - want.float())
+                                         .abs().max()))
+            check(rel[gname] <= GRAD_REL_L2,
+                  f"{name}: flash backward kernel {gname} relative L2 error "
+                  f"{rel[gname]:.3e} > {GRAD_REL_L2}")
+        del grads, refs
+
+        fwd_ms = time_ms(lambda: fa.flash_mha_fwd_cuda(
+            q, k, v, seg, causal, scale), 10, flush)
+        bwd_ms = time_ms(lambda: fa.flash_mha_bwd_cuda(
+            q, k, v, ref, ref_lse, dout, seg, causal, scale), 10, flush)
+        fwd_plain = time_ms(lambda: fa.flash_mha_plain(
+            q, k, v, seg, causal, scale), 3, flush)
+        bwd_plain = time_ms(lambda: fa.flash_mha_bwd_plain(
+            q, k, v, ref, ref_lse, dout, seg, causal, scale), 3, flush)
+        qt, kt, vt = (x.detach().clone().requires_grad_() for x in (q, k, v))
+        kw = (dict(attn_mask=mask) if seg is not None
+              else dict(is_causal=causal))
+
+        def lib_fwd():
+            return F.scaled_dot_product_attention(qt, kt, vt, scale=scale,
+                                                  **kw)
+
+        lib_out = lib_fwd()
+        lib_err = float((lib_out.detach().float() - ref.float()).abs().max())
+        check(lib_err <= KERNEL_ATOL * 4,
+              f"{name}: the library yardstick computes something else "
+              f"({lib_err:.3e})")
+        fwd_lib = time_ms(lib_fwd, 10, flush)
+        bwd_lib = time_ms(lambda: torch.autograd.grad(
+            lib_out, (qt, kt, vt), dout, retain_graph=True), 10, flush)
+        del lib_out, qt, kt, vt
+        # bytes: q, k, v (as the kernels read them: MHA), out, lse, seg;
+        # the backward adds out, dout, lse read and dq, dk, dv written
+        nqkv = 3 * q.numel() * 2
+        nseg = 0 if seg is None else seg.numel() * 4
+        fb, fby = roofline_ms(4 * D * Hq * pairs,
+                              nqkv + q.numel() * 2 + lse.numel() * 4 + nseg)
+        bb, bby = roofline_ms(10 * D * Hq * pairs,
+                              2 * nqkv + 2 * q.numel() * 2 + lse.numel() * 4
+                              + nseg)
+        row = dict(case=name, B=B, S=S, Hq=Hq, Hk=Hk, D=D, causal=causal,
+                   packed=packed, padding_rows=pad_rows,
+                   attended_pairs=pairs,
+                   fwd=dict(ms=fwd_ms, plain_ms=fwd_plain, library_ms=fwd_lib,
+                            bound_ms=fb, bound_by=fby, max_abs_err=fwd_err,
+                            lse_max_abs_err=lse_err),
+                   bwd=dict(ms=bwd_ms, plain_ms=bwd_plain, library_ms=bwd_lib,
+                            bound_ms=bb, bound_by=bby, max_abs_err=bwd_err,
+                            rel_l2=rel))
+        print("flash_case " + json.dumps(row), flush=True)
+        rows.append(row)
+        del q, k, v, dout, out, lse, ref, ref_lse, mask
+        torch.cuda.empty_cache()
+    return rows
+
+
+# ---------------------------------------------------------------------------
 # linear-CE kernel phase
 # ---------------------------------------------------------------------------
 LCE_CASES = [
@@ -816,6 +959,7 @@ def gmm_case(name, sizes, m, k, n, flush, seed):
     versions, then the kernel, plain, library and bound times."""
     import torch
 
+    from automodel_tpu_torch.ops import flash_attention as fa
     from automodel_tpu_torch.ops import gmm_kernel as gk
 
     dev = torch.device("cuda")
@@ -1115,6 +1259,7 @@ def gmm_quant_case(name, sizes, m, k, n, qdtype, flush, seed,
     read as the transpose view of their own storage."""
     import torch
 
+    from automodel_tpu_torch.ops import flash_attention as fa
     from automodel_tpu_torch.ops import gmm_kernel as gk
     from automodel_tpu_torch.ops import gmm_quant_kernel as gq
     from automodel_tpu_torch.ops.quant import quant_cast
@@ -1517,7 +1662,7 @@ def first_step_check(recipe, label, routes, compare, quantized=False):
               f"{got['grad_rel_l2']:.3e} > {grad_tol:.3e}")
 
 
-def train_phase(label, yaml_path, overrides=(), bf16=None):
+def train_phase(label, yaml_path, overrides=(), bf16=None, attn_impl=None):
     """Set up the SFT recipe on ``yaml_path`` (plus CLI ``overrides``),
     check its first step, run
     2 warm-up steps, then the timed steps with every launch count zeroed
@@ -1535,13 +1680,18 @@ def train_phase(label, yaml_path, overrides=(), bf16=None):
     dw), the MoE experts run gmm_quant 9 times (and no bf16 gmm) beside
     the 3 bf16 tgmm, the first step is held against every kernel's plain
     version, and ``bf16`` (the same YAML's unquantized report) gives the
-    loss after 8 steps to print beside this one's."""
+    loss after 8 steps to print beside this one's.  ``attn_impl="flash"``
+    sends the train step's attention through the flash rung: its kernels
+    are held to 2 forward launches per layer and microbatch and 1
+    backward, the splash kernels to none, and the first step runs against
+    the plain attention."""
     import torch
 
     from automodel_tpu_torch.config.loader import parse_args_and_load_config
     from automodel_tpu_torch.datasets.prefetch import PrefetchDataLoader
     from automodel_tpu_torch.loss.linear_ce import FusedLinearCrossEntropy
     from automodel_tpu_torch.loss.masked_ce import MaskedCrossEntropy
+    from automodel_tpu_torch.ops import flash_attention as fa
     from automodel_tpu_torch.ops import gmm_kernel as gk
     from automodel_tpu_torch.ops import gmm_quant_kernel as gq
     from automodel_tpu_torch.ops import linear_ce_kernel as lce
@@ -1554,6 +1704,8 @@ def train_phase(label, yaml_path, overrides=(), bf16=None):
          *overrides])
     t0 = time.perf_counter()
     recipe = train_ft.TrainFinetuneRecipeForNextTokenPrediction(cfg).setup()
+    recipe.step_fns.attn_impl = attn_impl
+    flash = attn_impl == "flash"
     torch.cuda.synchronize()
     mcfg = recipe.model.config
     L = mcfg.num_hidden_layers
@@ -1572,7 +1724,8 @@ def train_phase(label, yaml_path, overrides=(), bf16=None):
           f"{sum(p.numel() for p in recipe.model.parameters())} params "
           f"{recipe.model.param_dtype}, remat {recipe.model.remat_policy}, "
           f"quantized compute {quant if quantized else 'off'}, "
-          f"loss {type(recipe.loss_fn).__name__}, loader "
+          f"loss {type(recipe.loss_fn).__name__}, attention "
+          f"{attn_impl or 'splash'}, loader "
           f"{type(recipe.dataloader).__name__}, "
           f"set up in {time.perf_counter() - t0:.1f} s", flush=True)
     gmm_rows = None
@@ -1598,6 +1751,13 @@ def train_phase(label, yaml_path, overrides=(), bf16=None):
             [("kernel", "plain")]
             + ([("kernel", "quant_plain")] if quantized else []),
             quantized=quantized)
+    elif flash:
+        first_step_check(
+            recipe, label,
+            [("kernel", recipe.loss_fn, "flash"),
+             ("plain", recipe.loss_fn, "plain"),
+             ("kernel_again", recipe.loss_fn, "flash")],
+            [("kernel", "plain")])
     elif fused:
         first_step_check(
             recipe, label,
@@ -1620,6 +1780,7 @@ def train_phase(label, yaml_path, overrides=(), bf16=None):
     produced_s = getattr(recipe.dataloader, "produce_s", 0.0)
     # counts zeroed just before the timed steps
     sa.fwd_launches = sa.bwd_launches = 0
+    fa.fwd_launches = fa.bwd_launches = 0
     lce.fwd_launches = lce.dlogits_launches = lce.dh_launches = 0
     lce.dw_launches = 0
     gk.gmm_launches = gk.tgmm_launches = 0
@@ -1629,7 +1790,9 @@ def train_phase(label, yaml_path, overrides=(), bf16=None):
     recipe.run_train_validation_loop()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    fwd, bwd = sa.fwd_launches, sa.bwd_launches
+    attn, other = (fa, sa) if flash else (sa, fa)
+    fwd, bwd = attn.fwd_launches, attn.bwd_launches
+    other_counts = (other.fwd_launches, other.bwd_launches)
     lce_counts = dict(fwd=lce.fwd_launches, dlogits=lce.dlogits_launches,
                       dh=lce.dh_launches, dw=lce.dw_launches)
     gmm_counts = dict(gmm=gk.gmm_launches, tgmm=gk.tgmm_launches,
@@ -1638,15 +1801,18 @@ def train_phase(label, yaml_path, overrides=(), bf16=None):
     peak = torch.cuda.max_memory_allocated()
     timed = recipe.history[SFT_WARMUP:]
     check(len(timed) == SFT_STEPS, f"{label} ran {len(timed)} timed steps")
-    check(fwd == 2 * L * SFT_STEPS,
-          f"{label}: {fwd} forward kernel launches != 2 x {L} layers x "
-          f"{SFT_STEPS} steps (forward + remat recompute)")
-    check(bwd == L * SFT_STEPS,
-          f"{label}: {bwd} backward kernel launches != {L} layers x "
-          f"{SFT_STEPS} steps")
     B = int(cfg.get("step_scheduler.global_batch_size"))
     S = int(cfg.get("packed_sequence.packed_sequence_size"))
     micro = SFT_STEPS * recipe.step_scheduler.grad_acc_steps
+    rung = "flash" if flash else "splash"
+    check(fwd == 2 * L * micro,
+          f"{label}: {fwd} {rung} forward kernel launches != 2 x {L} layers "
+          f"x {micro} microbatches (forward + remat recompute)")
+    check(bwd == L * micro,
+          f"{label}: {bwd} {rung} backward kernel launches != {L} layers x "
+          f"{micro} microbatches")
+    check(other_counts == (0, 0),
+          f"{label}: the other attention rung launched {other_counts}")
     rows = B * S // recipe.step_scheduler.grad_acc_steps
     per_call = lce.bwd_launches_per_call(rows)
     want = (dict(fwd=micro, dlogits=micro * per_call, dh=micro * per_call,
@@ -1689,7 +1855,8 @@ def train_phase(label, yaml_path, overrides=(), bf16=None):
         nonpad_tokens_per_s=sum(m["tps"] * m["step_time"] for m in timed)
         / wall, flops_per_token=flops_per_token,
         mfu=tok_s * flops_per_token / BF16_OPS_PER_S,
-        fwd_launches=fwd, bwd_launches=bwd, linear_ce_launches=lce_counts,
+        attention=rung, fwd_launches=fwd, bwd_launches=bwd,
+        linear_ce_launches=lce_counts,
         gmm_launches=gmm_counts, qdot_launches=qdot_count,
         quant=dataclasses.asdict(quant) if quantized else None,
         loss_after_8_steps=recipe.history[7]["loss"],
@@ -1706,9 +1873,161 @@ def train_phase(label, yaml_path, overrides=(), bf16=None):
         recipe.step_scheduler.max_steps += SFT_PROFILED
         recipe.run_train_validation_loop()
 
-    profile_window(more, SFT_PROFILED, f"{label}_b8_s2048", ("flash_",))
+    profile_window(more, SFT_PROFILED, f"{label}_b8_s2048",
+                   ("mha_",) if flash else ("flash_",))
     report["gmm_cases"] = gmm_rows
     return report
+
+
+# ---------------------------------------------------------------------------
+# ckpt phase
+# ---------------------------------------------------------------------------
+CKPT_SAVES = 1          # per mode: inline, then asynchronous
+
+
+def _states_equal(a, b):
+    """Bitwise equality of two (nested) state dicts."""
+    import numpy as np
+    import torch
+
+    if torch.is_tensor(a):
+        return (torch.is_tensor(b) and a.dtype == b.dtype
+                and a.shape == b.shape and bool(torch.equal(a.cpu(), b.cpu())))
+    if isinstance(a, np.ndarray):
+        return isinstance(b, np.ndarray) and np.array_equal(a, b)
+    if isinstance(a, dict):
+        return (isinstance(b, dict) and a.keys() == b.keys()
+                and all(_states_equal(a[k], b[k]) for k in a))
+    if isinstance(a, (list, tuple)):
+        return (isinstance(b, (list, tuple)) and len(a) == len(b)
+                and all(_states_equal(x, y) for x, y in zip(a, b)))
+    return a == b
+
+
+def ckpt_phase():
+    """The bench YAML at full width with checkpointing on (``keep_last_k``
+    1, a temporary directory removed at the end): CKPT_SAVES inline saves,
+    then CKPT_SAVES asynchronous ones, one training step before each, with
+    the train-loop stall and the background commit time of each; every
+    committed directory passes ``verify_manifest``.  Then a fresh recipe
+    on the same directory resumes from the last committed step with the
+    weights, optimizer state, schedule, RNG, step and loader position
+    bitwise equal to the saved ones, and its next step's loss is within
+    SFT_LOSS_REL_TOL of the uninterrupted run's."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from automodel_tpu_torch.checkpoint import checkpointing as ck
+    from automodel_tpu_torch.config.loader import parse_args_and_load_config
+    from automodel_tpu_torch.recipes.llm import train_ft
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        free = shutil.disk_usage(root).free
+        print(f"ckpt: directory {root}, {free} bytes free", flush=True)
+        check(free > 40e9, f"ckpt: only {free} bytes free under {root}")
+
+        def recipe(max_steps):
+            cfg = parse_args_and_load_config(
+                ["-c", BENCH_YAML, "--checkpoint.enabled", "true",
+                 "--checkpoint.checkpoint_dir", root,
+                 "--checkpoint.keep_last_k", "1",
+                 "--step_scheduler.ckpt_every_steps", "0",
+                 "--step_scheduler.max_steps", str(max_steps)])
+            return train_ft.TrainFinetuneRecipeForNextTokenPrediction(
+                cfg).setup()
+
+        run = recipe(0)
+        check(run.step_scheduler.step == 0, "ckpt: resumed from a stale dir")
+        saves = []
+        for async_save in (False, True):
+            run.checkpoint_config.async_save = async_save
+            for _ in range(CKPT_SAVES):
+                # one step, then the loop's save at max_steps (the async
+                # commit is joined when the loop returns)
+                run.step_scheduler.max_steps += 1
+                run.run_train_validation_loop()
+                torch.cuda.synchronize()
+                t = run.ckpt_timings[-1]
+                latest = ck.find_latest_checkpoint(root)
+                check(latest == t["path"], f"ckpt: newest is {latest}, "
+                      f"saved {t['path']}")
+                manifest = ck.verify_manifest(latest)
+                saves.append(dict(async_save=async_save,
+                                  step=manifest["step"],
+                                  stall_ms=t["stall_s"] * 1e3,
+                                  background_ms=t["background_s"] * 1e3,
+                                  bytes=t["bytes"]))
+                print("ckpt_save " + json.dumps(saves[-1]), flush=True)
+        committed = ck.list_committed_checkpoints(root)
+        check(len(committed) == 1, f"ckpt: keep_last_k 1 left {committed}")
+        for _, _, path in committed:
+            ck.verify_manifest(path)
+
+        saved = dict(rng=run.rng.state_dict(),
+                     loader=run.dataloader.state_dict())
+        t0 = time.perf_counter()
+        resumed = recipe(run.step_scheduler.step + 1)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        check(resumed.step_scheduler.step == run.step_scheduler.step,
+              f"ckpt: resumed at step {resumed.step_scheduler.step}, saved "
+              f"{run.step_scheduler.step}")
+        equal = dict(
+            weights=_states_equal(run.model.state_dict(),
+                                  resumed.model.state_dict()),
+            optimizer=_states_equal(run.optimizer.state_dict(),
+                                    resumed.optimizer.state_dict()),
+            schedule=_states_equal(run.lr_scheduler.state_dict(),
+                                   resumed.lr_scheduler.state_dict()),
+            rng=_states_equal(saved["rng"], resumed.rng.state_dict()),
+            step_scheduler=_states_equal(
+                run.step_scheduler.state_dict(),
+                resumed.step_scheduler.state_dict()),
+            loader=_states_equal(saved["loader"],
+                                 resumed.dataloader.state_dict()))
+        check(all(equal.values()), f"ckpt: resumed state differs: {equal}")
+        run.checkpoint_config.enabled = False
+        resumed.checkpoint_config.enabled = False
+        run.step_scheduler.max_steps += 1
+        run.run_train_validation_loop()
+        resumed.run_train_validation_loop()
+        want, got = run.history[-1]["loss"], resumed.history[-1]["loss"]
+        rel = abs(got - want) / abs(want)
+        check(rel <= SFT_LOSS_REL_TOL,
+              f"ckpt: the resumed step's loss {got} vs {want} ({rel:.3e})")
+
+        def mean(xs):
+            return sum(xs) / len(xs)
+
+        report = dict(
+            yaml=os.path.relpath(BENCH_YAML, REPO), saves=saves,
+            inline_stall_ms=mean([x["stall_ms"] for x in saves
+                                  if not x["async_save"]]),
+            async_stall_ms=mean([x["stall_ms"] for x in saves
+                                 if x["async_save"]]),
+            async_background_ms=mean([x["background_ms"] for x in saves
+                                      if x["async_save"]]),
+            checkpoint_bytes=saves[-1]["bytes"], restore_s=restore_s,
+            resumed_step=resumed.step_scheduler.step - 1,
+            bitwise_equal=equal, next_loss=got, uninterrupted_loss=want,
+            next_loss_rel_err=rel)
+        print("ckpt_run " + json.dumps(report), flush=True)
+        del run, resumed
+        return report
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+T0 = time.perf_counter()
+
+
+def phase_done(name):
+    """Print the script's elapsed seconds at the end of a phase."""
+    print(f"phase {name} done at {time.perf_counter() - T0:.1f} s",
+          flush=True)
 
 
 def main():
@@ -1737,37 +2056,57 @@ def main():
 
     t0 = time.perf_counter()
     sources = ["paged_decode", "flash_attn_fwd", "flash_attn_bwd",
-               "linear_ce_fwd", "linear_ce_bwd", "gmm", "qdot", "gmm_quant"]
+               "linear_ce_fwd", "linear_ce_bwd", "gmm", "qdot", "gmm_quant",
+               "flash_mha_fwd", "flash_mha_bwd"]
     build.build_many(sources)
     print(f"build: {', '.join(n + '.cu' for n in sources)} (one nvcc each, "
           f"in parallel) in {time.perf_counter() - t0:.1f} s", flush=True)
 
     seg = first_batch(SFT_YAML)["segment_ids"]
-    bench_labels = first_batch(BENCH_YAML)["labels"]
+    bench_first = first_batch(BENCH_YAML)
+    bench_labels = bench_first["labels"]
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     cases = kernel_phase(flush)
+    phase_done("paged_decode kernel")
     attn_cases = attention_phase(flush, seg)
+    phase_done("attention kernels")
+    flash_cases = flash_phase(flush, bench_first["segment_ids"])
+    phase_done("flash kernels")
     lce_cases = linear_ce_phase(flush, bench_labels)
+    phase_done("linear-CE kernels")
     q_cases = qdot_phase(flush)
+    phase_done("qdot kernel")
     del flush
     main_run = engine_phase()
+    phase_done("engine")
     torch.cuda.empty_cache()
     sft = train_phase("sft", SFT_YAML)
+    phase_done("sft")
     torch.cuda.empty_cache()
     bench = train_phase("sft_bench", BENCH_YAML)
+    phase_done("sft_bench")
     check(bench["peak_mem_bytes"] < sft["peak_mem_bytes"],
           f"sft_bench peak memory {bench['peak_mem_bytes']} is not below the "
           f"MaskedCE sft phase's {sft['peak_mem_bytes']}")
     torch.cuda.empty_cache()
+    sft_flash = train_phase("sft_flash", BENCH_YAML, attn_impl="flash")
+    phase_done("sft_flash")
+    torch.cuda.empty_cache()
+    ckpt_phase()
+    phase_done("ckpt")
+    torch.cuda.empty_cache()
     fp8 = train_phase("sft_fp8", BENCH_YAML,
                       ["--fp8.enabled", "true", "--fp8.dtype", "float8"],
                       bf16=bench)
+    phase_done("sft_fp8")
     torch.cuda.empty_cache()
     moe = train_phase("sft_moe", MOE_YAML)
+    phase_done("sft_moe")
     torch.cuda.empty_cache()
     moe_fp8 = train_phase("sft_moe_fp8", MOE_YAML,
                           ["--fp8.enabled", "true", "--fp8.dtype", "int8"],
                           bf16=moe)
+    phase_done("sft_moe_fp8")
 
     rep = cases[0]
     kernels = [{
@@ -1852,6 +2191,19 @@ def main():
         "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],
         "library_ms": rep["library_ms"],
     })
+    for part, launches in (("fwd", sft_flash["fwd_launches"]),
+                           ("bwd", sft_flash["bwd_launches"])):
+        rep = flash_cases[0][part]
+        kernels.append({
+            "name": f"flash_mha_{part}", "route": "cuda",
+            "source": f"automodel_tpu_torch/csrc/flash_mha_{part}.cu",
+            "replaces": "automodel_tpu/ops/flash_attention.py:66",
+            "launches": launches,
+            "max_abs_err": max(c[part]["max_abs_err"] for c in flash_cases),
+            "ms": rep["ms"], "plain_ms": rep["plain_ms"],
+            "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],
+            "library_ms": rep["library_ms"],
+        })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

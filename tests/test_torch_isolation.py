@@ -1,6 +1,8 @@
 """The PyTorch port stands alone: no file of ``automodel_tpu_torch/`` nor
-``chip_smoke.py`` imports JAX or the JAX package, importing the engine
-loads no JAX, and the kernel build directory is ignored by git."""
+``chip_smoke.py`` imports JAX or the JAX package (the flash rung, the
+checkpoint and HF-safetensors modules and the optimizer step among them),
+importing every module loads no JAX, and the kernel build directory is
+ignored by git."""
 
 import ast
 import os
@@ -58,7 +60,9 @@ def test_engine_import_loads_no_jax():
     for mod in ("recipes.llm.train_ft", "ops.gmm_kernel", "ops.moe",
                 "models.mixtral", "models.qwen3_moe", "ops.quant",
                 "ops.qdot_kernel", "ops.gmm_quant_kernel",
-                "quantization.fp8"):
+                "quantization.fp8", "ops.flash_attention",
+                "checkpoint.checkpointing", "models.hf_io",
+                "optim.builder", "recipes.base_recipe"):
         assert "automodel_tpu_torch." + mod in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"

@@ -677,3 +677,119 @@ def test_cuda_gmm_quant_autograd_launches_and_matches_plain(dtype,
         res[impl] = (out, a.grad, b.grad)
     for got, ref in zip(res["kernel"], res["plain"]):
         assert rel_l2(got, ref) < GMM_REL_L2
+
+
+# ---------------------------------------------------------------------------
+# flash rung (csrc/flash_mha_fwd.cu, csrc/flash_mha_bwd.cu)
+# ---------------------------------------------------------------------------
+FLASH_CASES = [
+    # (name, B, S, H, D, causal, segments)
+    ("causal_d64", 2, 256, 4, 64, True, False),
+    ("packed_padded_d64", 2, 384, 4, 64, True, True),
+    ("full_packed_d64", 2, 256, 2, 64, False, True),
+    ("packed_padded_d128", 2, 256, 4, 128, True, True),
+    ("full_d128", 1, 128, 2, 128, False, False),
+]
+
+
+def make_flash_case(B, S, H, D, segments, seed=0):
+    """bf16 ``[B, H, S, D]`` operands on the card; with ``segments`` every
+    row holds 3 packed samples and a padding tail (segment 0) of at least
+    70 rows, so whole 64-row tiles are padding."""
+    rng = np.random.default_rng(seed)
+    x = [rng.normal(size=(B, H, S, D)).astype(np.float32) for _ in range(4)]
+    dev = torch.device("cuda")
+    t = [torch.from_numpy(a).to(dev, torch.bfloat16) for a in x]
+    seg = None
+    if segments:
+        seg = np.zeros((B, S), np.int32)
+        for b in range(B):
+            cuts = np.sort(rng.choice(np.arange(8, S - 70), 3, replace=False))
+            for i, (lo, hi) in enumerate(zip([0, *cuts[:2]], cuts)):
+                seg[b, lo:hi] = i + 1
+        seg = torch.from_numpy(seg).to(dev)
+    return (*t, seg)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FLASH_CASES, ids=[c[0] for c in FLASH_CASES])
+def test_cuda_flash_mha_matches_plain(case, cuda_device):
+    """The flash rung's forward and backward kernels against their plain
+    versions on every row, padding rows (segment 0 attends segment 0)
+    included: out and lse to the bf16 output's rounding, dq, dk, dv in
+    relative L2 (the kernels round P and dS to bf16 before the products)."""
+    from automodel_tpu_torch.ops import flash_attention as fa
+
+    _, B, S, H, D, causal, segments = case
+    q, k, v, dout, seg = make_flash_case(B, S, H, D, segments)
+    scale = D ** -0.5
+    f0, b0 = fa.fwd_launches, fa.bwd_launches
+    out, lse = fa.flash_mha_fwd_cuda(q, k, v, seg, causal, scale)
+    grads = fa.flash_mha_bwd_cuda(q, k, v, out, lse, dout, seg, causal, scale)
+    torch.cuda.synchronize()
+    assert (fa.fwd_launches, fa.bwd_launches) == (f0 + 1, b0 + 1)
+    ref_out, ref_lse = fa.flash_mha_plain(q, k, v, seg, causal, scale)
+    torch.testing.assert_close(out.float(), ref_out.float(), atol=ATTN_ATOL,
+                               rtol=ATTN_RTOL)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-2, rtol=1e-3)
+    refs = fa.flash_mha_bwd_plain(q, k, v, ref_out, ref_lse, dout, seg,
+                                  causal, scale)
+    for name, got, ref in zip(("dq", "dk", "dv"), grads, refs):
+        assert bool(torch.isfinite(got).all()), name
+        assert rel_l2(got, ref) < GRAD_REL_L2, (name, rel_l2(got, ref))
+    if seg is not None:        # padding rows have real outputs and gradients
+        pad = (seg == 0)[:, None, :].expand(B, H, S)
+        assert bool((out[pad].float().abs().sum(-1) > 0).all())
+        assert rel_l2(grads[0][pad], refs[0][pad]) < GRAD_REL_L2
+    again = fa.flash_mha_bwd_cuda(q, k, v, out, lse, dout, seg, causal, scale)
+    for got, rerun in zip(grads, again):          # no atomics: deterministic
+        assert torch.equal(got, rerun)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_rung_autograd_launches_and_matches_plain(cuda_device):
+    """``attention(impl="flash")`` on GQA bf16 operands ``[B, S, H, D]``
+    with a padding mask: one forward and one backward launch, and out, dq,
+    dk, dv (summed over each kv group by autograd) against the plain
+    version run through the same autograd."""
+    from automodel_tpu_torch.ops import flash_attention as fa
+    from automodel_tpu_torch.ops.attention import attention
+
+    rng = np.random.default_rng(2)
+    B, S, Hq, Hk, D = 2, 256, 8, 2, 64
+    q, k, v, dout = (torch.from_numpy(rng.normal(size=(B, S, h, D))
+                                      .astype(np.float32))
+                     .to(cuda_device, torch.bfloat16)
+                     for h in (Hq, Hk, Hk, Hq))
+    mask = torch.ones(B, S, dtype=torch.int32, device=cuda_device)
+    mask[1, 150:] = 0
+    res = {}
+    for impl in ("kernel", "plain"):
+        qq, kk, vv = (x.clone().requires_grad_() for x in (q, k, v))
+        f0, b0 = fa.fwd_launches, fa.bwd_launches
+        if impl == "kernel":
+            out = attention(qq, kk, vv, attention_mask=mask, impl="flash")
+        else:
+            out = fa.flash_attention_bshd(qq, kk, vv, attention_mask=mask,
+                                          impl="plain")
+        out.backward(dout)
+        torch.cuda.synchronize()
+        want = (1, 1) if impl == "kernel" else (0, 0)
+        assert (fa.fwd_launches - f0, fa.bwd_launches - b0) == want
+        res[impl] = (out, qq.grad, kk.grad, vv.grad)
+    torch.testing.assert_close(res["kernel"][0].float(),
+                               res["plain"][0].float(), atol=ATTN_ATOL,
+                               rtol=ATTN_RTOL)
+    for got, ref in zip(res["kernel"][1:], res["plain"][1:]):
+        assert rel_l2(got, ref) < GRAD_REL_L2
+
+
+@pytest.mark.cuda
+def test_cuda_flash_refuses_what_it_does_not_take(cuda_device):
+    from automodel_tpu_torch.ops import flash_attention as fa
+
+    q = torch.zeros(1, 2, 128, 64, device=cuda_device, dtype=torch.bfloat16)
+    for bad in (q.float(), q[..., :32].contiguous(), q[:, :, :100].contiguous(),
+                q.transpose(2, 3)):
+        with pytest.raises(ValueError):
+            fa.flash_mha_fwd_cuda(bad, bad, bad, None, True, 0.125)
