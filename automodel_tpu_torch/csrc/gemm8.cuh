@@ -1,5 +1,6 @@
-// Shared 8-bit tile product and quantize pass of the quantized matmuls
-// (qdot.cu, gmm_quant.cu).  The product: one CTA of 8 warps computes a
+// The 8-bit tile product of gmm_quant.cu and the quantize pass of the
+// quantized matmuls (qdot.cu, gmm_quant.cu; qdot's product runs on
+// wgmma_gemm.cuh).  The product: one CTA of 8 warps computes a
 // 128 x 256 tile C = A B over a K loop with both operands 8-bit -- int8 x
 // int8 (int32 sums, exact) or e4m3 / e5m2 in any pairing (fp32 sums) -- on
 // the tensor cores (mma.sync m16n8k32); each warp owns a 64 x 64 block, so
@@ -21,7 +22,7 @@
 // ptxas lowers an e4m3 / e5m2 mma.sync to an fp8 -> f16 unpack of the
 // fragments (F2FP.F16.E4M3.UNPACK_B) and f16 MMAs (HMMA.16816.F32), so fp8
 // here runs at the f16 tensor-core rate at best, plus the unpacks and
-// their registers: Hopper's fp8 rate is wgmma's (a later step).  The same
+// their registers: Hopper's fp8 rate is wgmma's (wgmma_gemm.cuh).  The same
 // lowering keeps fp8 sums in a true fp32 accumulator: the DeepSeek-V3
 // report (section 3.3.2) found Hopper's fp8 wgmma keeping about 14 bits of
 // the sums over long K, and fp8 GEMMs add each 128 of K into separate fp32

@@ -15,19 +15,22 @@ product is bound by its ``2 m k n`` operations on the 8-bit tensor cores
 kernel does about it and what it costs.
 
 Each operand is row-major or the transpose view of a row-major tensor
-(``W.t()`` of an ``nn.Linear`` weight, ``x.t()`` of the activations); the
-kernel reads either in place, quantizes every element once into a K-major
-8-bit scratch copy (allocated here) and multiplies the two copies; the
-source note says why it does not quantize per tile as the TPU kernel does.
-The output is written in ``out_dtype`` (the cast of the same fp32 value as
-the JAX rung's ``astype``), or into ``out``, which may also be a transpose
+(``W.t()`` of an ``nn.Linear`` weight, ``x.t()`` of the activations).  A
+call is two launches on the caller's stream (:func:`qdot_launch_plan`):
+``qdot_pack`` quantizes every element once into a K-major 8-bit scratch
+copy of each operand (allocated here), and ``qdot_product`` multiplies the
+two copies on the wgmma mainloop; the source note says why it does not
+quantize per tile as the TPU kernel does.  When the output tiles would
+not fill the card, :func:`split_plan` splits K and the product sums the
+splits' partials (a workspace allocated here) in a fixed order.  The
+output is written in ``out_dtype`` (the cast of the same fp32 value as the
+JAX rung's ``astype``), or into ``out``, which may also be a transpose
 view.
 
-``qdot_launches`` counts the kernel's launches (one per call: the pack of
-each operand and the 8-bit product, launched together by ``csrc/qdot.cu``'s
-entry point).  There is no fallback:
-:func:`qdot` takes the plain version only for CPU tensors or when asked by
-``impl="plain"``; on CUDA tensors it launches the kernel or raises.
+``qdot_launches`` counts the kernel's calls (one per call: the pack and the
+product launched together).  There is no fallback: :func:`qdot` takes the
+plain version only for CPU tensors or when asked by ``impl="plain"``; on
+CUDA tensors it launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -49,23 +52,69 @@ PAIRS = ((torch.float8_e4m3fn, torch.float8_e4m3fn),
          (torch.float8_e4m3fn, torch.float8_e5m2),
          (torch.int8, torch.int8))
 
-_fn = None
+# the product's tiles (csrc/qdot.cu): 128 rows, 128 (fp8) or 256 (int8)
+# columns, K tiles of 128 codes
+TILE_M = 128
+TILE_K = 128
+
+_fns = {}
+_sm_counts = {}
 
 
-def _kernel():
-    global _fn
-    if _fn is None:
+def _sms(device: torch.device) -> int:
+    """Streaming multiprocessors of a CUDA device (cached)."""
+    n = _sm_counts.get(device.index)
+    if n is None:
+        n = torch.cuda.get_device_properties(device).multi_processor_count
+        _sm_counts[device.index] = n
+    return n
+
+
+def tile_n(a_dtype: torch.dtype) -> int:
+    """Output columns per CTA tile of the product for operand type
+    ``a_dtype`` (fp8: 128, for the fp32 promotion registers; int8: 256)."""
+    return 256 if a_dtype == torch.int8 else 128
+
+
+def split_plan(m: int, n: int, k: int, a_dtype: torch.dtype, sms: int
+               ) -> Tuple[int, int]:
+    """``(splits, kt_split)``: how the product splits K.  With fewer output
+    tiles than ``sms`` SMs, K (in tiles of ``TILE_K`` codes over ``kp`` =
+    k rounded up to 16) is cut into ranges of ``kt_split`` whole tiles so
+    that tiles x splits >= sms (as far as K has tiles); the last range
+    holds the remainder.  Otherwise one range: ``(1, all K tiles)``."""
+    kp = -(-k // 16) * 16
+    kt = -(-kp // TILE_K)
+    tiles = -(-m // TILE_M) * -(-n // tile_n(a_dtype))
+    if tiles >= sms:
+        return 1, kt
+    want = min(-(-sms // tiles), kt)
+    kt_split = -(-kt // want)
+    while kt_split > 1 and -(-kt // kt_split) < want:
+        kt_split -= 1
+    return -(-kt // kt_split), kt_split
+
+
+def _kernel(name: str):
+    fn = _fns.get(name)
+    if fn is None:
         from automodel_tpu_torch.ops.kernel_lib import build
 
-        fn = build.load("qdot").qdot
+        fn = getattr(build.load("qdot"), name)
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        # a b sa sb out aq bq m n k lda ldb a_kmajor b_kmajor sa_stride
-        # sb_stride out_rs out_cs out_bf16 qa qb stream
-        fn.argtypes = [p, p, p, p, p, p, p, i, i, i, ll, ll, i, i, i, i, ll,
-                       ll, i, i, i, p]
+        fn.argtypes = {
+            # a b sa sb aq bq m n k lda ldb a_kmajor b_kmajor sa_stride
+            # sb_stride qa qb stream
+            "qdot_pack": [p, p, p, p, p, p, i, i, i, ll, ll, i, i, i, i, i,
+                          i, p],
+            # aq bq sa sb out ws m n kp sa_stride sb_stride out_rs out_cs
+            # out_bf16 qa qb splits kt_split promote stream
+            "qdot_product": [p, p, p, p, p, p, i, i, i, i, i, ll, ll, i, i,
+                             i, i, i, i, p],
+        }[name]
         fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+        _fns[name] = fn
+    return fn
 
 
 def _check(cond: bool, msg: str) -> None:
@@ -103,14 +152,21 @@ def _scales(s: torch.Tensor, size: int, axis: int, name: str) -> int:
     return 0 if s.shape[axis] == 1 and size != 1 else s.stride(axis)
 
 
-def qdot_cuda(a: torch.Tensor, b: torch.Tensor, sa: torch.Tensor,
-              sb: torch.Tensor, a_dtype: torch.dtype, b_dtype: torch.dtype,
-              out: Optional[torch.Tensor] = None,
-              out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """Launch ``qdot``: bf16 ``a [m, k]`` and ``b [k, n]`` (each row-major
-    or a transpose view of one; the vectorised dimension a multiple of 8)
-    -> ``[m, n]`` fp32 or bf16."""
-    global qdot_launches
+def qdot_launch_plan(a: torch.Tensor, b: torch.Tensor, sa: torch.Tensor,
+                     sb: torch.Tensor, a_dtype: torch.dtype,
+                     b_dtype: torch.dtype,
+                     out: Optional[torch.Tensor] = None,
+                     out_dtype: torch.dtype = torch.float32,
+                     promote: bool = True):
+    """Check the operands and allocate the output and scratch of ``qdot``
+    (bf16 ``a [m, k]`` and ``b [k, n]``, each row-major or a transpose view
+    of one, the vectorised dimension a multiple of 8; ``[m, n]`` fp32 or
+    bf16 out), launching nothing: ``(out, plan)`` with ``plan`` the
+    ``[("pack", launch), ("product", launch)]`` to run in order (empty when
+    m or k is 0: ``out`` is then final), each on the current stream of the
+    current device, which must be a's.  ``promote=False`` (e4m3 x e4m3
+    only) runs the fp8 product without its per-stage fp32 promotion, for
+    measuring what the promotion buys; no caller of the port sets it."""
     _check(a.is_cuda, f"a must be a CUDA tensor, got {a.device}")
     _check(a.dim() == 2 and b.dim() == 2 and a.shape[1] == b.shape[0],
            f"a [m, k] and b [k, n], got {tuple(a.shape)} and "
@@ -118,6 +174,8 @@ def qdot_cuda(a: torch.Tensor, b: torch.Tensor, sa: torch.Tensor,
     _check((a_dtype, b_dtype) in PAIRS,
            f"operand types ({a_dtype}, {b_dtype}) are not a pair "
            f"_gemm_dtypes makes: {PAIRS}")
+    _check(promote or a_dtype == b_dtype == torch.float8_e4m3fn,
+           "promote=False is built for e4m3 x e4m3 only")
     m, k = a.shape
     n = b.shape[1]
     for name, t in (("a", a), ("b", b)):
@@ -148,24 +206,58 @@ def qdot_cuda(a: torch.Tensor, b: torch.Tensor, sa: torch.Tensor,
            "row-major with an even leading dimension")
     _check(out.data_ptr() % 16 == 0, "out must be 16-byte aligned")
     if m == 0:
-        return out
+        return out, []
     if k == 0:
-        return out.zero_()
+        return out.zero_(), []
+
     # the quantized copies, K-major with k padded to 16 (scratch)
     kp = -(-k // 16) * 16
     aq = torch.empty(m, kp, dtype=torch.uint8, device=a.device)
     bq = torch.empty(n, kp, dtype=torch.uint8, device=a.device)
+    splits, kt_split = split_plan(m, n, k, a_dtype, _sms(a.device))
+    ws = (torch.empty(splits, m, n, device=a.device, dtype=torch.int32
+                      if a_dtype == torch.int8 else torch.float32)
+          if splits > 1 else None)
+    qa, qb = QCODES[a_dtype], QCODES[b_dtype]
+
+    stream = torch.cuda.current_stream(a.device).cuda_stream
+
+    def launch(name, *args):
+        rc = _kernel(name)(*args, stream)
+        if rc != 0:
+            raise RuntimeError(f"{name} launch failed (code {rc})")
+
+    def pack():
+        launch("qdot_pack", a.data_ptr(), b.data_ptr(), sa.data_ptr(),
+               sb.data_ptr(), aq.data_ptr(), bq.data_ptr(), m, n, k, lda,
+               ldb, int(a_k), int(b_k), sa_stride, sb_stride, qa, qb)
+
+    def product():
+        launch("qdot_product", aq.data_ptr(), bq.data_ptr(), sa.data_ptr(),
+               sb.data_ptr(), out.data_ptr(),
+               None if ws is None else ws.data_ptr(), m, n, kp, sa_stride,
+               sb_stride, ors, ocs, int(out.dtype == torch.bfloat16), qa,
+               qb, splits, kt_split, int(promote))
+
+    return out, [("pack", pack), ("product", product)]
+
+
+def qdot_cuda(a: torch.Tensor, b: torch.Tensor, sa: torch.Tensor,
+              sb: torch.Tensor, a_dtype: torch.dtype, b_dtype: torch.dtype,
+              out: Optional[torch.Tensor] = None,
+              out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Launch ``qdot``: bf16 ``a [m, k]`` and ``b [k, n]`` (each row-major
+    or a transpose view of one; the vectorised dimension a multiple of 8)
+    -> ``[m, n]`` fp32 or bf16."""
+    global qdot_launches
+    _check(a.is_cuda, f"a must be a CUDA tensor, got {a.device}")
     with torch.cuda.device(a.device):
-        rc = _kernel()(
-            a.data_ptr(), b.data_ptr(), sa.data_ptr(), sb.data_ptr(),
-            out.data_ptr(), aq.data_ptr(), bq.data_ptr(), m, n, k, lda, ldb,
-            int(a_k), int(b_k), sa_stride,
-            sb_stride, ors, ocs, int(out.dtype == torch.bfloat16),
-            QCODES[a_dtype], QCODES[b_dtype],
-            torch.cuda.current_stream(a.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"qdot launch failed (code {rc})")
-    qdot_launches += 1
+        out, plan = qdot_launch_plan(a, b, sa, sb, a_dtype, b_dtype, out,
+                                     out_dtype)
+        for _, launch in plan:
+            launch()
+    if plan:
+        qdot_launches += 1
     return out
 
 

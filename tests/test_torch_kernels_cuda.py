@@ -614,6 +614,98 @@ def test_cuda_qdot_refuses_what_it_does_not_take(cuda_device):
         qk.qdot(a, b, sa, sb, torch.int8, e4)
 
 
+# shapes that reach each path of the wgmma product: tiles that fill the
+# card (one K range), a narrow output over a long K (split K), 8- and
+# 16-wide outputs, k = 2056 (kp = 2064 pads the last 128-code K tile with
+# zeros), and a ragged m; (name, orientation, m, k, n) as make_qdot_case
+QDOT_SHAPES = [
+    ("unsplit", "forward", 8192, 512, 1024),
+    ("split_k_wgrad", "wgrad", 8192, 512, 128),
+    ("n8", "forward", 1000, 256, 8),
+    ("n16", "dgrad", 1000, 256, 16),
+    ("k2056", "forward", 512, 2056, 256),
+    ("ragged_m", "forward", 1037, 1024, 512),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pair", QPAIRS, ids=[p[0] for p in QPAIRS])
+@pytest.mark.parametrize("shape", QDOT_SHAPES, ids=[s[0] for s in QDOT_SHAPES])
+def test_cuda_qdot_shapes_match_plain(shape, pair, cuda_device):
+    """Each product path against the plain version, fp32 and transposed
+    out; int8 bit-identical; the split plan as intended."""
+    from automodel_tpu_torch.ops import qdot_kernel as qk
+    from automodel_tpu_torch.ops.quant import _operand_scales
+
+    name, orientation, m, k, n = shape
+    _, a_q, b_q = pair
+    a, b = make_qdot_case(orientation, m=m, k=k, n=n, seed=5,
+                          device=cuda_device)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    splits, _ = qk.split_plan(a.shape[0], n, a.shape[1], a_q, sms)
+    if name in ("unsplit", "split_k_wgrad"):
+        assert (splits > 1) == (name == "split_k_wgrad"), splits
+    sa, sb = _operand_scales(a, b, a_q, b_q, False)
+    ref = qk.qdot_plain(a, b, sa, sb, a_q, b_q)
+    got = qk.qdot_cuda(a, b, sa, sb, a_q, b_q)
+    got_t = torch.empty(n, a.shape[0], device=cuda_device).t()
+    qk.qdot_cuda(a, b, sa, sb, a_q, b_q, out=got_t)
+    torch.cuda.synchronize()
+    for out in (got, got_t):
+        assert bool(torch.isfinite(out).all())
+        if a_q == torch.int8:
+            assert torch.equal(out, ref)
+        else:
+            assert rel_l2(out, ref) < QDOT_FP8_REL_L2, rel_l2(out, ref)
+
+
+# the dW product alone (csrc/linear_ce_bwd.cu::linear_ce_dw) in its three
+# modes: (name, chunk rows, H, V); V past a 128-row tile and rows past a
+# 64-row K tile, the TMA boxes' zero fill
+DW_CASES = [
+    ("rows96_vocab_tail", 96, 256, 1000),
+    ("ragged_rows_gpt2_vocab", 300, 512, 50257),
+    ("h4096", 256, 4096, 1000),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", DW_CASES, ids=[c[0] for c in DW_CASES])
+def test_cuda_linear_ce_dw_modes_match_plain(case, cuda_device):
+    """Mode 0 writes h^T dl into the fp32 buffer, mode 1 adds it again,
+    mode 2 adds a third time and writes bf16; mode 2 without a previous
+    buffer writes the product alone.  fp32 sums of exact bf16 products in
+    another order: 1e-5 relative L2; bf16 out: one rounding, 1e-2."""
+    from automodel_tpu_torch.ops import linear_ce_kernel as lce
+
+    _, rows, H, V = case
+    ldv = lce.padded_vocab(V)
+    rng = np.random.default_rng(9)
+    dl = torch.zeros(rows, ldv)
+    dl[:, :V] = torch.from_numpy(
+        (rng.normal(size=(rows, V)) * 1e-2).astype(np.float32))
+    dl = dl.to(cuda_device, torch.bfloat16)
+    h = torch.from_numpy(rng.normal(size=(rows, H)).astype(np.float32)).to(
+        cuda_device, torch.bfloat16)
+    ref = lce.dw_plain(h, dl[:, :V]).t()                # [V, H] fp32
+    dw32 = torch.full((V, H), float("nan"), device=cuda_device)
+    dw = torch.empty(V, H, dtype=torch.bfloat16, device=cuda_device)
+    before = lce.dw_launches
+    lce.linear_ce_dw_cuda(dl, h, rows, dw32, dw, 0, False)
+    torch.cuda.synchronize()
+    assert rel_l2(dw32, ref) < 1e-5, rel_l2(dw32, ref)
+    lce.linear_ce_dw_cuda(dl, h, rows, dw32, dw, 1, True)
+    torch.cuda.synchronize()
+    assert rel_l2(dw32, 2 * ref) < 1e-5
+    lce.linear_ce_dw_cuda(dl, h, rows, dw32, dw, 2, True)
+    torch.cuda.synchronize()
+    assert rel_l2(dw, 3 * ref) < 1e-2
+    lce.linear_ce_dw_cuda(dl, h, rows, None, dw, 2, False)
+    torch.cuda.synchronize()
+    assert rel_l2(dw, ref) < 1e-2
+    assert lce.dw_launches - before == 4
+
+
 QGMM_CASES = [c for c in GMM_CASES if c[3] % 16 == 0 and c[4] % 16 == 0]
 # the (lhs, rhs) pairs of gmm_quant: forward e4m3 x e4m3, dlhs e5m2 x e4m3,
 # int8 x int8 (each also under the other recipe)
