@@ -14,22 +14,28 @@
 // 8 MB of VMEM at (1024, 2048)) and each recompute the logits, 4 matmul
 // units in all.  An SM holds 256 KB of registers and 227 KB of shared
 // memory, so here the backward walks rows in chunks of Tc (the wrapper's
-// choice, 2048 by default) with three launches per chunk:
-//   1. linear_ce_dlogits: the logits of the chunk recomputed tile by tile
-//      (the shared 128 x 256 tile product), dlogits applied in registers
-//      with vocab columns past V and labels outside [0, V) masked, written
-//      as bf16 [Tc, ldv] (ldv = V rounded up to 128; the pad columns are
-//      written as 0).  The rounding to bf16 before the products is the TPU
-//      kernel's own (:231, :258: dlog.astype(w.dtype));
-//   2. linear_ce_dh: dh[chunk] = dlogits W, a tile product with K = V that
-//      reads W [V, H] as an N-major operand (ldmatrix.trans);
-//   3. linear_ce_dw: dW += dlogits^T h[chunk] on wgmma_gemm.cuh's Hopper
-//      mainloop: TMA loads dlogits [Tc][ldv] (M = V contiguous) and h
-//      [Tc][H] (N = H contiguous) as 64 x 64 boxes, and bf16 wgmma reads
-//      both as MN-major shared tiles through its transpose bits, so
-//      neither is copied into another layout; 128 x 256 output tiles, a
-//      4-stage ring, one persistent CTA per SM, ragged chunk rows and the
-//      V tail zero-filled by TMA.
+// choice, 2048 by default) with three launches per chunk, all three
+// persistent kernels on wgmma_gemm.cuh's Hopper mainloop (TMA loads into a
+// ring of shared-memory stages, a producer warp, two wgmma consumer
+// warpgroups, 128 x 256 output tiles, one CTA per SM; ragged chunk rows and
+// the V tail zero-filled by TMA):
+//   1. lce_dlogits (kernel 3's recompute, _dlogits_tile :209): the logits
+//      of the chunk, h [Tc][H] (K-major) by W [V][H] (K-major: the head's
+//      row-major storage), tile by tile; the epilogue applies
+//      exp(acc - lse) dlse + (col == label) dpick in registers with vocab
+//      columns past V and labels outside [0, V) masked, rounds to bf16 (the
+//      TPU kernel's own rounding, :231, :258: dlog.astype(w.dtype)) and
+//      stores [Tc][ldv] (ldv = V rounded up to 128; the pad columns are
+//      written as 0).  The tiles of one column of W run on neighbouring
+//      CTAs (all row tiles of a chunk in one group), so W is read from
+//      device memory about once per chunk and the chunk of h stays in L2;
+//   2. lce_dh (kernel 3, _bwd_dh_kernel :222): dh[chunk] = dlogits W, K =
+//      V: dlogits [Tc][ldv] K-major, W [V][H] read as 64 x 64 MN-major
+//      boxes through wgmma's transpose bit (nothing is copied), fp32 sums,
+//      bf16 out; Tc 2048 gives 16 x 8 = 128 tiles, one per SM;
+//   3. lce_dw (kernel 4, _bwd_dw_kernel :248): dW += dlogits^T h[chunk],
+//      both operands MN-major (dlogits [Tc][ldv], M = V contiguous; h
+//      [Tc][H], N = H contiguous) as 64 x 64 boxes.
 //      It sums into one fp32 [V, H] buffer: the first chunk writes it,
 //      the later ones add, and the last writes the bf16 result (one
 //      chunk: no fp32 buffer).  That round trip moves 2.1 GB per chunk
@@ -42,7 +48,10 @@
 // Bound: 6 T H V operations on the bf16 tensor cores (the recompute, dh
 // and dW: 25.8 TFLOP at T 16384, H 2048, V 128256, 26.1 ms at 989
 // TFLOP/s); the bytes (h, W, dh, dW once; the dlogits chunks and the fp32
-// dW read-modify-write on top) stay well below that.
+// dW read-modify-write on top) stay well below that.  What is left: the
+// consumers run each tile's epilogue (dlogits' exp and 64 KB of stores a
+// tile) between two mainloops instead of overlapping it, and a ragged last
+// chunk leaves dh's 128-row tiles short of the SMs (no split K).
 
 #include "linear_ce_gemm.cuh"
 #include "wgmma_gemm.cuh"
@@ -50,91 +59,110 @@
 namespace lce {
 namespace {
 
-// dlogits of rows r0 .. r0 + rows of the chunk, tile (tm, tn) per CTA
-__global__ void __launch_bounds__(kThreads, 1)
-lce_dlogits(const bf16* __restrict__ h, const bf16* __restrict__ w,
-            const int* __restrict__ labels, const float* __restrict__ lse,
-            const float* __restrict__ dlse, const float* __restrict__ dpick,
-            bf16* __restrict__ dl, int r0, int rows, int H, int V, int ldv,
-            int group_m) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* smem = reinterpret_cast<bf16*>(smem_raw);
-  const int n_m = (rows + kBM - 1) / kBM;
-  const int n_n = (ldv + kBN - 1) / kBN;
-  int tm, tn;
-  grouped_tile(blockIdx.x, n_m, n_n, group_m, &tm, &tn);
-  const int m0 = tm * kBM, n0 = tn * kBN;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int wm = warp >> 2, wn = warp & 3, g = lane >> 2, t = lane & 3;
+// dlogits [rows][ldv] bf16 of rows r0 .. r0 + rows (the row vectors
+// already offset by r0): A = h chunk [rows][H], B = w [V][H], both K-major
+using DlCfg = wg::Cfg<wg::kBF16, wg::kBF16, false, false, 256, false>;
+// dh [rows][H] bf16 = dl [rows][ldv] (K-major, K = V) w [V][H] (MN-major)
+using DhCfg = wg::Cfg<wg::kBF16, wg::kBF16, false, true, 256, false>;
 
-  const Operand A{h + (size_t)r0 * H, H, rows, H};
-  const Operand B{w, H, V, H};
-  float acc[4][kNT][4];
-  zero_acc(acc);
-  gemm_tile<true, true>(acc, A, B, m0, n0, H, smem);
+// dlogits epilogue: the whole of it, its arithmetic without the stores, or
+// none (the last two time the kernel's parts; the port runs kEpiFull)
+enum DlEpi { kEpiFull = 0, kEpiMath = 1, kEpiNone = 2 };
 
+struct DlArgs {
+  const int* labels;
+  const float *lse, *dlse, *dpick;
+  bf16* dl;
+  int rows, V, ldv, kt, n_m, n_n, group_m, epi;
+};
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__global__ void __launch_bounds__(wg::kThreads, 1)
+lce_dlogits(const __grid_constant__ CUtensorMap ta,
+            const __grid_constant__ CUtensorMap tb, const DlArgs p) {
+  extern __shared__ __align__(1024) uint8_t smem[];
+  constexpr float kLog2e = 1.4426950408889634f;
+  auto tile = [&](int i) {
+    return wg::grid_tile(i, p.n_m, p.n_n, p.group_m, DlCfg::BN, p.kt, p.kt);
+  };
+  // a thread's sums lie on two rows (registers i with (i / 2) % 2 = 0, 1):
+  // their lse (times log2 e), dlse, dpick and label, loaded while the
+  // tile's products run
+  float lse2[2], ds[2], dp[2];
+  int lab[2];
+  bool in[2];
+  auto pre = [&](int w, const wg::Tile& t) {
 #pragma unroll
-  for (int r = 0; r < 8; ++r) {
-    const int i = r >> 1, e0 = (r & 1) * 2;
-    const int lrow = m0 + wm * 64 + i * 16 + g + (r & 1) * 8;
-    if (lrow >= rows) continue;
-    const int row = r0 + lrow;
-    const int lab = labels[row];
-    const float l = lse[row], ds = dlse[row], dp = dpick[row];
-    bf16* out = dl + (size_t)lrow * ldv;
+    for (int r = 0; r < 2; ++r) {
+      const int row = t.m0 + wg::acc_row(w, 2 * r);
+      in[r] = row < p.rows;
+      lse2[r] = in[r] ? p.lse[row] * kLog2e : 0.f;
+      ds[r] = in[r] ? p.dlse[row] : 0.f;
+      dp[r] = in[r] ? p.dpick[row] : 0.f;
+      lab[r] = in[r] ? p.labels[row] : -1;
+    }
+  };
+  auto epi = [&](int w, const wg::Tile& t, float (&acc)[DlCfg::BN / 2]) {
+    if (p.epi == kEpiNone) {       // timing: the product alone
+      float x = 0.f;
 #pragma unroll
-    for (int j = 0; j < kNT; ++j) {
-      const int col = n0 + wn * kWN + j * 8 + 2 * t;
-      if (col >= ldv) continue;     // ldv % 8 == 0: a pair is in or out
-      float v2[2];
+      for (int i = 0; i < DlCfg::BN / 2; ++i) x += acc[i];
+      if (x == 0x1p127f) p.dl[0] = __float2bfloat16(x);   // never taken
+      return;
+    }
+    const bool full = t.n0 + DlCfg::BN <= p.V;     // no vocab tail here
+#pragma unroll
+    for (int i = 0; i < DlCfg::BN / 2; i += 2) {
+      const int r = (i >> 1) & 1;
+      const int col = t.n0 + wg::acc_col(i);
+      if (!in[r] || (!full && col >= p.ldv)) continue;   // ldv % 8 == 0
+      float d[2];
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int c = col + e;
-        float d = 0.f;
-        if (c < V) {
-          d = __expf(acc[i][j][e0 + e] - l) * ds;
-          if (c == lab) d += dp;
-        }
-        v2[e] = d;
+        d[e] = ex2(fmaf(acc[i + e], kLog2e, -lse2[r])) * ds[r];
+        if (c == lab[r]) d[e] += dp[r];
+        if (!full && c >= p.V) d[e] = 0.f;
       }
-      *reinterpret_cast<uint32_t*>(out + col) = pack_bf16(v2[0], v2[1]);
+      const uint32_t v = pack_bf16(d[0], d[1]);
+      // kEpiMath (timing: no stores) keeps one the compiler cannot prove
+      // dead
+      if (p.epi == kEpiFull || v == 0x7fc07fc0u)
+        *reinterpret_cast<uint32_t*>(
+            p.dl + (size_t)(t.m0 + wg::acc_row(w, i)) * p.ldv + col) = v;
     }
-  }
+  };
+  wg::mainloop<DlCfg>(smem, &ta, &tb, p.n_m * p.n_n, tile, epi, pre);
 }
 
-// dh[r0 + m, n] = sum_v dl[m, v] w[v, n]
-__global__ void __launch_bounds__(kThreads, 1)
-lce_dh(const bf16* __restrict__ dl, const bf16* __restrict__ w,
-       bf16* __restrict__ dh, int rows, int H, int V, int ldv, int group_m) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* smem = reinterpret_cast<bf16*>(smem_raw);
-  const int n_m = (rows + kBM - 1) / kBM;
-  const int n_n = (H + kBN - 1) / kBN;
-  int tm, tn;
-  grouped_tile(blockIdx.x, n_m, n_n, group_m, &tm, &tn);
-  const int m0 = tm * kBM, n0 = tn * kBN;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int wm = warp >> 2, wn = warp & 3, g = lane >> 2, t = lane & 3;
+struct DhArgs {
+  bf16* dh;
+  int rows, H, kt, n_m, n_n, group_m;
+};
 
-  const Operand A{dl, ldv, rows, ldv};          // [m][k = v], K-major
-  const Operand B{w, H, V, H};                  // [k = v][n], N-major
-  float acc[4][kNT][4];
-  zero_acc(acc);
-  gemm_tile<true, false>(acc, A, B, m0, n0, V, smem);
-
+__global__ void __launch_bounds__(wg::kThreads, 1)
+lce_dh(const __grid_constant__ CUtensorMap ta,
+       const __grid_constant__ CUtensorMap tb, const DhArgs p) {
+  extern __shared__ __align__(1024) uint8_t smem[];
+  auto tile = [&](int i) {
+    return wg::grid_tile(i, p.n_m, p.n_n, p.group_m, DhCfg::BN, p.kt, p.kt);
+  };
+  auto epi = [&](int w, const wg::Tile& t, float (&acc)[DhCfg::BN / 2]) {
 #pragma unroll
-  for (int r = 0; r < 8; ++r) {
-    const int i = r >> 1, e0 = (r & 1) * 2;
-    const int m = m0 + wm * 64 + i * 16 + g + (r & 1) * 8;
-    if (m >= rows) continue;
-#pragma unroll
-    for (int j = 0; j < kNT; ++j) {
-      const int n = n0 + wn * kWN + j * 8 + 2 * t;
-      if (n < H)      // H % 8 == 0: a pair is in or out as a whole
-        *reinterpret_cast<uint32_t*>(dh + (size_t)m * H + n) =
-            pack_bf16(acc[i][j][e0], acc[i][j][e0 + 1]);
+    for (int i = 0; i < DhCfg::BN / 2; i += 2) {
+      const int m = t.m0 + wg::acc_row(w, i);
+      const int n = t.n0 + wg::acc_col(i);
+      if (m < p.rows && n < p.H)      // H % 8 == 0: a pair is in or out
+        *reinterpret_cast<uint32_t*>(p.dh + (size_t)m * p.H + n) =
+            pack_bf16(acc[i], acc[i + 1]);
     }
-  }
+  };
+  wg::mainloop<DhCfg>(smem, &ta, &tb, p.n_m * p.n_n, tile, epi);
 }
 
 // dW[v, n] (+)= sum_m dl[m, v] h[m, n]; mode 0: write dw32, 1: add into
@@ -190,12 +218,6 @@ lce_dw(const __grid_constant__ CUtensorMap ta,
   wg::mainloop<DwCfg>(smem, &ta, &tb, p.n_m * p.n_n, tile, epi);
 }
 
-template <typename K>
-int prepare(K kernel) {
-  return static_cast<int>(cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes));
-}
-
 }  // namespace
 }  // namespace lce
 
@@ -203,38 +225,61 @@ int prepare(K kernel) {
 // >= V) multiples of 8.  Each returns 0, -1 for a shape they do not take,
 // else the cudaError_t of the launch.
 
-// dl [rows, ldv] bf16 <- dlogits of rows r0 .. r0 + rows of h [T, H]
+// dl [rows, ldv] bf16 <- dlogits of rows r0 .. r0 + rows of h [T, H]; h
+// and w 16-byte aligned (TMA).  epi (DlEpi): 0 the kernel; 1 and 2 time
+// its parts (no stores; no epilogue) and leave dl as it was.  Also
+// returns a tensor-map error (wgmma_gemm.cuh::make_map).
 extern "C" int linear_ce_dlogits(const void* h, const void* w,
                                  const int* labels, const float* lse,
                                  const float* dlse, const float* dpick,
                                  void* dl, int r0, int rows, int H, int V,
-                                 int ldv, void* stream) {
+                                 int ldv, int epi, void* stream) {
   using namespace lce;
-  if (rows <= 0 || H % 8 || V <= 0 || ldv % 8 || ldv < V) return -1;
-  int rc = prepare(lce_dlogits);
+  if (rows <= 0 || H % 8 || V <= 0 || ldv % 8 || ldv < V || epi < kEpiFull ||
+      epi > kEpiNone)
+    return -1;
+  CUtensorMap ta, tb;
+  int rc = wg::operand_map<DlCfg, true>(
+      &ta, static_cast<const bf16*>(h) + (size_t)r0 * H, rows, H, H);
   if (rc) return rc;
-  const int n_m = (rows + kBM - 1) / kBM;
-  const int n_n = (ldv + kBN - 1) / kBN;
-  lce_dlogits<<<n_m * n_n, kThreads, kSmemBytes,
-                static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(h), static_cast<const bf16*>(w), labels, lse,
-      dlse, dpick, static_cast<bf16*>(dl), r0, rows, H, V, ldv, n_m);
+  rc = wg::operand_map<DlCfg, false>(&tb, w, V, H, H);
+  if (rc) return rc;
+  rc = wg::prepare<DlCfg>(lce_dlogits);
+  if (rc) return rc;
+  // every row tile of the chunk in one group: the CTAs resident at one
+  // time share a few column tiles of W, read once a chunk
+  const int n_m = (rows + wg::kBM - 1) / wg::kBM;
+  DlArgs p{labels + r0, lse + r0, dlse + r0, dpick + r0,
+           static_cast<bf16*>(dl), rows, V, ldv,
+           (H + DlCfg::BK - 1) / DlCfg::BK, n_m,
+           (ldv + DlCfg::BN - 1) / DlCfg::BN, n_m, epi};
+  const int work = p.n_m * p.n_n;
+  lce_dlogits<<<work < lce::num_sms() ? work : lce::num_sms(), wg::kThreads,
+                DlCfg::kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
+      ta, tb, p);
   return static_cast<int>(cudaGetLastError());
 }
 
-// dh [rows, H] bf16 <- dl [rows, ldv] w [V, H]
+// dh [rows, H] bf16 <- dl [rows, ldv] w [V, H]; dl and w 16-byte aligned
+// (TMA); also returns a tensor-map error.
 extern "C" int linear_ce_dh(const void* dl, const void* w, void* dh,
                             int rows, int H, int V, int ldv, void* stream) {
   using namespace lce;
   if (rows <= 0 || H % 8 || V <= 0 || ldv % 8 || ldv < V) return -1;
-  int rc = prepare(lce_dh);
+  CUtensorMap ta, tb;
+  int rc = wg::operand_map<DhCfg, true>(&ta, dl, rows, V, ldv);
   if (rc) return rc;
-  const int n_m = (rows + kBM - 1) / kBM;
-  const int n_n = (H + kBN - 1) / kBN;
-  lce_dh<<<n_m * n_n, kThreads, kSmemBytes,
-           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(dl), static_cast<const bf16*>(w),
-      static_cast<bf16*>(dh), rows, H, V, ldv, n_m);
+  rc = wg::operand_map<DhCfg, false>(&tb, w, H, V, H);
+  if (rc) return rc;
+  rc = wg::prepare<DhCfg>(lce_dh);
+  if (rc) return rc;
+  DhArgs p{static_cast<bf16*>(dh), rows, H, (V + DhCfg::BK - 1) / DhCfg::BK,
+           (rows + wg::kBM - 1) / wg::kBM, (H + DhCfg::BN - 1) / DhCfg::BN,
+           1};
+  p.group_m = wg::group_rows(p.n_m, p.n_n);
+  const int work = p.n_m * p.n_n;
+  lce_dh<<<work < lce::num_sms() ? work : lce::num_sms(), wg::kThreads,
+           DhCfg::kSmemBytes, static_cast<cudaStream_t>(stream)>>>(ta, tb, p);
   return static_cast<int>(cudaGetLastError());
 }
 

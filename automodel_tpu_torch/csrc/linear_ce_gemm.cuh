@@ -1,6 +1,7 @@
-// Shared tile product of the fused linear cross-entropy kernels
-// (linear_ce_fwd.cu, linear_ce_bwd.cu) and the grouped matmuls (gmm.cu):
-// one CTA of 8 warps computes a
+// Shared tile product of the fused linear cross-entropy forward
+// (linear_ce_fwd.cu) and the grouped matmuls (gmm.cu), and the helpers the
+// backward (linear_ce_bwd.cu) and wgmma_gemm.cuh share: one CTA of 8 warps
+// computes a
 // 128 x 256 fp32 tile C = A B over a K loop, bf16 operands on the tensor
 // cores (mma.sync m16n8k16, fp32 accumulate), fed by a 3-stage cp.async
 // pipeline of 64-deep K tiles and ldmatrix fragment loads.  Each warp owns

@@ -1,7 +1,8 @@
 // Shared Hopper (sm_90a) GEMM mainloop: TMA loads into a ring of
 // shared-memory stages, mbarrier completion, wgmma consumer warpgroups.
-// Used by qdot.cu (8-bit products) and linear_ce_bwd.cu (the dW product);
-// the kernels themselves live in those files, so each keeps its own name.
+// Used by qdot.cu (8-bit products) and linear_ce_bwd.cu (the dlogits, dh
+// and dW products); the kernels themselves live in those files, so each
+// keeps its own name.
 //
 // One persistent CTA per SM, of 3 warpgroups, walks over work items (a
 // 128 x BN output tile and a range of its K tiles):
@@ -578,15 +579,22 @@ struct Tile {
 // stages while the consumers finish the last one's epilogue.  Each
 // consumer calls epi(w, t, acc) after each item with its warpgroup index
 // w, the item's Tile t and its sums acc[C::BN / 2] (s32, or fp32; with
-// PROMOTE the fp32 registers the stages were added into).  The kernel
+// PROMOTE the fp32 registers the stages were added into), and pre(w, t)
+// before the item's first K step (loads the epilogue will need, issued
+// while the products run; no-op by default).  The kernel
 // holds C::kSmemBytes of dynamic shared memory at `smem_raw`, launches
 // kThreads threads, and must not touch shared memory or synchronise the
 // whole CTA after this call (the producer warpgroup has left).
-template <class C, class TileOf, class Epi>
+struct NoPre {
+  __device__ void operator()(int, const Tile&) const {}
+};
+
+template <class C, class TileOf, class Epi, class Pre = NoPre>
 __device__ __forceinline__ void mainloop(uint8_t* smem_raw,
                                          const CUtensorMap* ta,
                                          const CUtensorMap* tb, int n_work,
-                                         TileOf&& tile, Epi&& epi) {
+                                         TileOf&& tile, Epi&& epi,
+                                         Pre&& pre = Pre{}) {
   uint8_t* smem = smem_raw + ((1024 - (saddr(smem_raw) & 1023)) & 1023);
   uint64_t* full =
       reinterpret_cast<uint64_t*>(smem + C::kStages * C::kStageBytes);
@@ -644,6 +652,7 @@ __device__ __forceinline__ void mainloop(uint8_t* smem_raw,
   int it = 0;
   for (int wi = blockIdx.x; wi < n_work; wi += gridDim.x) {
     const Tile t = tile(wi);
+    pre(w, t);
     if constexpr (C::PROMOTE) {
 #pragma unroll
       for (int j = 0; j < C::BN / 2; ++j) tot[j] = 0.f;

@@ -19,7 +19,9 @@ TPU kernels replaced, and what bounds the replacements on the H100:
   ``linear_ce_dlogits`` + ``linear_ce_dh`` + ``linear_ce_dw`` (kernels 3
   and 4): per chunk of ``CHUNK_ROWS`` rows, one recompute of the logits
   writes bf16 ``dlogits`` for the chunk, then ``dh = dlogits W^T`` and
-  ``dW += h^T dlogits`` (fp32 sum over chunks); 6 T H V operations in all.
+  ``dW += h^T dlogits`` (fp32 sum over chunks); 6 T H V operations in all,
+  each of the three a persistent ``wgmma`` + TMA product
+  (``csrc/wgmma_gemm.cuh``).
 
 No ``[T, V]`` tensor exists on either route: the kernels keep logits tiles
 in registers and a ``[Tc, V]`` chunk of ``dlogits``; the plain versions
@@ -73,7 +75,7 @@ def _kernel(name: str):
             "linear_ce_fwd": [p, p, p, p, p, p, i, p, p,   # h w lab parts n lse pick
                               i, i, i, p],                  # T H V stream
             "linear_ce_dlogits": [p, p, p, p, p, p, p,      # h w lab lse dlse dpick dl
-                                  i, i, i, i, i, p],        # r0 rows H V ldv stream
+                                  i, i, i, i, i, i, p],     # r0 rows H V ldv epi stream
             "linear_ce_dh": [p, p, p, i, i, i, i, p],       # dl w dh rows H V ldv
             "linear_ce_dw": [p, p, p, p, i, i, i, i,        # dl h dw32 dw rows H V ldv
                              i, i, p],                      # mode has_prev stream
@@ -164,17 +166,24 @@ def padded_vocab(V: int) -> int:
     return -(-V // _VOCAB_ALIGN) * _VOCAB_ALIGN
 
 
+# timing runs of the dlogits kernel's parts (``out`` is left as it was):
+# its epilogue's arithmetic without the stores, or the product alone
+DLOGITS_TIMING = {"no_store": 1, "product": 2}
+
+
 def linear_ce_dlogits_cuda(h, ws, labels, lse, dlse, dpick, r0: int,
-                           rows: int, out: torch.Tensor) -> torch.Tensor:
+                           rows: int, out: torch.Tensor,
+                           timing: Optional[str] = None) -> torch.Tensor:
     """dlogits of rows ``r0 .. r0 + rows`` into ``out [>= rows, ldv]``
     bf16 (``ws`` the ``[V, H]`` head storage; operands checked by the
-    caller)."""
+    caller).  ``timing`` (a key of :data:`DLOGITS_TIMING`) runs only a
+    part of the kernel, to time it."""
     global dlogits_launches
     H, V = h.shape[1], ws.shape[0]
     rc = _kernel("linear_ce_dlogits")(
         h.data_ptr(), ws.data_ptr(), labels.data_ptr(), lse.data_ptr(),
         dlse.data_ptr(), dpick.data_ptr(), out.data_ptr(), r0, rows, H, V,
-        out.shape[1], _stream(h))
+        out.shape[1], DLOGITS_TIMING[timing] if timing else 0, _stream(h))
     _raise_on(rc, "linear_ce_dlogits")
     dlogits_launches += 1
     return out

@@ -12,7 +12,12 @@ Phases (any failure exits non-zero without the final ``ok`` line):
 3. paged-decode kernel: its wrapper against its plain PyTorch version on
    the card, at the serving path's shapes (Llama-3.2-1B: 32/8 heads,
    head_dim 64, plus head_dim 128; block size 16; batch 8; contexts up to
-   2048; S = 1, 5, 32; bf16 and int8 pools; soft-cap and window);
+   2048; S = 1, 5, 32; bf16 and int8 pools; soft-cap and window), each
+   ``kernel_case`` line with its split plan (span, splits, mode, grid), the
+   wrapper call's time (``ms``) and the kernels' own (``device_ms``, the
+   host's work hidden behind a spin of the card), for four cases the
+   spans 64-1024 timed beside the plan's (``paged_span_sweep``), and the
+   decode case at contexts of 16-2048 keys (``paged_ctx_sweep``);
 4. attention kernels (forward and backward): each against its plain
    version at the SFT path's shapes (batch 8, S 2048, 32/8 heads, head_dim
    64, the segment ids of a packed batch of the SFT YAML's mock data), plus
@@ -37,7 +42,10 @@ Phases (any failure exits non-zero without the final ``ok`` line):
    path's shape (T 16384 = 8 x 2048, H 2048, V 128256, the labels of the
    bench YAML's first batch) and at a GPT-2 vocabulary, ragged rows,
    H 4096 and all-ignored labels, with the kernel, plain, library and bound
-   times;
+   times; beside dlogits, which no one PyTorch call computes, its
+   recompute product's ``torch.mm`` per chunk (``product_library_ms``),
+   the kernel without its stores (``nostore_ms``) and without its
+   epilogue (``product_ms``);
    then the fused quantized matmul (qdot) against its plain version at the
    sft_fp8 path's shapes (m 8 x 2048 tokens; every Llama-3.2-1B projection
    forward, dgrad and wgrad in float8 tensorwise; all four operand pairs
@@ -121,6 +129,7 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 BF16_OPS_PER_S = 989e12            # H100 SXM dense bf16 tensor-core peak
 INT8_FP8_OPS_PER_S = 1979e12       # H100 SXM dense fp8 / int8 peak
 L2_FLUSH_BYTES = 64 << 20          # > the 50 MB L2: each timed launch is cold
+HIDE_HOST_CYCLES = 2_000_000       # ~1 ms of spinning at the H100's clocks
 
 # bf16 output: one ulp at |x| in [2, 4) is 1.6e-2, and the two versions
 # round from fp32 sums taken in another order
@@ -198,10 +207,13 @@ def check(cond, msg):
         fail(msg)
 
 
-def time_ms(fn, iters, flush=None, warmup=3):
+def time_ms(fn, iters, flush=None, warmup=3, hide_host=False):
     """Mean device time of ``fn`` over ``iters`` launches (CUDA events),
     after ``warmup`` calls; ``flush`` (a large buffer) is rewritten before
-    each launch so the L2 holds none of its inputs."""
+    each launch so the L2 holds none of its inputs.  With ``hide_host`` the
+    card first spins for ~1 ms, so the host has queued all of ``fn``'s
+    launches before the start event and the time is the device's alone
+    (for calls whose host work outlasts their kernels)."""
     import torch
 
     for _ in range(warmup):
@@ -211,6 +223,8 @@ def time_ms(fn, iters, flush=None, warmup=3):
     for _ in range(iters):
         if flush is not None:
             flush.zero_()
+        if hide_host:
+            torch.cuda._sleep(HIDE_HOST_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -247,6 +261,14 @@ KERNEL_CASES = [
     ("verify_s5_d128_int8_cap", 5, 128, "int8", 30.0, None),
     ("chunk_s32_d128_bf16_window", 32, 128, "bf16", None, 512),
 ]
+
+
+# contexts (keys, every row) of the decode case's context sweep
+CTX_SWEEP = (16, 256, 1024, 2048)
+# spans (keys per split) timed beside split_plan's choice
+SPAN_SWEEP = (64, 128, 256, 512, 1024)
+SPAN_SWEEP_CASES = ("decode_d64_bf16", "verify_s5_d64_bf16",
+                    "chunk_s32_d64_bf16", "decode_d128_bf16")
 
 
 def make_paged_case(S, D, kv, seed, B=8, Hq=32, Hk=8, BS=16, MB=128):
@@ -356,9 +378,13 @@ def kernel_phase(flush):
               f"(max_abs_err {err:.3e}, {int(bad.sum())} elements)")
         kernel_ms = time_ms(lambda: pak.paged_decode_cuda(*args, **kw), 20,
                             flush)
+        # the engine step is host-bound: the kernels' own time apart from
+        # the wrapper's host work (which `ms` includes where it is longer)
+        device_ms = time_ms(lambda: pak.paged_decode_cuda(*args, **kw), 20,
+                            flush, hide_host=True)
         plain_ms = time_ms(lambda: tpa.paged_attention_plain(*args, **kw), 5,
                            flush)
-        library_ms = None
+        library_ms = library_device_ms = None
         if kv == "bf16" and cap is None:
             run, back = library_call(q, k, v, tables, ctx, pos, win)
             lib_err = float((back(run()).float() - ref.float()).abs().max())
@@ -366,13 +392,51 @@ def kernel_phase(flush):
                   f"{name}: the library yardstick computes something else "
                   f"({lib_err:.3e})")
             library_ms = time_ms(run, 20, flush)
+            library_device_ms = time_ms(run, 20, flush, hide_host=True)
         bound_ms, bound_by = paged_bound(q, k, ks, tables, ctx, pos, win)
+        B, _, Hq, _ = q.shape
+        plan = pak.split_plan(B, S, Hq, k.shape[2], tables.shape[1],
+                              pak._sms(q.device), None,
+                              q.dtype == torch.bfloat16)
         row = dict(case=name, S=S, D=D, kv=kv, soft_cap=cap, window=win,
-                   max_abs_err=err, ms=kernel_ms, plain_ms=plain_ms,
-                   library_ms=library_ms, bound_ms=bound_ms,
-                   bound_by=bound_by)
+                   max_abs_err=err, ms=kernel_ms, device_ms=device_ms,
+                   plain_ms=plain_ms, library_ms=library_ms,
+                   library_device_ms=library_device_ms, bound_ms=bound_ms,
+                   bound_by=bound_by, span=plan.span, splits=plan.splits,
+                   mode=plan.mode, grid=plan.grid)
         print("kernel_case " + json.dumps(row), flush=True)
         rows.append(row)
+        if name == KERNEL_CASES[0][0]:
+            # the kernels' device time against the context: the fixed cost
+            # and the cost per key (every row at one context length)
+            by_ctx = {}
+            for c in CTX_SWEEP:
+                cc = torch.full_like(ctx, c)
+                pc = (cc[:, None] - S + torch.arange(
+                    S, device=ctx.device)[None, :]).int()
+                a2 = (q, k, v, ks, vs, tables, cc, pc)
+                by_ctx[c] = dict(
+                    device_ms=time_ms(lambda: pak.paged_decode_cuda(*a2), 20,
+                                      flush, hide_host=True),
+                    bound_ms=paged_bound(q, k, ks, tables, cc, pc, None)[0])
+            print("paged_ctx_sweep " + json.dumps(
+                dict(case=name, by_ctx=by_ctx)), flush=True)
+        if name in SPAN_SWEEP_CASES:
+            # the split plan's span against its neighbours, each checked
+            sweep = {}
+            for span in SPAN_SWEEP:
+                got = pak.paged_decode_cuda(*args, **kw, span=span)
+                check(bool(torch.allclose(got.float(), out.float(),
+                                          atol=KERNEL_ATOL,
+                                          rtol=KERNEL_RTOL)),
+                      f"{name}: span {span} disagrees with span "
+                      f"{plan.span}")
+                sweep[span] = time_ms(
+                    lambda: pak.paged_decode_cuda(*args, **kw, span=span),
+                    20, flush, hide_host=True)
+            print("paged_span_sweep " + json.dumps(
+                dict(case=name, plan_span=plan.span, device_ms_by_span=sweep)),
+                flush=True)
     return rows
 
 
@@ -869,6 +933,18 @@ def lce_case(name, T, H, V, kind, bench_labels, flush, seed, parts):
                 plain_ms=plain[part], library_ms=library[part],
                 bound_ms=bounds[part][0], bound_by=bounds[part][1])
         del plan
+        # no one PyTorch call computes dlogits: beside it, the time of its
+        # recompute product alone (torch.mm per chunk, bf16 logits out), and
+        # of the kernel without its stores and without its epilogue
+        row["dlogits"]["product_library_ms"] = time_ms(
+            lambda: [torch.mm(h[r0:r0 + n], w) for r0, n in chunks], 3,
+            flush)
+        for key, timing in (("nostore_ms", "no_store"),
+                            ("product_ms", "product")):
+            row["dlogits"][key] = time_ms(
+                lambda: [lce.linear_ce_dlogits_cuda(
+                    h, ws, labels, ref_lse, dlse, dpick, r0, n, dl,
+                    timing=timing) for r0, n in chunks], 3, flush)
     print("linear_ce_case " + json.dumps(row), flush=True)
     return row
 
@@ -2234,6 +2310,9 @@ def main():
     quant_check_phase()
     phase_done("quant_check")
 
+    # paged decode: ms and library_ms are the kernels' own device time (the
+    # wrapper's host work, longer than the kernels, hidden); call_ms and
+    # library_call_ms the calls' as the host issues them
     rep = cases[0]
     kernels = [{
         "name": "paged_decode", "route": "cuda",
@@ -2241,9 +2320,12 @@ def main():
         "replaces": "automodel_tpu/ops/paged_attention_kernel.py:113",
         "launches": main_run["kernel_launches"],
         "max_abs_err": max(c["max_abs_err"] for c in cases),
-        "ms": rep["ms"], "plain_ms": rep["plain_ms"],
+        "ms": rep["device_ms"], "plain_ms": rep["plain_ms"],
         "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],
-        "library_ms": rep["library_ms"],
+        "library_ms": rep["library_device_ms"],
+        "redesigned": "split-KV; mma.sync for bf16 q",
+        "call_ms": rep["ms"], "library_call_ms": rep["library_ms"],
+        "span": rep["span"], "splits": rep["splits"],
     }]
     for part, launches in (("fwd", sft["fwd_launches"]),
                            ("bwd", sft["bwd_launches"])):
@@ -2279,6 +2361,10 @@ def main():
             "bound_ms": got["bound_ms"], "bound_by": got["bound_by"],
             "library_ms": got["library_ms"],
         })
+        if part != "fwd":
+            kernels[-1]["redesigned"] = "wgmma + TMA, persistent"
+        if part == "dlogits":
+            kernels[-1]["product_library_ms"] = got["product_library_ms"]
     gmm_cases = moe["gmm_cases"]
     for kname, parts, line in (("gmm", ("gmm", "dlhs"), 187),
                                ("tgmm", ("tgmm",), 256)):
@@ -2304,6 +2390,7 @@ def main():
         "ms": rep["ms"], "plain_ms": rep["plain_ms"],
         "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],
         "library_ms": rep["library_ms"],
+        "redesigned": "wgmma + TMA, persistent",
     })
     gq_cases = moe_fp8["gmm_cases"]
     rep = gq_cases[0]         # routed gate/up rows, int8

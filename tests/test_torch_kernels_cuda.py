@@ -158,6 +158,74 @@ def test_cuda_long_queries_take_the_gather_by_shape(cuda_device):
     torch.testing.assert_close(out, tpa.paged_attention_plain(*t, **kw))
 
 
+# The split-KV plan's edges: (name, context lengths, S, window, int8 pools,
+# head_dim, span).  Tables of MB = 8 pages (128 keys); spans of 16-64 keys
+# cut them into 2-8 splits.  test_torch_paged_decode_plan.py holds the same
+# cases' split arithmetic against the JAX package on the CPU.
+SPAN_CASES = [
+    ("ctx_on_span_boundary", (64, 32), 1, None, False, 64, 32),
+    ("ctx_one_past_boundary", (65, 33), 1, None, False, 64, 32),
+    ("ctx_1", (1, 17), 1, None, False, 64, 16),
+    ("window_mid_span", (120, 77), 4, 40, False, 64, 32),
+    ("empty_spans_rows", (40, 128), 8, None, False, 64, 16),
+    ("int8_scales", (100, 53), 1, None, True, 64, 32),
+    ("d128_verify", (128, 90), 5, None, False, 128, 64),
+    ("d128_int8_window", (128, 70), 3, 24, True, 128, 16),
+    ("rows_int8_window", (90, 128), 8, 30, True, 64, 32),
+    ("rows_s32_int8_d128", (128, 96), 32, None, True, 128, 32),
+]
+
+
+def make_span_case(ctx, S, window, quantized, D, *, Hq=4, Hk=2, BS=16, MB=8,
+                   seed=11):
+    """numpy operands with the given context lengths: scrambled tables whose
+    pages past the context point at the null page 0, consecutive positions
+    ending at ctx - 1."""
+    rng = np.random.default_rng(seed)
+    B = len(ctx)
+    NB = B * MB + 1
+    q = rng.normal(size=(B, S, Hq, D)).astype(np.float32)
+    if quantized:
+        kp = rng.integers(-127, 128, (NB, BS, Hk, D)).astype(np.int8)
+        vp = rng.integers(-127, 128, (NB, BS, Hk, D)).astype(np.int8)
+        ks = rng.uniform(0.005, 0.02, (NB, BS, Hk)).astype(np.float32)
+        vs = rng.uniform(0.005, 0.02, (NB, BS, Hk)).astype(np.float32)
+    else:
+        kp = rng.normal(size=(NB, BS, Hk, D)).astype(np.float32)
+        vp = rng.normal(size=(NB, BS, Hk, D)).astype(np.float32)
+        ks = vs = None
+    tables = rng.permutation(np.arange(1, NB)).reshape(B, MB).astype(np.int32)
+    ctx = np.asarray(ctx, np.int32)
+    for b in range(B):
+        tables[b, -(-ctx[b] // BS):] = 0
+    pos = (ctx[:, None] - S + np.arange(S)[None, :]).astype(np.int32)
+    kw = {"local_window_size": int(window)} if window else {}
+    return (q, kp, vp, ks, vs, tables, ctx, pos), kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", list(TOLS), ids=["fp32", "bf16"])
+@pytest.mark.parametrize("case", SPAN_CASES, ids=[c[0] for c in SPAN_CASES])
+def test_cuda_split_kv_edges_match_plain(case, dtype, cuda_device):
+    """The split-KV kernel at the span's edges, at the case's span and at
+    split_plan's own, against the plain version; one counted launch per
+    call (the merge launch does not count)."""
+    _, ctx, S, window, quantized, D, span = case
+    args, kw = make_span_case(ctx, S, window, quantized, D)
+    t = _torch(args, cuda_device)
+    t[0] = t[0].to(dtype)
+    if t[3] is None:
+        t[1], t[2] = t[1].to(dtype), t[2].to(dtype)
+    ref = tpa.paged_attention_plain(*t, **kw)
+    for sp in (span, None):
+        launches = tpak.launches
+        out = tpak.paged_decode_cuda(*t, **kw, span=sp)
+        torch.cuda.synchronize()
+        assert tpak.launches == launches + 1 and out.dtype == dtype
+        torch.testing.assert_close(out.float(), ref.float(),
+                                   atol=TOLS[dtype], rtol=TOLS[dtype])
+
+
 # ---------------------------------------------------------------------------
 # training attention (csrc/flash_attn_fwd.cu, csrc/flash_attn_bwd.cu)
 # ---------------------------------------------------------------------------
@@ -657,6 +725,78 @@ def test_cuda_qdot_shapes_match_plain(shape, pair, cuda_device):
             assert torch.equal(out, ref)
         else:
             assert rel_l2(out, ref) < QDOT_FP8_REL_L2, rel_l2(out, ref)
+
+
+# dlogits and dh alone (csrc/linear_ce_bwd.cu::linear_ce_dlogits,
+# linear_ce_dh): (name, T, H, V, label low, label high); ragged rows, a
+# vocabulary past a 256-wide tile (GPT-2's: ldv 50304), H 4096, labels out
+# of range and all labels ignored
+DLDH_CASES = [
+    ("ragged_rows_t1000", 1000, 512, 2000, 0, 2000),
+    ("gpt2_vocab_oob_labels", 300, 256, 50257, -5, 50300),
+    ("h4096", 256, 4096, 1000, 0, 1000),
+    ("all_ignored", 200, 256, 1000, -100, -99),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", DLDH_CASES, ids=[c[0] for c in DLDH_CASES])
+def test_cuda_linear_ce_dlogits_dh_match_plain(case, cuda_device):
+    """dlogits of a chunk (rows from 0, then from r0 = 128) against the
+    plain version elementwise (2e-2 + 2e-2 |ref|), its pad columns 0; dh of
+    the kernel's own dlogits against the plain product (fp32 sums in
+    another order, bf16 out: 1e-2 relative L2); all-ignored rows give exact
+    zeros; one launch of each per call."""
+    from automodel_tpu_torch.ops import linear_ce_kernel as lce
+
+    name, T, H, V, lo, hi = case
+    h, w, labels, dlse, dpick = make_lce_case(T, H, V, lo, hi, seed=5)
+    ws = lce.head_storage(w)
+    lse, _ = lce.lse_and_pick_plain(h, w, labels)
+    ldv = lce.padded_vocab(V)
+    for r0 in (0, 128):
+        rows = T - r0
+        dl = torch.full((rows, ldv), float("nan"), dtype=torch.bfloat16,
+                        device=cuda_device)
+        dh = torch.full((rows, H), float("nan"), dtype=torch.bfloat16,
+                        device=cuda_device)
+        c0 = (lce.dlogits_launches, lce.dh_launches)
+        lce.linear_ce_dlogits_cuda(h, ws, labels, lse, dlse, dpick, r0, rows,
+                                   dl)
+        lce.linear_ce_dh_cuda(dl, ws, rows, dh)
+        torch.cuda.synchronize()
+        assert (lce.dlogits_launches, lce.dh_launches) == (c0[0] + 1,
+                                                           c0[1] + 1)
+        sl = slice(r0, T)
+        ref_dl = lce.dlogits_plain(h[sl], w, labels[sl], lse[sl], dlse[sl],
+                                   dpick[sl]).float()
+        torch.testing.assert_close(dl[:, :V].float(), ref_dl, atol=LCE_ATOL,
+                                   rtol=LCE_RTOL)
+        assert bool((dl[:, V:] == 0).all())
+        if name == "all_ignored":
+            assert bool((dl == 0).all()) and bool((dh == 0).all())
+            continue
+        ref_dh = lce.dh_plain(dl[:, :V], w)
+        assert bool(torch.isfinite(dh).all())
+        assert rel_l2(dh, ref_dh) < 1e-2, rel_l2(dh, ref_dh)
+
+
+@pytest.mark.cuda
+def test_cuda_dlogits_timing_runs_leave_out_alone(cuda_device):
+    """The dlogits kernel's timing runs (no stores; no epilogue) launch
+    and leave their output buffer as it was."""
+    from automodel_tpu_torch.ops import linear_ce_kernel as lce
+
+    h, w, labels, dlse, dpick = make_lce_case(300, 256, 1000, 0, 1000)
+    ws = lce.head_storage(w)
+    lse, _ = lce.lse_and_pick_plain(h, w, labels)
+    for timing in lce.DLOGITS_TIMING:
+        dl = torch.full((300, lce.padded_vocab(1000)), 7.0,
+                        dtype=torch.bfloat16, device=cuda_device)
+        lce.linear_ce_dlogits_cuda(h, ws, labels, lse, dlse, dpick, 0, 300,
+                                   dl, timing=timing)
+        torch.cuda.synchronize()
+        assert bool((dl == 7.0).all()), timing
 
 
 # the dW product alone (csrc/linear_ce_bwd.cu::linear_ce_dw) in its three
