@@ -4,7 +4,8 @@
 // Replaces the TPU kernels automodel_tpu/ops/gmm_kernel.py:187 (_gmm_kernel,
 // launched at :225) and :256 (_tgmm_kernel, launched at :290).  The rows of
 // lhs [m, K] are contiguous per-group segments sized by group_sizes [E]
-// (segment g is rows [ends[g-1], ends[g]), ends the inclusive prefix sum):
+// (segment g is rows [ends[g-1], ends[g]), ends the inclusive prefix sum,
+// clipped to m):
 //   gmm:   out[rows of g] = lhs[rows of g] @ rhs[g]      out [m, N]
 //          rhs [E, K, N], or with trans_rhs its [E, N, K] storage read as
 //          rhs[g]^T in place (the backward's dlhs = gmm(dout, rhs^T));
@@ -16,30 +17,165 @@
 // Bound: 2 (sum of group sizes) K N operations on the bf16 tensor cores
 // (0.41 TFLOP, 0.42 ms at 989 TFLOP/s for the routed rows of
 // Qwen3-30B-A3B: 131072 x 2048 x 768); the bytes (lhs, the experts'
-// weights and the output once) take about a third of that.
+// weights and the output once) take most of that too, so the design keeps
+// every operand read from device memory about once.
 //
 // Design.  The Pallas kernels enumerate (row tile, group) work items in one
 // sequential grid axis and carry an fp32 VMEM accumulator from one item to
-// the next.  CTAs here run in no order, so each owns its output tile and
-// walks the groups it needs itself:
-//   gmm:   one CTA per (128-row tile, 256-column tile) of out.  It finds the
-//          first group ending past its first row by a binary search of
-//          `ends` (computed on the device by the wrapper: no host sync), then
-//          adds lhs[rows of g in the tile] @ rhs[g] for each group g that
-//          meets the tile; the rows of other groups are cut out by the
-//          operand's row range [lo, hi) and load as 0.  A tile no group
-//          meets writes 0.  Rows of a group padded to the tile (the sorted
-//          path pads every segment to 128 rows) meet one group per tile.
-//   tgmm:  one CTA per (group, 128-row tile of K, 256-column tile of N),
-//          whose K loop walks the group's rows; both operands are read with
-//          ldmatrix.trans from their row-major storage.
-// The tile product is linear_ce_gemm.cuh's (mma.sync m16n8k16, 3-stage
-// cp.async of 64-deep tiles, ldmatrix; 8 warps of 64 x 64).
+// the next.  Here both products run on wgmma_gemm.cuh's mainloop (TMA ring,
+// mbarriers, a producer warp, two wgmma consumer warpgroups, 128 x 256
+// output tiles, one persistent CTA per SM) over work items fixed by shapes
+// alone, so the wrapper never reads the group sizes on the host.  Every CTA
+// first copies `ends` into shared memory (tgmm: with its chunk plan, below);
+// an item then finds its group there.  One tensor map per operand is
+// encoded per call: a group's weights or rows are reached through the
+// item's storage-row offset (Tile::a_row / b_row), never a map of their own.
+//
+//   gmm (kernel 5), Cfg<bf16, bf16, K-major, MN-major> (rhs[g] [K][N] read
+//   as 64 x 64 boxes of the [E K, N] map, row g K + k), with trans_rhs
+//   Cfg<bf16, bf16, K-major, K-major> (rhs stored [E N, K], rows g N + n).
+//   Items, n_n (n_m + E) of them (n_m, n_n the 128-row and 256-column
+//   tiles of out):
+//     * primary (i < n_m n_n): row tile i / n_n, column tile i % n_n (the
+//       column tiles of a row tile run together, so their CTAs share the
+//       lhs rows, and a group's row tiles follow each other, so rhs[g]
+//       stays in L2), for the group holding the tile's first row (binary
+//       search of `ends`); a tile past every group writes zeros;
+//     * extra (i >= n_m n_n): group (i - n_m n_n) / n_n, column tile
+//       (i - n_m n_n) % n_n, for the row tile where that group starts,
+//       active only when it starts strictly inside a tile (idle when it
+//       is empty or starts on a tile boundary: no load, no store).
+//   Each item multiplies the whole 128-row tile of lhs by its group's
+//   weights and stores only its group's rows [max(lo, m0), min(hi, m0 +
+//   128)): the other rows were multiplied by the wrong weights and are
+//   never written, so no operand load is masked and every row is written by
+//   exactly one item (deterministic).  Rows at or past ends[E-1] are
+//   written 0 by the item of the last non-empty group in their tile, or
+//   by the primary item of a tile that starts past every group.  The
+//   sorted path pads every segment to 128 rows (ops/moe.py), so there no
+//   extra item is active and no tile meets two groups.
+//   Ragged K: A's map carries the true K, so TMA zero-fills A's columns at
+//   or past K, and the rows of the next group's weights that a ragged last
+//   K tile reads multiply zeros (no 3-D map).  Ragged N with trans_rhs:
+//   the columns past N read the next group's rows and are not stored.  The
+//   maps stay far inside TMA's 2^31 coordinates (the dlhs's [E N, K] map
+//   has 262,144 rows at Qwen3-30B-A3B's 128 x 2048).
+//
+//   tgmm (kernel 6), Cfg<bf16, bf16, MN-major, MN-major> (lhs [m][K] gives A
+//   with M = K, dout [m][N] gives B; both 64 x 64 boxes, K = the rows).
+//   A group's rows are cut into chunks of C rows (the wrapper's
+//   chunk_rows, a multiple of 64 fixed from shapes: ops/gmm_kernel.py::
+//   tgmm_chunk_rows keeps two waves of items when one group takes every
+//   row); an empty group has one chunk that writes zeros.  Items are
+//   (chunk slot, output tile), the n_k n_n tiles of a chunk together (their
+//   CTAs share the chunk's rows through L2): tiles x (E + m / C) items
+//   bound every layout, and slots past the last chunk are idle.  The
+//   slots run longest first: the full chunks of split groups (C rows) in
+//   group order, then every group's last (or only) chunk by decreasing
+//   rows, which every CTA ranks in shared memory (rank_last_chunks).  The
+//   mainloop's round robin item i is item j of that list in snake order
+//   (bands of one item per CTA, every other band reversed), so the CTAs
+//   that drew the longest items of one band draw the shortest of the next
+//   and no CTA ends more than one item's stages behind another
+//   (tests/test_torch_gmm_plan.py).  Groups differ in size (a random
+//   router sends 170-7,129 rows to Qwen3's experts in the first batch's
+//   layer 0); in plain order one CTA could draw several long items.  A
+//   chunk starts at row lo + c C (Tile::a_row = b_row); at a group's end
+//   that is not on a 64-row stage, the consumers zero both operands' rows
+//   past hi in shared memory (MASK), so rows of the next group or of
+//   padding never reach the product, whatever they hold.  A
+//   group of one chunk writes its bf16 block directly; the chunks of a
+//   larger group write fp32 partials into the workspace (at most 2 m / C
+//   [K, N] slots: a group of r > C rows has ceil(r / C) < 2 r / C chunks),
+//   and a second launch, tgmm_reduce, adds them in chunk order and writes
+//   bf16, so the result is the same run to run (no float atomics).  A call
+//   makes that second launch whenever a group could split (m > C), one
+//   launch otherwise.  The sorted path's groups (about 1,000 rows at
+//   m 147,456, C 29,440) never split.
+//
+// Epilogues store 16 bytes a thread (8 columns of a row, gathered from the
+// wgmma fragment by a quad transpose through shuffles), bounded by N and
+// by the item's rows; fp32 partials go out as float2 pairs; a tile of
+// zeros is written with 16-byte stores.
 
-#include "linear_ce_gemm.cuh"
+#include "wgmma_gemm.cuh"
 
 namespace gmmk {
-using namespace lce;
+namespace {
+
+using lce::bf16;
+using lce::pack_bf16;
+
+constexpr int kMaxGroups = 1024;       // the plan lives in shared memory
+
+// forward: lhs [m][K] K-major, rhs[g] [K][N] MN-major
+using FwdCfg = wg::Cfg<wg::kBF16, wg::kBF16, false, true, 256, false>;
+// dlhs: rhs[g] stored [N][K], K-major
+using TransCfg = wg::Cfg<wg::kBF16, wg::kBF16, false, false, 256, false>;
+// tgmm: lhs [m][K] and dout [m][N], both MN-major
+using TCfg = wg::Cfg<wg::kBF16, wg::kBF16, true, true, 256, false>;
+constexpr int kBN = 256;
+static_assert(FwdCfg::BN == kBN && TransCfg::BN == kBN && TCfg::BN == kBN,
+              "one tile width");
+
+// The group layout of a call, in shared memory.  ends: the clipped
+// inclusive prefix sum; tgmm only: chunk0 (E + 1) the exclusive prefix of
+// the chunk counts (chunk0[E] = all chunks), slot0 the first workspace
+// slot of a split group, split the split groups in order.
+struct Plan {
+  int ends[kMaxGroups];
+  int chunk0[kMaxGroups + 1];
+  int slot0[kMaxGroups];
+  int split[kMaxGroups];
+  int n_split;
+};
+
+__device__ __forceinline__ int warp_incl_scan(int v, int lane) {
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, v, o);
+    if (lane >= o) v += y;
+  }
+  return v;
+}
+
+// Fill `pl` from ends [E] (every thread calls it; warp 0 scans the chunk
+// counts).  The caller synchronises before reading.
+__device__ void make_plan(Plan& pl, const int* __restrict__ ends, int E,
+                          int m, int chunk_rows) {
+  for (int g = threadIdx.x; g < E; g += blockDim.x)
+    pl.ends[g] = min(__ldg(ends + g), m);
+  if (threadIdx.x >= 32) return;
+  const int lane = threadIdx.x;
+  int c0 = 0, s0 = 0, f0 = 0;
+  for (int b = 0; b < E; b += 32) {
+    const int g = b + lane;
+    int nc = 0, slots = 0, split = 0;
+    if (g < E) {
+      const int hi = min(__ldg(ends + g), m);
+      const int lo = g ? min(__ldg(ends + g - 1), m) : 0;
+      const int rows = max(hi - lo, 0);
+      nc = rows > chunk_rows ? (rows + chunk_rows - 1) / chunk_rows : 1;
+      split = nc > 1;
+      slots = split ? nc : 0;
+    }
+    const int ci = warp_incl_scan(nc, lane);
+    const int si = warp_incl_scan(slots, lane);
+    const int fi = warp_incl_scan(split, lane);
+    if (g < E) {
+      pl.chunk0[g] = c0 + ci - nc;
+      pl.slot0[g] = split ? s0 + si - slots : -1;
+      if (split) pl.split[f0 + fi - 1] = g;
+    }
+    c0 += __shfl_sync(0xffffffffu, ci, 31);
+    s0 += __shfl_sync(0xffffffffu, si, 31);
+    f0 += __shfl_sync(0xffffffffu, fi, 31);
+  }
+  if (lane == 0) {
+    pl.chunk0[E] = c0;
+    pl.n_split = f0;
+  }
+}
 
 // first g with ends[g] > row (E when none): ends is non-decreasing
 __device__ __forceinline__ int first_group_past(const int* ends, int E,
@@ -53,108 +189,286 @@ __device__ __forceinline__ int first_group_past(const int* ends, int E,
   return lo;
 }
 
-template <bool TRANS>
-__global__ void __launch_bounds__(kThreads, 1)
-gmm_kernel(const bf16* __restrict__ lhs, const bf16* __restrict__ rhs,
-           const int* __restrict__ ends, bf16* __restrict__ out, int m, int K,
-           int N, int E, int group_m) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* smem = reinterpret_cast<bf16*>(smem_raw);
-  const int n_m = (m + kBM - 1) / kBM;
-  const int n_n = (N + kBN - 1) / kBN;
-  int tm, tn;
-  grouped_tile(blockIdx.x, n_m, n_n, group_m, &tm, &tn);
-  const int m0 = tm * kBM, n0 = tn * kBN;
-  const int m1 = min(m0 + kBM, m);
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int wm = warp >> 2, wn = warp & 3, g8 = lane >> 2, t = lane & 3;
-
-  float acc[4][kNT][4];
-  zero_acc(acc);
-  for (int g = first_group_past(ends, E, m0); g < E; ++g) {
-    const int lo = g ? min(ends[g - 1], m) : 0;
-    if (lo >= m1) break;
-    const int hi = min(ends[g], m);
-    if (hi <= lo) continue;                          // empty group
-    const Operand A{lhs, K, hi, K, lo};              // rows [lo, hi), K-major
-    const bf16* w = rhs + (size_t)g * K * N;
-    if (TRANS) {     // rhs[g] stored [N][K]: B K-major
-      const Operand B{w, K, N, K};
-      gemm_tile<true, true>(acc, A, B, m0, n0, K, smem);
-    } else {         // rhs[g] stored [K][N]: B N-major
-      const Operand B{w, N, K, N};
-      gemm_tile<true, false>(acc, A, B, m0, n0, K, smem);
+// tgmm: the groups by decreasing rows of their last chunk (ties by
+// index), order[r] the r-th.  Every CTA fills it from a published plan,
+// E^2 / 384 comparisons a thread; the caller synchronises before reading.
+__device__ void rank_last_chunks(int* order, const Plan& pl, int E,
+                                 int chunk_rows) {
+  auto last = [&](int g) {
+    return pl.ends[g] - (g ? pl.ends[g - 1] : 0) -
+           (pl.chunk0[g + 1] - pl.chunk0[g] - 1) * chunk_rows;
+  };
+  for (int g = threadIdx.x; g < E; g += blockDim.x) {
+    const int rg = last(g);
+    int r = 0;
+    for (int h = 0; h < E; ++h) {
+      const int rh = last(h);
+      r += rh > rg || (rh == rg && h < g);
     }
-  }
-
-#pragma unroll
-  for (int r = 0; r < 8; ++r) {
-    const int i = r >> 1, e0 = (r & 1) * 2;
-    const int row = m0 + wm * 64 + i * 16 + g8 + (r & 1) * 8;
-    if (row >= m1) continue;
-#pragma unroll
-    for (int j = 0; j < kNT; ++j) {
-      const int col = n0 + wn * kWN + j * 8 + 2 * t;
-      if (col < N)        // N % 8 == 0: a pair is in or out as a whole
-        *reinterpret_cast<uint32_t*>(out + (size_t)row * N + col) =
-            pack_bf16(acc[i][j][e0], acc[i][j][e0 + 1]);
-    }
+    order[r] = g;
   }
 }
 
-__global__ void __launch_bounds__(kThreads, 1)
-tgmm_kernel(const bf16* __restrict__ lhs, const bf16* __restrict__ dout,
-            const int* __restrict__ ends, bf16* __restrict__ out, int m, int K,
-            int N, int E) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* smem = reinterpret_cast<bf16*>(smem_raw);
-  const int n_k = (K + kBM - 1) / kBM;
-  const int n_n = (N + kBN - 1) / kBN;
-  const int per_group = n_k * n_n;
-  const int g = blockIdx.x / per_group;
-  const int in_group = blockIdx.x % per_group;
-  const int k0 = (in_group % n_k) * kBM, n0 = (in_group / n_k) * kBN;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int wm = warp >> 2, wn = warp & 3, g8 = lane >> 2, t = lane & 3;
-
-  const int lo = g ? min(ends[g - 1], m) : 0;
-  const int rows = min(ends[g], m) - lo;
-  float acc[4][kNT][4];
-  zero_acc(acc);
-  if (rows > 0) {
-    const Operand A{lhs + (size_t)lo * K, K, rows, K};   // [row][k]: M-major
-    const Operand B{dout + (size_t)lo * N, N, rows, N};  // [row][n]: N-major
-    gemm_tile<false, false>(acc, A, B, k0, n0, rows, smem);
+// the group of full chunk s: first g with chunk0[g + 1] - (g + 1) > s
+// (chunk0[g] - g counts the full chunks of the groups before g)
+__device__ __forceinline__ int full_chunk_group(const int* chunk0, int E,
+                                                int s) {
+  int lo = 0, hi = E - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (chunk0[mid + 1] - mid - 1 > s) hi = mid;
+    else lo = mid + 1;
   }
+  return lo;
+}
 
-  bf16* o = out + (size_t)g * K * N;
+// Zeros into rows [r0, r1) of consumer warpgroup w's 64-row half of the
+// tile at (m0, n0) of `o` [.., ld] (columns < ncols), 16 bytes a store.
+__device__ __forceinline__ void store_zeros(bf16* o, long long ld, int ncols,
+                                            int m0, int n0, int w, int r0,
+                                            int r1) {
+  const int lo = max(r0, m0 + 64 * w), hi = min(r1, m0 + 64 * w + 64);
+  const int t = threadIdx.x & 127;
+  for (int idx = t; idx < (hi - lo) * (kBN / 8); idx += 128) {
+    const int row = lo + idx / (kBN / 8);
+    const int col = n0 + 8 * (idx % (kBN / 8));
+    if (col < ncols)                       // ncols % 8 == 0
+      *reinterpret_cast<uint4*>(o + row * ld + col) = make_uint4(0, 0, 0, 0);
+  }
+}
+
+// Thread t of a lane quad holds, for one accumulator row, the bf16 pairs
+// at columns 8 (4 a + s) + 2 t of four column groups (v[s], s = 0..3);
+// afterwards it holds the 8 columns of group 4 a + t in order.  Two
+// butterfly steps of shuffles (a 4 x 4 transpose of 32-bit words).
+__device__ __forceinline__ void quad_transpose(uint32_t (&v)[4]) {
+  const int lane = threadIdx.x & 31;
 #pragma unroll
-  for (int r = 0; r < 8; ++r) {
-    const int i = r >> 1, e0 = (r & 1) * 2;
-    const int kk = k0 + wm * 64 + i * 16 + g8 + (r & 1) * 8;
-    if (kk >= K) continue;
+  for (int b = 1; b <= 2; b <<= 1) {
+    const bool up = lane & b;
 #pragma unroll
-    for (int j = 0; j < kNT; ++j) {
-      const int col = n0 + wn * kWN + j * 8 + 2 * t;
-      if (col < N)
-        *reinterpret_cast<uint32_t*>(o + (size_t)kk * N + col) =
-            pack_bf16(acc[i][j][e0], acc[i][j][e0 + 1]);
+    for (int s = 0; s < 4; ++s) {
+      if (s & b) continue;
+      const uint32_t y =
+          __shfl_xor_sync(0xffffffffu, up ? v[s] : v[s | b], b);
+      if (up) v[s] = y;
+      else v[s | b] = y;
     }
   }
 }
 
-template <typename F>
-int prepare(F kernel) {
-  return static_cast<int>(cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes));
+// Consumer warpgroup w's half of a 128 x 256 tile of sums into `o` [..,
+// ld] at (m0, n0) in bf16: rows [r_lo, r_hi) get the sums, [r_hi, z_hi)
+// zeros, columns < ncols.  Each thread stores 16 bytes (8 columns of one
+// row) at a time, 16 stores an item, after a quad transpose: a quarter of
+// the store instructions that bf16 pairs straight from the fragment take.
+__device__ __forceinline__ void store_tile(bf16* o, long long ld, int ncols,
+                                           int m0, int n0, int w,
+                                           const float (&acc)[kBN / 2],
+                                           int r_lo, int r_hi, int z_hi) {
+  const int t = threadIdx.x & 3;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = m0 + wg::acc_row(w, 2 * h);
+    const bool sums = row >= r_lo && row < r_hi;
+    const bool keep = row >= r_lo && row < z_hi;
+#pragma unroll
+    for (int a = 0; a < kBN / 32; ++a) {
+      uint32_t v[4];
+#pragma unroll
+      for (int s = 0; s < 4; ++s) {
+        const int i = 4 * (4 * a + s) + 2 * h;
+        v[s] = sums ? pack_bf16(acc[i], acc[i + 1]) : 0u;
+      }
+      quad_transpose(v);
+      const int col = n0 + 8 * (4 * a + t);
+      if (keep && col < ncols)                 // ncols % 8 == 0
+        *reinterpret_cast<uint4*>(o + row * ld + col) =
+            make_uint4(v[0], v[1], v[2], v[3]);
+    }
+  }
 }
 
+struct GmmArgs {
+  const int* ends;
+  bf16* out;
+  int m, K, N, E, kt, n_m, n_n;
+};
+
+template <class C, bool TRANS>
+__global__ void __launch_bounds__(wg::kThreads, 1)
+gmm_kernel(const __grid_constant__ CUtensorMap ta,
+           const __grid_constant__ CUtensorMap tb, const GmmArgs p) {
+  extern __shared__ __align__(1024) uint8_t smem[];
+  __shared__ int ends[kMaxGroups];
+  for (int g = threadIdx.x; g < p.E; g += blockDim.x)
+    ends[g] = min(__ldg(p.ends + g), p.m);
+  // (the mainloop's first __syncthreads publishes ends)
+  const int primary = p.n_m * p.n_n;
+  auto tile = [&](int i) {
+    wg::Tile t;
+    int g, tm, tn;
+    if (i < primary) {
+      tm = i / p.n_n;
+      tn = i % p.n_n;
+      g = first_group_past(ends, p.E, tm * wg::kBM);     // E: past all
+    } else {
+      g = (i - primary) / p.n_n;
+      tn = (i - primary) % p.n_n;
+      const int lo = g ? ends[g - 1] : 0;
+      tm = lo / wg::kBM;
+      if (ends[g] <= lo || lo % wg::kBM == 0) g = -1;    // idle
+    }
+    t.m0 = tm * wg::kBM;
+    t.n0 = tn * kBN;
+    t.kt0 = 0;
+    t.part = g;
+    t.nk = g >= 0 && g < p.E ? p.kt : 0;
+    t.b_row = t.nk ? g * (TRANS ? p.N : p.K) : 0;
+    return t;
+  };
+  // rows [r_lo, r_hi) get the item's sums, [r_hi, z_hi) zeros
+  int r_lo = 0, r_hi = 0, z_hi = 0;
+  auto pre = [&](int, const wg::Tile& t) {
+    const int g = t.part, m1 = min(t.m0 + wg::kBM, p.m);
+    if (g < 0) {
+      r_lo = r_hi = z_hi = t.m0;
+    } else if (g >= p.E) {
+      r_lo = r_hi = t.m0;
+      z_hi = m1;
+    } else {
+      const int lo = g ? ends[g - 1] : 0, hi = ends[g];
+      r_lo = max(lo, t.m0);
+      r_hi = min(hi, m1);
+      z_hi = hi == ends[p.E - 1] ? m1 : r_hi;
+    }
+  };
+  auto epi = [&](int w, const wg::Tile& t, float (&acc)[C::BN / 2]) {
+    if (t.nk == 0) {
+      store_zeros(p.out, p.N, p.N, t.m0, t.n0, w, r_hi, z_hi);
+      return;
+    }
+    store_tile(p.out, p.N, p.N, t.m0, t.n0, w, acc, r_lo, r_hi, z_hi);
+  };
+  wg::mainloop<C>(smem, &ta, &tb, p.n_n * (p.n_m + p.E), tile, epi, pre);
+}
+
+struct TgmmArgs {
+  const int* ends;
+  bf16* out;
+  float* ws;
+  int m, K, N, E, chunk_rows, n_k, n_n;
+};
+
+__global__ void __launch_bounds__(wg::kThreads, 1)
+tgmm_kernel(const __grid_constant__ CUtensorMap ta,
+            const __grid_constant__ CUtensorMap tb, const TgmmArgs p) {
+  extern __shared__ __align__(1024) uint8_t smem[];
+  __shared__ Plan pl;
+  __shared__ int order[kMaxGroups];
+  make_plan(pl, p.ends, p.E, p.m, p.chunk_rows);
+  __syncthreads();
+  rank_last_chunks(order, pl, p.E, p.chunk_rows);
+  // (the mainloop's first __syncthreads publishes order)
+  const int tiles = p.n_k * p.n_n;
+  const int n_work = tiles * (p.E + p.m / p.chunk_rows);
+  auto tile = [&](int i) {
+    wg::Tile t;
+    // item i is item j of the longest-first list, in snake order over
+    // bands of gridDim.x (odd bands reversed within their length)
+    const int G = gridDim.x, b = i / G, len = min(G, n_work - b * G);
+    const int j = b * G + ((b & 1) ? len - 1 - i % G : i % G);
+    const int slot = j / tiles, tt = j % tiles;
+    t.m0 = (tt % p.n_k) * wg::kBM;
+    t.n0 = (tt / p.n_k) * kBN;
+    t.kt0 = 0;
+    t.nk = 0;
+    t.part = -1;                                         // idle
+    const int full = pl.chunk0[p.E] - p.E;   // chunks of C rows, first
+    if (slot < full + p.E) {
+      int g, c;
+      if (slot < full) {
+        g = full_chunk_group(pl.chunk0, p.E, slot);
+        c = slot - (pl.chunk0[g] - g);
+      } else {
+        g = order[slot - full];
+        c = pl.chunk0[g + 1] - pl.chunk0[g] - 1;
+      }
+      const int lo = g ? pl.ends[g - 1] : 0;
+      const int r0 = lo + c * p.chunk_rows;
+      const int rows = max(min(r0 + p.chunk_rows, pl.ends[g]) - r0, 0);
+      t.part = g;
+      t.nk = (rows + TCfg::BK - 1) / TCfg::BK;
+      t.a_row = t.b_row = r0;
+      t.k_valid = rows;
+    }
+    return t;
+  };
+  auto epi = [&](int w, const wg::Tile& t, float (&acc)[TCfg::BN / 2]) {
+    const int g = t.part;
+    if (g < 0) return;
+    const size_t kn = (size_t)p.K * p.N;
+    bf16* o = p.out + g * kn;
+    if (t.nk == 0) {                                     // empty group
+      store_zeros(o, p.N, p.N, t.m0, t.n0, w, 0, p.K);
+      return;
+    }
+    const int slot0 = pl.slot0[g];
+    if (slot0 < 0) {                                     // one chunk
+      store_tile(o, p.N, p.N, t.m0, t.n0, w, acc, 0, p.K, p.K);
+      return;
+    }
+    const int lo = g ? pl.ends[g - 1] : 0;
+    float* part = p.ws + (slot0 + (t.a_row - lo) / p.chunk_rows) * kn;
+#pragma unroll
+    for (int i = 0; i < TCfg::BN / 2; i += 2) {
+      const int kk = t.m0 + wg::acc_row(w, i);
+      const int col = t.n0 + wg::acc_col(i);
+      if (kk < p.K && col < p.N)                         // N % 8 == 0
+        *reinterpret_cast<float2*>(part + (size_t)kk * p.N + col) =
+            make_float2(acc[i], acc[i + 1]);
+    }
+  };
+  wg::mainloop<TCfg, true>(smem, &ta, &tb, n_work, tile, epi);
+}
+
+// out[g] = the chunk partials of each split group g added in chunk order
+__global__ void __launch_bounds__(256)
+tgmm_reduce(const float* __restrict__ ws, bf16* __restrict__ out,
+            const int* __restrict__ ends, int m, int K, int N, int E,
+            int chunk_rows) {
+  __shared__ Plan pl;
+  make_plan(pl, ends, E, m, chunk_rows);
+  __syncthreads();
+  const size_t kn = (size_t)K * N, vecs = kn / 4;        // N % 8 == 0
+  for (int j = 0; j < pl.n_split; ++j) {
+    const int g = pl.split[j];
+    const int nc = pl.chunk0[g + 1] - pl.chunk0[g];
+    const float4* src = reinterpret_cast<const float4*>(ws + pl.slot0[g] * kn);
+    uint2* dst = reinterpret_cast<uint2*>(out + g * kn);
+    for (size_t v = blockIdx.x * (size_t)blockDim.x + threadIdx.x; v < vecs;
+         v += (size_t)gridDim.x * blockDim.x) {
+      float4 s = src[v];
+      for (int c = 1; c < nc; ++c) {
+        const float4 x = src[c * vecs + v];
+        s.x += x.x;
+        s.y += x.y;
+        s.z += x.z;
+        s.w += x.w;
+      }
+      dst[v] = make_uint2(pack_bf16(s.x, s.y), pack_bf16(s.z, s.w));
+    }
+  }
+}
+
+}  // namespace
 }  // namespace gmmk
 
 // Shapes both kernels take: K and N multiples of 8 (16-byte rows), m > 0,
-// E > 0; `ends` [E] int32 the inclusive prefix sum of the group sizes.
-// Each returns 0, -1 for a shape it does not take, else the cudaError_t of
-// the launch.
+// 0 < E <= 1024; `ends` [E] int32 the inclusive prefix sum of the group
+// sizes; operands 16-byte aligned (TMA).  Each returns 0, -1 for a shape it
+// does not take, a tensor-map error (wgmma_gemm.cuh::make_map), else the
+// cudaError_t of the launch.
 
 // out [m, N] bf16 <- lhs [m, K] (grouped rows) @ rhs [E, K, N], or with
 // trans_rhs rhs stored [E, N, K] and read transposed
@@ -162,40 +476,67 @@ extern "C" int gmm_fwd(const void* lhs, const void* rhs, const int* ends,
                        void* out, int m, int K, int N, int E, int trans_rhs,
                        void* stream) {
   using namespace gmmk;
-  if (m <= 0 || E <= 0 || K % 8 || N % 8 || K <= 0 || N <= 0) return -1;
-  const int n_m = (m + kBM - 1) / kBM;
-  const int n_n = (N + kBN - 1) / kBN;
-  const int group_m = max(1, min(n_m, num_sms() / n_n));
+  if (m <= 0 || E <= 0 || E > kMaxGroups || K % 8 || N % 8 || K <= 0 ||
+      N <= 0)
+    return -1;
+  GmmArgs p{ends, static_cast<bf16*>(out), m, K, N, E,
+            (K + FwdCfg::BK - 1) / FwdCfg::BK, (m + wg::kBM - 1) / wg::kBM,
+            (N + kBN - 1) / kBN};
+  const int work = p.n_n * (p.n_m + E);
+  const int grid = work < lce::num_sms() ? work : lce::num_sms();
   const auto s = static_cast<cudaStream_t>(stream);
-  const auto a = static_cast<const bf16*>(lhs);
-  const auto b = static_cast<const bf16*>(rhs);
-  const auto o = static_cast<bf16*>(out);
+  CUtensorMap ta, tb;
   int rc;
   if (trans_rhs) {
-    if ((rc = prepare(gmm_kernel<true>))) return rc;
-    gmm_kernel<true><<<n_m * n_n, kThreads, kSmemBytes, s>>>(
-        a, b, ends, o, m, K, N, E, group_m);
+    if ((rc = wg::operand_map<TransCfg, true>(&ta, lhs, m, K, K))) return rc;
+    if ((rc = wg::operand_map<TransCfg, false>(&tb, rhs, (long long)E * N, K,
+                                               K)))
+      return rc;
+    if ((rc = wg::prepare<TransCfg>(gmm_kernel<TransCfg, true>))) return rc;
+    gmm_kernel<TransCfg, true>
+        <<<grid, wg::kThreads, TransCfg::kSmemBytes, s>>>(ta, tb, p);
   } else {
-    if ((rc = prepare(gmm_kernel<false>))) return rc;
-    gmm_kernel<false><<<n_m * n_n, kThreads, kSmemBytes, s>>>(
-        a, b, ends, o, m, K, N, E, group_m);
+    if ((rc = wg::operand_map<FwdCfg, true>(&ta, lhs, m, K, K))) return rc;
+    if ((rc = wg::operand_map<FwdCfg, false>(&tb, rhs, N, (long long)E * K,
+                                             N)))
+      return rc;
+    if ((rc = wg::prepare<FwdCfg>(gmm_kernel<FwdCfg, false>))) return rc;
+    gmm_kernel<FwdCfg, false>
+        <<<grid, wg::kThreads, FwdCfg::kSmemBytes, s>>>(ta, tb, p);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 // out [E, K, N] bf16 <- per group lhs[rows of g]^T @ dout[rows of g], with
-// lhs [m, K] and dout [m, N]
+// lhs [m, K] and dout [m, N]; chunk_rows (C) a positive multiple of 64; ws
+// fp32 [2 m / C][K][N] when m > C (unused, may be null, otherwise)
 extern "C" int tgmm(const void* lhs, const void* dout, const int* ends,
-                    void* out, int m, int K, int N, int E, void* stream) {
+                    void* out, void* ws, int m, int K, int N, int E,
+                    int chunk_rows, void* stream) {
   using namespace gmmk;
-  if (m <= 0 || E <= 0 || K % 8 || N % 8 || K <= 0 || N <= 0) return -1;
-  const int n_k = (K + kBM - 1) / kBM;
-  const int n_n = (N + kBN - 1) / kBN;
-  int rc = prepare(tgmm_kernel);
+  if (m <= 0 || E <= 0 || E > kMaxGroups || K % 8 || N % 8 || K <= 0 ||
+      N <= 0 || chunk_rows <= 0 || chunk_rows % TCfg::BK ||
+      (m > chunk_rows && ws == nullptr))
+    return -1;
+  TgmmArgs p{ends, static_cast<bf16*>(out), static_cast<float*>(ws), m, K, N,
+             E, chunk_rows, (K + wg::kBM - 1) / wg::kBM, (N + kBN - 1) / kBN};
+  const int work = p.n_k * p.n_n * (E + m / chunk_rows);
+  const auto s = static_cast<cudaStream_t>(stream);
+  CUtensorMap ta, tb;
+  int rc = wg::operand_map<TCfg, true>(&ta, lhs, K, m, K);
   if (rc) return rc;
-  tgmm_kernel<<<E * n_k * n_n, kThreads, kSmemBytes,
-                static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(lhs), static_cast<const bf16*>(dout), ends,
-      static_cast<bf16*>(out), m, K, N, E);
+  if ((rc = wg::operand_map<TCfg, false>(&tb, dout, N, m, N))) return rc;
+  if ((rc = wg::prepare<TCfg>(tgmm_kernel))) return rc;
+  const int sms = lce::num_sms();
+  tgmm_kernel<<<work < sms ? work : sms, wg::kThreads, TCfg::kSmemBytes, s>>>(
+      ta, tb, p);
+  if ((rc = static_cast<int>(cudaGetLastError()))) return rc;
+  if (m > chunk_rows) {
+    const long long vecs = (long long)K * N / 4;
+    const long long want = (vecs + 255) / 256;
+    tgmm_reduce<<<want < 4 * sms ? (int)want : 4 * sms, 256, 0, s>>>(
+        static_cast<const float*>(ws), static_cast<bf16*>(out), ends, m, K, N,
+        E, chunk_rows);
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,7 +1,6 @@
-// Shared tile product of the fused linear cross-entropy forward
-// (linear_ce_fwd.cu) and the grouped matmuls (gmm.cu), and the helpers the
-// backward (linear_ce_bwd.cu) and wgmma_gemm.cuh share: one CTA of 8 warps
-// computes a
+// Tile product of the fused linear cross-entropy forward
+// (linear_ce_fwd.cu), and the helpers the backward (linear_ce_bwd.cu),
+// wgmma_gemm.cuh and its users share: one CTA of 8 warps computes a
 // 128 x 256 fp32 tile C = A B over a K loop, bf16 operands on the tensor
 // cores (mma.sync m16n8k16, fp32 accumulate), fed by a 3-stage cp.async
 // pipeline of 64-deep K tiles and ldmatrix fragment loads.  Each warp owns
@@ -107,15 +106,13 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 }
 
 // One operand of the product: storage [rows][ld] with the storage rows
-// [lo, rows) and the columns [0, cols) valid (cols a multiple of 8); a
+// [0, rows) and the columns [0, cols) valid (cols a multiple of 8); a
 // load outside reads 0.  K_MAJOR says whether its storage rows run over
-// M/N (true) or over K (false).  `lo` lets a grouped product (gmm.cu) cut
-// one group's rows out of a row tile.
+// M/N (true) or over K (false).
 struct Operand {
   const bf16* ptr;
   long long ld;
   int rows, cols;
-  int lo = 0;
 };
 
 // Stage the tile (mn0.., k0..) of one operand, MN rows/columns wide, into
@@ -129,7 +126,7 @@ __device__ __forceinline__ void load_tile(bf16* s, const Operand& op, int mn0,
     for (int i = tid; i < MN * VPR; i += kThreads) {
       const int r = i / VPR, c = (i % VPR) * 8;
       const int gr = mn0 + r, gc = k0 + c;
-      const bool ok = gr >= op.lo && gr < op.rows && gc < op.cols;
+      const bool ok = gr < op.rows && gc < op.cols;
       const bf16* src = ok ? op.ptr + (size_t)gr * op.ld + gc : op.ptr;
       cp_async16(s + r * (kBK + kPad) + c, src, ok);
     }
@@ -139,7 +136,7 @@ __device__ __forceinline__ void load_tile(bf16* s, const Operand& op, int mn0,
     for (int i = tid; i < kBK * VPR; i += kThreads) {
       const int r = i / VPR, c = (i % VPR) * 8;
       const int gr = k0 + r, gc = mn0 + c;
-      const bool ok = gr >= op.lo && gr < op.rows && gc < op.cols;
+      const bool ok = gr < op.rows && gc < op.cols;
       const bf16* src = ok ? op.ptr + (size_t)gr * op.ld + gc : op.ptr;
       cp_async16(s + r * (MN + kPad) + c, src, ok);
     }

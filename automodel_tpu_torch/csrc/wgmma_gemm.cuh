@@ -1,8 +1,8 @@
 // Shared Hopper (sm_90a) GEMM mainloop: TMA loads into a ring of
 // shared-memory stages, mbarrier completion, wgmma consumer warpgroups.
-// Used by qdot.cu (8-bit products) and linear_ce_bwd.cu (the dlogits, dh
-// and dW products); the kernels themselves live in those files, so each
-// keeps its own name.
+// Used by qdot.cu (8-bit products), linear_ce_bwd.cu (the dlogits, dh
+// and dW products) and gmm.cu (the grouped products); the kernels
+// themselves live in those files, so each keeps its own name.
 //
 // One persistent CTA per SM, of 3 warpgroups, walks over work items (a
 // 128 x BN output tile and a range of its K tiles):
@@ -44,6 +44,21 @@
 // every element of a box outside them, so ragged M, N and K need no
 // predicated loads; zeros past K add nothing.  The byte count armed on
 // "full" is the whole box, which TMA counts in full even when it fills.
+//
+// Grouped products (gmm.cu) address one block of a larger map per item:
+// Tile::a_row / b_row shift the storage-row coordinate of an operand (K
+// of an MN-major operand, stored [k][mn]; M or N of a K-major one, stored
+// [mn][k]), so one map encoded per call serves every group.  An item may
+// have no K tiles (nk 0): the producer loads nothing for it and the
+// consumers hand epi registers that hold no sums (epi reads t.nk).  With
+// MASK (both operands MN-major bf16), Tile::k_valid K values of an item
+// are valid: in the stage that holds the edge, consumer w zeroes the rows
+// past it of its own A box and of B's boxes w, w + 2, ... (a 128-byte row
+// is one K row under the 128-byte swizzle), fences the generic writes for
+// the async proxy, and both consumer warpgroups meet on a named barrier
+// before their wgmmas read the stage (each reads all of B).  So values
+// past the edge (the next group's rows) never reach a product, even when
+// they are not finite.
 //
 // Tensor maps are encoded on the host per call, by the driver's
 // cuTensorMapEncodeTiled reached through cudaGetDriverEntryPoint (the
@@ -566,10 +581,13 @@ __device__ __forceinline__ int acc_col(int i) {
 }
 
 // A unit of work: the output tile at (m0, n0) over the K tiles [kt0, kt0 +
-// nk) (nk >= 1, C::BK values each); `part` is the caller's (a split-K
-// slice).
+// nk) (nk >= 0, C::BK values each); `part` is the caller's (a split-K
+// slice, a group).  a_row / b_row: storage-row offsets of the operands'
+// blocks (header note); k_valid: the item's valid K values (MASK only).
 struct Tile {
   int m0, n0, kt0, nk, part;
+  int a_row = 0, b_row = 0;
+  int k_valid = 0x7fffffff;
 };
 
 // The persistent CTA: it takes the work items blockIdx.x, blockIdx.x +
@@ -579,9 +597,11 @@ struct Tile {
 // stages while the consumers finish the last one's epilogue.  Each
 // consumer calls epi(w, t, acc) after each item with its warpgroup index
 // w, the item's Tile t and its sums acc[C::BN / 2] (s32, or fp32; with
-// PROMOTE the fp32 registers the stages were added into), and pre(w, t)
-// before the item's first K step (loads the epilogue will need, issued
-// while the products run; no-op by default).  The kernel
+// PROMOTE the fp32 registers the stages were added into; no sums when
+// t.nk is 0, except PROMOTE's zeros), and pre(w, t) before the item's
+// first K step (loads the epilogue will need, issued while the products
+// run; no-op by default).  MASK: zero the operands' rows past t.k_valid
+// (MN-major bf16 operands only; header note).  The kernel
 // holds C::kSmemBytes of dynamic shared memory at `smem_raw`, launches
 // kThreads threads, and must not touch shared memory or synchronise the
 // whole CTA after this call (the producer warpgroup has left).
@@ -589,7 +609,8 @@ struct NoPre {
   __device__ void operator()(int, const Tile&) const {}
 };
 
-template <class C, class TileOf, class Epi, class Pre = NoPre>
+template <class C, bool MASK = false, class TileOf, class Epi,
+          class Pre = NoPre>
 __device__ __forceinline__ void mainloop(uint8_t* smem_raw,
                                          const CUtensorMap* ta,
                                          const CUtensorMap* tb, int n_work,
@@ -626,16 +647,18 @@ __device__ __forceinline__ void mainloop(uint8_t* smem_raw,
         if constexpr (C::A_MN) {
 #pragma unroll
           for (int j = 0; j < kBM / kBox; ++j)
-            tma_load(sa + j * kBoxBytes, ta, &full[s], t.m0 + j * kBox, k0);
+            tma_load(sa + j * kBoxBytes, ta, &full[s], t.m0 + j * kBox,
+                     t.a_row + k0);
         } else {
-          tma_load(sa, ta, &full[s], k0, t.m0);
+          tma_load(sa, ta, &full[s], k0, t.a_row + t.m0);
         }
         if constexpr (C::B_MN) {
 #pragma unroll
           for (int j = 0; j < C::BN / kBox; ++j)
-            tma_load(sb + j * kBoxBytes, tb, &full[s], t.n0 + j * kBox, k0);
+            tma_load(sb + j * kBoxBytes, tb, &full[s], t.n0 + j * kBox,
+                     t.b_row + k0);
         } else {
-          tma_load(sb, tb, &full[s], k0, t.n0);
+          tma_load(sb, tb, &full[s], k0, t.b_row + t.n0);
         }
       }
     }
@@ -660,6 +683,25 @@ __device__ __forceinline__ void mainloop(uint8_t* smem_raw,
     for (int i = 0; i < t.nk; ++i, ++it) {
       const int s = it % C::kStages;
       bar_wait(&full[s], (it / C::kStages) & 1);
+      if constexpr (MASK) {
+        static_assert(C::A_MN && C::B_MN && C::kEsz == 2,
+                      "MASK: MN-major bf16 operands");
+        const int valid = t.k_valid - i * C::BK;    // uniform per item
+        if (valid < C::BK) {
+          uint8_t* st = smem + s * C::kStageBytes;
+          // A's box w, then B's boxes w, w + 2, ...
+          for (int j = 0; j <= C::BN / kBox / 2; ++j) {
+            uint8_t* box = j == 0 ? st + w * kBoxBytes
+                                  : st + C::kABytes +
+                                        (2 * (j - 1) + w) * kBoxBytes;
+            for (int o = max(valid, 0) * kRowBytes + (tid & 127) * 16;
+                 o < kBoxBytes; o += 128 * 16)
+              *reinterpret_cast<uint4*>(box + o) = make_uint4(0, 0, 0, 0);
+          }
+          asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+          asm volatile("bar.sync 1, 256;\n" ::: "memory");
+        }
+      }
       const uint32_t a0 = saddr(smem + s * C::kStageBytes);
       const uint32_t b0 = a0 + C::kABytes;
       pin(acc);
@@ -696,9 +738,11 @@ __device__ __forceinline__ void mainloop(uint8_t* smem_raw,
     if constexpr (C::PROMOTE) {
       epi(w, t, tot);
     } else {
-      wg_wait<0>();
-      pin(acc);
-      if (lane == 0) bar_arrive(&empty[(it - 1) % C::kStages]);
+      if (t.nk > 0) {
+        wg_wait<0>();
+        pin(acc);
+        if (lane == 0) bar_arrive(&empty[(it - 1) % C::kStages]);
+      }
       epi(w, t, acc);
     }
   }

@@ -21,28 +21,182 @@ TPU kernels replaced, and what bounds the replacements on the H100:
 * ``_tgmm_kernel`` (``:256``, launched at ``:290``) by ``tgmm`` (kernel 6).
 
 Both are bound by their ``2 (sum of group sizes) k n`` operations on the
-bf16 tensor cores.  ``csrc/gmm.cu`` says how each CTA finds its groups on
-the device; the wrapper only hands it the prefix sum of ``group_sizes``
-(one ``torch.cumsum``, no host sync per call).
+bf16 tensor cores.  Both run on the persistent ``wgmma`` + TMA mainloop
+``csrc/wgmma_gemm.cuh`` over work items fixed by shapes alone;
+``csrc/gmm.cu`` says how each item finds its group on the device.  The
+wrapper hands the kernels the prefix sum of ``group_sizes`` (one
+``torch.cumsum``, no host sync per call) and, for ``tgmm``, the row chunk
+of :func:`tgmm_chunk_rows` and an fp32 workspace for groups that split.
+:func:`gmm_work_items` and :func:`tgmm_work_items` mirror the kernels'
+item plans in Python, for the CPU tests.
 
-``gmm_launches`` and ``tgmm_launches`` count the kernels' launches.  There
-is no fallback: :func:`gmm` and :func:`tgmm` take the plain versions only
-for CPU tensors or when asked by ``impl="plain"``; on CUDA tensors they
-launch the kernels or raise.
+``gmm_launches`` and ``tgmm_launches`` count calls: one per call, whatever
+launches the call makes (``tgmm`` adds the reduction of split groups when
+a group could split).  There is no fallback: :func:`gmm` and :func:`tgmm`
+take the plain versions only for CPU tensors or when asked by
+``impl="plain"``; on CUDA tensors they launch the kernels or raise.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import List, NamedTuple, Optional, Sequence
 
 import torch
+
+from automodel_tpu_torch.ops.qdot_kernel import _sms
 
 # kernel launches in this process (reset by callers that count a window)
 gmm_launches = 0
 tgmm_launches = 0
 
+# the kernels' tiles (csrc/gmm.cu on wgmma_gemm.cuh): 128 x 256 outputs,
+# 64-deep stages; the group plan of a call lives in shared memory
+TILE_M, TILE_N, STAGE_K = 128, 256, 64
+MAX_GROUPS = 1024
+
 _fns = {}
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def tgmm_chunk_rows(m: int, k: int, n: int, sms: int) -> int:
+    """``C``, the rows of a ``tgmm`` work item: the largest multiple of 64
+    that still cuts ``m`` rows into enough chunks for two waves of items on
+    ``sms`` SMs, should one group take every row (a group of more than
+    ``C`` rows is cut into chunks of ``C``, whose fp32 partials a second
+    launch adds).  From shapes alone."""
+    tiles = _cdiv(k, TILE_M) * _cdiv(n, TILE_N)
+    want = _cdiv(2 * sms, tiles)
+    if want <= 1:
+        return _cdiv(m, STAGE_K) * STAGE_K
+    return max(STAGE_K, (m - 1) // (want - 1) // STAGE_K * STAGE_K)
+
+
+def tgmm_workspace_slots(m: int, chunk_rows: int) -> int:
+    """``[k, n]`` fp32 partials the workspace must hold: none when no group
+    can split (``m <= C``), else ``2 m // C`` (a group of ``r > C`` rows
+    has ``ceil(r / C) < 2 r / C`` chunks)."""
+    return 0 if m <= chunk_rows else 2 * m // chunk_rows
+
+
+class GmmItem(NamedTuple):
+    """One ``gmm`` work item: the output tile at ``(m0, n0)`` times group
+    ``group``'s weights (``-1`` idle, ``E`` a tile of zeros), ``nk`` K
+    stages; rows ``[r_lo, r_hi)`` get its sums, ``[r_hi, z_hi)`` zeros."""
+    m0: int
+    n0: int
+    group: int
+    nk: int
+    r_lo: int
+    r_hi: int
+    z_hi: int
+
+
+class TgmmItem(NamedTuple):
+    """One ``tgmm`` work item: rows ``[r0, r0 + rows)`` of group ``group``
+    (chunk ``chunk``; ``-1`` idle) into the output tile ``(k0, n0)`` of
+    ``out[group]``, directly in bf16 (``slot`` -1) or as the fp32 partial
+    in workspace slot ``slot``; ``nk`` 64-row stages, 0 for an empty
+    group's zeros."""
+    group: int
+    chunk: int
+    k0: int
+    n0: int
+    r0: int
+    rows: int
+    nk: int
+    slot: int
+
+
+def _clipped_ends(group_sizes: Sequence[int], m: int) -> List[int]:
+    ends, total = [], 0
+    for size in group_sizes:
+        total += int(size)
+        ends.append(min(total, m))
+    return ends
+
+
+def gmm_work_items(group_sizes: Sequence[int], m: int, k: int, n: int
+                   ) -> List[GmmItem]:
+    """The items of ``gmm_fwd`` in order, as its ``tile`` and ``pre``
+    compute them on the device (``csrc/gmm.cu``): ``n_n`` primary items per
+    128-row tile (the group holding the tile's first row), then ``n_n``
+    per group for a group that starts strictly inside a tile (idle
+    otherwise): ``n_n (n_m + E)`` in all."""
+    E = len(group_sizes)
+    ends = _clipped_ends(group_sizes, m)
+    n_m, n_n, kt = _cdiv(m, TILE_M), _cdiv(n, TILE_N), _cdiv(k, STAGE_K)
+    items = []
+    for i in range(n_n * (n_m + E)):
+        if i < n_m * n_n:
+            tm, tn = divmod(i, n_n)
+            g = next((j for j in range(E) if ends[j] > tm * TILE_M), E)
+        else:
+            g, tn = divmod(i - n_m * n_n, n_n)
+            lo = ends[g - 1] if g else 0
+            tm = lo // TILE_M
+            if ends[g] <= lo or lo % TILE_M == 0:
+                g = -1
+        m0, m1 = tm * TILE_M, min(tm * TILE_M + TILE_M, m)
+        if g < 0:
+            r_lo = r_hi = z_hi = m0
+        elif g == E:
+            r_lo, r_hi, z_hi = m0, m0, m1
+        else:
+            lo, hi = (ends[g - 1] if g else 0), ends[g]
+            r_lo, r_hi = max(lo, m0), min(hi, m1)
+            z_hi = m1 if hi == ends[E - 1] else r_hi
+        items.append(GmmItem(m0, tn * TILE_N, g,
+                             kt if 0 <= g < E else 0, r_lo, r_hi, z_hi))
+    return items
+
+
+def tgmm_work_items(group_sizes: Sequence[int], m: int, k: int, n: int,
+                    chunk_rows: int, grid: int) -> List[TgmmItem]:
+    """The items of ``tgmm`` in the mainloop's order (item ``i`` runs on CTA
+    ``i % grid``), as its ``tile`` and ``epi`` compute them
+    (``csrc/gmm.cu``): a group has ``ceil(rows / C)`` chunks (one for an
+    empty group).  The chunk slots run longest first: the full chunks of
+    split groups (``C`` rows) in group order, then every group's last chunk
+    by decreasing rows (ties by group), then the idle slots; the ``n_k
+    n_n`` output tiles of a slot together.  Of those ``n_k n_n (E + m //
+    C)`` items, item ``i`` is taken in snake order over bands of ``grid``
+    (every other band reversed)."""
+    E, C = len(group_sizes), chunk_rows
+    ends = _clipped_ends(group_sizes, m)
+    rows_of = [ends[g] - (ends[g - 1] if g else 0) for g in range(E)]
+    chunks, slot0, slots = [], [], 0
+    for g in range(E):
+        nc = _cdiv(rows_of[g], C) if rows_of[g] > C else 1
+        chunks.append(nc)
+        slot0.append(slots if nc > 1 else -1)
+        slots += nc if nc > 1 else 0
+    last = [rows_of[g] - (chunks[g] - 1) * C for g in range(E)]
+    by_slot = ([(g, c) for g in range(E) for c in range(chunks[g] - 1)]
+               + [(g, chunks[g] - 1)
+                  for g in sorted(range(E), key=lambda g: (-last[g], g))])
+    n_k, n_n = _cdiv(k, TILE_M), _cdiv(n, TILE_N)
+    tiles = n_k * n_n
+    n_work = tiles * (E + m // C)
+    items = []
+    for i in range(n_work):
+        band, pos = divmod(i, grid)
+        span = min(grid, n_work - band * grid)
+        j = band * grid + (span - 1 - pos if band % 2 else pos)
+        slot, tt = divmod(j, tiles)
+        k0, n0 = (tt % n_k) * TILE_M, (tt // n_k) * TILE_N
+        if slot >= len(by_slot):
+            items.append(TgmmItem(-1, -1, k0, n0, 0, 0, 0, -1))
+            continue
+        g, c = by_slot[slot]
+        r0 = (ends[g - 1] if g else 0) + c * C
+        rows = max(min(r0 + C, ends[g]) - r0, 0)
+        items.append(TgmmItem(g, c, k0, n0, r0, rows, _cdiv(rows, STAGE_K),
+                              slot0[g] + c if slot0[g] >= 0 else -1))
+    return items
 
 
 def _kernel(name: str):
@@ -54,7 +208,8 @@ def _kernel(name: str):
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = {
             "gmm_fwd": [p, p, p, p, i, i, i, i, i, p],  # lhs rhs ends out m K N E trans stream
-            "tgmm": [p, p, p, p, i, i, i, i, p],        # lhs dout ends out m K N E stream
+            # lhs dout ends out ws m K N E chunk_rows stream
+            "tgmm": [p, p, p, p, p, i, i, i, i, i, p],
         }[name]
         fn.restype = ctypes.c_int
         _fns[name] = fn
@@ -80,6 +235,8 @@ def _ends(group_sizes: torch.Tensor, E: int, dev: torch.device
     _check(tuple(group_sizes.shape) == (E,) and group_sizes.device == dev,
            f"group_sizes must be [{E}] on {dev}, got "
            f"{tuple(group_sizes.shape)} on {group_sizes.device}")
+    _check(0 < E <= MAX_GROUPS,
+           f"{E} groups; the kernels take 1 to {MAX_GROUPS}")
     return torch.cumsum(group_sizes, 0, dtype=torch.int32)
 
 
@@ -144,8 +301,13 @@ def tgmm_cuda(lhs: torch.Tensor, dout: torch.Tensor,
     out = torch.empty(E, K, N, dtype=lhs.dtype, device=lhs.device)
     with torch.cuda.device(lhs.device):
         ends = _ends(group_sizes, E, lhs.device)
+        chunk = tgmm_chunk_rows(m, K, N, _sms(lhs.device))
+        slots = tgmm_workspace_slots(m, chunk)
+        ws = (torch.empty(slots, K, N, dtype=torch.float32,
+                          device=lhs.device) if slots else None)
         _launch("tgmm", lhs.data_ptr(), dout.data_ptr(), ends.data_ptr(),
-                out.data_ptr(), m, K, N, E,
+                out.data_ptr(), ws.data_ptr() if slots else None,
+                m, K, N, E, chunk,
                 torch.cuda.current_stream(lhs.device).cuda_stream)
     tgmm_launches += 1
     return out

@@ -96,7 +96,8 @@ Phases (any failure exits non-zero without the final ``ok`` line):
    against their plain versions at the path's shapes -- the group sizes of
    the first batch routed through layer 0 (m 147456 block-padded rows, k, n
    = 2048, 768 and 768, 2048, 128 experts), one expert holding every routed
-   row, ragged sizes with empty experts, each with rows past the groups --
+   row, ragged sizes with empty experts, a skewed routing of many tiny and
+   a few hot experts (``skewed_small``), each with rows past the groups --
    with kernel, plain, library (``torch._grouped_mm`` where torch has it)
    and bound times; then the first step through every kernel against every
    plain version, and the timed steps with the gmm / tgmm counts held to
@@ -1113,13 +1114,34 @@ def gmm_case(name, sizes, m, k, n, flush, seed):
     return row
 
 
+def skewed_sizes(E, routed, seed):
+    """Group sizes of a skewed routing of ``routed`` rows over ``E``
+    experts, from ``seed``: 40 experts of 1-127 rows, 6 taking 10 shares of
+    the rest each, the others one share each (multinomial)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    order = rng.permutation(E)
+    sizes = np.zeros(E, np.int64)
+    tiny, hot = order[:40], order[40:46]
+    sizes[tiny] = rng.integers(1, 128, tiny.size)
+    share = np.ones(E)
+    share[tiny] = 0
+    share[hot] = 10
+    sizes += rng.multinomial(routed - int(sizes.sum()), share / share.sum())
+    return torch.from_numpy(sizes).int()
+
+
 def gmm_phase(recipe, batch):
     """The grouped-matmul kernels at the MoE SFT path's shapes: the group
     sizes of the first batch routed through layer 0 (both expert products:
     k, n = 2048, 768 and 768, 2048), then ragged cases -- one expert taking
     every routed row, the raw (unpadded) routed sizes with empty experts
     (the first, two inside and the last two) so that row tiles straddle
-    groups, each with rows past the groups."""
+    groups, and a skewed routing as a trained router gives it (seeded raw
+    sizes: 40 experts of 1-127 rows, 6 of about 10x the others' mean),
+    each with rows past the groups."""
     import torch
 
     cfg = recipe.model.config
@@ -1132,7 +1154,7 @@ def gmm_phase(recipe, batch):
     print(f"gmm: layer 0 of the first batch routes {routed} assignments "
           f"(T x k) to {int((sizes > 0).sum())} experts, {int(sizes.min())}"
           f"-{int(sizes.max())} each; {int(padded.sum())} block-padded rows "
-          f"in a buffer of {n_pad}", flush=True)
+          f"in a buffer of {n_pad}; sizes {sizes.tolist()}", flush=True)
     hot = torch.zeros_like(sizes)
     hot[37] = routed
     ragged = sizes.clone()
@@ -1141,7 +1163,9 @@ def gmm_phase(recipe, batch):
     cases = [("routed_gate_up", padded, n_pad, H, I),
              ("routed_down", padded, n_pad, I, H),
              ("hot_expert", hot, n_pad, H, I),
-             ("ragged_empty", ragged, n_pad, H, I)]
+             ("ragged_empty", ragged, n_pad, H, I),
+             ("skewed_small", skewed_sizes(sizes.numel(), routed, seed=17),
+              n_pad, H, I)]
     rows = [gmm_case(name, gs, m, k, n, flush, seed=300 + i)
             for i, (name, gs, m, k, n) in enumerate(cases)]
     del flush
@@ -1664,7 +1688,8 @@ KERNEL_KINDS = [
     # qdot, gmm_quant and their quantize pass (csrc/qdot.cu, gmm_quant.cu,
     # gemm8.cuh)
     ("quantized_mm", ("qdotk::", "gmmq::", "g8::")),
-    ("grouped_mm", ("gmm_kernel",)),    # gmm and tgmm (csrc/gmm.cu)
+    # gmm, tgmm and tgmm's reduction of split groups (csrc/gmm.cu)
+    ("grouped_mm", ("gmm_kernel", "tgmm_reduce")),
     ("linear_ce", ("lce_",)),           # before gemm: not cuBLAS GEMMs
     ("gemm", ("nvjet", "gemm", "cutlass", "sm90_xmma")),
     ("loss", ("softmax", "nll_loss", "cross_entropy")),    # lower case
@@ -1672,14 +1697,19 @@ KERNEL_KINDS = [
     ("reduce", ("reduce_kernel",)),
     ("elementwise_and_copy", ("elementwise", "copy", "index", "cat")),
 ]
+# kernels whose own time and launches a profile line gives by name: tgmm's
+# reduction of split groups, launched by every tgmm call with m above its
+# row chunk (it finds no split group on the sorted path)
+NAMED_KERNELS = ("tgmm_reduce",)
 
 
 def profile_window(run, steps, label, attn_names):
     """Run ``run()`` (``steps`` steps) under ``torch.profiler`` and print
     the host time per step, the device time per step (sum of the kernels'
     own times), the idle share, the attention kernels' time per step
-    (kernel names containing one of ``attn_names``) and the kernels that
-    take the most of it."""
+    (kernel names containing one of ``attn_names``), the ``NAMED_KERNELS``'
+    time and launches per step, and the kernels that take the most of
+    it."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1714,6 +1744,10 @@ def profile_window(run, steps, label, attn_names):
         device_ms_per_step=device_ms if kernels else "not measured",
         device_idle_share=(1 - device_ms / host_ms) if kernels else None,
         attention_ms_per_step=attn_ms, ms_per_step_by_kind=by_kind,
+        named={n: dict(ms_per_step=sum(k[0] for k in kernels if n in k[2]),
+                       calls_per_step=sum(k[1] for k in kernels
+                                          if n in k[2]))
+               for n in NAMED_KERNELS},
         kernels_per_step=sum(k[1] for k in kernels),
         top=[dict(ms_per_step=k[0], calls_per_step=k[1], name=k[2])
              for k in kernels[:12]])
@@ -2379,7 +2413,13 @@ def main():
             "ms": got["ms"], "plain_ms": got["plain_ms"],
             "bound_ms": got["bound_ms"], "bound_by": got["bound_by"],
             "library_ms": got["library_ms"],
+            "redesigned": "wgmma + TMA, persistent",
         })
+        if kname == "gmm":     # its transposed-rhs form, the dlhs
+            dl = gmm_cases[0]["dlhs"]
+            kernels[-1].update(dlhs_ms=dl["ms"], dlhs_plain_ms=dl["plain_ms"],
+                               dlhs_bound_ms=dl["bound_ms"],
+                               dlhs_library_ms=dl["library_ms"])
     rep = q_cases[0]          # the sft_fp8 forward of q_proj
     kernels.append({
         "name": "qdot", "route": "cuda",

@@ -477,13 +477,21 @@ GMM_CASES = [
     # group, one group holding every row with dropped tail rows, leading
     # and trailing empty groups, block-aligned segments (the sorted MoE
     # path's layout), a trailing empty group with the buffer exactly full,
-    # and ragged k / n (not multiples of the tiles)
+    # ragged k / n (not multiples of the tiles), many groups of 0-127 rows
+    # (a row tile meets several groups), one hot group that tgmm splits into
+    # chunks (with a 64-row stage edge inside its last one), and group ends
+    # off the 64-row stages (tgmm masks the rows past them)
     ("straddles", [130, 0, 277, 1, 100], 512, 256, 384),
     ("one_group_tail", [0, 700, 0, 0], 1000, 128, 256),
     ("leading_trailing_empty", [0, 0, 300, 250, 0, 0], 640, 192, 128),
     ("block_aligned", [256, 128, 0, 384, 128], 1024, 512, 768),
     ("full_buffer_trailing_empty", [384, 256, 0], 640, 128, 128),
     ("ragged_kn", [50, 90, 0, 60], 256, 136, 72),
+    ("many_tiny_groups",
+     [int(x) for x in np.random.default_rng(5).integers(0, 128, 40)],
+     2600, 256, 384),
+    ("hot_expert_split", [0, 0, 3001, 0, 0], 4096, 256, 384),
+    ("unaligned_hi", [70, 200, 33, 129, 1], 512, 128, 256),
 ]
 # bf16 operands, fp32 sums in another order, bf16 output: relative L2 over
 # the whole tensor; a wrong group or tile moves it by O(1)
@@ -528,6 +536,61 @@ def test_cuda_gmm_and_tgmm_match_plain(case, cuda_device):
     for g, size in enumerate(sizes):
         if size == 0:
             assert bool((drhs[g] == 0).all()), g
+
+
+@pytest.mark.cuda
+def test_cuda_tgmm_split_groups_are_bitwise_deterministic(cuda_device):
+    """A hot group is cut into row chunks whose fp32 partials a second
+    launch adds in chunk order: two runs give the same bits, and the result
+    matches the plain version."""
+    from automodel_tpu_torch.ops import gmm_kernel as gk
+
+    sizes, m, k, n = [0, 7000, 0, 500], 8192, 512, 768
+    lhs, _, dout, gs = make_gmm_case(sizes, m, k, n, seed=3,
+                                     device=cuda_device)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    chunk = gk.tgmm_chunk_rows(m, k, n, sms)
+    assert 7000 > chunk and gk.tgmm_workspace_slots(m, chunk) > 0
+    first = gk.tgmm_cuda(lhs, dout, gs)
+    second = gk.tgmm_cuda(lhs, dout, gs)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    assert rel_l2(first, gk.tgmm_plain(lhs, dout, gs)) < GMM_REL_L2
+    assert bool((first[0] == 0).all()) and bool((first[2] == 0).all())
+
+
+@pytest.mark.cuda
+def test_cuda_grouped_matmuls_ignore_rows_outside_their_group(cuda_device):
+    """Inf in one group's rows of lhs and dout, NaN in the rows past the
+    groups: every other group's rows of ``gmm`` / dlhs and its ``tgmm``
+    block stay finite and match the plain version, rows past the groups are
+    exactly 0.  The group ends lie off the 64-row stages, so ``tgmm``'s last
+    stage of groups 1, 3 and 4 holds poisoned rows that it must mask in
+    both operands."""
+    from automodel_tpu_torch.ops import gmm_kernel as gk
+
+    sizes, m, k, n = [70, 200, 33, 129, 1], 512, 128, 256
+    lhs, rhs, dout, gs = make_gmm_case(sizes, m, k, n, seed=11,
+                                       device=cuda_device)
+    ends = np.cumsum(sizes)
+    lo, hi, total = int(ends[1]), int(ends[2]), int(ends[-1])
+    for t in (lhs, dout):
+        t[lo:hi] = float("inf")
+        t[total:] = float("nan")
+    keep = [g for g in range(len(sizes)) if g != 2]
+    rows = torch.cat([torch.arange(0, lo), torch.arange(hi, total)])
+    out = gk.gmm_cuda(lhs, rhs, gs)
+    dlhs = gk.gmm_cuda(dout, rhs, gs, trans_rhs=True)
+    drhs = gk.tgmm_cuda(lhs, dout, gs)
+    torch.cuda.synchronize()
+    for name, got, ref in (
+            ("gmm", out[rows], gk.gmm_plain(lhs, rhs, gs)[rows]),
+            ("dlhs", dlhs[rows],
+             gk.gmm_plain(dout, rhs, gs, trans_rhs=True)[rows]),
+            ("tgmm", drhs[keep], gk.tgmm_plain(lhs, dout, gs)[keep])):
+        assert bool(torch.isfinite(got).all()), name
+        assert rel_l2(got, ref) < GMM_REL_L2, (name, rel_l2(got, ref))
+    assert bool((out[total:] == 0).all()) and bool((dlhs[total:] == 0).all())
 
 
 @pytest.mark.cuda
