@@ -34,26 +34,15 @@
 //   gmm (kernel 5), Cfg<bf16, bf16, K-major, MN-major> (rhs[g] [K][N] read
 //   as 64 x 64 boxes of the [E K, N] map, row g K + k), with trans_rhs
 //   Cfg<bf16, bf16, K-major, K-major> (rhs stored [E N, K], rows g N + n).
-//   Items, n_n (n_m + E) of them (n_m, n_n the 128-row and 256-column
-//   tiles of out):
-//     * primary (i < n_m n_n): row tile i / n_n, column tile i % n_n (the
-//       column tiles of a row tile run together, so their CTAs share the
-//       lhs rows, and a group's row tiles follow each other, so rhs[g]
-//       stays in L2), for the group holding the tile's first row (binary
-//       search of `ends`); a tile past every group writes zeros;
-//     * extra (i >= n_m n_n): group (i - n_m n_n) / n_n, column tile
-//       (i - n_m n_n) % n_n, for the row tile where that group starts,
-//       active only when it starts strictly inside a tile (idle when it
-//       is empty or starts on a tile boundary: no load, no store).
-//   Each item multiplies the whole 128-row tile of lhs by its group's
-//   weights and stores only its group's rows [max(lo, m0), min(hi, m0 +
-//   128)): the other rows were multiplied by the wrong weights and are
-//   never written, so no operand load is masked and every row is written by
-//   exactly one item (deterministic).  Rows at or past ends[E-1] are
-//   written 0 by the item of the last non-empty group in their tile, or
-//   by the primary item of a tile that starts past every group.  The
-//   sorted path pads every segment to 128 rows (ops/moe.py), so there no
-//   extra item is active and no tile meets two groups.
+//   Items: gmm_items.cuh's grouped forward plan (shared with
+//   gmm_quant.cu), n_n (n_m + E) of them for n_m, n_n the 128-row and
+//   256-column tiles of out: one per output tile for the group holding the
+//   tile's first row, one more per group that starts strictly inside a
+//   tile; each item multiplies its whole row tile by its group's weights
+//   and stores only its group's rows, and rows past the groups are written
+//   0 by exactly one item.  The sorted path pads every segment to 128 rows
+//   (ops/moe.py), so there no extra item is active and no tile meets two
+//   groups.
 //   Ragged K: A's map carries the true K, so TMA zero-fills A's columns at
 //   or past K, and the rows of the next group's weights that a ragged last
 //   K tile reads multiply zeros (no 3-D map).  Ragged N with trans_rhs:
@@ -98,15 +87,14 @@
 // by the item's rows; fp32 partials go out as float2 pairs; a tile of
 // zeros is written with 16-byte stores.
 
-#include "wgmma_gemm.cuh"
+#include "gmm_items.cuh"
 
 namespace gmmk {
 namespace {
 
-using lce::bf16;
-using lce::pack_bf16;
-
-constexpr int kMaxGroups = 1024;       // the plan lives in shared memory
+using gi::bf16;
+using gi::kMaxGroups;
+using gi::pack_bf16;
 
 // forward: lhs [m][K] K-major, rhs[g] [K][N] MN-major
 using FwdCfg = wg::Cfg<wg::kBF16, wg::kBF16, false, true, 256, false>;
@@ -177,18 +165,6 @@ __device__ void make_plan(Plan& pl, const int* __restrict__ ends, int E,
   }
 }
 
-// first g with ends[g] > row (E when none): ends is non-decreasing
-__device__ __forceinline__ int first_group_past(const int* ends, int E,
-                                                int row) {
-  int lo = 0, hi = E;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (ends[mid] > row) hi = mid;
-    else lo = mid + 1;
-  }
-  return lo;
-}
-
 // tgmm: the groups by decreasing rows of their last chunk (ties by
 // index), order[r] the r-th.  Every CTA fills it from a published plan,
 // E^2 / 384 comparisons a thread; the caller synchronises before reading.
@@ -222,71 +198,9 @@ __device__ __forceinline__ int full_chunk_group(const int* chunk0, int E,
   return lo;
 }
 
-// Zeros into rows [r0, r1) of consumer warpgroup w's 64-row half of the
-// tile at (m0, n0) of `o` [.., ld] (columns < ncols), 16 bytes a store.
-__device__ __forceinline__ void store_zeros(bf16* o, long long ld, int ncols,
-                                            int m0, int n0, int w, int r0,
-                                            int r1) {
-  const int lo = max(r0, m0 + 64 * w), hi = min(r1, m0 + 64 * w + 64);
-  const int t = threadIdx.x & 127;
-  for (int idx = t; idx < (hi - lo) * (kBN / 8); idx += 128) {
-    const int row = lo + idx / (kBN / 8);
-    const int col = n0 + 8 * (idx % (kBN / 8));
-    if (col < ncols)                       // ncols % 8 == 0
-      *reinterpret_cast<uint4*>(o + row * ld + col) = make_uint4(0, 0, 0, 0);
-  }
-}
-
-// Thread t of a lane quad holds, for one accumulator row, the bf16 pairs
-// at columns 8 (4 a + s) + 2 t of four column groups (v[s], s = 0..3);
-// afterwards it holds the 8 columns of group 4 a + t in order.  Two
-// butterfly steps of shuffles (a 4 x 4 transpose of 32-bit words).
-__device__ __forceinline__ void quad_transpose(uint32_t (&v)[4]) {
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int b = 1; b <= 2; b <<= 1) {
-    const bool up = lane & b;
-#pragma unroll
-    for (int s = 0; s < 4; ++s) {
-      if (s & b) continue;
-      const uint32_t y =
-          __shfl_xor_sync(0xffffffffu, up ? v[s] : v[s | b], b);
-      if (up) v[s] = y;
-      else v[s | b] = y;
-    }
-  }
-}
-
-// Consumer warpgroup w's half of a 128 x 256 tile of sums into `o` [..,
-// ld] at (m0, n0) in bf16: rows [r_lo, r_hi) get the sums, [r_hi, z_hi)
-// zeros, columns < ncols.  Each thread stores 16 bytes (8 columns of one
-// row) at a time, 16 stores an item, after a quad transpose: a quarter of
-// the store instructions that bf16 pairs straight from the fragment take.
-__device__ __forceinline__ void store_tile(bf16* o, long long ld, int ncols,
-                                           int m0, int n0, int w,
-                                           const float (&acc)[kBN / 2],
-                                           int r_lo, int r_hi, int z_hi) {
-  const int t = threadIdx.x & 3;
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int row = m0 + wg::acc_row(w, 2 * h);
-    const bool sums = row >= r_lo && row < r_hi;
-    const bool keep = row >= r_lo && row < z_hi;
-#pragma unroll
-    for (int a = 0; a < kBN / 32; ++a) {
-      uint32_t v[4];
-#pragma unroll
-      for (int s = 0; s < 4; ++s) {
-        const int i = 4 * (4 * a + s) + 2 * h;
-        v[s] = sums ? pack_bf16(acc[i], acc[i + 1]) : 0u;
-      }
-      quad_transpose(v);
-      const int col = n0 + 8 * (4 * a + t);
-      if (keep && col < ncols)                 // ncols % 8 == 0
-        *reinterpret_cast<uint4*>(o + row * ld + col) =
-            make_uint4(v[0], v[1], v[2], v[3]);
-    }
-  }
+// registers i and i + 1 of a tile of sums, as packed bf16
+__device__ __forceinline__ auto sums(const float (&acc)[kBN / 2]) {
+  return [&acc](int i) { return pack_bf16(acc[i], acc[i + 1]); };
 }
 
 struct GmmArgs {
@@ -301,54 +215,24 @@ gmm_kernel(const __grid_constant__ CUtensorMap ta,
            const __grid_constant__ CUtensorMap tb, const GmmArgs p) {
   extern __shared__ __align__(1024) uint8_t smem[];
   __shared__ int ends[kMaxGroups];
-  for (int g = threadIdx.x; g < p.E; g += blockDim.x)
-    ends[g] = min(__ldg(p.ends + g), p.m);
+  gi::load_ends(ends, p.ends, p.E, p.m);
   // (the mainloop's first __syncthreads publishes ends)
-  const int primary = p.n_m * p.n_n;
   auto tile = [&](int i) {
-    wg::Tile t;
-    int g, tm, tn;
-    if (i < primary) {
-      tm = i / p.n_n;
-      tn = i % p.n_n;
-      g = first_group_past(ends, p.E, tm * wg::kBM);     // E: past all
-    } else {
-      g = (i - primary) / p.n_n;
-      tn = (i - primary) % p.n_n;
-      const int lo = g ? ends[g - 1] : 0;
-      tm = lo / wg::kBM;
-      if (ends[g] <= lo || lo % wg::kBM == 0) g = -1;    // idle
-    }
-    t.m0 = tm * wg::kBM;
-    t.n0 = tn * kBN;
-    t.kt0 = 0;
-    t.part = g;
-    t.nk = g >= 0 && g < p.E ? p.kt : 0;
-    t.b_row = t.nk ? g * (TRANS ? p.N : p.K) : 0;
-    return t;
+    return gi::fwd_item(i, ends, p.E, p.n_m, p.n_n, kBN, p.kt,
+                        TRANS ? p.N : p.K);
   };
   // rows [r_lo, r_hi) get the item's sums, [r_hi, z_hi) zeros
   int r_lo = 0, r_hi = 0, z_hi = 0;
   auto pre = [&](int, const wg::Tile& t) {
-    const int g = t.part, m1 = min(t.m0 + wg::kBM, p.m);
-    if (g < 0) {
-      r_lo = r_hi = z_hi = t.m0;
-    } else if (g >= p.E) {
-      r_lo = r_hi = t.m0;
-      z_hi = m1;
-    } else {
-      const int lo = g ? ends[g - 1] : 0, hi = ends[g];
-      r_lo = max(lo, t.m0);
-      r_hi = min(hi, m1);
-      z_hi = hi == ends[p.E - 1] ? m1 : r_hi;
-    }
+    gi::fwd_rows(t, ends, p.E, p.m, r_lo, r_hi, z_hi);
   };
   auto epi = [&](int w, const wg::Tile& t, float (&acc)[C::BN / 2]) {
     if (t.nk == 0) {
-      store_zeros(p.out, p.N, p.N, t.m0, t.n0, w, r_hi, z_hi);
+      gi::store_zeros<kBN>(p.out, p.N, p.N, t.m0, t.n0, w, r_hi, z_hi);
       return;
     }
-    store_tile(p.out, p.N, p.N, t.m0, t.n0, w, acc, r_lo, r_hi, z_hi);
+    gi::store_tile<kBN>(p.out, p.N, p.N, t.m0, t.n0, w, sums(acc), r_lo,
+                        r_hi, z_hi);
   };
   wg::mainloop<C>(smem, &ta, &tb, p.n_n * (p.n_m + p.E), tile, epi, pre);
 }
@@ -410,12 +294,13 @@ tgmm_kernel(const __grid_constant__ CUtensorMap ta,
     const size_t kn = (size_t)p.K * p.N;
     bf16* o = p.out + g * kn;
     if (t.nk == 0) {                                     // empty group
-      store_zeros(o, p.N, p.N, t.m0, t.n0, w, 0, p.K);
+      gi::store_zeros<kBN>(o, p.N, p.N, t.m0, t.n0, w, 0, p.K);
       return;
     }
     const int slot0 = pl.slot0[g];
     if (slot0 < 0) {                                     // one chunk
-      store_tile(o, p.N, p.N, t.m0, t.n0, w, acc, 0, p.K, p.K);
+      gi::store_tile<kBN>(o, p.N, p.N, t.m0, t.n0, w, sums(acc), 0, p.K,
+                          p.K);
       return;
     }
     const int lo = g ? pl.ends[g - 1] : 0;

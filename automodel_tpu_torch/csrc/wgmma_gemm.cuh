@@ -1,8 +1,11 @@
 // Shared Hopper (sm_90a) GEMM mainloop: TMA loads into a ring of
 // shared-memory stages, mbarrier completion, wgmma consumer warpgroups.
-// Used by qdot.cu (8-bit products), linear_ce_bwd.cu (the dlogits, dh
-// and dW products) and gmm.cu (the grouped products); the kernels
-// themselves live in those files, so each keeps its own name.
+// Used by qdot.cu and gmm_quant.cu (8-bit products), linear_ce_fwd.cu
+// (the logits of the forward) and linear_ce_bwd.cu (the dlogits, dh and
+// dW products), and gmm.cu (the bf16 grouped products); the kernels
+// themselves live in those files, so each keeps its own name, and each
+// orders its work items through its own tile functor and keeps its state
+// in its own epilogue functor.
 //
 // One persistent CTA per SM, of 3 warpgroups, walks over work items (a
 // 128 x BN output tile and a range of its K tiles):
@@ -45,20 +48,20 @@
 // predicated loads; zeros past K add nothing.  The byte count armed on
 // "full" is the whole box, which TMA counts in full even when it fills.
 //
-// Grouped products (gmm.cu) address one block of a larger map per item:
-// Tile::a_row / b_row shift the storage-row coordinate of an operand (K
-// of an MN-major operand, stored [k][mn]; M or N of a K-major one, stored
-// [mn][k]), so one map encoded per call serves every group.  An item may
-// have no K tiles (nk 0): the producer loads nothing for it and the
-// consumers hand epi registers that hold no sums (epi reads t.nk).  With
-// MASK (both operands MN-major bf16), Tile::k_valid K values of an item
-// are valid: in the stage that holds the edge, consumer w zeroes the rows
-// past it of its own A box and of B's boxes w, w + 2, ... (a 128-byte row
-// is one K row under the 128-byte swizzle), fences the generic writes for
-// the async proxy, and both consumer warpgroups meet on a named barrier
-// before their wgmmas read the stage (each reads all of B).  So values
-// past the edge (the next group's rows) never reach a product, even when
-// they are not finite.
+// Grouped products (gmm.cu, gmm_quant.cu) address one block of a larger
+// map per item: Tile::a_row / b_row shift the storage-row coordinate of an
+// operand (K of an MN-major operand, stored [k][mn]; M or N of a K-major
+// one, stored [mn][k]), so one map encoded per call serves every group.
+// An item may have no K tiles (nk 0): the producer loads nothing for it
+// and the consumers hand epi registers that hold no sums (epi reads t.nk).
+// With MASK (both operands MN-major bf16), Tile::k_valid K values of an
+// item are valid: in the stage that holds the edge, consumer w zeroes the
+// rows past it of its own A box and of B's boxes w, w + 2, ... (a
+// 128-byte row is one K row under the 128-byte swizzle), fences the
+// generic writes for the async proxy, and both consumer warpgroups meet on
+// a named barrier before their wgmmas read the stage (each reads all of
+// B).  So values past the edge (the next group's rows) never reach a
+// product, even when they are not finite.
 //
 // Tensor maps are encoded on the host per call, by the driver's
 // cuTensorMapEncodeTiled reached through cudaGetDriverEntryPoint (the

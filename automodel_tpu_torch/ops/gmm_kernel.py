@@ -23,7 +23,9 @@ TPU kernels replaced, and what bounds the replacements on the H100:
 Both are bound by their ``2 (sum of group sizes) k n`` operations on the
 bf16 tensor cores.  Both run on the persistent ``wgmma`` + TMA mainloop
 ``csrc/wgmma_gemm.cuh`` over work items fixed by shapes alone;
-``csrc/gmm.cu`` says how each item finds its group on the device.  The
+``csrc/gmm_items.cuh`` (gmm's items, shared with ``csrc/gmm_quant.cu``)
+and ``csrc/gmm.cu`` (tgmm's) say how each item finds its group on the
+device.  The
 wrapper hands the kernels the prefix sum of ``group_sizes`` (one
 ``torch.cumsum``, no host sync per call) and, for ``tgmm``, the row chunk
 of :func:`tgmm_chunk_rows` and an fp32 workspace for groups that split.
@@ -119,16 +121,18 @@ def _clipped_ends(group_sizes: Sequence[int], m: int) -> List[int]:
     return ends
 
 
-def gmm_work_items(group_sizes: Sequence[int], m: int, k: int, n: int
+def gmm_work_items(group_sizes: Sequence[int], m: int, k: int, n: int,
+                   tile_n: int = TILE_N, stage_k: int = STAGE_K
                    ) -> List[GmmItem]:
     """The items of ``gmm_fwd`` in order, as its ``tile`` and ``pre``
-    compute them on the device (``csrc/gmm.cu``): ``n_n`` primary items per
-    128-row tile (the group holding the tile's first row), then ``n_n``
-    per group for a group that starts strictly inside a tile (idle
-    otherwise): ``n_n (n_m + E)`` in all."""
+    compute them on the device (``csrc/gmm_items.cuh``, also the plan of
+    ``csrc/gmm_quant.cu``'s product with its 8-bit ``tile_n`` and
+    ``stage_k``): ``n_n`` primary items per 128-row tile (the group holding
+    the tile's first row), then ``n_n`` per group for a group that starts
+    strictly inside a tile (idle otherwise): ``n_n (n_m + E)`` in all."""
     E = len(group_sizes)
     ends = _clipped_ends(group_sizes, m)
-    n_m, n_n, kt = _cdiv(m, TILE_M), _cdiv(n, TILE_N), _cdiv(k, STAGE_K)
+    n_m, n_n, kt = _cdiv(m, TILE_M), _cdiv(n, tile_n), _cdiv(k, stage_k)
     items = []
     for i in range(n_n * (n_m + E)):
         if i < n_m * n_n:
@@ -149,7 +153,7 @@ def gmm_work_items(group_sizes: Sequence[int], m: int, k: int, n: int
             lo, hi = (ends[g - 1] if g else 0), ends[g]
             r_lo, r_hi = max(lo, m0), min(hi, m1)
             z_hi = m1 if hi == ends[E - 1] else r_hi
-        items.append(GmmItem(m0, tn * TILE_N, g,
+        items.append(GmmItem(m0, tn * tile_n, g,
                              kt if 0 <= g < E else 0, r_lo, r_hi, z_hi))
     return items
 

@@ -32,10 +32,15 @@ TPU kernel replaced: ``_gmm_quant_pallas_impl``
 (``automodel_tpu/ops/gmm_quant_kernel.py:182``, the gmm Pallas body
 ``gmm_kernel.py:187`` with an int32 / fp32 accumulator), with the
 ``quant_cast`` of its operands and the caller's ``_rescale``, which the JAX
-package runs around it in XLA, in the same kernel launch.
-``gmm_quant_launches`` counts its launches (forward and dlhs).  There is
-no fallback: on CUDA tensors the kernel is launched or the call raises;
-the plain version runs for CPU tensors or with ``impl="plain"``.
+package runs around it in XLA, by two launches of ``csrc/gmm_quant.cu``:
+the quantize pass, then the grouped product on the persistent ``wgmma`` +
+TMA mainloop (``csrc/wgmma_gemm.cuh``) over gmm's grouped work items
+(:func:`gmm_kernel.gmm_work_items` at ``STAGE_K8`` and the tile width of
+:func:`qdot_kernel.tile_n`) with the rescale in its epilogue;
+:func:`gmm_quant_launch_plan` exposes the two, to time them apart.
+``gmm_quant_launches`` counts calls (forward and dlhs).  There is no
+fallback: on CUDA tensors the kernel is launched or the call raises; the
+plain version runs for CPU tensors or with ``impl="plain"``.
 """
 
 from __future__ import annotations
@@ -57,23 +62,33 @@ from automodel_tpu_torch.ops.quant import (
 # kernel launches in this process (reset by callers that count a window)
 gmm_quant_launches = 0
 
-_fn = None
+# the product's 8-bit stage: 128 codes of K (csrc/gmm_quant.cu on
+# wgmma_gemm.cuh; its tile width is qdot_kernel.tile_n of the lhs type)
+STAGE_K8 = 128
+
+_fns = {}
 
 
-def _kernel():
-    global _fn
-    if _fn is None:
+def _kernel(name: str):
+    fn = _fns.get(name)
+    if fn is None:
         from automodel_tpu_torch.ops.kernel_lib import build
 
-        fn = build.load("gmm_quant").gmm_quant
+        fn = getattr(build.load("gmm_quant"), name)
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        # lhs rhs rhs_e rhs_ld rhs_kmajor ends s_lhs s_rhs srhs_e srhs_n
-        # lhs_q rhs_q out m K N E out_bf16 qa qb stream
-        fn.argtypes = [p, p, ll, ll, i, p, p, p, i, i, p, p, p, i, i, i, i, i,
-                       i, i, p]
+        fn.argtypes = {
+            # lhs rhs rhs_e rhs_ld rhs_kmajor s_lhs s_rhs srhs_e srhs_n
+            # lhs_q rhs_q m K N E qa qb stream
+            "gmm_quant_pack": [p, p, ll, ll, i, p, p, i, i, p, p, i, i, i, i,
+                               i, i, p],
+            # lhs_q rhs_q ends s_lhs s_rhs srhs_e srhs_n out m K N E
+            # out_bf16 qa qb stream
+            "gmm_quant_product": [p, p, p, p, p, i, i, p, i, i, i, i, i, i,
+                                  i, p],
+        }[name]
         fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+        _fns[name] = fn
+    return fn
 
 
 def _check(cond: bool, msg: str) -> None:
@@ -128,17 +143,19 @@ def _rescale(raw: torch.Tensor, s_lhs: torch.Tensor, s_rhs: torch.Tensor,
 # ---------------------------------------------------------------------------
 # the kernel and its plain version: operands, scales -> rescaled product
 # ---------------------------------------------------------------------------
-def gmm_quant_cuda(lhs: torch.Tensor, rhs: torch.Tensor,
-                   group_sizes: torch.Tensor, s_lhs: torch.Tensor,
-                   s_rhs: torch.Tensor, a_qdtype: torch.dtype,
-                   b_qdtype: torch.dtype,
-                   out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """Launch ``gmm_quant``: bf16 ``lhs [m, K]`` (row-major) against the
-    experts ``rhs [E, K, N]`` (row-major, or the transpose view of a
-    row-major ``[E, N, K]``: the backward's ``rhs^T``), quantized to
-    ``a_qdtype`` / ``b_qdtype`` with ``s_lhs [m, 1]`` and ``s_rhs [E, 1,
-    N|1]`` -> ``[m, N]`` fp32 or bf16."""
-    global gmm_quant_launches
+def gmm_quant_launch_plan(lhs: torch.Tensor, rhs: torch.Tensor,
+                          group_sizes: torch.Tensor, s_lhs: torch.Tensor,
+                          s_rhs: torch.Tensor, a_qdtype: torch.dtype,
+                          b_qdtype: torch.dtype,
+                          out_dtype: torch.dtype = torch.float32):
+    """Check the operands of ``gmm_quant`` and allocate its output and
+    scratch, launching nothing: ``(out, plan)`` with ``plan`` the
+    ``[("pack", launch), ("product", launch)]`` to run in order on the
+    current stream (empty when m is 0: ``out`` is then final).  bf16 ``lhs
+    [m, K]`` (row-major) against the experts ``rhs [E, K, N]`` (row-major,
+    or the transpose view of a row-major ``[E, N, K]``: the backward's
+    ``rhs^T``), quantized to ``a_qdtype`` / ``b_qdtype`` with ``s_lhs [m,
+    1]`` and ``s_rhs [E, 1, N|1]`` -> ``[m, N]`` fp32 or bf16."""
     _check(lhs.is_cuda, f"lhs must be a CUDA tensor, got {lhs.device}")
     _check(lhs.dim() == 2 and rhs.dim() == 3 and rhs.shape[1] == lhs.shape[1],
            f"lhs [m, K] and rhs [E, K, N], got {tuple(lhs.shape)} and "
@@ -150,6 +167,8 @@ def gmm_quant_cuda(lhs: torch.Tensor, rhs: torch.Tensor,
     E, _, N = rhs.shape
     _check(K % 16 == 0 and N % 16 == 0 and K > 0 and N > 0,
            f"k={K} and n={N} must be positive multiples of 16")
+    _check(0 < E <= gmm_kernel.MAX_GROUPS,
+           f"{E} groups; the kernel takes 1 to {gmm_kernel.MAX_GROUPS}")
     dev = lhs.device
     for name, t in (("lhs", lhs), ("rhs", rhs)):
         _check(t.device == dev and t.dtype == torch.bfloat16
@@ -178,22 +197,49 @@ def gmm_quant_cuda(lhs: torch.Tensor, rhs: torch.Tensor,
            f"group_sizes must be [{E}] on {dev}")
     out = torch.empty(m, N, dtype=out_dtype, device=dev)
     if m == 0:
-        return out
-    # the quantized copies, K-major (scratch)
+        return out, []
+    # the quantized copies, K-major (scratch), and the groups' ends
     lhs_q = torch.empty(m, K, dtype=torch.uint8, device=dev)
     rhs_q = torch.empty(E, N, K, dtype=torch.uint8, device=dev)
     with torch.cuda.device(dev):
         ends = torch.cumsum(group_sizes, 0, dtype=torch.int32)
-        rc = _kernel()(
-            lhs.data_ptr(), rhs.data_ptr(), rhs.stride(0), rhs_ld, rhs_kmajor,
-            ends.data_ptr(), s_lhs.data_ptr(), s_rhs.data_ptr(),
-            s_rhs.stride(0), int(s_rhs.shape[2] != 1), lhs_q.data_ptr(),
-            rhs_q.data_ptr(), out.data_ptr(), m, K, N, E,
-            int(out_dtype == torch.bfloat16), QCODES[a_qdtype],
-            QCODES[b_qdtype], torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"gmm_quant launch failed (code {rc})")
-    gmm_quant_launches += 1
+    qa, qb = QCODES[a_qdtype], QCODES[b_qdtype]
+    srhs_e, srhs_n = s_rhs.stride(0), int(s_rhs.shape[2] != 1)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def launch(name, *args):
+        rc = _kernel(name)(*args, stream)
+        if rc != 0:
+            raise RuntimeError(f"{name} launch failed (code {rc})")
+
+    return out, [
+        ("pack", lambda: launch(
+            "gmm_quant_pack", lhs.data_ptr(), rhs.data_ptr(), rhs.stride(0),
+            rhs_ld, rhs_kmajor, s_lhs.data_ptr(), s_rhs.data_ptr(), srhs_e,
+            srhs_n, lhs_q.data_ptr(), rhs_q.data_ptr(), m, K, N, E, qa, qb)),
+        ("product", lambda: launch(
+            "gmm_quant_product", lhs_q.data_ptr(), rhs_q.data_ptr(),
+            ends.data_ptr(), s_lhs.data_ptr(), s_rhs.data_ptr(), srhs_e,
+            srhs_n, out.data_ptr(), m, K, N, E,
+            int(out_dtype == torch.bfloat16), qa, qb)),
+    ]
+
+
+def gmm_quant_cuda(lhs: torch.Tensor, rhs: torch.Tensor,
+                   group_sizes: torch.Tensor, s_lhs: torch.Tensor,
+                   s_rhs: torch.Tensor, a_qdtype: torch.dtype,
+                   b_qdtype: torch.dtype,
+                   out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Launch ``gmm_quant`` (its quantize pass, then its grouped product;
+    :func:`gmm_quant_launch_plan` says what it takes) -> ``[m, N]``."""
+    global gmm_quant_launches
+    out, plan = gmm_quant_launch_plan(lhs, rhs, group_sizes, s_lhs, s_rhs,
+                                      a_qdtype, b_qdtype, out_dtype)
+    with torch.cuda.device(lhs.device):
+        for _, launch in plan:
+            launch()
+    if plan:
+        gmm_quant_launches += 1
     return out
 
 

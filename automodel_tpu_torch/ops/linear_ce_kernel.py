@@ -13,8 +13,10 @@ TPU kernels replaced, and what bounds the replacements on the H100:
 
 * ``_fwd_kernel`` (``automodel_tpu/ops/linear_ce_kernel.py:132``) by
   ``linear_ce_fwd`` (kernel 2): the logits products, 2 T H V operations on
-  the bf16 tensor cores; the vocabulary is split across CTAs and the
-  partial (max, sumexp, pick) are combined in a second small launch.
+  the bf16 tensor cores, as a persistent ``wgmma`` + TMA product
+  (``csrc/wgmma_gemm.cuh``) whose CTAs walk runs of vocab tiles of one row
+  tile (:func:`linear_ce_fwd_plan`); the partial (max, sumexp, pick) of
+  the vocabulary's splits are combined in a second small launch.
 * ``_bwd_dh_kernel`` (``:222``) and ``_bwd_dw_kernel`` (``:248``) by
   ``linear_ce_dlogits`` + ``linear_ce_dh`` + ``linear_ce_dw`` (kernels 3
   and 4): per chunk of ``CHUNK_ROWS`` rows, one recompute of the logits
@@ -41,9 +43,12 @@ tensors or when asked by ``impl="plain"``.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+import functools
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
+
+from automodel_tpu_torch.ops.qdot_kernel import _sms
 
 # rows per chunk: the kernels' bf16 dlogits chunk is 2048 x 128256 x 2 B
 # = 0.5 GB at Llama-3's vocabulary, the plain versions' fp32 logits 1 GB
@@ -73,7 +78,7 @@ def _kernel(name: str):
         fn.argtypes = {
             "linear_ce_fwd_splits": [i, i],
             "linear_ce_fwd": [p, p, p, p, p, p, i, p, p,   # h w lab parts n lse pick
-                              i, i, i, p],                  # T H V stream
+                              i, i, i, i, p],               # T H V epi stream
             "linear_ce_dlogits": [p, p, p, p, p, p, p,      # h w lab lse dlse dpick dl
                                   i, i, i, i, i, i, p],     # r0 rows H V ldv epi stream
             "linear_ce_dh": [p, p, p, i, i, i, i, p],       # dl w dh rows H V ldv
@@ -141,21 +146,95 @@ def _f32_row(t: torch.Tensor, T: int, name: str) -> torch.Tensor:
     return t.to(torch.float32).contiguous()
 
 
+# the forward's tiles (csrc/linear_ce_fwd.cu on wgmma_gemm.cuh): 128 rows
+# by 256 vocab columns; at most this many row tiles share the L2 at a time
+FWD_TILE_M, FWD_TILE_V, FWD_ROW_TILES_MAX = 128, 256, 32
+
+
+class FwdItem(NamedTuple):
+    """One item of a forward CTA: the logits tile ``(row_tile,
+    vocab_tile)`` folded into the running sums of split ``split``'s run
+    (``vocab_tile`` -1: an idle item of the run, no product; ``row_tile``
+    past the last: an idle run); ``run_end``: the run's partials are
+    written after it."""
+    row_tile: int
+    vocab_tile: int
+    split: int
+    run_end: bool
+
+
+class FwdPlan(NamedTuple):
+    """The forward's plan (``csrc/linear_ce_fwd.cu``): row tiles in groups
+    of ``row_tiles``, the vocabulary's ``n_v`` tiles in ``splits`` ranges
+    (split ``q``: tiles ``[q n_v / Q, (q + 1) n_v / Q)``), ``grid`` =
+    ``row_tiles * splits`` CTAs, CTA ``c`` taking the run (row ``c %
+    row_tiles``, split ``c // row_tiles``) of every group, each run padded
+    to ``run`` items."""
+    row_tiles: int
+    splits: int
+    run: int
+    groups: int
+    n_m: int
+    n_v: int
+
+    @property
+    def grid(self) -> int:
+        return self.row_tiles * self.splits
+
+    def items(self, cta: int) -> List[FwdItem]:
+        """CTA ``cta``'s items in order, as the kernel's ``tile`` gives
+        them: item ``k`` is the mainloop's round-robin item ``cta + k *
+        grid``."""
+        R, Q, L = self.row_tiles, self.splits, self.run
+        q, out = cta // R, []
+        lo, hi = q * self.n_v // Q, (q + 1) * self.n_v // Q
+        for k in range(self.groups * L):
+            tm, v = (k // L) * R + cta % R, lo + k % L
+            out.append(FwdItem(tm, v if tm < self.n_m and v < hi else -1, q,
+                               k % L == L - 1))
+        return out
+
+
+@functools.lru_cache(maxsize=64)
+def linear_ce_fwd_plan(T: int, V: int, sms: int) -> FwdPlan:
+    """The forward kernel's plan for ``T`` rows, ``V`` vocab entries on
+    ``sms`` SMs, from shapes alone: ``(row_tiles R, splits Q)`` with ``R
+    <= FWD_ROW_TILES_MAX`` and ``R Q <= sms``, the largest ``R`` (fewest
+    passes over the head) whose longest run times the number of row groups
+    (the CTAs' item count) is within an eighth of the least.  ``splits``
+    sizes the partials; the kernel's ``linear_ce_fwd_splits`` gives the
+    same."""
+    n_m, n_v = -(-T // FWD_TILE_M), -(-V // FWD_TILE_V)
+    plans = []
+    for R in range(1, min(n_m, FWD_ROW_TILES_MAX, max(sms, 1)) + 1):
+        Q = min(n_v, max(1, sms // R))
+        plans.append(FwdPlan(R, Q, -(-n_v // Q), -(-n_m // R), n_m, n_v))
+    least = min(p.run * p.groups for p in plans)
+    return [p for p in plans if 8 * p.run * p.groups <= 9 * least][-1]
+
+
+# timing run of the forward kernel: the product alone (no partials, no
+# combine; lse and pick are left unwritten)
+FWD_TIMING = {"product": 1}
+
+
 def linear_ce_fwd_cuda(h: torch.Tensor, w: torch.Tensor,
-                       labels: torch.Tensor
+                       labels: torch.Tensor, timing: Optional[str] = None
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the forward kernel -> ``(lse [T], pick [T])`` fp32."""
+    """Launch the forward kernel -> ``(lse [T], pick [T])`` fp32.
+    ``timing="product"`` runs the product alone, to time it."""
     global fwd_launches
     T, H, V, ws = _check_operands(h, w, labels)
     with torch.cuda.device(h.device):
-        nsplit = _kernel("linear_ce_fwd_splits")(T, V)
+        nsplit = linear_ce_fwd_plan(T, V, _sms(h.device)).splits
         part = torch.empty(3, nsplit, T, dtype=torch.float32, device=h.device)
         lse = torch.empty(T, dtype=torch.float32, device=h.device)
         pick = torch.empty(T, dtype=torch.float32, device=h.device)
         rc = _kernel("linear_ce_fwd")(
             h.data_ptr(), ws.data_ptr(), labels.data_ptr(), part[0].data_ptr(),
             part[1].data_ptr(), part[2].data_ptr(), nsplit, lse.data_ptr(),
-            pick.data_ptr(), T, H, V, _stream(h))
+            pick.data_ptr(), T, H, V, FWD_TIMING[timing] if timing else 0,
+            _stream(h))
     _raise_on(rc, "linear_ce_fwd")
     fwd_launches += 1
     return lse, pick

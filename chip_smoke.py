@@ -42,7 +42,8 @@ Phases (any failure exits non-zero without the final ``ok`` line):
    path's shape (T 16384 = 8 x 2048, H 2048, V 128256, the labels of the
    bench YAML's first batch) and at a GPT-2 vocabulary, ragged rows,
    H 4096 and all-ignored labels, with the kernel, plain, library and bound
-   times; beside dlogits, which no one PyTorch call computes, its
+   times, the forward's product alone (``product_ms``, its epilogue with no
+   reduction); beside dlogits, which no one PyTorch call computes, its
    recompute product's ``torch.mm`` per chunk (``product_library_ms``),
    the kernel without its stores (``nostore_ms``) and without its
    epilogue (``product_ms``);
@@ -105,7 +106,9 @@ Phases (any failure exits non-zero without the final ``ok`` line):
 10. sft_moe_fp8: the same with ``--fp8.enabled true --fp8.dtype int8``:
    first the quantized grouped matmul (gmm_quant) against its plain version
    at the same four group layouts, int8 and e4m3, and the backward's dlhs
-   (``gmm_quant_case`` lines), then the training with gmm_quant 9, tgmm 3,
+   (``gmm_quant_case`` lines: the whole call, its pack and product launches
+   timed apart, and beside the bound the floor of the two passes' bytes),
+   then the training with gmm_quant 9, tgmm 3,
    bf16 gmm 0 and qdot 16 launches per layer and microbatch;
 11. quant_check: qdot kernel against qdot plain through a 2-layer Llama at
    sft_fp8's widths on the bench YAML's first batch, attention plain on
@@ -873,6 +876,9 @@ def lce_case(name, T, H, V, kind, bench_labels, flush, seed, parts):
     args = (h, w, labels, ref_lse, dlse, dpick)
     t = dict(
         fwd=time_ms(lambda: lce.linear_ce_fwd_cuda(h, w, labels), 5, flush),
+        # the forward's product alone: its epilogue with no reduction
+        fwd_product=time_ms(lambda: lce.linear_ce_fwd_cuda(
+            h, w, labels, timing="product"), 5, flush),
         bwd=time_ms(lambda: lce.linear_ce_bwd_cuda(*args), 3, flush),
         fwd_plain=time_ms(lambda: lce.lse_and_pick_plain(h, w, labels), 1,
                           flush, warmup=1),
@@ -905,7 +911,8 @@ def lce_case(name, T, H, V, kind, bench_labels, flush, seed, parts):
     bounds = lce_bounds(T, H, V)
     row = dict(case=name, T=T, H=H, V=V, labels=kind,
                valid_rows=int(valid.sum()),
-               fwd=dict(ms=t["fwd"], plain_ms=t["fwd_plain"],
+               fwd=dict(ms=t["fwd"], product_ms=t["fwd_product"],
+                        plain_ms=t["fwd_plain"],
                         library_ms=t["fwd_library"], bound_ms=bounds["fwd"][0],
                         bound_by=bounds["fwd"][1],
                         lse_max_abs_err=fwd_err["lse"],
@@ -1495,9 +1502,19 @@ def gmm_quant_case(name, sizes, m, k, n, qdtype, flush, seed,
             why = f"_scaled_grouped_mm refused: {str(e).splitlines()[0][:160]}"
     del got, ref
     nonempty = int((sizes > 0).sum())
+    scales = 4.0 * (m + E * n)
     bound_ms, bound_by = roofline_ms(
         2.0 * total * k * n, 2.0 * (total * k + nonempty * k * n + m * n)
-        + 4.0 * (m + E * n), ops_per_s=INT8_FP8_OPS_PER_S)
+        + scales, ops_per_s=INT8_FP8_OPS_PER_S)
+    # the two passes' own floor: the pack reads every bf16 row and expert
+    # and writes their codes; the product reads the groups' codes and
+    # writes bf16
+    codes = 1.0 * (m * k + E * k * n)
+    two_pass_floor_ms = (3.0 * codes + 1.0 * (total * k + nonempty * k * n)
+                         + 2.0 * m * n + 2 * scales) / HBM_BYTES_PER_S * 1e3
+    # the call's two launches alone: the pack (quantize) and the product
+    _, plan = gq.gmm_quant_launch_plan(*args[:-1], qdtype, torch.bfloat16)
+    steps = dict(plan)
     bf16_rhs = experts if dlhs else rhs
     row = dict(
         case=name, a=str(a_q).removeprefix("torch."),
@@ -1507,6 +1524,8 @@ def gmm_quant_case(name, sizes, m, k, n, qdtype, flush, seed,
         bit_identical=qdtype == torch.int8,
         ms=time_ms(lambda: gq.gmm_quant_cuda(*args[:-1], qdtype,
                                              torch.bfloat16), 10, flush),
+        pack_ms=time_ms(steps["pack"], 10, flush),
+        product_ms=time_ms(steps["product"], 10, flush),
         wrapper_ms=time_ms(lambda: gq._quantized_gmm(
             lhs, rhs, gs, a_qdtype=a_q, b_qdtype=qdtype,
             recipe="tensorwise", out_dtype=torch.bfloat16, impl="kernel"),
@@ -1516,11 +1535,12 @@ def gmm_quant_case(name, sizes, m, k, n, qdtype, flush, seed,
         library_ms=lib_ms, library_note=why,
         bf16_gmm_ms=time_ms(lambda: gk.gmm_cuda(lhs, bf16_rhs, gs,
                                                 trans_rhs=dlhs), 10, flush),
-        bound_ms=bound_ms, bound_by=bound_by, recipe="tensorwise",
+        bound_ms=bound_ms, bound_by=bound_by,
+        two_pass_floor_ms=two_pass_floor_ms, recipe="tensorwise",
         dtype="int8" if qdtype == torch.int8 else "float8",
         product="dlhs" if dlhs else "forward")
     print("gmm_quant_case " + json.dumps(row), flush=True)
-    del lhs, experts, rhs, args
+    del lhs, experts, rhs, args, plan, steps
     torch.cuda.empty_cache()
     return row
 
@@ -2395,8 +2415,9 @@ def main():
             "bound_ms": got["bound_ms"], "bound_by": got["bound_by"],
             "library_ms": got["library_ms"],
         })
-        if part != "fwd":
-            kernels[-1]["redesigned"] = "wgmma + TMA, persistent"
+        kernels[-1]["redesigned"] = "wgmma + TMA, persistent"
+        if part == "fwd":
+            kernels[-1]["product_ms"] = got["product_ms"]
         if part == "dlogits":
             kernels[-1]["product_library_ms"] = got["product_library_ms"]
     gmm_cases = moe["gmm_cases"]
@@ -2434,6 +2455,7 @@ def main():
     })
     gq_cases = moe_fp8["gmm_cases"]
     rep = gq_cases[0]         # routed gate/up rows, int8
+    e4m3 = next(c for c in gq_cases if c["case"] == "routed_gate_up_e4m3")
     kernels.append({
         "name": "gmm_quant", "route": "cuda",
         "source": "automodel_tpu_torch/csrc/gmm_quant.cu",
@@ -2443,6 +2465,10 @@ def main():
         "ms": rep["ms"], "plain_ms": rep["plain_ms"],
         "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],
         "library_ms": rep["library_ms"],
+        "redesigned": "pack, then a wgmma + TMA persistent product",
+        "pack_ms": rep["pack_ms"], "product_ms": rep["product_ms"],
+        "two_pass_floor_ms": rep["two_pass_floor_ms"],
+        "e4m3_ms": e4m3["ms"], "e4m3_library_ms": e4m3["library_ms"],
     })
     for part, launches in (("fwd", sft_flash["fwd_launches"]),
                            ("bwd", sft_flash["bwd_launches"])):

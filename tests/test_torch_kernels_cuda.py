@@ -355,11 +355,14 @@ def test_cuda_training_step_through_the_kernels(cuda_device):
 # fused linear cross-entropy (csrc/linear_ce_fwd.cu, csrc/linear_ce_bwd.cu)
 # ---------------------------------------------------------------------------
 LCE_CASES = [
-    # (name, T, H, V, label low, label high)
+    # (name, T, H, V, label low, label high); T not a multiple of 128 and V
+    # not of 256 (the forward's tiles) in the ragged cases; the bench SFT
+    # path's shape last
     ("aligned", 256, 128, 384, 0, 384),
     ("ragged_vocab_tail_oob_labels", 300, 256, 1000, -5, 1040),
     ("gpt2_vocab", 1000, 512, 50257, 0, 50257),
     ("all_ignored", 200, 128, 512, -100, -99),
+    ("bench_shape", 16384, 2048, 128256, 0, 128256),
 ]
 
 
@@ -373,6 +376,8 @@ def make_lce_case(T, H, V, lo, hi, seed=0):
     h = torch.from_numpy(rng.normal(size=(T, H)).astype(np.float32))
     ws = torch.from_numpy((rng.normal(size=(V, H)) * 0.05).astype(np.float32))
     labels = rng.integers(lo, hi, T).astype(np.int32)
+    if hi > 0:            # a label on the last vocab column, an ignored row
+        labels[0], labels[-1] = V - 1, -100
     g = rng.uniform(0.5, 1.5, T).astype(np.float32) * (labels != -100)
     return (h.to(dev, torch.bfloat16), ws.to(dev, torch.bfloat16).t(),
             torch.from_numpy(labels).to(dev), torch.from_numpy(g).to(dev),
@@ -393,12 +398,17 @@ LCE_GRAD_REL_L2 = 2e-2
 @pytest.mark.parametrize("case", LCE_CASES, ids=[c[0] for c in LCE_CASES])
 def test_cuda_linear_ce_matches_plain(case, chunk_rows, cuda_device):
     """Forward (lse, pick) and backward (dh, dW) kernels against the plain
-    versions on the same bf16 operands, one launch each per call / chunk;
-    all-ignored rows give exactly zero gradients."""
+    versions on the same bf16 operands, one launch each per call / chunk
+    (the forward's product-only timing run too); the kernel's split count
+    is its Python plan's; all-ignored rows give exactly zero gradients."""
     from automodel_tpu_torch.ops import linear_ce_kernel as lce
+    from automodel_tpu_torch.ops.qdot_kernel import _sms
 
     name, T, H, V, lo, hi = case
     h, w, labels, dlse, dpick = make_lce_case(T, H, V, lo, hi)
+    assert lce._kernel("linear_ce_fwd_splits")(T, V) == \
+        lce.linear_ce_fwd_plan(T, V, _sms(h.device)).splits
+    lce.linear_ce_fwd_cuda(h, w, labels, timing="product")
     f0, c0 = lce.fwd_launches, (lce.dlogits_launches, lce.dh_launches,
                                 lce.dw_launches)
     lse, pick = lce.linear_ce_fwd_cuda(h, w, labels)
@@ -909,22 +919,27 @@ def test_cuda_linear_ce_dw_modes_match_plain(case, cuda_device):
     assert lce.dw_launches - before == 4
 
 
-QGMM_CASES = [c for c in GMM_CASES if c[3] % 16 == 0 and c[4] % 16 == 0]
-# the (lhs, rhs) pairs of gmm_quant: forward e4m3 x e4m3, dlhs e5m2 x e4m3,
-# int8 x int8 (each also under the other recipe)
-QGMM_PAIRS = [p for p in QPAIRS if p[0] != "e4m3_e5m2"]
+# the grouped cases with k and n multiples of 16 (gmm_quant's granule),
+# plus ragged k and n that are neither multiples of the 8-bit stage (128)
+# nor of the tiles (256 / 128 columns)
+QGMM_CASES = [c for c in GMM_CASES if c[3] % 16 == 0 and c[4] % 16 == 0] + [
+    ("ragged_kn16", [50, 90, 0, 60], 256, 144, 80)]
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
 @pytest.mark.parametrize("recipe", ["tensorwise", "rowwise"])
-@pytest.mark.parametrize("pair", QGMM_PAIRS, ids=[p[0] for p in QGMM_PAIRS])
+@pytest.mark.parametrize("pair", QPAIRS, ids=[p[0] for p in QPAIRS])
 @pytest.mark.parametrize("case", QGMM_CASES, ids=[c[0] for c in QGMM_CASES])
-def test_cuda_gmm_quant_matches_plain(case, pair, recipe, cuda_device):
+def test_cuda_gmm_quant_matches_plain(case, pair, recipe, out_dtype,
+                                      cuda_device):
     """``gmm_quant`` (its quantize pass and grouped product) against the
-    plain version on the same scales: rows past the groups exactly 0, int8
-    bit-identical, fp8 within ``QDOT_FP8_REL_L2``; one launch.  The e5m2
-    pair (the backward's dlhs) reads the experts as the transpose view of
-    ``[E, n, k]`` storage, the others as ``[E, k, n]``."""
+    plain version on the same scales, every operand pair and both recipes,
+    fp32 and bf16 out: rows past the groups exactly 0, int8 bit-identical,
+    fp8 within ``QDOT_FP8_REL_L2``; one launch.  The e5m2 x e4m3 pair (the
+    backward's dlhs) reads the experts as the transpose view of ``[E, n,
+    k]`` storage, the others as ``[E, k, n]``."""
     from automodel_tpu_torch.ops import gmm_quant_kernel as gq
 
     _, sizes, m, k, n = case
@@ -936,10 +951,10 @@ def test_cuda_gmm_quant_matches_plain(case, pair, recipe, cuda_device):
     s_lhs = gq.lhs_scales(lhs, gs, a_q, recipe)
     s_rhs = gq.rhs_scales(rhs, b_q, recipe).contiguous()
     before = gq.gmm_quant_launches
-    got = gq.gmm_quant_cuda(lhs, rhs, gs, s_lhs, s_rhs, a_q, b_q)
+    got = gq.gmm_quant_cuda(lhs, rhs, gs, s_lhs, s_rhs, a_q, b_q, out_dtype)
     torch.cuda.synchronize()
     assert gq.gmm_quant_launches - before == 1
-    ref = gq.gmm_quant_plain(lhs, rhs, gs, s_lhs, s_rhs, a_q, b_q)
+    ref = gq.gmm_quant_plain(lhs, rhs, gs, s_lhs, s_rhs, a_q, b_q, out_dtype)
     assert bool(torch.isfinite(got).all())
     assert bool((got[sum(sizes):] == 0).all())
     if a_q == torch.int8:
