@@ -25,9 +25,13 @@
 // the next.  Here both products run on wgmma_gemm.cuh's mainloop (TMA ring,
 // mbarriers, a producer warp, two wgmma consumer warpgroups, 128 x 256
 // output tiles, one persistent CTA per SM) over work items fixed by shapes
-// alone, so the wrapper never reads the group sizes on the host.  Every CTA
-// first copies `ends` into shared memory (tgmm: with its chunk plan, below);
-// an item then finds its group there.  One tensor map per operand is
+// alone, so the wrapper never reads the group sizes on the host.  Up to
+// 1024 groups every CTA first copies `ends` into shared memory (tgmm: with
+// its chunk plan, below); an item then finds its group there.  Past 1024
+// groups the same plan lives in a global workspace the wrapper allocates,
+// filled by a plan pass launched before the product (gmm: clip_ends; tgmm:
+// plan_kernel, then rank_kernel), and the items read it from there: the
+// same items in the same order.  One tensor map per operand is
 // encoded per call: a group's weights or rows are reached through the
 // item's storage-row offset (Tile::a_row / b_row), never a map of their own.
 //
@@ -106,17 +110,39 @@ constexpr int kBN = 256;
 static_assert(FwdCfg::BN == kBN && TransCfg::BN == kBN && TCfg::BN == kBN,
               "one tile width");
 
-// The group layout of a call, in shared memory.  ends: the clipped
-// inclusive prefix sum; tgmm only: chunk0 (E + 1) the exclusive prefix of
-// the chunk counts (chunk0[E] = all chunks), slot0 the first workspace
-// slot of a split group, split the split groups in order.
+// The group layout of a call.  ends: the clipped inclusive prefix sum;
+// tgmm only: chunk0 (E + 1) the exclusive prefix of the chunk counts
+// (chunk0[E] = all chunks), slot0 the first workspace slot of a split
+// group, split the split groups in order (n_split of them), order the
+// groups by decreasing rows of their last chunk.  Up to kMaxGroups groups
+// it points into SharedPlan, past that into a global workspace of 5 E + 2
+// ints (global_plan).
 struct Plan {
+  int* ends;
+  int* chunk0;
+  int* slot0;
+  int* split;
+  int* order;
+  int* n_split;
+};
+
+struct SharedPlan {
   int ends[kMaxGroups];
   int chunk0[kMaxGroups + 1];
   int slot0[kMaxGroups];
   int split[kMaxGroups];
   int n_split;
+  int order[kMaxGroups];
+
+  __device__ Plan view() {
+    return {ends, chunk0, slot0, split, order, &n_split};
+  }
 };
+
+__device__ __forceinline__ Plan global_plan(int* ws, int E) {
+  return {ws, ws + E, ws + 2 * E + 1, ws + 3 * E + 1, ws + 4 * E + 1,
+          ws + 5 * E + 1};
+}
 
 __device__ __forceinline__ int warp_incl_scan(int v, int lane) {
 #pragma unroll
@@ -127,10 +153,11 @@ __device__ __forceinline__ int warp_incl_scan(int v, int lane) {
   return v;
 }
 
-// Fill `pl` from ends [E] (every thread calls it; warp 0 scans the chunk
-// counts).  The caller synchronises before reading.
-__device__ void make_plan(Plan& pl, const int* __restrict__ ends, int E,
-                          int m, int chunk_rows) {
+// Fill `pl` (all but order) from ends [E] (every thread of one block
+// calls it; warp 0 scans the chunk counts).  The caller synchronises before
+// reading.
+__device__ void make_plan(const Plan& pl, const int* __restrict__ ends,
+                          int E, int m, int chunk_rows) {
   for (int g = threadIdx.x; g < E; g += blockDim.x)
     pl.ends[g] = min(__ldg(ends + g), m);
   if (threadIdx.x >= 32) return;
@@ -161,20 +188,24 @@ __device__ void make_plan(Plan& pl, const int* __restrict__ ends, int E,
   }
   if (lane == 0) {
     pl.chunk0[E] = c0;
-    pl.n_split = f0;
+    *pl.n_split = f0;
   }
 }
 
 // tgmm: the groups by decreasing rows of their last chunk (ties by
-// index), order[r] the r-th.  Every CTA fills it from a published plan,
-// E^2 / 384 comparisons a thread; the caller synchronises before reading.
-__device__ void rank_last_chunks(int* order, const Plan& pl, int E,
-                                 int chunk_rows) {
+// index), pl.order[r] the r-th, from a published plan; the calling threads
+// rank groups first, first + step, ...  Up to kMaxGroups groups every CTA
+// fills its shared copy (E^2 / 384 comparisons a thread), past that
+// rank_kernel fills the workspace once.  The caller synchronises before
+// reading.
+__device__ void rank_last_chunks(const Plan& pl, int E, int chunk_rows,
+                                 int first, int step) {
+  int* order = pl.order;
   auto last = [&](int g) {
     return pl.ends[g] - (g ? pl.ends[g - 1] : 0) -
            (pl.chunk0[g + 1] - pl.chunk0[g] - 1) * chunk_rows;
   };
-  for (int g = threadIdx.x; g < E; g += blockDim.x) {
+  for (int g = first; g < E; g += step) {
     const int rg = last(g);
     int r = 0;
     for (int h = 0; h < E; ++h) {
@@ -205,6 +236,7 @@ __device__ __forceinline__ auto sums(const float (&acc)[kBN / 2]) {
 
 struct GmmArgs {
   const int* ends;
+  const int* plan;          // the clipped ends past kMaxGroups groups
   bf16* out;
   int m, K, N, E, kt, n_m, n_n;
 };
@@ -214,8 +246,8 @@ __global__ void __launch_bounds__(wg::kThreads, 1)
 gmm_kernel(const __grid_constant__ CUtensorMap ta,
            const __grid_constant__ CUtensorMap tb, const GmmArgs p) {
   extern __shared__ __align__(1024) uint8_t smem[];
-  __shared__ int ends[kMaxGroups];
-  gi::load_ends(ends, p.ends, p.E, p.m);
+  __shared__ int ends_s[kMaxGroups];
+  const int* ends = gi::plan_ends(ends_s, p.ends, p.plan, p.E, p.m);
   // (the mainloop's first __syncthreads publishes ends)
   auto tile = [&](int i) {
     return gi::fwd_item(i, ends, p.E, p.n_m, p.n_n, kBN, p.kt,
@@ -239,6 +271,7 @@ gmm_kernel(const __grid_constant__ CUtensorMap ta,
 
 struct TgmmArgs {
   const int* ends;
+  int* plan;                // the plan past kMaxGroups groups
   bf16* out;
   float* ws;
   int m, K, N, E, chunk_rows, n_k, n_n;
@@ -248,12 +281,15 @@ __global__ void __launch_bounds__(wg::kThreads, 1)
 tgmm_kernel(const __grid_constant__ CUtensorMap ta,
             const __grid_constant__ CUtensorMap tb, const TgmmArgs p) {
   extern __shared__ __align__(1024) uint8_t smem[];
-  __shared__ Plan pl;
-  __shared__ int order[kMaxGroups];
-  make_plan(pl, p.ends, p.E, p.m, p.chunk_rows);
-  __syncthreads();
-  rank_last_chunks(order, pl, p.E, p.chunk_rows);
-  // (the mainloop's first __syncthreads publishes order)
+  __shared__ SharedPlan sp;
+  Plan pl = global_plan(p.plan, p.E);
+  if (p.E <= kMaxGroups) {
+    pl = sp.view();
+    make_plan(pl, p.ends, p.E, p.m, p.chunk_rows);
+    __syncthreads();
+    rank_last_chunks(pl, p.E, p.chunk_rows, threadIdx.x, blockDim.x);
+  }
+  // (the mainloop's first __syncthreads publishes the order)
   const int tiles = p.n_k * p.n_n;
   const int n_work = tiles * (p.E + p.m / p.chunk_rows);
   auto tile = [&](int i) {
@@ -275,7 +311,7 @@ tgmm_kernel(const __grid_constant__ CUtensorMap ta,
         g = full_chunk_group(pl.chunk0, p.E, slot);
         c = slot - (pl.chunk0[g] - g);
       } else {
-        g = order[slot - full];
+        g = pl.order[slot - full];
         c = pl.chunk0[g + 1] - pl.chunk0[g] - 1;
       }
       const int lo = g ? pl.ends[g - 1] : 0;
@@ -317,16 +353,35 @@ tgmm_kernel(const __grid_constant__ CUtensorMap ta,
   wg::mainloop<TCfg, true>(smem, &ta, &tb, n_work, tile, epi);
 }
 
+// the global plan past kMaxGroups groups: all but the order (one block)
+__global__ void __launch_bounds__(1024)
+plan_kernel(int* ws, const int* __restrict__ ends, int E, int m,
+            int chunk_rows) {
+  make_plan(global_plan(ws, E), ends, E, m, chunk_rows);
+}
+
+// then the order, one group a thread
+__global__ void __launch_bounds__(256)
+rank_kernel(int* ws, int E, int chunk_rows) {
+  rank_last_chunks(global_plan(ws, E), E, chunk_rows,
+                   blockIdx.x * blockDim.x + threadIdx.x,
+                   gridDim.x * blockDim.x);
+}
+
 // out[g] = the chunk partials of each split group g added in chunk order
 __global__ void __launch_bounds__(256)
 tgmm_reduce(const float* __restrict__ ws, bf16* __restrict__ out,
-            const int* __restrict__ ends, int m, int K, int N, int E,
-            int chunk_rows) {
-  __shared__ Plan pl;
-  make_plan(pl, ends, E, m, chunk_rows);
-  __syncthreads();
+            const int* __restrict__ ends, int* plan, int m, int K, int N,
+            int E, int chunk_rows) {
+  __shared__ SharedPlan sp;
+  Plan pl = global_plan(plan, E);
+  if (E <= kMaxGroups) {
+    pl = sp.view();
+    make_plan(pl, ends, E, m, chunk_rows);
+    __syncthreads();
+  }
   const size_t kn = (size_t)K * N, vecs = kn / 4;        // N % 8 == 0
-  for (int j = 0; j < pl.n_split; ++j) {
+  for (int j = 0; j < *pl.n_split; ++j) {
     const int g = pl.split[j];
     const int nc = pl.chunk0[g + 1] - pl.chunk0[g];
     const float4* src = reinterpret_cast<const float4*>(ws + pl.slot0[g] * kn);
@@ -350,28 +405,31 @@ tgmm_reduce(const float* __restrict__ ws, bf16* __restrict__ out,
 }  // namespace gmmk
 
 // Shapes both kernels take: K and N multiples of 8 (16-byte rows), m > 0,
-// 0 < E <= 1024; `ends` [E] int32 the inclusive prefix sum of the group
-// sizes; operands 16-byte aligned (TMA).  Each returns 0, -1 for a shape it
-// does not take, a tensor-map error (wgmma_gemm.cuh::make_map), else the
-// cudaError_t of the launch.
+// E > 0; `ends` [E] int32 the inclusive prefix sum of the group sizes;
+// operands 16-byte aligned (TMA).  `plan`: an int32 workspace for the
+// group plan past 1024 groups (gmm_fwd E ints, tgmm 5 E + 2; unused, may
+// be null, at or below 1024).  Each returns 0, -1 for a shape it does not
+// take, a tensor-map error (wgmma_gemm.cuh::make_map), else the
+// cudaError_t of the first failed launch.
 
 // out [m, N] bf16 <- lhs [m, K] (grouped rows) @ rhs [E, K, N], or with
 // trans_rhs rhs stored [E, N, K] and read transposed
 extern "C" int gmm_fwd(const void* lhs, const void* rhs, const int* ends,
-                       void* out, int m, int K, int N, int E, int trans_rhs,
-                       void* stream) {
+                       int* plan, void* out, int m, int K, int N, int E,
+                       int trans_rhs, void* stream) {
   using namespace gmmk;
-  if (m <= 0 || E <= 0 || E > kMaxGroups || K % 8 || N % 8 || K <= 0 ||
-      N <= 0)
+  if (m <= 0 || E <= 0 || K % 8 || N % 8 || K <= 0 || N <= 0 ||
+      (E > kMaxGroups && plan == nullptr))
     return -1;
-  GmmArgs p{ends, static_cast<bf16*>(out), m, K, N, E,
+  GmmArgs p{ends, plan, static_cast<bf16*>(out), m, K, N, E,
             (K + FwdCfg::BK - 1) / FwdCfg::BK, (m + wg::kBM - 1) / wg::kBM,
             (N + kBN - 1) / kBN};
   const int work = p.n_n * (p.n_m + E);
   const int grid = work < lce::num_sms() ? work : lce::num_sms();
   const auto s = static_cast<cudaStream_t>(stream);
   CUtensorMap ta, tb;
-  int rc;
+  int rc = gi::launch_clip_ends(plan, ends, E, m, s);
+  if (rc) return rc;
   if (trans_rhs) {
     if ((rc = wg::operand_map<TransCfg, true>(&ta, lhs, m, K, K))) return rc;
     if ((rc = wg::operand_map<TransCfg, false>(&tb, rhs, (long long)E * N, K,
@@ -396,17 +454,25 @@ extern "C" int gmm_fwd(const void* lhs, const void* rhs, const int* ends,
 // lhs [m, K] and dout [m, N]; chunk_rows (C) a positive multiple of 64; ws
 // fp32 [2 m / C][K][N] when m > C (unused, may be null, otherwise)
 extern "C" int tgmm(const void* lhs, const void* dout, const int* ends,
-                    void* out, void* ws, int m, int K, int N, int E,
-                    int chunk_rows, void* stream) {
+                    int* plan, void* out, void* ws, int m, int K, int N,
+                    int E, int chunk_rows, void* stream) {
   using namespace gmmk;
-  if (m <= 0 || E <= 0 || E > kMaxGroups || K % 8 || N % 8 || K <= 0 ||
-      N <= 0 || chunk_rows <= 0 || chunk_rows % TCfg::BK ||
-      (m > chunk_rows && ws == nullptr))
+  if (m <= 0 || E <= 0 || K % 8 || N % 8 || K <= 0 || N <= 0 ||
+      chunk_rows <= 0 || chunk_rows % TCfg::BK ||
+      (m > chunk_rows && ws == nullptr) ||
+      (E > kMaxGroups && plan == nullptr))
     return -1;
-  TgmmArgs p{ends, static_cast<bf16*>(out), static_cast<float*>(ws), m, K, N,
-             E, chunk_rows, (K + wg::kBM - 1) / wg::kBM, (N + kBN - 1) / kBN};
+  TgmmArgs p{ends, plan, static_cast<bf16*>(out), static_cast<float*>(ws), m,
+             K, N, E, chunk_rows, (K + wg::kBM - 1) / wg::kBM,
+             (N + kBN - 1) / kBN};
   const int work = p.n_k * p.n_n * (E + m / chunk_rows);
   const auto s = static_cast<cudaStream_t>(stream);
+  if (E > kMaxGroups) {
+    plan_kernel<<<1, 1024, 0, s>>>(plan, ends, E, m, chunk_rows);
+    rank_kernel<<<(E + 255) / 256, 256, 0, s>>>(plan, E, chunk_rows);
+    const int err = static_cast<int>(cudaGetLastError());
+    if (err) return err;
+  }
   CUtensorMap ta, tb;
   int rc = wg::operand_map<TCfg, true>(&ta, lhs, K, m, K);
   if (rc) return rc;
@@ -420,8 +486,8 @@ extern "C" int tgmm(const void* lhs, const void* dout, const int* ends,
     const long long vecs = (long long)K * N / 4;
     const long long want = (vecs + 255) / 256;
     tgmm_reduce<<<want < 4 * sms ? (int)want : 4 * sms, 256, 0, s>>>(
-        static_cast<const float*>(ws), static_cast<bf16*>(out), ends, m, K, N,
-        E, chunk_rows);
+        static_cast<const float*>(ws), static_cast<bf16*>(out), ends, plan, m,
+        K, N, E, chunk_rows);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -4,9 +4,12 @@
 //
 // The rows of lhs [m, K] are contiguous per-group segments: group g holds
 // rows [ends[g-1], ends[g]) (ends the inclusive prefix sum of the group
-// sizes, clipped to m, computed on the device and copied into shared
-// memory by every CTA).  Items, n_n (n_m + E) of them for n_m 128-row and
-// n_n BN-column tiles of out, fixed by shapes alone:
+// sizes, clipped to m, computed on the device).  Up to kMaxGroups groups
+// every CTA copies the clipped ends into shared memory; past that they
+// live in a global workspace [E] that one clip_ends launch fills before
+// the product (the same values, so the same items in the same order).
+// Items, n_n (n_m + E) of them for n_m 128-row and n_n BN-column tiles of
+// out, fixed by shapes alone:
 //   * primary (i < n_m n_n): row tile i / n_n, column tile i % n_n (the
 //     column tiles of a row tile run together, so their CTAs share the lhs
 //     rows, and a group's row tiles follow each other, so its weights stay
@@ -35,7 +38,9 @@ namespace gi {
 using lce::bf16;
 using lce::pack_bf16;
 
-constexpr int kMaxGroups = 1024;       // ends lives in shared memory
+// at most this many groups keep their plan in shared memory; more keep it
+// in a global workspace
+constexpr int kMaxGroups = 1024;
 
 // ends[g] = min(ends_in[g], m) for g < E, by every thread (the caller
 // synchronises before reading: the mainloop's first __syncthreads does)
@@ -43,6 +48,40 @@ __device__ __forceinline__ void load_ends(int* ends, const int* ends_in,
                                          int E, int m) {
   for (int g = threadIdx.x; g < E; g += blockDim.x)
     ends[g] = min(__ldg(ends_in + g), m);
+}
+
+namespace {
+
+// the global plan past kMaxGroups: ends[g] = min(ends_in[g], m)
+__global__ void __launch_bounds__(256)
+clip_ends(int* __restrict__ ends, const int* __restrict__ ends_in, int E,
+          int m) {
+  const int g = blockIdx.x * blockDim.x + threadIdx.x;
+  if (g < E) ends[g] = min(ends_in[g], m);
+}
+
+}  // namespace
+
+// The clipped ends an item reads: the CTA's shared copy `shared` (filled by
+// load_ends) up to kMaxGroups groups, else the workspace `global` that
+// launch_clip_ends filled.
+__device__ __forceinline__ const int* plan_ends(int* shared,
+                                                const int* ends_in,
+                                                const int* global, int E,
+                                                int m) {
+  if (E > kMaxGroups) return global;
+  load_ends(shared, ends_in, E, m);
+  return shared;
+}
+
+// Fill the workspace `ws` [E] when E > kMaxGroups (nothing otherwise).
+// Returns 0, -1 for a missing workspace, else the launch's cudaError_t.
+inline int launch_clip_ends(int* ws, const int* ends_in, int E, int m,
+                            cudaStream_t s) {
+  if (E <= kMaxGroups) return 0;
+  if (ws == nullptr) return -1;
+  clip_ends<<<(E + 255) / 256, 256, 0, s>>>(ws, ends_in, E, m);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // first g with ends[g] > row (E when none): ends is non-decreasing

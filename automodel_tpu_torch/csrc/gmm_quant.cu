@@ -68,6 +68,7 @@ using Fp8Cfg = wg::Cfg<QA, QB, false, false, 128, true>;
 
 struct Args {
   const int* ends;
+  const int* plan;          // the clipped ends past gi::kMaxGroups groups
   const float* s_lhs;
   const float* s_rhs;
   void* out;
@@ -80,8 +81,8 @@ gmm_quant_product_kernel(const __grid_constant__ CUtensorMap ta,
                          const __grid_constant__ CUtensorMap tb,
                          const Args p) {
   extern __shared__ __align__(1024) uint8_t smem[];
-  __shared__ int ends[gi::kMaxGroups];
-  gi::load_ends(ends, p.ends, p.E, p.m);
+  __shared__ int ends_s[gi::kMaxGroups];
+  const int* ends = gi::plan_ends(ends_s, p.ends, p.plan, p.E, p.m);
   // (the mainloop's first __syncthreads publishes ends)
   auto tile = [&](int i) {
     return gi::fwd_item(i, ends, p.E, p.n_m, p.n_n, C::BN, p.kt, p.N);
@@ -173,8 +174,8 @@ bool pair_ok(int qa, int qb) {
 }  // namespace
 }  // namespace gmmq
 
-// The shapes both launches take: m > 0, 0 < E <= 1024, K and N multiples of
-// 16, rhs_ld and rhs_e multiples of 8, pointers 16-byte aligned; qa / qb:
+// The shapes both launches take: m > 0, E > 0, K and N multiples of 16,
+// rhs_ld and rhs_e multiples of 8, pointers 16-byte aligned; qa / qb:
 // 0 int8, 1 e4m3, 2 e5m2, in the pairs (1,1) (2,1) (1,2) (0,0).  Each
 // returns 0, -1 for what it does not take, else the first failed launch's
 // cudaError_t or a tensor-map error (wgmma_gemm.cuh::make_map).
@@ -190,8 +191,8 @@ extern "C" int gmm_quant_pack(const void* lhs, const void* rhs,
                               void* lhs_q, void* rhs_q, int m, int K, int N,
                               int E, int qa, int qb, void* stream) {
   using namespace gmmq;
-  if (m <= 0 || E <= 0 || E > gi::kMaxGroups || K <= 0 || N <= 0 ||
-      K % 16 || N % 16 || rhs_ld % 8 || rhs_e % 8 || !pair_ok(qa, qb))
+  if (m <= 0 || E <= 0 || K <= 0 || N <= 0 || K % 16 || N % 16 ||
+      rhs_ld % 8 || rhs_e % 8 || !pair_ok(qa, qb))
     return -1;
   const auto s = static_cast<cudaStream_t>(stream);
   const int rc =
@@ -203,18 +204,23 @@ extern "C" int gmm_quant_pack(const void* lhs, const void* rhs,
 
 // out [m, N] (fp32, or bf16 when out_bf16) <- per group (lhs_q[rows of g]
 // @ rhs_q[g]^T) * s_lhs[row] * s_rhs[g, col] over the codes gmm_quant_pack
-// wrote; ends [E] int32 the inclusive prefix sum of the group sizes.
+// wrote; ends [E] int32 the inclusive prefix sum of the group sizes; plan
+// an int32 workspace [E] past 1024 groups (unused, may be null, at or
+// below).
 extern "C" int gmm_quant_product(const void* lhs_q, const void* rhs_q,
-                                 const int* ends, const float* s_lhs,
-                                 const float* s_rhs, int srhs_e, int srhs_n,
-                                 void* out, int m, int K, int N, int E,
-                                 int out_bf16, int qa, int qb, void* stream) {
+                                 const int* ends, int* plan,
+                                 const float* s_lhs, const float* s_rhs,
+                                 int srhs_e, int srhs_n, void* out, int m,
+                                 int K, int N, int E, int out_bf16, int qa,
+                                 int qb, void* stream) {
   using namespace gmmq;
-  if (m <= 0 || E <= 0 || E > gi::kMaxGroups || K <= 0 || N <= 0 ||
-      K % 16 || N % 16 || !pair_ok(qa, qb))
+  if (m <= 0 || E <= 0 || K <= 0 || N <= 0 || K % 16 || N % 16 ||
+      !pair_ok(qa, qb) || (E > gi::kMaxGroups && plan == nullptr))
     return -1;
   const auto s = static_cast<cudaStream_t>(stream);
-  Args p{ends, s_lhs, s_rhs, out, srhs_e, srhs_n, m, K, N, E, 0, 0, 0,
+  const int rc = gi::launch_clip_ends(plan, ends, E, m, s);
+  if (rc) return rc;
+  Args p{ends, plan, s_lhs, s_rhs, out, srhs_e, srhs_n, m, K, N, E, 0, 0, 0,
          out_bf16};
   using namespace g8;
   if (qa == kE4M3 && qb == kE4M3)

@@ -21,10 +21,12 @@ repeated heads' dk and dv sum over each group through autograd.
 
 On CUDA tensors the wrapper launches ``csrc/flash_mha_fwd.cu`` (which also
 returns the row log-sum-exp the backward reuses) and
-``csrc/flash_mha_bwd.cu`` (delta, then separate dK/dV and dQ passes: no
-atomics, deterministic); ``fwd_launches`` / ``bwd_launches`` count them.
-The kernels take bf16, head_dim 64 or 128, self-attention and sequences
-a multiple of 128; the wrapper raises on anything else.  The plain
+``csrc/flash_mha_bwd.cu`` (delta, then separate dQ and dK/dV passes: no
+atomics, deterministic), both built on the splash rung's ``wgmma`` + TMA
+attention core ``csrc/attn_core.cuh`` with the equality rule compiled in;
+``fwd_launches`` / ``bwd_launches`` count wrapper calls.  The wrapper
+takes bf16, head_dim 64 or 128, self-attention and sequences a multiple of
+128 (the JAX rung's shape rule) and raises on anything else.  The plain
 versions (a dense fp32 softmax and its VJP written out) run for CPU
 tensors or on ``impl="plain"``; there is no fallback on the card.
 """
@@ -37,6 +39,8 @@ from typing import Optional, Tuple
 import torch
 
 from automodel_tpu_torch.ops.attention import fold_padding_into_segments
+from automodel_tpu_torch.ops.attention_plan import tile_meta_workspace
+from automodel_tpu_torch.ops.kernel_lib.build import ptr
 
 BLOCK = 128          # the JAX rung's shape rule: sequences a multiple of this
 HEAD_DIMS = (64, 128)
@@ -63,10 +67,10 @@ def _kernel(name: str):
         fn = getattr(build.load(name), name)
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         if name == "flash_mha_fwd":
-            fn.argtypes = [p, p, p, p, p, p,            # q k v seg out lse
+            fn.argtypes = [p, p, p, p, p, p, p,         # q k v seg meta out lse
                            i, i, i, i, f, i, p]         # B S H D scale causal stream
         else:
-            fn.argtypes = [p, p, p, p, p, p, p, p,      # q k v out dout lse delta seg
+            fn.argtypes = [p, p, p, p, p, p, p, p, p,   # q k v out dout lse delta seg meta
                            p, p, p,                     # dq dk dv
                            i, i, i, i, f, i, p]         # B S H D scale causal stream
         fn.restype = ctypes.c_int
@@ -112,13 +116,13 @@ def flash_mha_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     B, H, S, D = _check_operands(q, k, v, segment_ids)
     out = torch.empty_like(q)
     lse = torch.empty(B, H, S, dtype=torch.float32, device=q.device)
+    meta = tile_meta_workspace(segment_ids, B, S)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = _kernel("flash_mha_fwd")(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            None if segment_ids is None else segment_ids.data_ptr(),
-            out.data_ptr(), lse.data_ptr(), B, S, H, D, float(scale),
-            int(bool(causal)), stream)
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), ptr(segment_ids),
+            ptr(meta), out.data_ptr(), lse.data_ptr(), B, S, H, D,
+            float(scale), int(bool(causal)), stream)
     if rc != 0:
         raise RuntimeError(f"flash_mha_fwd launch failed (code {rc})")
     fwd_launches += 1
@@ -144,15 +148,16 @@ def flash_mha_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            and lse.is_contiguous() and lse.device == q.device,
            "lse must be contiguous float32 [B, H, S]")
     delta = torch.empty(B, H, S, dtype=torch.float32, device=q.device)
+    meta = tile_meta_workspace(segment_ids, B, S)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = _kernel("flash_mha_bwd")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-            None if segment_ids is None else segment_ids.data_ptr(),
-            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, S, H, D,
-            float(scale), int(bool(causal)), stream)
+            ptr(segment_ids), ptr(meta), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), B, S, H, D, float(scale), int(bool(causal)),
+            stream)
     if rc != 0:
         raise RuntimeError(f"flash_mha_bwd launch failed (code {rc})")
     bwd_launches += 1

@@ -27,8 +27,10 @@ bf16 tensor cores.  Both run on the persistent ``wgmma`` + TMA mainloop
 and ``csrc/gmm.cu`` (tgmm's) say how each item finds its group on the
 device.  The
 wrapper hands the kernels the prefix sum of ``group_sizes`` (one
-``torch.cumsum``, no host sync per call) and, for ``tgmm``, the row chunk
-of :func:`tgmm_chunk_rows` and an fp32 workspace for groups that split.
+``torch.cumsum``, no host sync per call), past 1024 groups an int32
+workspace for the group plan (:func:`plan_workspace`; any number of groups
+is taken) and, for ``tgmm``, the row chunk of :func:`tgmm_chunk_rows` and
+an fp32 workspace for groups that split.
 :func:`gmm_work_items` and :func:`tgmm_work_items` mirror the kernels'
 item plans in Python, for the CPU tests.
 
@@ -46,6 +48,7 @@ from typing import List, NamedTuple, Optional, Sequence
 
 import torch
 
+from automodel_tpu_torch.ops.kernel_lib.build import ptr
 from automodel_tpu_torch.ops.qdot_kernel import _sms
 
 # kernel launches in this process (reset by callers that count a window)
@@ -53,9 +56,10 @@ gmm_launches = 0
 tgmm_launches = 0
 
 # the kernels' tiles (csrc/gmm.cu on wgmma_gemm.cuh): 128 x 256 outputs,
-# 64-deep stages; the group plan of a call lives in shared memory
+# 64-deep stages; the group plan of a call lives in shared memory up to
+# SHARED_PLAN_GROUPS groups, past that in a workspace (plan_workspace)
 TILE_M, TILE_N, STAGE_K = 128, 256, 64
-MAX_GROUPS = 1024
+SHARED_PLAN_GROUPS = 1024
 
 _fns = {}
 
@@ -75,6 +79,18 @@ def tgmm_chunk_rows(m: int, k: int, n: int, sms: int) -> int:
     if want <= 1:
         return _cdiv(m, STAGE_K) * STAGE_K
     return max(STAGE_K, (m - 1) // (want - 1) // STAGE_K * STAGE_K)
+
+
+def plan_workspace(E: int, kind: str, device) -> Optional[torch.Tensor]:
+    """The int32 workspace that holds a call's group plan past
+    ``SHARED_PLAN_GROUPS`` groups (None at or below: the kernels keep it in
+    shared memory): ``gmm``'s clipped ends ``[E]``, or ``tgmm``'s ends,
+    chunk prefix, slots, split groups, their count and the longest-first
+    order (``5 E + 2``).  A plan pass in the launch fills it."""
+    if E <= SHARED_PLAN_GROUPS:
+        return None
+    return torch.empty(E if kind == "gmm" else 5 * E + 2, dtype=torch.int32,
+                       device=device)
 
 
 def tgmm_workspace_slots(m: int, chunk_rows: int) -> int:
@@ -211,9 +227,10 @@ def _kernel(name: str):
         fn = getattr(build.load("gmm"), name)
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = {
-            "gmm_fwd": [p, p, p, p, i, i, i, i, i, p],  # lhs rhs ends out m K N E trans stream
-            # lhs dout ends out ws m K N E chunk_rows stream
-            "tgmm": [p, p, p, p, p, i, i, i, i, i, p],
+            # lhs rhs ends plan out m K N E trans stream
+            "gmm_fwd": [p, p, p, p, p, i, i, i, i, i, p],
+            # lhs dout ends plan out ws m K N E chunk_rows stream
+            "tgmm": [p, p, p, p, p, p, i, i, i, i, i, p],
         }[name]
         fn.restype = ctypes.c_int
         _fns[name] = fn
@@ -239,8 +256,7 @@ def _ends(group_sizes: torch.Tensor, E: int, dev: torch.device
     _check(tuple(group_sizes.shape) == (E,) and group_sizes.device == dev,
            f"group_sizes must be [{E}] on {dev}, got "
            f"{tuple(group_sizes.shape)} on {group_sizes.device}")
-    _check(0 < E <= MAX_GROUPS,
-           f"{E} groups; the kernels take 1 to {MAX_GROUPS}")
+    _check(E > 0, "no groups")
     return torch.cumsum(group_sizes, 0, dtype=torch.int32)
 
 
@@ -276,8 +292,9 @@ def gmm_cuda(lhs: torch.Tensor, rhs: torch.Tensor,
         return out
     with torch.cuda.device(lhs.device):
         ends = _ends(group_sizes, E, lhs.device)
+        plan = plan_workspace(E, "gmm", lhs.device)
         _launch("gmm_fwd", lhs.data_ptr(), rhs.data_ptr(), ends.data_ptr(),
-                out.data_ptr(), m, K, N, E, int(bool(trans_rhs)),
+                ptr(plan), out.data_ptr(), m, K, N, E, int(bool(trans_rhs)),
                 torch.cuda.current_stream(lhs.device).cuda_stream)
     gmm_launches += 1
     return out
@@ -309,8 +326,9 @@ def tgmm_cuda(lhs: torch.Tensor, dout: torch.Tensor,
         slots = tgmm_workspace_slots(m, chunk)
         ws = (torch.empty(slots, K, N, dtype=torch.float32,
                           device=lhs.device) if slots else None)
+        plan = plan_workspace(E, "tgmm", lhs.device)
         _launch("tgmm", lhs.data_ptr(), dout.data_ptr(), ends.data_ptr(),
-                out.data_ptr(), ws.data_ptr() if slots else None,
+                ptr(plan), out.data_ptr(), ptr(ws),
                 m, K, N, E, chunk,
                 torch.cuda.current_stream(lhs.device).cuda_stream)
     tgmm_launches += 1

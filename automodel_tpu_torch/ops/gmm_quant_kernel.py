@@ -51,6 +51,7 @@ from typing import Optional
 import torch
 
 from automodel_tpu_torch.ops import gmm_kernel
+from automodel_tpu_torch.ops.kernel_lib.build import ptr
 from automodel_tpu_torch.ops.qdot_kernel import PAIRS, QCODES
 from automodel_tpu_torch.ops.quant import (
     _gemm_dtypes,
@@ -81,10 +82,10 @@ def _kernel(name: str):
             # lhs_q rhs_q m K N E qa qb stream
             "gmm_quant_pack": [p, p, ll, ll, i, p, p, i, i, p, p, i, i, i, i,
                                i, i, p],
-            # lhs_q rhs_q ends s_lhs s_rhs srhs_e srhs_n out m K N E
+            # lhs_q rhs_q ends plan s_lhs s_rhs srhs_e srhs_n out m K N E
             # out_bf16 qa qb stream
-            "gmm_quant_product": [p, p, p, p, p, i, i, p, i, i, i, i, i, i,
-                                  i, p],
+            "gmm_quant_product": [p, p, p, p, p, p, i, i, p, i, i, i, i, i,
+                                  i, i, p],
         }[name]
         fn.restype = ctypes.c_int
         _fns[name] = fn
@@ -167,8 +168,7 @@ def gmm_quant_launch_plan(lhs: torch.Tensor, rhs: torch.Tensor,
     E, _, N = rhs.shape
     _check(K % 16 == 0 and N % 16 == 0 and K > 0 and N > 0,
            f"k={K} and n={N} must be positive multiples of 16")
-    _check(0 < E <= gmm_kernel.MAX_GROUPS,
-           f"{E} groups; the kernel takes 1 to {gmm_kernel.MAX_GROUPS}")
+    _check(E > 0, "no groups")
     dev = lhs.device
     for name, t in (("lhs", lhs), ("rhs", rhs)):
         _check(t.device == dev and t.dtype == torch.bfloat16
@@ -203,6 +203,7 @@ def gmm_quant_launch_plan(lhs: torch.Tensor, rhs: torch.Tensor,
     rhs_q = torch.empty(E, N, K, dtype=torch.uint8, device=dev)
     with torch.cuda.device(dev):
         ends = torch.cumsum(group_sizes, 0, dtype=torch.int32)
+        plan = gmm_kernel.plan_workspace(E, "gmm", dev)
     qa, qb = QCODES[a_qdtype], QCODES[b_qdtype]
     srhs_e, srhs_n = s_rhs.stride(0), int(s_rhs.shape[2] != 1)
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -219,7 +220,8 @@ def gmm_quant_launch_plan(lhs: torch.Tensor, rhs: torch.Tensor,
             srhs_n, lhs_q.data_ptr(), rhs_q.data_ptr(), m, K, N, E, qa, qb)),
         ("product", lambda: launch(
             "gmm_quant_product", lhs_q.data_ptr(), rhs_q.data_ptr(),
-            ends.data_ptr(), s_lhs.data_ptr(), s_rhs.data_ptr(), srhs_e,
+            ends.data_ptr(), ptr(plan), s_lhs.data_ptr(),
+            s_rhs.data_ptr(), srhs_e,
             srhs_n, out.data_ptr(), m, K, N, E,
             int(out_dtype == torch.bfloat16), qa, qb)),
     ]

@@ -96,6 +96,12 @@ def build(name: str) -> str:
     return build_many([name])[0]
 
 
+def ptr(t):
+    """A kernel's pointer argument for an optional tensor: its address, or
+    None (a null pointer through ctypes)."""
+    return None if t is None else t.data_ptr()
+
+
 def load(name: str) -> ctypes.CDLL:
     """The built library for ``csrc/<name>.cu`` (built on first call in
     this process)."""

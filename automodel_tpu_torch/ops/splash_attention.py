@@ -1,8 +1,12 @@
 """Training attention kernels: the ctypes wrappers of
-``csrc/flash_attn_fwd.cu`` and ``csrc/flash_attn_bwd.cu``, their plain
-PyTorch versions and the ``torch.autograd.Function`` that joins them
-(counterpart: ``automodel_tpu/ops/splash_attention.py``, whose Pallas
-splash kernel, forward and fused dq/dkv backward, they replace).
+``csrc/flash_attn_fwd.cu`` and ``csrc/flash_attn_bwd.cu`` (both built on
+the ``wgmma`` + TMA attention core ``csrc/attn_core.cuh``, shared with the
+flash rung), their plain PyTorch versions and the
+``torch.autograd.Function`` that joins them (counterpart:
+``automodel_tpu/ops/splash_attention.py``, whose Pallas splash kernel,
+forward and fused dq/dkv backward, they replace).  The kernels' tile plan
+(skip / full / partial tiles, item order) is mirrored in Python by
+``ops/attention_plan.py``.
 
 What is computed, on the JAX package's ``[B, S, H, D]`` layout: causal (or
 full) grouped-query attention with ``Hq`` a multiple of ``Hk`` and no kv
@@ -19,9 +23,10 @@ kernels and the plain versions alike.  The JAX rungs disagree on such rows
 so no loss depends on them.
 
 The wrappers check every operand and raise on anything the kernels do not
-take (the kernels take bf16, head_dim 64 or 128, self-attention); they
-allocate outputs and scratch with ``torch`` on the current stream and
-raise if a launch failed.  ``fwd_launches`` / ``bwd_launches`` count the
+take (the kernels take bf16, head_dim 64 or 128, self-attention, any
+sequence length); they allocate outputs and scratch (the per-tile segment
+ranges, delta) with ``torch`` on the current stream and raise if a launch
+failed.  ``fwd_launches`` / ``bwd_launches`` count the
 launches.  There is no fallback: :func:`splash_attention_bshd` takes the
 plain versions only for CPU tensors or when asked by ``impl="plain"``.
 """
@@ -37,6 +42,8 @@ from automodel_tpu_torch.ops.attention import (
     fold_padding_into_segments,
     make_attention_mask,
 )
+from automodel_tpu_torch.ops.attention_plan import tile_meta_workspace
+from automodel_tpu_torch.ops.kernel_lib.build import ptr
 
 HEAD_DIMS = (64, 128)
 
@@ -55,12 +62,12 @@ def _kernel(name: str):
         fn = getattr(build.load(name), name)
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         if name == "flash_attn_fwd":
-            fn.argtypes = [p, p, p, p, p, p,            # q k v seg out lse
+            fn.argtypes = [p, p, p, p, p, p, p,         # q k v seg meta out lse
                            i, i, i, i, i,               # B S Hq Hk D
                            f, f, i, i, p]               # scale cap causal win stream
         else:
-            fn.argtypes = [p, p, p, p, p, p, p, p,      # q k v out dout lse delta seg
-                           p, p, p,                     # dq(f32) dk dv
+            fn.argtypes = [p, p, p, p, p, p, p, p, p,   # q k v out dout lse delta seg meta
+                           p, p, p,                     # dq dk dv
                            i, i, i, i, i,               # B S Hq Hk D
                            f, f, i, i, p]               # scale cap causal win stream
         fn.restype = ctypes.c_int
@@ -125,13 +132,13 @@ def flash_attn_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         local_window_size)
     out = torch.empty_like(q)
     lse = torch.empty(B, Hq, S, dtype=torch.float32, device=q.device)
+    meta = tile_meta_workspace(segment_ids, B, S)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = _kernel("flash_attn_fwd")(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            None if segment_ids is None else segment_ids.data_ptr(),
-            out.data_ptr(), lse.data_ptr(), B, S, Hq, Hk, D, scale, cap,
-            causal_i, window, stream)
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), ptr(segment_ids),
+            ptr(meta), out.data_ptr(), lse.data_ptr(), B, S, Hq, Hk, D,
+            scale, cap, causal_i, window, stream)
     if rc != 0:
         raise RuntimeError(f"flash_attn_fwd launch failed (code {rc})")
     fwd_launches += 1
@@ -146,10 +153,9 @@ def flash_attn_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         logits_soft_cap: Optional[float] = None,
                         local_window_size: Optional[int] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Launch the backward kernels (delta pass, then dq/dk/dv) -> ``(dq,
-    dk, dv)`` in the operands' dtype.  dq is summed in an fp32 buffer with
-    atomics and cast at the end, so it differs from run to run in the last
-    bits."""
+    """Launch the backward kernels (delta, then the dQ pass, then the dK /
+    dV pass) -> ``(dq, dk, dv)`` in the operands' dtype; deterministic (no
+    atomics: every element is written once)."""
     global bwd_launches
     B, S, Hq, Hk, D, scale, cap, causal_i, window = _check_operands(
         q, k, v, segment_ids, causal, scale, logits_soft_cap,
@@ -163,20 +169,20 @@ def flash_attn_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            and lse.is_contiguous() and lse.device == q.device,
            "lse must be contiguous float32 [B, Hq, S]")
     delta = torch.empty(B, Hq, S, dtype=torch.float32, device=q.device)
-    dq = torch.zeros(B, S, Hq, D, dtype=torch.float32, device=q.device)
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    meta = tile_meta_workspace(segment_ids, B, S)
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = _kernel("flash_attn_bwd")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-            None if segment_ids is None else segment_ids.data_ptr(),
-            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, S, Hq, Hk, D,
-            scale, cap, causal_i, window, stream)
+            ptr(segment_ids), ptr(meta), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), B, S, Hq, Hk, D, scale, cap, causal_i, window,
+            stream)
     if rc != 0:
         raise RuntimeError(f"flash_attn_bwd launch failed (code {rc})")
     bwd_launches += 1
-    return dq.to(q.dtype), dk, dv
+    return dq, dk, dv
 
 
 # ---------------------------------------------------------------------------

@@ -1,10 +1,12 @@
 """Compare the CUDA kernels' outputs of two checkouts, bit for bit.
 
 Runs every matrix-product kernel of the port (qdot, the linear-CE forward,
-dlogits, dh and dW, gmm and its dlhs, tgmm, gmm_quant) on inputs drawn
-from fixed seeds on the card, in a fresh process per checkout, hashes each
-output's bytes and prints one ``kernel_digest`` JSON line: per kernel,
-both digests and whether they are equal::
+dlogits, dh and dW, gmm and its dlhs, tgmm, gmm_quant) and both attention
+rungs' forward and backward (splash: packed GQA and pure causal; flash:
+MHA with padding) on inputs drawn from fixed seeds on the card, in a fresh
+process per checkout, hashes each output's bytes and prints one
+``kernel_digest`` JSON line: per kernel, both digests and whether they are
+equal::
 
     python -m automodel_tpu_torch.tools.kernel_digest --a . --b <other>
 
@@ -33,10 +35,12 @@ def _digest(t: torch.Tensor) -> str:
 
 def digests() -> dict:
     """The hashes of every kernel's outputs in this process's checkout."""
+    from automodel_tpu_torch.ops import flash_attention as fa
     from automodel_tpu_torch.ops import gmm_kernel as gk
     from automodel_tpu_torch.ops import gmm_quant_kernel as gq
     from automodel_tpu_torch.ops import linear_ce_kernel as lce
     from automodel_tpu_torch.ops import qdot_kernel as qk
+    from automodel_tpu_torch.ops import splash_attention as spl
     from automodel_tpu_torch.ops.quant import _operand_scales
 
     dev = torch.device("cuda")
@@ -93,6 +97,34 @@ def digests() -> dict:
         s_rhs = gq.rhs_scales(rhs, q, "tensorwise").contiguous()
         out[name] = _digest(gq.gmm_quant_cuda(lhs, rhs, sizes, s_lhs, s_rhs,
                                               q, q))
+    # attention: B 2, S 1000 (a ragged tail), 16/4 heads, head_dim 64;
+    # three packed samples a row and a padding tail (segment 0)
+    B, S, Hq, Hk, D = 2, 1000, 16, 4, 64
+    q, do = randn(B, S, Hq, D), randn(B, S, Hq, D)
+    k, v = randn(B, S, Hk, D), randn(B, S, Hk, D)
+    seg = torch.zeros(B, S, dtype=torch.int32, device=dev)
+    for b, cuts in enumerate(((0, 300, 610, 930), (0, 130, 700, 890))):
+        for i, (lo, hi) in enumerate(zip(cuts[:-1], cuts[1:])):
+            seg[b, lo:hi] = i + 1
+    for name, kw in (("splash_packed", dict(segment_ids=seg)),
+                     ("splash_causal", {})):
+        o, lse = spl.flash_attn_fwd_cuda(q, k, v, causal=True, **kw)
+        grads = spl.flash_attn_bwd_cuda(q, k, v, o, lse, do, causal=True,
+                                        **kw)
+        for part, t in zip(("out", "lse", "dq", "dk", "dv"),
+                           (o, lse, *grads)):
+            out[f"{name}_{part}"] = _digest(t)
+    qm, dom = q.transpose(1, 2).contiguous(), do.transpose(1, 2).contiguous()
+    km, vm = (t.transpose(1, 2).repeat_interleave(Hq // Hk, dim=1)
+              .contiguous() for t in (k, v))
+    Sm = 896                                   # the flash rung: S % 128 == 0
+    qm, dom, km, vm = (t[:, :, :Sm].contiguous() for t in (qm, dom, km, vm))
+    segm = seg[:, :Sm].contiguous()
+    o, lse = fa.flash_mha_fwd_cuda(qm, km, vm, segm, True, D ** -0.5)
+    grads = fa.flash_mha_bwd_cuda(qm, km, vm, o, lse, dom, segm, True,
+                                  D ** -0.5)
+    for part, t in zip(("out", "lse", "dq", "dk", "dv"), (o, lse, *grads)):
+        out[f"flash_packed_{part}"] = _digest(t)
     torch.cuda.synchronize()
     return out
 

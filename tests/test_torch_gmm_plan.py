@@ -56,6 +56,16 @@ LAYOUTS = [
     ("groups_fill_the_buffer", [100, 156], 256),
 ]
 LAYOUT_IDS = [c[0] for c in LAYOUTS]
+# past 1024 groups the kernels keep the group plan in a global workspace
+# (ops/gmm_kernel.py::plan_workspace) and read the same items from there
+_E2048 = [int(x) for x in np.random.default_rng(21).integers(0, 8, 2048)]
+_E4096 = [int(x) for x in np.random.default_rng(22).integers(0, 4, 4096)]
+MANY_GROUPS = [
+    ("e2048_tiny_groups", _E2048, sum(_E2048) + 37),
+    ("e4096_clipped_by_m", _E4096, sum(_E4096) - 100),
+]
+COVER = LAYOUTS + MANY_GROUPS
+COVER_IDS = [c[0] for c in COVER]
 # (k, n): Qwen3-30B-A3B's gate/up and down products, and ragged tiles
 SHAPES = [(2048, 768), (768, 2048), (136, 72)]
 
@@ -77,7 +87,7 @@ def tgmm_items(sizes, m, k, n, chunk_rows, sms=H100_SMS):
 
 
 @pytest.mark.parametrize("k,n", SHAPES, ids=["gate_up", "down", "ragged"])
-@pytest.mark.parametrize("name,sizes,m", LAYOUTS, ids=LAYOUT_IDS)
+@pytest.mark.parametrize("name,sizes,m", COVER, ids=COVER_IDS)
 def test_gmm_items_write_every_row_once(name, sizes, m, k, n):
     items = gk.gmm_work_items(sizes, m, k, n)
     E, n_m, n_n = len(sizes), cdiv(m, gk.TILE_M), cdiv(n, gk.TILE_N)
@@ -100,6 +110,23 @@ def test_gmm_items_write_every_row_once(name, sizes, m, k, n):
     assert (writes == 1).all()
 
 
+@pytest.mark.parametrize("name,sizes,m", MANY_GROUPS,
+                         ids=[c[0] for c in MANY_GROUPS])
+def test_many_groups_take_the_workspace_plan(name, sizes, m):
+    """Past 1024 groups the wrappers hand the kernels an int32 plan
+    workspace (``gmm`` the clipped ends, ``tgmm`` ends, chunk prefix,
+    slots, split groups, their count and order: ``5 E + 2``); at or below,
+    none (the plan stays in shared memory)."""
+    E = len(sizes)
+    assert E > gk.SHARED_PLAN_GROUPS
+    assert gk.plan_workspace(gk.SHARED_PLAN_GROUPS, "gmm", "cpu") is None
+    assert tuple(gk.plan_workspace(E, "gmm", "cpu").shape) == (E,)
+    assert tuple(gk.plan_workspace(E, "tgmm", "cpu").shape) == (5 * E + 2,)
+    # the items reach groups past the shared-memory plan's 1024
+    items = gk.gmm_work_items(sizes, m, 136, 72)
+    assert max(it.group for it in items if it.group < E) > 1024
+
+
 def test_padded_segments_run_one_item_per_output_tile():
     """The sorted MoE path pads every segment to 128 rows: no extra item is
     active, so the products are exactly the output tiles, in row order."""
@@ -114,7 +141,7 @@ def test_padded_segments_run_one_item_per_output_tile():
 
 
 @pytest.mark.parametrize("k,n", SHAPES, ids=["gate_up", "down", "ragged"])
-@pytest.mark.parametrize("name,sizes,m", LAYOUTS, ids=LAYOUT_IDS)
+@pytest.mark.parametrize("name,sizes,m", COVER, ids=COVER_IDS)
 @pytest.mark.parametrize("chunk", ["plan", 64, 192])
 def test_tgmm_items_cover_every_block_once(name, sizes, m, k, n, chunk):
     C = gk.tgmm_chunk_rows(m, k, n, H100_SMS) if chunk == "plan" else chunk
@@ -149,11 +176,14 @@ def test_tgmm_items_cover_every_block_once(name, sizes, m, k, n, chunk):
                 assert 0 <= it.slot < slots
                 assert used.setdefault((it.slot, k0, n0), g) == g
     # a split group's chunks take distinct slots
+    own = {}
+    for its in blocks.values():
+        for it in its:
+            if it.slot >= 0:
+                own.setdefault(it.group, set()).add(it.slot)
     for g in range(E):
-        own = {it.slot for its in blocks.values() for it in its
-               if it.group == g and it.slot >= 0}
         n_chunks = len(blocks[(g, 0, 0)])
-        assert len(own) in (0, n_chunks)
+        assert len(own.get(g, ())) in (0, n_chunks)
 
 
 def skewed_sizes(E, routed, seed):

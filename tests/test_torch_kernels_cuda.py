@@ -304,6 +304,121 @@ def test_cuda_flash_attn_matches_plain(case, cuda_device):
         assert bool((dq[pad] == 0).all()) and bool((dk[pad] == 0).all())
 
 
+# chip_smoke.py's attention shapes: ATTN_CASES (the splash rung, [B, S, H,
+# D]: name, B, S, Hq, Hk, D, packed, window, cap) and FLASH_CASES (the
+# flash rung, kv repeated to MHA: name, B, S, Hq, Hk, D, causal, packed)
+SMOKE_ATTN_CASES = [
+    ("sft_packed_d64", 8, 2048, 32, 8, 64, True, None, None),
+    ("causal_d64", 8, 2048, 32, 8, 64, False, None, None),
+    ("packed_d128", 8, 2048, 32, 8, 128, True, None, None),
+    ("window256_d64", 8, 2048, 32, 8, 64, False, 256, None),
+    ("packed_cap30_d64", 8, 2048, 32, 8, 64, True, None, 30.0),
+    ("ragged_s1000_d64", 8, 1000, 32, 8, 64, False, None, None),
+    ("mha_packed_d128", 8, 2048, 16, 16, 128, True, None, None),
+    ("qwen3_gqa_d128", 8, 2048, 32, 4, 128, True, None, None),
+]
+SMOKE_FLASH_CASES = [
+    ("sft_flash_packed_d64", 8, 2048, 32, 8, 64, True, True),
+    ("causal_d64", 8, 2048, 32, 8, 64, True, False),
+    ("full_packed_d64", 8, 2048, 32, 8, 64, False, True),
+    ("mha_packed_d128", 8, 2048, 16, 16, 128, True, True),
+]
+
+
+def packed_segments(B, S, seed, mean=700, pad=100):
+    """Samples of 1 to 2 mean rows packed into each row, the tail past the
+    last whole sample left as padding (segment 0), as the SFT loader packs."""
+    rng = np.random.default_rng(seed)
+    seg = np.zeros((B, S), np.int32)
+    for b in range(B):
+        pos, i = 0, 1
+        while True:
+            n = int(rng.integers(1, 2 * mean))
+            if pos + n > S - int(rng.integers(0, pad)):
+                break
+            seg[b, pos:pos + n] = i
+            pos, i = pos + n, i + 1
+    return seg
+
+
+def check_attention(got, refs):
+    """out / lse to the bf16 output's rounding, gradients in relative L2."""
+    out, lse = got[:2]
+    ref_out, ref_lse = refs[:2]
+    torch.testing.assert_close(out.float(), ref_out.float(), atol=ATTN_ATOL,
+                               rtol=ATTN_RTOL)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-2, rtol=1e-3)
+    for name, g, r in zip(("dq", "dk", "dv"), got[2:], refs[2:]):
+        assert bool(torch.isfinite(g).all()), name
+        assert rel_l2(g, r) < GRAD_REL_L2, (name, rel_l2(g, r))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SMOKE_ATTN_CASES,
+                         ids=[c[0] for c in SMOKE_ATTN_CASES])
+def test_cuda_splash_kernels_match_plain_at_the_smoke_shapes(case,
+                                                             cuda_device):
+    """Kernel 9's forward and backward against the plain versions at every
+    shape ``chip_smoke.py`` times (rows with no key give 0 in both); the
+    forward twice, bitwise equal."""
+    from automodel_tpu_torch.ops import splash_attention as sa
+
+    _, B, S, Hq, Hk, D, packed, window, cap = case
+    g = torch.Generator(device=cuda_device).manual_seed(11)
+    q, dout = (torch.randn(B, S, Hq, D, device=cuda_device, generator=g)
+               .bfloat16() for _ in range(2))
+    k, v = (torch.randn(B, S, Hk, D, device=cuda_device, generator=g)
+            .bfloat16() for _ in range(2))
+    seg = (torch.from_numpy(packed_segments(B, S, 5)).to(cuda_device)
+           if packed else None)
+    kw = dict(causal=True, segment_ids=seg, logits_soft_cap=cap,
+              local_window_size=window)
+    out, lse = sa.flash_attn_fwd_cuda(q, k, v, **kw)
+    again = sa.flash_attn_fwd_cuda(q, k, v, **kw)
+    grads = sa.flash_attn_bwd_cuda(q, k, v, out, lse, dout, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
+    ref = sa.splash_attention_plain(q, k, v, **kw)
+    refs = sa.splash_attention_bwd_plain(q, k, v, out, lse, dout, **kw)
+    check_attention((out, lse, *grads), (*ref, *refs))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SMOKE_FLASH_CASES,
+                         ids=[c[0] for c in SMOKE_FLASH_CASES])
+def test_cuda_flash_kernels_match_plain_at_the_smoke_shapes(case,
+                                                            cuda_device):
+    """Kernel 10's forward and backward against the plain versions at every
+    shape ``chip_smoke.py`` times, padding rows included; the forward and
+    the backward twice, bitwise equal (no atomics)."""
+    from automodel_tpu_torch.ops import flash_attention as fa
+
+    _, B, S, Hq, Hk, D, causal, packed = case
+    g = torch.Generator(device=cuda_device).manual_seed(13)
+    q, dout = (torch.randn(B, Hq, S, D, device=cuda_device, generator=g)
+               .bfloat16() for _ in range(2))
+    k, v = (torch.randn(B, Hk, S, D, device=cuda_device, generator=g)
+            .bfloat16().repeat_interleave(Hq // Hk, dim=1).contiguous()
+            for _ in range(2))
+    seg = (torch.from_numpy(packed_segments(B, S, 7)).to(cuda_device)
+           if packed else None)
+    scale = D ** -0.5
+    out, lse = fa.flash_mha_fwd_cuda(q, k, v, seg, causal, scale)
+    again = fa.flash_mha_fwd_cuda(q, k, v, seg, causal, scale)
+    grads = fa.flash_mha_bwd_cuda(q, k, v, out, lse, dout, seg, causal,
+                                  scale)
+    grads2 = fa.flash_mha_bwd_cuda(q, k, v, out, lse, dout, seg, causal,
+                                   scale)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
+    for a, b in zip(grads, grads2):
+        assert torch.equal(a, b)
+    ref = fa.flash_mha_plain(q, k, v, seg, causal, scale)
+    refs = fa.flash_mha_bwd_plain(q, k, v, out, lse, dout, seg, causal,
+                                  scale)
+    check_attention((out, lse, *grads), (*ref, *refs))
+
+
 @pytest.mark.cuda
 def test_cuda_training_step_through_the_kernels(cuda_device):
     """A small bf16 Llama (head_dim 64) on packed rows: loss and gradients
@@ -636,6 +751,55 @@ def test_cuda_gmm_refuses_what_it_does_not_take(cuda_device):
         gk.gmm(lhs.float(), rhs.float(), gs)
     with pytest.raises(ValueError, match="multiples of 8"):
         gk.gmm(lhs[:, :12].contiguous(), rhs[:, :12].contiguous(), gs)
+
+
+# past 1024 groups the kernels read the group plan from a workspace
+# (ops/gmm_kernel.py::plan_workspace): 2048 groups of 0-7 rows (a row tile
+# meets many groups), and 2048 groups around one hot group that tgmm cuts
+# into chunks (its reduction reads the workspace plan too)
+MANY_GROUP_CASES = [
+    ("e2048_tiny_groups",
+     [int(x) for x in np.random.default_rng(12).integers(0, 8, 2048)],
+     7424, 256, 384),
+    ("e2048_hot_split", [0] * 1000 + [6000] + [1] * 1047, 8192, 256, 384),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", MANY_GROUP_CASES,
+                         ids=[c[0] for c in MANY_GROUP_CASES])
+def test_cuda_grouped_matmuls_take_more_than_1024_groups(case, cuda_device):
+    """gmm, its dlhs, tgmm and gmm_quant (int8, tensorwise) at 2048 groups
+    against the plain versions: rows past the groups and empty groups'
+    tgmm blocks exactly 0, int8 bit-identical."""
+    from automodel_tpu_torch.ops import gmm_kernel as gk
+    from automodel_tpu_torch.ops import gmm_quant_kernel as gq
+
+    _, sizes, m, k, n = case
+    assert len(sizes) > gk.SHARED_PLAN_GROUPS and sum(sizes) <= m
+    lhs, rhs, dout, gs = make_gmm_case(sizes, m, k, n, device=cuda_device)
+    out = gk.gmm_cuda(lhs, rhs, gs)
+    dlhs = gk.gmm_cuda(dout, rhs, gs, trans_rhs=True)
+    drhs = gk.tgmm_cuda(lhs, dout, gs)
+    torch.cuda.synchronize()
+    for name, got, ref in (
+            ("gmm", out, gk.gmm_plain(lhs, rhs, gs)),
+            ("dlhs", dlhs, gk.gmm_plain(dout, rhs, gs, trans_rhs=True)),
+            ("tgmm", drhs, gk.tgmm_plain(lhs, dout, gs))):
+        assert bool(torch.isfinite(got).all()), name
+        assert rel_l2(got, ref) < GMM_REL_L2, (name, rel_l2(got, ref))
+    total = sum(sizes)
+    assert bool((out[total:] == 0).all()) and bool((dlhs[total:] == 0).all())
+    empty = torch.tensor([s == 0 for s in sizes], device=cuda_device)
+    assert bool((drhs[empty] == 0).all())
+    lhs[total:] = 0
+    s_lhs = gq.lhs_scales(lhs, gs, torch.int8, "tensorwise")
+    s_rhs = gq.rhs_scales(rhs, torch.int8, "tensorwise").contiguous()
+    got = gq.gmm_quant_cuda(lhs, rhs, gs, s_lhs, s_rhs, torch.int8,
+                            torch.int8)
+    torch.cuda.synchronize()
+    assert torch.equal(got, gq.gmm_quant_plain(lhs, rhs, gs, s_lhs, s_rhs,
+                                               torch.int8, torch.int8))
 
 
 # ---------------------------------------------------------------------------
