@@ -64,9 +64,10 @@ class CheckpointSaveError(RuntimeError):
 @dataclasses.dataclass
 class CheckpointingConfig:
     """The YAML ``checkpoint`` section: the JAX dataclass's fields that
-    the port reads (keys for multi-host writes, PEFT and the model cache
-    are ignored, as any unknown key is).  ``replicate_to_peers`` is
-    validated and pushes nothing at one process."""
+    the port reads (keys for multi-host writes and the model cache are
+    ignored, as any unknown key is).  ``replicate_to_peers`` is validated
+    and pushes nothing at one process.  ``is_peft`` (set by the recipe
+    under PEFT) saves the adapters only."""
 
     enabled: bool = True
     checkpoint_dir: str = "checkpoints/"
@@ -79,6 +80,7 @@ class CheckpointingConfig:
     io_retry_backoff: float = 0.1
     async_save: bool = True
     replicate_to_peers: bool = True
+    is_peft: bool = False
 
     def __post_init__(self):
         if self.model_save_format == "torch_save":   # reference alias

@@ -17,6 +17,13 @@ module's own code (the package is not needed): an 8-byte little-endian
 header length, a JSON header (``dtype``, ``shape``, ``data_offsets`` per
 tensor and ``__metadata__``) padded with spaces to 8 bytes, then the raw
 little-endian bytes of every tensor back to back.
+
+A model whose projections are an int8 base (``quantization/
+weight_only.py``) reads through :func:`quantized_key_map`: each
+projection's bf16 tensor is read on the host and quantized there, its
+codes and scales copied to the card, so the dense tree never exists on the
+card (:func:`load_quantized_hf_base`, the QLoRA streaming read); such a
+base exports through ``dequantize_base_params`` and the dense map.
 """
 
 from __future__ import annotations
@@ -162,27 +169,66 @@ def qwen3_moe_key_map(config):
 _KEY_MAPS = {"llama": llama_key_map, "mixtral": mixtral_key_map,
              "qwen3_moe": qwen3_moe_key_map}
 
+# the read transforms of an int8 base's two leaves (one HF tensor each)
+INT8_CODES, INT8_SCALE = "int8_codes", "int8_scale"
 
-def hf_tensors(model) -> Iterator[Tuple[str, torch.Tensor, Tuple]]:
-    """``(HF name, HF-layout view of the parameter, (param, expert))`` for
-    every HF tensor of ``model``, in the key map's order; an expert's view
-    is the transpose of ``param[expert]``."""
+
+def quantized_key_map(base_map):
+    """``base_map`` with each int8 projection's ``kernel`` and ``scale``
+    read from the projection's one HF tensor, quantized on the host
+    (``quantize_kernel_np``): entries ``(template, expert_stacked,
+    transform)``."""
+    from automodel_tpu_torch.quantization.weight_only import (
+        QUANTIZED_MODULES,
+    )
+
+    m = dict(base_map)
+    for mod, proj in QUANTIZED_MODULES:
+        path = ("layers", mod, proj, "kernel")
+        if path in m:
+            template, stacked = m[path]
+            m[path] = (template, stacked, INT8_CODES)
+            m[("layers", mod, proj, "scale")] = (template, stacked,
+                                                 INT8_SCALE)
+    return m
+
+
+def key_map_for(model):
+    """The JAX-path -> HF key map of ``model``'s family (the quantized one
+    for an int8 base)."""
+    from automodel_tpu_torch.quantization.weight_only import is_quantized
+
     mt = model.config.model_type
     if mt not in _KEY_MAPS:
         raise NotImplementedError(f"no HF key map for model_type {mt!r}")
     key_map = _KEY_MAPS[mt](model.config)
+    return quantized_key_map(key_map) if is_quantized(model) else key_map
+
+
+def hf_tensors(model, reading: bool = False
+               ) -> Iterator[Tuple[str, torch.Tensor, Tuple]]:
+    """``(HF name, HF-layout view of the parameter, (param, expert,
+    transform))`` for every HF tensor of ``model``, in the key map's order;
+    an expert's view is the transpose of ``param[expert]``.  An int8 base
+    only reads (``reading``): its export raises."""
+    key_map = key_map_for(model)
     for path, target, _transposed in jax_leaves(model):
         if path not in key_map:
             raise KeyError(f"no HF mapping for param {'/'.join(path)}")
-        template, expert_stacked = key_map[path]
+        template, expert_stacked, *transform = key_map[path]
+        transform = transform[0] if transform else None
+        if transform and not reading:
+            raise NotImplementedError(
+                "int8 QLoRA bases export via dequantize_base_params and the "
+                "dense key map, not the streaming quantized map")
         layers = target if isinstance(target, list) else [target]
         for i, p in enumerate(layers):
             name = template.format(i=i, e="{e}")
             if expert_stacked:
                 for e in range(p.shape[0]):
-                    yield name.format(e=e), p[e].t(), (p, e)
+                    yield name.format(e=e), p[e].t(), (p, e, None)
             else:
-                yield name, p, (p, None)
+                yield name, p, (p, None, transform)
 
 
 # ---------------------------------------------------------------------------
@@ -246,20 +292,34 @@ def load_hf_weights(model, ckpt_dir: str) -> None:
         raise FileNotFoundError(
             f"{ckpt_dir} has no {SAFETENSORS_FILE} or {SAFETENSORS_INDEX}")
     wanted: Dict[str, List[Tuple[str, Tuple]]] = {}
-    for name, view, where in hf_tensors(model):
+    for name, view, where in hf_tensors(model, reading=True):
         if name not in weight_map:
             raise KeyError(f"{ckpt_dir} lacks {name}")
         wanted.setdefault(weight_map[name], []).append((name, where))
     for fname, entries in wanted.items():
         got = read_safetensors(os.path.join(ckpt_dir, fname),
-                               [n for n, _ in entries])
-        for name, (p, expert) in entries:
+                               sorted({n for n, _ in entries}))
+        for name, (p, expert, transform) in entries:
             t = got[name]
+            if transform is not None:     # an int8 base, quantized here
+                from automodel_tpu_torch.quantization.weight_only import (
+                    quantize_kernel_np,
+                )
+
+                t = torch.from_numpy(quantize_kernel_np(t.float().numpy())[
+                    0 if transform == INT8_CODES else 1])
             dst = p if expert is None else p[expert].t()
             if tuple(t.shape) != tuple(dst.shape):
                 raise ValueError(f"{name}: checkpoint shape {tuple(t.shape)}"
                                  f" does not fit {tuple(dst.shape)}")
             dst.copy_(t.to(p.dtype))
+
+
+def load_quantized_hf_base(model, ckpt_dir: str) -> None:
+    """Stream an HF repo's bf16 weights into ``model``'s int8 base (the
+    projections quantized on the host, one tensor at a time; the JAX
+    ``load_quantized_hf_base``)."""
+    load_hf_weights(model, ckpt_dir)
 
 
 def save_hf_config(model, out_dir: str) -> None:

@@ -23,14 +23,26 @@ and fold into ``out["aux_loss"]``.  Quantized compute
 (``quantization/fp8.py::apply_fp8_to_model`` sets ``quant``) sends every
 projection through ``ops/quant.py::maybe_qdot`` under the JAX names
 (``self_attn.q_proj`` ... ``mlp.down_proj``), so ``filter_fqns`` matches
-the same products; the head never does.  LoRA and sharding constraints
-wait for later port slices.
+the same products; the head never does.
+
+``_proj`` is also the seam of LoRA (``peft/lora.py``) and of a weight-only
+int8 base (``quantization/weight_only.py``), as the JAX layer's
+``_make_proj``: the forward takes ``adapters``, one ``{name:
+LayerAdapter}`` per layer, and a projection that has one either uses the
+adapter's merged weight (``W + s A B``, made by the wrapper each step)
+or adds the rank-r bypass ``s ((x m?) A) B`` to its base product, with
+inverted dropout before (``pre``) or after (``post``) the adapter while
+training.  An int8 base is dequantized in the compute dtype before the
+product; the base product goes through ``maybe_qdot`` either way, the
+adapter's delta stays in the compute dtype.  Sharding constraints wait
+for later port slices.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Optional
+import zlib
+from typing import Any, Dict, List, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -120,6 +132,33 @@ def _sliding_window(cfg: LlamaConfig) -> Optional[int]:
         "mixed sliding/full layer stacks are not supported")
 
 
+class LayerAdapter(NamedTuple):
+    """One projection's LoRA in one layer: ``merged`` (``[out, in]``, the
+    merge path) or ``A [in, r]`` / ``B [r, out]`` (the bypass), the scale
+    ``alpha / r``, and the dropout rate, position and this step's seed
+    (None: no dropout, as outside training)."""
+
+    merged: Optional[torch.Tensor] = None
+    A: Optional[torch.Tensor] = None
+    B: Optional[torch.Tensor] = None
+    scale: float = 1.0
+    dropout: float = 0.0
+    position: str = "post"
+    seed: Optional[int] = None
+
+
+def _dropout(t: torch.Tensor, rate: float, seed: int, name: str
+             ) -> torch.Tensor:
+    """Inverted dropout of ``t`` with a mask drawn from ``seed`` and the
+    projection's name (the same mask when the layer is recomputed)."""
+    keep = 1.0 - rate
+    gen = torch.Generator(device=t.device)
+    gen.manual_seed((seed ^ zlib.crc32(name.encode())) & (2 ** 63 - 1))
+    m = torch.rand(t.shape, generator=gen, device=t.device) < keep
+    return torch.where(m, t / keep, torch.zeros((), dtype=t.dtype,
+                                                 device=t.device)).to(t.dtype)
+
+
 def _linear(i: int, o: int, dtype, device) -> nn.Linear:
     return nn.Linear(i, o, bias=False, dtype=dtype, device=device)
 
@@ -180,6 +219,7 @@ class LlamaForCausalLM(nn.Module):
                 "attention_bias (the Qwen2 family) is not ported")
         device = resolve_device(device)
         self.quant = None        # set by quantization.fp8.apply_fp8_to_model
+        self._adapters = None    # the running layer's LoRA (see _layer)
         self.qdot_impl: Optional[str] = None   # "plain" forces qdot's plain
         self.config = config
         self.param_dtype = as_dtype(param_dtype)
@@ -216,15 +256,36 @@ class LlamaForCausalLM(nn.Module):
                 p.normal_(0.0, 0.02, generator=gen)
         return self
 
-    def _proj(self, lin: nn.Linear, x: torch.Tensor, name: str
+    def _proj(self, lin: nn.Module, x: torch.Tensor, name: str
               ) -> torch.Tensor:
         """``x @ W^T`` in the compute dtype; with quantized compute on,
         through ``maybe_qdot`` on the ``[in, out]`` view of the weight
-        (the JAX kernel's layout, read in place)."""
-        w = lin.weight.to(self.compute_dtype)
+        (the JAX kernel's layout, read in place).  ``W`` is the layer's
+        merged LoRA weight when it has one, else the int8 base
+        dequantized, else the weight; a bypass adapter adds its delta."""
+        cd = self.compute_dtype
+        ad = self._adapters.get(name) if self._adapters else None
+        if ad is not None and ad.merged is not None:
+            w = ad.merged.to(cd)
+        elif lin.weight.dtype == torch.int8:
+            w = lin.dequantize(cd)
+        else:
+            w = lin.weight.to(cd)
         if self.quant is None:
-            return F.linear(x, w)
-        return maybe_qdot(x, w.t(), self.quant, name, impl=self.qdot_impl)
+            y = F.linear(x, w)
+        else:
+            y = maybe_qdot(x, w.t(), self.quant, name, impl=self.qdot_impl)
+        if ad is None or ad.A is None:
+            return y
+        drop = ad.dropout > 0.0 and ad.seed is not None
+        xa = x
+        if drop and ad.position == "pre":
+            xa = _dropout(x, ad.dropout, ad.seed, name)
+        delta = (xa @ ad.A.to(cd)) @ ad.B.to(cd)
+        if drop and ad.position == "post":
+            delta = _dropout(delta, ad.dropout, ad.seed, name)
+        # the scale rounded to the compute dtype first, as the JAX layer's
+        return y + float(torch.tensor(ad.scale, dtype=cd)) * delta
 
     def _attention_block(self, layer: LlamaDecoderLayer, hidden,
                          position_ids, segment_ids, kv_cache, attn_impl):
@@ -261,18 +322,32 @@ class LlamaForCausalLM(nn.Module):
         return self._proj(layer.down_proj, act, "mlp.down_proj"), None
 
     def _layer(self, layer: LlamaDecoderLayer, hidden, position_ids,
-               segment_ids, kv_cache, attn_impl):
-        """One decoder layer -> ``(hidden, aux | None)``."""
-        hidden = self._attention_block(layer, hidden, position_ids,
-                                       segment_ids, kv_cache, attn_impl)
-        out, aux = self._mlp_block(layer.post_attention_layernorm(hidden),
-                                   layer)
+               segment_ids, kv_cache, attn_impl, adapters=None):
+        """One decoder layer -> ``(hidden, aux | None)``; ``adapters`` (the
+        layer's ``{name: LayerAdapter}``) reach ``_proj`` for the length of
+        the call, its recomputation under remat included."""
+        self._adapters = adapters
+        try:
+            hidden = self._attention_block(layer, hidden, position_ids,
+                                           segment_ids, kv_cache, attn_impl)
+            out, aux = self._mlp_block(
+                layer.post_attention_layernorm(hidden), layer)
+        finally:
+            self._adapters = None
         return hidden + out, aux
 
     def _combine_aux(self, aux_losses: List[Any]) -> torch.Tensor:
         """Fold the layers' aux values into the scalar ``aux_loss`` output
         (the JAX model's mean); the MoE families override."""
         return torch.stack(aux_losses).mean()
+
+    @property
+    def num_params(self) -> int:
+        """Elements of every parameter and weight buffer (an int8 base's
+        codes and scales), the JAX ``num_params`` over its tree."""
+        return (sum(p.numel() for p in self.parameters())
+                + sum(b.numel() for n, b in self.named_buffers()
+                      if not n.endswith("inv_freq")))
 
     def flops_per_token(self) -> float:
         """Training FLOPs per token of the matmul parameters (fwd + bwd =
@@ -303,7 +378,9 @@ class LlamaForCausalLM(nn.Module):
                 segment_ids: Optional[torch.Tensor] = None,
                 attention_mask: Optional[torch.Tensor] = None,
                 kv_cache=None, return_hidden: bool = False,
-                attn_impl: Optional[str] = None) -> Dict[str, torch.Tensor]:
+                attn_impl: Optional[str] = None,
+                adapters: Optional[List[Dict[str, LayerAdapter]]] = None
+                ) -> Dict[str, torch.Tensor]:
         """``input_ids [B, S]`` -> ``{"logits": [B, S, V]}`` in the compute
         dtype, or with ``return_hidden`` ``{"hidden_states": [B, S, H],
         "lm_head_kernel": [H, V]}`` (the JAX layout) for a loss that applies
@@ -316,7 +393,8 @@ class LlamaForCausalLM(nn.Module):
         attention; ``attn_impl`` is passed to ``ops.attention.attention``
         (None: the kernels on CUDA tensors, the plain versions on CPU).
         ``kv_cache`` is a ``PagedKVView`` (pools updated in place) or
-        None."""
+        None.  ``adapters`` (from ``peft/lora.py::LoRAModel``) holds one
+        ``{name: LayerAdapter}`` per layer."""
         B, S = input_ids.shape
         if kv_cache is not None and getattr(self.quant, "enabled", False):
             raise NotImplementedError(
@@ -335,7 +413,7 @@ class LlamaForCausalLM(nn.Module):
         for i, layer in enumerate(self.layers):
             view = kv_cache.layer_view(i) if kv_cache is not None else None
             args = (layer, hidden, position_ids, segment_ids, view,
-                    attn_impl)
+                    attn_impl, adapters[i] if adapters else None)
             hidden, aux = (checkpoint_layer(self._layer, *args) if remat
                            else self._layer(*args))
             if aux is not None:

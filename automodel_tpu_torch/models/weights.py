@@ -12,6 +12,14 @@ are.  The MoE families' router kernel ``[L, H, E]`` is transposed into
 an ``nn.Linear`` ``[E, H]``; their expert stacks ``[L, E, H, I]`` /
 ``[L, E, I, H]`` and Qwen3's ``q_norm`` / ``k_norm`` ``[L, D]`` copy as
 they are.  Values are cast to the module's parameter dtype.
+
+An int8 base (``quantization/weight_only.py``: the JAX ``weight_only_quant
+= "int8"`` tree, ``kernel`` int8 ``[L, in, out]`` plus ``scale [L, 1,
+out]``) maps onto the :class:`Int8Linear` buffers, both transposed.  A
+PEFT model (``peft/lora.py::LoRAModel``) is the JAX PEFT tree ``{"base":
+<base tree>, "lora": {<module path>: {"A": [L, in, r], "B": [L, r,
+out]}}}``: the base under ``base.``, each adapter's per-layer parameters
+(``[in, r]`` / ``[r, out]``, the JAX layout) as they are.
 """
 
 from __future__ import annotations
@@ -30,16 +38,20 @@ _MLP = ("gate_proj", "up_proj", "down_proj")
 def jax_leaves(model: LlamaForCausalLM
                ) -> Iterator[Tuple[Tuple[str, ...], Any, bool]]:
     """``(path in the JAX tree, target, transposed)`` for every leaf.  The
-    target is one parameter, or a list of per-layer parameters for a
-    stacked ``layers.*`` leaf."""
+    target is one parameter (or buffer), or a list of per-layer ones for
+    a stacked ``layers.*`` leaf."""
+    if hasattr(model, "lora_leaves"):            # a PEFT wrapper
+        for path, target, transposed in jax_leaves(model.base_model):
+            yield ("base",) + path, target, transposed
+        yield from model.lora_leaves()
+        return
     yield ("embed_tokens", "embedding"), model.embed_tokens.weight, False
     layers = model.layers
     for norm in ("input_layernorm", "post_attention_layernorm"):
         yield (("layers", norm, "weight"),
                [getattr(l, norm).weight for l in layers], False)
     for proj in _ATTN:
-        yield (("layers", "self_attn", proj, "kernel"),
-               [getattr(l, proj).weight for l in layers], True)
+        yield from _projection(layers, "self_attn", proj)
     if model.config.qk_norm:
         for norm in ("q_norm", "k_norm"):
             yield (("layers", "self_attn", norm, "weight"),
@@ -47,8 +59,7 @@ def jax_leaves(model: LlamaForCausalLM
     block = getattr(layers[0], "moe_block", None)
     if block is None:
         for proj in _MLP:
-            yield (("layers", "mlp", proj, "kernel"),
-                   [getattr(l, proj).weight for l in layers], True)
+            yield from _projection(layers, "mlp", proj)
     else:
         # routed experts: the router [L, H, E] (an nn.Linear [E, H] here)
         # and the expert stacks [L, E, ...], which keep the JAX layout
@@ -61,6 +72,15 @@ def jax_leaves(model: LlamaForCausalLM
     yield ("norm", "weight"), model.norm.weight, False
     if model.lm_head is not None:
         yield ("lm_head", "kernel"), model.lm_head.weight, True
+
+
+def _projection(layers, block: str, proj: str):
+    """A projection's kernel leaf, and its ``scale`` leaf when the layers
+    hold it as an int8 base (``Int8Linear``)."""
+    mods = [getattr(l, proj) for l in layers]
+    yield ("layers", block, proj, "kernel"), [m.weight for m in mods], True
+    if hasattr(mods[0], "scale"):
+        yield ("layers", block, proj, "scale"), [m.scale for m in mods], True
 
 
 def _flatten(tree: Dict[str, Any], prefix=()) -> Dict[Tuple[str, ...], Any]:
@@ -77,9 +97,11 @@ def _flatten(tree: Dict[str, Any], prefix=()) -> Dict[Tuple[str, ...], Any]:
 def load_jax_params(model: LlamaForCausalLM, tree: Dict[str, Any]) -> None:
     """Fill ``model`` from the JAX package's nested params given as numpy
     arrays (``jax.tree.map(np.asarray, params)``).  Handles
-    ``embed_tokens.embedding [V, H]``, the stacked ``layers.*`` leaves,
-    ``norm.weight`` and an optional ``lm_head.kernel [H, V]``; any other
-    key, a missing key or a shape mismatch raises."""
+    ``embed_tokens.embedding [V, H]``, the stacked ``layers.*`` leaves
+    (int8 kernels with their scales too), ``norm.weight``, an optional
+    ``lm_head.kernel [H, V]`` and, for a PEFT model, the ``{"base",
+    "lora"}`` tree; any other key, a missing key or a shape mismatch
+    raises."""
     flat = _flatten(tree)
     seen = set()
     for path, target, transposed in jax_leaves(model):

@@ -35,7 +35,8 @@ or ``lm_head.weight``), as ``models/llama.py`` hands it over; a copy into
 another layout would move 525 MB per call, so any other layout raises.
 ``fwd_launches`` counts forward calls (two launches each: partials and
 their combine), ``dlogits_launches`` / ``dh_launches`` / ``dw_launches``
-count the backward's launches (one each per chunk).  There is no
+count the backward's launches (one each per chunk; no dW when the head
+needs no gradient, as a frozen PEFT head does).  There is no
 fallback: :func:`lse_and_pick` takes the plain versions only for CPU
 tensors or when asked by ``impl="plain"``.
 """
@@ -304,11 +305,13 @@ def bwd_launches_per_call(T: int, chunk_rows: int = CHUNK_ROWS) -> int:
 
 def bwd_launch_plan(h: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
                     lse: torch.Tensor, dlse: torch.Tensor, dpick: torch.Tensor,
-                    chunk_rows: int = CHUNK_ROWS):
+                    chunk_rows: int = CHUNK_ROWS, need_dw: bool = True):
     """The backward's outputs and its launches, not yet run: ``(dh [T, H],
     dw [V, H], plan)`` with ``plan`` a list of ``(kind, launch)`` in
     stream order, kind ``"dlogits"``, ``"dh"`` or ``"dw"`` -- one of each
-    per chunk of ``chunk_rows`` rows."""
+    per chunk of ``chunk_rows`` rows.  Without ``need_dw`` (a frozen head)
+    ``dw`` is None and the plan has no ``"dw"`` launch; dlogits and dh are
+    the same launches."""
     T, H, V, ws = _check_operands(h, w, labels)
     lse = _f32_row(lse, T, "lse")
     dlse = _f32_row(dlse, T, "dlse")
@@ -319,9 +322,10 @@ def bwd_launch_plan(h: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
     dl = torch.empty(min(chunk_rows, T), padded_vocab(V), dtype=torch.bfloat16,
                      device=dev)
     dh = torch.empty(T, H, dtype=torch.bfloat16, device=dev)
-    dw = torch.empty(V, H, dtype=torch.bfloat16, device=dev)
+    dw = (torch.empty(V, H, dtype=torch.bfloat16, device=dev) if need_dw
+          else None)
     dw32 = (torch.empty(V, H, dtype=torch.float32, device=dev)
-            if n_chunks > 1 else None)
+            if need_dw and n_chunks > 1 else None)
     plan = []
     for c in range(n_chunks):
         r0 = c * chunk_rows
@@ -332,26 +336,28 @@ def bwd_launch_plan(h: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
                 h, ws, labels, lse, dlse, dpick, r0, rows, dl)),
             ("dh", lambda r0=r0, rows=rows: linear_ce_dh_cuda(
                 dl, ws, rows, dh[r0:])),
-            ("dw", lambda r0=r0, rows=rows, mode=mode, c=c: linear_ce_dw_cuda(
-                dl, h[r0:], rows, dw32, dw, mode, c > 0)),
         ]
+        if need_dw:
+            plan.append(("dw", lambda r0=r0, rows=rows, mode=mode, c=c:
+                         linear_ce_dw_cuda(dl, h[r0:], rows, dw32, dw, mode,
+                                           c > 0)))
     return dh, dw, plan
 
 
 def linear_ce_bwd_cuda(h: torch.Tensor, w: torch.Tensor,
                        labels: torch.Tensor, lse: torch.Tensor,
                        dlse: torch.Tensor, dpick: torch.Tensor,
-                       chunk_rows: int = CHUNK_ROWS
-                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+                       chunk_rows: int = CHUNK_ROWS, need_dw: bool = True
+                       ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Launch the backward kernels chunk by chunk -> ``(dh [T, H], dw [H,
     V])`` bf16; ``dw`` is the transposed view of a row-major ``[V, H]``
-    result, like ``w``."""
+    result, like ``w``, or None without ``need_dw`` (no dW launch)."""
     with torch.cuda.device(h.device):
         dh, dw, plan = bwd_launch_plan(h, w, labels, lse, dlse, dpick,
-                                       chunk_rows)
+                                       chunk_rows, need_dw)
         for _, launch in plan:
             launch()
-    return dh, dw.t()
+    return dh, (dw.t() if need_dw else None)
 
 
 # ---------------------------------------------------------------------------
@@ -409,21 +415,24 @@ def dw_plain(h_rows: torch.Tensor, dlogits: torch.Tensor) -> torch.Tensor:
 def lse_and_pick_bwd_plain(h: torch.Tensor, w: torch.Tensor,
                            labels: torch.Tensor, lse: torch.Tensor,
                            dlse: torch.Tensor, dpick: torch.Tensor,
-                           chunk_rows: int = CHUNK_ROWS
-                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+                           chunk_rows: int = CHUNK_ROWS, need_dw: bool = True
+                           ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """The backward written out as the kernels compute it (not autograd of
     logsumexp), chunked over rows like ``_bwd_xla`` (``:326-349``):
     ``dh = dlogits w^T`` per chunk, ``dw = sum_chunks h^T dlogits`` in
-    fp32.  Returns ``(dh, dw)`` in h's and w's dtypes."""
+    fp32.  Returns ``(dh, dw)`` in h's and w's dtypes (``dw`` None without
+    ``need_dw``)."""
     dh = torch.empty(h.shape, dtype=h.dtype, device=h.device)
-    dw = torch.zeros(w.shape, dtype=torch.float32, device=w.device)
+    dw = (torch.zeros(w.shape, dtype=torch.float32, device=w.device)
+          if need_dw else None)
     for r0 in range(0, h.shape[0], chunk_rows):
         sl = slice(r0, r0 + chunk_rows)
         d = dlogits_plain(h[sl], w, labels[sl], lse[sl], dlse[sl], dpick[sl])
         dh[sl] = dh_plain(d, w).to(h.dtype)
-        dw += dw_plain(h[sl], d)
+        if need_dw:
+            dw += dw_plain(h[sl], d)
         del d
-    return dh, dw.to(w.dtype)
+    return dh, (dw.to(w.dtype) if need_dw else None)
 
 
 class LseAndPick(torch.autograd.Function):
@@ -445,10 +454,14 @@ class LseAndPick(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dlse, dpick):
         h, w, labels, lse = ctx.saved_tensors
+        # a frozen head (PEFT) needs no dW: neither route computes it
+        need_dw = ctx.needs_input_grad[1]
         if ctx.impl == "kernel":
-            dh, dw = linear_ce_bwd_cuda(h, w, labels, lse, dlse, dpick)
+            dh, dw = linear_ce_bwd_cuda(h, w, labels, lse, dlse, dpick,
+                                        need_dw=need_dw)
         else:
-            dh, dw = lse_and_pick_bwd_plain(h, w, labels, lse, dlse, dpick)
+            dh, dw = lse_and_pick_bwd_plain(h, w, labels, lse, dlse, dpick,
+                                            need_dw=need_dw)
         return dh, dw, None, None
 
 

@@ -28,9 +28,28 @@ a time, with optax's dtypes and the JAX step's arithmetic:
 
 Weight decay goes on every parameter except those named in
 ``_NO_WEIGHT_DECAY_LEAF_NAMES``, as in the JAX decay mask; each param
-group carries ``wd_mult`` (1, or 0 for no-decay leaves and for Adam), and
-the schedule sets ``lr`` and ``weight_decay`` on the groups before each
-step (:func:`set_hyperparams`).  ``nu`` in fp32 costs 2 bytes per
+group carries ``wd_mult`` (1, or 0 for no-decay leaves and for Adam) and
+``lr_mult``, and the schedule sets ``lr`` and ``weight_decay`` on the
+groups before each step (:func:`set_hyperparams`).  ``param_groups``
+(``[{"params": [patterns], "lr_mult": x, "wd_mult": y}]``) sets the
+multipliers per parameter, the first group whose wildcard pattern matches
+the parameter's name winning; the names are the JAX leaf paths when the
+caller passes them (the recipe does:
+``utils/model_utils.py::jax_named_parameters``), and frozen parameters
+(``requires_grad=False``) are never in a group -- the JAX builder's
+resolution against the trainable subtree.  A no-decay leaf keeps
+``wd_mult`` 0 whatever its group says.  The chain is then ``u = fma(wd
+wd_mult, p, u)``, ``u = (u (-lr)) lr_mult`` and ``p + u`` when ``lr_mult``
+is not 1 (optax's ``_scale_by_tree`` after ``scale_by_learning_rate``).
+
+``grad_clip_norm`` is ``optax.clip_by_global_norm`` at the chain's head:
+the train step takes the global norm of the fp32 quotients first and,
+when it is not below the limit, hands each quotient to the update as
+``(g / norm) * max`` (``training/train_step.py::apply_updates``).
+``mask`` (``{leaf path: trainable}``, for a custom optimizer factory as
+in JAX) freezes the parameters it marks False: ``optax.masked`` gives them
+zero updates, so they are left out here.  SGD and Adafactor are not
+ported.  ``nu`` in fp32 costs 2 bytes per
 parameter more than bf16 moments; the update runs one parameter at a time,
 so no fp32 copy of the whole gradient exists.
 """
@@ -38,7 +57,7 @@ so no fp32 copy of the whole gradient exists.
 from __future__ import annotations
 
 from collections import defaultdict
-from typing import Iterable, Optional, Sequence, Tuple
+from typing import Dict, Iterable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -150,7 +169,10 @@ class OptaxAdam(torch.optim.Optimizer):
         pf = p if p.dtype == torch.float32 else p.float()
         if self.decoupled_weight_decay and group["wd_mult"] != 0.0:
             u.addcmul_(pf, wd)
-        pf.addcmul_(u, neg_lr)
+        if group.get("lr_mult", 1.0) == 1.0:
+            pf.addcmul_(u, neg_lr)
+        else:
+            pf.add_(u.mul_(neg_lr).mul_(group["lr_mult"]))
         if pf is not p:
             p.copy_(pf)
         state["step"] = count
@@ -187,6 +209,18 @@ class OptaxAdam(torch.optim.Optimizer):
             group.update({k: v for k, v in saved.items() if k != "params"})
 
 
+def _group_multipliers(name: str, param_groups) -> Tuple[float, float]:
+    """``(lr_mult, wd_mult)`` of the first group with a pattern matching
+    ``name`` (1, 1 when none does)."""
+    from automodel_tpu_torch.peft.module_matcher import wildcard_match
+
+    for g in param_groups or ():
+        pats = g.get("params") or g.get("patterns") or []
+        if any(wildcard_match(p, name) for p in pats):
+            return float(g.get("lr_mult", 1.0)), float(g.get("wd_mult", 1.0))
+    return 1.0, 1.0
+
+
 def build_optimizer(
     named_params: Iterable[Tuple[str, torch.nn.Parameter]],
     name: str = "adamw",
@@ -196,35 +230,52 @@ def build_optimizer(
     weight_decay: float = 0.0,
     mu_dtype=None,
     grad_dtype=torch.float32,
+    grad_clip_norm: Optional[float] = None,
+    param_groups: Optional[Sequence[dict]] = None,
+    mask: Optional[Dict[str, bool]] = None,
     **kwargs,
 ) -> OptaxAdam:
     """``name`` is the YAML target's last component (``AdamW``, ``Adam``);
-    ``lr``/``weight_decay`` are the base values the schedule starts from."""
+    ``lr``/``weight_decay`` are the base values the schedule starts from;
+    ``grad_clip_norm``, ``param_groups`` and ``mask`` as in the module
+    docstring."""
     for k in list(kwargs):
         if k in _IGNORED_TORCH_KWARGS:
             kwargs.pop(k)
     if kwargs:
-        raise NotImplementedError(
-            f"optimizer kwargs {sorted(kwargs)} are not ported (grad clip, "
-            "param_groups and masks come with later port slices)")
+        raise TypeError(
+            f"build_optimizer got unsupported kwargs {sorted(kwargs)}; "
+            f"torch-compat no-ops are {sorted(_IGNORED_TORCH_KWARGS)}")
     name = name.lower().replace("torch.optim.", "")
     if name not in ("adamw", "adam"):
         raise NotImplementedError(
-            f"optimizer {name!r} is not ported (AdamW and Adam are)")
-    params = [(n, p) for n, p in named_params if p.requires_grad]
-    decay = [p for n, p in params
-             if not any(x in n.split(".") for x in _NO_WEIGHT_DECAY_LEAF_NAMES)]
-    no_decay = [p for n, p in params
-                if any(x in n.split(".") for x in _NO_WEIGHT_DECAY_LEAF_NAMES)]
+            f"optimizer {name!r} is not ported (AdamW and Adam are; SGD and "
+            "Adafactor are not)")
+    named = list(named_params)
+    if mask is not None:
+        for n, p in named:
+            if not mask.get(n, True):
+                p.requires_grad_(False)
+    groups = [g.to_dict() if hasattr(g, "to_dict") else dict(g)
+              for g in (param_groups or ())]
     adamw = name == "adamw"
-    # Adam: no decay whatever the schedule says (the JAX chain has none)
-    groups = [{"params": decay, "wd_mult": 1.0 if adamw else 0.0}]
-    if no_decay:
-        groups.append({"params": no_decay, "wd_mult": 0.0})
-    opt = OptaxAdam(groups, lr=float(lr),
+    by_mults: Dict[Tuple[float, float], list] = {}
+    for n, p in named:
+        if not p.requires_grad:
+            continue
+        lr_mult, wd_mult = _group_multipliers(n, groups)
+        # Adam: no decay whatever the schedule says (the JAX chain has none)
+        if not adamw or any(x in n.split(".")
+                            for x in _NO_WEIGHT_DECAY_LEAF_NAMES):
+            wd_mult = 0.0
+        by_mults.setdefault((lr_mult, wd_mult), []).append(p)
+    opt = OptaxAdam([{"params": ps, "lr_mult": lm, "wd_mult": wm}
+                     for (lm, wm), ps in by_mults.items()],
+                    lr=float(lr),
                     betas=(float(betas[0]), float(betas[1])), eps=float(eps),
                     decoupled_weight_decay=adamw, mu_dtype=_dtype(mu_dtype),
                     grad_dtype=_dtype(grad_dtype))
+    opt.grad_clip_norm = float(grad_clip_norm) if grad_clip_norm else None
     set_hyperparams(opt, lr=float(lr), wd=float(weight_decay or 0.0))
     return opt
 

@@ -20,6 +20,12 @@ and a background failure surfaces there as ``CheckpointSaveError``.
 replica only to a peer slice (``dcn_dp_size >= 2``), and the port runs
 one process.
 
+With PEFT (``checkpoint.is_peft``, set by the recipe) ``model/`` holds
+the adapters only, in the HF-PEFT format (``peft/lora.py::
+save_adapters``), as in the JAX package; the optimizer state covers the
+adapters alone, and a resume restores the adapters into the base that
+set-up rebuilt from the init seed.
+
 ``load_checkpoint`` resumes from ``checkpoint.restore_from`` or the newest
 committed checkpoint of ``checkpoint_dir``; the manifest is verified
 before any state is touched.  ``ckpt_timings`` records each save's loop
@@ -43,6 +49,11 @@ from automodel_tpu_torch.models.hf_io import (
     hf_state,
     load_hf_weights,
     save_hf_weights,
+)
+from automodel_tpu_torch.peft.lora import (
+    adapter_state,
+    load_adapters,
+    save_adapters,
 )
 
 logger = logging.getLogger(__name__)
@@ -120,7 +131,8 @@ class BaseRecipe:
             return final
         job = _SaveJob(
             epoch=epoch, step=step, final=final, cfg=cfg, model=self.model,
-            model_state=hf_state(self.model),
+            model_state=(adapter_state(self.model) if cfg.is_peft
+                         else hf_state(self.model)),
             optimizer=_to_cpu(self.optimizer.state_dict()),
             scheduler=_to_cpu(self.lr_scheduler.state_dict()),
             host_state=[(k, _to_cpu(o.state_dict()))
@@ -186,8 +198,12 @@ class BaseRecipe:
         cfg = job.cfg
         path = ckpt.prepare_staging(job.final, cfg)
         try:
-            save_hf_weights(job.model, os.path.join(path, "model"),
-                            state=job.model_state)
+            if cfg.is_peft:
+                save_adapters(job.model, os.path.join(path, "model"),
+                              state=job.model_state)
+            else:
+                save_hf_weights(job.model, os.path.join(path, "model"),
+                                state=job.model_state)
             optim = os.path.join(path, "optim")
             os.makedirs(optim, exist_ok=True)
             ckpt.save_stateful(optim, "optimizer", job.optimizer, cfg)
@@ -232,7 +248,10 @@ class BaseRecipe:
             raise FileNotFoundError(
                 f"checkpoint.restore_from={restore_from!r} does not exist")
         ckpt.verify_manifest(path)
-        load_hf_weights(self.model, os.path.join(path, "model"))
+        if cfg.is_peft:
+            load_adapters(self.model, os.path.join(path, "model"))
+        else:
+            load_hf_weights(self.model, os.path.join(path, "model"))
         optim = os.path.join(path, "optim")
         ckpt.load_stateful(optim, "optimizer", self.optimizer, cfg,
                            map_location=self.device)

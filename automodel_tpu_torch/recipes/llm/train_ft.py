@@ -33,6 +33,17 @@ the next batches while the card runs; host-to-device copies stay on the
 training thread.  Each step takes the loader's pending resume snapshot
 before it runs and commits it when it is done, as the JAX recipe does.
 
+``peft`` (LoRA / QLoRA: ``peft/lora.py``), ``freeze_config``
+(``utils/model_utils.py``) and ``max_grad_norm`` (default None: no clip)
+are read in the JAX recipe's order: the fp8 wrap, then LoRA (the base
+frozen, the adapters drawn from the rng's LoRA stream), then the freeze
+mask combined with LoRA's by AND, then the optimizer: a custom
+``_target_`` (not ``torch.optim.*``) is called with the mask and refused
+over an int8 base; otherwise ``max_grad_norm`` becomes ``grad_clip_norm``
+and ``param_groups`` resolve against the JAX paths of the trainable
+parameters.  The train step then trains the ``requires_grad`` parameters
+only.  Under PEFT a checkpoint holds the adapters, in the HF-PEFT format.
+
 ``compile`` is accepted and does nothing: the port runs eagerly and has no
 compiled program to cache (logged once; nothing is ``torch.compile``d).
 ``kernels.autotune: off`` (or absent) means the kernels' hand-chosen
@@ -48,10 +59,9 @@ checkpointing off nothing is saved and nothing resumed.
 
 Left out of this slice, each raising ``NotImplementedError`` when its
 knob is set (ROADMAP Queue 1 names where each lands): other checkpoint
-formats and PEFT checkpoints, pipeline / tensor / context / data
-parallelism, PEFT, kernel autotuning, remat policies other than
-``nothing_saveable``, gradient clipping, freezing, profiling, elastic
-recovery and W&B logging.
+formats, pipeline / tensor / context / data parallelism, kernel
+autotuning, remat policies other than ``nothing_saveable``, profiling,
+elastic recovery and W&B logging.
 
     python -m automodel_tpu_torch.recipes.llm.train_ft \\
         -c automodel_tpu_torch/examples/tiny_llama_sft.yaml --device cpu
@@ -73,7 +83,6 @@ from automodel_tpu_torch.config.loader import (
     ConfigNode,
     parse_args_and_load_config,
     resolve_target,
-    translate_target,
 )
 from automodel_tpu_torch.datasets.dataloader import StatefulDataLoader
 from automodel_tpu_torch.datasets.llm.packed_sequence import PackedSequence
@@ -86,6 +95,7 @@ from automodel_tpu_torch.ops.moe import (
 )
 from automodel_tpu_torch.optim.builder import build_optimizer, set_hyperparams
 from automodel_tpu_torch.optim.scheduler import OptimizerParamScheduler
+from automodel_tpu_torch.peft.lora import PeftConfig, build_lora
 from automodel_tpu_torch.quantization.fp8 import (
     apply_fp8_to_model,
     build_fp8_config,
@@ -95,10 +105,16 @@ from automodel_tpu_torch.training.rng import StatefulRNG
 from automodel_tpu_torch.training.step_scheduler import StepScheduler
 from automodel_tpu_torch.training.train_step import TrainStep, to_device_batch
 from automodel_tpu_torch.utils.device import resolve_device
+from automodel_tpu_torch.utils.model_utils import (
+    apply_parameter_freezing,
+    jax_named_parameters,
+    print_trainable_parameters,
+)
 
 logger = logging.getLogger(__name__)
 
 _MODEL_INIT_STREAM = 0      # rng stream of the weight init
+_LORA_INIT_STREAM = 1       # rng stream of the adapters and their dropout
 
 # Top-level sections the port reads; ``dist_env`` is accepted and unused
 # (one process).  Any other section raises.
@@ -107,12 +123,11 @@ _SECTIONS = {
     "distributed", "loss_fn", "dataset", "packed_sequence", "dataloader",
     "validation_dataset", "validation_dataloader", "optimizer",
     "lr_scheduler", "training", "device", "compile", "kernels", "moe",
-    "fp8",
+    "fp8", "peft", "freeze_config", "max_grad_norm",
 }
 _LATER = {
     "checkpoint_format": "Orbax / non-consolidated checkpoints (ROADMAP "
                          "Queue 1 item 7)",
-    "peft": "PEFT (ROADMAP Queue 1 item 8)",
     "pipeline": "pipeline parallelism (ROADMAP Queue 1 item 12)",
     "distributed": "multi-GPU (ROADMAP Queue 1 item 9)",
     "autotune": "kernel block-size autotuning (ROADMAP Queue 1 item 3; "
@@ -243,6 +258,26 @@ class TrainFinetuneRecipeForNextTokenPrediction(BaseRecipe):
         if fp8_cfg is not None:
             apply_fp8_to_model(self.model, build_fp8_config(fp8_cfg))
 
+        # PEFT (optional): the base frozen, adapters trainable
+        self.peft_config = None
+        mask = None
+        peft_cfg = cfg.get("peft")
+        if isinstance(peft_cfg, ConfigNode):
+            self.peft_config = (peft_cfg.instantiate()
+                                if "_target_" in peft_cfg.to_dict()
+                                else PeftConfig(**peft_cfg.to_dict()))
+            self.model, mask = build_lora(
+                self.model, self.peft_config,
+                seed=self.rng.seed_for(_LORA_INIT_STREAM))
+        # parameter freezing, combined with PEFT's mask by AND
+        if cfg.get("freeze_config") is not None:
+            freeze_mask = apply_parameter_freezing(self.model,
+                                                   cfg.get("freeze_config"))
+            mask = freeze_mask if mask is None else {
+                k: bool(v) and bool(freeze_mask[k]) for k, v in mask.items()}
+        if mask is not None:
+            print_trainable_parameters(self.model)
+
         loss_cfg = cfg.get("loss_fn")
         self.loss_fn = (loss_cfg.instantiate()
                         if isinstance(loss_cfg, ConfigNode)
@@ -255,13 +290,27 @@ class TrainFinetuneRecipeForNextTokenPrediction(BaseRecipe):
                       (opt_cfg.to_dict() if opt_cfg is not None else {}).items()
                       if k != "_target_"}
         target = opt_cfg.get("_target_") if opt_cfg is not None else None
-        if isinstance(target, str):
-            # ``torch.optim.AdamW`` is taken as a name, as the JAX builder
-            # does
-            opt_kwargs.setdefault(
-                "name", translate_target(target).rsplit(".", 1)[-1].lower())
-        self.optimizer = build_optimizer(self.model.named_parameters(),
-                                         grad_dtype=grad_dtype, **opt_kwargs)
+        named = list(jax_named_parameters(self.model))
+        if isinstance(target, str) and not target.startswith("torch.optim"):
+            if self.peft_config is not None and self.peft_config.quantize_base:
+                raise ValueError(
+                    "peft.quantize_base requires the built-in optimizer "
+                    "path (trainable-subtree gradients); a custom "
+                    "optimizer._target_ would differentiate the int8 base")
+            # custom optimizer factories own their masking, as in JAX
+            self.optimizer = resolve_target(target)(
+                named, mask=mask, grad_dtype=grad_dtype, **opt_kwargs)
+        else:
+            max_gn = cfg.get("max_grad_norm")
+            if max_gn is not None:
+                opt_kwargs.setdefault("grad_clip_norm", float(max_gn))
+            if isinstance(target, str):
+                # ``torch.optim.AdamW`` is taken as a name, as the JAX
+                # builder does
+                opt_kwargs.setdefault("name",
+                                      target.rsplit(".", 1)[-1].lower())
+            self.optimizer = build_optimizer(named, grad_dtype=grad_dtype,
+                                             **opt_kwargs)
         self.step_fns = TrainStep(self.model, self.optimizer, self.loss_fn,
                                   grad_dtype=grad_dtype)
         self._check_for_nan = bool(cfg.get("training.check_for_nan", True))
@@ -280,7 +329,7 @@ class TrainFinetuneRecipeForNextTokenPrediction(BaseRecipe):
         self.lr_scheduler = build_lr_scheduler(cfg.get("lr_scheduler"),
                                                opt_cfg, total)
         self.checkpoint_config = build_checkpoint_config(
-            cfg.get("checkpoint"))
+            cfg.get("checkpoint"), is_peft=self.peft_config is not None)
         if self.checkpoint_config.enabled:
             self.load_checkpoint()
         return self
@@ -332,6 +381,8 @@ class TrainFinetuneRecipeForNextTokenPrediction(BaseRecipe):
         self.lr_scheduler.step(1)
         set_hyperparams(self.optimizer, lr=self.lr_scheduler.current_lr,
                         wd=self.lr_scheduler.current_wd)
+        if self.peft_config is not None:
+            self.model.set_dropout_step(self.step_scheduler.step)
         t0 = time.perf_counter()
         metrics = self.step_fns.train_step(to_device_batch(batches,
                                                            self.device))

@@ -17,7 +17,16 @@ parameter.  After the microbatches each accumulated gradient is divided by
 the fp32 token count in fp32, the global norm is taken from those fp32
 quotients, and the optimizer (``optim/builder.py::OptaxAdam``, optax's
 chain) updates the parameter from the quotient -- one parameter at a time,
-so no fp32 copy of the whole gradient exists.
+so no fp32 copy of the whole gradient exists.  With the optimizer's
+``grad_clip_norm`` set (``max_grad_norm``), the norm is taken in a first
+pass over the quotients and each quotient is clipped as
+``optax.clip_by_global_norm`` does, ``(g / norm) * max`` unless ``norm <
+max``, before its update; the reported ``grad_norm`` is the norm before
+clipping, as optax's.
+
+The step trains the parameters that require gradients only: a frozen one
+(PEFT's base, ``freeze_config``) gets no gradient, no accumulation buffer
+and no optimizer state, as the JAX step's trainable-subtree mode.
 """
 
 from __future__ import annotations
@@ -94,16 +103,33 @@ def apply_updates(params: List[torch.Tensor],
     hand the quotient to ``optimizer.update`` and return the global L2
     norm of the quotients; one fp32 quotient exists at a time.  A
     parameter without a gradient is updated from zeros, as in the JAX
-    step."""
+    step.  The optimizer's ``grad_clip_norm`` clips the quotients by their
+    global norm, taken in a first pass."""
+
+    def quotient(i, p):
+        g = acc[i] if acc[i] is not None else p.grad
+        return (torch.zeros_like(p, dtype=torch.float32) if g is None
+                else g.to(torch.float32, copy=True).div_(denom))
+
+    def global_norm(norms):
+        return torch.linalg.vector_norm(torch.stack(norms))
+
+    clip = getattr(optimizer, "grad_clip_norm", None)
+    norm = None
+    if clip:
+        norm = global_norm([torch.linalg.vector_norm(quotient(i, p))
+                            for i, p in enumerate(params)])
+        below = norm < clip
     norms = []
     for i, p in enumerate(params):
-        g = acc[i] if acc[i] is not None else p.grad
-        q = (torch.zeros_like(p, dtype=torch.float32) if g is None
-             else g.to(torch.float32, copy=True).div_(denom))
+        q = quotient(i, p)
         acc[i] = p.grad = None
-        norms.append(torch.linalg.vector_norm(q))
+        if clip:
+            q = torch.where(below, q, q.div(norm).mul_(clip))
+        else:
+            norms.append(torch.linalg.vector_norm(q))
         optimizer.update(p, q)
-    return torch.linalg.vector_norm(torch.stack(norms))
+    return norm if clip else global_norm(norms)
 
 
 class TrainStep:

@@ -72,6 +72,17 @@ Phases (any failure exits non-zero without the final ``ok`` line):
    steps with the attention and linear-CE launch counts zeroed just before
    and read just after, the producer thread's host seconds, and a profiled
    window; its peak memory must stay below the MaskedCE phase's;
+   sft_peft: LoRA on ``automodel_tpu_torch/examples/llama3_2_1b_peft.yaml``
+   (the bench YAML plus rank-8 adapters on every ``*_proj``; the merge
+   path at 1.24 B parameters), sft_qlora_int8: the same with
+   ``--peft.quantize_base int8`` (the bypass over an int8 base): the
+   first step (adapter gradients) through the kernels against every
+   kernel's plain version, the timed steps with attention 2 x layers x
+   microbatches forward and layers x microbatches backward, linear-CE 1
+   forward and 8 dlogits and dh per microbatch and no dW (the tied head is
+   frozen), the base (weights, int8 codes and scales) bit for bit as it
+   was, the trainable count the JAX model's (``peft_trainable`` line), an
+   adapter save and load bit for bit, and peak memory below sft_bench's;
    sft_flash: the same YAML with the train step's attention on the flash
    rung (``attn_impl="flash"``): the first step against the plain
    attention, then the timed steps with the flash kernels held to 2
@@ -180,6 +191,8 @@ QUANT_GRAD_FLOOR_FACTOR = 3.0
 QUANT_GRAD_REL_L2_CAP = 0.6
 SFT_YAML = os.path.join(REPO, "automodel_tpu_torch", "examples",
                         "llama3_2_1b_sft.yaml")
+PEFT_YAML = os.path.join(REPO, "automodel_tpu_torch", "examples",
+                         "llama3_2_1b_peft.yaml")
 BENCH_YAML = os.path.join(REPO, "automodel_tpu_torch", "examples",
                           "llama3_2_1b_bench.yaml")
 SFT_WARMUP, SFT_STEPS, SFT_PROFILED = 2, 6, 2
@@ -1822,7 +1835,9 @@ def first_step_check(recipe, label, routes, compare, quantized=False,
     )
 
     model = recipe.model
-    names = [n for n, _ in model.named_parameters()]
+    # the trained parameters (under PEFT the adapters alone)
+    trained = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
+    names = [n for n, _ in trained]
     first = next(iter(recipe.dataloader))
     mb = {k: v[0] for k, v in to_device_batch(
         [{k: v[:rows] for k, v in first.items()}], recipe.device).items()}
@@ -1836,7 +1851,7 @@ def first_step_check(recipe, label, routes, compare, quantized=False,
         loss.backward()
         torch.cuda.synchronize()
         losses[name] = float(loss.detach())
-        grads[name] = [p.grad for p in model.parameters()]
+        grads[name] = [p.grad for _, p in trained]
         check(all(bool(torch.isfinite(g).all()) for g in grads[name]),
               f"{label} first step ({name}): non-finite gradient")
     model.zero_grad(set_to_none=True)
@@ -1938,6 +1953,53 @@ def quant_check_phase():
     return rows
 
 
+def lora_trainable_count(cfg, rank):
+    """Adapter parameters of rank ``rank`` on all seven projections of a
+    Llama config: layers x rank x sum over them of (in + out), the JAX
+    ``LoRAModel.num_trainable_params``."""
+    H, I = cfg.hidden_size, cfg.intermediate_size
+    q, kv = cfg.num_attention_heads * cfg.head_dim, \
+        cfg.num_key_value_heads * cfg.head_dim
+    shapes = ((H, q), (H, kv), (H, kv), (q, H), (H, I), (H, I), (I, H))
+    return cfg.num_hidden_layers * rank * sum(i + o for i, o in shapes)
+
+
+def peft_checks(recipe, label, base_before):
+    """After a PEFT phase's steps: the frozen base (every parameter and
+    buffer, an int8 base's codes and scales) bit for bit as before the
+    first step, and an adapter save then load bit for bit; prints a
+    ``peft_checks`` line."""
+    import tempfile
+
+    import torch
+
+    from automodel_tpu_torch.peft.lora import load_adapters, save_adapters
+
+    model = recipe.model
+    after = list(model.base_model.state_dict().values())
+    check(len(after) == len(base_before)
+          and all(torch.equal(a.cpu(), b) for a, b in zip(after,
+                                                          base_before)),
+          f"{label}: the frozen base changed during training")
+    params = list(model.adapters.parameters())
+    before = [p.detach().clone() for p in params]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_adapters_") as d:
+        save_adapters(model, d)
+        nbytes = sum(os.path.getsize(os.path.join(d, f))
+                     for f in os.listdir(d))
+        with torch.no_grad():
+            for p in params:
+                p.zero_()
+        load_adapters(model, d)
+    check(all(torch.equal(p.detach(), b) for p, b in zip(params, before)),
+          f"{label}: adapters saved and loaded differ")
+    out = dict(base_tensors=len(after), base_bit_identical=True,
+               adapter_round_trip_bit_identical=True, adapter_bytes=nbytes,
+               bypass=model.bypass)
+    print(f"{label} peft_checks " + json.dumps(out), flush=True)
+    return out
+
+
 def train_phase(label, yaml_path, overrides=(), bf16=None, attn_impl=None):
     """Set up the SFT recipe on ``yaml_path`` (plus CLI ``overrides``),
     check its first step, run
@@ -1956,7 +2018,11 @@ def train_phase(label, yaml_path, overrides=(), bf16=None, attn_impl=None):
     dw), the MoE experts run gmm_quant 9 times (and no bf16 gmm) beside
     the 3 bf16 tgmm, the first step is held against every kernel's plain
     version, and ``bf16`` (the same YAML's unquantized report) gives the
-    loss after 8 steps to print beside this one's.  ``attn_impl="flash"``
+    loss after 8 steps to print beside this one's.  Under PEFT (the PEFT
+    YAML) the first step's adapter gradients are held against every
+    kernel's plain version, the frozen tied head launches no linear-CE
+    dW, the trainable count must be the JAX model's, and the base must
+    come out of the steps bit for bit (``peft_checks``).  ``attn_impl="flash"``
     sends the train step's attention through the flash rung: its kernels
     are held to 2 forward launches per layer and microbatch and 1
     backward, the splash kernels to none, and the first step runs against
@@ -1989,6 +2055,7 @@ def train_phase(label, yaml_path, overrides=(), bf16=None, attn_impl=None):
     is_moe = hasattr(recipe.model, "gmm_impl")
     quant = recipe.model.quant
     quantized = quant is not None and quant.enabled
+    peft = recipe.peft_config
     ffn = (f"{mcfg.num_local_experts} experts of "
            f"{recipe.model.layer_cls.expert_inter(mcfg)}, top-"
            f"{mcfg.num_experts_per_tok}" if is_moe
@@ -2004,6 +2071,23 @@ def train_phase(label, yaml_path, overrides=(), bf16=None, attn_impl=None):
           f"{attn_impl or 'splash'}, loader "
           f"{type(recipe.dataloader).__name__}, "
           f"set up in {time.perf_counter() - t0:.1f} s", flush=True)
+    base_before = None
+    if peft is not None:
+        # the frozen base as it was before any step (host copies)
+        base_before = [t.cpu().clone() for t in
+                       recipe.model.base_model.state_dict().values()]
+        trainable = sum(p.numel() for p in recipe.model.parameters()
+                        if p.requires_grad)
+        want = lora_trainable_count(mcfg, peft.dim)
+        print(f"{label} peft_trainable " + json.dumps(dict(
+            trainable=trainable, jax_formula=want,
+            num_trainable_params=recipe.model.num_trainable_params,
+            rank=peft.dim, targets=sorted(recipe.model.targets),
+            bypass=recipe.model.bypass,
+            quantize_base=peft.quantize_base)), flush=True)
+        check(trainable == want == recipe.model.num_trainable_params,
+              f"{label}: {trainable} trainable parameters != the JAX "
+              f"model's {want}")
     gmm_rows = None
     if is_moe:
         gmm_rows = (gmm_quant_phase if quantized else gmm_phase)(
@@ -2014,7 +2098,15 @@ def train_phase(label, yaml_path, overrides=(), bf16=None, attn_impl=None):
               "not the async input pipeline")
         plain = FusedLinearCrossEntropy(chunk_len=recipe.loss_fn.chunk_len,
                                         impl="plain")
-    if is_moe or quantized:
+    if peft is not None:
+        # the adapters' gradients, every kernel against its plain version
+        first_step_check(
+            recipe, label,
+            [("kernel", recipe.loss_fn, "kernel"),
+             ("plain", plain, "plain"),
+             ("kernel_again", recipe.loss_fn, "kernel")],
+            [("kernel", "plain")])
+    elif is_moe or quantized:
         # every kernel of the path against its plain version
         first_step_check(
             recipe, label,
@@ -2094,8 +2186,9 @@ def train_phase(label, yaml_path, overrides=(), bf16=None, attn_impl=None):
           f"{label}: the other attention rung launched {other_counts}")
     rows = B * S // recipe.step_scheduler.grad_acc_steps
     per_call = lce.bwd_launches_per_call(rows)
+    # a frozen head (PEFT) takes no dW
     want = (dict(fwd=micro, dlogits=micro * per_call, dh=micro * per_call,
-                 dw=micro * per_call) if fused
+                 dw=0 if peft is not None else micro * per_call) if fused
             else dict.fromkeys(lce_counts, 0))
     check(lce_counts == want,
           f"{label}: linear-CE launches {lce_counts} != {want} ({micro} "
@@ -2159,6 +2252,8 @@ def train_phase(label, yaml_path, overrides=(), bf16=None, attn_impl=None):
           or prof["attention_ms_per_step"] > 0,
           f"{label}: the profile counts no attention kernel by name")
     report["gmm_cases"] = gmm_rows
+    if peft is not None:
+        report["peft"] = peft_checks(recipe, label, base_before)
     return report
 
 
@@ -2371,6 +2466,15 @@ def main():
     check(bench["peak_mem_bytes"] < sft["peak_mem_bytes"],
           f"sft_bench peak memory {bench['peak_mem_bytes']} is not below the "
           f"MaskedCE sft phase's {sft['peak_mem_bytes']}")
+    peft_runs = {}
+    for label, over in (("sft_peft", ()),
+                        ("sft_qlora_int8", ("--peft.quantize_base", "int8"))):
+        torch.cuda.empty_cache()
+        peft_runs[label] = train_phase(label, PEFT_YAML, over)
+        phase_done(label)
+        check(peft_runs[label]["peak_mem_bytes"] < bench["peak_mem_bytes"],
+              f"{label} peak memory {peft_runs[label]['peak_mem_bytes']} is "
+              f"not below sft_bench's {bench['peak_mem_bytes']}")
     torch.cuda.empty_cache()
     sft_flash = train_phase("sft_flash", BENCH_YAML, attn_impl="flash")
     phase_done("sft_flash")
@@ -2429,6 +2533,8 @@ def main():
             "causal_ms": causal["ms"],
             "causal_library_ms": causal["library_ms"],
         })
+        for name_, run in peft_runs.items():
+            kernels[-1][f"{name_}_launches"] = run[f"{part}_launches"]
     rep = lce_cases[0]
     errs = dict(
         fwd=max(max(c["fwd"]["lse_max_abs_err"], c["fwd"]["pick_max_abs_err"])
@@ -2451,6 +2557,8 @@ def main():
             "library_ms": got["library_ms"],
         })
         kernels[-1]["redesigned"] = "wgmma + TMA, persistent"
+        for name_, run in peft_runs.items():      # 0 dW: the head is frozen
+            kernels[-1][f"{name_}_launches"] = run["linear_ce_launches"][part]
         if part == "fwd":
             kernels[-1]["product_ms"] = got["product_ms"]
         if part == "dlogits":

@@ -1267,3 +1267,109 @@ def test_cuda_flash_refuses_what_it_does_not_take(cuda_device):
                 q.transpose(2, 3)):
         with pytest.raises(ValueError):
             fa.flash_mha_fwd_cuda(bad, bad, bad, None, True, 0.125)
+
+
+# ---------------------------------------------------------------------------
+# LoRA / QLoRA: a frozen head (no dW), and one step against its CPU run
+# ---------------------------------------------------------------------------
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk_rows", [2048, 96], ids=["one_chunk", "chunks"])
+@pytest.mark.parametrize("case", [c for c in LCE_CASES
+                                  if c[0] != "all_ignored"],
+                         ids=[c[0] for c in LCE_CASES
+                              if c[0] != "all_ignored"])
+def test_cuda_linear_ce_frozen_head_launches_no_dw(case, chunk_rows,
+                                                   cuda_device):
+    """Without ``need_dw`` (a frozen head) the backward launches dlogits and
+    dh per chunk and no dW, and its dh equals the full backward's bit for
+    bit; through autograd a head that needs no gradient gets none."""
+    from automodel_tpu_torch.ops import linear_ce_kernel as lce
+
+    name, T, H, V, lo, hi = case
+    h, w, labels, dlse, dpick = make_lce_case(T, H, V, lo, hi)
+    lse, _ = lce.linear_ce_fwd_cuda(h, w, labels)
+    dh_full, _ = lce.linear_ce_bwd_cuda(h, w, labels, lse, dlse, dpick,
+                                        chunk_rows=chunk_rows)
+    c0 = (lce.dlogits_launches, lce.dh_launches, lce.dw_launches)
+    dh, dw = lce.linear_ce_bwd_cuda(h, w, labels, lse, dlse, dpick,
+                                    chunk_rows=chunk_rows, need_dw=False)
+    torch.cuda.synchronize()
+    n = lce.bwd_launches_per_call(T, chunk_rows)
+    assert dw is None
+    assert (lce.dlogits_launches, lce.dh_launches, lce.dw_launches) == (
+        c0[0] + n, c0[1] + n, c0[2])
+    assert torch.equal(dh, dh_full)
+    hh = h.clone().requires_grad_(True)
+    d0 = lce.dw_launches
+    lse, pick = lce.lse_and_pick(hh, w, labels)
+    (lse * dlse - pick * dlse).sum().backward()
+    torch.cuda.synchronize()
+    assert lce.dw_launches == d0 and w.grad is None
+    assert hh.grad is not None and bool(torch.isfinite(hh.grad).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quantize", [None, "int8"],
+                         ids=["merge", "qlora_int8"])
+def test_cuda_lora_step_matches_its_cpu_run(quantize, cuda_device):
+    """One LoRA microbatch (merge; QLoRA: the bypass over an int8 base) of
+    a small Llama with the fused linear CE: bf16 on the card through the
+    attention and linear-CE kernels against the same weights in fp32 on
+    the CPU (plain versions), within the first-step limits of
+    ``chip_smoke.py`` (loss 1 %, adapter gradients 10 % relative L2; the
+    same bf16 model on the CPU is 0.03 % / 1 % from fp32); the
+    card launches 2 x layers attention forwards, layers backwards, one
+    linear-CE forward, one dlogits and one dh, and no dW (the tied head is
+    frozen)."""
+    from automodel_tpu_torch.loss.linear_ce import FusedLinearCrossEntropy
+    from automodel_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from automodel_tpu_torch.ops import linear_ce_kernel as lce
+    from automodel_tpu_torch.ops import splash_attention as sa
+    from automodel_tpu_torch.peft.lora import LoRAModel, PeftConfig
+    from automodel_tpu_torch.training.train_step import microbatch_loss
+
+    cfg = LlamaConfig(vocab_size=1000, hidden_size=256, intermediate_size=512,
+                      num_hidden_layers=2, num_attention_heads=4,
+                      num_key_value_heads=2, rope_theta=10000.0)
+    peft = PeftConfig(target_modules=["*_proj"], dim=8, alpha=16,
+                      quantize_base=quantize)
+    models = {}
+    for dev, dtype in (("cpu", torch.float32), ("cuda", torch.bfloat16)):
+        base = LlamaForCausalLM(cfg, param_dtype=dtype, compute_dtype=dtype,
+                                device=dev).init_weights(0)
+        models[dev] = LoRAModel(base, peft, seed=1)
+    # random adapters (a constant B makes dA a sum that cancels, which
+    # bf16 cannot resolve: ~100 % apart from fp32 on the CPU alone)
+    gen = torch.Generator().manual_seed(4)
+    with torch.no_grad():
+        for p in models["cpu"].adapters.parameters():
+            p.add_(0.02 * torch.randn(p.shape, generator=gen))
+    models["cuda"].load_state_dict(models["cpu"].state_dict())
+    assert models["cuda"].bypass == (quantize is not None)
+    rng = np.random.default_rng(3)
+    B, S = 2, 300
+    ids = rng.integers(1, 1000, (B, S)).astype(np.int32)
+    labels = ids.copy()
+    labels[:, -40:] = -100
+    out = {}
+    for dev, model in models.items():
+        mb = {"input_ids": torch.from_numpy(ids).to(dev),
+              "labels": torch.from_numpy(labels).to(dev)}
+        c0 = (sa.fwd_launches, sa.bwd_launches, lce.fwd_launches,
+              lce.dlogits_launches, lce.dh_launches, lce.dw_launches)
+        loss = microbatch_loss(model, FusedLinearCrossEntropy(chunk_len=1024),
+                               mb)
+        loss.backward()
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            got = tuple(a - b for a, b in zip(
+                (sa.fwd_launches, sa.bwd_launches, lce.fwd_launches,
+                 lce.dlogits_launches, lce.dh_launches, lce.dw_launches), c0))
+            assert got == (4, 2, 1, 1, 1, 0)
+        assert all(p.grad is None for p in model.base_model.parameters())
+        out[dev] = (float(loss.detach()), torch.cat(
+            [p.grad.float().flatten().cpu()
+             for p in model.adapters.parameters()]))
+    (lk, gk), (lp, gp) = out["cuda"], out["cpu"]
+    assert abs(lk - lp) <= 1e-2 * abs(lp)
+    assert rel_l2(gk, gp) < 1e-1

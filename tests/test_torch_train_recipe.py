@@ -121,14 +121,13 @@ UNPORTED = [
     ("tp", ["--distributed.tp_size", "2"]),
     ("cp", ["--distributed.cp_size", "2"]),
     ("pp", ["--distributed.pp_size", "2"]),
-    ("peft", ["--peft.dim", "8"]),
     ("autotune", ["--kernels.autotune", "on"]),
     ("remat_policy", ["--model.remat_policy", "save_names:attn_core"]),
     ("linear_ce_xla_bwd", ["--loss_fn._target_",
                            "automodel_tpu.loss.linear_ce."
                            "FusedLinearCrossEntropy",
                            "--loss_fn.bwd_mode", "xla"]),
-    ("grad_clip", ["--max_grad_norm", "1.0"]),
+    ("sgd", ["--optimizer._target_", "torch.optim.SGD"]),
 ]
 
 
@@ -139,6 +138,30 @@ def test_unported_knobs_raise(overrides):
                                       *overrides])
     with pytest.raises(NotImplementedError):
         train_ft.TrainFinetuneRecipeForNextTokenPrediction(cfg).setup()
+
+
+PORTED_SINCE = [
+    ("peft", ["--peft.dim", "8"]),
+    ("grad_clip", ["--max_grad_norm", "1.0"]),
+    ("freeze", ["--freeze_config.freeze_embeddings", "true"]),
+    ("param_groups", ["--optimizer.param_groups",
+                      "[{'params': ['*norm*'], 'lr_mult': 2.0}]"]),
+]
+
+
+@pytest.mark.parametrize("overrides", [o for _, o in PORTED_SINCE],
+                         ids=[n for n, _ in PORTED_SINCE])
+def test_knobs_refused_before_train(overrides):
+    """PEFT, the gradient clip, freezing and param groups (refused by
+    earlier slices of the port) set up and take a step with finite
+    metrics."""
+    cfg = parse_args_and_load_config(["-c", PORT_YAML, "--device", "cpu",
+                                      "--step_scheduler.max_steps", "1",
+                                      *overrides])
+    recipe = train_ft.TrainFinetuneRecipeForNextTokenPrediction(cfg).setup()
+    recipe.run_train_validation_loop()
+    m = recipe.history[0]
+    assert np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"])
 
 
 def test_checkpoint_knob_runs(tmp_path):
