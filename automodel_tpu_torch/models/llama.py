@@ -11,9 +11,12 @@ weights live in ``param_dtype`` and each projection casts its weight to
 
 Two forwards: without a cache (training and scoring: packed ``segment_ids``,
 a padding mask and per-sample ``position_ids``, attention through
-``ops/attention.py`` -- the hand-written CUDA kernels on the card -- and
-each layer rematerialized under ``torch.utils.checkpoint`` when gradients
-are recorded, as the JAX model's ``nothing_saveable`` default does), and
+``ops/attention.py`` -- the hand-written CUDA kernels on the card -- and,
+when gradients are recorded, each unit of ``scan_block`` layers
+rematerialized under the ``remat_policy`` (``ops/remat.py``; the JAX
+model's default ``nothing_saveable`` keeps only the unit's input; the
+attention output is tagged ``attn_core`` and ``silu(gate) * up``
+``mlp_silu``, as in JAX)), and
 with a :class:`~automodel_tpu_torch.serving.kv_cache.PagedKVView` (the
 serving path: each layer writes its k/v into the paged pools, then attends
 through ``ops/paged_attention.py``).  The feed-forward block is a hook
@@ -41,6 +44,8 @@ for later port slices.
 from __future__ import annotations
 
 import dataclasses
+import functools
+import logging
 import zlib
 from typing import Any, Dict, List, NamedTuple, Optional
 
@@ -54,10 +59,15 @@ from automodel_tpu_torch.ops.attention import (
 )
 from automodel_tpu_torch.ops.norms import rms_norm
 from automodel_tpu_torch.ops.quant import maybe_qdot
-from automodel_tpu_torch.ops.remat import checkpoint_layer, resolve_remat_policy
+from automodel_tpu_torch.ops.remat import (
+    checkpoint_layer,
+    checkpoint_name,
+    resolve_remat_policy,
+)
 from automodel_tpu_torch.ops.rotary import apply_rope, rope_parameters
 from automodel_tpu_torch.utils.device import resolve_device
 
+logger = logging.getLogger(__name__)
 
 @dataclasses.dataclass
 class LlamaConfig:
@@ -203,8 +213,12 @@ class LlamaDecoderLayer(nn.Module):
 
 class LlamaForCausalLM(nn.Module):
     """``device`` None is ``cuda`` (raises without a card); tests pass
-    ``device="cpu"``.  ``remat`` recomputes each layer in the backward
-    pass (policy ``nothing_saveable``, the JAX model's default)."""
+    ``device="cpu"``.  ``remat`` recomputes each unit of ``scan_block``
+    layers in the backward pass, keeping what ``remat_policy`` names
+    (``ops/remat.py``; default ``nothing_saveable``, the JAX model's).
+    ``scan_block`` must be >= 1 and divide the layer count, as in JAX;
+    ``scan_unroll`` (the JAX ``lax.scan`` unroll) is accepted and has no
+    effect on an eager model."""
 
     layer_cls = LlamaDecoderLayer
 
@@ -212,7 +226,7 @@ class LlamaForCausalLM(nn.Module):
                  param_dtype=torch.float32, compute_dtype=torch.bfloat16,
                  remat: bool = True,
                  remat_policy: Optional[str] = "nothing_saveable",
-                 device=None):
+                 scan_unroll: int = 1, scan_block: int = 1, device=None):
         super().__init__()
         if config.attention_bias:
             raise NotImplementedError(
@@ -226,6 +240,19 @@ class LlamaForCausalLM(nn.Module):
         self.compute_dtype = as_dtype(compute_dtype)
         self.remat = bool(remat)
         self.remat_policy = resolve_remat_policy(remat_policy)
+        L = config.num_hidden_layers
+        if scan_block < 1:
+            raise ValueError(f"model.scan_block must be >= 1, got "
+                             f"{scan_block}")
+        if scan_block > 1 and L % scan_block:
+            raise ValueError(
+                f"model.scan_block={scan_block} must divide "
+                f"num_hidden_layers={L}")
+        self.scan_block = int(scan_block)
+        if scan_unroll != 1:
+            logger.info("model.scan_unroll=%s: the port runs its layers in "
+                        "an eager loop, which has nothing to unroll; the "
+                        "knob does nothing here", scan_unroll)
         self.sliding_window = _sliding_window(config)
         cfg, dt = config, self.param_dtype
         self.embed_tokens = nn.Embedding(cfg.vocab_size, cfg.hidden_size,
@@ -309,6 +336,7 @@ class LlamaForCausalLM(nn.Module):
                              causal=True, segment_ids=segment_ids,
                              local_window_size=self.sliding_window,
                              impl=attn_impl)
+            attn = self._tag(attn, "attn_core")
         return hidden + self._proj(layer.o_proj, attn.reshape(B, S, Hq * D),
                                    "self_attn.o_proj")
 
@@ -317,9 +345,32 @@ class LlamaForCausalLM(nn.Module):
         seam the MoE families replace (routed experts return the layer's
         routing statistics for the load-balancing loss; dense gives
         None)."""
-        act = F.silu(self._proj(layer.gate_proj, x, "mlp.gate_proj")) \
-            * self._proj(layer.up_proj, x, "mlp.up_proj")
+        act = self._tag(
+            F.silu(self._proj(layer.gate_proj, x, "mlp.gate_proj"))
+            * self._proj(layer.up_proj, x, "mlp.up_proj"), "mlp_silu")
         return self._proj(layer.down_proj, act, "mlp.down_proj"), None
+
+    def _tag(self, x: torch.Tensor, name: str) -> torch.Tensor:
+        """``x`` tagged ``name`` for the remat policy (a copy) when the
+        policy keeps that tag and gradients are recorded, else ``x`` (the
+        same answer in the forward and its recomputation)."""
+        if (self.remat and name in self.remat_policy.names
+                and torch.is_grad_enabled()):
+            return checkpoint_name(x, name)
+        return x
+
+    def _block(self, hidden, position_ids, segment_ids, *, first: int,
+               attn_impl, adapters):
+        """Layers ``first .. first + scan_block - 1`` (one checkpointed
+        unit; ``adapters`` holds theirs, or is None) -> ``(hidden, [aux |
+        None per layer])``."""
+        auxes = []
+        for j in range(self.scan_block):
+            hidden, aux = self._layer(
+                self.layers[first + j], hidden, position_ids, segment_ids,
+                None, attn_impl, adapters[j] if adapters else None)
+            auxes.append(aux)
+        return hidden, auxes
 
     def _layer(self, layer: LlamaDecoderLayer, hidden, position_ids,
                segment_ids, kv_cache, attn_impl, adapters=None):
@@ -410,14 +461,27 @@ class LlamaForCausalLM(nn.Module):
                  and torch.is_grad_enabled())
         hidden = self.embed_tokens.weight[input_ids].to(self.compute_dtype)
         aux_losses = []
-        for i, layer in enumerate(self.layers):
-            view = kv_cache.layer_view(i) if kv_cache is not None else None
-            args = (layer, hidden, position_ids, segment_ids, view,
+        if remat:
+            k = self.scan_block
+            for first in range(0, len(self.layers), k):
+                # the unit's adapters ride the closure: the checkpoint
+                # saves an RNG state per CUDA tensor among its arguments
+                unit = functools.partial(
+                    self._block, first=first, attn_impl=attn_impl,
+                    adapters=adapters[first:first + k] if adapters else None)
+                hidden, auxes = checkpoint_layer(
+                    unit, hidden, position_ids, segment_ids,
+                    policy=self.remat_policy)
+                aux_losses += [a for a in auxes if a is not None]
+        else:
+            for i, layer in enumerate(self.layers):
+                view = (kv_cache.layer_view(i) if kv_cache is not None
+                        else None)
+                hidden, aux = self._layer(
+                    layer, hidden, position_ids, segment_ids, view,
                     attn_impl, adapters[i] if adapters else None)
-            hidden, aux = (checkpoint_layer(self._layer, *args) if remat
-                           else self._layer(*args))
-            if aux is not None:
-                aux_losses.append(aux)
+                if aux is not None:
+                    aux_losses.append(aux)
         hidden = self.norm(hidden)
         # tied: the head is the embedding, whose gradient sums both uses
         head = (self.embed_tokens.weight if self.lm_head is None

@@ -27,8 +27,11 @@ take (the kernels take bf16, head_dim 64 or 128, self-attention, any
 sequence length); they allocate outputs and scratch (the per-tile segment
 ranges, delta) with ``torch`` on the current stream and raise if a launch
 failed.  ``fwd_launches`` / ``bwd_launches`` count the
-launches.  There is no fallback: :func:`splash_attention_bshd` takes the
-plain versions only for CPU tensors or when asked by ``impl="plain"``.
+launches, ``plain_fwd_calls`` the plain forwards.  A remat policy can
+keep the forward's ``(out, lse)`` (``ops/remat.py``, tag
+``splash_residuals``).  There is no fallback:
+:func:`splash_attention_bshd` takes the plain versions only for CPU
+tensors or when asked by ``impl="plain"``.
 """
 
 from __future__ import annotations
@@ -44,12 +47,15 @@ from automodel_tpu_torch.ops.attention import (
 )
 from automodel_tpu_torch.ops.attention_plan import tile_meta_workspace
 from automodel_tpu_torch.ops.kernel_lib.build import ptr
+from automodel_tpu_torch.ops.remat import kept
 
 HEAD_DIMS = (64, 128)
 
-# kernel launches in this process (reset by callers that count a window)
+# kernel launches in this process (reset by callers that count a window),
+# and the plain forward's calls through the op
 fwd_launches = 0
 bwd_launches = 0
+plain_fwd_calls = 0
 
 _fns = {}
 
@@ -274,9 +280,12 @@ def splash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
 
 class SplashAttention(torch.autograd.Function):
     """Forward and backward of one attention call: the kernels
-    (``impl="kernel"``) or the plain versions (``impl="plain"``).  Saves
-    ``(q, k, v, out, lse)``; under ``torch.utils.checkpoint`` the forward
-    runs again in the backward pass and saves them anew."""
+    (``impl="kernel"``) or the plain versions (``impl="plain"``, counted
+    in ``plain_fwd_calls``).  Saves ``(q, k, v, out, lse)``; under
+    ``torch.utils.checkpoint`` the forward runs again in the backward pass
+    and saves them anew, unless the remat policy keeps ``(out, lse)`` (tag
+    ``splash_residuals``, ``ops/remat.py::kept``): then the recomputation
+    hands back the forward's and no forward kernel launches."""
 
     @staticmethod
     def forward(ctx, q, k, v, segment_ids, causal, scale, logits_soft_cap,
@@ -284,10 +293,15 @@ class SplashAttention(torch.autograd.Function):
         kw = dict(causal=causal, segment_ids=segment_ids, scale=scale,
                   logits_soft_cap=logits_soft_cap,
                   local_window_size=local_window_size)
-        if impl == "kernel":
-            out, lse = flash_attn_fwd_cuda(q, k, v, **kw)
-        else:
-            out, lse = splash_attention_plain(q, k, v, **kw)
+
+        def compute():
+            global plain_fwd_calls
+            if impl == "kernel":
+                return flash_attn_fwd_cuda(q, k, v, **kw)
+            plain_fwd_calls += 1
+            return splash_attention_plain(q, k, v, **kw)
+
+        out, lse = kept("splash_residuals", compute)
         ctx.save_for_backward(q, k, v, out, lse, segment_ids)
         ctx.kw = kw
         ctx.impl = impl

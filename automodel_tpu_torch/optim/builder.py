@@ -126,8 +126,11 @@ class OptaxAdam(torch.optim.Optimizer):
                       _bias_correction(b1, count),
                       _round(group["weight_decay"], hp),
                       -_round(group["lr"], hp)]
-            t = torch.tensor([float(v) for v in values], dtype=torch.float32,
-                             device=device)
+            t = torch.tensor([float(v) for v in values], dtype=torch.float32)
+            if torch.device(device).type == "cuda":
+                # from pinned memory without waiting: a pageable copy
+                # would wait for the card's queued work (the backward)
+                t = t.pin_memory().to(device, non_blocking=True)
             self._scalars = (key, t.unbind())
         return self._scalars[1]
 

@@ -29,11 +29,14 @@ set-up rebuilt from the init seed.
 ``load_checkpoint`` resumes from ``checkpoint.restore_from`` or the newest
 committed checkpoint of ``checkpoint_dir``; the manifest is verified
 before any state is touched.  ``ckpt_timings`` records each save's loop
-stall and background commit time in seconds and its bytes.
+stall and background commit time in seconds and its bytes; a recipe with
+``timers`` (``training/timers.py``) also times them as ``ckpt_stall`` and
+``ckpt_background``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import logging
 import os
@@ -101,6 +104,12 @@ class BaseRecipe:
     _inflight_save: Optional[Dict[str, Any]] = None
     _resumed_from: Optional[str] = None
 
+    def _record_timer(self, name: str):
+        timers = getattr(self, "timers", None)
+        if timers is None:
+            return contextlib.nullcontext()
+        return timers.record(name)
+
     def _tracked(self) -> List[tuple]:
         return [(k, getattr(self, k)) for k in TRACKED_STATE
                 if getattr(self, k, None) is not None]
@@ -108,10 +117,15 @@ class BaseRecipe:
     # -- save ---------------------------------------------------------------
     def save_checkpoint(self, epoch: int, step: int) -> str:
         """Save (inline) or snapshot and hand to the committer (async);
-        returns the final path the commit lands at."""
+        returns the final path the commit lands at.  The time it blocks
+        the loop is the ``ckpt_stall`` timer."""
         cfg = self.checkpoint_config
         if not cfg.enabled:
             return ""
+        with self._record_timer("ckpt_stall"):
+            return self._save_checkpoint(epoch, step, cfg)
+
+    def _save_checkpoint(self, epoch: int, step: int, cfg) -> str:
         t0 = time.perf_counter()
         self.join_pending_save()
         final = os.path.join(cfg.checkpoint_dir,
@@ -163,7 +177,8 @@ class BaseRecipe:
     def _commit_in_background(self, job: _SaveJob, holder: Dict) -> None:
         t0 = time.perf_counter()
         try:
-            self._run_commit_protocol(job)
+            with self._record_timer("ckpt_background"):
+                self._run_commit_protocol(job)
         except BaseException as e:          # surfaced at the next join
             holder["error"] = e
             logger.exception("background checkpoint commit of %s failed",

@@ -13,10 +13,22 @@ as in the JAX recipe, so every dense projection runs through the ``qdot``
 kernel and the MoE experts through ``gmm_quant`` on the card), plus a
 top-level
 ``device`` (default ``cuda``; the recipe raises without a card unless
-``device: cpu``).  The hot loop is eager PyTorch
-(``training/train_step.py``): stack the microbatches, move them to the
-device, one forward/backward per microbatch, one optimizer step, then log
-``loss``, ``grad_norm``, ``lr``, tokens/s and the peak device memory.
+``device: cpu``), ``profiling`` and ``wandb``.  The hot loop is eager
+PyTorch (``training/train_step.py``): stack the microbatches, move them to
+the device, one forward/backward per microbatch, one optimizer step, then
+log ``loss``, ``grad_norm``, ``lr``, tokens/s and the peak device memory.
+
+The loop is the JAX recipe's: no step ends in a device sync.  A step's
+metrics come back packed in one device tensor, are copied to pinned host
+memory behind an event, and are read after the next step is dispatched
+(``_finalize_metrics``), so they are logged, checked for NaN and appended
+to ``history`` one step late; ``flush_metrics`` drains the pending step
+before validation, a checkpoint and the loop's end.  With the async input
+pipeline (``prefetch_depth > 0``) the loop also stages batch N+1 onto the
+card on a copy stream while step N runs (``_pull_staged``), commits the
+loader's resume snapshot when a group is dispatched and holds the step
+scheduler at the dispatched step during the bookkeeping; ``prefetch_depth:
+0`` keeps the synchronous epoch (stage, then dispatch).
 
 The losses are the JAX package's: ``MaskedCrossEntropy`` (default),
 ``ChunkedCrossEntropy`` and ``FusedLinearCrossEntropy`` (the bench YAML's;
@@ -30,8 +42,18 @@ microbatch's loss.
 ``dataloader.prefetch_depth > 0`` wraps the loaders in the async input
 pipeline (``datasets/prefetch.py``): a producer thread reads and collates
 the next batches while the card runs; host-to-device copies stay on the
-training thread.  Each step takes the loader's pending resume snapshot
-before it runs and commits it when it is done, as the JAX recipe does.
+training thread, on the copy stream.
+
+``profiling`` (``training/timers.py``; the section's presence turns it
+on): ``data_wait``, ``data_staging`` / ``data_staging_overlap``,
+``dispatch`` (or ``step_e2e`` with ``barrier: true``) and the checkpoint
+timers, logged every ``log_interval`` steps as a ``time (ms)`` line with
+``ckpt_stall_fraction`` and ``input_idle_fraction``; with ``trace_dir`` a
+``torch.profiler`` window over the steps ``[trace_start_step,
+trace_stop_step)`` written as a Chrome trace.  ``wandb`` is optional: the
+section's keys go to ``wandb.init``, and without the package a warning is
+logged and training goes on.  SIGTERM and SIGINT (the first ^C) take a
+checkpoint at the next step boundary and return with ``preempted`` set.
 
 ``peft`` (LoRA / QLoRA: ``peft/lora.py``), ``freeze_config``
 (``utils/model_utils.py``) and ``max_grad_norm`` (default None: no clip)
@@ -60,8 +82,8 @@ checkpointing off nothing is saved and nothing resumed.
 Left out of this slice, each raising ``NotImplementedError`` when its
 knob is set (ROADMAP Queue 1 names where each lands): other checkpoint
 formats, pipeline / tensor / context / data parallelism, kernel
-autotuning, remat policies other than ``nothing_saveable``, profiling,
-elastic recovery and W&B logging.
+autotuning, the host-offload remat policies, elastic recovery and the
+SLURM / k8s launchers.
 
     python -m automodel_tpu_torch.recipes.llm.train_ft \\
         -c automodel_tpu_torch/examples/tiny_llama_sft.yaml --device cpu
@@ -70,6 +92,7 @@ elastic recovery and W&B logging.
 from __future__ import annotations
 
 import logging
+import signal
 import time
 from typing import Any, Dict, List, Optional
 
@@ -87,7 +110,7 @@ from automodel_tpu_torch.config.loader import (
 from automodel_tpu_torch.datasets.dataloader import StatefulDataLoader
 from automodel_tpu_torch.datasets.llm.packed_sequence import PackedSequence
 from automodel_tpu_torch.datasets.prefetch import wrap_prefetch
-from automodel_tpu_torch.loss.masked_ce import IGNORE_INDEX, MaskedCrossEntropy
+from automodel_tpu_torch.loss.masked_ce import MaskedCrossEntropy
 from automodel_tpu_torch.models.llama import as_dtype
 from automodel_tpu_torch.ops.moe import (
     normalize_moe_dispatch,
@@ -103,8 +126,28 @@ from automodel_tpu_torch.quantization.fp8 import (
 from automodel_tpu_torch.recipes.base_recipe import BaseRecipe
 from automodel_tpu_torch.training.rng import StatefulRNG
 from automodel_tpu_torch.training.step_scheduler import StepScheduler
-from automodel_tpu_torch.training.train_step import TrainStep, to_device_batch
+from automodel_tpu_torch.training.timers import (
+    Timers,
+    Trace,
+    build_profiling_config,
+    ckpt_stall_fraction,
+    input_idle_fraction,
+)
+from automodel_tpu_torch.training.train_step import (
+    MetricsCopy,
+    TrainStep,
+    stage_batch,
+    to_device_batch,
+    unpack_metrics,
+    use_staged,
+)
+from automodel_tpu_torch.training.utils import count_tokens
 from automodel_tpu_torch.utils.device import resolve_device
+from automodel_tpu_torch.utils.safe_import import safe_import
+from automodel_tpu_torch.utils.sig_utils import (
+    DistributedSignalHandler,
+    get_signal_name,
+)
 from automodel_tpu_torch.utils.model_utils import (
     apply_parameter_freezing,
     jax_named_parameters,
@@ -123,7 +166,7 @@ _SECTIONS = {
     "distributed", "loss_fn", "dataset", "packed_sequence", "dataloader",
     "validation_dataset", "validation_dataloader", "optimizer",
     "lr_scheduler", "training", "device", "compile", "kernels", "moe",
-    "fp8", "peft", "freeze_config", "max_grad_norm",
+    "fp8", "peft", "freeze_config", "max_grad_norm", "profiling", "wandb",
 }
 _LATER = {
     "checkpoint_format": "Orbax / non-consolidated checkpoints (ROADMAP "
@@ -132,6 +175,9 @@ _LATER = {
     "distributed": "multi-GPU (ROADMAP Queue 1 item 9)",
     "autotune": "kernel block-size autotuning (ROADMAP Queue 1 item 3; "
                 "the kernels run their hand-chosen tiles)",
+    "elastic": "elastic recovery (ROADMAP Queue 1 item 12)",
+    "slurm": "the SLURM launcher (ROADMAP Queue 1 item 12)",
+    "k8s": "the k8s launcher (ROADMAP Queue 1 item 12)",
 }
 
 
@@ -167,15 +213,21 @@ def check_ported(cfg: ConfigNode) -> None:
         raise _later("autotune")
 
 
-def count_tokens(batches: List[Dict[str, np.ndarray]]) -> int:
-    """Tokens of the microbatches without each row's tail padding (the
-    run of trailing ignore labels)."""
-    total = 0
-    for b in batches:
-        labels = np.asarray(b["labels"])
-        tail = np.cumprod(labels[..., ::-1] == IGNORE_INDEX, axis=-1)
-        total += labels.size - int(tail.sum())
-    return total
+def build_wandb(cfg: ConfigNode):
+    """``wandb.init(**cfg.wandb)``, or None without the section; without
+    the package (or when ``init`` fails) a warning and None."""
+    wandb_cfg = cfg.get("wandb")
+    if wandb_cfg is None:
+        return None
+    ok, wandb = safe_import("wandb")
+    if not ok:
+        logger.warning("wandb disabled: %s", wandb)
+        return None
+    try:
+        return wandb.init(**wandb_cfg.to_dict())
+    except Exception as e:
+        logger.warning("wandb disabled: %s", e)
+        return None
 
 
 def build_dataloader(cfg: ConfigNode, dataset, cfg_key: str,
@@ -225,12 +277,20 @@ def build_lr_scheduler(cfg_lr: Optional[ConfigNode],
 
 class TrainFinetuneRecipeForNextTokenPrediction(BaseRecipe):
     """``setup()`` then ``run_train_validation_loop()``.  ``history`` holds
-    every step's metrics and ``val_history`` every ``(step, val_loss)``."""
+    every step's metrics, ``val_history`` every ``(step, val_loss)`` and,
+    under ``profiling``, ``timer_log`` every ``time (ms)`` line's values."""
 
     def __init__(self, cfg: ConfigNode):
         self.cfg = cfg
         self.history: List[Dict[str, Any]] = []
         self.val_history: List[tuple] = []
+        self.timer_log: List[Dict[str, Any]] = []
+        self.last_metrics: Optional[Dict[str, Any]] = None
+        self.preempted = False
+        self._preempt_saved = False
+        self._pending_metrics: Optional[Dict[str, Any]] = None
+        self._last_ckpt_step = -1
+        self._trace: Optional[Trace] = None
 
     def setup(self):
         cfg = self.cfg
@@ -241,6 +301,12 @@ class TrainFinetuneRecipeForNextTokenPrediction(BaseRecipe):
                         "compiled program to cache; the section does "
                         "nothing here")
         self.device = resolve_device(cfg.get("device"))
+        self.timers = Timers(device=self.device)
+        self.profiling = build_profiling_config(cfg.get("profiling"))
+        self.wandb = build_wandb(cfg)
+        # batch N+1's copy to the card runs here while step N computes
+        self._copy_stream = (torch.cuda.Stream(self.device)
+                             if self.device.type == "cuda" else None)
         rng_cfg = cfg.get("rng")
         if isinstance(rng_cfg, ConfigNode) and "_target_" in rng_cfg.to_dict():
             self.rng = rng_cfg.instantiate()
@@ -322,10 +388,7 @@ class TrainFinetuneRecipeForNextTokenPrediction(BaseRecipe):
         self.step_scheduler = StepScheduler(
             local_batch_size=local_bs, dataloader=self.dataloader,
             **ss_kwargs)
-        total = (int(ss_kwargs["max_steps"]) if ss_kwargs.get("max_steps")
-                 else max(len(self.dataloader)
-                          // self.step_scheduler.grad_acc_steps
-                          * max(self.step_scheduler.num_epochs, 1), 1))
+        total = self._total_optim_steps(ss_kwargs)
         self.lr_scheduler = build_lr_scheduler(cfg.get("lr_scheduler"),
                                                opt_cfg, total)
         self.checkpoint_config = build_checkpoint_config(
@@ -333,6 +396,22 @@ class TrainFinetuneRecipeForNextTokenPrediction(BaseRecipe):
         if self.checkpoint_config.enabled:
             self.load_checkpoint()
         return self
+
+    def _total_optim_steps(self, ss_kwargs: Dict[str, Any]) -> int:
+        """The LR schedule's horizon: ``max_steps``, else epochs x steps
+        per epoch (1000 for a loader without a length, as in JAX)."""
+        if ss_kwargs.get("max_steps"):
+            return int(ss_kwargs["max_steps"])
+        sched = self.step_scheduler
+        try:
+            per_epoch = len(self.dataloader) // sched.grad_acc_steps
+        except TypeError:               # an iterable dataset
+            logger.warning(
+                "lr horizon: no max_steps and the dataloader has no length; "
+                "defaulting lr_decay_steps to 1000 -- set "
+                "step_scheduler.max_steps or lr_scheduler.lr_decay_steps")
+            return 1000
+        return max(per_epoch * max(sched.num_epochs, 1), 1)
 
     def _apply_moe_dispatch_policy(self) -> None:
         """Thread the top-level ``moe.dispatch`` knob (``sorted`` |
@@ -371,88 +450,338 @@ class TrainFinetuneRecipeForNextTokenPrediction(BaseRecipe):
                 cfg, val_ds, "validation_dataloader", batch_size,
                 self.rng.seed)
 
-    def _run_train_optim_step(self, batches) -> Dict[str, Any]:
-        """One optimizer step over the grad-accumulation group; returns its
-        metrics (fetched at the end of the step: one sync)."""
-        num_tokens = count_tokens(batches)
-        # resume point after this group, committed once its step has run
-        dl_state = (self.dataloader.pending_state()
-                    if hasattr(self.dataloader, "pending_state") else None)
+    # -- hot loop ------------------------------------------------------------
+    def _run_train_optim_step(self, batches) -> Optional[Dict[str, Any]]:
+        """Dispatch one optimizer step and return the newest finalized
+        metrics without waiting for the card: step N's are read once step
+        N+1 has been dispatched (``flush_metrics`` drains the last).  The
+        first step after a start or a flush is read at once (one wait).
+
+        A group the async loop staged (``_staged_input``: its device batch
+        and the loader's resume snapshot) was copied on the copy stream
+        while the previous step ran; its snapshot is committed right after
+        dispatch, so a checkpoint holds the state of the last group
+        trained on.  Direct callers stage inline."""
+        num_tokens, _ = count_tokens(batches)
+        prof = self.profiling
+        self._profile_trace_window()
         self.lr_scheduler.step(1)
         set_hyperparams(self.optimizer, lr=self.lr_scheduler.current_lr,
                         wd=self.lr_scheduler.current_wd)
         if self.peft_config is not None:
             self.model.set_dropout_step(self.step_scheduler.step)
+        staged = self.__dict__.pop("_staged_input", None)
+        if staged is None:
+            with self.timers.record("data_staging"):
+                batch = to_device_batch(batches, self.device)
+            dl_state = None
+        else:
+            batch, dl_state = staged
+            use_staged(batch, self._copy_stream)
         t0 = time.perf_counter()
-        metrics = self.step_fns.train_step(to_device_batch(batches,
-                                                           self.device))
-        dt = time.perf_counter() - t0
+        if prof.enabled and prof.barrier:
+            # measurement mode: the step's latency, overlap given up
+            with self.timers.record("step_e2e", barrier=True):
+                values = self.step_fns.dispatch(batch)
+        else:
+            with self.timers.record("dispatch"):
+                values = self.step_fns.dispatch(batch)
         if dl_state is not None:
+            # this group is consumed: a checkpoint from here on resumes at
+            # the group after it
             self.dataloader.commit_state(dl_state)
+        pending = {"values": MetricsCopy(values),
+                   "step": self.step_scheduler.step,
+                   "lr": self.lr_scheduler.current_lr,
+                   "num_tokens": num_tokens, "t_dispatch": t0}
+        prev, self._pending_metrics = self._pending_metrics, pending
+        if prev is not None and not prev.get("reported"):
+            # the previous step took until this one's dispatch began
+            prev["t_end"] = t0
+            self.last_metrics = self._finalize_metrics(prev)
+        elif prev is None:
+            self.last_metrics = self._finalize_metrics(pending)
+            pending["reported"] = True
+        return self.last_metrics
+
+    def _finalize_metrics(self, pending) -> Dict[str, Any]:
+        """Read a dispatched step's metrics (waiting for its copy only),
+        check them for NaN, log them and append them to ``history``.  The
+        step's time runs from its dispatch to the next step's, or to now
+        when no step follows it."""
+        metrics = unpack_metrics(pending["values"].read())
+        dt = (pending.get("t_end") or time.perf_counter()) \
+            - pending["t_dispatch"]
         if self._check_for_nan and not (np.isfinite(metrics["loss"])
                                         and np.isfinite(metrics["grad_norm"])):
             raise FloatingPointError(
-                f"non-finite training signal at step "
-                f"{self.step_scheduler.step}: loss={metrics['loss']}, "
-                f"grad_norm={metrics['grad_norm']}")
-        out = dict(metrics, lr=self.lr_scheduler.current_lr,
-                   step=self.step_scheduler.step, tps=num_tokens / dt,
-                   step_time=dt)
+                f"non-finite training signal at step {pending['step']}: "
+                f"loss={metrics['loss']}, grad_norm={metrics['grad_norm']} "
+                "(set training.check_for_nan: false to continue anyway)")
+        out = dict(metrics, lr=pending["lr"], step=pending["step"],
+                   tps=pending["num_tokens"] / dt, step_time=dt)
         if self.device.type == "cuda":
             out["peak_memory_gb"] = torch.cuda.max_memory_allocated(
                 self.device) / 1024 ** 3
         self.history.append(out)
+        logger.info(
+            "step %d | loss %.4f | grad_norm %.3f | lr %.2e | tps %.0f | "
+            "tokens %d", out["step"], out["loss"], out["grad_norm"],
+            out["lr"], out["tps"], out["num_label_tokens"])
+        if self.wandb is not None:
+            self.wandb.log(out, step=out["step"])
         return out
 
+    def flush_metrics(self) -> Optional[Dict[str, Any]]:
+        """Finalize the step in flight (before validation, a checkpoint,
+        the epoch's and the loop's end)."""
+        pending = self._pending_metrics
+        if pending is not None:
+            if not pending.get("reported"):
+                self.last_metrics = self._finalize_metrics(pending)
+            self._pending_metrics = None
+        return self.last_metrics
+
+    def _profile_trace_window(self) -> None:
+        """A ``torch.profiler`` window over the optimizer steps
+        ``[trace_start_step, trace_stop_step)`` into ``trace_dir``."""
+        prof = self.profiling
+        if not (prof.enabled and prof.trace_dir):
+            return
+        step = self.step_scheduler.step
+        if (self._trace is None
+                and prof.trace_start_step <= step < prof.trace_stop_step):
+            self._trace = Trace(prof.trace_dir)
+        elif self._trace is not None and step >= prof.trace_stop_step:
+            self.flush_metrics()       # close on finished device work
+            self._stop_trace()
+
+    def _stop_trace(self) -> None:
+        if self._trace is not None:
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            path = self._trace.stop()
+            self._trace = None
+            logger.info("profiler trace written to %s", path)
+
+    def _timed_iter(self, iterable):
+        """Yield from the step scheduler, timing the wait for each group
+        (``data_wait``)."""
+        it = iter(iterable)
+        while True:
+            t = self.timers("data_wait")
+            t.start()
+            try:
+                batches = next(it)
+            except StopIteration:
+                t.discard()
+                return
+            t.stop()
+            yield batches
+
     def _run_validation_epoch(self) -> Optional[float]:
-        """Token-weighted mean loss over the validation set."""
+        """Token-weighted mean loss over the validation set, summed on the
+        device and read once at the end."""
         if self.val_dataloader is None:
             return None
-        loss_sum = tokens = 0.0
+        total = None
         for vb in self.val_dataloader:
-            m = self.step_fns.eval_step(to_device_batch([vb], self.device))
-            loss_sum += m["loss"] * max(m["num_label_tokens"], 1)
-            tokens += m["num_label_tokens"]
-        return loss_sum / max(tokens, 1.0)
+            m = self.step_fns.eval_dispatch(
+                to_device_batch([vb], self.device)).double()
+            wl = torch.stack([m[0] * m[1].clamp(min=1.0), m[1]])
+            total = wl if total is None else total + wl
+        if total is None:
+            return None
+        loss, tokens = total.tolist()
+        return loss / max(tokens, 1.0)
 
     def run_train_validation_loop(self):
         """Train to ``max_steps`` (or the last epoch), validating and
-        checkpointing on the step scheduler's cadence; an asynchronous save
-        still in flight is joined before this returns."""
+        checkpointing on the step scheduler's cadence.  SIGTERM / SIGINT
+        take a checkpoint at the next step boundary and return with
+        ``preempted`` set; an asynchronous save still in flight is joined
+        before this returns."""
         sched = self.step_scheduler
-        saving = self.checkpoint_config.enabled
+        self.preempted = False
+        self._prof_window_t0 = time.perf_counter()
         try:
-            for epoch in sched.epochs:
-                self.dataloader.set_epoch(epoch)
-                for batches in sched:
-                    m = self._run_train_optim_step(batches)
-                    logger.info(
-                        "step %d | loss %.4f | grad_norm %.3f | lr %.2e | "
-                        "tps %.0f | tokens %d", m["step"], m["loss"],
-                        m["grad_norm"], m["lr"], m["tps"],
-                        m["num_label_tokens"])
-                    if sched.is_val_step:
-                        val_loss = self._run_validation_epoch()
-                        if val_loss is not None:
-                            self.val_history.append((sched.step, val_loss))
-                            logger.info("step %d | val_loss %.4f",
-                                        sched.step, val_loss)
-                    if saving and sched.is_ckpt_step:
-                        self.save_checkpoint(epoch, sched.step)
-                        self._last_ckpt_step = sched.step
-                # the epoch's end (a partial last group never yields)
-                if (saving and sched.is_ckpt_step
-                        and getattr(self, "_last_ckpt_step", -1)
-                        != sched.step):
-                    self.save_checkpoint(epoch, sched.step)
-                    self._last_ckpt_step = sched.step
-                if sched.finished:
-                    break
+            with DistributedSignalHandler(
+                    (signal.SIGTERM, signal.SIGINT)) as preempt:
+                self._train_epochs(sched, preempt)
         except BaseException:
+            self._stop_trace()
             self.join_pending_save(raise_error=False)
             raise
         self.join_pending_save()
+        if self.preempted:
+            logger.warning(
+                "preemption (%s) handled at step %d: %s, exiting cleanly",
+                get_signal_name(preempt.received_signal or preempt.sig),
+                sched.step,
+                "checkpoint saved" if self._preempt_saved
+                else "checkpointing disabled, nothing saved")
         return self
+
+    def _train_epochs(self, sched, preempt) -> None:
+        # the async loop needs the loader's consumed-state contract
+        # (datasets/prefetch.py); a bare loader takes the synchronous one
+        async_input = hasattr(self.dataloader, "commit_state")
+        for epoch in sched.epochs:
+            self.dataloader.set_epoch(epoch)
+            run_epoch = (self._run_epoch_async if async_input
+                         else self._run_epoch_sync)
+            if run_epoch(sched, epoch, preempt):
+                return
+            self.flush_metrics()
+            # the epoch's end (a partial last group never yields)
+            if (self.checkpoint_config.enabled and sched.is_ckpt_step
+                    and self._last_ckpt_step != sched.step):
+                self.save_checkpoint(epoch, sched.step)
+                self._last_ckpt_step = sched.step
+            if sched.finished:
+                break
+        self._stop_trace()
+
+    def _pull_staged(self, groups):
+        """Pull the next group and start its copy to the card (the copy
+        stream), while the step before it computes -> ``(batches,
+        device_batch, dl_state)`` or None at the end; ``dl_state`` is
+        committed only when the group is dispatched."""
+        try:
+            batches = next(groups)
+        except StopIteration:
+            return None
+        dl_state = self.dataloader.pending_state()
+        with self.timers.record("data_staging_overlap"):
+            device_batch = stage_batch(batches, self.device,
+                                       self._copy_stream)
+        return batches, device_batch, dl_state
+
+    def _run_epoch_async(self, sched, epoch, preempt) -> bool:
+        """One epoch with batch N+1 staged while step N runs.  The step's
+        cadence flags are read before the lookahead pull (which advances
+        ``sched.step``), and the scheduler is held at the dispatched step
+        during the bookkeeping, so a checkpoint there saves the step that
+        ran; on preemption it stays there.  True when preempted."""
+        groups = self._timed_iter(sched)
+        try:
+            staged = self._pull_staged(groups)
+            while staged is not None:
+                batches, device_batch, dl_state = staged
+                self._staged_input = (device_batch, dl_state)
+                self._run_train_optim_step(batches)
+                step, is_val, is_ckpt = (sched.step, sched.is_val_step,
+                                         sched.is_ckpt_step)
+                staged = self._pull_staged(groups)
+                # inside this window use step / is_val / is_ckpt, not the
+                # scheduler's live properties (one group ahead)
+                lookahead_step, sched.step = sched.step, step
+                preempted = False
+                try:
+                    preempted = self._post_step(epoch, step, is_val,
+                                                is_ckpt, preempt)
+                finally:
+                    if not preempted:
+                        sched.step = lookahead_step
+                if preempted:
+                    return True
+        finally:
+            # unwind scheduler -> loader -> producer thread (the loader
+            # rewinds to the last group yielded)
+            groups.close()
+        return False
+
+    def _run_epoch_sync(self, sched, epoch, preempt) -> bool:
+        """One epoch staging each group before its dispatch
+        (``prefetch_depth: 0``).  True when preempted."""
+        for batches in self._timed_iter(sched):
+            self._run_train_optim_step(batches)
+            if self._post_step(epoch, sched.step, sched.is_val_step,
+                               sched.is_ckpt_step, preempt):
+                return True
+        return False
+
+    def _post_step(self, epoch, step, is_val, is_ckpt, preempt) -> bool:
+        """Bookkeeping after a dispatch: the timers' line, validation,
+        checkpointing and the preemption poll (the step's metrics are
+        logged when they are read, one step later).  True when a
+        preemption was handled."""
+        prof = self.profiling
+        if prof.enabled and step % prof.log_interval == 0:
+            self._log_timers(step)
+        if is_val:
+            self.flush_metrics()
+            val_loss = self._run_validation_epoch()
+            if val_loss is not None:
+                self.val_history.append((step, val_loss))
+                logger.info("step %d | val_loss %.4f", step, val_loss)
+                if self.wandb is not None:
+                    self.wandb.log({"val_loss": val_loss}, step=step)
+        if is_ckpt and self.checkpoint_config.enabled:
+            # the NaN guard of the step in flight runs before its weights
+            # are saved
+            self.flush_metrics()
+            self.save_checkpoint(epoch, step)
+            self._last_ckpt_step = step
+        if preempt is not None and preempt.signals_received():
+            self.flush_metrics()
+            saved = False
+            if (self.checkpoint_config.enabled
+                    and self._last_ckpt_step != step):
+                # a failed grace-window save leaves only a staging dir:
+                # the last committed checkpoint is what a resume finds
+                try:
+                    self.save_checkpoint(epoch, step)
+                    self.join_pending_save()
+                    self._last_ckpt_step = step
+                    saved = True
+                except Exception:
+                    logger.exception(
+                        "preemption checkpoint at step %d failed; resume "
+                        "will use the last committed checkpoint", step)
+            else:
+                try:
+                    self.join_pending_save()
+                except Exception:
+                    self._last_ckpt_step = -1
+                    logger.exception(
+                        "in-flight background checkpoint failed during "
+                        "preemption handling; resume will use the last "
+                        "committed checkpoint")
+            self._preempt_saved = saved or self._last_ckpt_step == step
+            self.preempted = True
+            self._stop_trace()
+            return True
+        return False
+
+    def _log_timers(self, step: int) -> None:
+        """The ``time (ms)`` line: each timer's ms per step over the last
+        ``log_interval`` steps, the checkpoint stall's and the input's
+        share of the window's wall time."""
+        n = self.profiling.log_interval
+        elapsed = self.timers.get_elapsed(reset=True, normalizer=n)
+        now = time.perf_counter()
+        window, self._prof_window_t0 = now - self._prof_window_t0, now
+        if not elapsed:
+            return
+        total = {k: v * n for k, v in elapsed.items()}
+        stall = ckpt_stall_fraction(total, window)
+        idle = input_idle_fraction(total, window)
+        logger.info(
+            "step %d | time (ms)%s%s | input_idle_fraction: %.4f", step,
+            "".join(f" | {k}: {v * 1e3:.2f}" for k, v in elapsed.items()),
+            (f" | ckpt_stall_fraction: {stall:.4f}"
+             if "ckpt_stall" in elapsed else ""), idle)
+        self.timer_log.append(dict(step=step, window_s=window,
+                                   ms_per_step={k: v * 1e3 for k, v in
+                                                elapsed.items()},
+                                   ckpt_stall_fraction=stall,
+                                   input_idle_fraction=idle))
+        if self.wandb is not None:
+            log = {f"timers/{k}": v for k, v in elapsed.items()}
+            log["timers/ckpt_stall_fraction"] = stall
+            log["timers/input_idle_fraction"] = idle
+            self.wandb.log(log, step=step)
 
 
 def main(config_path: Optional[str] = None, argv=None):

@@ -27,6 +27,14 @@ clipping, as optax's.
 The step trains the parameters that require gradients only: a frozen one
 (PEFT's base, ``freeze_config``) gets no gradient, no accumulation buffer
 and no optimizer state, as the JAX step's trainable-subtree mode.
+
+No step ends in a device sync: :meth:`TrainStep.dispatch` returns the
+step's loss, gradient norm and label-token count packed in one device
+tensor (``PACKED_KEYS``), and :class:`MetricsCopy` brings it to pinned host
+memory with a non-blocking copy and an event, for the recipe to read one
+step later.  :func:`stage_batch` copies a batch from pinned host memory on
+a side stream while the card computes, and :func:`use_staged` makes the
+compute stream wait for it.
 """
 
 from __future__ import annotations
@@ -38,6 +46,10 @@ import torch
 
 from automodel_tpu_torch.datasets.utils import PAD_TOKEN_IDS
 from automodel_tpu_torch.loss.masked_ce import IGNORE_INDEX, MaskedCrossEntropy
+
+# The order of the values in the step's packed metrics tensor (fp32: token
+# counts are exact below 2^24 per step).
+PACKED_KEYS = ("loss", "grad_norm", "num_label_tokens")
 
 # Keys the model forward consumes, and keys the step itself consumes.
 _MODEL_KEYS = ("input_ids", "position_ids", "segment_ids", "attention_mask")
@@ -161,6 +173,13 @@ class TrainStep:
         self.attn_impl = attn_impl
 
     def train_step(self, batch: Dict[str, torch.Tensor]) -> Dict[str, float]:
+        """One optimizer step; waits for its metrics (direct callers and
+        tests: the recipe uses :meth:`dispatch`)."""
+        return unpack_metrics(self.dispatch(batch).tolist())
+
+    def dispatch(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """One optimizer step, issued without waiting for the card ->
+        ``[loss, grad_norm, num_label_tokens]`` (fp32, on the device)."""
         labels = batch["labels"]
         num_label_tokens = (labels != IGNORE_INDEX).sum().float()
         denom = num_label_tokens.clamp(min=1.0)
@@ -175,12 +194,16 @@ class TrainStep:
             loss_sum += loss.detach().float()
             accumulate_grads(self.params, acc, self.grad_dtype)
         norm = apply_updates(self.params, acc, denom, self.optimizer)
-        loss, gn, n = torch.stack([loss_sum / denom, norm,
-                                   num_label_tokens]).tolist()
-        return {"loss": loss, "grad_norm": gn, "num_label_tokens": int(n)}
+        return torch.stack([loss_sum / denom, norm.float(), num_label_tokens])
+
+    def eval_step(self, batch: Dict[str, torch.Tensor]) -> Dict[str, float]:
+        loss, n = self.eval_dispatch(batch).tolist()
+        return {"loss": loss, "num_label_tokens": int(n)}
 
     @torch.no_grad()
-    def eval_step(self, batch: Dict[str, torch.Tensor]) -> Dict[str, float]:
+    def eval_dispatch(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """The mean loss of a batch, issued without waiting -> ``[loss,
+        num_label_tokens]`` (fp32, on the device)."""
         labels = batch["labels"]
         num_label_tokens = (labels != IGNORE_INDEX).sum().float()
         total = torch.zeros((), dtype=torch.float32, device=labels.device)
@@ -188,9 +211,37 @@ class TrainStep:
             total += microbatch_loss(self.model, self.loss_fn,
                                      {k: v[a] for k, v in batch.items()},
                                      attn_impl=self.attn_impl).float()
-        loss, n = torch.stack([total / num_label_tokens.clamp(min=1.0),
-                               num_label_tokens]).tolist()
-        return {"loss": loss, "num_label_tokens": int(n)}
+        return torch.stack([total / num_label_tokens.clamp(min=1.0),
+                            num_label_tokens])
+
+
+def unpack_metrics(values: List[float]) -> Dict[str, float]:
+    """``PACKED_KEYS`` values -> the step's metrics dict."""
+    out = dict(zip(PACKED_KEYS, values))
+    out["num_label_tokens"] = int(out["num_label_tokens"])
+    return out
+
+
+class MetricsCopy:
+    """A device tensor's values on their way to the host: on a CUDA
+    tensor, a non-blocking copy into pinned memory and an event after it
+    (:meth:`read` waits for that event only, not for the device); on a CPU
+    tensor, a copy."""
+
+    def __init__(self, values: torch.Tensor):
+        if values.is_cuda:
+            self._host = torch.empty(values.shape, dtype=values.dtype,
+                                     pin_memory=True)
+            self._host.copy_(values, non_blocking=True)
+            self._event = torch.cuda.Event()
+            self._event.record()
+        else:
+            self._host, self._event = values.detach().clone(), None
+
+    def read(self) -> List[float]:
+        if self._event is not None:
+            self._event.synchronize()
+        return self._host.tolist()
 
 
 def stack_microbatches(microbatches: List[Dict[str, np.ndarray]]
@@ -223,3 +274,32 @@ def to_device_batch(microbatches: List[Dict[str, np.ndarray]],
     stacked = stack_microbatches(microbatches)
     stacked.pop("loss_mask", None)      # already folded into the labels
     return {k: torch.from_numpy(v).to(device) for k, v in stacked.items()}
+
+
+def stage_batch(microbatches: List[Dict[str, np.ndarray]], device,
+                stream: Optional["torch.cuda.Stream"] = None
+                ) -> Dict[str, torch.Tensor]:
+    """:func:`to_device_batch`, but with ``stream`` (a CUDA stream) the
+    copies come from pinned host memory on that stream, without waiting:
+    pass the batch through :func:`use_staged` before a step reads it."""
+    if stream is None:
+        return to_device_batch(microbatches, device)
+    stacked = stack_microbatches(microbatches)
+    stacked.pop("loss_mask", None)
+    with torch.cuda.stream(stream):
+        return {k: torch.from_numpy(v).pin_memory().to(device,
+                                                       non_blocking=True)
+                for k, v in stacked.items()}
+
+
+def use_staged(batch: Dict[str, torch.Tensor],
+               stream: Optional["torch.cuda.Stream"]) -> None:
+    """Order the current stream after ``stream``'s copies of ``batch``,
+    and tell the allocator the current stream uses the tensors (so their
+    memory is not reused before it is done with them)."""
+    if stream is None:
+        return
+    current = torch.cuda.current_stream(stream.device)
+    current.wait_stream(stream)
+    for t in batch.values():
+        t.record_stream(current)

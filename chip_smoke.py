@@ -72,6 +72,28 @@ Phases (any failure exits non-zero without the final ``ok`` line):
    steps with the attention and linear-CE launch counts zeroed just before
    and read just after, the producer thread's host seconds, and a profiled
    window; its peak memory must stay below the MaskedCE phase's;
+   and one more warmed step's dispatch under
+   ``torch.cuda.set_sync_debug_mode("warn")`` counts its synchronizing
+   calls (``sft_bench_sync_calls``);
+   sft_unpacked: the bench YAML with ``bench.py``'s ``unpacked`` leg
+   (no packing, sentences of 1000 +- 30 tokens, ``length_bucket_pool``
+   256, rows padded to a multiple of 128: batches [8, 1024 | 1152]): the
+   first step also against every kernel's plain version, the attention's
+   included, the launch counts for the steps' shapes and the rows' lengths
+   per step (``sft_unpacked_shapes``);
+   sft_long_16k: ``bench.py``'s ``long_context_16k`` leg (one row of
+   16,384 packed tokens a step): the splash kernels at [1, 16384, 32 / 8,
+   64] against their plain versions on two kv heads' query heads, the
+   launch counts, and MFU without and with the attention FLOPs (causal
+   s/2 keys per query within each segment);
+   sft_remat_residuals: the bench YAML with ``model.remat_policy:
+   save_names:splash_residuals``: the attention forward launches once per
+   layer and microbatch (96 over the 6 steps), the backward as in
+   sft_bench, the first step equal to the same kernels' under
+   ``nothing_saveable``, and the peak memory above sft_bench's
+   (``sft_remat_residuals_memory``);
+   every phase through the recipe's loop (metrics read one step late,
+   input staged on a copy stream), with its ``profile`` line;
    sft_peft: LoRA on ``automodel_tpu_torch/examples/llama3_2_1b_peft.yaml``
    (the bench YAML plus rank-8 adapters on every ``*_proj``; the merge
    path at 1.24 B parameters), sft_qlora_int8: the same with
@@ -490,13 +512,13 @@ def causal_case(rows):
     return next(r for r in rows if r["case"] == "causal_d64")
 
 
-def first_batch(yaml_path):
-    """The first batch [8, 2048] the SFT recipe's loader yields for
-    ``yaml_path`` (its mock data, packed)."""
+def first_batch(yaml_path, overrides=()):
+    """The first batch (e.g. [8, 2048]) the SFT recipe's loader yields for
+    ``yaml_path`` and ``overrides`` (its mock data, packed)."""
     from automodel_tpu_torch.config.loader import parse_args_and_load_config
     from automodel_tpu_torch.recipes.llm import train_ft
 
-    cfg = parse_args_and_load_config(["-c", yaml_path])
+    cfg = parse_args_and_load_config(["-c", yaml_path, *overrides])
     loader = train_ft.build_dataloader(
         cfg, cfg.dataset.instantiate(), "dataloader",
         int(cfg.get("step_scheduler.local_batch_size")),
@@ -1817,8 +1839,9 @@ def first_step_check(recipe, label, routes, compare, quantized=False,
                      rows=2, limits=None, floor_route="kernel_again"):
     """Loss and whole gradient of the first step (``rows`` rows of the
     first batch, the recipe's initial weights) through each route ``(name,
-    loss_fn, attn_impl[, gmm_impl[, qdot_impl]])`` (the grouped matmuls'
-    and the quantized projections' routes); nothing is updated.  Each pair
+    loss_fn, attn_impl[, gmm_impl[, qdot_impl[, remat_policy]]])`` (the
+    grouped matmuls', the quantized projections' routes and the model's
+    remat policy, else its own); nothing is updated.  Each pair
     in ``compare`` must agree (``quantized``: the gradient within the
     quantized limit, derived from the run's own floor) within the loss and
     gradient limits, or within ``limits`` ``(loss_tol, grad_tol)`` where
@@ -1829,12 +1852,14 @@ def first_step_check(recipe, label, routes, compare, quantized=False,
     report."""
     import torch
 
+    from automodel_tpu_torch.ops.remat import resolve_remat_policy
     from automodel_tpu_torch.training.train_step import (
         microbatch_loss,
         to_device_batch,
     )
 
     model = recipe.model
+    own_policy = model.remat_policy
     # the trained parameters (under PEFT the adapters alone)
     trained = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
     names = [n for n, _ in trained]
@@ -1846,6 +1871,8 @@ def first_step_check(recipe, label, routes, compare, quantized=False,
         if hasattr(model, "gmm_impl"):        # the MoE models' experts
             model.gmm_impl = impls[0] if impls else None
         model.qdot_impl = impls[1] if len(impls) > 1 else None
+        model.remat_policy = (resolve_remat_policy(impls[2])
+                              if len(impls) > 2 else own_policy)
         model.zero_grad(set_to_none=True)
         loss = microbatch_loss(model, loss_fn, mb, attn_impl=attn_impl)
         loss.backward()
@@ -1858,6 +1885,7 @@ def first_step_check(recipe, label, routes, compare, quantized=False,
     if hasattr(model, "gmm_impl"):
         model.gmm_impl = None
     model.qdot_impl = None
+    model.remat_policy = own_policy
 
     def rel_l2(a, b):
         num = den = 0.0
@@ -1869,7 +1897,11 @@ def first_step_check(recipe, label, routes, compare, quantized=False,
             per.append(((d / max(w, 1e-30)) ** 0.5, n))
         return (num / den) ** 0.5, sorted(per, reverse=True)[:3]
 
-    out = dict(rows=rows, losses=losses, loss_tol=SFT_LOSS_REL_TOL,
+    bitwise = {f"{a}_vs_{b}": losses[a] == losses[b] and all(
+        torch.equal(x, y) for x, y in zip(grads[a], grads[b]))
+        for a, b in compare}
+    out = dict(rows=rows, losses=losses, bit_identical=bitwise,
+               loss_tol=SFT_LOSS_REL_TOL,
                grad_tol=SFT_GRAD_REL_L2,
                grad_rel_l2_kernel_vs_kernel=rel_l2("kernel_again",
                                                    "kernel")[0],
@@ -2000,7 +2032,181 @@ def peft_checks(recipe, label, base_before):
     return out
 
 
-def train_phase(label, yaml_path, overrides=(), bf16=None, attn_impl=None):
+def shapes_report(groups, model):
+    """The timed steps' batches (host numpy): per step each microbatch's
+    ``[B, S]``, the rows counted by the multiple of 128 their tokens pad to
+    (the tokens before the padding tail: the attention mask's, else the
+    segments'), and the number of packed segments; over all steps the
+    attention FLOPs counting causal S/2 keys per query within each segment
+    (a padded row is one segment of its tokens; fwd + bwd = 3 x fwd, the
+    remat re-forward not counted: ``attention_flops_per_token``'s
+    convention applied per segment)."""
+    import numpy as np
+
+    cfg = model.config
+    per_sq = 3.0 * cfg.num_hidden_layers * 4 * cfg.num_attention_heads \
+        * cfg.head_dim / 2                     # x s^2 for a segment of s
+    steps, flops = [], 0.0
+    for g in groups:
+        buckets, nseg = {}, 0
+        for mb in g:
+            seg = mb.get("segment_ids")
+            if seg is None:
+                seg = mb.get("attention_mask",
+                              np.ones_like(mb["labels"])).astype(np.int64)
+            for row in np.asarray(seg):
+                lens = np.bincount(row[row > 0])[1:]
+                lens = lens[lens > 0]
+                nseg += len(lens)
+                flops += per_sq * float((lens.astype(np.float64) ** 2).sum())
+                n = int(lens.sum())
+                key = str(-(-n // 128) * 128)
+                buckets[key] = buckets.get(key, 0) + 1
+        steps.append(dict(shapes=[list(mb["labels"].shape) for mb in g],
+                          rows_by_length=dict(sorted(buckets.items())),
+                          segments=nseg))
+    return dict(steps=steps, attention_flops=flops,
+                attention_convention="causal: s/2 keys per query within "
+                "each segment of s tokens; fwd + bwd = 3 x fwd")
+
+
+def sync_calls(recipe, group, label):
+    """One more step's dispatch (``TrainStep.dispatch``, the loop's step
+    without its bookkeeping) under ``torch.cuda.set_sync_debug_mode
+    ("warn")``: the synchronizing calls it makes, counted from the
+    warnings; prints a ``{label}_sync_calls`` line.  The batch is copied to
+    the card before the window."""
+    import warnings
+
+    import torch
+
+    from automodel_tpu_torch.training.train_step import to_device_batch
+
+    batch = to_device_batch(group, recipe.device)
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            recipe.step_fns.dispatch(batch)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    # each warning is attributed to the Python line that made the call
+    sites = [f"{os.path.relpath(w.filename, REPO)}:{w.lineno}"
+             for w in caught
+             if "called a synchronizing CUDA operation" in str(w.message)]
+    out = dict(calls=len(sites), sites=sorted(set(sites)))
+    print(f"{label}_sync_calls " + json.dumps(out), flush=True)
+    return out
+
+
+# the first step with kept attention residuals against the same kernels
+# recomputing them: the saved (out, lse) are the bits a recomputation
+# gives (the kernels are deterministic), so the two are expected equal
+# bit for bit; the limits (loss 1e-6, gradient 1e-4 relative L2) allow the
+# summation order of another allocation
+REMAT_LIMITS = (1e-6, 1e-4)
+UNPACKED_OVERRIDES = [
+    # bench.py's ``unpacked`` leg
+    "--packed_sequence.packed_sequence_size", "0",
+    "--dataset.mean_len", "1000", "--dataset.std_len", "30",
+    "--dataset.max_sentence_len", "1100",
+    "--dataloader.length_bucket_pool", "256"]
+LONG_OVERRIDES = [
+    # bench.py's ``long_context_16k`` leg
+    "--packed_sequence.packed_sequence_size", "16384",
+    "--step_scheduler.global_batch_size", "1",
+    "--step_scheduler.local_batch_size", "1",
+    "--dataset.num_sentences", "2048"]
+RESIDUALS_OVERRIDES = ["--model.remat_policy", "save_names:splash_residuals"]
+LONG_KV_GROUPS = (0, 7)       # kv heads whose 4 query heads run plain
+
+
+def long_attention_case(seg_np):
+    """The splash kernels at sft_long_16k's shape [1, 16384, 32 / 8, 64]
+    with the segment ids of its first batch, against the plain versions on
+    the query heads of the kv heads ``LONG_KV_GROUPS`` (a whole plain call
+    would hold 34 GB of scores); kernel, one group's plain and bound
+    times; prints an ``attention_case`` line."""
+    import numpy as np
+    import torch
+
+    from automodel_tpu_torch.ops import splash_attention as sa
+
+    dev = torch.device("cuda")
+    B, S, Hq, Hk, D = 1, 16384, 32, 8, 64
+    G = Hq // Hk
+    g = torch.Generator(device=dev).manual_seed(160)
+    q = torch.randn(B, S, Hq, D, device=dev, generator=g).bfloat16()
+    k = torch.randn(B, S, Hk, D, device=dev, generator=g).bfloat16()
+    v = torch.randn(B, S, Hk, D, device=dev, generator=g).bfloat16()
+    dout = torch.randn(B, S, Hq, D, device=dev, generator=g).bfloat16()
+    seg = torch.from_numpy(np.ascontiguousarray(seg_np[:B, :S])).to(dev)
+    kw = dict(causal=True, segment_ids=seg)
+    out, lse = sa.flash_attn_fwd_cuda(q, k, v, **kw)
+    grads = sa.flash_attn_bwd_cuda(q, k, v, out, lse, dout, **kw)
+    torch.cuda.synchronize()
+    fwd_err = bwd_err = 0.0
+    rel = {}
+    for h in LONG_KV_GROUPS:
+        qs = slice(h * G, (h + 1) * G)
+        ks = slice(h, h + 1)
+        parts = (q[:, :, qs].contiguous(), k[:, :, ks].contiguous(),
+                 v[:, :, ks].contiguous())
+        ref, ref_lse = sa.splash_attention_plain(*parts, **kw)
+        valid = (seg > 0)[0]
+        diff = (out[:, :, qs].float() - ref.float()).abs()[0][valid]
+        fwd_err = max(fwd_err, float(diff.max()))
+        bad = diff > KERNEL_ATOL + KERNEL_RTOL * ref.float().abs()[0][valid]
+        check(not bool(bad.any()),
+              f"long_16k kv head {h}: forward kernel disagrees with the "
+              f"plain version (max_abs_err {fwd_err:.3e})")
+        lse_err = float((lse[:, qs] - ref_lse).abs()[0][:, valid].max())
+        check(lse_err <= 1e-2, f"long_16k kv head {h}: lse max_abs_err "
+              f"{lse_err:.3e}")
+        refs = sa.splash_attention_bwd_plain(
+            *parts, ref, ref_lse, dout[:, :, qs].contiguous(), **kw)
+        for name, got, want in zip(
+                ("dq", "dk", "dv"),
+                (grads[0][:, :, qs], grads[1][:, :, ks], grads[2][:, :, ks]),
+                refs):
+            r = float((got.float() - want.float()).norm()
+                      / want.float().norm())
+            rel[f"{name}_kv{h}"] = r
+            bwd_err = max(bwd_err, float((got.float() - want.float())
+                                         .abs().max()))
+            check(r <= GRAD_REL_L2, f"long_16k kv head {h}: backward "
+                  f"{name} relative L2 {r:.3e} > {GRAD_REL_L2}")
+        del ref, ref_lse, refs
+        torch.cuda.empty_cache()
+    parts = (q[:, :, :G].contiguous(), k[:, :, :1].contiguous(),
+             v[:, :, :1].contiguous())
+    plain_fwd = time_ms(lambda: sa.splash_attention_plain(*parts, **kw), 1,
+                        None, warmup=1)
+    lens = np.bincount(seg_np[0][seg_np[0] > 0])[1:].astype(np.int64)
+    pairs = int((lens * (lens + 1) // 2).sum())
+    fb, fby = attn_bound(q, k, seg, pairs, backward=False)
+    bb, bby = attn_bound(q, k, seg, pairs, backward=True)
+    row = dict(case="long_16k_packed_d64", B=B, S=S, Hq=Hq, Hk=Hk, D=D,
+               packed=True, segments=len(lens), attended_pairs=pairs,
+               plain_on_kv_heads=list(LONG_KV_GROUPS),
+               fwd=dict(ms=time_ms(lambda: sa.flash_attn_fwd_cuda(
+                   q, k, v, **kw), 10, None),
+                   plain_ms_one_kv_head=plain_fwd, bound_ms=fb,
+                   bound_by=fby, max_abs_err=fwd_err),
+               bwd=dict(ms=time_ms(lambda: sa.flash_attn_bwd_cuda(
+                   q, k, v, out, lse, dout, **kw), 10, None),
+                   bound_ms=bb, bound_by=bby, max_abs_err=bwd_err,
+                   rel_l2=rel))
+    print("attention_case " + json.dumps(row), flush=True)
+    del q, k, v, dout, out, lse, grads
+    torch.cuda.empty_cache()
+    return row
+
+
+def train_phase(label, yaml_path, overrides=(), bf16=None, attn_impl=None,
+                first_step=None, sync_report=False):
     """Set up the SFT recipe on ``yaml_path`` (plus CLI ``overrides``),
     check its first step, run
     2 warm-up steps, then the timed steps with every launch count zeroed
@@ -2026,7 +2232,17 @@ def train_phase(label, yaml_path, overrides=(), bf16=None, attn_impl=None):
     sends the train step's attention through the flash rung: its kernels
     are held to 2 forward launches per layer and microbatch and 1
     backward, the splash kernels to none, and the first step runs against
-    the plain attention."""
+    the plain attention.  ``first_step="all_plain"`` adds to the fused
+    loss's first-step check a route through every kernel's plain version
+    (the attention's included); ``"remat"`` holds the first step against
+    the same kernels under ``nothing_saveable`` instead (the phase's model
+    keeps the attention residuals: its forward kernel launches once per
+    layer and microbatch).  The timed steps' batches are recorded on the
+    host as the loop takes them: their shapes give the token counts and
+    the linear-CE launches per step, and the ``{label}_shapes`` line the
+    rows' lengths per step.  ``sync_report`` runs one warmed step's
+    dispatch under ``torch.cuda.set_sync_debug_mode("warn")`` and prints
+    the synchronizing calls it makes."""
     import torch
 
     from automodel_tpu_torch.config.loader import parse_args_and_load_config
@@ -2129,14 +2345,25 @@ def train_phase(label, yaml_path, overrides=(), bf16=None, attn_impl=None):
              ("plain", recipe.loss_fn, "plain"),
              ("kernel_again", recipe.loss_fn, "flash")],
             [("kernel", "plain")])
-    elif fused:
+    elif first_step == "remat":
+        # the same kernels, the residuals kept and recomputed
         first_step_check(
             recipe, label,
             [("kernel", recipe.loss_fn, "kernel"),
-             ("plain", plain, "kernel"),
-             ("masked_ce", MaskedCrossEntropy(), "kernel"),
+             ("nothing_saveable", recipe.loss_fn, "kernel", None, None,
+              "nothing_saveable"),
              ("kernel_again", recipe.loss_fn, "kernel")],
-            [("kernel", "plain"), ("kernel", "masked_ce")])
+            [("kernel", "nothing_saveable")], limits=REMAT_LIMITS)
+    elif fused:
+        routes = [("kernel", recipe.loss_fn, "kernel"),
+                  ("plain", plain, "kernel"),
+                  ("masked_ce", MaskedCrossEntropy(), "kernel"),
+                  ("kernel_again", recipe.loss_fn, "kernel")]
+        compare = [("kernel", "plain"), ("kernel", "masked_ce")]
+        if first_step == "all_plain":
+            routes.append(("all_plain", plain, "plain"))
+            compare.append(("kernel", "all_plain"))
+        first_step_check(recipe, label, routes, compare)
     else:
         first_step_check(
             recipe, label,
@@ -2145,6 +2372,15 @@ def train_phase(label, yaml_path, overrides=(), bf16=None, attn_impl=None):
              ("kernel_again", recipe.loss_fn, "kernel")],
             [("kernel", "plain")])
 
+    # the groups the loop takes, as numpy on the host
+    seen = []
+    run_step = recipe._run_train_optim_step
+
+    def recording(batches):
+        seen.append(batches)
+        return run_step(batches)
+
+    recipe._run_train_optim_step = recording
     recipe.run_train_validation_loop()                   # warm-up steps
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2161,6 +2397,10 @@ def train_phase(label, yaml_path, overrides=(), bf16=None, attn_impl=None):
     recipe.run_train_validation_loop()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    # the wrapper refers to the recipe: left in place, the recipe (and its
+    # weights and optimizer state) would outlive the phase until the cycle
+    # collector ran
+    del recipe._run_train_optim_step
     attn, other = (fa, sa) if flash else (sa, fa)
     fwd, bwd = attn.fwd_launches, attn.bwd_launches
     other_counts = (other.fwd_launches, other.bwd_launches)
@@ -2172,27 +2412,34 @@ def train_phase(label, yaml_path, overrides=(), bf16=None, attn_impl=None):
     peak = torch.cuda.max_memory_allocated()
     timed = recipe.history[SFT_WARMUP:]
     check(len(timed) == SFT_STEPS, f"{label} ran {len(timed)} timed steps")
-    B = int(cfg.get("step_scheduler.global_batch_size"))
-    S = int(cfg.get("packed_sequence.packed_sequence_size"))
+    groups = seen[SFT_WARMUP:SFT_WARMUP + SFT_STEPS]
+    check(len(groups) == SFT_STEPS, f"{label}: recorded {len(groups)} groups")
+    shapes = [[mb["labels"].shape for mb in g] for g in groups]
+    B, S = shapes[0][0]
     micro = SFT_STEPS * recipe.step_scheduler.grad_acc_steps
     rung = "flash" if flash else "splash"
-    check(fwd == 2 * L * micro,
-          f"{label}: {fwd} {rung} forward kernel launches != 2 x {L} layers "
-          f"x {micro} microbatches (forward + remat recompute)")
+    # kept residuals: the backward does not run the forward kernel again
+    per_layer = 1 if "splash_residuals" in recipe.model.remat_policy.names \
+        else 2
+    check(fwd == per_layer * L * micro,
+          f"{label}: {fwd} {rung} forward kernel launches != {per_layer} x "
+          f"{L} layers x {micro} microbatches (remat "
+          f"{recipe.model.remat_policy})")
     check(bwd == L * micro,
           f"{label}: {bwd} {rung} backward kernel launches != {L} layers x "
           f"{micro} microbatches")
     check(other_counts == (0, 0),
           f"{label}: the other attention rung launched {other_counts}")
-    rows = B * S // recipe.step_scheduler.grad_acc_steps
-    per_call = lce.bwd_launches_per_call(rows)
+    # each microbatch's T = rows x row length; a chunk of rows per launch
+    per_call = sum(lce.bwd_launches_per_call(b * t) for g in shapes
+                   for b, t in g)
     # a frozen head (PEFT) takes no dW
-    want = (dict(fwd=micro, dlogits=micro * per_call, dh=micro * per_call,
-                 dw=0 if peft is not None else micro * per_call) if fused
+    want = (dict(fwd=micro, dlogits=per_call, dh=per_call,
+                 dw=0 if peft is not None else per_call) if fused
             else dict.fromkeys(lce_counts, 0))
     check(lce_counts == want,
           f"{label}: linear-CE launches {lce_counts} != {want} ({micro} "
-          f"microbatches of {rows} rows, {per_call} backward chunks each)")
+          f"microbatches of shapes {shapes}, {per_call} backward chunks)")
     experts = ("gmm_quant" if quantized else "gmm")
     want = dict(gmm=0, tgmm=0, gmm_quant=0)
     if is_moe:
@@ -2215,18 +2462,27 @@ def train_phase(label, yaml_path, overrides=(), bf16=None, attn_impl=None):
         print(f"{label} step {m['step']}: loss {m['loss']:.4f} grad_norm "
               f"{m['grad_norm']:.4f} step_time {m['step_time']:.4f} s",
               flush=True)
-    tok_s = B * S * SFT_STEPS / wall
+    tokens = sum(b * t for g in shapes for b, t in g)
+    tok_s = tokens / wall
     flops_per_token = (recipe.model.flops_per_token()
                        + recipe.model.attention_flops_per_token(S))
+    shape_line = shapes_report(groups, recipe.model)
+    print(f"{label}_shapes " + json.dumps(shape_line), flush=True)
     report = dict(
         yaml=os.path.relpath(yaml_path, REPO), loss=type(
             recipe.loss_fn).__name__,
         loader=type(recipe.dataloader).__name__,
-        steps=SFT_STEPS, batch=B, seq_len=S, wall_s=wall,
+        steps=SFT_STEPS, batch=B, seq_len=S, tokens=tokens, wall_s=wall,
         step_ms=wall * 1e3 / SFT_STEPS, tokens_per_s=tok_s,
         nonpad_tokens_per_s=sum(m["tps"] * m["step_time"] for m in timed)
         / wall, flops_per_token=flops_per_token,
         mfu=tok_s * flops_per_token / BF16_OPS_PER_S,
+        mfu_no_attention=tok_s * recipe.model.flops_per_token()
+        / BF16_OPS_PER_S,
+        mfu_attention_by_segment=(tokens * recipe.model.flops_per_token()
+                                  + shape_line["attention_flops"])
+        / wall / BF16_OPS_PER_S,
+        remat_policy=str(recipe.model.remat_policy),
         attention=rung, fwd_launches=fwd, bwd_launches=bwd,
         linear_ce_launches=lce_counts,
         gmm_launches=gmm_counts, qdot_launches=qdot_count,
@@ -2240,17 +2496,20 @@ def train_phase(label, yaml_path, overrides=(), bf16=None, attn_impl=None):
         losses=[m["loss"] for m in recipe.history],
         grad_norms=[m["grad_norm"] for m in recipe.history])
     print(f"{label}_run " + json.dumps(report), flush=True)
+    if sync_report:
+        report["sync_calls"] = sync_calls(recipe, groups[-1], label)
 
     def more():
         recipe.step_scheduler.max_steps += SFT_PROFILED
         recipe.run_train_validation_loop()
 
     # the attention kernels' names carry their rung type (csrc/attn_core.cuh)
-    prof = profile_window(more, SFT_PROFILED, f"{label}_b8_s2048",
+    prof = profile_window(more, SFT_PROFILED, f"{label}_b{B}_s{S}",
                           ("Mha<",) if flash else ("Splash<",))
     check(prof["device_ms_per_step"] == "not measured"
           or prof["attention_ms_per_step"] > 0,
           f"{label}: the profile counts no attention kernel by name")
+    report["profile"] = prof
     report["gmm_cases"] = gmm_rows
     if peft is not None:
         report["peft"] = peft_checks(recipe, label, base_before)
@@ -2461,8 +2720,38 @@ def main():
     sft = train_phase("sft", SFT_YAML)
     phase_done("sft")
     torch.cuda.empty_cache()
-    bench = train_phase("sft_bench", BENCH_YAML)
+    bench = train_phase("sft_bench", BENCH_YAML, sync_report=True)
     phase_done("sft_bench")
+    torch.cuda.empty_cache()
+    new_runs = {"sft_unpacked": train_phase(
+        "sft_unpacked", BENCH_YAML, UNPACKED_OVERRIDES,
+        first_step="all_plain")}
+    phase_done("sft_unpacked")
+    torch.cuda.empty_cache()
+    new_runs["sft_long_16k"] = train_phase("sft_long_16k", BENCH_YAML,
+                                           LONG_OVERRIDES)
+    torch.cuda.empty_cache()
+    long_case = long_attention_case(
+        first_batch(BENCH_YAML, LONG_OVERRIDES)["segment_ids"])
+    phase_done("sft_long_16k")
+    torch.cuda.empty_cache()
+    residuals = new_runs["sft_remat_residuals"] = train_phase(
+        "sft_remat_residuals", BENCH_YAML, RESIDUALS_OVERRIDES,
+        first_step="remat")
+    check(residuals["bwd_launches"] == bench["bwd_launches"],
+          f"sft_remat_residuals: {residuals['bwd_launches']} backward "
+          f"launches, sft_bench {bench['bwd_launches']}")
+    L = 16
+    saved = L * (8 * 2048 * 32 * 64 * 2 + 8 * 32 * 2048 * 4)
+    mem = dict(peak_mem_bytes=residuals["peak_mem_bytes"],
+               sft_bench_peak_mem_bytes=bench["peak_mem_bytes"],
+               above_sft_bench_bytes=residuals["peak_mem_bytes"]
+               - bench["peak_mem_bytes"],
+               residual_bytes_16_layers=saved,
+               step_ms=residuals["step_ms"],
+               sft_bench_step_ms=bench["step_ms"])
+    print("sft_remat_residuals_memory " + json.dumps(mem), flush=True)
+    phase_done("sft_remat_residuals")
     check(bench["peak_mem_bytes"] < sft["peak_mem_bytes"],
           f"sft_bench peak memory {bench['peak_mem_bytes']} is not below the "
           f"MaskedCE sft phase's {sft['peak_mem_bytes']}")
@@ -2533,8 +2822,9 @@ def main():
             "causal_ms": causal["ms"],
             "causal_library_ms": causal["library_ms"],
         })
-        for name_, run in peft_runs.items():
+        for name_, run in {**peft_runs, **new_runs}.items():
             kernels[-1][f"{name_}_launches"] = run[f"{part}_launches"]
+        kernels[-1]["long_16k_ms"] = long_case[part]["ms"]
     rep = lce_cases[0]
     errs = dict(
         fwd=max(max(c["fwd"]["lse_max_abs_err"], c["fwd"]["pick_max_abs_err"])
@@ -2557,7 +2847,7 @@ def main():
             "library_ms": got["library_ms"],
         })
         kernels[-1]["redesigned"] = "wgmma + TMA, persistent"
-        for name_, run in peft_runs.items():      # 0 dW: the head is frozen
+        for name_, run in {**peft_runs, **new_runs}.items():   # PEFT: no dW
             kernels[-1][f"{name_}_launches"] = run["linear_ce_launches"][part]
         if part == "fwd":
             kernels[-1]["product_ms"] = got["product_ms"]

@@ -1373,3 +1373,101 @@ def test_cuda_lora_step_matches_its_cpu_run(quantize, cuda_device):
     (lk, gk), (lp, gp) = out["cuda"], out["cpu"]
     assert abs(lk - lp) <= 1e-2 * abs(lp)
     assert rel_l2(gk, gp) < 1e-1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy, per_layer", [
+    ("nothing_saveable", 2), ("save_names:splash_residuals", 1)])
+def test_cuda_saved_splash_residuals_launch_the_forward_once(
+        policy, per_layer, cuda_device):
+    """Under ``save_names:splash_residuals`` the checkpoint keeps the
+    attention's ``(out, lse)``: the forward kernel launches once per
+    layer (twice under ``nothing_saveable``), the backward once, and the
+    loss and gradients equal the ``nothing_saveable`` ones bit for bit
+    (the recomputation would produce the same bits)."""
+    from automodel_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from automodel_tpu_torch.ops import splash_attention as sa
+
+    cfg = LlamaConfig(vocab_size=512, hidden_size=256, intermediate_size=512,
+                      num_hidden_layers=3, num_attention_heads=4,
+                      num_key_value_heads=2, rope_theta=10000.0)
+    ids = torch.from_numpy(np.random.default_rng(0).integers(
+        1, 512, (2, 256)).astype(np.int64)).to(cuda_device)
+    out = {}
+    for name in ("nothing_saveable", policy):
+        model = LlamaForCausalLM(cfg, param_dtype=torch.bfloat16,
+                                 remat_policy=name,
+                                 device=cuda_device).init_weights(0)
+        f0, b0 = sa.fwd_launches, sa.bwd_launches
+        loss = model(ids)["logits"].float().square().mean()
+        loss.backward()
+        torch.cuda.synchronize()
+        out[name] = (loss.detach(), [p.grad for p in model.parameters()])
+        if name == policy:
+            assert (sa.fwd_launches - f0, sa.bwd_launches - b0) == (
+                per_layer * 3, 3)
+    (la, ga), (lb, gb) = out["nothing_saveable"], out[policy]
+    assert torch.equal(la, lb)
+    assert all(torch.equal(a, b) for a, b in zip(ga, gb))
+
+
+@pytest.mark.cuda
+def test_cuda_pinned_metrics_copy_reads_the_step_values(cuda_device):
+    """``MetricsCopy`` of a train step's packed metrics (copied to pinned
+    memory behind an event, the step not waited for) reads the values a
+    blocking read gives."""
+    from automodel_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from automodel_tpu_torch.optim.builder import build_optimizer
+    from automodel_tpu_torch.training.train_step import (
+        MetricsCopy,
+        TrainStep,
+        to_device_batch,
+    )
+    from automodel_tpu_torch.utils.model_utils import jax_named_parameters
+
+    cfg = LlamaConfig(vocab_size=512, hidden_size=256, intermediate_size=512,
+                      num_hidden_layers=2, num_attention_heads=4,
+                      num_key_value_heads=2, rope_theta=10000.0)
+    model = LlamaForCausalLM(cfg, param_dtype=torch.bfloat16,
+                             device=cuda_device).init_weights(0)
+    step = TrainStep(model, build_optimizer(
+        list(jax_named_parameters(model)), grad_dtype=torch.float32,
+        lr=1e-3))
+    rng = np.random.default_rng(1)
+    ids = rng.integers(1, 512, (2, 2, 256)).astype(np.int32)
+    batch = to_device_batch([{"input_ids": ids[a], "labels": ids[a]}
+                             for a in range(2)], cuda_device)
+    for _ in range(3):
+        values = step.dispatch(batch)
+        copy = MetricsCopy(values)
+        assert copy.read() == values.tolist()
+        assert copy.read()[2] == 2 * 2 * 256
+
+
+@pytest.mark.cuda
+def test_cuda_staged_batches_equal_synchronous_ones(cuda_device):
+    """A batch staged from pinned memory on a side stream, after
+    ``use_staged``, equals the synchronous copy bit for bit, while the
+    compute stream is busy."""
+    from automodel_tpu_torch.training.train_step import (
+        stage_batch,
+        to_device_batch,
+        use_staged,
+    )
+
+    rng = np.random.default_rng(2)
+    mbs = [{"input_ids": rng.integers(0, 1 << 17, (8, 2048)).astype(
+        np.int32), "labels": rng.integers(-100, 500, (8, 2048)).astype(
+        np.int32), "position_ids": np.tile(np.arange(2048, dtype=np.int32),
+                                           (8, 1))} for _ in range(2)]
+    stream = torch.cuda.Stream(cuda_device)
+    busy = torch.randn(4096, 4096, device=cuda_device)
+    for _ in range(3):
+        for _ in range(8):
+            busy = busy @ busy * 1e-3       # the compute stream is busy
+        staged = stage_batch(mbs, cuda_device, stream)
+        use_staged(staged, stream)
+        want = to_device_batch(mbs, cuda_device)
+        assert sorted(staged) == sorted(want)
+        for k in want:
+            assert torch.equal(staged[k], want[k]), k

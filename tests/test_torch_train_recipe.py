@@ -122,7 +122,8 @@ UNPORTED = [
     ("cp", ["--distributed.cp_size", "2"]),
     ("pp", ["--distributed.pp_size", "2"]),
     ("autotune", ["--kernels.autotune", "on"]),
-    ("remat_policy", ["--model.remat_policy", "save_names:attn_core"]),
+    ("remat_policy", ["--model.remat_policy",
+                      "offload_dot_with_no_batch_dims"]),
     ("linear_ce_xla_bwd", ["--loss_fn._target_",
                            "automodel_tpu.loss.linear_ce."
                            "FusedLinearCrossEntropy",
