@@ -2,5 +2,6 @@
 
 from automodel_tpu_torch.generation.generate import (  # noqa: F401
     GenerationConfig,
+    generate,
     sample_logits,
 )

@@ -1,9 +1,18 @@
-"""Sampling configuration and the sampler (counterpart:
-``automodel_tpu/generation/generate.py:43-70``).
+"""Sampling and the dense generation loop (counterpart:
+``automodel_tpu/generation/generate.py``).
+
+:func:`generate` is the JAX eval path: one lockstep batch over the dense
+decode cache (``model.init_kv_cache``).  Prompts are left-aligned so every
+row's last prompt token sits at the same position, pads are excluded by a
+padding mask over the cache, rope positions count from 0 per row; one
+prefill forward writes the cache and gives each row's first token, then
+``max_new_tokens - 1`` single-token forwards follow.  Finished rows emit
+``pad_token_id`` after their eos.  Serving workloads go through the
+paged decode engine (``serving/engine.py``), whose greedy output is
+token-identical to this loop.
 
 Randomness comes from an explicit ``torch.Generator``; it will not draw
-the numbers ``jax.random`` draws from the same seed.  The dense
-``generate()`` loop waits for a later port slice.
+the numbers ``jax.random`` draws from the same seed.
 """
 
 from __future__ import annotations
@@ -11,6 +20,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
+import numpy as np
 import torch
 
 
@@ -44,3 +54,58 @@ def sample_logits(logits: torch.Tensor, cfg: GenerationConfig,
         logits = logits.masked_fill(logits < cutoff, float("-inf"))
     probs = torch.softmax(logits, dim=-1)
     return torch.multinomial(probs, 1, generator=generator)[:, 0]
+
+
+def left_align(input_ids: torch.Tensor, prompt_lens: torch.Tensor,
+               pad_token_id: int) -> torch.Tensor:
+    """Right-padded ``[B, S]`` prompts -> left-padded (right-aligned)."""
+    B, S = input_ids.shape
+    shift = S - prompt_lens                                  # [B]
+    idx = torch.arange(S, device=input_ids.device)[None, :] - shift[:, None]
+    rolled = torch.gather(input_ids, 1, idx.clamp(0, S - 1))
+    return torch.where(idx < 0, torch.full_like(rolled, pad_token_id),
+                       rolled)
+
+
+@torch.inference_mode()
+def generate(model, input_ids, prompt_lens=None,
+             config: Optional[GenerationConfig] = None,
+             generator: Optional[torch.Generator] = None) -> np.ndarray:
+    """Continuations of right-padded ``input_ids [B, S]`` (``prompt_lens
+    [B]`` the true lengths, default S) on the model's device ->
+    ``[B, max_new_tokens]`` int32 numpy, ``pad_token_id`` after eos.  Plain
+    PyTorch ops: the JAX loop runs no Pallas kernel either."""
+    cfg = config or GenerationConfig()
+    dev = model.inv_freq.device
+    ids = torch.as_tensor(np.asarray(input_ids), dtype=torch.long,
+                          device=dev)
+    B, S = ids.shape
+    lens = (torch.full((B,), S, dtype=torch.long, device=dev)
+            if prompt_lens is None else torch.as_tensor(
+                np.asarray(prompt_lens), dtype=torch.long, device=dev))
+    left = left_align(ids, lens, cfg.pad_token_id)
+    max_len = S + cfg.max_new_tokens
+    shift = S - lens                                         # pads per row
+    # padding mask over the whole cache: prompt pads out, generated in
+    kv_mask = torch.arange(max_len, device=dev)[None, :] >= shift[:, None]
+    prefill_pos = (torch.arange(S, device=dev)[None, :]
+                   - shift[:, None]).clamp(min=0)
+    cache = model.init_kv_cache(B, max_len)
+    out = model(left, position_ids=prefill_pos, attention_mask=kv_mask,
+                kv_cache=cache, cache_index=0)
+    tok = sample_logits(out["logits"][:, -1].float(), cfg, generator)
+    done = torch.zeros(B, dtype=torch.bool, device=dev)
+    emitted = []
+    # N tokens need N - 1 decode forwards: each emits its carried token and
+    # samples the next; the last carry is emitted without a forward
+    for t in range(cfg.max_new_tokens - 1):
+        out = model(tok[:, None], position_ids=(lens + t)[:, None],
+                    attention_mask=kv_mask, kv_cache=cache,
+                    cache_index=S + t)
+        nxt = sample_logits(out["logits"][:, 0].float(), cfg, generator)
+        emitted.append(torch.where(done, cfg.pad_token_id, tok))
+        if cfg.eos_token_id is not None:
+            done = done | (tok == cfg.eos_token_id)
+        tok = nxt
+    emitted.append(torch.where(done, cfg.pad_token_id, tok))
+    return torch.stack(emitted, dim=1).to(torch.int32).cpu().numpy()

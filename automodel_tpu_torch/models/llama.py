@@ -17,9 +17,13 @@ rematerialized under the ``remat_policy`` (``ops/remat.py``; the JAX
 model's default ``nothing_saveable`` keeps only the unit's input; the
 attention output is tagged ``attn_core`` and ``silu(gate) * up``
 ``mlp_silu``, as in JAX)), and
-with a :class:`~automodel_tpu_torch.serving.kv_cache.PagedKVView` (the
-serving path: each layer writes its k/v into the paged pools, then attends
-through ``ops/paged_attention.py``).  The feed-forward block is a hook
+with a cache: a :class:`~automodel_tpu_torch.serving.kv_cache.PagedKVView`
+(the serving path: each layer writes its k/v into the paged pools, then
+attends through ``ops/paged_attention.py``) or the dense decode cache of
+:meth:`LlamaForCausalLM.init_kv_cache` (``generation/generate.py``: k/v
+written at ``cache_index``, attended by the plain
+``ops/attention.py::cached_attention``, as JAX's XLA path).  The
+feed-forward block is a hook
 (``_mlp_block``) that the MoE families (``models/mixtral.py``) replace with
 routed experts; their per-layer routing statistics come back through remat
 and fold into ``out["aux_loss"]``.  Quantized compute
@@ -37,8 +41,12 @@ or adds the rank-r bypass ``s ((x m?) A) B`` to its base product, with
 inverted dropout before (``pre``) or after (``post``) the adapter while
 training.  An int8 base is dequantized in the compute dtype before the
 product; the base product goes through ``maybe_qdot`` either way, the
-adapter's delta stays in the compute dtype.  Sharding constraints wait
-for later port slices.
+adapter's delta stays in the compute dtype.  Multi-tenant serving hands
+``_proj`` per-layer slabs ``A [E, in, r]`` / ``B [E, r, out]`` and the
+forward ``adapter_ids [B]`` (0 = base, a zero slab): each row's delta
+then runs through ``ops/lora_gmm.py`` (the gmm kernel on the card), with
+the rows' sort by adapter computed once per forward.  Sharding
+constraints wait for later port slices.
 """
 
 from __future__ import annotations
@@ -55,8 +63,10 @@ from torch import nn
 
 from automodel_tpu_torch.ops.attention import (
     attention,
+    cached_attention,
     fold_padding_into_segments,
 )
+from automodel_tpu_torch.ops.lora_gmm import lora_routing, multi_lora_delta
 from automodel_tpu_torch.ops.norms import rms_norm
 from automodel_tpu_torch.ops.quant import maybe_qdot
 from automodel_tpu_torch.ops.remat import (
@@ -146,7 +156,8 @@ class LayerAdapter(NamedTuple):
     """One projection's LoRA in one layer: ``merged`` (``[out, in]``, the
     merge path) or ``A [in, r]`` / ``B [r, out]`` (the bypass), the scale
     ``alpha / r``, and the dropout rate, position and this step's seed
-    (None: no dropout, as outside training)."""
+    (None: no dropout, as outside training).  Multi-tenant slabs are
+    ``A [E, in, r]`` / ``B [E, r, out]`` (scales folded into ``B``)."""
 
     merged: Optional[torch.Tensor] = None
     A: Optional[torch.Tensor] = None
@@ -171,6 +182,36 @@ def _dropout(t: torch.Tensor, rate: float, seed: int, name: str
 
 def _linear(i: int, o: int, dtype, device) -> nn.Linear:
     return nn.Linear(i, o, bias=False, dtype=dtype, device=device)
+
+
+class DenseKVView:
+    """The dense decode cache as one forward sees it: ``{"k"|"v": [L, B, T,
+    Hk, D]}`` (the JAX ``init_kv_cache`` layout), this step's tokens
+    written at positions ``cache_index ..`` of every row, and the padding
+    mask ``[B, T]`` (True = a key to attend).  ``layer_view`` narrows to
+    one layer (views: writes land in the cache)."""
+
+    def __init__(self, cache: Dict[str, torch.Tensor], cache_index: int,
+                 attention_mask: Optional[torch.Tensor]):
+        self.cache = cache
+        self.cache_index = int(cache_index)
+        self.attention_mask = attention_mask
+
+    def layer_view(self, layer: int) -> "DenseKVView":
+        return DenseKVView({n: t[layer] for n, t in self.cache.items()},
+                           self.cache_index, self.attention_mask)
+
+    def write(self, k: torch.Tensor, v: torch.Tensor) -> None:
+        i, S = self.cache_index, k.shape[1]
+        for name, x in (("k", k), ("v", v)):
+            t = self.cache[name]
+            t[:, i:i + S] = x.to(t.dtype)
+
+    def attend(self, q: torch.Tensor, *, local_window_size=None):
+        return cached_attention(
+            q, self.cache["k"], self.cache["v"], cache_index=self.cache_index,
+            attention_mask=self.attention_mask,
+            local_window_size=local_window_size)
 
 
 class RMSNorm(nn.Module):
@@ -234,6 +275,7 @@ class LlamaForCausalLM(nn.Module):
         device = resolve_device(device)
         self.quant = None        # set by quantization.fp8.apply_fp8_to_model
         self._adapters = None    # the running layer's LoRA (see _layer)
+        self._lora_routing = None   # a multi-tenant forward's row sort
         self.qdot_impl: Optional[str] = None   # "plain" forces qdot's plain
         self.config = config
         self.param_dtype = as_dtype(param_dtype)
@@ -302,6 +344,11 @@ class LlamaForCausalLM(nn.Module):
             y = F.linear(x, w)
         else:
             y = maybe_qdot(x, w.t(), self.quant, name, impl=self.qdot_impl)
+        if ad is not None and ad.A is not None and ad.A.dim() == 3:
+            # multi-tenant slabs: each row's delta through its slot's A/B
+            # (the tenants' scales are folded into B)
+            return y + multi_lora_delta(x, ad.A.to(cd), ad.B.to(cd), None,
+                                        routing=self._lora_routing)
         if ad is None or ad.A is None:
             return y
         drop = ad.dropout > 0.0 and ad.seed is not None
@@ -424,13 +471,28 @@ class LlamaForCausalLM(nn.Module):
         fwd = 2 * 2 * cfg.num_attention_heads * cfg.head_dim * s_avg
         return 3.0 * cfg.num_hidden_layers * fwd
 
+    def init_kv_cache(self, batch: int, max_len: int, dtype=None
+                      ) -> Dict[str, torch.Tensor]:
+        """The dense decode cache ``{"k"|"v": [L, B, max_len, Hk, D]}``,
+        zeros in ``dtype`` (default the compute dtype) on the model's
+        device (the JAX ``init_kv_cache``)."""
+        cfg = self.config
+        shape = (cfg.num_hidden_layers, batch, max_len,
+                 cfg.num_key_value_heads, cfg.head_dim)
+        dt = as_dtype(dtype) if dtype is not None else self.compute_dtype
+        dev = self.inv_freq.device
+        return {"k": torch.zeros(shape, dtype=dt, device=dev),
+                "v": torch.zeros(shape, dtype=dt, device=dev)}
+
     def forward(self, input_ids: torch.Tensor,
                 position_ids: Optional[torch.Tensor] = None,
                 segment_ids: Optional[torch.Tensor] = None,
                 attention_mask: Optional[torch.Tensor] = None,
                 kv_cache=None, return_hidden: bool = False,
                 attn_impl: Optional[str] = None,
-                adapters: Optional[List[Dict[str, LayerAdapter]]] = None
+                adapters: Optional[List[Dict[str, LayerAdapter]]] = None,
+                cache_index: Optional[int] = None,
+                adapter_ids: Optional[torch.Tensor] = None
                 ) -> Dict[str, torch.Tensor]:
         """``input_ids [B, S]`` -> ``{"logits": [B, S, V]}`` in the compute
         dtype, or with ``return_hidden`` ``{"hidden_states": [B, S, H],
@@ -443,20 +505,48 @@ class LlamaForCausalLM(nn.Module):
         ``position_ids [B, S]`` (restarting per packed sample) reach the
         attention; ``attn_impl`` is passed to ``ops.attention.attention``
         (None: the kernels on CUDA tensors, the plain versions on CPU).
-        ``kv_cache`` is a ``PagedKVView`` (pools updated in place) or
-        None.  ``adapters`` (from ``peft/lora.py::LoRAModel``) holds one
-        ``{name: LayerAdapter}`` per layer."""
+        ``kv_cache`` is a ``PagedKVView`` (pools updated in place), the
+        dense cache of :meth:`init_kv_cache` with ``cache_index`` (this
+        step's first cache position) and ``attention_mask [B, max_len]``
+        over the cache (returned updated in place as ``out["kv_cache"]``),
+        or None.  ``adapters`` (from ``peft/lora.py::LoRAModel``, or the
+        serving slabs of ``serving/adapters.py`` with ``adapter_ids
+        [B]``) holds one ``{name: LayerAdapter}`` per layer."""
         B, S = input_ids.shape
         if kv_cache is not None and getattr(self.quant, "enabled", False):
             raise NotImplementedError(
                 "quantized compute while serving (fp8 serving) is not "
                 "ported yet: ROADMAP Queue 1 item 6")
+        dense = isinstance(kv_cache, dict)
+        if dense:
+            if cache_index is None:
+                raise ValueError("a dense kv_cache needs cache_index")
+            kv_cache = DenseKVView(kv_cache, cache_index, attention_mask)
         if position_ids is None:
-            position_ids = torch.arange(S, device=input_ids.device).expand(
-                B, S)
+            start = 0 if cache_index is None else int(cache_index)
+            position_ids = start + torch.arange(
+                S, device=input_ids.device).expand(B, S)
         if kv_cache is None:
             segment_ids = fold_padding_into_segments((B, S), segment_ids,
                                                      attention_mask)
+        if adapter_ids is not None:
+            if not adapters:
+                raise ValueError("adapter_ids route rows through adapter "
+                                 "slabs: pass adapters too")
+            slabs = next(a for layer in adapters for a in layer.values())
+            self._lora_routing = lora_routing(adapter_ids, S,
+                                              slabs.A.shape[0])
+        try:
+            out = self._forward(input_ids, position_ids, segment_ids,
+                                kv_cache, return_hidden, attn_impl, adapters)
+        finally:
+            self._lora_routing = None
+        if dense:
+            out["kv_cache"] = kv_cache.cache
+        return out
+
+    def _forward(self, input_ids, position_ids, segment_ids, kv_cache,
+                 return_hidden, attn_impl, adapters):
         remat = (self.remat and kv_cache is None
                  and torch.is_grad_enabled())
         hidden = self.embed_tokens.weight[input_ids].to(self.compute_dtype)

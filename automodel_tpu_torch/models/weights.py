@@ -139,3 +139,29 @@ def load_jax_recipe_params(recipe, tree: Dict[str, Any]) -> None:
     optimizer state, so the first step starts from these weights."""
     load_jax_params(recipe.model, tree)
     recipe.optimizer.state.clear()
+
+
+def jax_adapter_tree(tree: Dict[str, Any]) -> Dict[str, Dict[str, np.ndarray]]:
+    """A single-adapter LoRA tree in the JAX layout (the value of the JAX
+    PEFT params' ``"lora"`` entry: ``{module path: {"A": [L, in, r], "B":
+    [L, r, out]}}``, as numpy, JAX or torch arrays) -> the same tree as
+    host numpy arrays, the input of ``serving/adapters.py``'s slot loads.
+    bfloat16 leaves widen to float32 (exact); anything that is not such a
+    tree raises ``TypeError`` / ``KeyError``."""
+    if not isinstance(tree, dict):
+        raise TypeError(f"an adapter tree is a dict, got {type(tree)}")
+    out = {}
+    for path, ab in tree.items():
+        if not isinstance(ab, dict):
+            raise TypeError(f"{path}: expected {{'A', 'B'}}, got {type(ab)}")
+        leaves = {}
+        for part in ("A", "B"):
+            a = ab[part]
+            if isinstance(a, torch.Tensor):
+                a = a.detach().float().cpu().numpy()
+            a = np.asarray(a)
+            if a.dtype.name == "bfloat16":      # ml_dtypes
+                a = a.astype(np.float32)
+            leaves[part] = a
+        out[path] = leaves
+    return out

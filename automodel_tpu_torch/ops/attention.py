@@ -18,7 +18,9 @@ rung's counterpart: kv heads repeated to the query heads, segment 0
 attending segment 0), its kernels on CUDA tensors and its plain versions
 on CPU tensors; like the JAX rung it refuses a soft cap or a window.  The
 JAX package's XLA SDPA and ring-attention rungs are not ported (ring
-attention waits for multi-GPU).
+attention waits for multi-GPU).  :func:`cached_attention` is the dense
+decode cache's attention (``generation/generate.py``), plain PyTorch as
+the JAX function is XLA.
 """
 
 from __future__ import annotations
@@ -125,3 +127,44 @@ def attention(
         attention_mask=attention_mask, scale=scale,
         logits_soft_cap=logits_soft_cap,
         local_window_size=local_window_size, impl=impl)
+
+
+_NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
+
+
+def cached_attention(
+    q: torch.Tensor,              # [B, T, Hq, D] this step's queries
+    k_cache: torch.Tensor,        # [B, S_max, Hk, D] dense decode cache
+    v_cache: torch.Tensor,
+    *,
+    cache_index: int,             # the queries sit at cache_index + t
+    attention_mask: Optional[torch.Tensor] = None,   # [B, S_max] keys
+    scale: Optional[float] = None,
+    logits_soft_cap: Optional[float] = None,
+    local_window_size: Optional[int] = None,
+) -> torch.Tensor:
+    """Attention over a dense decode cache, in plain PyTorch (the JAX
+    ``cached_attention``: its XLA SDPA with ``q_offset``, fp32 softmax).
+    Query ``t`` sees cache positions ``<= cache_index + t`` that the
+    padding mask keeps; the unwritten tail lies in every query's future."""
+    B, T, Hq, D = q.shape
+    Skv, Hk = k_cache.shape[1], k_cache.shape[2]
+    G = Hq // Hk
+    scale = D ** -0.5 if scale is None else scale
+    qg = q.reshape(B, T, Hk, G, D)
+    logits = torch.einsum("bqhgd,bkhd->bhgqk", qg,
+                          k_cache.to(q.dtype)).float() * scale
+    if logits_soft_cap is not None:
+        logits = logits_soft_cap * torch.tanh(logits / logits_soft_cap)
+    q_pos = cache_index + torch.arange(T, device=q.device)
+    diff = q_pos[:, None] - torch.arange(Skv, device=q.device)[None, :]
+    mask = (diff >= 0)[None]                              # [1, T, Skv]
+    if local_window_size is not None:
+        mask = mask & (diff < local_window_size)[None]
+    if attention_mask is not None:
+        mask = mask & attention_mask.bool()[:, None, :]
+    logits = torch.where(mask[:, None, None], logits,
+                         torch.full_like(logits, _NEG_INF))
+    probs = torch.softmax(logits, dim=-1).to(v_cache.dtype)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v_cache)
+    return out.reshape(B, T, Hq, D).to(q.dtype)

@@ -36,17 +36,25 @@ BLOCK_SIZE = 16
 HEAD_DIMS = (64, 128)
 
 # Split-KV plan.  Rows fold as R = S * Hq / Hk.  bf16 q runs on the tensor
-# cores: with R <= KEY_SPLIT_ROWS[1] the 4 warps of a CTA split the span's
-# pages over a tile of 16 rows (mode 3), with more they split a tile of 64
-# rows and share the pages (mode 2).  fp32 q runs fp32 FMAs: the warps split
-# the pages over 4 rows (R <= KEY_SPLIT_ROWS[0], mode 0) or a tile of 16
-# rows (mode 1).  A CTA takes SPAN_PAGES pages (256 keys) of one row and kv
-# head, halved down to MIN_SPAN_PAGES while the grid would hold fewer CTAs
-# than the card has SMs (PERF.md: the spans measured on the H100).
+# cores: with R <= KEY_SPLIT_ROWS[1], or at a speculative verify width (S <=
+# VERIFY_S), the 4 warps of a CTA split the span's pages over a tile of 16
+# rows (mode 3), else they split the rows of a 64-row tile and share the
+# pages (mode 2).  fp32 q runs fp32 FMAs: the warps split the pages over 4
+# rows (R <= KEY_SPLIT_ROWS[0], mode 0) or a tile of 16 rows (mode 1).  A
+# CTA takes SPAN_PAGES pages (256 keys) of one row and kv head, halved down
+# to MIN_SPAN_PAGES while the grid would hold fewer CTAs than the card has
+# SMs (PERF.md: the spans measured on the H100); in mode 3 the grid counted
+# is one query token's.  So a verify step's rows take a decode step's
+# mode and span: each row sums its keys in the same order (a row's sums do
+# not depend on the other rows of its tile, and pages masked for it add
+# exact zeros), and greedy tokens do not move when speculation is on --
+# without a sliding window, whose start (the tile's earliest token's)
+# moves the warps' split of the pages.
 SPAN_PAGES = 16
 MIN_SPAN_PAGES = 4
 MAX_SPAN = 1024
 KEY_SPLIT_ROWS = (8, 16)          # (fp32 q, bf16 q)
+VERIFY_S = 8
 ROW_TILE = (4, 16, 64, 16)        # by mode
 
 # wrapper calls in this process (reset by callers that count a window)
@@ -76,17 +84,20 @@ def split_plan(B: int, S: int, Hq: int, Hk: int, MB: int, sms: int = 132,
     if Hk <= 0 or Hq % Hk or min(B, S, MB) <= 0:
         raise ValueError(f"split_plan: bad shapes B={B} S={S} Hq={Hq} "
                          f"Hk={Hk} MB={MB}")
-    R = S * (Hq // Hk)
+    G = Hq // Hk
+    R = S * G
     if bf16:
-        mode = 3 if R <= KEY_SPLIT_ROWS[1] else 2
+        mode = 3 if R <= KEY_SPLIT_ROWS[1] or S <= VERIFY_S else 2
     else:
         mode = 0 if R <= KEY_SPLIT_ROWS[0] else 1
     row_tile = ROW_TILE[mode]
     tiles = -(-R // row_tile)
     if span is None:
+        # mode 3 sizes the grid of one query token, so S does not move it
+        grid_tiles = -(-G // row_tile) if mode == 3 else tiles
         pages = min(SPAN_PAGES, MB)
         while (pages > MIN_SPAN_PAGES
-               and B * Hk * tiles * -(-MB // pages) < sms):
+               and B * Hk * grid_tiles * -(-MB // pages) < sms):
             pages //= 2
         span = pages * BLOCK_SIZE
     if span <= 0 or span % BLOCK_SIZE or span > MAX_SPAN:

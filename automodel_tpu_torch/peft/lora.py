@@ -19,6 +19,13 @@ cast back to ``W``'s dtype for every target and layer before the forward
 ``models/llama.py::LayerAdapter``s.  ``quantize_base: int8`` turns the
 frozen base into ``quantization/weight_only.py`` int8 codes.
 
+With a cache (the decode engine, ``generate()``) the forward merges the
+adapters into the weights (the bypass over an int8 base): a LoRA model
+serves as a single-adapter engine.  :func:`adapter_slab_shapes` gives
+the multi-tenant slot layout of ``serving/adapters.py``, and
+:meth:`LoRAModel.load_adapter_tree` sets the adapters from the JAX layout
+that a slot loads.
+
 Dropout masks come from a seed per (step, microbatch, layer) and the
 projection's name (``set_dropout_step``): they repeat under remat and
 after a resume, but are not JAX's masks (another generator).
@@ -104,6 +111,27 @@ def match_targets(model, config: PeftConfig
         if matcher.match(module_path):
             out[module_path] = (path, target)
     return out
+
+
+def adapter_slab_shapes(model, config: PeftConfig, num_slots: int
+                        ) -> Dict[str, Tuple[tuple, tuple]]:
+    """``{module path: ((L, E, in, r), (L, E, r, out))}``: the stacked
+    multi-tenant slot layout of ``serving/adapters.py`` (E = ``num_slots``,
+    slot 0 the zero adapter), the JAX function's.  Targets must be
+    layer-stacked projections (``layers.*``)."""
+    r = config.dim
+    shapes: Dict[str, Tuple[tuple, tuple]] = {}
+    for mod_path, (path, target) in sorted(
+            match_targets(model, config).items()):
+        if len(path) != 4 or path[0] != "layers" or \
+                path[2] not in _PROJ_BLOCKS.get(path[1], ()):
+            raise ValueError(
+                f"multi-adapter slabs need layer-stacked (L, in, out) "
+                f"projection kernels; {mod_path} is not one")
+        fout, fin = target[0].shape
+        L = len(target)
+        shapes[mod_path] = ((L, num_slots, fin, r), (L, num_slots, r, fout))
+    return shapes
 
 
 def _stream_seed(*coords: int) -> int:
@@ -249,6 +277,28 @@ class LoRAModel(nn.Module):
             yield ("lora", mod_path, "A"), list(ad.A), False
             yield ("lora", mod_path, "B"), list(ad.B), False
 
+    @torch.no_grad()
+    def load_adapter_tree(self, tree: Dict[str, Dict[str, Any]]) -> None:
+        """Set the adapters from a tree in the JAX layout (``{module path:
+        {"A": [L, in, r], "B": [L, r, out]}}``; numpy, JAX or torch
+        leaves); a missing target or a shape mismatch raises."""
+        from automodel_tpu_torch.models.weights import jax_adapter_tree
+
+        host = jax_adapter_tree(tree)
+        if set(host) != set(self.targets):
+            raise KeyError(f"adapter tree targets {sorted(host)}, the model "
+                           f"{sorted(self.targets)}")
+        for mod_path, ab in host.items():
+            ad = self.adapter(mod_path)
+            for part in ("A", "B"):
+                params = getattr(ad, part)
+                if ab[part].shape != (len(params),) + tuple(params[0].shape):
+                    raise ValueError(
+                        f"{mod_path}.{part}: shape {ab[part].shape} does not "
+                        f"fit {(len(params),) + tuple(params[0].shape)}")
+                for p, a in zip(params, ab[part]):
+                    p.copy_(torch.from_numpy(np.ascontiguousarray(a)))
+
     def trainable_mask(self) -> Dict[str, bool]:
         """``{JAX leaf path: trainable}``: the adapters only."""
         return {PATH_SEP.join(path): path[0] == "lora"
@@ -265,14 +315,17 @@ class LoRAModel(nn.Module):
         dropout masks are drawn from it and the microbatch's index)."""
         self._dropout_at = (int(step), 0)
 
-    def layer_adapters(self) -> List[Dict[str, LayerAdapter]]:
+    def layer_adapters(self, merged: Optional[bool] = None
+                       ) -> List[Dict[str, LayerAdapter]]:
         """One ``{_proj name: LayerAdapter}`` per layer for the next
         forward: merged weights, or the bypass adapters with this
-        microbatch's dropout seeds while training."""
+        microbatch's dropout seeds while training.  ``merged`` overrides
+        the model's choice (an int8 base cannot merge)."""
         cfg = self.peft_config
         base = self.base_model
+        bypass = self.bypass if merged is None else not merged
         seeds = None
-        if (self.bypass and cfg.dropout > 0.0 and self.training
+        if (bypass and cfg.dropout > 0.0 and self.training
                 and torch.is_grad_enabled()):
             step, mb = self._dropout_at
             self._dropout_at = (step, mb + 1)
@@ -284,7 +337,7 @@ class LoRAModel(nn.Module):
             for mod_path, (_, name, attr) in self.targets.items():
                 ad = self.adapter(mod_path)
                 A, B = ad.A[i], ad.B[i]
-                if self.bypass:
+                if bypass:
                     d[name] = LayerAdapter(
                         A=A, B=B, scale=cfg.scale, dropout=float(cfg.dropout),
                         position=cfg.dropout_position,
@@ -299,12 +352,17 @@ class LoRAModel(nn.Module):
         return out
 
     def forward(self, input_ids, *args, **kwargs):
+        """The base model's forward with this model's adapters.  With a
+        cache (serving, ``generate``) the adapters are merged into the
+        weights, unless the base is int8 (then the bypass, no dropout):
+        the single-adapter engine the multi-tenant mixed batch is held
+        against."""
+        merged = None
         if kwargs.get("kv_cache") is not None:
-            raise NotImplementedError(
-                "serving a LoRA model is not ported (multi-LoRA serving: "
-                "ROADMAP Queue 1 item 2.4)")
+            merged = not self.peft_config.quantize_base
         return self.base_model(input_ids, *args,
-                               adapters=self.layer_adapters(), **kwargs)
+                               adapters=self.layer_adapters(merged),
+                               **kwargs)
 
 
 # ---------------------------------------------------------------------------

@@ -10,10 +10,51 @@ process::
     AUTOMODEL_FAULT="a:1,b:3:kill"            # several points; kill = os._exit
 
 Each entry is ``name[:count][:mode]``: ``count`` defaults to 1, ``mode`` is
-``raise`` (default) or ``kill``/``exit``.  A point fires exactly once.  The
-port's only point so far is ``input_producer`` (``datasets/prefetch.py``:
-the background producer, before each batch).  The JAX module's watchdog
-and checkpoint points wait for those slices of the port.
+``raise`` (default) or ``kill``/``exit``.  A point fires exactly once.
+Points are drills: they fire only when armed, and each site's contract is
+the JAX package's.
+
+Input pipeline (``datasets/prefetch.py``):
+
+    input_producer    the background producer, before each batch.
+
+Serving engine (``serving/scheduler.py``, ``serving/engine.py``):
+
+    serve_block_alloc at every KV block grab (``Scheduler._allocate``):
+                      behaves like an exhausted pool; the row is
+                      preempted (recompute), never a crash.
+    serve_request_abort
+                      in ``DecodeEngine.step`` before the plan: the
+                      oldest active request is aborted, its blocks freed.
+    serve_deadline    in the step-boundary deadline sweep: the oldest
+                      active request EXPIRES, blocks reclaimed.
+    serve_shed        in ``Scheduler.add``: a typed ``RequestRejected``
+                      as from a full queue, never an exception.
+    serve_watchdog_stall
+                      at the device-step dispatch: stands in for a wedged
+                      step; the engine zeroes the pools, flushes the prefix
+                      index and replays the admitted requests (pinned),
+                      greedy output token-identical.
+    kv_prefix_lookup  before the prefix index is consulted at admission:
+                      the request prefills cold, same tokens.
+    kv_cow_fork       at the private-block grab of a copy-on-write fork:
+                      the chain's refs are returned and the request
+                      prefills cold (``cow_fork_failures``).
+    spec_draft        before the n-gram proposer runs for a row: that row
+                      verifies an empty draft (``spec_draft_faults``).
+    spec_verify       before draft acceptance on a step with drafts: every
+                      draft of the step is discarded
+                      (``spec_verify_failures``).
+
+Multi-tenant adapters (``serving/adapters.py``):
+
+    adapter_load      at the top of a load into an empty slot: a typed
+                      ``AdapterLoadError``, no slab byte written.
+    adapter_swap      at the top of a hot-swap of a loaded slot: a typed
+                      ``AdapterLoadError``, the slot keeps its old adapter.
+
+The JAX module's checkpoint, elastic, fleet and rollout points wait for
+those slices of the port.
 """
 
 from __future__ import annotations
@@ -25,6 +66,23 @@ from typing import Dict, Optional
 
 FAULT_ENV = "AUTOMODEL_FAULT"
 _KILL_EXIT_CODE = 113
+
+# every fault_point() call site of the port, by name (the JAX registry's
+# names for the same sites)
+KNOWN_FAULT_POINTS = frozenset({
+    "input_producer",
+    "serve_block_alloc",
+    "serve_request_abort",
+    "serve_deadline",
+    "serve_shed",
+    "serve_watchdog_stall",
+    "kv_prefix_lookup",
+    "kv_cow_fork",
+    "spec_draft",
+    "spec_verify",
+    "adapter_load",
+    "adapter_swap",
+})
 
 
 class InjectedFault(RuntimeError):
@@ -120,3 +178,9 @@ def fault_point(name: str) -> None:
     if mode == "kill":
         os._exit(_KILL_EXIT_CODE)
     raise InjectedFault(f"injected fault at {name!r} (hit {hits})")
+
+
+def fault_counts() -> Dict[str, int]:
+    """Hit counts per armed point (for tests)."""
+    with _lock:
+        return {name: fp.hits for name, fp in _registry.items()}

@@ -12,7 +12,8 @@ Phases (any failure exits non-zero without the final ``ok`` line):
 3. paged-decode kernel: its wrapper against its plain PyTorch version on
    the card, at the serving path's shapes (Llama-3.2-1B: 32/8 heads,
    head_dim 64, plus head_dim 128; block size 16; batch 8; contexts up to
-   2048; S = 1, 5, 32; bf16 and int8 pools; soft-cap and window), each
+   2048; S = 1, 5 (the speculative verify, bf16 and int8), 32; bf16 and
+   int8 pools; soft-cap and window), each
    ``kernel_case`` line with its split plan (span, splits, mode, grid), the
    wrapper call's time (``ms``) and the kernels' own (``device_ms``, the
    host's work hidden behind a spin of the card), for four cases the
@@ -37,6 +38,24 @@ Phases (any failure exits non-zero without the final ``ok`` line):
    requests (prompts of 64-1024 tokens, 64 new tokens each) with the
    launch counts zeroed just before and read just after, then a shorter
    int8-KV run the same way, then two profiled windows;
+   before it, the gmm kernel at the multi-tenant LoRA delta's rank-8
+   shapes (``lora_gmm_case`` lines: x [m, 2048] x A [17, 2048, 8] and
+   h [m, 8] x B [17, 8, 2048], m = 8 and 256) against its plain version,
+   with kernel, plain, ``torch._grouped_mm`` and bound times;
+   serving_features: the same model through the engine's features at
+   ``bench.py``'s leg shapes, each run with the kernel counts zeroed just
+   before and read just after (paged decode = layers x steps, gmm = 2 x 7
+   adapted projections x layers x steps, no long-query gather) and the
+   pool all free after it: prefix caching on and off (16 requests sharing
+   a 96-token prefix, bf16 and int8 KV; 8 identical prompts that fork
+   copy-on-write), tokens identical; n-gram speculation on and off
+   (periodic and all-distinct prompts), tokens identical; multi-tenant
+   LoRA with 1, 4 and 16 rank-8 slots, mixed and serial against base
+   only, a profiled decode window, and the mixed first step's logits
+   against merged single-adapter engines; a seeded Poisson trace, a
+   second pass at twice the rate with deadlines, ``max_waiting`` and
+   ``by_deadline`` shedding, and an armed ``serve_watchdog_stall``
+   recovery whose tokens match an unarmed run;
 6. linear-CE kernels (forward; backward as dlogits, dh and dW launches
    per chunk of rows): each against its plain version at the bench SFT
    path's shape (T 16384 = 8 x 2048, H 2048, V 128256, the labels of the
@@ -297,6 +316,7 @@ KERNEL_CASES = [
     ("decode_d64_bf16", 1, 64, "bf16", None, None),
     ("decode_d64_int8", 1, 64, "int8", None, None),
     ("verify_s5_d64_bf16", 5, 64, "bf16", None, None),
+    ("verify_s5_d64_int8", 5, 64, "int8", None, None),
     ("chunk_s32_d64_bf16", 32, 64, "bf16", None, None),
     ("chunk_s32_d64_int8", 32, 64, "int8", None, None),
     ("decode_d64_bf16_cap_window", 1, 64, "bf16", 30.0, 256),
@@ -1178,6 +1198,77 @@ def gmm_case(name, sizes, m, k, n, flush, seed):
     return row
 
 
+# the multi-tenant LoRA delta's two rank-8 products on the gmm kernel
+# (ops/lora_gmm.py) at the serving_features phase's shapes: m = B x W rows
+# (8 decode rows, 8 x 32 prefill rows) of Llama-3.2-1B's q_proj (K 2048,
+# N 8; then K 8, N 2048) over E = 17 slots (16 tenants + the zero slot 0),
+# rows of a mixed batch round-robin over tenants 1..4 and base
+LORA_RANK = 8
+LORA_GMM_CASES = [
+    # (name, rows per batch row, K, N)
+    ("lora_a_m8", 1, 2048, LORA_RANK), ("lora_b_m8", 1, LORA_RANK, 2048),
+    ("lora_a_m256", 32, 2048, LORA_RANK), ("lora_b_m256", 32, LORA_RANK, 2048),
+]
+
+
+def lora_gmm_phase(flush):
+    """The gmm kernel at the rank-8 shapes: against its plain version, with
+    kernel, plain, library (``torch._grouped_mm``) and bound times
+    (``lora_gmm_case`` lines)."""
+    import torch
+
+    from automodel_tpu_torch.ops import gmm_kernel as gk
+
+    dev = torch.device("cuda")
+    E, B = 17, 8
+    ids = torch.tensor([(i % 5) for i in range(B)])      # 0 = base
+    rows = []
+    for i, (name, W, k, n) in enumerate(LORA_GMM_CASES):
+        g = torch.Generator(device=dev).manual_seed(400 + i)
+        m = B * W
+        sizes = torch.bincount(ids.repeat_interleave(W), minlength=E).int()
+        lhs = torch.randn(m, k, device=dev, generator=g).bfloat16()
+        rhs = (torch.randn(E, k, n, device=dev, generator=g) * 0.02
+               ).bfloat16()
+        rhs[0] = 0
+        gs = sizes.to(dev)
+        got = gk.gmm_cuda(lhs, rhs, gs)
+        torch.cuda.synchronize()
+        ref = gk.gmm_plain(lhs, rhs, gs)
+        check(bool(torch.isfinite(got).all()), f"{name}: non-finite")
+        rel = float((got.float() - ref.float()).norm()
+                    / ref.float().norm().clamp(min=1e-30))
+        err = float((got.float() - ref.float()).abs().max())
+        check(rel <= GMM_REL_L2, f"{name}: kernel vs plain relative L2 "
+              f"{rel:.3e} > {GMM_REL_L2}")
+        check(bool((got[:int(sizes[0])] == 0).all()),
+              f"{name}: the zero slot's rows are not exactly 0")
+        ends = torch.cumsum(gs, 0, dtype=torch.int32)
+        lib, why = gmm_library("gmm", lhs, rhs, None, ends)
+        lib_ms = None
+        if lib is not None:
+            lib_rel = float((lib().float() - ref.float()).norm()
+                            / ref.float().norm().clamp(min=1e-30))
+            if lib_rel <= 4 * GMM_REL_L2:
+                lib_ms = time_ms(lib, 20, flush)
+            else:
+                why = (f"torch._grouped_mm computes something else here "
+                       f"(relative L2 {lib_rel:.3e})")
+        bound_ms, bound_by = gmm_bounds(sizes, m, k, n)["gmm"]
+        row = dict(case=name, m=m, k=k, n=n, E=E,
+                   group_sizes=sizes.tolist(), rel_l2=rel, max_abs_err=err,
+                   ms=time_ms(lambda: gk.gmm_cuda(lhs, rhs, gs), 20, flush),
+                   device_ms=time_ms(lambda: gk.gmm_cuda(lhs, rhs, gs), 20,
+                                     flush, hide_host=True),
+                   plain_ms=time_ms(lambda: gk.gmm_plain(lhs, rhs, gs), 5,
+                                    flush),
+                   library_ms=lib_ms, library_note=why, bound_ms=bound_ms,
+                   bound_by=bound_by)
+        print("lora_gmm_case " + json.dumps(row), flush=True)
+        rows.append(row)
+    return rows
+
+
 def skewed_sizes(E, routed, seed):
     """Group sizes of a skewed routing of ``routed`` rows over ``E``
     experts, from ``seed``: 40 experts of 1-127 rows, 6 taking 10 shares of
@@ -1758,6 +1849,471 @@ def engine_phase():
     profile_window(steps(10), 10, "decode_w1", ("paged_decode",))
     eng.run()
     return main
+
+
+# ---------------------------------------------------------------------------
+# serving features phase
+# ---------------------------------------------------------------------------
+SERVE_YAML = os.path.join(REPO, "automodel_tpu_torch", "examples",
+                          "llama3_2_1b_serve.yaml")
+# projections a LoRA adapter reaches in every layer (``*_proj``)
+ADAPTED_PROJECTIONS = 7
+
+
+def _serve_base():
+    from automodel_tpu_torch.config.loader import load_yaml_config
+
+    cfg = load_yaml_config(SERVE_YAML)
+    return cfg, cfg.serving.to_dict()
+
+
+def feature_run(model, label, serving, requests, max_new, *, load=None,
+                adapted=0, fault=None, batches=None):
+    """One timed run of the port's engine: a fresh engine (the serve YAML's
+    ``serving:`` with ``serving`` overrides), ``load(engine)`` (adapters),
+    a warm-up request off the clock, then ``requests`` ((prompt, adapter
+    id) pairs) submitted at once and run to the end -- or each list of
+    ``batches`` in turn -- the kernel counts zeroed just before and read
+    just after: paged decode once per layer and step, gmm twice per
+    adapted projection, layer and step (``adapted`` projections), no
+    long-query gather.  ``fault`` arms a fault spec for the timed run.
+    Returns ``(report, tokens per request, engine)``."""
+    import torch
+
+    from automodel_tpu_torch.generation import GenerationConfig
+    from automodel_tpu_torch.ops import gmm_kernel as gk
+    from automodel_tpu_torch.ops import paged_attention as tpa
+    from automodel_tpu_torch.ops import paged_attention_kernel as pak
+    from automodel_tpu_torch.serving import (
+        DecodeEngine,
+        RequestState,
+        build_serving_config,
+    )
+    from automodel_tpu_torch.utils import fault_injection as fi
+
+    _, base = _serve_base()
+    eng = DecodeEngine(model, build_serving_config({**base, **serving}),
+                       generation=GenerationConfig(max_new_tokens=max_new))
+    if load is not None:
+        load(eng)
+    # the warm-up's prefill commits its prompt's blocks (prefix cache on)
+    first = (batches or [requests])[0][0]
+    eng.submit(first[0], adapter_id=first[1], max_new_tokens=4)
+    eng.run()
+    steps0, tok0 = eng.steps_run, eng.tokens_generated
+    L = model.config.num_hidden_layers
+    fi.configure_faults(fault)
+    torch.cuda.synchronize()
+    pak.launches = 0                      # counts zeroed just before the run
+    tpa.long_q_gather_calls = 0
+    gk.gmm_launches = 0
+    t0 = time.perf_counter()
+    rids = []
+    for batch in batches or [requests]:
+        rids += [eng.submit(p, adapter_id=a) for p, a in batch]
+        eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, gathers, gmms = (pak.launches, tpa.long_q_gather_calls,
+                               gk.gmm_launches)
+    fi.reset_faults()
+    st = eng.stats()
+    steps = eng.steps_run - steps0
+    states = {eng.requests[r].state for r in rids}
+    check(states == {RequestState.FINISHED},
+          f"{label}: not every request finished: {st['outcomes']}")
+    check(launches == L * steps,
+          f"{label}: {launches} paged-decode launches != {L} layers x "
+          f"{steps} steps")
+    check(gathers == 0, f"{label}: {gathers} long-query gather calls")
+    check(gmms == 2 * adapted * L * steps,
+          f"{label}: {gmms} gmm launches != 2 x {adapted} projections x {L}"
+          f" layers x {steps} steps")
+    check(eng.allocator.all_free, f"{label}: KV blocks leaked")
+    check(bool(torch.isfinite(eng.last_logits).all()),
+          f"{label}: non-finite logits")
+    report = dict(
+        run=label, requests=len(rids), max_new_tokens=max_new,
+        tok_s=(eng.tokens_generated - tok0) / wall, wall_s=wall, steps=steps,
+        tokens_per_step=(eng.tokens_generated - tok0) / max(1, steps),
+        paged_decode_launches=launches, gmm_launches=gmms,
+        step_widths=st["step_widths"], preemptions=st["preemptions"],
+        watchdog_recoveries=st["watchdog_recoveries"])
+    return report, [list(eng.requests[r].out_tokens) for r in rids], eng
+
+
+def _identical(label, a, b):
+    """Token identity of two runs, with where they first part if not."""
+    if a == b:
+        return
+    for i, (x, y) in enumerate(zip(a, b)):
+        if x != y:
+            j = next(k for k, (p, q) in enumerate(zip(x, y)) if p != q)
+            fail(f"{label}: request {i} parts at token {j}: {x[:j + 2]} vs "
+                 f"{y[:j + 2]}")
+    fail(f"{label}: the runs return different requests")
+
+
+def prefix_leg(model):
+    """bench.py's prefix-cache leg: 16 requests of a shared 96-token prefix
+    (six full blocks) plus a 4-token tail, 16 new tokens, 8 slots, cache
+    on and off (bf16 and int8 KV); then 8 identical 96-token prompts,
+    whose fully cached chains fork their last block copy-on-write."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    shared = [int(t) for t in rng.integers(1, 2000, 96)]
+    reqs = [(shared + [int(t) for t in rng.integers(1, 2000, 4)], 0)
+            for _ in range(16)]
+    forks = [(list(shared), 0)] * 8
+    out = {}
+    for kv in ("bf16", "int8"):
+        base = dict(max_num_seqs=8, max_model_len=128,
+                    kv_cache_dtype="int8" if kv == "int8" else None)
+        runs = {}
+        for mode in ("off", "on"):
+            runs[mode] = feature_run(model, f"prefix_{kv}_{mode}",
+                                     {**base, "prefix_caching": mode},
+                                     reqs, 16)
+        _identical(f"prefix cache {kv}: on vs off", runs["on"][1],
+                   runs["off"][1])
+        eng = runs["on"][2]
+        st = eng.stats()
+        check(st["prefill_tokens_saved"] == 16 * 96,
+              f"prefix {kv}: {st['prefill_tokens_saved']} prompt tokens "
+              f"reused, expected {16 * 96}")
+        out[kv] = dict(
+            off_tok_s=runs["off"][0]["tok_s"], on_tok_s=runs["on"][0]["tok_s"],
+            on_vs_off=runs["on"][0]["tok_s"] / runs["off"][0]["tok_s"],
+            prefill_tokens_saved=st["prefill_tokens_saved"],
+            cache_hit_rate=st["cache_hit_rate"],
+            cow_forks=st["prefix_cache"]["cow_forks"],
+            off=runs["off"][0], on=runs["on"][0])
+    fork = {m: feature_run(model, f"prefix_fork_{m}",
+                           dict(max_num_seqs=8, max_model_len=128,
+                                prefix_caching=m), forks, 16)
+            for m in ("off", "on")}
+    _identical("prefix cache fork: on vs off", fork["on"][1], fork["off"][1])
+    st = fork["on"][2].stats()
+    check(st["prefix_cache"]["cow_forks"] >= 8,
+          f"prefix fork: {st['prefix_cache']['cow_forks']} COW forks < 8")
+    out["fork"] = dict(cow_forks=st["prefix_cache"]["cow_forks"],
+                       deferrals=st["prefix_cache"]["deferrals"],
+                       prefill_tokens_saved=st["prefill_tokens_saved"],
+                       on=fork["on"][0], off=fork["off"][0])
+    print("serving_features_prefix " + json.dumps(out), flush=True)
+    return out
+
+
+def speculative_leg(model):
+    """bench.py's speculative leg: 16 periodic-motif prompts and 16
+    all-distinct ones of 24 tokens, 48 new tokens, spec_k 4, on and off.
+    The weights are random: acceptance is what such a model gives."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    motif = [int(t) for t in rng.integers(1, 2000, 6)]
+    rep = [((motif * 5)[:24], 0) for _ in range(16)]
+    adv = [([int(t) for t in rng.permutation(np.arange(1, 2000))[:24]], 0)
+           for _ in range(16)]
+    out = {}
+    for name, reqs in (("periodic", rep), ("distinct", adv)):
+        base = dict(max_num_seqs=8, max_model_len=72)
+        off = feature_run(model, f"spec_{name}_off", base, reqs, 48)
+        on = feature_run(model, f"spec_{name}_on",
+                         {**base, "speculative": "ngram", "spec_k": 4},
+                         reqs, 48)
+        _identical(f"speculative {name}: on vs off", on[1], off[1])
+        st = on[2].stats()
+        out[name] = dict(off_tok_s=off[0]["tok_s"], on_tok_s=on[0]["tok_s"],
+                         on_vs_off=on[0]["tok_s"] / off[0]["tok_s"],
+                         accept_rate=st["accept_rate"],
+                         tokens_per_step=on[0]["tokens_per_step"],
+                         off_tokens_per_step=off[0]["tokens_per_step"],
+                         tokens_proposed=st["speculative"]["tokens_proposed"],
+                         note="random weights: acceptance is what such a "
+                              "model gives",
+                         on=on[0], off=off[0])
+    print("serving_features_speculative " + json.dumps(out), flush=True)
+    return out
+
+
+def _adapter_tree(model, seed):
+    """A synthetic rank-8 adapter on every ``*_proj`` (JAX layout, the
+    serve tool's), big enough to move the logits well past the check's
+    tolerance."""
+    import numpy as np
+
+    from automodel_tpu_torch.tools.serve import synthetic_adapters
+
+    return synthetic_adapters(model, LORA_RANK, np.random.default_rng(seed),
+                              scale=0.02)
+
+
+def multi_lora_leg(model):
+    """bench.py's multi-LoRA leg: rank-8 adapters on every ``*_proj``,
+    n in {1, 4, 16} slots, 32 requests of 24 tokens, 16 new tokens, mixed
+    (ids round-robin over the slots) and serial (one tenant at a time)
+    against a base-only engine; then the mixed batch's first-step logits
+    against merged single-adapter engines (a LoRAModel over the same
+    base), within the engine phase's tolerance."""
+    import numpy as np
+    import torch
+
+    from automodel_tpu_torch.generation import GenerationConfig
+    from automodel_tpu_torch.peft.lora import LoRAModel, PeftConfig
+    from automodel_tpu_torch.serving import DecodeEngine, build_serving_config
+
+    rng = np.random.default_rng(0)
+    prompts = [[int(t) for t in rng.integers(1, 2000, 24)]
+               for _ in range(32)]
+    trees = {slot: _adapter_tree(model, 100 + slot) for slot in range(1, 17)}
+    alpha_over_r = 2.0
+    base = dict(max_num_seqs=8, max_model_len=40)
+    plain = feature_run(model, "lora_base_only", base,
+                        [(p, 0) for p in prompts], 16)
+    out = {"base_tok_s": plain[0]["tok_s"]}
+
+    def loader(n):
+        def load(eng):
+            for slot in range(1, n + 1):
+                eng.load_adapter(slot, trees[slot], scale=alpha_over_r)
+        return load
+
+    for n in (1, 4, 16):
+        mt = {**base, "max_adapters": n, "adapter_rank": LORA_RANK}
+        ids = [1 + i % n for i in range(len(prompts))]
+        mixed = feature_run(model, f"lora_n{n}_mixed", mt,
+                            list(zip(prompts, ids)), 16, load=loader(n),
+                            adapted=ADAPTED_PROJECTIONS)
+        serial = feature_run(
+            model, f"lora_n{n}_serial", mt, None, 16, load=loader(n),
+            adapted=ADAPTED_PROJECTIONS,
+            batches=[[(p, a) for p, a in zip(prompts, ids) if a == t]
+                     for t in range(1, n + 1)])
+        out[f"n{n}"] = dict(
+            mixed_tok_s=mixed[0]["tok_s"], serial_tok_s=serial[0]["tok_s"],
+            mixed_vs_serial=mixed[0]["tok_s"] / serial[0]["tok_s"],
+            mixed_vs_base=mixed[0]["tok_s"] / plain[0]["tok_s"],
+            gmm_launches=mixed[0]["gmm_launches"], steps=mixed[0]["steps"],
+            mixed=mixed[0])
+
+    # where a mixed multi-tenant decode step's time goes (n = 4), beside
+    # the engine phase's base-only decode_w1 window
+    gen16 = GenerationConfig(max_new_tokens=16)
+    eng = DecodeEngine(model, build_serving_config(
+        {**_serve_base()[1], **base, "max_adapters": 4,
+         "adapter_rank": LORA_RANK}), generation=gen16)
+    loader(4)(eng)
+    for i, p in enumerate(prompts[:8]):
+        eng.submit(p, adapter_id=i % 5)
+    eng.step()
+    while any(len(r.pending) > 1 for r in eng.scheduler.active):
+        eng.step()
+    out["profile_n4_decode"] = profile_window(
+        lambda: [eng.step() for _ in range(10)], 10, "lora_n4_decode_w1",
+        ("paged_decode",))
+    eng.run()
+    del eng
+
+    # first step of a mixed batch (tenants 1..4 and base) against each
+    # tenant's rows through a merged single-adapter engine, and against the
+    # base model (how far the adapters move the logits)
+    gen = GenerationConfig(max_new_tokens=4)
+    scfg = build_serving_config({**_serve_base()[1], **base,
+                                 "max_adapters": 4,
+                                 "adapter_rank": LORA_RANK})
+    ids = [1, 2, 3, 4, 0, 1, 2, 3]
+
+    plain_scfg = build_serving_config({**_serve_base()[1], **base})
+
+    def first_logits(served, rows, serving=None, load=None):
+        """The first step's last-token logits of ``rows`` (their slots in
+        submission order) through a fresh engine over ``served``."""
+        eng = DecodeEngine(served, serving or plain_scfg, generation=gen)
+        if load is not None:
+            load(eng)
+        for b in rows:
+            eng.submit(prompts[b], adapter_id=ids[b] if load else 0)
+        eng.step()
+        return {b: eng.last_logits[i].clone() for i, b in enumerate(rows)}
+
+    mixed_logits = first_logits(model, range(8), serving=scfg,
+                                load=loader(4))
+    base_logits = first_logits(model, range(8))
+    errs, effects = [0.0] * 8, []
+    for a in range(5):
+        rows = [b for b in range(8) if ids[b] == a]
+        served = model
+        if a:
+            served = LoRAModel(model, PeftConfig(dim=LORA_RANK,
+                                                 alpha=2 * LORA_RANK))
+            served.load_adapter_tree(trees[a])
+        ref = first_logits(served, rows)
+        for b in rows:
+            span = float(ref[b].abs().max())
+            errs[b] = float((mixed_logits[b] - ref[b]).abs().max()) / span
+            if a:
+                effects.append(float((base_logits[b] - ref[b]).abs().max())
+                               / span)
+        del served
+        torch.cuda.empty_cache()
+    check(max(errs) <= LOGITS_REL_TOL,
+          f"multi-LoRA first step: mixed vs merged max_abs_err / range "
+          f"{max(errs):.4f} > {LOGITS_REL_TOL}")
+    check(min(effects) > 2 * LOGITS_REL_TOL,
+          f"multi-LoRA first step: the adapters move the logits by only "
+          f"{min(effects):.4f} of the range: the check cannot see them")
+    out["first_step"] = dict(rel_err_max=max(errs), rel_err=errs,
+                             adapter_effect_min=min(effects),
+                             tol=LOGITS_REL_TOL)
+    print("serving_features_multi_lora " + json.dumps(out), flush=True)
+    return out
+
+
+def _trace(eng, prompts, arrivals, deadline_s=None, max_queue_s=None):
+    """Step ``eng`` through a host-drawn arrival trace (bench.py's
+    ``_drive_arrival_trace``); returns (wall_s, completed latencies)."""
+    lat, rids, submitted = {}, {}, 0
+    t0 = time.perf_counter()
+    while submitted < len(prompts) or eng.scheduler.has_work():
+        now = time.perf_counter() - t0
+        while submitted < len(prompts) and arrivals[submitted] <= now:
+            rids[eng.submit(prompts[submitted], deadline_s=deadline_s,
+                            max_queue_s=max_queue_s)] = submitted
+            submitted += 1
+        for req in eng.step():
+            if req.rid in rids:
+                lat[req.rid] = (time.perf_counter() - t0
+                                - arrivals[rids[req.rid]])
+        if not eng.scheduler.has_work() and submitted < len(prompts):
+            time.sleep(max(0.0, min(0.001, arrivals[submitted]
+                                    - (time.perf_counter() - t0))))
+    return time.perf_counter() - t0, lat
+
+
+def serve_trace_leg(model):
+    """bench.py's serve-trace leg: a seeded Poisson trace of 32 requests
+    (8-32 prompt tokens, 24 new, 8 slots), then a second pass at twice the
+    measured rate with deadlines (4 unloaded request times), queue TTLs,
+    ``max_waiting`` 8, ``by_deadline`` shedding and ``max_preemptions`` 2;
+    the kernel counts zeroed just before each pass and read just after.
+    Then one armed ``serve_watchdog_stall`` recovery (the stall at the
+    second step, prompts of 40-60 tokens) against an unarmed run."""
+    import numpy as np
+    import torch
+
+    from automodel_tpu_torch.generation import GenerationConfig
+    from automodel_tpu_torch.ops import paged_attention as tpa
+    from automodel_tpu_torch.ops import paged_attention_kernel as pak
+    from automodel_tpu_torch.serving import DecodeEngine, build_serving_config
+    from automodel_tpu_torch.training.timers import (
+        serve_expired_rate,
+        serve_goodput_fraction,
+        serve_shed_rate,
+    )
+
+    L = model.config.num_hidden_layers
+    rng = np.random.default_rng(0)
+    prompts = [[int(t) for t in rng.integers(1, 2000, int(n))]
+               for n in rng.integers(8, 33, 32)]
+    gen = GenerationConfig(max_new_tokens=24)
+    base = {**_serve_base()[1], "max_num_seqs": 8, "max_model_len": 56}
+    eng = DecodeEngine(model, build_serving_config(base), generation=gen)
+    eng.submit(prompts[0])
+    eng.run()
+    probe0 = time.perf_counter()
+    eng.submit(prompts[0])
+    eng.run()
+    per_req = time.perf_counter() - probe0
+    arrivals = np.cumsum(rng.exponential(per_req / 2, size=len(prompts)))
+
+    def counted(run, e):
+        s0 = e.steps_run
+        torch.cuda.synchronize()
+        pak.launches = 0
+        tpa.long_q_gather_calls = 0
+        wall, lat = run()
+        torch.cuda.synchronize()
+        steps = e.steps_run - s0
+        check(pak.launches == L * steps,
+              f"serve_trace: {pak.launches} launches != {L} x {steps} steps")
+        check(tpa.long_q_gather_calls == 0, "serve_trace: gather calls")
+        check(e.allocator.all_free, "serve_trace: KV blocks leaked")
+        return wall, lat, steps
+
+    wall, lat, steps = counted(lambda: _trace(eng, prompts, arrivals), eng)
+    ms = np.asarray(sorted(lat.values())) * 1e3
+    rate = len(prompts) / wall
+    over = DecodeEngine(model, build_serving_config(
+        {**base, "max_waiting": 8, "shed_policy": "by_deadline",
+         "max_preemptions": 2}), generation=gen)
+    over.submit(prompts[0])
+    over.run()
+    arrivals2 = np.cumsum(rng.exponential(1.0 / (2.0 * rate),
+                                          size=len(prompts)))
+    deadline = max(4.0 * per_req, 0.05)
+    wall2, lat2, steps2 = counted(lambda: _trace(
+        over, prompts, arrivals2, deadline_s=deadline,
+        max_queue_s=deadline / 2), over)
+    outcomes = over.outcome_counts()
+    outcomes["finished"] = outcomes.get("finished", 1) - 1   # the warm-up
+    ms2 = np.asarray(sorted(lat2.values())) * 1e3
+    check(sum(outcomes.values()) == len(prompts),
+          f"serve_trace overload: outcomes {outcomes}")
+
+    # the watchdog drill: stall at the second step, before any token was
+    # sampled, so the replay recomputes exactly what the stall dropped
+    long = [([int(t) for t in rng.integers(1, 2000, int(n))], 0)
+            for n in rng.integers(40, 61, 8)]
+    armed = feature_run(model, "watchdog_armed", dict(watchdog_s=30.0),
+                        long, 16, fault="serve_watchdog_stall:2")
+    clean = feature_run(model, "watchdog_unarmed", dict(watchdog_s=30.0),
+                        long, 16)
+    check(armed[0]["watchdog_recoveries"] == 1,
+          f"watchdog: {armed[0]['watchdog_recoveries']} recoveries")
+    _identical("watchdog recovery: armed vs unarmed", armed[1], clean[1])
+    out = dict(
+        requests=len(prompts), requests_s=rate, wall_s=wall, steps=steps,
+        p50_ms=float(np.percentile(ms, 50)),
+        p99_ms=float(np.percentile(ms, 99)),
+        overload=dict(
+            requests_s=len(prompts) / wall2, steps=steps2,
+            deadline_s=deadline, outcomes=outcomes,
+            shed_rate=serve_shed_rate(outcomes),
+            expired_rate=serve_expired_rate(outcomes),
+            goodput_fraction=serve_goodput_fraction(
+                over.completed_in_deadline() - 1, outcomes),
+            p50_ms=float(np.percentile(ms2, 50)) if len(ms2) else None,
+            p99_ms=float(np.percentile(ms2, 99)) if len(ms2) else None,
+            preemptions=over.stats()["preemptions"],
+            pinned=over.stats()["pinned"]),
+        watchdog=dict(recoveries=armed[0]["watchdog_recoveries"],
+                      armed=armed[0], unarmed=clean[0]))
+    print("serving_features_serve_trace " + json.dumps(out), flush=True)
+    return out
+
+
+def serving_features_phase():
+    """Llama-3.2-1B at full width and 16 layers (the serve YAML, weights
+    from seed 0) through the port's serving features: prefix caching,
+    speculation, multi-tenant LoRA and a served trace with deadlines,
+    shedding and a watchdog recovery."""
+    import torch
+
+    cfg, _ = _serve_base()
+    model = cfg.model.instantiate(seed=0, device="cuda")
+    torch.cuda.synchronize()
+    out = {}
+    for name, leg in (("prefix_cache", prefix_leg),
+                      ("speculative", speculative_leg),
+                      ("multi_lora", multi_lora_leg),
+                      ("serve_trace", serve_trace_leg)):
+        out[name] = leg(model)
+        phase_done(f"serving_features {name}")
+    del model
+    torch.cuda.empty_cache()
+    return out
 
 
 # device-time buckets of a profiled window, by kernel name (first match)
@@ -2705,6 +3261,8 @@ def main():
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     cases = kernel_phase(flush)
     phase_done("paged_decode kernel")
+    lora_cases = lora_gmm_phase(flush)
+    phase_done("lora gmm kernel")
     attn_cases = attention_phase(flush, seg)
     phase_done("attention kernels")
     flash_cases = flash_phase(flush, bench_first["segment_ids"])
@@ -2716,6 +3274,9 @@ def main():
     del flush
     main_run = engine_phase()
     phase_done("engine")
+    torch.cuda.empty_cache()
+    features = serving_features_phase()
+    phase_done("serving_features")
     torch.cuda.empty_cache()
     sft = train_phase("sft", SFT_YAML)
     phase_done("sft")
@@ -2806,6 +3367,26 @@ def main():
         "call_ms": rep["ms"], "library_call_ms": rep["library_ms"],
         "span": rep["span"], "splits": rep["splits"],
     }]
+    # the speculative verify width (S = 5), bf16 and int8 pools, and the
+    # kernel's launches on the serving_features runs
+    for c in cases:
+        if c["case"] in ("verify_s5_d64_bf16", "verify_s5_d64_int8"):
+            kv = c["kv"]
+            kernels[-1].update({
+                f"verify_s5_{kv}_ms": c["device_ms"],
+                f"verify_s5_{kv}_plain_ms": c["plain_ms"],
+                f"verify_s5_{kv}_bound_ms": c["bound_ms"],
+                f"verify_s5_{kv}_library_ms": c["library_device_ms"]})
+    kernels[-1]["serving_features_launches"] = {
+        "prefix_on_bf16": features["prefix_cache"]["bf16"]["on"][
+            "paged_decode_launches"],
+        "prefix_on_int8": features["prefix_cache"]["int8"]["on"][
+            "paged_decode_launches"],
+        "speculative_periodic_on": features["speculative"]["periodic"][
+            "on"]["paged_decode_launches"],
+        "multi_lora_n4_mixed": features["multi_lora"]["n4"]["mixed"][
+            "paged_decode_launches"],
+    }
     for part, launches in (("fwd", sft["fwd_launches"]),
                            ("bwd", sft["bwd_launches"])):
         rep = attn_cases[0][part]
@@ -2874,6 +3455,21 @@ def main():
             kernels[-1].update(dlhs_ms=dl["ms"], dlhs_plain_ms=dl["plain_ms"],
                                dlhs_bound_ms=dl["bound_ms"],
                                dlhs_library_ms=dl["library_ms"])
+            # the multi-LoRA delta's rank-8 products, and the kernel's
+            # launches on the mixed multi-tenant runs
+            for c in lora_cases:
+                kernels[-1].update({
+                    f"{c['case']}_ms": c["device_ms"],
+                    f"{c['case']}_call_ms": c["ms"],
+                    f"{c['case']}_plain_ms": c["plain_ms"],
+                    f"{c['case']}_bound_ms": c["bound_ms"],
+                    f"{c['case']}_library_ms": c["library_ms"]})
+            kernels[-1]["max_abs_err"] = max(
+                kernels[-1]["max_abs_err"],
+                max(c["max_abs_err"] for c in lora_cases))
+            kernels[-1]["multi_lora_launches"] = {
+                f"n{n}_mixed": features["multi_lora"][f"n{n}"][
+                    "gmm_launches"] for n in (1, 4, 16)}
     rep = q_cases[0]          # the sft_fp8 forward of q_proj
     kernels.append({
         "name": "qdot", "route": "cuda",

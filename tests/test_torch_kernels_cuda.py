@@ -664,6 +664,121 @@ def test_cuda_gmm_and_tgmm_match_plain(case, cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+@pytest.mark.parametrize("mb", [5, 128])
+def test_cuda_verify_rows_equal_decode_rows_bitwise(kv, mb, cuda_device):
+    """A speculative verify step (S = 5, one query token a CTA at decode's
+    span) gives each row the bits a decode step (S = 1) gives it at the
+    same position: speculation cannot move greedy tokens."""
+    B, Hq, Hk, D, BS = 8, 32, 8, 64, 16
+    g = torch.Generator(device=cuda_device).manual_seed(mb)
+    NB = B * mb + 1
+    if kv == "int8":
+        k = torch.randint(-127, 128, (NB, BS, Hk, D), device=cuda_device,
+                          dtype=torch.int8, generator=g)
+        v = torch.randint(-127, 128, (NB, BS, Hk, D), device=cuda_device,
+                          dtype=torch.int8, generator=g)
+        ks = torch.rand(NB, BS, Hk, device=cuda_device, generator=g) * 0.01
+        vs = torch.rand(NB, BS, Hk, device=cuda_device, generator=g) * 0.01
+    else:
+        k = torch.randn(NB, BS, Hk, D, device=cuda_device,
+                        generator=g).bfloat16()
+        v = torch.randn(NB, BS, Hk, D, device=cuda_device,
+                        generator=g).bfloat16()
+        ks = vs = None
+    tables = (torch.randperm(NB - 1, device=cuda_device, generator=g)
+              + 1).view(B, mb).int()
+    ctx = torch.randint(6, mb * BS + 1, (B,), device=cuda_device,
+                        generator=g).int()
+    ctx[0], ctx[1] = mb * BS, 33          # a span edge inside the verify
+    q5 = torch.randn(B, 5, Hq, D, device=cuda_device, generator=g).bfloat16()
+    pos5 = (ctx[:, None] - 5 + torch.arange(5, device=cuda_device)[None]
+            ).int()
+    out5 = tpak.paged_decode_cuda(q5, k, v, ks, vs, tables, ctx, pos5)
+    for s in range(5):
+        p = pos5[:, s:s + 1].contiguous()
+        out1 = tpak.paged_decode_cuda(q5[:, s:s + 1].contiguous(), k, v, ks,
+                                      vs, tables, (p[:, 0] + 1).int(), p)
+        assert torch.equal(out5[:, s], out1[:, 0]), s
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H", [64, 2048, 8192])
+def test_cuda_rms_norm_rows_do_not_depend_on_the_batch(H, cuda_device):
+    """A row's RMSNorm has the same bits in a call of 8 rows (a decode
+    step), 40 (a verify step), 256 (a prefill chunk) or 2048."""
+    from automodel_tpu_torch.ops.norms import rms_norm
+
+    g = torch.Generator(device=cuda_device).manual_seed(H)
+    w = torch.randn(H, device=cuda_device, generator=g).bfloat16()
+    x8 = (torch.randn(8, H, device=cuda_device, generator=g) * 3).bfloat16()
+    base = rms_norm(x8, w)
+    for B, W in ((8, 5), (8, 32), (2048, 1)):
+        xx = (torch.randn(B * W, H, device=cuda_device, generator=g)
+              * 3).bfloat16()
+        idx = torch.arange(8, device=cuda_device) * W
+        xx[idx] = x8
+        got = rms_norm(xx.view(B, W, H), w).view(B * W, H)[idx]
+        assert torch.equal(got, base), (B, W)
+
+
+# the multi-tenant LoRA delta's two rank-8 products (ops/lora_gmm.py):
+# x [m, 2048] x A [E, 2048, 8], then h [m, 8] x B [E, 8, out]; E slots with
+# slot 0 zero and idle tenants' groups empty
+LORA_CASES = [
+    ("decode_m8_e5", [1, 2, 0, 1, 3, 0, 0, 1], 1, 5, 2048),
+    ("chunk_m256_e17", [0, 1, 2, 16, 3, 0, 1, 5], 32, 17, 2048),
+    ("all_base_m8", [0] * 8, 1, 5, 512),
+    ("one_tenant_m64_kv", [4] * 8, 8, 5, 512),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", LORA_CASES, ids=[c[0] for c in LORA_CASES])
+def test_cuda_lora_delta_rank8_matches_plain(case, cuda_device):
+    """K = 8 and N = 8 on the gmm kernel: the delta against the dense
+    per-row plain version, two launches, base rows exactly 0."""
+    from automodel_tpu_torch.ops import gmm_kernel as gk
+    from automodel_tpu_torch.ops import lora_gmm
+
+    _, ids, S, E, fout = case
+    B, fin, r = len(ids), 2048, 8
+    g = torch.Generator(device=cuda_device).manual_seed(len(ids) + E)
+    x = torch.randn(B, S, fin, device=cuda_device, generator=g).bfloat16()
+    a = (torch.randn(E, fin, r, device=cuda_device, generator=g)
+         * 0.02).bfloat16()
+    b = (torch.randn(E, r, fout, device=cuda_device, generator=g)
+         * 0.02).bfloat16()
+    a[0] = 0
+    b[0] = 0
+    aid = torch.tensor(ids, device=cuda_device)
+    before = gk.gmm_launches
+    got = lora_gmm.multi_lora_delta(x, a, b, aid)
+    torch.cuda.synchronize()
+    assert gk.gmm_launches - before == 2
+    ref = lora_gmm.multi_lora_delta_reference(x, a, b, aid)
+    assert bool(torch.isfinite(got).all())
+    if any(ids):
+        assert rel_l2(got, ref) < GMM_REL_L2, rel_l2(got, ref)
+    for row, t in enumerate(ids):
+        if t == 0:
+            assert bool((got[row] == 0).all()), row
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,n", [(2048, 8), (8, 2048), (8, 8)])
+def test_cuda_gmm_takes_rank8_k_and_n(k, n, cuda_device):
+    from automodel_tpu_torch.ops import gmm_kernel as gk
+
+    sizes = [0, 3, 0, 120, 5, 0]
+    lhs, rhs, _, gs = make_gmm_case(sizes, 136, k, n, device=cuda_device)
+    got = gk.gmm_cuda(lhs, rhs, gs)
+    ref = gk.gmm_plain(lhs, rhs, gs)
+    assert rel_l2(got[:128], ref[:128]) < GMM_REL_L2
+    assert bool((got[128:] == 0).all())
+
+
+@pytest.mark.cuda
 def test_cuda_tgmm_split_groups_are_bitwise_deterministic(cuda_device):
     """A hot group is cut into row chunks whose fp32 partials a second
     launch adds in chunk order: two runs give the same bits, and the result

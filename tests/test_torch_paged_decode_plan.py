@@ -83,18 +83,26 @@ def test_split_plan_spans_cover_the_keys_once(shape, bf16):
     assert all(lo < hi and lo % BS == 0 and hi % BS == 0 for lo, hi in spans)
     assert spans[0][0] == 0 and spans[-1][1] == MB * BS
     assert all(a[1] == b[0] for a, b in zip(spans, spans[1:]))
+    G = Hq // Hk
     if bf16:
-        mode = 3 if R <= 16 else 2
+        # a verify width (S <= 8) keeps decode's key split
+        mode = 3 if R <= 16 or S <= tpak.VERIFY_S else 2
     else:
         mode = 0 if R <= 8 else 1
     assert plan.mode == mode and plan.row_tile == (4, 16, 64, 16)[mode]
     assert (plan.tiles - 1) * plan.row_tile < R <= plan.tiles * plan.row_tile
     assert plan.grid == (plan.splits, Hk * plan.tiles, B)
-    # halved only while the grid is short of the SMs, never below 4 pages
+    # halved only while the grid (one query token's in mode 3) is short of
+    # the SMs, never below 4 pages
+    grid_tiles = -(-G // plan.row_tile) if mode == 3 else plan.tiles
     if plan.span < min(tpak.SPAN_PAGES, MB) * BS:
         assert plan.span >= tpak.MIN_SPAN_PAGES * BS
-        assert B * Hk * plan.tiles * -(-MB * BS // (2 * plan.span)) \
+        assert B * Hk * grid_tiles * -(-MB * BS // (2 * plan.span)) \
             < H100_SMS
+    if mode == 3 and bf16:
+        # the span of a verify width is decode's
+        assert plan.span == tpak.split_plan(B, 1, Hq, Hk, MB, H100_SMS,
+                                            bf16=bf16).span
 
 
 def test_split_plan_depends_on_shapes_only():

@@ -164,17 +164,24 @@ def test_engine_host_sampling_path(models, prompts):
 # config contract
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("knob,value", [
-    ("prefix_caching", True), ("speculative", "ngram"), ("max_adapters", 2),
-    ("replicas", 2), ("watchdog_s", 5.0)])
+    ("prefix_caching", "maybe"), ("speculative", "eagle"),
+    ("max_adapters", 0), ("replicas", 2), ("watchdog_s", -5.0)])
 def test_left_out_knobs_raise(knob, value):
+    """The ported knobs raise on a bad value, naming the knob (the JAX
+    validation); the fleet's ``replicas`` > 1 is still refused, naming
+    ROADMAP item 2.8.  Null is the default either way."""
     with pytest.raises(ValueError, match=knob):
         build_serving_config({knob: value})
     assert build_serving_config({knob: None}) == ServingConfig()
+    if knob == "replicas":
+        with pytest.raises(ValueError, match="2.8"):
+            build_serving_config({knob: value})
 
 
 def test_jax_serving_yaml_loads_unchanged():
     """The JAX package's serving YAML builds the port's model (target
-    remap) and a serving config (its left-out knobs are all null/off)."""
+    remap) and a serving config; a scheduler policy outside fcfs / sjf
+    raises, naming the key."""
     cfg = load_yaml_config(os.path.join(
         REPO, "examples", "serve", "tiny_llama_serve.yaml"))
     scfg = build_serving_config(cfg)
@@ -183,7 +190,7 @@ def test_jax_serving_yaml_loads_unchanged():
     assert type(model).__module__ == "automodel_tpu_torch.models.llama"
     assert model.param_dtype == torch.bfloat16
     with pytest.raises(ValueError, match="scheduler_policy"):
-        build_serving_config({"scheduler_policy": "sjf"})
+        build_serving_config({"scheduler_policy": "lifo"})
 
 
 def test_engine_without_device_needs_a_card(models):
