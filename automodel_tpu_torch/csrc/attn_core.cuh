@@ -7,6 +7,15 @@
 // each instantiates the kernels with its own Rung: the layout, the segment
 // rule, head_dim and whether the soft cap and the window are compiled in.
 //
+// head_dim 64 and 128 run on both rungs; 192 (MLA's qk_nope 128 + qk_rope
+// 64, v padded to it by the model) on the splash rung, with three changes
+// that keep shared memory and registers within a CTA's: the forward's kv
+// tiles are 64 keys (FwdCfg), the dQ and dK / dV passes keep two stages,
+// and the dK / dV pass runs twice, dV then dK (Part), each with one
+// 96-register accumulator (the two together would not fit beside the score
+// tiles).  Its products are m64n192 wgmma (mma_rs_n192) with three 64-column
+// TMA boxes a row tile.
+//
 // Operands: q [B, S, Hq, D] or [B, Hq, S, D] (Rung::BHSD), k and v the
 // same with Hk heads (Hq a multiple of Hk: query head h reads kv head
 // h / (Hq / Hk), no repeat), bf16, 16-byte aligned, contiguous.  Every
@@ -107,7 +116,7 @@ constexpr float kLn2 = 0.6931471805599453f;
 enum Cls : int { kSkip = 0, kPartial = 1, kFull = 2 };
 
 // ---------------------------------------------------------------------------
-// wgmma shapes attention needs: SS n64 / n128, RS n64 / n128 (bf16 in,
+// wgmma shapes attention needs: SS n64 / n128, RS n64 / n128 / n192 (bf16 in,
 // fp32 sums; accumulator register i of a thread holds row 16 (warp % 4) + g
 // + 8 ((i / 2) % 2), column 8 (i / 4) + 2 t + (i % 2), g = lane / 4, t =
 // lane % 4)
@@ -236,10 +245,62 @@ __device__ __forceinline__ void mma_rs_n128(float (&d)[64],
         "n"(TRANS_B));
 }
 
+// D (m64n192, fp32) += A B over one K step of 16, A bf16 from registers
+// (wgmma's A fragment a[4]), B bf16 in shared memory, MN-major (TRANS_B 1)
+// or K-major (0); scale_d 0: D = A B (head_dim 192: MLA's q/k width)
+template <int TRANS_B>
+__device__ __forceinline__ void mma_rs_n192(float (&d)[96],
+                                           const uint32_t (&a)[4],
+                                           uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63,"
+      " %64, %65, %66, %67, %68, %69, %70, %71,"
+      " %72, %73, %74, %75, %76, %77, %78, %79,"
+      " %80, %81, %82, %83, %84, %85, %86, %87,"
+      " %88, %89, %90, %91, %92, %93, %94, %95}"
+      ", {%96, %97, %98, %99}, %100, p, 1, 1, %102;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d),
+        "n"(TRANS_B));
+}
+
 // ---------------------------------------------------------------------------
 // rungs, arguments, maps
 // ---------------------------------------------------------------------------
-// D: head_dim (64 or 128); BHSD: [B, H, S, D] operands, else [B, S, H, D];
+// D: head_dim (64, 128, or 192: MLA's qk_nope + qk_rope, the splash rung
+// only); BHSD: [B, H, S, D] operands, else [B, S, H, D];
 // SEG_EQ: the equality segment rule, else splash's; EXTRAS: the window and
 // the soft cap compiled in (else both off).  Each rung derives a named type
 // from it (Splash<D, EXTRAS>, Mha<D>), so every kernel's name says its rung
@@ -249,7 +310,7 @@ struct Rung {
   static constexpr int D = D_;
   static constexpr int NC = D / kBox;           // boxes across a row tile
   static constexpr bool BHSD = BHSD_, SEG_EQ = SEG_EQ_, EXTRAS = EXTRAS_;
-  static_assert(D == 64 || D == 128, "head_dim 64 or 128");
+  static_assert(D == 64 || D == 128 || D == 192, "head_dim 64, 128 or 192");
 };
 
 // element strides of one operand: sequence, head, batch
@@ -511,8 +572,10 @@ __device__ __forceinline__ void mma_rs(float (&o)[D / 2],
   for (int kk = 0; kk < KS; ++kk) {
     if constexpr (D == 64)
       mma_rs_n64<1>(o, f[kk], mnmajor(b_tile, b_rows, kk), 1);
-    else
+    else if constexpr (D == 128)
       mma_rs_n128<1>(o, f[kk], mnmajor(b_tile, b_rows, kk), 1);
+    else
+      mma_rs_n192<1>(o, f[kk], mnmajor(b_tile, b_rows, kk), 1);
   }
 }
 
@@ -578,9 +641,12 @@ __device__ __forceinline__ void store_row(bf16* row, const float (&o)[D / 2],
 // ---------------------------------------------------------------------------
 // forward
 // ---------------------------------------------------------------------------
+// At head_dim 192 a 128-key K + V stage is 96 KB: BN 64 keeps three
+// stages beside the 48 KB Q tile (194 KB), and O's accumulator (96
+// registers a thread) beside a 64-key score tile.
 template <class R>
 struct FwdCfg {
-  static constexpr int BM = 128, BN = 128;
+  static constexpr int BM = 128, BN = R::D == 192 ? 64 : 128;
   static constexpr int kQBufs = R::D == 64 ? 2 : 1;
   static constexpr int kStages = R::D == 64 ? 4 : 3;
   static constexpr int kQBytes = BM * R::D * 2;
@@ -696,7 +762,8 @@ fwd_kernel(const __grid_constant__ CUtensorMap tq,
       kv_range(q0, BM, BN, S, p.causal, window, lo, hi);
       for (int j = hi; j >= lo; --j) {
         const int k0 = j * BN;
-        const Meta km = has_seg ? meta_of(p.meta, b, p.n_t, k0 / kTile, 2)
+        const Meta km = has_seg ? meta_of(p.meta, b, p.n_t, k0 / kTile,
+                                          BN / kTile)
                                 : Meta{0, 0, 1};
         if (classify(q0, BM, k0, BN, S, p.causal, window, has_seg, qm, km) ==
             kSkip)
@@ -753,7 +820,8 @@ fwd_kernel(const __grid_constant__ CUtensorMap tq,
     // the first live kv tile at or below j (lo - 1 when none), its class
     auto next_live = [&](int j, int& cls) {
       for (; j >= lo; --j) {
-        const Meta km = has_seg ? meta_of(p.meta, b, p.n_t, j * BN / kTile, 2)
+        const Meta km = has_seg ? meta_of(p.meta, b, p.n_t, j * BN / kTile,
+                                          BN / kTile)
                                 : Meta{0, 0, 1};
         cls = classify(q0, BM, j * BN, BN, S, p.causal, window, has_seg, qm,
                        km);
@@ -887,28 +955,34 @@ fwd_kernel(const __grid_constant__ CUtensorMap tq,
 // delta[b, h, s] = sum_d dout * out (fp32), rows in delta's order: D / 8
 // lanes a row, 16 bytes of each operand a lane, summed across the lanes
 // by shuffles
+// (head_dim 192: 8 lanes a row, 3 chunks of 16 bytes a lane)
 template <class R>
 __global__ void __launch_bounds__(256)
 delta_kernel(const bf16* __restrict__ out, const bf16* __restrict__ dout,
              float* __restrict__ delta, int B, int S, int H, Strides st) {
-  constexpr int L = R::D / 8;                    // lanes a row
+  constexpr int L = R::D == 192 ? 8 : R::D / 8;  // lanes a row
+  constexpr int CH = R::D / 8 / L;               // 16-byte chunks a lane
   const long long r = (blockIdx.x * (long long)blockDim.x + threadIdx.x) / L;
   const int c = threadIdx.x % L;
   const bool in = r < (long long)B * H * S;
   float acc = 0.f;
   if (in) {
     const int s = r % S, h = (r / S) % H, b = r / ((long long)S * H);
-    const long long off = b * st.b + s * st.s + h * st.h + 8 * c;
-    const uint4 x = *reinterpret_cast<const uint4*>(out + off);
-    const uint4 y = *reinterpret_cast<const uint4*>(dout + off);
-    const uint32_t xs[4] = {x.x, x.y, x.z, x.w}, ys[4] = {y.x, y.y, y.z, y.w};
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 a = __bfloat1622float2(
-          *reinterpret_cast<const __nv_bfloat162*>(&xs[i]));
-      const float2 d = __bfloat1622float2(
-          *reinterpret_cast<const __nv_bfloat162*>(&ys[i]));
-      acc += a.x * d.x + a.y * d.y;
+    for (int ch = 0; ch < CH; ++ch) {
+      const long long off = b * st.b + s * st.s + h * st.h + 8 * (c + L * ch);
+      const uint4 x = *reinterpret_cast<const uint4*>(out + off);
+      const uint4 y = *reinterpret_cast<const uint4*>(dout + off);
+      const uint32_t xs[4] = {x.x, x.y, x.z, x.w},
+                     ys[4] = {y.x, y.y, y.z, y.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float2 a = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(&xs[i]));
+        const float2 d = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(&ys[i]));
+        acc += a.x * d.x + a.y * d.y;
+      }
     }
   }
 #pragma unroll
@@ -917,11 +991,12 @@ delta_kernel(const bf16* __restrict__ out, const bf16* __restrict__ dout,
   if (in && c == 0) delta[r] = acc;
 }
 
+// head_dim 192: Q and dO take 96 KB, so two 48 KB K + V stages
 template <class R>
 struct DqCfg {
   static constexpr int BM = 128, BN = kTile;
   static constexpr int kQBufs = R::D == 64 ? 2 : 1;
-  static constexpr int kStages = 4;
+  static constexpr int kStages = R::D == 192 ? 2 : 4;
   static constexpr int kQBytes = BM * R::D * 2;      // one of Q, dO
   static constexpr int kKVBytes = BN * R::D * 2;     // one of K, V
   static constexpr int kSegBytes = BN * 4;           // a K tile's ids
@@ -1136,11 +1211,12 @@ dq_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
+// head_dim 192: K and V take 96 KB, so two 49 KB stages
 template <class R>
 struct DkvCfg {
   static constexpr int BN = 128, BM = kTile;
   static constexpr int kKVBufs = R::D == 64 ? 2 : 1;
-  static constexpr int kStages = R::D == 64 ? 4 : 3;
+  static constexpr int kStages = R::D == 64 ? 4 : (R::D == 128 ? 3 : 2);
   static constexpr int kKVBytes = BN * R::D * 2;     // one of K, V
   static constexpr int kQBytes = BM * R::D * 2;      // one of Q, dO
   // Q, dO, lse, delta (and the q tile's segment ids, with segments)
@@ -1162,7 +1238,14 @@ __device__ __forceinline__ void q_range(int k0, int bn, int bm, int S,
   if (window > 0) hi = min(hi, (min(k0 + bn, S) - 1 + window - 1) / bm);
 }
 
-template <class R>
+// PART: which gradients the pass sums.  kBoth (head_dim 64 and 128): dK
+// and dV together.  At head_dim 192 the two accumulators (96 registers a
+// thread each) and the score tiles do not fit one thread's 232 registers,
+// so the backward runs the pass twice: kDv (S^T, P^T, dV += P^T dO), then
+// kDk (S^T, dP^T, dS^T, dK += dS^T Q), each with one accumulator.
+enum Part : int { kBoth = 0, kDv = 1, kDk = 2 };
+
+template <class R, int PART>
 __global__ void __launch_bounds__(kThreads, 1)
 dkv_kernel(const __grid_constant__ CUtensorMap tq,
            const __grid_constant__ CUtensorMap tk,
@@ -1264,6 +1347,7 @@ dkv_kernel(const __grid_constant__ CUtensorMap tq,
   }
 
   asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  constexpr bool DV = PART != kDk, DK = PART != kDv;
   const int w = wgi - 1, lane = tid & 31;
   const int rl = 64 * w + 16 * ((tid >> 5) & 3) + (lane >> 2);
   const float mult = score_mult<R::EXTRAS>(p);
@@ -1281,9 +1365,12 @@ dkv_kernel(const __grid_constant__ CUtensorMap tq,
     for (int h = 0; h < 2; ++h)
       rm[h] = key_row<R::SEG_EQ>(key[h], seg_at(seg_b, key[h], S), S,
                                  p.causal, window);
-    float dk[D / 2], dv[D / 2];
+    float dk[DK ? D / 2 : 1], dv[DV ? D / 2 : 1];
 #pragma unroll
-    for (int x = 0; x < D / 2; ++x) dk[x] = dv[x] = 0.f;
+    for (int x = 0; x < D / 2; ++x) {
+      if constexpr (DK) dk[x] = 0.f;
+      if constexpr (DV) dv[x] = 0.f;
+    }
     const int kb = n % KB;
     wg::bar_wait(kv_full + kb, (n / KB) & 1);
     const uint32_t ka = wg::saddr(kv_s + kb * 2 * C::kKVBytes);
@@ -1304,41 +1391,45 @@ dkv_kernel(const __grid_constant__ CUtensorMap tq,
             reinterpret_cast<const float*>(st + 2 * C::kQBytes);
         const float* dl_s = lse_s + BM;
         wg::bar_wait(full + s, (it / ST) & 1);
-        float sc[BM / 2], dp[BM / 2];
+        float sc[BM / 2], dp[DK ? BM / 2 : 1];
         turn_wait(w);
         wg::wg_fence();
         mma_ss<BM, D>(sc, ka, BN, 64 * w, qa);
-        mma_ss<BM, D>(dp, va, BN, 64 * w, doa);
+        if constexpr (DK) mma_ss<BM, D>(dp, va, BN, 64 * w, doa);
         wg::wg_commit();
         turn_pass(w);
         wg::wg_wait<0>();
         wg::pin(sc);
-        wg::pin(dp);
+        if constexpr (DK) wg::pin(dp);
 #pragma unroll
         for (int x = 0; x < BM / 2; ++x) {
           const int qc = acc_col(x);
           float dx = 1.f, v = sc[x];
           if constexpr (R::EXTRAS) v = capped(v, p, dx);
           const float pr = ex2(fmaf(v, mult, -lse_s[qc] * kLog2e));
-          sc[x] = pr;
-          dp[x] = pr * (dp[x] - dl_s[qc]) * dx;
+          if constexpr (DV) sc[x] = pr;
+          if constexpr (DK) dp[x] = pr * (dp[x] - dl_s[qc]) * dx;
         }
-        if (cls == kPartial)
-          mask_tile(sc, dp, 0.f, rm, q0,
-                    has_seg ? reinterpret_cast<const int*>(st + C::kLoadBytes)
-                            : nullptr);
-        uint32_t pf[BM / 16][4], df[BM / 16][4];
-        to_frags(sc, pf);
-        to_frags(dp, df);
+        if (cls == kPartial) {
+          const int* cseg =
+              has_seg ? reinterpret_cast<const int*>(st + C::kLoadBytes)
+                      : nullptr;
+          if constexpr (!DK) mask_tile(sc, sc, 0.f, rm, q0, cseg);
+          else if constexpr (!DV) mask_tile(dp, dp, 0.f, rm, q0, cseg);
+          else mask_tile(sc, dp, 0.f, rm, q0, cseg);
+        }
+        uint32_t pf[DV ? BM / 16 : 1][4], df[DK ? BM / 16 : 1][4];
+        if constexpr (DV) to_frags(sc, pf);
+        if constexpr (DK) to_frags(dp, df);
         turn_wait(w);
         wg::wg_fence();
-        mma_rs<D, BM / 16>(dv, pf, doa, BM);
-        mma_rs<D, BM / 16>(dk, df, qa, BM);
+        if constexpr (DV) mma_rs<D, BM / 16>(dv, pf, doa, BM);
+        if constexpr (DK) mma_rs<D, BM / 16>(dk, df, qa, BM);
         wg::wg_commit();
         turn_pass(w);
         wg::wg_wait<0>();
-        wg::pin(dv);
-        wg::pin(dk);
+        if constexpr (DV) wg::pin(dv);
+        if constexpr (DK) wg::pin(dk);
         if (lane == 0) wg::bar_arrive(empty + s);
         ++it;
       }
@@ -1348,8 +1439,8 @@ dkv_kernel(const __grid_constant__ CUtensorMap tq,
     for (int h = 0; h < 2; ++h) {
       if (key[h] >= S) continue;
       const long long off = b * p.sk.b + key[h] * p.sk.s + hk * p.sk.h;
-      store_row<D>(p.dk + off, dk, h, p.scale);
-      store_row<D>(p.dv + off, dv, h, 1.f);
+      if constexpr (DK) store_row<D>(p.dk + off, dk, h, p.scale);
+      if constexpr (DV) store_row<D>(p.dv + off, dv, h, 1.f);
     }
   }
 }
@@ -1424,7 +1515,8 @@ int backward(const void* q, const void* k, const void* v, const Args& p,
       (rc = map1(&tseg, p.seg, (long long)p.B * p.S, true, kTile)))
     return rc;
   if ((rc = launch_meta<R>(p, s))) return rc;
-  delta_kernel<R><<<(unsigned)((rows * (R::D / 8) + 255) / 256), 256, 0,
+  constexpr int kDeltaLanes = R::D == 192 ? 8 : R::D / 8;
+  delta_kernel<R><<<(unsigned)((rows * kDeltaLanes + 255) / 256), 256, 0,
                      s>>>(
       p.o_in, p.dout, p.delta, p.B, p.S, p.Hq, p.sq);
   if ((rc = static_cast<int>(cudaGetLastError()))) return rc;
@@ -1433,11 +1525,20 @@ int backward(const void* q, const void* k, const void* v, const Args& p,
   dq_kernel<R><<<grid_for(q_items), kThreads, Q::kSmem, s>>>(tq, tk, tv, tdo,
                                                             tseg, p);
   if ((rc = static_cast<int>(cudaGetLastError()))) return rc;
-  if ((rc = set_smem(dkv_kernel<R>, KV::kSmem))) return rc;
   const int kv_items = (p.S + KV::BN - 1) / KV::BN * p.B * p.Hk;
-  dkv_kernel<R><<<grid_for(kv_items), kThreads, KV::kSmem, s>>>(
-      tq64, tk128, tv128, tdo64, tlse, tdl, tseg, p);
-  return static_cast<int>(cudaGetLastError());
+  auto dkv = [&](auto kernel) {
+    int r = set_smem(kernel, KV::kSmem);
+    if (r) return r;
+    kernel<<<grid_for(kv_items), kThreads, KV::kSmem, s>>>(
+        tq64, tk128, tv128, tdo64, tlse, tdl, tseg, p);
+    return static_cast<int>(cudaGetLastError());
+  };
+  if constexpr (R::D == 192) {       // dV, then dK (see Part)
+    if ((rc = dkv(dkv_kernel<R, kDv>))) return rc;
+    return dkv(dkv_kernel<R, kDk>);
+  } else {
+    return dkv(dkv_kernel<R, kBoth>);
+  }
 }
 
 // the arguments of one call; scale applied to the fp32 scores, cap <= 0 no

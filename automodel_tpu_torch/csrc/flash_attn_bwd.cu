@@ -41,6 +41,12 @@
 // TMA, and spends its extra work (the dQ pass's recomputed S and dP) on
 // the live tiles only.
 
+// head_dim 192 (MLA): the dK / dV pass runs as two launches over the same
+// items, dV then dK, each holding one 64 x 192 accumulator (the two together
+// and the score tiles exceed a thread's registers); the dQ pass and both of
+// those keep two ring stages.  The dV launch skips the dP product, so the
+// pair costs one S^T product more than the fused pass.
+
 #include "attn_core.cuh"
 
 namespace {
@@ -68,8 +74,9 @@ extern "C" int flash_attn_bwd(const void* q, const void* k, const void* v,
                               int S, int Hq, int Hk, int D, float scale,
                               float cap, int causal, int window,
                               void* stream) {
-  if ((D != 64 && D != 128) || B <= 0 || S <= 0 || Hk <= 0 || Hq % Hk ||
-      (seg != nullptr && meta == nullptr) || (window > 0 && !causal))
+  if ((D != 64 && D != 128 && D != 192) || B <= 0 || S <= 0 || Hk <= 0 ||
+      Hq % Hk || (seg != nullptr && meta == nullptr) ||
+      (window > 0 && !causal))
     return -1;
   attn::Args p = attn::make_args(false, seg, meta, B, S, Hq, Hk, D, scale,
                                  cap, causal, window);
@@ -82,6 +89,7 @@ extern "C" int flash_attn_bwd(const void* q, const void* k, const void* v,
   p.dv = static_cast<attn::bf16*>(dv);
   const bool extras = cap > 0.f || window > 0;
   const auto st = static_cast<cudaStream_t>(stream);
-  return D == 64 ? run<64>(q, k, v, p, extras, st)
-                 : run<128>(q, k, v, p, extras, st);
+  return D == 64    ? run<64>(q, k, v, p, extras, st)
+         : D == 128 ? run<128>(q, k, v, p, extras, st)
+                    : run<192>(q, k, v, p, extras, st);
 }

@@ -40,6 +40,12 @@
 // by TMA, skips whole tiles that no pair of the packing reaches and keeps
 // the per-element mask off the tiles inside one segment.
 
+// head_dim 192 (DeepSeek's MLA, sft_deepseek and generate()'s prefill):
+// the same kernel with 64-key K / V tiles (a 128-key stage beside the 48 KB
+// Q tile would not fit three times) and O's accumulator of 96 registers a
+// thread; at Hq = Hk (MLA's broadcast rope head) each query head is its own
+// kv head.
+
 #include "attn_core.cuh"
 
 namespace {
@@ -57,8 +63,8 @@ int run(const void* q, const void* k, const void* v, const attn::Args& p,
 }  // namespace
 
 // Returns 0 on success, -1 for what the kernels do not take (head_dim
-// other than 64 / 128, Hq not a multiple of Hk, a window without causal,
-// segment ids without the meta workspace), else a tensor-map error
+// other than 64 / 128 / 192, Hq not a multiple of Hk, a window without
+// causal, segment ids without the meta workspace), else a tensor-map error
 // (attn_core.cuh::map4) or the first failed launch's cudaError_t.  seg may
 // be null (no segments); meta is int32 scratch [B, ceil(S / 64), 4] when
 // seg is given; cap <= 0 is no soft cap; window <= 0 is no window.
@@ -67,8 +73,9 @@ extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
                               float* lse, int B, int S, int Hq, int Hk, int D,
                               float scale, float cap, int causal, int window,
                               void* stream) {
-  if ((D != 64 && D != 128) || B <= 0 || S <= 0 || Hk <= 0 || Hq % Hk ||
-      (seg != nullptr && meta == nullptr) || (window > 0 && !causal))
+  if ((D != 64 && D != 128 && D != 192) || B <= 0 || S <= 0 || Hk <= 0 ||
+      Hq % Hk || (seg != nullptr && meta == nullptr) ||
+      (window > 0 && !causal))
     return -1;
   attn::Args p = attn::make_args(false, seg, meta, B, S, Hq, Hk, D, scale,
                                  cap, causal, window);
@@ -76,6 +83,7 @@ extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
   p.lse = lse;
   const bool extras = cap > 0.f || window > 0;
   const auto st = static_cast<cudaStream_t>(stream);
-  return D == 64 ? run<64>(q, k, v, p, extras, st)
-                 : run<128>(q, k, v, p, extras, st);
+  return D == 64    ? run<64>(q, k, v, p, extras, st)
+         : D == 128 ? run<128>(q, k, v, p, extras, st)
+                    : run<192>(q, k, v, p, extras, st);
 }

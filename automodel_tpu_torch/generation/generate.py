@@ -9,7 +9,10 @@ prefill forward writes the cache and gives each row's first token, then
 ``max_new_tokens - 1`` single-token forwards follow.  Finished rows emit
 ``pad_token_id`` after their eos.  Serving workloads go through the
 paged decode engine (``serving/engine.py``), whose greedy output is
-token-identical to this loop.
+token-identical to this loop.  The DeepSeek families, which the engine
+does not serve, run here over their split dense cache: the prefill
+attends through the attention dispatcher (kernel 9 on the card), each
+single-token step through the plain ``cached_attention``.
 
 Randomness comes from an explicit ``torch.Generator``; it will not draw
 the numbers ``jax.random`` draws from the same seed.
@@ -70,11 +73,14 @@ def left_align(input_ids: torch.Tensor, prompt_lens: torch.Tensor,
 @torch.inference_mode()
 def generate(model, input_ids, prompt_lens=None,
              config: Optional[GenerationConfig] = None,
-             generator: Optional[torch.Generator] = None) -> np.ndarray:
+             generator: Optional[torch.Generator] = None,
+             **prefill_kwargs) -> np.ndarray:
     """Continuations of right-padded ``input_ids [B, S]`` (``prompt_lens
     [B]`` the true lengths, default S) on the model's device ->
-    ``[B, max_new_tokens]`` int32 numpy, ``pad_token_id`` after eos.  Plain
-    PyTorch ops: the JAX loop runs no Pallas kernel either."""
+    ``[B, max_new_tokens]`` int32 numpy, ``pad_token_id`` after eos.
+    ``prefill_kwargs`` go to the prefill forward only, as in JAX (e.g.
+    ``attn_impl="plain"``).  The decode steps are plain PyTorch ops: the
+    JAX loop runs no Pallas kernel there either."""
     cfg = config or GenerationConfig()
     dev = model.inv_freq.device
     ids = torch.as_tensor(np.asarray(input_ids), dtype=torch.long,
@@ -92,7 +98,7 @@ def generate(model, input_ids, prompt_lens=None,
                    - shift[:, None]).clamp(min=0)
     cache = model.init_kv_cache(B, max_len)
     out = model(left, position_ids=prefill_pos, attention_mask=kv_mask,
-                kv_cache=cache, cache_index=0)
+                kv_cache=cache, cache_index=0, **prefill_kwargs)
     tok = sample_logits(out["logits"][:, -1].float(), cfg, generator)
     done = torch.zeros(B, dtype=torch.bool, device=dev)
     emitted = []

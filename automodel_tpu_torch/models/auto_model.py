@@ -1,9 +1,10 @@
 """YAML-friendly model builder (counterpart:
 ``automodel_tpu/models/auto_model.py::build_model``).
 
-The ``llama``, ``mixtral`` and ``qwen3_moe`` families are ported (the
-JAX registry's names, ``automodel_tpu/models/registry.py``); other
-``model_type`` values raise.  Loading HF checkpoint weights waits until a
+The ``llama``, ``mixtral``, ``qwen3_moe``, ``deepseek_v2`` and
+``deepseek_v3`` families are ported (the JAX registry's names,
+``automodel_tpu/models/registry.py``); other ``model_type`` values
+raise.  Loading HF checkpoint weights waits until a
 checkpoint is available to test against; ``build_model`` returns a model
 with random weights drawn from ``seed``.
 """
@@ -12,6 +13,14 @@ from __future__ import annotations
 
 from typing import Any
 
+from automodel_tpu_torch.models.deepseek_v2 import (
+    DeepseekV2Config,
+    DeepseekV2ForCausalLM,
+)
+from automodel_tpu_torch.models.deepseek_v3 import (
+    DeepseekV3Config,
+    DeepseekV3ForCausalLM,
+)
 from automodel_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
 from automodel_tpu_torch.models.mixtral import (
     MixtralConfig,
@@ -26,6 +35,8 @@ FAMILIES = {
     "llama": (LlamaConfig, LlamaForCausalLM),
     "mixtral": (MixtralConfig, MixtralForCausalLM),
     "qwen3_moe": (Qwen3MoeConfig, Qwen3MoeForCausalLM),
+    "deepseek_v2": (DeepseekV2Config, DeepseekV2ForCausalLM),
+    "deepseek_v3": (DeepseekV3Config, DeepseekV3ForCausalLM),
 }
 
 

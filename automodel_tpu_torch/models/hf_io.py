@@ -1,13 +1,17 @@
 """HF safetensors <-> the port's modules (counterpart:
 ``automodel_tpu/models/hf_io.py``).
 
-The key maps are the JAX package's for the three ported families (llama,
-mixtral, qwen3_moe), keyed by the same JAX tree paths that
-``models/weights.py::jax_leaves`` walks.  HF stores an ``nn.Linear`` as
-``(out, in)``, the port's layout, so projections and routers copy as they
-are; the expert stacks keep the JAX layout ``[E, in, out]`` per layer and
-are split into (joined from) one transposed HF tensor per expert
-(``...experts.{e}.<name>.weight``).
+The key maps are the JAX package's for the ported families (llama,
+mixtral, qwen3_moe, deepseek_v2, deepseek_v3), keyed by the same JAX tree
+paths that ``models/weights.py::jax_leaves`` walks; an entry is an
+:class:`HfEntry`.  DeepSeek's split stack maps its sub-stacks onto HF's
+one layer index with ``layer_offset`` (``layers[j]`` is HF layer ``j +
+first_k_dense_replace``), and a checkpoint without V3's
+``e_score_correction_bias`` loads it as zeros, as the JAX reader does.
+HF stores an ``nn.Linear`` as ``(out, in)``, the port's layout, so
+projections and routers copy as they are; the expert stacks keep the JAX
+layout ``[E, in, out]`` per layer and are split into (joined from) one
+transposed HF tensor per expert (``...experts.{e}.<name>.weight``).
 
 :func:`save_hf_weights` writes a consolidated HF repo as the JAX writer
 does: ``model.safetensors`` (``model-0000i-of-0000n.safetensors`` past
@@ -32,7 +36,7 @@ import dataclasses
 import json
 import os
 import struct
-from typing import Dict, Iterator, List, Optional, Tuple
+from typing import Dict, Iterator, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -52,7 +56,9 @@ _FROM_NAME = {v: k for k, v in _DTYPES.items()}
 
 _ARCHITECTURES = {"llama": "LlamaForCausalLM",
                   "mixtral": "MixtralForCausalLM",
-                  "qwen3_moe": "Qwen3MoeForCausalLM"}
+                  "qwen3_moe": "Qwen3MoeForCausalLM",
+                  "deepseek_v2": "DeepseekV2ForCausalLM",
+                  "deepseek_v3": "DeepseekV3ForCausalLM"}
 
 
 # ---------------------------------------------------------------------------
@@ -121,28 +127,41 @@ def read_safetensors(path: str, names: Optional[List[str]] = None
 
 
 # ---------------------------------------------------------------------------
-# key maps: JAX tree path -> (HF template, expert-stacked)
+# key maps: JAX tree path -> HfEntry
 # ---------------------------------------------------------------------------
-def llama_key_map(config) -> Dict[Tuple[str, ...], Tuple[str, bool]]:
+class HfEntry(NamedTuple):
+    """How one JAX leaf maps onto HF tensors: the name ``template``
+    (``{i}`` the HF layer, ``{e}`` the expert), whether the leaf stacks
+    experts, the read ``transform`` of an int8 base, the HF layer of the
+    leaf's first stacked slice, and whether a checkpoint without the
+    tensor reads it as zeros."""
+    template: str
+    expert_stacked: bool = False
+    transform: Optional[str] = None
+    layer_offset: int = 0
+    zeros_if_missing: bool = False
+
+
+def llama_key_map(config) -> Dict[Tuple[str, ...], HfEntry]:
     m = {
-        ("embed_tokens", "embedding"): ("model.embed_tokens.weight", False),
-        ("norm", "weight"): ("model.norm.weight", False),
+        ("embed_tokens", "embedding"): HfEntry("model.embed_tokens.weight"),
+        ("norm", "weight"): HfEntry("model.norm.weight"),
     }
     for norm in ("input_layernorm", "post_attention_layernorm"):
-        m[("layers", norm, "weight")] = (
-            f"model.layers.{{i}}.{norm}.weight", False)
+        m[("layers", norm, "weight")] = HfEntry(
+            f"model.layers.{{i}}.{norm}.weight")
     for proj in ("q_proj", "k_proj", "v_proj", "o_proj"):
-        m[("layers", "self_attn", proj, "kernel")] = (
-            f"model.layers.{{i}}.self_attn.{proj}.weight", False)
+        m[("layers", "self_attn", proj, "kernel")] = HfEntry(
+            f"model.layers.{{i}}.self_attn.{proj}.weight")
     if config.qk_norm:
         for norm in ("q_norm", "k_norm"):
-            m[("layers", "self_attn", norm, "weight")] = (
-                f"model.layers.{{i}}.self_attn.{norm}.weight", False)
+            m[("layers", "self_attn", norm, "weight")] = HfEntry(
+                f"model.layers.{{i}}.self_attn.{norm}.weight")
     for proj in ("gate_proj", "up_proj", "down_proj"):
-        m[("layers", "mlp", proj, "kernel")] = (
-            f"model.layers.{{i}}.mlp.{proj}.weight", False)
+        m[("layers", "mlp", proj, "kernel")] = HfEntry(
+            f"model.layers.{{i}}.mlp.{proj}.weight")
     if not config.tie_word_embeddings:
-        m[("lm_head", "kernel")] = ("lm_head.weight", False)
+        m[("lm_head", "kernel")] = HfEntry("lm_head.weight")
     return m
 
 
@@ -150,10 +169,10 @@ def _moe_key_map(config, block: str, experts: Tuple[str, ...]):
     m = llama_key_map(config)
     for proj in ("gate_proj", "up_proj", "down_proj"):
         del m[("layers", "mlp", proj, "kernel")]
-    m[("layers", block, "gate", "kernel")] = (
-        f"model.layers.{{i}}.{block}.gate.weight", False)
+    m[("layers", block, "gate", "kernel")] = HfEntry(
+        f"model.layers.{{i}}.{block}.gate.weight")
     for name in experts:
-        m[("layers", block, "experts", name, "kernel")] = (
+        m[("layers", block, "experts", name, "kernel")] = HfEntry(
             f"model.layers.{{i}}.{block}.experts.{{e}}.{name}.weight", True)
     return m
 
@@ -166,8 +185,71 @@ def qwen3_moe_key_map(config):
     return _moe_key_map(config, "mlp", ("gate_proj", "up_proj", "down_proj"))
 
 
+def deepseek_v3_key_map(config) -> Dict[Tuple[str, ...], HfEntry]:
+    """DeepSeek-V2 / V3 (HF ``DeepseekV3ForCausalLM`` naming, the JAX
+    map): the MLA projections and norms of both sub-stacks, the dense MLP
+    of ``dense_layers``, and the router, its correction bias, the experts
+    and the shared experts of ``layers``, whose HF layers start at
+    ``first_k_dense_replace``."""
+    kd = config.first_k_dense_replace
+    m: Dict[Tuple[str, ...], HfEntry] = {
+        ("embed_tokens", "embedding"): HfEntry("model.embed_tokens.weight"),
+        ("norm", "weight"): HfEntry("model.norm.weight"),
+    }
+    if not config.tie_word_embeddings:
+        m[("lm_head", "kernel")] = HfEntry("lm_head.weight")
+
+    def attn_and_norms(stack: str, off: int):
+        for norm in ("input_layernorm", "post_attention_layernorm"):
+            m[(stack, norm, "weight")] = HfEntry(
+                f"model.layers.{{i}}.{norm}.weight", layer_offset=off)
+        projs = (("q_proj",) if config.q_lora_rank is None
+                 else ("q_a_proj", "q_b_proj"))
+        for proj in projs + ("kv_a_proj_with_mqa", "kv_b_proj", "o_proj"):
+            m[(stack, "self_attn", proj, "kernel")] = HfEntry(
+                f"model.layers.{{i}}.self_attn.{proj}.weight",
+                layer_offset=off)
+        norms = (("kv_a_layernorm",) if config.q_lora_rank is None
+                 else ("q_a_layernorm", "kv_a_layernorm"))
+        for norm in norms:
+            m[(stack, "self_attn", norm, "weight")] = HfEntry(
+                f"model.layers.{{i}}.self_attn.{norm}.weight",
+                layer_offset=off)
+
+    if kd:
+        attn_and_norms("dense_layers", 0)
+        for proj in ("gate_proj", "up_proj", "down_proj"):
+            m[("dense_layers", "mlp", proj, "kernel")] = HfEntry(
+                f"model.layers.{{i}}.mlp.{proj}.weight")
+    if config.num_hidden_layers - kd:
+        attn_and_norms("layers", kd)
+        m[("layers", "mlp", "gate", "kernel")] = HfEntry(
+            "model.layers.{i}.mlp.gate.weight", layer_offset=kd)
+        m[("layers", "mlp", "gate", "e_score_correction_bias")] = HfEntry(
+            "model.layers.{i}.mlp.gate.e_score_correction_bias",
+            layer_offset=kd, zeros_if_missing=True)
+        for proj in ("gate_proj", "up_proj", "down_proj"):
+            m[("layers", "mlp", "experts", proj, "kernel")] = HfEntry(
+                f"model.layers.{{i}}.mlp.experts.{{e}}.{proj}.weight", True,
+                layer_offset=kd)
+            m[("layers", "mlp", "shared_experts", proj, "kernel")] = HfEntry(
+                f"model.layers.{{i}}.mlp.shared_experts.{proj}.weight",
+                layer_offset=kd)
+    return m
+
+
+def deepseek_v2_key_map(config) -> Dict[Tuple[str, ...], HfEntry]:
+    """DeepSeek-V2: the V3 map without the correction bias (V2's softmax
+    gate has none)."""
+    m = deepseek_v3_key_map(config)
+    m.pop(("layers", "mlp", "gate", "e_score_correction_bias"), None)
+    return m
+
+
 _KEY_MAPS = {"llama": llama_key_map, "mixtral": mixtral_key_map,
-             "qwen3_moe": qwen3_moe_key_map}
+             "qwen3_moe": qwen3_moe_key_map,
+             "deepseek_v2": deepseek_v2_key_map,
+             "deepseek_v3": deepseek_v3_key_map}
 
 # the read transforms of an int8 base's two leaves (one HF tensor each)
 INT8_CODES, INT8_SCALE = "int8_codes", "int8_scale"
@@ -186,10 +268,10 @@ def quantized_key_map(base_map):
     for mod, proj in QUANTIZED_MODULES:
         path = ("layers", mod, proj, "kernel")
         if path in m:
-            template, stacked = m[path]
-            m[path] = (template, stacked, INT8_CODES)
-            m[("layers", mod, proj, "scale")] = (template, stacked,
-                                                 INT8_SCALE)
+            entry = HfEntry(*m[path])
+            m[path] = entry._replace(transform=INT8_CODES)
+            m[("layers", mod, proj, "scale")] = entry._replace(
+                transform=INT8_SCALE)
     return m
 
 
@@ -215,20 +297,20 @@ def hf_tensors(model, reading: bool = False
     for path, target, _transposed in jax_leaves(model):
         if path not in key_map:
             raise KeyError(f"no HF mapping for param {'/'.join(path)}")
-        template, expert_stacked, *transform = key_map[path]
-        transform = transform[0] if transform else None
+        entry = HfEntry(*key_map[path])
+        template, expert_stacked, transform = entry[:3]
         if transform and not reading:
             raise NotImplementedError(
                 "int8 QLoRA bases export via dequantize_base_params and the "
                 "dense key map, not the streaming quantized map")
         layers = target if isinstance(target, list) else [target]
         for i, p in enumerate(layers):
-            name = template.format(i=i, e="{e}")
+            name = template.format(i=i + entry.layer_offset, e="{e}")
             if expert_stacked:
                 for e in range(p.shape[0]):
-                    yield name.format(e=e), p[e].t(), (p, e, None)
+                    yield name.format(e=e), p[e].t(), (p, e, None, False)
             else:
-                yield name, p, (p, None, transform)
+                yield name, p, (p, None, transform, entry.zeros_if_missing)
 
 
 # ---------------------------------------------------------------------------
@@ -294,12 +376,15 @@ def load_hf_weights(model, ckpt_dir: str) -> None:
     wanted: Dict[str, List[Tuple[str, Tuple]]] = {}
     for name, view, where in hf_tensors(model, reading=True):
         if name not in weight_map:
+            if where[3]:                # e.g. V3's correction bias
+                view.zero_()
+                continue
             raise KeyError(f"{ckpt_dir} lacks {name}")
         wanted.setdefault(weight_map[name], []).append((name, where))
     for fname, entries in wanted.items():
         got = read_safetensors(os.path.join(ckpt_dir, fname),
                                sorted({n for n, _ in entries}))
-        for name, (p, expert, transform) in entries:
+        for name, (p, expert, transform, _) in entries:
             t = got[name]
             if transform is not None:     # an int8 base, quantized here
                 from automodel_tpu_torch.quantization.weight_only import (

@@ -74,7 +74,7 @@ from automodel_tpu_torch.ops.remat import (
     checkpoint_name,
     resolve_remat_policy,
 )
-from automodel_tpu_torch.ops.rotary import apply_rope, rope_parameters
+from automodel_tpu_torch.ops.rotary import apply_rope, rope_tables
 from automodel_tpu_torch.utils.device import resolve_device
 
 logger = logging.getLogger(__name__)
@@ -94,6 +94,7 @@ class LlamaConfig:
     rope_theta: float = 500000.0
     rope_scaling: Optional[dict] = None
     max_position_embeddings: int = 131072
+    original_max_position_embeddings: Optional[int] = None
     tie_word_embeddings: bool = True
     attention_bias: bool = False
     qk_norm: bool = False
@@ -299,18 +300,34 @@ class LlamaForCausalLM(nn.Module):
         cfg, dt = config, self.param_dtype
         self.embed_tokens = nn.Embedding(cfg.vocab_size, cfg.hidden_size,
                                          dtype=dt, device=device)
-        self.layers = nn.ModuleList(
-            [self.layer_cls(cfg, dt, device)
-             for _ in range(cfg.num_hidden_layers)])
+        self._build_layers(cfg, dt, device)
         self.norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, dt, device)
         self.lm_head = None
         if not cfg.tie_word_embeddings:
             self.lm_head = nn.Linear(cfg.hidden_size, cfg.vocab_size,
                                      bias=False, dtype=dt, device=device)
-        inv_freq = rope_parameters(cfg.head_dim, cfg.rope_theta,
-                                   cfg.rope_scaling)
+        inv_freq, self.rope_attention_scaling = rope_tables(
+            self._rotary_dim(), cfg.rope_theta, cfg.rope_scaling,
+            max_position_embeddings=cfg.max_position_embeddings,
+            original_max_position_embeddings=(
+                cfg.original_max_position_embeddings))
         self.register_buffer("inv_freq", torch.from_numpy(inv_freq).to(device),
                              persistent=False)
+
+    def _build_layers(self, cfg: LlamaConfig, dtype, device) -> None:
+        """The decoder stack, ``self.layers`` (the families with a split
+        stack override)."""
+        self.layers = nn.ModuleList(
+            [self.layer_cls(cfg, dtype, device)
+             for _ in range(cfg.num_hidden_layers)])
+
+    def _rotary_dim(self) -> int:
+        """The channels rope rotates (every head channel here)."""
+        return self.config.head_dim
+
+    def _stack(self) -> List[nn.Module]:
+        """Every decoder layer in order."""
+        return list(self.layers)
 
     @torch.no_grad()
     def init_weights(self, seed: int = 0) -> "LlamaForCausalLM":
@@ -374,7 +391,8 @@ class LlamaForCausalLM(nn.Module):
         v = self._proj(layer.v_proj, x, "self_attn.v_proj").view(B, S, Hk, D)
         if cfg.qk_norm:
             q, k = layer.q_norm(q), layer.k_norm(k)
-        q, k = apply_rope(q, k, position_ids, self.inv_freq)
+        q, k = apply_rope(q, k, position_ids, self.inv_freq,
+                          self.rope_attention_scaling)
         if kv_cache is not None:
             kv_cache.write(k, v)
             attn = kv_cache.attend(q, local_window_size=self.sliding_window)
@@ -412,9 +430,10 @@ class LlamaForCausalLM(nn.Module):
         unit; ``adapters`` holds theirs, or is None) -> ``(hidden, [aux |
         None per layer])``."""
         auxes = []
+        stack = self._stack()
         for j in range(self.scan_block):
             hidden, aux = self._layer(
-                self.layers[first + j], hidden, position_ids, segment_ids,
+                stack[first + j], hidden, position_ids, segment_ids,
                 None, attn_impl, adapters[j] if adapters else None)
             auxes.append(aux)
         return hidden, auxes
@@ -553,7 +572,7 @@ class LlamaForCausalLM(nn.Module):
         aux_losses = []
         if remat:
             k = self.scan_block
-            for first in range(0, len(self.layers), k):
+            for first in range(0, len(self._stack()), k):
                 # the unit's adapters ride the closure: the checkpoint
                 # saves an RNG state per CUDA tensor among its arguments
                 unit = functools.partial(
@@ -564,7 +583,7 @@ class LlamaForCausalLM(nn.Module):
                     policy=self.remat_policy)
                 aux_losses += [a for a in auxes if a is not None]
         else:
-            for i, layer in enumerate(self.layers):
+            for i, layer in enumerate(self._stack()):
                 view = (kv_cache.layer_view(i) if kv_cache is not None
                         else None)
                 hidden, aux = self._layer(

@@ -18,8 +18,15 @@ layer's tokens) and scales by ``router_aux_loss_coef`` when
 (None: the kernels on CUDA tensors; ``"plain"`` forces the plain
 versions).  With quantized compute on, the experts' grouped matmuls are
 quantized unless ``filter_fqns`` names ``block_sparse_moe.experts``
-(``mlp.experts`` in Qwen3-MoE), the JAX names.  Serving an MoE model
-through ``DecodeEngine`` is not ported: a forward with a KV cache raises.
+(``mlp.experts`` in Qwen3-MoE), the JAX names.
+
+With a KV cache (``DecodeEngine``'s ``PagedKVView`` or the dense cache of
+``generate()``) the routed block runs on every row of the step, inactive
+slots and prompt padding included, as the JAX model's inherited forward
+does: under capacity routing a token's drops depend on the step's batch
+(that is the JAX semantics; dropless routing, ``moe_capacity_factor:
+null``, makes a token's experts its own).  The routing statistics are
+computed and go unused while serving, as in JAX.
 """
 
 from __future__ import annotations
@@ -130,13 +137,6 @@ class MixtralForCausalLM(LlamaForCausalLM):
         tokens_per_expert = torch.stack([a for a, _ in aux_losses]).mean(0)
         router_prob = torch.stack([p for _, p in aux_losses]).mean(0)
         return coef * moe.load_balancing_loss(tokens_per_expert, router_prob)
-
-    def forward(self, input_ids, *args, kv_cache=None, **kwargs):
-        if kv_cache is not None:
-            raise NotImplementedError(
-                "serving an MoE model through DecodeEngine is not ported "
-                "yet (ROADMAP Queue 1 item 5)")
-        return super().forward(input_ids, *args, **kwargs)
 
     def flops_per_token(self) -> float:
         """Training FLOPs per token (fwd + bwd = 3 x fwd): attention

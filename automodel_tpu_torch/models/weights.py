@@ -1,8 +1,11 @@
-"""Carry the JAX package's Llama, Mixtral and Qwen3-MoE parameters into the
-port's modules (counterpart: the param trees of ``LlamaForCausalLM.init``
-in ``automodel_tpu/models/llama.py`` and of its MoE subclasses in
-``mixtral.py`` / ``qwen3_moe.py``), and into the port's SFT recipe, so
-that the two packages can train from the same weights.
+"""Carry the JAX package's Llama, Mixtral, Qwen3-MoE and DeepSeek-V2 / V3
+parameters into the port's modules (counterpart: the param trees of
+``LlamaForCausalLM.init`` in ``automodel_tpu/models/llama.py``, of its MoE
+subclasses in ``mixtral.py`` / ``qwen3_moe.py`` and of
+``deepseek_v3.py`` / ``deepseek_v2.py``), and into the port's SFT recipe,
+so that the two packages can train from the same weights.  The DeepSeek
+tree's two sub-stacks (``dense_layers``, ``layers``) and V2's gate without
+a correction bias come from the model's own ``jax_tree_leaves``.
 
 The JAX tree stacks every layer's leaf along a leading ``[L, ...]`` axis
 and stores projection kernels as ``[in, out]`` (applied as ``x @ w``).
@@ -44,6 +47,9 @@ def jax_leaves(model: LlamaForCausalLM
         for path, target, transposed in jax_leaves(model.base_model):
             yield ("base",) + path, target, transposed
         yield from model.lora_leaves()
+        return
+    if hasattr(model, "jax_tree_leaves"):        # a split stack (DeepSeek)
+        yield from model.jax_tree_leaves()
         return
     yield ("embed_tokens", "embedding"), model.embed_tokens.weight, False
     layers = model.layers

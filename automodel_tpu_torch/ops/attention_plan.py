@@ -11,15 +11,18 @@ segment ids of 64-row tiles (:func:`tile_metas`):
 * ``FULL``: every pair attends; no per-element mask;
 * ``PARTIAL``: the mask is applied per element (:func:`allowed`).
 
-Tiles and work items per pass (:data:`PASSES`):
+Tiles and work items per pass (:data:`PASSES`; :func:`tiles` by head_dim):
 
 * ``fwd``: an item is a 128-row q tile of one (head, batch row), the last
-  q tiles first; it visits 128-key tiles from the last one its rows may
-  reach down to the first;
+  q tiles first; it visits 128-key tiles (64-key ones at head_dim 192)
+  from the last one its rows may reach down to the first;
 * ``dq``: the same items; 64-key tiles;
 * ``dkv``: an item is a 128-key tile of one (kv head, batch row), the first
   key tiles first; it visits, for each query head of the group, the 64-row
-  q tiles that may see its keys, in order.
+  q tiles that may see its keys, in order.  At head_dim 192 the pass runs
+  twice over the same items and tiles, summing dV in the first and dK in
+  the second: the two accumulators do not fit one thread's registers
+  together.
 
 The segment rule is splash's (segment 0 never attends and is never
 attended) or, with ``seg_eq``, the flash rung's equality (segment 0 attends
@@ -36,8 +39,16 @@ TILE = 64                      # rows of a segment meta
 SKIP, PARTIAL, FULL = 0, 1, 2
 INT_MAX = 2 ** 31 - 1
 
-# pass -> (q rows, keys) of a tile
+# pass -> (q rows, keys) of a tile, head_dim 64 and 128
 PASSES = {"fwd": (128, 128), "dq": (128, 64), "dkv": (64, 128)}
+# head_dim 192 (MLA): the forward's K + V stage of 128 keys would not fit
+# three times beside the Q tile in shared memory
+PASSES_D192 = {"fwd": (128, 64), "dq": (128, 64), "dkv": (64, 128)}
+
+
+def tiles(kind: str, head_dim: int = 64) -> Tuple[int, int]:
+    """``(q rows, keys)`` of a tile of pass ``kind`` at ``head_dim``."""
+    return (PASSES_D192 if head_dim == 192 else PASSES)[kind]
 
 
 class Meta(NamedTuple):
@@ -126,12 +137,12 @@ def q_range(k0: int, bn: int, bm: int, S: int, causal: bool,
     return lo, hi
 
 
-def items(kind: str, B: int, S: int, Hq: int, Hk: int
+def items(kind: str, B: int, S: int, Hq: int, Hk: int, head_dim: int = 64
           ) -> List[Tuple[int, int, int]]:
     """The work items of pass ``kind`` in the kernel's order: ``(b, head,
     first row)`` (q head and q row for ``fwd`` / ``dq``, kv head and key
     for ``dkv``); CTA ``c`` takes items ``c, c + grid, ...``."""
-    bm, bn = PASSES[kind]
+    bm, bn = tiles(kind, head_dim)
     if kind == "dkv":
         n = -(-S // bn)
         return [(bh // Hk, bh % Hk, r * bn) for r in range(n)
@@ -143,13 +154,14 @@ def items(kind: str, B: int, S: int, Hq: int, Hk: int
 
 def visits(kind: str, S: int, causal: bool, window: int,
            seg: Optional[Sequence[int]], seg_eq: bool, first: int,
-           groups: int = 1) -> List[Tuple[int, int, int]]:
+           groups: int = 1, head_dim: int = 64
+           ) -> List[Tuple[int, int, int]]:
     """The tiles an item of pass ``kind`` starting at row ``first`` visits,
     in the kernel's order: ``(q0, k0, class)`` of every tile in its range,
     skipped ones included (the kernel loads and multiplies the others).
     ``dkv`` walks its q tiles once per query head of the group
     (``groups``); ``seg`` is the batch row's segment ids or None."""
-    bm, bn = PASSES[kind]
+    bm, bn = tiles(kind, head_dim)
     metas = None if seg is None else tile_metas(seg, S, seg_eq)
 
     def meta(row, rows):

@@ -269,6 +269,11 @@ def flash_attention_bshd(
     Hk = k.shape[2]
     if Hq % Hk != 0:
         raise ValueError(f"query heads {Hq} not a multiple of kv heads {Hk}")
+    if D > max(HEAD_DIMS):
+        raise NotImplementedError(
+            f"the flash rung at head_dim {D} (MLA's width) is not built: "
+            "ROADMAP Queue 2 C item 7; the splash rung (impl=None, the "
+            "default) takes head_dim 192")
     if logits_soft_cap is not None:
         raise NotImplementedError("soft cap not supported by the flash path")
     if S % BLOCK or k.shape[1] % BLOCK:

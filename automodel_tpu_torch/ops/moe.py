@@ -25,8 +25,14 @@ them reads a value back to the host: the counts are a ``scatter_add_``
 ``cumsum`` and ``searchsorted``.  With quantized compute on (``quant=``,
 ``fp8.enabled``) the sorted path's grouped matmuls are
 ``ops/gmm_quant_kernel.py``'s (``csrc/gmm_quant.cu`` on the card); the
-onehot oracle ignores ``quant``, as JAX's does.  The DeepSeek routers wait
-for a later slice.
+onehot oracle ignores ``quant``, as JAX's does.
+
+The DeepSeek routers feed the same expert core: :func:`noaux_topk_routing`
+(V3: sigmoid scores, the selection-only ``e_score_correction_bias``,
+group-limited top-k) and :func:`softmax_group_topk_routing` (V2: softmax
+scores, ``greedy`` or ``group_limited_greedy``, no renormalisation).
+Their top-k is a stable descending sort, so equal scores (the 0.0 of a
+masked group) pick the lowest expert index first, as ``lax.top_k`` does.
 """
 
 from __future__ import annotations
@@ -64,6 +70,41 @@ def resolve_moe_dispatch(dispatch: Optional[str]) -> str:
     return dispatch if dispatch is not None else DEFAULT_MOE_DISPATCH
 
 
+class _RouterProduct(torch.autograd.Function):
+    """``x @ kernel`` to float32: the forward summed in float64 and rounded
+    once, the backward the float32 product's (a gradient needs no row
+    stability, and float64 there would cost the training step)."""
+
+    @staticmethod
+    def forward(ctx, x, kernel):
+        ctx.save_for_backward(x, kernel)
+        return (x.double() @ kernel.double()).float()
+
+    @staticmethod
+    def backward(ctx, g):
+        x, kernel = ctx.saved_tensors
+        dx = dk = None
+        if ctx.needs_input_grad[0]:
+            dx = (g @ kernel.float().t()).to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            dk = (x.reshape(-1, x.shape[-1]).float().t()
+                  @ g.reshape(-1, g.shape[-1])).to(kernel.dtype)
+        return dx, dk
+
+
+def router_logits(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
+    """The router product ``x [..., H] @ kernel [H, E]`` in float32, as
+    the JAX routers take it, but summed in float64 and rounded once.  On
+    the card cuBLAS's float32 kernels sum in an order that changes with
+    the number of rows, which moves a row's last bits and so, near a tie,
+    its experts; the float64 sum rounded to float32 gives a row the same
+    bits in a decode step, a verify step or a prefill chunk (but where the
+    float64 sum lies within its own rounding of a float32 rounding edge).
+    On the CPU it is the correctly rounded float32 product.  Its gradients
+    are the float32 product's."""
+    return _RouterProduct.apply(x, kernel)
+
+
 def topk_routing(router_logits: torch.Tensor, k: int, norm_topk: bool = True
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """fp32 softmax over all experts, top-k, renormalised to 1 unless
@@ -74,6 +115,79 @@ def topk_routing(router_logits: torch.Tensor, k: int, norm_topk: bool = True
     if norm_topk:
         weights = weights / weights.sum(dim=-1, keepdim=True)
     return weights, idx, probs
+
+
+def _top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``lax.top_k`` over the last axis: the k largest values, ties to
+    the lowest index (a stable descending sort; ``torch.topk`` leaves the
+    order of equal values open)."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def _group_mask(group_score: torch.Tensor, topk_group: int,
+                n_group: int) -> torch.Tensor:
+    """``[..., n_group]`` True for the ``topk_group`` best groups."""
+    _, gidx = _top_k(group_score, topk_group)
+    return _one_hot(gidx, n_group, torch.int32).sum(dim=-2) > 0
+
+
+def noaux_topk_routing(scores: torch.Tensor, bias: torch.Tensor, k: int, *,
+                       n_group: int = 1, topk_group: int = 1,
+                       norm_topk: bool = True,
+                       routed_scaling_factor: float = 1.0
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """DeepSeek-V3's aux-loss-free router (HF ``DeepseekV3TopkRouter``;
+    the JAX ``noaux_topk_routing``) over fp32 sigmoid ``scores [..., E]``.
+    ``bias`` (``e_score_correction_bias``) shifts the selection only: the
+    weights gather the raw scores, so it has no gradient path.  With
+    ``n_group > 1`` a group scores the sum of its top-2 biased scores and
+    only the ``topk_group`` best groups stay eligible, the rest masked to
+    0.0 (HF's ``masked_fill``, not -inf).  Returns ``(weights [..., k]
+    times routed_scaling_factor, idx [..., k])``."""
+    E = scores.shape[-1]
+    biased = scores + bias.to(scores.dtype).detach()
+    if n_group > 1:
+        gs = biased.reshape(*biased.shape[:-1], n_group, E // n_group)
+        group_score = _top_k(gs, 2)[0].sum(dim=-1)
+        keep = _group_mask(group_score, topk_group, n_group)
+        biased = torch.where(keep[..., None], gs,
+                             torch.zeros((), dtype=gs.dtype,
+                                         device=gs.device)
+                             ).reshape(biased.shape)
+    _, idx = _top_k(biased.detach(), k)
+    weights = torch.gather(scores, -1, idx)
+    if norm_topk:
+        weights = weights / (weights.sum(dim=-1, keepdim=True) + 1e-20)
+    return weights * routed_scaling_factor, idx
+
+
+def softmax_group_topk_routing(scores: torch.Tensor, k: int, *,
+                               topk_method: str = "greedy",
+                               n_group: int = 1, topk_group: int = 1,
+                               routed_scaling_factor: float = 1.0
+                               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """DeepSeek-V2's gate (HF ``DeepseekV2MoEGate``; the JAX
+    ``softmax_group_topk_routing``) over fp32 softmax ``scores [..., E]``:
+    ``greedy`` is a plain top-k (V2-Lite), ``group_limited_greedy`` ranks
+    the groups by their largest score and keeps the ``topk_group`` best
+    (the rest masked to 0.0).  The weights are the selected scores times
+    ``routed_scaling_factor``, not renormalised.  Returns ``(weights [...,
+    k], idx [..., k])``."""
+    E = scores.shape[-1]
+    if topk_method == "greedy":
+        chosen = scores
+    elif topk_method == "group_limited_greedy":
+        gs = scores.reshape(*scores.shape[:-1], n_group, E // n_group)
+        keep = _group_mask(gs.amax(dim=-1), topk_group, n_group)
+        chosen = torch.where(keep[..., None], gs,
+                             torch.zeros((), dtype=gs.dtype,
+                                         device=gs.device)
+                             ).reshape(scores.shape)
+    else:
+        raise NotImplementedError(f"topk_method {topk_method!r}")
+    _, idx = _top_k(chosen.detach(), k)
+    return torch.gather(chosen, -1, idx) * routed_scaling_factor, idx
 
 
 def _one_hot(idx: torch.Tensor, num_classes: int, dtype) -> torch.Tensor:
@@ -166,8 +280,8 @@ def route(x: torch.Tensor, gate_kernel: torch.Tensor, *,
     E = gate_kernel.shape[-1]
     T = B * S
     xg, pad = group_tokens(x.reshape(T, H), _group_size(T, group_size))
-    router_logits = xg.float() @ gate_kernel.float()
-    weights, idx, probs = topk_routing(router_logits, int(num_experts_per_tok),
+    weights, idx, probs = topk_routing(router_logits(xg, gate_kernel),
+                                       int(num_experts_per_tok),
                                        norm_topk=norm_topk)
     weights, idx, valid = mask_padded_tokens(weights, idx, pad, E)
     return xg, weights, idx, probs, valid, pad
@@ -300,8 +414,17 @@ def sorted_expert_ffn(xg, weights, idx, w_gate, w_up, w_down, *,
     oracle's priority (skipped when dropless), a stable sort of the
     assignments by expert, block-aligned segments, a gather, three grouped
     matmuls (quantized when ``quant`` is on and H and I are multiples of
-    16, the JAX package's rule), SiLU x up, and a weighted ``index_add``
-    back to the tokens."""
+    16, the JAX package's rule), SiLU x up, and the weighted combine back
+    to the tokens.
+
+    The combine adds each token's ``k`` weighted rows in the order of the
+    sorted buffer (by expert id), each sum rounded in the compute dtype,
+    as the JAX scatter-add (and ``index_add`` on the CPU) takes them; it is
+    written as one gather, one product and ``k - 1`` elementwise adds, not
+    an ``index_add``, whose atomics on the card add in a different order
+    run to run.  So a token's output does not depend on the run or on the
+    other rows of the step: the decode engine's token identity (prefix
+    cache, speculation) rests on it."""
     from automodel_tpu_torch.ops.gmm_kernel import gmm
     from automodel_tpu_torch.ops.gmm_quant_kernel import gmm_quant
 
@@ -353,8 +476,22 @@ def sorted_expert_ffn(xg, weights, idx, w_gate, w_up, w_down, *,
 
     h_act = F.silu(mm(x_sorted, wg)) * mm(x_sorted, wu)
     out_sorted = mm(h_act, wd)
-    w_sorted = torch.where(in_seg, weights.reshape(N)[src],
-                           weights.new_zeros(())).to(cd)
-    out = torch.zeros(T, H, dtype=cd, device=xg.device).index_add(
-        0, tok, out_sorted * w_sorted[:, None])
+    # each assignment's row in the sorted buffer (a dropped one: the last
+    # row, past every group, which the grouped matmuls leave 0) and its
+    # weight (0 when dropped); a token's k rows in buffer order, which is
+    # by expert id, dropped last
+    sink = n_pad - 1
+    row_of = torch.full((N + 1,), sink, dtype=torch.long, device=xg.device)
+    row_of.scatter_(0, torch.where(in_seg, src, N), rows)
+    row_of = row_of[:N].view(T, k)
+    w = torch.where(row_of != sink, weights.reshape(T, k),
+                    weights.new_zeros(())).to(cd)
+    rows_in_order, order = torch.sort(row_of, dim=-1, stable=True)
+    w = torch.gather(w, 1, order)
+    # unbind, not k slices: its backward stacks the k gradients at once
+    terms = (out_sorted.index_select(0, rows_in_order.reshape(N)).view(
+        T, k, H) * w[..., None]).unbind(1)
+    out = terms[0]
+    for term in terms[1:]:
+        out = out + term
     return out.reshape(G, M, H)

@@ -2,31 +2,47 @@
 
 The frequency tables are computed in numpy float64 exactly as the JAX
 package does, so both sides rotate by the same float32 frequencies.  The
-default, linear and llama3 rope types are ported; yarn and longrope wait
-for the model families that use them.
+default, linear, llama3 and yarn rope types are ported (yarn with its
+amplitude factor, ``attention_scaling``); longrope waits for its model
+families (ROADMAP Queue 1 item 10.6).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
 
-def rope_parameters(head_dim: int, theta: float = 10000.0,
-                    scaling: Optional[dict] = None):
-    """Inverse frequencies ``[D/2]`` (float32 numpy).
+def rope_type_of(scaling: Optional[dict]) -> str:
+    """``scaling["rope_type"]``, else its older spelling ``"type"``, else
+    ``"default"`` (HF ``modeling_rope_utils.py``)."""
+    if not scaling:
+        return "default"
+    return scaling.get("rope_type", scaling.get("type", "default"))
 
-    ``scaling["rope_type"]`` (or ``"type"``) selects default / linear /
-    llama3, as HF ``modeling_rope_utils.py`` does; none of the three
-    rescales the cos/sin amplitudes (the JAX package's
-    ``attention_scaling`` is 1.0 for them)."""
+
+def rope_tables(head_dim: int, theta: float = 10000.0,
+                scaling: Optional[dict] = None, *,
+                max_position_embeddings: Optional[int] = None,
+                original_max_position_embeddings: Optional[int] = None
+                ) -> Tuple[np.ndarray, float]:
+    """``(inverse frequencies [D/2] float32 numpy, attention_scaling)``:
+    the JAX ``rope_parameters``.  ``attention_scaling`` multiplies the cos
+    and sin amplitudes; it is 1.0 but for yarn (its ``mscale``).
+
+    yarn (HF ``_compute_yarn_parameters``) blends the interpolated and the
+    original frequencies over a linear ramp between the correction dims of
+    ``beta_fast`` and ``beta_slow``; its context length is the scaling
+    dict's ``original_max_position_embeddings``, else
+    ``max_position_embeddings`` (HF reads no config-level original length
+    for yarn, and neither does JAX; ``original_max_position_embeddings``
+    is taken for longrope's sake and refused with it)."""
     inv_freq = 1.0 / (theta ** (np.arange(0, head_dim, 2, dtype=np.float64)
                                 / head_dim))
-    rope_type = "default"
-    if scaling:
-        rope_type = scaling.get("rope_type", scaling.get("type", "default"))
+    attention_scaling = 1.0
+    rope_type = rope_type_of(scaling)
     if rope_type == "llama3":
         factor = scaling["factor"]
         low_factor = scaling["low_freq_factor"]
@@ -42,22 +58,69 @@ def rope_parameters(head_dim: int, theta: float = 10000.0,
         inv_freq = np.where(is_medium, smoothed, scaled)
     elif rope_type == "linear":
         inv_freq = inv_freq / scaling["factor"]
+    elif rope_type == "yarn":
+        factor = scaling["factor"]
+        old_len = (scaling.get("original_max_position_embeddings")
+                   or max_position_embeddings)
+        beta_fast = scaling.get("beta_fast") or 32.0
+        beta_slow = scaling.get("beta_slow") or 1.0
+        mscale = scaling.get("mscale")
+        mscale_all_dim = scaling.get("mscale_all_dim")
+        attention_scaling = scaling.get("attention_factor")
+        if attention_scaling is None:
+            if mscale and mscale_all_dim:
+                attention_scaling = float(
+                    get_mscale(factor, mscale)
+                    / get_mscale(factor, mscale_all_dim))
+            else:
+                attention_scaling = float(get_mscale(factor))
+
+        def correction_dim(num_rotations):
+            return (head_dim * np.log(old_len / (num_rotations * 2 * np.pi))
+                    ) / (2 * np.log(theta))
+
+        low, high = correction_dim(beta_fast), correction_dim(beta_slow)
+        if scaling.get("truncate", True):
+            low, high = np.floor(low), np.ceil(high)
+        low = max(float(low), 0.0)
+        high = min(float(high), head_dim - 1)
+        rmin, rmax = low, max(high, low + 0.001)
+        ramp = np.clip((np.arange(head_dim // 2, dtype=np.float64) - rmin)
+                       / (rmax - rmin), 0, 1)
+        extrapolation = 1.0 - ramp
+        inv_freq = (inv_freq / factor * (1 - extrapolation)
+                    + inv_freq * extrapolation)
     elif rope_type not in ("default", "dynamic"):
         raise NotImplementedError(
-            f"rope_type {rope_type!r} is not ported yet (default, linear "
-            "and llama3 are)")
-    return inv_freq.astype(np.float32)
+            f"rope_type {rope_type!r} is not ported yet (default, linear, "
+            "llama3 and yarn are; longrope is ROADMAP Queue 1 item 10.6)")
+    return inv_freq.astype(np.float32), float(attention_scaling)
+
+
+def get_mscale(scale: float, m: float = 1.0) -> float:
+    """yarn's magnitude factor ``0.1 m ln(scale) + 1`` (1 for scale <= 1)."""
+    return 0.1 * m * np.log(scale) + 1.0 if scale > 1 else 1.0
+
+
+def rope_parameters(head_dim: int, theta: float = 10000.0,
+                    scaling: Optional[dict] = None, **kwargs) -> np.ndarray:
+    """The inverse frequencies of :func:`rope_tables` alone."""
+    return rope_tables(head_dim, theta, scaling, **kwargs)[0]
 
 
 def apply_rope(q: torch.Tensor, k: torch.Tensor, position_ids: torch.Tensor,
-               inv_freq: torch.Tensor):
+               inv_freq: torch.Tensor, attention_scaling: float = 1.0):
     """Rotate ``q [B, S, Hq, D]`` and ``k [B, S, Hk, D]`` by position
-    (HF half-split convention: element i pairs with i + D/2).  The
-    rotation runs in fp32 and each half is cast back to the input dtype,
-    as in the JAX package."""
+    (HF half-split convention: element i pairs with i + D/2), cos and sin
+    times ``attention_scaling`` when it is not 1.  The rotation runs in
+    fp32 and each half is cast back to the input dtype, as in the JAX
+    package."""
     angles = position_ids[..., None].float() * inv_freq        # [B, S, D/2]
     cos = torch.cos(angles)[:, :, None, :]
     sin = torch.sin(angles)[:, :, None, :]
+    if attention_scaling != 1.0:
+        cos = cos * attention_scaling
+        sin = sin * attention_scaling
 
     def rot(x):
         x1, x2 = x.float().chunk(2, dim=-1)

@@ -22,9 +22,18 @@ kernels and the plain versions alike.  The JAX rungs disagree on such rows
 (the XLA SDPA rung gives the mean of all v rows); their labels are -100,
 so no loss depends on them.
 
+The kernels read segment ids, lse and delta through 1-D TMA boxes that
+start at row offsets ``b S`` (and ``(b Hq + h) S``), which TMA needs
+16-byte aligned: for a sequence length that is not a multiple of 4 (a
+prompt's length at ``generate()``'s prefill) the wrappers pad the rows to
+the next multiple of 4 as segment 0 (never attending, never attended:
+every real row's result is the unpadded one's) and slice the results
+back.
+
 The wrappers check every operand and raise on anything the kernels do not
-take (the kernels take bf16, head_dim 64 or 128, self-attention, any
-sequence length); they allocate outputs and scratch (the per-tile segment
+take (the kernels take bf16, head_dim 64, 128 or 192 -- MLA's
+``qk_nope + qk_rope`` width, v padded to it by the model --,
+self-attention, any sequence length); they allocate outputs and scratch (the per-tile segment
 ranges, delta) with ``torch`` on the current stream and raise if a launch
 failed.  ``fwd_launches`` / ``bwd_launches`` count the
 launches, ``plain_fwd_calls`` the plain forwards.  A remat policy can
@@ -49,7 +58,7 @@ from automodel_tpu_torch.ops.attention_plan import tile_meta_workspace
 from automodel_tpu_torch.ops.kernel_lib.build import ptr
 from automodel_tpu_torch.ops.remat import kept
 
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 128, 192)
 
 # kernel launches in this process (reset by callers that count a window),
 # and the plain forward's calls through the op
@@ -123,6 +132,23 @@ def _check_operands(q, k, v, segment_ids, causal, scale, logits_soft_cap,
             int(bool(causal)), int(local_window_size or 0))
 
 
+ROW_ALIGN = 4       # rows: 4 x 4-byte ids / lse / delta = 16 bytes
+
+
+def _aligned_rows(S: int, segment_ids, B: int, device, *tensors):
+    """``(segment ids, tensors)`` padded along the rows to a multiple of
+    :data:`ROW_ALIGN`: the pad rows hold segment 0 (the real rows keep
+    theirs, or 1 without segment ids) and zeros."""
+    pad = -S % ROW_ALIGN
+    seg = (torch.ones(B, S, dtype=torch.int32, device=device)
+           if segment_ids is None else segment_ids)
+    seg = torch.nn.functional.pad(seg, (0, pad)).contiguous()
+    out = [torch.nn.functional.pad(
+        t, (0, pad) if t.dim() == 3 else (0, 0, 0, 0, 0, pad)).contiguous()
+        for t in tensors]
+    return seg, out
+
+
 def flash_attn_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True,
                         segment_ids: Optional[torch.Tensor] = None,
@@ -136,6 +162,14 @@ def flash_attn_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     B, S, Hq, Hk, D, scale, cap, causal_i, window = _check_operands(
         q, k, v, segment_ids, causal, scale, logits_soft_cap,
         local_window_size)
+    if S % ROW_ALIGN:
+        seg, (qp, kp, vp) = _aligned_rows(S, segment_ids, B, q.device, q, k,
+                                          v)
+        out, lse = flash_attn_fwd_cuda(
+            qp, kp, vp, causal=causal, segment_ids=seg, scale=scale,
+            logits_soft_cap=logits_soft_cap,
+            local_window_size=local_window_size)
+        return out[:, :S].contiguous(), lse[..., :S].contiguous()
     out = torch.empty_like(q)
     lse = torch.empty(B, Hq, S, dtype=torch.float32, device=q.device)
     meta = tile_meta_workspace(segment_ids, B, S)
@@ -174,6 +208,15 @@ def flash_attn_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check(lse.dtype == torch.float32 and tuple(lse.shape) == (B, Hq, S)
            and lse.is_contiguous() and lse.device == q.device,
            "lse must be contiguous float32 [B, Hq, S]")
+    if S % ROW_ALIGN:
+        seg, (qp, kp, vp, op, dop, lp) = _aligned_rows(
+            S, segment_ids, B, q.device, q, k, v, out, dout, lse)
+        dq, dk, dv = flash_attn_bwd_cuda(
+            qp, kp, vp, op, lp, dop, causal=causal, segment_ids=seg,
+            scale=scale, logits_soft_cap=logits_soft_cap,
+            local_window_size=local_window_size)
+        return (dq[:, :S].contiguous(), dk[:, :S].contiguous(),
+                dv[:, :S].contiguous())
     delta = torch.empty(B, Hq, S, dtype=torch.float32, device=q.device)
     meta = tile_meta_workspace(segment_ids, B, S)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))

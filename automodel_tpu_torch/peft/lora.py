@@ -158,6 +158,9 @@ class LoRAModel(nn.Module):
         super().__init__()
         cfg = peft_config
         # validate everything before touching base_model, as JAX does
+        refusal = getattr(base_model, "peft_refusal", None)
+        if refusal:
+            raise NotImplementedError(refusal)
         if cfg.use_rank_r_bypass is not None:
             bypass = bool(cfg.use_rank_r_bypass)
         else:

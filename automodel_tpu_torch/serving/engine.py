@@ -269,6 +269,9 @@ class DecodeEngine:
                  timers=None):
         if attn_impl not in ATTN_IMPLS:
             raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}")
+        refusal = getattr(model, "serving_refusal", None)
+        if refusal:
+            raise NotImplementedError(refusal)
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self.config = config or ServingConfig()

@@ -56,6 +56,14 @@ Phases (any failure exits non-zero without the final ``ok`` line):
    second pass at twice the rate with deadlines, ``max_waiting`` and
    ``by_deadline`` shedding, and an armed ``serve_watchdog_stall``
    recovery whose tokens match an unarmed run;
+   serve_moe: Qwen3-30B-A3B at its published widths and all 48 layers
+   (``qwen3_30b_a3b_serve.yaml``, ~61 GB of bf16 weights) through the same
+   engine phase: first the gmm kernel at the engine's routed shapes (a
+   decode step's 64 assignments and a prefill chunk's 2048 over 128
+   experts, block-padded), the first step through every kernel against
+   every plain version, the 16 requests with paged decode held to layers
+   x steps and gmm to 3 x layers x steps, profiled windows, then the
+   prefix cache on and off (tokens identical);
 6. linear-CE kernels (forward; backward as dlogits, dh and dW launches
    per chunk of rows): each against its plain version at the bench SFT
    path's shape (T 16384 = 8 x 2048, H 2048, V 128256, the labels of the
@@ -162,7 +170,19 @@ Phases (any failure exits non-zero without the final ``ok`` line):
    timed apart, and beside the bound the floor of the two passes' bytes),
    then the training with gmm_quant 9, tgmm 3,
    bf16 gmm 0 and qdot 16 launches per layer and microbatch;
-11. quant_check: qdot kernel against qdot plain through a 2-layer Llama at
+11. sft_deepseek: DeepSeek-V2-Lite at its published widths and 4 of 27
+   layers (``deepseek_v2_lite_sft.yaml``, the bench YAML's data, optimizer
+   and fused loss): the gmm cases at its routed shapes (64 experts of
+   1408), the first step through every kernel against every plain version
+   (kernel 9 at head_dim 192), the timed steps with attention 2 x 4 x
+   microbatches forward and 4 x backward, gmm 9 and tgmm 3 per routed
+   layer and microbatch; generate_deepseek: that model through
+   ``generate()`` (8 ragged prompts, 32 new tokens), the prefill on kernel
+   9, its logits and the prompts' first tokens against the plain prefill;
+   (the attention phase above also holds kernel 9 at head_dim 192 on the
+   V2-Lite YAML's first batch, ``mla_*_d192``, v padded with zeros, and
+   the paged-decode phase Qwen3's G 8 decode and verify, ``qwen3_*``);
+12. quant_check: qdot kernel against qdot plain through a 2-layer Llama at
    sft_fp8's widths on the bench YAML's first batch, attention plain on
    both sides, int8 (bit for bit) and float8 (limits set from a measured
    run), loss and whole gradient (``quant_check_* first step`` lines).
@@ -324,7 +344,14 @@ KERNEL_CASES = [
     ("decode_d128_bf16", 1, 128, "bf16", None, None),
     ("verify_s5_d128_int8_cap", 5, 128, "int8", 30.0, None),
     ("chunk_s32_d128_bf16_window", 32, 128, "bf16", None, 512),
+    # Qwen3-30B-A3B through the engine (serve_moe): 32 / 4 heads (G 8) of
+    # head_dim 128, the decode step and the speculative verify width
+    ("qwen3_decode_d128_g8", 1, 128, "bf16", None, None),
+    ("qwen3_verify_s5_d128_g8", 5, 128, "bf16", None, None),
 ]
+# (Hq, Hk) of a case, else Llama-3.2-1B's 32 / 8
+KERNEL_CASE_HEADS = {"qwen3_decode_d128_g8": (32, 4),
+                     "qwen3_verify_s5_d128_g8": (32, 4)}
 
 
 # contexts (keys, every row) of the decode case's context sweep
@@ -425,7 +452,9 @@ def kernel_phase(flush):
 
     rows = []
     for i, (name, S, D, kv, cap, win) in enumerate(KERNEL_CASES):
-        q, k, v, ks, vs, tables, ctx, pos = make_paged_case(S, D, kv, seed=i)
+        Hq, Hk = KERNEL_CASE_HEADS.get(name, (32, 8))
+        q, k, v, ks, vs, tables, ctx, pos = make_paged_case(S, D, kv, seed=i,
+                                                            Hq=Hq, Hk=Hk)
         kw = dict(logits_soft_cap=cap, local_window_size=win)
         args = (q, k, v, ks, vs, tables, ctx, pos)
         out = pak.paged_decode_cuda(*args, **kw)
@@ -462,8 +491,9 @@ def kernel_phase(flush):
         plan = pak.split_plan(B, S, Hq, k.shape[2], tables.shape[1],
                               pak._sms(q.device), None,
                               q.dtype == torch.bfloat16)
-        row = dict(case=name, S=S, D=D, kv=kv, soft_cap=cap, window=win,
-                   max_abs_err=err, ms=kernel_ms, device_ms=device_ms,
+        row = dict(case=name, S=S, D=D, Hq=Hq, Hk=Hk, kv=kv, soft_cap=cap,
+                   window=win, max_abs_err=err, ms=kernel_ms,
+                   device_ms=device_ms,
                    plain_ms=plain_ms, library_ms=library_ms,
                    library_device_ms=library_device_ms, bound_ms=bound_ms,
                    bound_by=bound_by, span=plan.span, splits=plan.splits,
@@ -522,6 +552,14 @@ ATTN_CASES = [
     # Qwen3-30B-A3B's attention on the MoE SFT path: GQA 32/4, head_dim 128
     ("qwen3_gqa_d128", 8, 2048, 32, 4, 128, True, None, None),
 ]
+# DeepSeek-V2-Lite's MLA on kernel 9 (sft_deepseek): 16 / 16 heads at
+# qk_head_dim 192, v's 128 columns padded with zeros to 192 as the model
+# pads them; the first on the V2-Lite YAML's first batch's packing
+MLA_CASES = [
+    ("mla_packed_d192", 8, 2048, 16, 16, 192, True, None, None),
+    ("mla_causal_d192", 8, 2048, 16, 16, 192, False, None, None),
+]
+MLA_V_HEAD_DIM = 128
 
 
 def causal_case(rows):
@@ -546,19 +584,23 @@ def first_batch(yaml_path, overrides=()):
     return next(iter(loader))
 
 
-def attn_bound(q, k, seg, pairs, backward):
+def attn_bound(q, k, seg, pairs, backward, dv=None):
     """(bound_ms, bound_by): q, k, v, out and lse (plus dout, dq, dk, dv
     for the backward) and the segment ids moved once over HBM bandwidth,
-    against 4 (forward) or 10 (backward) * D * Hq flops per attended
-    (q, k) pair over the bf16 peak."""
+    against 2 (D + dv) (forward) or 2 (3 D + 2 dv) (backward) * Hq flops
+    per attended (q, k) pair over the bf16 peak.  ``dv`` (default D) is
+    the value width: v, out, dout and dv are counted at it, so MLA's
+    bound (dv 128) is that of the function, not of the padded operands."""
     B, S, Hq, D = q.shape
-    nq, nkv = q.numel() * 2, 2 * k.numel() * 2
-    nbytes = 2 * nq + nkv + B * Hq * S * 4 + (seg.numel() * 4 if seg
-                                               is not None else 0)
+    dv = D if dv is None else dv
+    nq, nk = q.numel() * 2, k.numel() * 2
+    nv, no = nk * dv // D, nq * dv // D
+    nbytes = nq + nk + nv + no + B * Hq * S * 4 + (seg.numel() * 4 if seg
+                                                   is not None else 0)
     if backward:
-        nbytes += 2 * nq + nkv                # dout, dq; dk, dv
-    ops = (10 if backward else 4) * D * Hq * pairs
-    return roofline_ms(ops, nbytes)
+        nbytes += no + nq + nk + nv           # dout, dq; dk, dv
+    per_pair = 2 * (3 * D + 2 * dv) if backward else 2 * (D + dv)
+    return roofline_ms(per_pair * Hq * pairs, nbytes)
 
 
 def attn_library(q, k, v, dout, mask, causal_only, scale):
@@ -591,7 +633,11 @@ def factor(ms, library_ms):
     return None if library_ms is None else ms / library_ms
 
 
-def attention_phase(flush, seg_np):
+def attention_phase(flush, seg_np, cases=ATTN_CASES, v_dim=None):
+    """Kernel 9 (forward and backward) against its plain version at each
+    of ``cases``, with the kernel, plain, SDPA and bound times; ``v_dim``
+    zeroes v past that many columns (MLA's padded v), whose output columns
+    must then come out exactly 0."""
     import torch
 
     from automodel_tpu_torch.ops import splash_attention as sa
@@ -599,11 +645,13 @@ def attention_phase(flush, seg_np):
 
     dev = torch.device("cuda")
     rows = []
-    for i, (name, B, S, Hq, Hk, D, packed, win, cap) in enumerate(ATTN_CASES):
+    for i, (name, B, S, Hq, Hk, D, packed, win, cap) in enumerate(cases):
         g = torch.Generator(device=dev).manual_seed(100 + i)
         q = torch.randn(B, S, Hq, D, device=dev, generator=g).bfloat16()
         k = torch.randn(B, S, Hk, D, device=dev, generator=g).bfloat16()
         v = torch.randn(B, S, Hk, D, device=dev, generator=g).bfloat16()
+        if v_dim is not None:
+            v[..., v_dim:] = 0
         dout = torch.randn(B, S, Hq, D, device=dev, generator=g).bfloat16()
         seg = (torch.from_numpy(seg_np[:B, :S]).to(dev).contiguous()
                if packed else None)
@@ -630,6 +678,9 @@ def attention_phase(flush, seg_np):
         check(lse_err <= 1e-2, f"{name}: lse max_abs_err {lse_err:.3e}")
         check(bool((out[~valid] == 0).all()),
               f"{name}: rows with no key are not 0")
+        if v_dim is not None:
+            check(bool((out[..., v_dim:] == 0).all()),
+                  f"{name}: the padded v columns' outputs are not exactly 0")
 
         grads = sa.flash_attn_bwd_cuda(q, k, v, ref, ref_lse, dout, **kw)
         torch.cuda.synchronize()
@@ -667,8 +718,8 @@ def attention_phase(flush, seg_np):
             fwd_lib = time_ms(lib_fwd, 10, flush)
             bwd_lib = time_ms(lib_bwd, 10, flush)
             del lib_fwd, lib_bwd
-        fb, fby = attn_bound(q, k, seg, pairs, backward=False)
-        bb, bby = attn_bound(q, k, seg, pairs, backward=True)
+        fb, fby = attn_bound(q, k, seg, pairs, False, v_dim)
+        bb, bby = attn_bound(q, k, seg, pairs, True, v_dim)
         row = dict(case=name, B=B, S=S, Hq=Hq, Hk=Hk, D=D, packed=packed,
                    window=win, soft_cap=cap, attended_pairs=pairs,
                    fwd=dict(ms=fwd_ms, plain_ms=fwd_plain, library_ms=fwd_lib,
@@ -679,6 +730,12 @@ def attention_phase(flush, seg_np):
                             library_factor=factor(bwd_ms, bwd_lib),
                             bound_ms=bb, bound_by=bby, max_abs_err=bwd_err,
                             rel_l2=rel))
+        if v_dim is not None:       # the bound at v's padded width too
+            row["v_dim"] = v_dim
+            for part, backward in (("fwd", False), ("bwd", True)):
+                row[part]["padded_bound_ms"], row[part][
+                    "padded_bound_by"] = attn_bound(q, k, seg, pairs,
+                                                    backward)
         print("attention_case " + json.dumps(row), flush=True)
         rows.append(row)
         del q, k, v, dout, out, lse, ref, ref_lse, mask
@@ -1048,10 +1105,44 @@ def linear_ce_phase(flush, bench_labels):
 # ---------------------------------------------------------------------------
 # grouped-matmul kernel phase
 # ---------------------------------------------------------------------------
+def moe_widths(model):
+    """``(routed experts, expert width)`` of an MoE model (the Mixtral
+    families' or DeepSeek's config names)."""
+    cfg = model.config
+    if hasattr(cfg, "n_routed_experts"):
+        return cfg.n_routed_experts, cfg.moe_intermediate_size
+    return cfg.num_local_experts, model.layer_cls.expert_inter(cfg)
+
+
+def moe_layer_count(model):
+    """Layers with routed experts (DeepSeek's first ``k`` are dense)."""
+    cfg = model.config
+    return cfg.num_hidden_layers - getattr(cfg, "first_k_dense_replace", 0)
+
+
+def route_indices(model, layer, x):
+    """The expert ids ``[G, M, k]`` ``layer``'s router gives the rows of
+    ``x [B, S, H]`` (the model's own routing, dropless)."""
+    from automodel_tpu_torch.ops import moe
+
+    cfg = model.config
+    if hasattr(cfg, "n_routed_experts"):              # DeepSeek
+        T = x.shape[0] * x.shape[1]
+        xg, _ = moe.group_tokens(x.reshape(T, -1), min(cfg.moe_group_size,
+                                                       T))
+        return model._route(xg, layer.mlp.gate, cfg.num_experts_per_tok)[1]
+    block = getattr(layer, layer.moe_block)
+    return moe.route(x, block.gate.weight.t(),
+                     num_experts_per_tok=cfg.num_experts_per_tok,
+                     group_size=cfg.moe_group_size,
+                     norm_topk=model._norm_topk())[2]
+
+
 def routed_group_sizes(recipe, batch):
-    """Route ``batch`` (the MoE YAML's first batch) through layer 0 of the
-    recipe's model (its seeded weights, dropless): ``(raw sizes [E],
-    block-padded sizes [E], n_pad, routed assignments)`` as
+    """Route ``batch`` (the MoE YAML's first batch) through the first
+    layer with routed experts of the recipe's model (its seeded weights,
+    dropless; the layer's own attention on the embeddings): ``(raw sizes
+    [E], block-padded sizes [E], n_pad, routed assignments)`` as
     ``sorted_expert_ffn`` lays them out."""
     import torch
 
@@ -1059,7 +1150,6 @@ def routed_group_sizes(recipe, batch):
 
     model, cfg = recipe.model, recipe.model.config
     layer = model.layers[0]
-    block = getattr(layer, layer.moe_block)
     dev = recipe.device
     t = {k: torch.from_numpy(batch[k]).to(dev)
          for k in ("input_ids", "position_ids", "segment_ids")}
@@ -1068,14 +1158,11 @@ def routed_group_sizes(recipe, batch):
             layer, model.embed_tokens.weight[t["input_ids"]].to(
                 model.compute_dtype), t["position_ids"], t["segment_ids"],
             None, None)
-        _, _, idx, _, _, _ = moe.route(
-            layer.post_attention_layernorm(h), block.gate.weight.t(),
-            num_experts_per_tok=cfg.num_experts_per_tok,
-            group_size=cfg.moe_group_size, norm_topk=model._norm_topk())
+        idx = route_indices(model, layer, layer.post_attention_layernorm(h))
     check(cfg.moe_capacity_factor is None,
           "the MoE YAML must route dropless (moe_capacity_factor null)")
     _, sizes, padded, n_pad = moe.expert_segments(
-        idx.reshape(-1), cfg.num_local_experts, 128)
+        idx.reshape(-1), moe_widths(model)[0], 128)
     return sizes.int(), padded.int(), n_pad, idx.numel()
 
 
@@ -1300,27 +1387,33 @@ def gmm_phase(recipe, batch):
     import torch
 
     cfg = recipe.model.config
-    H, I = cfg.hidden_size, recipe.model.layer_cls.expert_inter(cfg)
+    E, I = moe_widths(recipe.model)
+    H = cfg.hidden_size
     sizes, padded, n_pad, routed = routed_group_sizes(recipe, batch)
     sizes, padded = sizes.cpu(), padded.cpu()
     check(int(sizes.sum()) == routed,
           f"layer 0 routed {int(sizes.sum())} assignments of {routed} "
           "(dropless: none may drop)")
-    print(f"gmm: layer 0 of the first batch routes {routed} assignments "
-          f"(T x k) to {int((sizes > 0).sum())} experts, {int(sizes.min())}"
-          f"-{int(sizes.max())} each; {int(padded.sum())} block-padded rows "
-          f"in a buffer of {n_pad}; sizes {sizes.tolist()}", flush=True)
-    hot = torch.zeros_like(sizes)
-    hot[37] = routed
-    ragged = sizes.clone()
-    ragged[[0, 5, 64, 126, 127]] = 0
+    print(f"gmm: the first routed layer on the first batch routes {routed}"
+          f" assignments (T x k) to {int((sizes > 0).sum())} of {E} experts,"
+          f" {int(sizes.min())}-{int(sizes.max())} each; "
+          f"{int(padded.sum())} block-padded rows in a buffer of {n_pad}; "
+          f"sizes {sizes.tolist()}", flush=True)
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
-    cases = [("routed_gate_up", padded, n_pad, H, I),
-             ("routed_down", padded, n_pad, I, H),
-             ("hot_expert", hot, n_pad, H, I),
-             ("ragged_empty", ragged, n_pad, H, I),
-             ("skewed_small", skewed_sizes(sizes.numel(), routed, seed=17),
-              n_pad, H, I)]
+    tag = "v2lite_" if hasattr(cfg, "n_routed_experts") else ""
+    cases = [(f"{tag}routed_gate_up", padded, n_pad, H, I),
+             (f"{tag}routed_down", padded, n_pad, I, H)]
+    if not tag:
+        # Qwen3-30B-A3B's ragged layouts (the routed shapes alone for
+        # DeepSeek-V2-Lite)
+        hot = torch.zeros_like(sizes)
+        hot[37] = routed
+        ragged = sizes.clone()
+        ragged[[0, 5, 64, 126, 127]] = 0
+        cases += [("hot_expert", hot, n_pad, H, I),
+                  ("ragged_empty", ragged, n_pad, H, I),
+                  ("skewed_small", skewed_sizes(E, routed, seed=17), n_pad,
+                   H, I)]
     rows = [gmm_case(name, gs, m, k, n, flush, seed=300 + i)
             for i, (name, gs, m, k, n) in enumerate(cases)]
     del flush
@@ -1701,7 +1794,8 @@ def gmm_quant_phase(recipe, batch):
     import torch
 
     cfg = recipe.model.config
-    H, I = cfg.hidden_size, recipe.model.layer_cls.expert_inter(cfg)
+    E, I = moe_widths(recipe.model)
+    H = cfg.hidden_size
     sizes, padded, n_pad, routed = routed_group_sizes(recipe, batch)
     sizes, padded = sizes.cpu(), padded.cpu()
     hot = torch.zeros_like(sizes)
@@ -1730,12 +1824,24 @@ def gmm_quant_phase(recipe, batch):
 # ---------------------------------------------------------------------------
 # engine phase
 # ---------------------------------------------------------------------------
-def engine_phase():
+def engine_phase(yaml_path=None, label="engine", flush=None):
+    """A model at full width through the port's DecodeEngine (the serve
+    YAML ``yaml_path``, default Llama-3.2-1B's; weights from seed 0): the
+    first step's logits through every kernel against every plain version,
+    16 requests of 64-1024 prompt tokens after a warm-up with the counts
+    zeroed just before and read just after (paged decode = layers x steps;
+    gmm = 3 x routed layers x steps for an MoE model, else 0), then
+    profiled prefill and decode windows.  Llama: a shorter int8-KV run
+    too.  An MoE model: first the gmm kernel at the engine's routed
+    shapes (``flush`` given), last the prefix cache on and off."""
+    import gc
+
     import numpy as np
     import torch
 
     from automodel_tpu_torch.config.loader import load_yaml_config
     from automodel_tpu_torch.generation import GenerationConfig
+    from automodel_tpu_torch.ops import gmm_kernel as gk
     from automodel_tpu_torch.ops import paged_attention as tpa
     from automodel_tpu_torch.ops import paged_attention_kernel as pak
     from automodel_tpu_torch.serving import (
@@ -1744,46 +1850,70 @@ def engine_phase():
         build_serving_config,
     )
 
-    cfg = load_yaml_config(os.path.join(
-        REPO, "automodel_tpu_torch", "examples", "llama3_2_1b_serve.yaml"))
+    gc.collect()
+    torch.cuda.empty_cache()
+    resident = torch.cuda.memory_allocated()
+    cfg = load_yaml_config(yaml_path or SERVE_YAML)
     scfg = build_serving_config(cfg)
     gen = GenerationConfig(**cfg.generation.to_dict())
     t0 = time.perf_counter()
     model = cfg.model.instantiate(seed=0, device="cuda")
     torch.cuda.synchronize()
     mcfg = model.config
-    print(f"engine: Llama-3.2-1B widths (vocab {mcfg.vocab_size}, hidden "
-          f"{mcfg.hidden_size}, ffn {mcfg.intermediate_size}, layers "
-          f"{mcfg.num_hidden_layers}, heads {mcfg.num_attention_heads}/"
-          f"{mcfg.num_key_value_heads}, head_dim {mcfg.head_dim}), "
-          f"{sum(p.numel() for p in model.parameters())} params "
-          f"{model.param_dtype}, built in {time.perf_counter() - t0:.1f} s",
-          flush=True)
+    L = mcfg.num_hidden_layers
+    moe = hasattr(model, "gmm_impl")
+    routed = 3 * moe_layer_count(model) if moe else 0
+    ffn = (f"{moe_widths(model)[0]} experts of {moe_widths(model)[1]}, "
+           f"top-{mcfg.num_experts_per_tok}" if moe
+           else f"ffn {mcfg.intermediate_size}")
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in model.parameters())
+    print(f"{label}: {type(model).__name__} widths (vocab {mcfg.vocab_size},"
+          f" hidden {mcfg.hidden_size}, {ffn}, layers {L}, heads "
+          f"{mcfg.num_attention_heads}/{mcfg.num_key_value_heads}, head_dim "
+          f"{mcfg.head_dim}), {model.num_params} params {model.param_dtype} "
+          f"({weight_bytes} bytes; {resident} bytes resident before), built "
+          f"in {time.perf_counter() - t0:.1f} s", flush=True)
+    gmm_rows = []
+    if moe:
+        E, inter = moe_widths(model)
+        for i, (name, tokens) in enumerate(SERVE_GMM_CASES):
+            padded, n_pad = seeded_routing_sizes(
+                tokens, E, mcfg.num_experts_per_tok, 400 + i)
+            gmm_rows.append(gmm_case(name, padded, n_pad, mcfg.hidden_size,
+                                     inter, flush, seed=410 + i))
     rng = np.random.default_rng(0)
     prompts = [rng.integers(1, mcfg.vocab_size, int(n)).tolist()
                for n in rng.integers(64, 1025, 16)]
 
-    # first step: kernel vs the plain attention, chosen by argument
+    # first step: every kernel (paged decode; gmm) against its plain
+    # version, chosen by argument
     firsts = {}
     for impl in ("plain", "kernel"):
+        if moe:
+            model.gmm_impl = impl
         eng = DecodeEngine(model, scfg, generation=gen, attn_impl=impl)
         for p in prompts:
             eng.submit(p)
         eng.step()
         firsts[impl] = eng.last_logits.clone()
         del eng
+    if moe:
+        model.gmm_impl = None
     torch.cuda.empty_cache()
     ref, got = firsts["plain"], firsts["kernel"]
-    check(bool(torch.isfinite(got).all()), "first-step logits not finite")
+    check(bool(torch.isfinite(got).all()),
+          f"{label}: first-step logits not finite")
     span = float(ref.abs().max())
     err = float((got - ref).abs().max())
     check(err <= LOGITS_REL_TOL * span,
-          f"first-step logits: kernel vs plain max_abs_err {err:.4f} > "
-          f"{LOGITS_REL_TOL} * {span:.3f}")
+          f"{label} first-step logits: kernel vs plain max_abs_err "
+          f"{err:.4f} > {LOGITS_REL_TOL} * {span:.3f}")
     agree = float((got.argmax(-1) == ref.argmax(-1)).float().mean())
-    print(f"engine first step: logits {tuple(got.shape)} max_abs_err {err:.4f}"
-          f" (logit range {span:.3f}, tol {LOGITS_REL_TOL * span:.4f}), "
-          f"argmax agreement {agree:.3f}", flush=True)
+    print(f"{label} first step: logits {tuple(got.shape)} max_abs_err "
+          f"{err:.4f} (logit range {span:.3f}, tol "
+          f"{LOGITS_REL_TOL * span:.4f}), argmax agreement {agree:.3f}",
+          flush=True)
 
     # warm-up off the clock: first launches of every op at both widths
     warm = DecodeEngine(model, scfg, generation=gen)
@@ -1791,48 +1921,58 @@ def engine_phase():
     warm.run()
     del warm
 
-    def drive(serving, requests, max_new, label):
+    def drive(serving, requests, max_new, run):
         eng = DecodeEngine(model, serving, generation=gen)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         pak.launches = 0                  # counts zeroed just before the run
         tpa.long_q_gather_calls = 0
+        gk.gmm_launches = 0
         t0 = time.perf_counter()
         for p in requests:
             eng.submit(p, max_new_tokens=max_new)
         eng.run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches, gathers = pak.launches, tpa.long_q_gather_calls
+        launches, gathers, gmms = (pak.launches, tpa.long_q_gather_calls,
+                                   gk.gmm_launches)
         st = eng.stats()
         states = {r.state for r in eng.requests.values()}
         check(states == {RequestState.FINISHED},
-              f"{label}: not every request finished: {st['outcomes']}")
+              f"{run}: not every request finished: {st['outcomes']}")
         check(st["kernel_launches"] == launches,
-              f"{label}: engine counted {st['kernel_launches']} launches, "
+              f"{run}: engine counted {st['kernel_launches']} launches, "
               f"the wrapper {launches}")
-        check(launches == mcfg.num_hidden_layers * st["steps"],
-              f"{label}: {launches} kernel launches != "
-              f"{mcfg.num_hidden_layers} layers x {st['steps']} steps")
-        check(gathers == 0, f"{label}: {gathers} long-query gather calls")
+        check(launches == L * st["steps"],
+              f"{run}: {launches} kernel launches != {L} layers x "
+              f"{st['steps']} steps")
+        check(gmms == routed * st["steps"] == eng.gmm_launches,
+              f"{run}: {gmms} gmm launches (engine {eng.gmm_launches}) != "
+              f"{routed} x {st['steps']} steps")
+        check(gathers == 0, f"{run}: {gathers} long-query gather calls")
         check(bool(torch.isfinite(eng.last_logits).all()),
-              f"{label}: non-finite logits")
+              f"{run}: non-finite logits")
         report = dict(
-            run=label, requests=len(requests), max_new_tokens=max_new,
+            run=run, requests=len(requests), max_new_tokens=max_new,
             decode_tok_s=st["tokens_generated"] / wall, wall_s=wall,
             steps=st["steps"], decode_steps=st["decode_steps"],
             mixed_steps=st["mixed_steps"], kernel_launches=launches,
-            launches_per_step=launches / st["steps"],
+            launches_per_step=launches / st["steps"], gmm_launches=gmms,
             tokens_generated=st["tokens_generated"],
             preemptions=st["preemptions"], kv_pool_bytes=st["kv_pool_bytes"],
+            weight_bytes=weight_bytes,
             peak_mem_bytes=torch.cuda.max_memory_allocated())
         print("engine_run " + json.dumps(report), flush=True)
         return report
 
-    main = drive(scfg, prompts, gen.max_new_tokens, "bf16_kv")
-    int8 = build_serving_config(
-        {**cfg.serving.to_dict(), "kv_cache_dtype": "int8"})
-    drive(int8, prompts[:8], 32, "int8_kv")
+    main = drive(scfg, prompts, gen.max_new_tokens,
+                 "bf16_kv" if label == "engine" else label)
+    main["first_step"] = dict(max_abs_err=err, logit_range=span,
+                              argmax_agreement=agree)
+    if not moe:
+        int8 = build_serving_config(
+            {**cfg.serving.to_dict(), "kv_cache_dtype": "int8"})
+        drive(int8, prompts[:8], 32, "int8_kv")
 
     # where a step's time goes: a profiled window of prefill-carrying
     # steps, then one of pure decode steps, on a fresh engine
@@ -1843,11 +1983,27 @@ def engine_phase():
     def steps(n):
         return lambda: [eng.step() for _ in range(n)]
 
-    profile_window(steps(6), 6, "mixed_w32", ("paged_decode",))
+    tag = "" if label == "engine" else f"{label}_"
+    main["profile_mixed"] = profile_window(steps(4 if moe else 6),
+                                           4 if moe else 6,
+                                           f"{tag}mixed_w32",
+                                           ("paged_decode",))
     while any(len(r.pending) > 1 for r in eng.scheduler.active):
         eng.step()
-    profile_window(steps(10), 10, "decode_w1", ("paged_decode",))
+    main["profile_decode"] = profile_window(steps(8 if moe else 10),
+                                            8 if moe else 10,
+                                            f"{tag}decode_w1",
+                                            ("paged_decode",))
     eng.run()
+    del eng
+    if moe:
+        torch.cuda.empty_cache()
+        main["prefix"] = prefix_leg(model, f"{label}_prefix", ("bf16",),
+                                    fork_run=False)
+        main["gmm_cases"] = gmm_rows
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
     return main
 
 
@@ -1926,9 +2082,11 @@ def feature_run(model, label, serving, requests, max_new, *, load=None,
           f"{label}: {launches} paged-decode launches != {L} layers x "
           f"{steps} steps")
     check(gathers == 0, f"{label}: {gathers} long-query gather calls")
-    check(gmms == 2 * adapted * L * steps,
-          f"{label}: {gmms} gmm launches != 2 x {adapted} projections x {L}"
-          f" layers x {steps} steps")
+    # an MoE model's routed experts: 3 gmm launches a routed layer and step
+    routed = 3 * moe_layer_count(model) if hasattr(model, "gmm_impl") else 0
+    check(gmms == (2 * adapted * L + routed) * steps,
+          f"{label}: {gmms} gmm launches != (2 x {adapted} projections x {L}"
+          f" layers + {routed} routed) x {steps} steps")
     check(eng.allocator.all_free, f"{label}: KV blocks leaked")
     check(bool(torch.isfinite(eng.last_logits).all()),
           f"{label}: non-finite logits")
@@ -1954,11 +2112,13 @@ def _identical(label, a, b):
     fail(f"{label}: the runs return different requests")
 
 
-def prefix_leg(model):
+def prefix_leg(model, label="serving_features_prefix",
+               kvs=("bf16", "int8"), fork_run=True):
     """bench.py's prefix-cache leg: 16 requests of a shared 96-token prefix
     (six full blocks) plus a 4-token tail, 16 new tokens, 8 slots, cache
-    on and off (bf16 and int8 KV); then 8 identical 96-token prompts,
-    whose fully cached chains fork their last block copy-on-write."""
+    on and off (each KV dtype of ``kvs``); then (``fork_run``) 8 identical
+    96-token prompts, whose fully cached chains fork their last block
+    copy-on-write.  Prints the ``label`` line."""
     import numpy as np
 
     rng = np.random.default_rng(0)
@@ -1967,7 +2127,7 @@ def prefix_leg(model):
             for _ in range(16)]
     forks = [(list(shared), 0)] * 8
     out = {}
-    for kv in ("bf16", "int8"):
+    for kv in kvs:
         base = dict(max_num_seqs=8, max_model_len=128,
                     kv_cache_dtype="int8" if kv == "int8" else None)
         runs = {}
@@ -1989,6 +2149,9 @@ def prefix_leg(model):
             cache_hit_rate=st["cache_hit_rate"],
             cow_forks=st["prefix_cache"]["cow_forks"],
             off=runs["off"][0], on=runs["on"][0])
+    if not fork_run:
+        print(f"{label} " + json.dumps(out), flush=True)
+        return out
     fork = {m: feature_run(model, f"prefix_fork_{m}",
                            dict(max_num_seqs=8, max_model_len=128,
                                 prefix_caching=m), forks, 16)
@@ -2001,7 +2164,7 @@ def prefix_leg(model):
                        deferrals=st["prefix_cache"]["deferrals"],
                        prefill_tokens_saved=st["prefill_tokens_saved"],
                        on=fork["on"][0], off=fork["off"][0])
-    print("serving_features_prefix " + json.dumps(out), flush=True)
+    print(f"{label} " + json.dumps(out), flush=True)
     return out
 
 
@@ -2316,6 +2479,221 @@ def serving_features_phase():
     return out
 
 
+# ---------------------------------------------------------------------------
+# serve_moe phase: Qwen3-30B-A3B through the decode engine
+# ---------------------------------------------------------------------------
+MOE_SERVE_YAML = os.path.join(REPO, "automodel_tpu_torch", "examples",
+                              "qwen3_30b_a3b_serve.yaml")
+# the engine's routed grouped matmuls: a decode step (8 slots x 1 token x
+# top-8 = 64 assignments over 128 experts) and a prefill-chunk step (8 x
+# 32 tokens = 2048 assignments), each segment block-padded to 128 rows as
+# sorted_expert_ffn lays them out
+SERVE_GMM_CASES = (("serve_decode_m64", 8), ("serve_prefill_m2048", 256))
+
+
+def seeded_routing_sizes(tokens, E, k, seed):
+    """``(padded sizes [E], n_pad)`` of ``tokens`` rows each routed to k
+    distinct experts drawn from ``seed``, as ``sorted_expert_ffn`` pads
+    them."""
+    import numpy as np
+    import torch
+
+    from automodel_tpu_torch.ops import moe
+
+    rng = np.random.default_rng(seed)
+    idx = np.stack([rng.choice(E, k, replace=False) for _ in range(tokens)])
+    _, _, padded, n_pad = moe.expert_segments(
+        torch.from_numpy(idx.reshape(-1)), E, 128)
+    return padded.int(), n_pad
+
+
+# ---------------------------------------------------------------------------
+# the DeepSeek-V2-Lite phases
+# ---------------------------------------------------------------------------
+LITE_YAML = os.path.join(REPO, "automodel_tpu_torch", "examples",
+                         "deepseek_v2_lite_sft.yaml")
+GEN_PROMPTS, GEN_NEW = 8, 32
+
+
+def _bf16_ulps(got, want):
+    """``|got - want|`` in units of ``want``'s bf16 ulp (2^(e - 8) for
+    ``want = m 2^e``, m in [0.5, 1))."""
+    import torch
+
+    _, e = torch.frexp(want.float())
+    ulp = torch.ldexp(torch.ones_like(want, dtype=torch.float32),
+                      (e - 8).clamp(min=-133))
+    return (got.float() - want.float()).abs() / ulp
+
+
+def _compared(attend, record, v_dim):
+    """``attend`` (``ops/attention.py::attention``) that also runs the
+    plain version on the same inputs and appends to ``record`` the share
+    of output elements (valid rows, the first ``v_dim`` columns) whose
+    bits differ and their largest and mean distance in bf16 ulps."""
+    import torch
+
+    def run(q, k, v, **kw):
+        got = attend(q, k, v, **kw)
+        want = attend(q, k, v, **{**kw, "impl": "plain"})
+        mask = kw.get("attention_mask")
+        rows = (torch.ones(got.shape[:2], dtype=torch.bool,
+                           device=got.device) if mask is None else mask)
+        g, w = got[..., :v_dim][rows], want[..., :v_dim][rows]
+        d = _bf16_ulps(g, w)
+        differ = g != w
+        record.append(dict(share_differing=float(differ.float().mean()),
+                           max_ulps=float(d.max()),
+                           mean_ulps_differing=float(d[differ].mean())
+                           if bool(differ.any()) else 0.0))
+        return got
+    return run
+
+
+def _nudged(attend, gen):
+    """``attend`` whose bf16 output has its last mantissa bit flipped in a
+    seeded half of the elements (one ulp each)."""
+    import torch
+
+    def run(q, k, v, **kw):
+        got = attend(q, k, v, **kw)
+        check(got.dtype == torch.bfloat16,
+              f"generate_deepseek: the nudge needs bf16, not {got.dtype}")
+        flip = torch.randint(0, 2, got.shape, generator=gen,
+                             device=got.device, dtype=torch.int16)
+        return (got.view(torch.int16) ^ flip).view(torch.bfloat16)
+    return run
+
+
+def generate_deepseek_phase():
+    """DeepSeek-V2-Lite (the SFT YAML's model, weights from seed 0) through
+    ``generate()``: 8 ragged prompts of 64-512 tokens, 32 new each; the
+    prefill through kernel 9 at head_dim 192 (one forward launch a layer),
+    held against the plain-prefill run: the prefill's last logits within
+    5 % of the logit range and the prompts' first tokens (the prefill's
+    own output) equal.  Later tokens are reported, not gated: they decode
+    over caches the two prefills wrote a few bf16 ulps apart, which a
+    random-weight MoE's near-tied routes amplify (the token where each
+    prompt's runs part is printed).  Two witnesses for that reading: each
+    layer's prefill attention output, kernel against plain on the same
+    inputs, in bf16 ulps (``prefill_attention_ulps``); and the plain run
+    again with its prefill attention output moved by one ulp in a seeded
+    half of the elements (``plain_nudged``), whose tokens part from the
+    plain run's as the kernel's do."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from automodel_tpu_torch.config.loader import load_yaml_config
+    from automodel_tpu_torch.generation import GenerationConfig, generate
+    from automodel_tpu_torch.generation.generate import left_align
+    from automodel_tpu_torch.models import deepseek_v3 as dv3
+    from automodel_tpu_torch.ops import gmm_kernel as gk
+    from automodel_tpu_torch.ops import splash_attention as sa
+
+    cfg = load_yaml_config(LITE_YAML)
+    model = cfg.model.instantiate(seed=0, device="cuda")
+    mcfg = model.config
+    rng = np.random.default_rng(3)
+    lens = rng.integers(64, 513, GEN_PROMPTS)
+    ids = rng.integers(1, mcfg.vocab_size, (GEN_PROMPTS, int(lens.max())))
+    gcfg = GenerationConfig(max_new_tokens=GEN_NEW)
+    generate(model, ids[:, :16], np.minimum(lens, 16),
+             GenerationConfig(max_new_tokens=2))             # warm-up
+    # the prefill alone: its last logits through kernel 9 and plain
+    ids_t = torch.as_tensor(ids, device="cuda")
+    lens_t = torch.as_tensor(lens, device="cuda")
+    S = ids.shape[1]
+    last, ulps, attend = {}, [], dv3.attention
+    with torch.inference_mode():
+        left = left_align(ids_t, lens_t, 0)
+        mask = (torch.arange(S + 1, device="cuda")[None, :]
+                >= (S - lens_t)[:, None])
+        pos = (torch.arange(S, device="cuda")[None, :]
+               - (S - lens_t)[:, None]).clamp(min=0)
+        for impl in ("kernel", "plain"):
+            cache = model.init_kv_cache(GEN_PROMPTS, S + 1)
+            if impl == "kernel":        # each layer's output against plain
+                dv3.attention = _compared(attend, ulps, mcfg.v_head_dim)
+            try:
+                last[impl] = model(left, position_ids=pos,
+                                   attention_mask=mask, kv_cache=cache,
+                                   cache_index=0, attn_impl=impl)[
+                                       "logits"][:, -1].float()
+            finally:
+                dv3.attention = attend
+            del cache
+    span = float(last["plain"].abs().max())
+    err = float((last["kernel"] - last["plain"]).abs().max())
+    first = dict(max_abs_err=err, logit_range=span,
+                 tol=LOGITS_REL_TOL * span,
+                 argmax_equal=bool((last["kernel"].argmax(-1)
+                                    == last["plain"].argmax(-1)).all()))
+    check(err <= LOGITS_REL_TOL * span,
+          f"generate_deepseek prefill logits: kernel vs plain max_abs_err "
+          f"{err:.4f} > {LOGITS_REL_TOL} * {span:.3f}")
+    out, times = {}, {}
+    for impl in ("kernel", "plain"):
+        torch.cuda.synchronize()
+        sa.fwd_launches = sa.plain_fwd_calls = 0
+        gk.gmm_launches = 0
+        t0 = time.perf_counter()
+        out[impl] = generate(model, ids, lens, gcfg, attn_impl=impl)
+        torch.cuda.synchronize()
+        times[impl] = time.perf_counter() - t0
+        L, L_moe = mcfg.num_hidden_layers, moe_layer_count(model)
+        want_fwd = L if impl == "kernel" else 0
+        check(sa.fwd_launches == want_fwd,
+              f"generate_deepseek ({impl} prefill): {sa.fwd_launches} "
+              f"kernel 9 launches != {want_fwd}")
+        check(gk.gmm_launches == 3 * L_moe * GEN_NEW,
+              f"generate_deepseek: {gk.gmm_launches} gmm launches != 3 x "
+              f"{L_moe} routed layers x {GEN_NEW} forwards")
+        if impl == "kernel":
+            launches = dict(attention_fwd=sa.fwd_launches,
+                            gmm=gk.gmm_launches)
+    # the witness: plain again, its prefill attention nudged by one ulp
+    dv3.attention = _nudged(attend, torch.Generator(device="cuda")
+                            .manual_seed(7))
+    try:
+        out["plain_nudged"] = generate(model, ids, lens, gcfg,
+                                       attn_impl="plain")
+    finally:
+        dv3.attention = attend
+
+    def parting(a_run, b_run):
+        return [int(np.argmax(a != b)) if (a != b).any() else None
+                for a, b in zip(out[a_run], out[b_run])]
+
+    same = bool((out["kernel"] == out["plain"]).all())
+    parts = parting("kernel", "plain")
+    report = dict(prompts=GEN_PROMPTS, prompt_lens=lens.tolist(),
+                  new_tokens=GEN_NEW, kernel_prefill_s=times["kernel"],
+                  plain_prefill_s=times["plain"],
+                  tok_s=GEN_PROMPTS * GEN_NEW / times["kernel"],
+                  launches=launches, prefill_logits=first,
+                  first_tokens_equal=bool(
+                      (out["kernel"][:, 0] == out["plain"][:, 0]).all()),
+                  tokens_identical=same, first_parting_token=parts,
+                  prefill_attention_ulps=ulps,
+                  plain_nudged=dict(
+                      nudged_share=0.5,
+                      first_parting_token=parting("plain_nudged", "plain"),
+                      first_tokens_equal=bool(
+                          (out["plain_nudged"][:, 0]
+                           == out["plain"][:, 0]).all())))
+    print("generate_deepseek " + json.dumps(report), flush=True)
+    check(report["first_tokens_equal"] and first["argmax_equal"],
+          f"generate_deepseek: the prompts' first tokens differ between "
+          f"the kernel and the plain prefill ({out['kernel'][:, 0]} vs "
+          f"{out['plain'][:, 0]})")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return report
+
+
 # device-time buckets of a profiled window, by kernel name (first match)
 KERNEL_KINDS = [
     # qdot, gmm_quant and their quantize pass (csrc/qdot.cu, gmm_quant.cu,
@@ -2599,9 +2977,8 @@ def shapes_report(groups, model):
     convention applied per segment)."""
     import numpy as np
 
-    cfg = model.config
-    per_sq = 3.0 * cfg.num_hidden_layers * 4 * cfg.num_attention_heads \
-        * cfg.head_dim / 2                     # x s^2 for a segment of s
+    # x s^2 for a segment of s: s tokens of s / 2 keys each
+    per_sq = model.attention_flops_per_token(1)
     steps, flops = [], 0.0
     for g in groups:
         buckets, nseg = {}, 0
@@ -2828,9 +3205,9 @@ def train_phase(label, yaml_path, overrides=(), bf16=None, attn_impl=None,
     quant = recipe.model.quant
     quantized = quant is not None and quant.enabled
     peft = recipe.peft_config
-    ffn = (f"{mcfg.num_local_experts} experts of "
-           f"{recipe.model.layer_cls.expert_inter(mcfg)}, top-"
-           f"{mcfg.num_experts_per_tok}" if is_moe
+    ffn = (f"{moe_widths(recipe.model)[0]} experts of "
+           f"{moe_widths(recipe.model)[1]}, top-{mcfg.num_experts_per_tok}"
+           f" in {moe_layer_count(recipe.model)} layers" if is_moe
            else str(mcfg.intermediate_size))
     print(f"{label}: {type(recipe.model).__name__} widths (vocab "
           f"{mcfg.vocab_size}, hidden {mcfg.hidden_size}, ffn {ffn}, layers "
@@ -2998,12 +3375,13 @@ def train_phase(label, yaml_path, overrides=(), bf16=None, attn_impl=None,
           f"microbatches of shapes {shapes}, {per_call} backward chunks)")
     experts = ("gmm_quant" if quantized else "gmm")
     want = dict(gmm=0, tgmm=0, gmm_quant=0)
+    L_moe = moe_layer_count(recipe.model) if is_moe else 0
     if is_moe:
-        want.update({experts: 9 * L * micro, "tgmm": 3 * L * micro})
+        want.update({experts: 9 * L_moe * micro, "tgmm": 3 * L_moe * micro})
     check(gmm_counts == want,
-          f"{label}: grouped-matmul launches {gmm_counts} != {want} ({L} "
-          f"layers x {micro} microbatches; per layer 3 forward, 3 remat "
-          f"re-forward and 3 dlhs {experts}, 3 tgmm)")
+          f"{label}: grouped-matmul launches {gmm_counts} != {want} ({L_moe} "
+          f"routed layers x {micro} microbatches; per layer 3 forward, 3 "
+          f"remat re-forward and 3 dlhs {experts}, 3 tgmm)")
     # the projections through maybe_qdot: q, k, v, o, and the dense
     # SwiGLU's gate, up, down (every width here a multiple of 16)
     projections = 4 if is_moe else 7
@@ -3256,6 +3634,7 @@ def main():
           f"in parallel) in {time.perf_counter() - t0:.1f} s", flush=True)
 
     seg = first_batch(SFT_YAML)["segment_ids"]
+    lite_seg = first_batch(LITE_YAML)["segment_ids"]
     bench_first = first_batch(BENCH_YAML)
     bench_labels = bench_first["labels"]
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
@@ -3264,6 +3643,7 @@ def main():
     lora_cases = lora_gmm_phase(flush)
     phase_done("lora gmm kernel")
     attn_cases = attention_phase(flush, seg)
+    mla_cases = attention_phase(flush, lite_seg, MLA_CASES, MLA_V_HEAD_DIM)
     phase_done("attention kernels")
     flash_cases = flash_phase(flush, bench_first["segment_ids"])
     phase_done("flash kernels")
@@ -3271,13 +3651,15 @@ def main():
     phase_done("linear-CE kernels")
     q_cases = qdot_phase(flush)
     phase_done("qdot kernel")
-    del flush
     main_run = engine_phase()
     phase_done("engine")
     torch.cuda.empty_cache()
     features = serving_features_phase()
     phase_done("serving_features")
     torch.cuda.empty_cache()
+    serve_moe = engine_phase(MOE_SERVE_YAML, "serve_moe", flush)
+    del flush
+    phase_done("serve_moe")
     sft = train_phase("sft", SFT_YAML)
     phase_done("sft")
     torch.cuda.empty_cache()
@@ -3344,6 +3726,12 @@ def main():
                           ["--fp8.enabled", "true", "--fp8.dtype", "int8"],
                           bf16=moe)
     phase_done("sft_moe_fp8")
+    torch.cuda.empty_cache()
+    deepseek = train_phase("sft_deepseek", LITE_YAML)
+    phase_done("sft_deepseek")
+    torch.cuda.empty_cache()
+    gen_deepseek = generate_deepseek_phase()
+    phase_done("generate_deepseek")
     # last: its two recipes are set up and dropped here, after every timed
     # phase
     torch.cuda.empty_cache()
@@ -3377,6 +3765,16 @@ def main():
                 f"verify_s5_{kv}_plain_ms": c["plain_ms"],
                 f"verify_s5_{kv}_bound_ms": c["bound_ms"],
                 f"verify_s5_{kv}_library_ms": c["library_device_ms"]})
+    # Qwen3-30B-A3B's decode and verify shapes (serve_moe)
+    for c in cases:
+        if c["case"].startswith("qwen3_"):
+            tag = c["case"].replace("qwen3_", "qwen3_serve_")
+            kernels[-1].update({
+                f"{tag}_ms": c["device_ms"],
+                f"{tag}_plain_ms": c["plain_ms"],
+                f"{tag}_bound_ms": c["bound_ms"],
+                f"{tag}_library_ms": c["library_device_ms"]})
+    kernels[-1]["serve_moe_launches"] = serve_moe["kernel_launches"]
     kernels[-1]["serving_features_launches"] = {
         "prefix_on_bf16": features["prefix_cache"]["bf16"]["on"][
             "paged_decode_launches"],
@@ -3406,6 +3804,26 @@ def main():
         for name_, run in {**peft_runs, **new_runs}.items():
             kernels[-1][f"{name_}_launches"] = run[f"{part}_launches"]
         kernels[-1]["long_16k_ms"] = long_case[part]["ms"]
+        # head_dim 192 (MLA, sft_deepseek's packing and pure causal)
+        mla = mla_cases[0][part]
+        kernels[-1].update({
+            "mla_d192_ms": mla["ms"], "mla_d192_plain_ms": mla["plain_ms"],
+            "mla_d192_bound_ms": mla["bound_ms"],
+            "mla_d192_bound_by": mla["bound_by"],
+            "mla_d192_padded_bound_ms": mla["padded_bound_ms"],
+            "mla_d192_library_ms": mla["library_ms"],
+            "mla_causal_d192_ms": mla_cases[1][part]["ms"],
+            "mla_causal_d192_bound_ms": mla_cases[1][part]["bound_ms"],
+            "mla_causal_d192_padded_bound_ms": mla_cases[1][part][
+                "padded_bound_ms"],
+            "mla_causal_d192_library_ms": mla_cases[1][part]["library_ms"],
+            "sft_deepseek_launches": deepseek[f"{part}_launches"]})
+        kernels[-1]["max_abs_err"] = max(
+            kernels[-1]["max_abs_err"],
+            max(c[part]["max_abs_err"] for c in mla_cases))
+        if part == "fwd":
+            kernels[-1]["generate_deepseek_launches"] = gen_deepseek[
+                "launches"]["attention_fwd"]
     rep = lce_cases[0]
     errs = dict(
         fwd=max(max(c["fwd"]["lse_max_abs_err"], c["fwd"]["pick_max_abs_err"])
@@ -3430,25 +3848,49 @@ def main():
         kernels[-1]["redesigned"] = "wgmma + TMA, persistent"
         for name_, run in {**peft_runs, **new_runs}.items():   # PEFT: no dW
             kernels[-1][f"{name_}_launches"] = run["linear_ce_launches"][part]
+        kernels[-1]["sft_deepseek_launches"] = deepseek[
+            "linear_ce_launches"][part]
         if part == "fwd":
             kernels[-1]["product_ms"] = got["product_ms"]
         if part == "dlogits":
             kernels[-1]["product_library_ms"] = got["product_library_ms"]
     gmm_cases = moe["gmm_cases"]
+    lite_gmm = deepseek["gmm_cases"]
     for kname, parts, line in (("gmm", ("gmm", "dlhs"), 187),
                                ("tgmm", ("tgmm",), 256)):
         got = gmm_cases[0][kname]        # routed rows, gate/up projection
+        extra = {}
+        # DeepSeek-V2-Lite's routed shapes (sft_deepseek)
+        for c in lite_gmm:
+            extra.update({f"{c['case']}_ms": c[kname]["ms"],
+                          f"{c['case']}_plain_ms": c[kname]["plain_ms"],
+                          f"{c['case']}_bound_ms": c[kname]["bound_ms"],
+                          f"{c['case']}_library_ms": c[kname]["library_ms"]})
+        extra["sft_deepseek_launches"] = deepseek["gmm_launches"][kname]
+        if kname == "gmm":
+            # the engine's routed shapes (serve_moe)
+            for c in serve_moe["gmm_cases"]:
+                extra.update({
+                    f"{c['case']}_ms": c["gmm"]["ms"],
+                    f"{c['case']}_plain_ms": c["gmm"]["plain_ms"],
+                    f"{c['case']}_bound_ms": c["gmm"]["bound_ms"],
+                    f"{c['case']}_library_ms": c["gmm"]["library_ms"]})
+            extra["serve_moe_launches"] = serve_moe["gmm_launches"]
+            extra["generate_deepseek_launches"] = gen_deepseek[
+                "launches"]["gmm"]
         kernels.append({
             "name": kname, "route": "cuda",
             "source": "automodel_tpu_torch/csrc/gmm.cu",
             "replaces": f"automodel_tpu/ops/gmm_kernel.py:{line}",
             "launches": moe["gmm_launches"][kname],
-            "max_abs_err": max(c[p]["max_abs_err"] for c in gmm_cases
+            "max_abs_err": max(c[p]["max_abs_err"] for c in
+                               gmm_cases + lite_gmm + serve_moe["gmm_cases"]
                                for p in parts),
             "ms": got["ms"], "plain_ms": got["plain_ms"],
             "bound_ms": got["bound_ms"], "bound_by": got["bound_by"],
             "library_ms": got["library_ms"],
             "redesigned": "wgmma + TMA, persistent",
+            **extra,
         })
         if kname == "gmm":     # its transposed-rhs form, the dlhs
             dl = gmm_cases[0]["dlhs"]

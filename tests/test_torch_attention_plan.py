@@ -127,6 +127,42 @@ def test_every_attended_pair_is_in_exactly_one_visited_tile(kind, geom,
         assert (count[g] <= 1).all()
 
 
+@pytest.mark.parametrize("seg_eq", RULES, ids=["splash_rule", "equality"])
+@pytest.mark.parametrize("geom", GEOMETRY,
+                         ids=[f"s{g[0]}_{'causal' if g[1] else 'full'}"
+                              f"_w{g[2]}_{g[3]}" for g in GEOMETRY])
+def test_head_dim_192_forward_tiles_cover_every_pair_once(geom, seg_eq):
+    """The forward's 64-key tiles at head_dim 192 (MLA): every attended
+    pair in exactly one visited tile, FULL tiles wholly attended."""
+    S, causal, window, pack = geom
+    seg = packing(S, pack, np.random.default_rng(S + 7 * window))
+    ok = mask_of(S, causal, window, seg, seg_eq)
+    bm, bn = ap.tiles("fwd", 192)
+    assert (bm, bn) == (128, 64)
+    count = np.zeros((S, S), np.int64)
+    for _, _, first in ap.items("fwd", 1, S, 1, 1, head_dim=192):
+        for q0, k0, cls in ap.visits("fwd", S, causal, window, seg, seg_eq,
+                                     first, head_dim=192):
+            region = ok[q0:q0 + bm, k0:k0 + bn]
+            if cls == ap.SKIP:
+                assert not region.any(), (q0, k0)
+                continue
+            count[q0:q0 + bm, k0:k0 + bn] += 1
+            if cls == ap.FULL:
+                assert q0 + bm <= S and k0 + bn <= S and region.all()
+    assert (count[ok] == 1).all() and (count <= 1).all()
+
+
+def test_head_dim_192_keeps_the_dq_and_dkv_tiles():
+    """At head_dim 192 only the forward's tiles change (64 keys); the dQ
+    and dK / dV passes (the latter run as dV, then dK) keep their tiles
+    and items."""
+    for kind in ("dq", "dkv"):
+        assert ap.tiles(kind, 192) == ap.PASSES[kind]
+        assert (ap.items(kind, 2, 700, 4, 4, head_dim=192)
+                == ap.items(kind, 2, 700, 4, 4))
+
+
 @pytest.mark.parametrize("kind", list(ap.PASSES))
 def test_items_cover_every_tile_once_the_longest_first(kind):
     B, S, Hq, Hk = 2, 700, 8, 2
@@ -201,14 +237,14 @@ def emulate(q, k, v, dout, seg, causal, window, seg_eq, cap=None):
     ok = mask_of(S, causal, window, seg, seg_eq)
     out = np.zeros_like(q)
     lse = np.zeros((Hq, S), np.float32)
-    bm, bn = ap.PASSES["fwd"]
-    for _, h, q0 in ap.items("fwd", 1, S, Hq, Hk):
+    bm, bn = ap.tiles("fwd", D)
+    for _, h, q0 in ap.items("fwd", 1, S, Hq, Hk, head_dim=D):
         qt = _tile(q[:, h], q0, bm)
         m = np.full(bm, -np.inf, np.float32)
         ll = np.zeros(bm, np.float32)
         o = np.zeros((bm, D), np.float32)
         for _, k0, cls in ap.visits("fwd", S, causal, window, seg,
-                                    seg_eq, q0):
+                                    seg_eq, q0, head_dim=D):
             if cls == ap.SKIP:
                 continue
             s, _ = _scores(qt, _tile(k[:, h // G], k0, bn), scale, cap)
@@ -313,13 +349,28 @@ SPLASH_CASES = [
     ("tiny_segments_s256", 256, 2, 2, None, "tiny", None),
     ("cap30_s200", 200, 4, 2, None, None, 30.0),
 ]
+# head_dim 192 (MLA's width; query heads = kv heads, as the model runs it)
+SPLASH_D192_CASES = [
+    ("mla_packed_ragged_s300", 300, 2, 2, None, "packed", None),
+    ("mla_causal_s200", 200, 2, 2, None, None, None),
+]
 
 
 @pytest.mark.parametrize("case", SPLASH_CASES,
                          ids=[c[0] for c in SPLASH_CASES])
 def test_emulated_walk_matches_splash_interpret(case):
+    _check_against_splash(case, 128)
+
+
+@pytest.mark.parametrize("case", SPLASH_D192_CASES,
+                         ids=[c[0] for c in SPLASH_D192_CASES])
+def test_emulated_walk_matches_splash_interpret_at_head_dim_192(case):
+    _check_against_splash(case, 192)
+
+
+def _check_against_splash(case, D):
     _, S, Hq, Hk, window, pack, cap = case
-    q, k, v, dout, seg = make_inputs(1, S, Hq, Hk, 128, pack, seed=S,
+    q, k, v, dout, seg = make_inputs(1, S, Hq, Hk, D, pack, seed=S,
                                      cap=cap)
     valid = np.ones((1, S), bool) if seg is None else seg > 0
     dout[~valid] = 0.0

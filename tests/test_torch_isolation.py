@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: no file of ``automodel_tpu_torch/`` nor
 ``chip_smoke.py`` imports JAX or the JAX package (the flash rung, the
-checkpoint and HF-safetensors modules and the optimizer step among them),
+checkpoint and HF-safetensors modules, the optimizer step and the DeepSeek
+families among them),
 importing every module loads no JAX, and the kernel build directory is
 ignored by git."""
 
@@ -62,7 +63,9 @@ def test_engine_import_loads_no_jax():
                 "ops.qdot_kernel", "ops.gmm_quant_kernel",
                 "quantization.fp8", "ops.flash_attention",
                 "checkpoint.checkpointing", "models.hf_io",
-                "optim.builder", "recipes.base_recipe"):
+                "optim.builder", "recipes.base_recipe",
+                "models.deepseek_v3", "models.deepseek_v2", "ops.rotary",
+                "generation.generate", "serving.engine"):
         assert "automodel_tpu_torch." + mod in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"

@@ -236,6 +236,10 @@ ATTN_CASES = [
     ("packed_mha_d128", 2, 192, 4, 4, 128, True, None, None),
     ("ragged_window_d64", 1, 200, 4, 2, 64, False, 16, None),
     ("ragged_cap_d128", 1, 200, 4, 2, 128, True, None, 30.0),
+    # head_dim 192 (MLA): BN 64 forward, dK and dV in two passes
+    ("packed_mha_d192", 2, 256, 4, 4, 192, True, None, None),
+    ("causal_gqa_d192", 2, 300, 8, 2, 192, False, None, None),
+    ("ragged_window_cap_d192", 1, 200, 4, 4, 192, True, 40, 30.0),
 ]
 
 
@@ -316,6 +320,8 @@ SMOKE_ATTN_CASES = [
     ("ragged_s1000_d64", 8, 1000, 32, 8, 64, False, None, None),
     ("mha_packed_d128", 8, 2048, 16, 16, 128, True, None, None),
     ("qwen3_gqa_d128", 8, 2048, 32, 4, 128, True, None, None),
+    ("mla_packed_d192", 8, 2048, 16, 16, 192, True, None, None),
+    ("mla_causal_d192", 8, 2048, 16, 16, 192, False, None, None),
 ]
 SMOKE_FLASH_CASES = [
     ("sft_flash_packed_d64", 8, 2048, 32, 8, 64, True, True),
@@ -670,7 +676,21 @@ def test_cuda_verify_rows_equal_decode_rows_bitwise(kv, mb, cuda_device):
     """A speculative verify step (S = 5, one query token a CTA at decode's
     span) gives each row the bits a decode step (S = 1) gives it at the
     same position: speculation cannot move greedy tokens."""
-    B, Hq, Hk, D, BS = 8, 32, 8, 64, 16
+    _verify_rows_equal_decode_rows(kv, mb, 32, 8, 64, cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+@pytest.mark.parametrize("mb", [5, 128])
+def test_cuda_verify_rows_equal_decode_rows_at_qwen3_heads(kv, mb,
+                                                           cuda_device):
+    """The same at Qwen3-30B-A3B's attention (32 / 4 heads, G 8, head_dim
+    128; a verify step's rows are S x 8 = 40 a kv head)."""
+    _verify_rows_equal_decode_rows(kv, mb, 32, 4, 128, cuda_device)
+
+
+def _verify_rows_equal_decode_rows(kv, mb, Hq, Hk, D, cuda_device):
+    B, BS = 8, 16
     g = torch.Generator(device=cuda_device).manual_seed(mb)
     NB = B * mb + 1
     if kv == "int8":
@@ -700,6 +720,129 @@ def test_cuda_verify_rows_equal_decode_rows_bitwise(kv, mb, cuda_device):
         out1 = tpak.paged_decode_cuda(q5[:, s:s + 1].contiguous(), k, v, ks,
                                       vs, tables, (p[:, 0] + 1).int(), p)
         assert torch.equal(out5[:, s], out1[:, 0]), s
+
+
+@pytest.mark.cuda
+def test_cuda_moe_router_and_routed_rows_do_not_depend_on_the_batch(
+        cuda_device):
+    """Qwen3-30B-A3B's router product (``moe.router_logits``: ``x [M,
+    2048] @ [2048, 128]`` summed in float64, rounded to float32) and its
+    routed block (top-8 of 128 dropless, the gmm kernel, the ordered
+    combine) give the first 8 rows the same bits at M 8 (a decode step), 64
+    and 256 (a prefill chunk), and two runs give the same bits.  (cuBLAS's
+    float32 product alone parts at M 64 by ~7e-7 on an H100, which the
+    float64 sum removes.)"""
+    from automodel_tpu_torch.ops import moe
+
+    H, E, inter, k = 2048, 128, 768, 8
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+
+    def w(*shape):
+        return (torch.randn(*shape, device=cuda_device, generator=g)
+                * 0.02).bfloat16()
+
+    gate, wg, wu, wd = w(H, E), w(E, H, inter), w(E, H, inter), w(E, inter, H)
+    x8 = torch.randn(8, H, device=cuda_device, generator=g).bfloat16()
+
+    def run(x):
+        logits = moe.router_logits(x, gate)
+        out, _ = moe.moe_mlp_block(x[None], gate, wg, wu, wd,
+                                   num_experts_per_tok=k,
+                                   capacity_factor=None, group_size=512)
+        return logits[:8], out[0, :8]
+
+    base = run(x8)
+    again = run(x8)
+    equal = {("again", 8): (torch.equal(base[0], again[0]),
+                            torch.equal(base[1], again[1]))}
+    for M in (64, 256):
+        xx = torch.randn(M, H, device=cuda_device, generator=g).bfloat16()
+        xx[:8] = x8
+        got = run(xx)
+        equal[("rows", M)] = (torch.equal(got[0], base[0]),
+                              torch.equal(got[1], base[1]))
+        equal[("router_max_abs", M)] = float(
+            (got[0] - base[0]).abs().max())
+        equal[("block_max_abs", M)] = float(
+            (got[1].float() - base[1].float()).abs().max())
+    assert all(v == (True, True) for k, v in equal.items()
+               if k[0] in ("again", "rows")), equal
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 192])
+@pytest.mark.parametrize("S", [477, 502])
+@pytest.mark.parametrize("packed", [True, False], ids=["packed", "causal"])
+def test_cuda_splash_takes_any_sequence_length(packed, S, D, cuda_device):
+    """Kernel 9 at sequence lengths off a multiple of 4 (a prompt's length
+    at generate()'s prefill, left-padded rows included): the wrappers pad
+    the rows so the kernels' 1-D segment-id / lse / delta boxes stay
+    aligned; forward and backward against the plain versions."""
+    from automodel_tpu_torch.ops import splash_attention as sa
+
+    B, Hq = 8, 4
+    q, k, v, dout, seg = make_attn_case(B, S, Hq, Hq, D, packed)
+    if packed:                                 # leading pads, as generate's
+        seg[:, :37] = 0
+    kw = dict(causal=True, segment_ids=seg)
+    f0, b0 = sa.fwd_launches, sa.bwd_launches
+    out, lse = sa.flash_attn_fwd_cuda(q, k, v, **kw)
+    grads = sa.flash_attn_bwd_cuda(q, k, v, out, lse, dout, **kw)
+    torch.cuda.synchronize()
+    assert (sa.fwd_launches, sa.bwd_launches) == (f0 + 1, b0 + 1)
+    assert out.shape == q.shape and lse.shape == (B, Hq, S)
+    ref = sa.splash_attention_plain(q, k, v, **kw)
+    refs = sa.splash_attention_bwd_plain(q, k, v, out, lse, dout, **kw)
+    check_attention((out, lse, *grads), (*ref, *refs))
+
+
+@pytest.mark.cuda
+def test_cuda_deepseek_step_through_the_kernels(cuda_device):
+    """A DeepSeek-V2 model at MLA's head_dim 192 (2 layers, 1 dense and 1
+    routed, bf16): the loss and gradients of a step through kernel 9 and
+    the gmm kernels against the plain versions, and the launches."""
+    from automodel_tpu_torch.loss.masked_ce import MaskedCrossEntropy
+    from automodel_tpu_torch.models.auto_model import build_model
+    from automodel_tpu_torch.ops import gmm_kernel as gk
+    from automodel_tpu_torch.ops import splash_attention as sa
+    from automodel_tpu_torch.training.train_step import microbatch_loss
+
+    model = build_model(dict(
+        model_type="deepseek_v2", vocab_size=512, hidden_size=256,
+        intermediate_size=512, num_hidden_layers=2, num_attention_heads=2,
+        num_key_value_heads=2, kv_lora_rank=64, qk_nope_head_dim=128,
+        qk_rope_head_dim=64, v_head_dim=128, moe_intermediate_size=64,
+        n_routed_experts=8, num_experts_per_tok=2, n_shared_experts=1,
+        first_k_dense_replace=1, moe_capacity_factor=None,
+        torch_dtype="bfloat16"), device=cuda_device, seed=1)
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    B, S = 2, 256
+    ids = torch.randint(1, 512, (B, S), device=cuda_device, generator=g)
+    seg = torch.from_numpy(packed_segments(B, S, 9, mean=60, pad=20)).to(
+        cuda_device)
+    batch = {"input_ids": ids, "labels": ids.clone(), "segment_ids": seg,
+             "position_ids": torch.arange(S, device=cuda_device).expand(B, S)}
+    res = {}
+    for impl in ("kernel", "plain"):
+        model.gmm_impl = impl
+        model.zero_grad(set_to_none=True)
+        f0, b0, m0 = sa.fwd_launches, sa.bwd_launches, gk.gmm_launches
+        loss = microbatch_loss(model, MaskedCrossEntropy(), batch,
+                               attn_impl=impl)
+        loss.backward()
+        torch.cuda.synchronize()
+        counts = (sa.fwd_launches - f0, sa.bwd_launches - b0,
+                  gk.gmm_launches - m0)
+        res[impl] = (float(loss), [p.grad.float().clone() for p in
+                                   model.parameters() if p.grad is not None])
+        if impl == "kernel":
+            assert counts == (4, 2, 9), counts     # remat: 2 fwd a layer
+    assert abs(res["kernel"][0] - res["plain"][0]) <= 1e-2 * abs(
+        res["plain"][0])
+    num = sum(float((a - b).square().sum())
+              for a, b in zip(res["kernel"][1], res["plain"][1]))
+    den = sum(float(b.square().sum()) for b in res["plain"][1])
+    assert (num / den) ** 0.5 < 0.1
 
 
 @pytest.mark.cuda

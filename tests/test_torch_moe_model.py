@@ -201,10 +201,43 @@ def test_flops_per_token_match_jax(pair):
         jm.attention_flops_per_token(2048)
 
 
-def test_serving_an_moe_model_raises(pair):
+def test_moe_forward_over_the_dense_cache_matches_cache_free(pair):
+    """An MoE model serves: its forward over the dense decode cache gives
+    the cache-free forward's logits (dropless, so the routing of a row
+    does not depend on the step)."""
     _, _, model = pair
-    with pytest.raises(NotImplementedError, match="DecodeEngine"):
-        model(torch.zeros(1, 4, dtype=torch.int64), kv_cache=object())
+    capacity = model.config.moe_capacity_factor
+    model.config.moe_capacity_factor = None
+    ids = torch.arange(1, 9, dtype=torch.int64).reshape(1, 8)
+    try:
+        with torch.no_grad():
+            want = model(ids)["logits"]
+            cache = model.init_kv_cache(1, 8, dtype=torch.float32)
+            got = model(ids, kv_cache=cache, cache_index=0)["logits"]
+    finally:
+        model.config.moe_capacity_factor = capacity
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_serving_an_moe_model_raises():
+    """The MoE models that still do not serve through ``DecodeEngine`` are
+    DeepSeek's (MLA attention; the JAX engine cannot serve them either):
+    here V3, whose refusal is its ``serving_refusal`` (V2's is in
+    ``tests/test_torch_deepseek.py``).  Qwen3-MoE and Mixtral serve
+    (``tests/test_torch_moe_serving.py``)."""
+    from automodel_tpu_torch.models.auto_model import build_model
+    from automodel_tpu_torch.serving.engine import DecodeEngine
+
+    mla = build_model({"model_type": "deepseek_v3", "vocab_size": 64,
+                       "hidden_size": 32, "intermediate_size": 64,
+                       "num_hidden_layers": 1, "num_attention_heads": 2,
+                       "num_key_value_heads": 2, "kv_lora_rank": 16,
+                       "qk_rope_head_dim": 8, "qk_nope_head_dim": 8,
+                       "v_head_dim": 8, "torch_dtype": "float32"},
+                      device="cpu")
+    with pytest.raises(NotImplementedError, match="DecodeEngine") as err:
+        DecodeEngine(mla, device="cpu")
+    assert str(err.value) == mla.serving_refusal
 
 
 def _run_recipes(overrides):
@@ -321,8 +354,8 @@ def test_build_model_families_and_the_dispatch_knob():
     assert model.config.qk_norm
     mixtral = dict(FAMILIES["mixtral"][0], model_type="mixtral")
     assert isinstance(build_model(mixtral, device="cpu"), MixtralForCausalLM)
-    with pytest.raises(NotImplementedError, match="deepseek_v3"):
-        build_model({"model_type": "deepseek_v3"}, device="cpu")
+    with pytest.raises(NotImplementedError, match="gemma3"):
+        build_model({"model_type": "gemma3"}, device="cpu")
     recipe = train_ft.TrainFinetuneRecipeForNextTokenPrediction(
         parse_args_and_load_config(["-c", TINY_YAML, "--device", "cpu",
                                     "--moe.dispatch", "onehot"])).setup()
