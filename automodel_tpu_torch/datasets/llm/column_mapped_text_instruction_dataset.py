@@ -16,11 +16,12 @@ Hugging Face repo id raises ``NotImplementedError``: the port has no
 
 from __future__ import annotations
 
-import json
-import os
 from typing import Dict, Iterator, List, Optional, Union
 
-from automodel_tpu_torch.datasets.utils import CROSS_ENTROPY_IGNORE_IDX
+from automodel_tpu_torch.datasets.utils import (
+    CROSS_ENTROPY_IGNORE_IDX,
+    load_local_rows,
+)
 
 
 def make_iterable(val: Union[str, List[str]]) -> List[str]:
@@ -29,23 +30,6 @@ def make_iterable(val: Union[str, List[str]]) -> List[str]:
     if isinstance(val, (list, tuple)):
         return list(val)
     raise ValueError(f"Expected str or list of str, got {type(val)}")
-
-
-def _str_is_hf_repo_id(val: str) -> bool:
-    return (not os.path.exists(val) and val.count("/") == 1
-            and not val.endswith((".json", ".jsonl")))
-
-
-def _load_local_json(paths: List[str]) -> List[dict]:
-    rows: List[dict] = []
-    for p in paths:
-        with open(p) as f:
-            if p.endswith(".jsonl"):
-                rows.extend(json.loads(line) for line in f if line.strip())
-            else:
-                data = json.load(f)
-                rows.extend(data if isinstance(data, list) else [data])
-    return rows
 
 
 def _has_chat_template(tokenizer) -> bool:
@@ -78,13 +62,7 @@ class ColumnMappedTextInstructionDataset:
                 and start_of_turn_token is None):
             raise ValueError("answer_only_loss_mask with a chat template "
                              "requires start_of_turn_token")
-        paths = make_iterable(path_or_dataset_id)
-        if all(isinstance(p, str) and _str_is_hf_repo_id(p) for p in paths):
-            raise NotImplementedError(
-                f"{paths}: loading a Hugging Face dataset by repo id needs "
-                "the datasets package and the network, which the port does "
-                "not use; pass local json / jsonl files")
-        rows = _load_local_json(paths)
+        rows = load_local_rows(make_iterable(path_or_dataset_id))
         if limit_dataset_samples is not None:
             rows = rows[:limit_dataset_samples]
         self.dataset = rows

@@ -1,8 +1,9 @@
 """HF safetensors <-> the port's modules (counterpart:
 ``automodel_tpu/models/hf_io.py``).
 
-The key maps are the JAX package's for the ported families (llama,
-mixtral, qwen3_moe, deepseek_v2, deepseek_v3), keyed by the same JAX tree
+The key maps are the JAX package's for the ported families (llama and,
+on its map, mistral, qwen2 (q / k / v biases) and qwen3; mixtral,
+qwen3_moe, deepseek_v2, deepseek_v3), keyed by the same JAX tree
 paths that ``models/weights.py::jax_leaves`` walks; an entry is an
 :class:`HfEntry`.  DeepSeek's split stack maps its sub-stacks onto HF's
 one layer index with ``layer_offset`` (``layers[j]`` is HF layer ``j +
@@ -26,7 +27,8 @@ A model whose projections are an int8 base (``quantization/
 weight_only.py``) reads through :func:`quantized_key_map`: each
 projection's bf16 tensor is read on the host and quantized there, its
 codes and scales copied to the card, so the dense tree never exists on the
-card (:func:`load_quantized_hf_base`, the QLoRA streaming read); such a
+card (``quantization/weight_only.py::load_quantized_hf_base``, the QLoRA
+streaming read, re-exported here); such a
 base exports through ``dequantize_base_params`` and the dense map.
 """
 
@@ -41,6 +43,9 @@ from typing import Dict, Iterator, List, NamedTuple, Optional, Tuple
 import torch
 
 from automodel_tpu_torch.models.weights import jax_leaves
+from automodel_tpu_torch.quantization.weight_only import (  # noqa: F401
+    load_quantized_hf_base,
+)
 
 SAFETENSORS_INDEX = "model.safetensors.index.json"
 SAFETENSORS_FILE = "model.safetensors"
@@ -55,6 +60,9 @@ _DTYPES = {
 _FROM_NAME = {v: k for k, v in _DTYPES.items()}
 
 _ARCHITECTURES = {"llama": "LlamaForCausalLM",
+                  "mistral": "MistralForCausalLM",
+                  "qwen2": "Qwen2ForCausalLM",
+                  "qwen3": "Qwen3ForCausalLM",
                   "mixtral": "MixtralForCausalLM",
                   "qwen3_moe": "Qwen3MoeForCausalLM",
                   "deepseek_v2": "DeepseekV2ForCausalLM",
@@ -153,6 +161,10 @@ def llama_key_map(config) -> Dict[Tuple[str, ...], HfEntry]:
     for proj in ("q_proj", "k_proj", "v_proj", "o_proj"):
         m[("layers", "self_attn", proj, "kernel")] = HfEntry(
             f"model.layers.{{i}}.self_attn.{proj}.weight")
+    if config.attention_bias:
+        for proj in ("q_proj", "k_proj", "v_proj"):
+            m[("layers", "self_attn", proj, "bias")] = HfEntry(
+                f"model.layers.{{i}}.self_attn.{proj}.bias")
     if config.qk_norm:
         for norm in ("q_norm", "k_norm"):
             m[("layers", "self_attn", norm, "weight")] = HfEntry(
@@ -246,7 +258,9 @@ def deepseek_v2_key_map(config) -> Dict[Tuple[str, ...], HfEntry]:
     return m
 
 
-_KEY_MAPS = {"llama": llama_key_map, "mixtral": mixtral_key_map,
+_KEY_MAPS = {"llama": llama_key_map, "mistral": llama_key_map,
+             "qwen2": llama_key_map, "qwen3": llama_key_map,
+             "mixtral": mixtral_key_map,
              "qwen3_moe": qwen3_moe_key_map,
              "deepseek_v2": deepseek_v2_key_map,
              "deepseek_v3": deepseek_v3_key_map}
@@ -398,13 +412,6 @@ def load_hf_weights(model, ckpt_dir: str) -> None:
                 raise ValueError(f"{name}: checkpoint shape {tuple(t.shape)}"
                                  f" does not fit {tuple(dst.shape)}")
             dst.copy_(t.to(p.dtype))
-
-
-def load_quantized_hf_base(model, ckpt_dir: str) -> None:
-    """Stream an HF repo's bf16 weights into ``model``'s int8 base (the
-    projections quantized on the host, one tensor at a time; the JAX
-    ``load_quantized_hf_base``)."""
-    load_hf_weights(model, ckpt_dir)
 
 
 def save_hf_config(model, out_dir: str) -> None:

@@ -7,7 +7,10 @@ its own module and the forward is a Python loop (PyTorch runs eagerly).
 Projections are ``nn.Linear`` weights ``[out, in]`` (the JAX kernels are
 ``[in, out]``; ``models/weights.py`` transposes on load).  As in JAX, the
 weights live in ``param_dtype`` and each projection casts its weight to
-``compute_dtype``.
+``compute_dtype``.  The Qwen2, Qwen3 dense and Mistral families are this
+class too, as in the JAX registry: ``attention_bias`` (Qwen2's q / k / v
+biases, added after any adapter delta), ``qk_norm`` (Qwen3) and a
+uniform ``sliding_window`` (Mistral).
 
 Two forwards: without a cache (training and scoring: packed ``segment_ids``,
 a padding mask and per-sample ``position_ids``, attention through
@@ -111,8 +114,21 @@ class LlamaConfig:
 
     @classmethod
     def from_hf_config(cls, hf: Dict[str, Any]) -> "LlamaConfig":
+        """The known keys of an HF ``config.json``, with the Qwen families'
+        defaults that HF's own config classes supply when a file omits
+        them: ``attention_bias`` for ``qwen2``, ``use_sliding_window``
+        False for ``qwen2*`` / ``qwen3*``, and ``qk_norm`` always on for
+        ``qwen3`` (HF ``Qwen3Config`` has no such key)."""
         known = {f.name for f in dataclasses.fields(cls)}
-        return cls(**{k: v for k, v in hf.items() if k in known})
+        kwargs = {k: v for k, v in hf.items() if k in known}
+        model_type = str(hf.get("model_type", ""))
+        if model_type == "qwen2":
+            kwargs.setdefault("attention_bias", True)
+        if model_type.startswith(("qwen2", "qwen3")):
+            kwargs.setdefault("use_sliding_window", False)
+        if model_type == "qwen3":
+            kwargs["qk_norm"] = True
+        return cls(**kwargs)
 
 
 def llama3_2_1b_config() -> LlamaConfig:
@@ -181,8 +197,9 @@ def _dropout(t: torch.Tensor, rate: float, seed: int, name: str
                                                  device=t.device)).to(t.dtype)
 
 
-def _linear(i: int, o: int, dtype, device) -> nn.Linear:
-    return nn.Linear(i, o, bias=False, dtype=dtype, device=device)
+def _linear(i: int, o: int, dtype, device, bias: bool = False
+            ) -> nn.Linear:
+    return nn.Linear(i, o, bias=bias, dtype=dtype, device=device)
 
 
 class DenseKVView:
@@ -235,9 +252,10 @@ class LlamaDecoderLayer(nn.Module):
         H, D = cfg.hidden_size, cfg.head_dim
         Hq, Hk = cfg.num_attention_heads, cfg.num_key_value_heads
         self.input_layernorm = RMSNorm(H, cfg.rms_norm_eps, dtype, device)
-        self.q_proj = _linear(H, Hq * D, dtype, device)
-        self.k_proj = _linear(H, Hk * D, dtype, device)
-        self.v_proj = _linear(H, Hk * D, dtype, device)
+        bias = bool(cfg.attention_bias)
+        self.q_proj = _linear(H, Hq * D, dtype, device, bias)
+        self.k_proj = _linear(H, Hk * D, dtype, device, bias)
+        self.v_proj = _linear(H, Hk * D, dtype, device, bias)
         self.o_proj = _linear(Hq * D, H, dtype, device)
         if cfg.qk_norm:
             self.q_norm = RMSNorm(D, cfg.rms_norm_eps, dtype, device)
@@ -270,9 +288,6 @@ class LlamaForCausalLM(nn.Module):
                  remat_policy: Optional[str] = "nothing_saveable",
                  scan_unroll: int = 1, scan_block: int = 1, device=None):
         super().__init__()
-        if config.attention_bias:
-            raise NotImplementedError(
-                "attention_bias (the Qwen2 family) is not ported")
         device = resolve_device(device)
         self.quant = None        # set by quantization.fp8.apply_fp8_to_model
         self._adapters = None    # the running layer's LoRA (see _layer)
@@ -332,12 +347,15 @@ class LlamaForCausalLM(nn.Module):
     @torch.no_grad()
     def init_weights(self, seed: int = 0) -> "LlamaForCausalLM":
         """Random weights drawn from ``seed``: N(0, 0.02) for embeddings,
-        projections, routers and experts, ones for the norms (the JAX
-        ``init``'s distribution; not its numbers)."""
+        projections, routers and experts, ones for the norms, zeros for
+        the q / k / v biases (the JAX ``init``'s distribution; not its
+        numbers)."""
         gen = torch.Generator(device=self.inv_freq.device).manual_seed(seed)
         for name, p in self.named_parameters():
             if name.endswith("norm.weight"):
                 p.fill_(1.0)
+            elif name.endswith("_proj.bias"):
+                p.zero_()
             else:
                 p.normal_(0.0, 0.02, generator=gen)
         return self
@@ -364,10 +382,11 @@ class LlamaForCausalLM(nn.Module):
         if ad is not None and ad.A is not None and ad.A.dim() == 3:
             # multi-tenant slabs: each row's delta through its slot's A/B
             # (the tenants' scales are folded into B)
-            return y + multi_lora_delta(x, ad.A.to(cd), ad.B.to(cd), None,
-                                        routing=self._lora_routing)
+            return self._bias(lin, y + multi_lora_delta(
+                x, ad.A.to(cd), ad.B.to(cd), None,
+                routing=self._lora_routing))
         if ad is None or ad.A is None:
-            return y
+            return self._bias(lin, y)
         drop = ad.dropout > 0.0 and ad.seed is not None
         xa = x
         if drop and ad.position == "pre":
@@ -376,7 +395,15 @@ class LlamaForCausalLM(nn.Module):
         if drop and ad.position == "post":
             delta = _dropout(delta, ad.dropout, ad.seed, name)
         # the scale rounded to the compute dtype first, as the JAX layer's
-        return y + float(torch.tensor(ad.scale, dtype=cd)) * delta
+        return self._bias(
+            lin, y + float(torch.tensor(ad.scale, dtype=cd)) * delta)
+
+    def _bias(self, lin: nn.Module, y: torch.Tensor) -> torch.Tensor:
+        """``y`` plus the projection's bias in the compute dtype, after any
+        adapter delta (the JAX layer's order); a frozen base tensor under
+        LoRA (``"bias": "none"``)."""
+        bias = getattr(lin, "bias", None)
+        return y if bias is None else y + bias.to(self.compute_dtype)
 
     def _attention_block(self, layer: LlamaDecoderLayer, hidden,
                          position_ids, segment_ids, kv_cache, attn_impl):

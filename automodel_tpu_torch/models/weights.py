@@ -13,8 +13,8 @@ The port keeps ``nn.Linear`` weights ``[out, in]``, so each kernel slice
 is TRANSPOSED on the way in; embeddings and norm weights copy as they
 are.  The MoE families' router kernel ``[L, H, E]`` is transposed into
 an ``nn.Linear`` ``[E, H]``; their expert stacks ``[L, E, H, I]`` /
-``[L, E, I, H]`` and Qwen3's ``q_norm`` / ``k_norm`` ``[L, D]`` copy as
-they are.  Values are cast to the module's parameter dtype.
+``[L, E, I, H]``, Qwen3's ``q_norm`` / ``k_norm`` ``[L, D]`` and Qwen2's
+q / k / v ``bias [L, out]`` copy as they are.  Values are cast to the module's parameter dtype.
 
 An int8 base (``quantization/weight_only.py``: the JAX ``weight_only_quant
 = "int8"`` tree, ``kernel`` int8 ``[L, in, out]`` plus ``scale [L, 1,
@@ -81,12 +81,15 @@ def jax_leaves(model: LlamaForCausalLM
 
 
 def _projection(layers, block: str, proj: str):
-    """A projection's kernel leaf, and its ``scale`` leaf when the layers
-    hold it as an int8 base (``Int8Linear``)."""
+    """A projection's kernel leaf, its ``scale`` leaf when the layers hold
+    it as an int8 base (``Int8Linear``), and its ``bias [L, out]`` leaf
+    when it has one (Qwen2's q / k / v)."""
     mods = [getattr(l, proj) for l in layers]
     yield ("layers", block, proj, "kernel"), [m.weight for m in mods], True
     if hasattr(mods[0], "scale"):
         yield ("layers", block, proj, "scale"), [m.scale for m in mods], True
+    if getattr(mods[0], "bias", None) is not None:
+        yield ("layers", block, proj, "bias"), [m.bias for m in mods], False
 
 
 def _flatten(tree: Dict[str, Any], prefix=()) -> Dict[Tuple[str, ...], Any]:

@@ -405,6 +405,43 @@ def expert_segments(eid: torch.Tensor, num_experts: int, block_rows: int):
     return order, sizes, padded, n_pad
 
 
+def _ordered_sum(terms):
+    """``terms[0] + terms[1] + ...`` left to right, each sum rounded in the
+    terms' dtype."""
+    out = terms[0]
+    for term in terms[1:]:
+        out = out + term
+    return out
+
+
+class _SortedGather(torch.autograd.Function):
+    """The sorted buffer's rows from the tokens: ``x_flat[tok[r]]`` where
+    ``in_seg[r]``, else 0.  The forward is ``index_select``, whose own
+    backward is an ``index_add`` (as JAX's gather's is a scatter-add):
+    on the card its atomics add a token's k gradient rows in another order
+    run to run.  This backward gathers each token's rows through
+    ``rows [T, k]`` (its assignments' buffer rows, ascending; ``sink`` for
+    a dropped one, which adds nothing) and adds them left to right, the
+    order in which ``index_add`` takes them on the CPU, so a step's
+    gradient is the same in every run."""
+
+    @staticmethod
+    def forward(ctx, x_flat, tok, in_seg, rows, sink):
+        ctx.save_for_backward(rows)
+        ctx.sink = sink
+        return torch.where(in_seg[:, None], x_flat.index_select(0, tok),
+                           x_flat.new_zeros(()))
+
+    @staticmethod
+    def backward(ctx, g):
+        (rows,) = ctx.saved_tensors
+        T, k = rows.shape
+        got = g.index_select(0, rows.reshape(T * k)).view(T, k, g.shape[-1])
+        got = torch.where((rows != ctx.sink)[..., None], got,
+                          g.new_zeros(()))
+        return _ordered_sum(got.unbind(1)), None, None, None, None
+
+
 def sorted_expert_ffn(xg, weights, idx, w_gate, w_up, w_down, *,
                       capacity: Optional[int] = None,
                       compute_dtype: torch.dtype = torch.bfloat16,
@@ -454,12 +491,17 @@ def sorted_expert_ffn(xg, weights, idx, w_gate, w_up, w_down, *,
     src = order[slot.clamp(0, N - 1)]                 # assignment index
     tok = src // k                                    # its token row
 
-    x_flat = xg.reshape(T, H)
-    # index_select: its backward is an index_add (as JAX's gather's is a
-    # scatter-add); x_flat[tok]'s sorts the indices first (~7 ms a call at
-    # the Qwen3-30B-A3B shape on the H100)
-    x_sorted = torch.where(in_seg[:, None], x_flat.index_select(0, tok),
-                           x_flat.new_zeros(())).to(cd)
+    # each assignment's row in the sorted buffer (a dropped one: the last
+    # row, past every group, which the grouped matmuls leave 0); a token's k
+    # rows in buffer order, which is by expert id, dropped last
+    sink = n_pad - 1
+    row_of = torch.full((N + 1,), sink, dtype=torch.long, device=xg.device)
+    row_of.scatter_(0, torch.where(in_seg, src, N), rows)
+    row_of = row_of[:N].view(T, k)
+    rows_in_order, perm = torch.sort(row_of, dim=-1, stable=True)
+
+    x_sorted = _SortedGather.apply(xg.reshape(T, H), tok, in_seg,
+                                   rows_in_order, sink).to(cd)
     wg, wu, wd = (w.to(cd) for w in (w_gate, w_up, w_down))
     group_sizes = padded.to(torch.int32)
 
@@ -476,22 +518,11 @@ def sorted_expert_ffn(xg, weights, idx, w_gate, w_up, w_down, *,
 
     h_act = F.silu(mm(x_sorted, wg)) * mm(x_sorted, wu)
     out_sorted = mm(h_act, wd)
-    # each assignment's row in the sorted buffer (a dropped one: the last
-    # row, past every group, which the grouped matmuls leave 0) and its
-    # weight (0 when dropped); a token's k rows in buffer order, which is
-    # by expert id, dropped last
-    sink = n_pad - 1
-    row_of = torch.full((N + 1,), sink, dtype=torch.long, device=xg.device)
-    row_of.scatter_(0, torch.where(in_seg, src, N), rows)
-    row_of = row_of[:N].view(T, k)
+    # each assignment's weight (0 when dropped), in its row's order
     w = torch.where(row_of != sink, weights.reshape(T, k),
                     weights.new_zeros(())).to(cd)
-    rows_in_order, order = torch.sort(row_of, dim=-1, stable=True)
-    w = torch.gather(w, 1, order)
+    w = torch.gather(w, 1, perm)
     # unbind, not k slices: its backward stacks the k gradients at once
     terms = (out_sorted.index_select(0, rows_in_order.reshape(N)).view(
         T, k, H) * w[..., None]).unbind(1)
-    out = terms[0]
-    for term in terms[1:]:
-        out = out + term
-    return out.reshape(G, M, H)
+    return _ordered_sum(terms).reshape(G, M, H)

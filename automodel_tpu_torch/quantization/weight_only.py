@@ -19,7 +19,7 @@ The code is per-output-channel symmetric: ``amax`` over the ``in`` axis,
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -59,22 +59,27 @@ def quantize_kernel_np(w: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
 
 class Int8Linear(nn.Module):
     """A frozen projection held as int8 codes and fp32 scales (buffers);
-    ``dequantize(dtype)`` gives the ``[out, in]`` weight back."""
+    ``dequantize(dtype)`` gives the ``[out, in]`` weight back.  A biased
+    projection (Qwen2's q / k / v) keeps its bias as it was, a frozen
+    buffer, as the JAX node keeps ``bias`` beside ``kernel`` and
+    ``scale``."""
 
-    def __init__(self, in_features: int, out_features: int, device=None):
+    def __init__(self, in_features: int, out_features: int, device=None,
+                 bias: Optional[torch.Tensor] = None):
         super().__init__()
         self.in_features, self.out_features = in_features, out_features
         self.register_buffer("weight", torch.zeros(
             out_features, in_features, dtype=torch.int8, device=device))
         self.register_buffer("scale", torch.ones(
             out_features, 1, dtype=torch.float32, device=device))
+        self.register_buffer(
+            "bias", None if bias is None else bias.detach().clone())
 
     @classmethod
     @torch.no_grad()
     def from_linear(cls, lin: nn.Linear) -> "Int8Linear":
-        if lin.bias is not None:
-            raise NotImplementedError("int8 bases of biased projections")
-        out = cls(lin.in_features, lin.out_features, lin.weight.device)
+        out = cls(lin.in_features, lin.out_features, lin.weight.device,
+                  bias=lin.bias)
         q, s = quantize_kernel(lin.weight)
         out.weight.copy_(q)
         out.scale.copy_(s)
@@ -112,10 +117,31 @@ def dequantize_base_params(model, dtype=torch.bfloat16) -> None:
     for layer, proj in _projections(model):
         q = getattr(layer, proj)
         if isinstance(q, Int8Linear):
-            lin = nn.Linear(q.in_features, q.out_features, bias=False,
-                            dtype=dtype, device=q.weight.device)
+            lin = nn.Linear(q.in_features, q.out_features,
+                            bias=q.bias is not None, dtype=dtype,
+                            device=q.weight.device)
             lin.weight.copy_((q.weight.float() * q.scale.float()).to(dtype))
+            if q.bias is not None:
+                lin.bias.copy_(q.bias)
+                lin.bias.requires_grad_(False)
             setattr(layer, proj, lin)
+
+
+def load_quantized_hf_base(model, ckpt_dir: str) -> None:
+    """Stream an HF repo's bf16 weights straight into ``model``'s int8 base
+    (the JAX ``load_quantized_hf_base``, the QLoRA read): each projection's
+    tensor is read on the host and quantized there, one at a time, and
+    only its codes and scales reach the model's device
+    (``models/hf_io.py::quantized_key_map``), so the dense base never
+    exists there.  ``model`` is a Llama-family model after
+    :func:`quantize_base_params` (under PEFT, the wrapper's
+    ``base_model``)."""
+    from automodel_tpu_torch.models.hf_io import load_hf_weights
+
+    if not is_quantized(model):
+        raise ValueError("load_quantized_hf_base needs an int8 base "
+                         "(quantize_base_params first)")
+    load_hf_weights(model, ckpt_dir)
 
 
 def is_quantized(model) -> bool:

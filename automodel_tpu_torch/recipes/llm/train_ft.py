@@ -66,6 +66,15 @@ and ``param_groups`` resolve against the JAX paths of the trainable
 parameters.  The train step then trains the ``requires_grad`` parameters
 only.  Under PEFT a checkpoint holds the adapters, in the HF-PEFT format.
 
+``model`` may be ``AutoModelForCausalLM.from_pretrained`` over a local HF
+directory or cache snapshot (``models/auto_model.py``): after PEFT has
+wrapped the model the recipe fills it from that directory, the base alone
+under PEFT (an int8 base quantized on the host as it is read), as the JAX
+recipe does.  ``tokenizer`` (its ``_target_``, else ``transformers``'
+``AutoTokenizer`` from the checkpoint directory where the package is
+installed) is handed to every dataset whose target takes a ``tokenizer``
+(HellaSwag, SQuAD).
+
 ``compile`` is accepted and does nothing: the port runs eagerly and has no
 compiled program to cache (logged once; nothing is ``torch.compile``d).
 ``kernels.autotune: off`` (or absent) means the kernels' hand-chosen
@@ -91,6 +100,7 @@ SLURM / k8s launchers.
 
 from __future__ import annotations
 
+import inspect
 import logging
 import signal
 import time
@@ -111,6 +121,7 @@ from automodel_tpu_torch.datasets.dataloader import StatefulDataLoader
 from automodel_tpu_torch.datasets.llm.packed_sequence import PackedSequence
 from automodel_tpu_torch.datasets.prefetch import wrap_prefetch
 from automodel_tpu_torch.loss.masked_ce import MaskedCrossEntropy
+from automodel_tpu_torch.models.hf_io import load_hf_weights
 from automodel_tpu_torch.models.llama import as_dtype
 from automodel_tpu_torch.ops.moe import (
     normalize_moe_dispatch,
@@ -122,6 +133,10 @@ from automodel_tpu_torch.peft.lora import PeftConfig, build_lora
 from automodel_tpu_torch.quantization.fp8 import (
     apply_fp8_to_model,
     build_fp8_config,
+)
+from automodel_tpu_torch.quantization.weight_only import (
+    is_quantized,
+    load_quantized_hf_base,
 )
 from automodel_tpu_torch.recipes.base_recipe import BaseRecipe
 from automodel_tpu_torch.training.rng import StatefulRNG
@@ -167,6 +182,7 @@ _SECTIONS = {
     "validation_dataset", "validation_dataloader", "optimizer",
     "lr_scheduler", "training", "device", "compile", "kernels", "moe",
     "fp8", "peft", "freeze_config", "max_grad_norm", "profiling", "wandb",
+    "tokenizer",
 }
 _LATER = {
     "checkpoint_format": "Orbax / non-consolidated checkpoints (ROADMAP "
@@ -199,8 +215,11 @@ def check_ported(cfg: ConfigNode) -> None:
             f"config section {name!r} is not ported by the PyTorch port's "
             f"SFT recipe (it reads {sorted(_SECTIONS)})")
     ck = build_checkpoint_config(cfg.get("checkpoint"))
-    if ck.enabled and (ck.model_save_format != "safetensors"
-                       or not ck.save_consolidated):
+    # under PEFT a checkpoint holds the adapters alone, whatever the
+    # format knobs say (as in JAX)
+    if (ck.enabled and not isinstance(cfg.get("peft"), ConfigNode)
+            and (ck.model_save_format != "safetensors"
+                 or not ck.save_consolidated)):
         raise _later("checkpoint_format")
     for axis in ("dp_size", "dp_replicate_size", "dcn_dp_size", "tp_size",
                  "cp_size", "pp_size"):
@@ -211,6 +230,58 @@ def check_ported(cfg: ConfigNode) -> None:
     # YAML 1.1 reads ``off`` / ``on`` as booleans
     if cfg.get("kernels.autotune") not in (None, False, "off", "none"):
         raise _later("autotune")
+
+
+def build_tokenizer(cfg: ConfigNode, model) -> Optional[Any]:
+    """The ``tokenizer:`` section's ``_target_`` instantiated; without one,
+    ``transformers.AutoTokenizer`` from the model's ``checkpoint_dir``
+    (a warning and None without the package or the files, as in JAX)."""
+    tok_cfg = cfg.get("tokenizer")
+    if isinstance(tok_cfg, ConfigNode) and "_target_" in tok_cfg.to_dict():
+        return tok_cfg.instantiate()
+    ckpt_dir = getattr(model, "checkpoint_dir", None)
+    if ckpt_dir is None:
+        return None
+    try:
+        from transformers import AutoTokenizer
+
+        return AutoTokenizer.from_pretrained(ckpt_dir)
+    except (ImportError, OSError, ValueError) as e:
+        logger.warning("No tokenizer found at %s: %s", ckpt_dir, e)
+    return None
+
+
+def build_dataset(cfg_ds: ConfigNode, tokenizer=None):
+    """Instantiate a dataset section, handing it ``tokenizer`` when there
+    is one and the target takes a ``tokenizer`` argument."""
+    if cfg_ds.get("_target_") is None:
+        raise ValueError("dataset config needs a _target_")
+    fn = resolve_target(cfg_ds.get("_target_"))
+    try:
+        params = inspect.signature(fn).parameters
+    except (TypeError, ValueError):
+        params = {}
+    takes = "tokenizer" in params or any(
+        p.kind == inspect.Parameter.VAR_KEYWORD for p in params.values())
+    if tokenizer is not None and takes:
+        return cfg_ds.instantiate(tokenizer=tokenizer)
+    return cfg_ds.instantiate()
+
+
+def load_pretrained_weights(model, peft: bool) -> None:
+    """Fill ``model`` from its ``checkpoint_dir`` (a ``from_pretrained``
+    model) as the JAX recipe does: the dense weights, or under PEFT the
+    base (an int8 base quantized on the host as it is read), the adapters
+    left as drawn; nothing without a ``checkpoint_dir``."""
+    ckpt_dir = getattr(model, "checkpoint_dir", None)
+    if ckpt_dir is None:
+        return
+    base = model.base_model if peft else model
+    if is_quantized(base):
+        load_quantized_hf_base(base, ckpt_dir)
+    else:
+        load_hf_weights(base, ckpt_dir)
+    logger.info("weights loaded from %s", ckpt_dir)
 
 
 def build_wandb(cfg: ConfigNode):
@@ -343,6 +414,7 @@ class TrainFinetuneRecipeForNextTokenPrediction(BaseRecipe):
                 k: bool(v) and bool(freeze_mask[k]) for k, v in mask.items()}
         if mask is not None:
             print_trainable_parameters(self.model)
+        load_pretrained_weights(self.model, self.peft_config is not None)
 
         loss_cfg = cfg.get("loss_fn")
         self.loss_fn = (loss_cfg.instantiate()
@@ -433,7 +505,8 @@ class TrainFinetuneRecipeForNextTokenPrediction(BaseRecipe):
 
     def _setup_data(self, batch_size: int) -> None:
         cfg = self.cfg
-        dataset = cfg.get("dataset").instantiate()
+        self.tokenizer = build_tokenizer(cfg, self.model)
+        dataset = build_dataset(cfg.get("dataset"), self.tokenizer)
         # unpacked rows pad to multiples of 128, as in the JAX recipe
         if (not int(cfg.get("packed_sequence.packed_sequence_size", 0) or 0)
                 and cfg.get("dataloader.pad_seq_len_divisible") is None):
@@ -442,7 +515,8 @@ class TrainFinetuneRecipeForNextTokenPrediction(BaseRecipe):
                                            batch_size, self.rng.seed)
         self.val_dataloader = None
         if cfg.get("validation_dataset") is not None:
-            val_ds = cfg.get("validation_dataset").instantiate()
+            val_ds = build_dataset(cfg.get("validation_dataset"),
+                                   self.tokenizer)
             if cfg.get("validation_dataloader.pad_seq_len_divisible") is None:
                 cfg.set_by_dotted(
                     "validation_dataloader.pad_seq_len_divisible", 128)

@@ -64,6 +64,14 @@ Phases (any failure exits non-zero without the final ``ok`` line):
    every plain version, the 16 requests with paged decode held to layers
    x steps and gmm to 3 x layers x steps, profiled windows, then the
    prefix cache on and off (tokens identical);
+   serve_qwen2: Qwen2.5-1.5B-Instruct's published config at all 28 layers
+   (q / k / v biases, 12 / 2 heads: kernel 1 at G 6), written with random
+   bf16 weights as the ``refs/main`` snapshot of its repo id in a
+   temporary ``HF_HOME``, loaded by ``AutoModelForCausalLM.
+   from_pretrained(..., load_weights=True)`` (every bias and a sample of
+   tensors bit for bit as written), then the same engine phase with
+   ``qwen2_5_1p5b_serve.yaml``'s serving, and n-gram speculation on and
+   off (the verify width) with the same launch gate, tokens identical;
 6. linear-CE kernels (forward; backward as dlogits, dh and dW launches
    per chunk of rows): each against its plain version at the bench SFT
    path's shape (T 16384 = 8 x 2048, H 2048, V 128256, the labels of the
@@ -174,7 +182,10 @@ Phases (any failure exits non-zero without the final ``ok`` line):
    layers (``deepseek_v2_lite_sft.yaml``, the bench YAML's data, optimizer
    and fused loss): the gmm cases at its routed shapes (64 experts of
    1408), the first step through every kernel against every plain version
-   (kernel 9 at head_dim 192), the timed steps with attention 2 x 4 x
+   (kernel 9 at head_dim 192) and the kernel route twice, bit for bit
+   (the routed block's gather adds in a fixed order, as in sft_moe and
+   sft_moe_fp8), the timed steps
+   with attention 2 x 4 x
    microbatches forward and 4 x backward, gmm 9 and tgmm 3 per routed
    layer and microbatch; generate_deepseek: that model through
    ``generate()`` (8 ragged prompts, 32 new tokens), the prefill on kernel
@@ -182,7 +193,20 @@ Phases (any failure exits non-zero without the final ``ok`` line):
    (the attention phase above also holds kernel 9 at head_dim 192 on the
    V2-Lite YAML's first batch, ``mla_*_d192``, v padded with zeros, and
    the paged-decode phase Qwen3's G 8 decode and verify, ``qwen3_*``);
-12. quant_check: qdot kernel against qdot plain through a 2-layer Llama at
+12. the JAX package's HF fine-tuning YAMLs as written
+   (``examples/llm_finetune/qwen3/qwen3_0p6b_hellaswag.yaml``, phase
+   sft_qwen3_hellaswag, and ``llama3_2/llama3_2_1b_squad.yaml``, phase
+   sft_llama_squad): each model's published config at all its layers with
+   random bf16 weights as an ``HF_HOME`` snapshot under the repo id the
+   YAML names, seeded rows in the set's schema as local jsonl, and
+   :class:`ByteTokenizer` by ``tokenizer._target_`` (the only overrides,
+   with the step count and the checkpoint directory): the loaded weights
+   bit for bit as written, kernel 9 at the model's heads on the first
+   batch's rows and (Qwen3's V 151,936) kernels 2-4 at its labels against
+   their plain versions, the first step against every plain version, the
+   exact launch counts over the steps and the validation passes, step
+   time, MFU, peak memory, the validation loss and a profiled window;
+13. quant_check: qdot kernel against qdot plain through a 2-layer Llama at
    sft_fp8's widths on the bench YAML's first batch, attention plain on
    both sides, int8 (bit for bit) and float8 (limits set from a measured
    run), loss and whole gradient (``quant_check_* first step`` lines).
@@ -196,8 +220,10 @@ import gc
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -348,10 +374,16 @@ KERNEL_CASES = [
     # head_dim 128, the decode step and the speculative verify width
     ("qwen3_decode_d128_g8", 1, 128, "bf16", None, None),
     ("qwen3_verify_s5_d128_g8", 5, 128, "bf16", None, None),
+    # Qwen2.5-1.5B through the engine (serve_qwen2): 12 / 2 heads, G 6,
+    # the first group count off a power of two
+    ("qwen2_decode_d128_g6", 1, 128, "bf16", None, None),
+    ("qwen2_verify_s5_d128_g6", 5, 128, "bf16", None, None),
 ]
 # (Hq, Hk) of a case, else Llama-3.2-1B's 32 / 8
 KERNEL_CASE_HEADS = {"qwen3_decode_d128_g8": (32, 4),
-                     "qwen3_verify_s5_d128_g8": (32, 4)}
+                     "qwen3_verify_s5_d128_g8": (32, 4),
+                     "qwen2_decode_d128_g6": (12, 2),
+                     "qwen2_verify_s5_d128_g6": (12, 2)}
 
 
 # contexts (keys, every row) of the decode case's context sweep
@@ -1824,9 +1856,10 @@ def gmm_quant_phase(recipe, batch):
 # ---------------------------------------------------------------------------
 # engine phase
 # ---------------------------------------------------------------------------
-def engine_phase(yaml_path=None, label="engine", flush=None):
+def engine_phase(yaml_path=None, label="engine", flush=None, model=None):
     """A model at full width through the port's DecodeEngine (the serve
-    YAML ``yaml_path``, default Llama-3.2-1B's; weights from seed 0): the
+    YAML ``yaml_path``, default Llama-3.2-1B's; weights from seed 0, or
+    ``model`` as given, built by the caller): the
     first step's logits through every kernel against every plain version,
     16 requests of 64-1024 prompt tokens after a warm-up with the counts
     zeroed just before and read just after (paged decode = layers x steps;
@@ -1857,7 +1890,8 @@ def engine_phase(yaml_path=None, label="engine", flush=None):
     scfg = build_serving_config(cfg)
     gen = GenerationConfig(**cfg.generation.to_dict())
     t0 = time.perf_counter()
-    model = cfg.model.instantiate(seed=0, device="cuda")
+    if model is None:
+        model = cfg.model.instantiate(seed=0, device="cuda")
     torch.cuda.synchronize()
     mcfg = model.config
     L = mcfg.num_hidden_layers
@@ -2720,13 +2754,16 @@ def profile_window(run, steps, label, attn_names):
     own times), the idle share, the attention kernels' time per step
     (kernel names containing one of ``attn_names``), the ``NAMED_KERNELS``'
     time and launches per step, and the kernels that take the most of
-    it."""
+    it.  Only the card's activity is traced: tracing the host's operators
+    too gives the same kernels and device times, but adds host time to the
+    traced steps and makes reading the trace back several times longer,
+    which made it the script's largest cost at the tens of thousands of
+    launches a step of the HF YAMLs' phases."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
@@ -3165,7 +3202,10 @@ def train_phase(label, yaml_path, overrides=(), bf16=None, attn_impl=None,
     sends the train step's attention through the flash rung: its kernels
     are held to 2 forward launches per layer and microbatch and 1
     backward, the splash kernels to none, and the first step runs against
-    the plain attention.  ``first_step="all_plain"`` adds to the fused
+    the plain attention.  An MoE model's first step is also held kernel
+    against kernel (``kernel_again``), bit for bit (the routed block's
+    gather and combine add in a fixed order; ``ops/moe.py``).
+    ``first_step="all_plain"`` adds to the fused
     loss's first-step check a route through every kernel's plain version
     (the attention's included); ``"remat"`` holds the first step against
     the same kernels under ``nothing_saveable`` instead (the phase's model
@@ -3257,7 +3297,7 @@ def train_phase(label, yaml_path, overrides=(), bf16=None, attn_impl=None,
             [("kernel", "plain")])
     elif is_moe or quantized:
         # every kernel of the path against its plain version
-        first_step_check(
+        fs = first_step_check(
             recipe, label,
             [("kernel", recipe.loss_fn, "kernel", "kernel", "kernel"),
              ("plain", plain, "plain", "plain", "plain"),
@@ -3268,9 +3308,14 @@ def train_phase(label, yaml_path, overrides=(), bf16=None, attn_impl=None,
                 ("attn_plain", recipe.loss_fn, "plain", "kernel", "kernel")]
                if quantized else []),
             [("kernel", "plain")]
-            + ([("kernel", "quant_plain")] if quantized else []),
+            + ([("kernel", "quant_plain")] if quantized else [])
+            + ([("kernel", "kernel_again")] if is_moe else []),
             quantized=quantized,
             floor_route="attn_plain" if quantized else "kernel_again")
+        check(not is_moe or fs["bit_identical"]["kernel_vs_kernel_again"],
+              f"{label}: two kernel runs of the first step differ "
+              f"(gradient relative L2 "
+              f"{fs['grad_rel_l2_kernel_vs_kernel']:.3e})")
     elif flash:
         first_step_check(
             recipe, label,
@@ -3592,6 +3637,438 @@ def ckpt_phase():
         shutil.rmtree(root, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# the JAX package's HF fine-tuning YAMLs, and Qwen2.5 served
+# ---------------------------------------------------------------------------
+HF_YAMLS = os.path.join(REPO, "examples", "llm_finetune")
+QWEN3_HELLASWAG_YAML = os.path.join(HF_YAMLS, "qwen3",
+                                    "qwen3_0p6b_hellaswag.yaml")
+LLAMA_SQUAD_YAML = os.path.join(HF_YAMLS, "llama3_2", "llama3_2_1b_squad.yaml")
+QWEN2_SERVE_YAML = os.path.join(REPO, "automodel_tpu_torch", "examples",
+                                "qwen2_5_1p5b_serve.yaml")
+# the published config.json of each model (the keys HF writes; the port
+# reads the ones it knows), under the repo id the YAMLs name
+HF_CONFIGS = {
+    "Qwen/Qwen3-0.6B": dict(
+        architectures=["Qwen3ForCausalLM"], attention_bias=False,
+        attention_dropout=0.0, bos_token_id=151643, eos_token_id=151645,
+        head_dim=128, hidden_act="silu", hidden_size=1024,
+        initializer_range=0.02, intermediate_size=3072,
+        max_position_embeddings=40960, max_window_layers=28,
+        model_type="qwen3", num_attention_heads=16, num_hidden_layers=28,
+        num_key_value_heads=8, rms_norm_eps=1e-06, rope_scaling=None,
+        rope_theta=1000000, sliding_window=None, tie_word_embeddings=True,
+        torch_dtype="bfloat16", use_cache=True, use_sliding_window=False,
+        vocab_size=151936),
+    "meta-llama/Llama-3.2-1B": dict(
+        architectures=["LlamaForCausalLM"], attention_bias=False,
+        attention_dropout=0.0, bos_token_id=128000, eos_token_id=128001,
+        head_dim=64, hidden_act="silu", hidden_size=2048,
+        initializer_range=0.02, intermediate_size=8192,
+        max_position_embeddings=131072, mlp_bias=False, model_type="llama",
+        num_attention_heads=32, num_hidden_layers=16, num_key_value_heads=8,
+        pretraining_tp=1, rms_norm_eps=1e-05,
+        rope_scaling={"factor": 32.0, "high_freq_factor": 4.0,
+                      "low_freq_factor": 1.0,
+                      "original_max_position_embeddings": 8192,
+                      "rope_type": "llama3"},
+        rope_theta=500000.0, tie_word_embeddings=True,
+        torch_dtype="bfloat16", use_cache=True, vocab_size=128256),
+    "Qwen/Qwen2.5-1.5B-Instruct": dict(
+        architectures=["Qwen2ForCausalLM"], attention_dropout=0.0,
+        bos_token_id=151643, eos_token_id=151645, hidden_act="silu",
+        hidden_size=1536, initializer_range=0.02, intermediate_size=8960,
+        max_position_embeddings=32768, max_window_layers=21,
+        model_type="qwen2", num_attention_heads=12, num_hidden_layers=28,
+        num_key_value_heads=2, rms_norm_eps=1e-06, rope_theta=1000000.0,
+        sliding_window=32768, tie_word_embeddings=True,
+        torch_dtype="bfloat16", use_cache=True, use_sliding_window=False,
+        vocab_size=151936),
+}
+# (warm-up, timed) steps; the SQuAD YAML validates every 10 steps
+HF_STEPS = {"sft_qwen3_hellaswag": (2, 6), "sft_llama_squad": (2, 8)}
+HF_SEEDS = {"Qwen/Qwen3-0.6B": 6, "meta-llama/Llama-3.2-1B": 12,
+            "Qwen/Qwen2.5-1.5B-Instruct": 25}
+WORDS = ("the", "a", "man", "woman", "dog", "ball", "kitchen", "river",
+         "then", "slowly", "runs", "jumps", "takes", "puts", "into", "over",
+         "while", "his", "her", "bright", "water", "table", "rope", "hand",
+         "camera", "shows", "people", "playing", "outside", "holding",
+         "begins", "finally", "another", "several", "around", "across")
+
+
+class ByteTokenizer:
+    """A duck-typed HF tokenizer over bytes (id ``b + 4``; pad 0, bos 1,
+    eos 2), a bos in front unless ``add_special_tokens`` is False; called
+    on a string or a list of strings.  The phases hand it to the recipe
+    through ``tokenizer._target_`` (no tokenizer files are on the card's
+    machine); its ids lie below every vocabulary here."""
+
+    pad_token, bos_token, eos_token = "<pad>", "<s>", "</s>"
+    pad_token_id, bos_token_id, eos_token_id = 0, 1, 2
+    all_special_ids = [0, 1, 2]
+
+    def encode(self, text, add_special_tokens=True):
+        return ([1] if add_special_tokens else []) + [b + 4 for b in
+                                                      text.encode()]
+
+    def __call__(self, text, add_special_tokens=True):
+        if isinstance(text, str):
+            ids = self.encode(text, add_special_tokens)
+            return {"input_ids": ids, "attention_mask": [1] * len(ids)}
+        ids = [self.encode(t, add_special_tokens) for t in text]
+        return {"input_ids": ids,
+                "attention_mask": [[1] * len(i) for i in ids]}
+
+
+def _words(rng, lo, hi):
+    return " ".join(WORDS[i] for i in rng.integers(
+        0, len(WORDS), int(rng.integers(lo, hi + 1))))
+
+
+def hellaswag_rows(n, seed):
+    """Rows in HellaSwag's schema, about 60-150 tokens a context and gold
+    ending under :class:`ByteTokenizer` (the published set's lengths)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return [{"ind": i, "ctx": _words(rng, 8, 20),
+             "endings": [_words(rng, 3, 8) for _ in range(4)],
+             "label": str(int(rng.integers(0, 4)))} for i in range(n)]
+
+
+def squad_rows(n, seed):
+    """Rows in SQuAD's schema, about 150-400 tokens a prompt and answer
+    under :class:`ByteTokenizer`; the answer a span of the context."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    rows = []
+    for i in range(n):
+        ctx = _words(rng, 25, 60)
+        words = ctx.split()
+        a = int(rng.integers(0, len(words) - 3))
+        answer = " ".join(words[a:a + int(rng.integers(1, 4))])
+        rows.append({"id": str(i), "title": "t", "context": ctx,
+                     "question": _words(rng, 5, 12) + "?",
+                     "answers": {"text": [answer],
+                                 "answer_start": [ctx.find(answer)]}})
+    return rows
+
+
+def write_jsonl(path, rows):
+    with open(path, "w") as f:
+        for r in rows:
+            f.write(json.dumps(r) + "\n")
+    return path
+
+
+def write_hf_model(hf_home, repo_id):
+    """Write the published config and random bf16 weights from ``seed``
+    (biases too, away from 0) as the ``refs/main`` snapshot of
+    ``repo_id`` under ``hf_home`` (``save_hf_weights``, then the published
+    ``config.json``; the seed is ``HF_SEEDS[repo_id]``); returns ``(snapshot dir, the written tensors that
+    the phase checks, on the host)``."""
+    import torch
+
+    from automodel_tpu_torch.models import hf_io
+    from automodel_tpu_torch.models.auto_model import AutoModelForCausalLM
+
+    cfg, seed = HF_CONFIGS[repo_id], HF_SEEDS[repo_id]
+    repo = os.path.join(hf_home, "hub", "models--" + repo_id.replace("/",
+                                                                      "--"))
+    snap = os.path.join(repo, "snapshots", f"seed{seed}")
+    t0 = time.perf_counter()
+    model = AutoModelForCausalLM.from_config(cfg, seed=seed, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith("bias"):
+                p.copy_(torch.randn(p.shape, device="cuda", generator=g)
+                        * 0.5)
+    hf_io.save_hf_weights(model, snap)
+    with open(os.path.join(snap, "config.json"), "w") as f:
+        json.dump(cfg, f, indent=2)
+    os.makedirs(os.path.join(repo, "refs"), exist_ok=True)
+    with open(os.path.join(repo, "refs", "main"), "w") as f:
+        f.write(f"seed{seed}")
+    L = cfg["num_hidden_layers"]
+    sample = [n for n, _, _ in hf_io.hf_tensors(model)
+              if n in ("model.embed_tokens.weight", "model.norm.weight",
+                       "model.layers.0.self_attn.q_proj.weight",
+                       "model.layers.0.self_attn.k_norm.weight",
+                       f"model.layers.{L - 1}.mlp.down_proj.weight")
+              or n.endswith("_proj.bias")]
+    written = {n: t.detach().cpu().clone() for n, t, _ in
+               hf_io.hf_tensors(model) if n in sample}
+    nbytes = sum(os.path.getsize(os.path.join(snap, f))
+                 for f in os.listdir(snap))
+    del model
+    torch.cuda.empty_cache()
+    print(f"hf_model {repo_id}: {snap} ({nbytes} bytes) written in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return snap, written
+
+
+def loaded_equal(label, model, written):
+    """The model's HF tensors named in ``written`` equal them bit for bit;
+    returns how many were held."""
+    import torch
+
+    from automodel_tpu_torch.models import hf_io
+
+    got = {n: t for n, t, _ in hf_io.hf_tensors(model) if n in written}
+    check(sorted(got) == sorted(written),
+          f"{label}: the model lacks {sorted(set(written) - set(got))}")
+    for name, want in written.items():
+        t = got[name].detach().cpu()
+        check(t.dtype == want.dtype and bool(torch.equal(t, want)),
+              f"{label}: {name} as loaded differs from the written tensor")
+    return len(written)
+
+
+def hf_sft_phase(label, yaml_path, repo_id, kind, hf_home, flush):
+    """A JAX HF fine-tuning YAML as written through the port's recipe on
+    the card, at its model's published config and depth (random bf16
+    weights from a seed in an ``HF_HOME`` snapshot under the YAML's repo
+    id), with only these overrides: the two dataset sources (local jsonl
+    rows in the set's schema, ``kind`` "hellaswag" or "squad"),
+    ``tokenizer._target_`` (:class:`ByteTokenizer`), the step count and
+    the checkpoint directory.  Gates: the loaded weights equal the written
+    ones bit for bit (a sample of tensors); kernel 9 at the model's heads
+    on the first batch's rows (its padding folded into segments) and, for
+    a vocabulary no earlier phase trains, kernels 2-4 at the first
+    microbatch's labels, each against its plain version; the first step
+    (2 rows) through every kernel against every plain version within the
+    SFT limits; the exact launch counts of kernel 9 and kernels 2-4 over
+    the steps (validation batches included).  Reports step time,
+    tokens/s, MFU, peak memory, the validation loss over the 64
+    validation rows and a profiled window's idle share."""
+    import torch
+
+    from automodel_tpu_torch.config.loader import parse_args_and_load_config
+    from automodel_tpu_torch.loss.linear_ce import FusedLinearCrossEntropy
+    from automodel_tpu_torch.ops import linear_ce_kernel as lce
+    from automodel_tpu_torch.ops import splash_attention as sa
+    from automodel_tpu_torch.recipes.llm import train_ft
+
+    warmup, steps = HF_STEPS[label]
+    snap, written = write_hf_model(hf_home, repo_id)
+    work = tempfile.mkdtemp(prefix=f"chip_smoke_{label}_")
+    key = "path_or_dataset" if kind == "hellaswag" else "dataset_name"
+    make = hellaswag_rows if kind == "hellaswag" else squad_rows
+    train = write_jsonl(os.path.join(work, "train.jsonl"), make(2048, 1))
+    val = write_jsonl(os.path.join(work, "validation.jsonl"), make(256, 2))
+    cfg = parse_args_and_load_config(
+        ["-c", yaml_path, "--step_scheduler.max_steps", str(warmup + steps),
+         f"--dataset.{key}", train, f"--validation_dataset.{key}", val,
+         "--tokenizer._target_", "chip_smoke.ByteTokenizer",
+         "--checkpoint.checkpoint_dir", os.path.join(work, "checkpoints")])
+    t0 = time.perf_counter()
+    recipe = train_ft.TrainFinetuneRecipeForNextTokenPrediction(cfg).setup()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    model, mcfg = recipe.model, recipe.model.config
+    L = mcfg.num_hidden_layers
+    held = loaded_equal(label, model, written)
+    check(model.checkpoint_dir == snap,
+          f"{label}: the model came from {model.checkpoint_dir}, not {snap}")
+    check(isinstance(recipe.loss_fn, FusedLinearCrossEntropy),
+          f"{label}: loss {type(recipe.loss_fn).__name__}")
+    print(f"{label}: {type(model).__name__} {mcfg.model_type} (vocab "
+          f"{mcfg.vocab_size}, hidden {mcfg.hidden_size}, ffn "
+          f"{mcfg.intermediate_size}, layers {L}, heads "
+          f"{mcfg.num_attention_heads}/{mcfg.num_key_value_heads}, head_dim "
+          f"{mcfg.head_dim}, qk_norm {mcfg.qk_norm}), {model.num_params} "
+          f"params {model.param_dtype}, from {snap}, {held} written tensors "
+          f"held bit for bit; loader {type(recipe.dataloader).__name__} of "
+          f"{len(recipe.dataloader)} batches, set up in {setup_s:.1f} s",
+          flush=True)
+
+    # the kernels at this path's shapes: the first batch's rows (padding
+    # folded into segments: 0 = no key), its first microbatch's labels
+    first = next(iter(recipe.dataloader))
+    B, S = first["input_ids"].shape
+    mask = first.get("attention_mask")
+    seg = (mask if mask is not None else
+           (first["input_ids"] * 0 + 1)).astype("int32")
+    name = f"{label}_d{mcfg.head_dim}"
+    attn_rows = attention_phase(
+        flush, seg, [(name, B, S, mcfg.num_attention_heads,
+                      mcfg.num_key_value_heads, mcfg.head_dim, True, None,
+                      None)])
+    lce_row = None
+    if mcfg.vocab_size not in (128256, 102400):
+        lce_row = lce_case(f"{label}_v{mcfg.vocab_size}", B * S,
+                           mcfg.hidden_size, mcfg.vocab_size, "bench",
+                           first["labels"], flush, seed=300, parts=True)
+    torch.cuda.empty_cache()
+
+    plain = FusedLinearCrossEntropy(chunk_len=recipe.loss_fn.chunk_len,
+                                    impl="plain")
+    first_step = first_step_check(
+        recipe, label,
+        [("kernel", recipe.loss_fn, "kernel"), ("plain", plain, "plain"),
+         ("kernel_again", recipe.loss_fn, "kernel")],
+        [("kernel", "plain")])
+
+    seen = []
+    run_step = recipe._run_train_optim_step
+
+    def recording(batches):
+        seen.append(batches)
+        return run_step(batches)
+
+    recipe._run_train_optim_step = recording
+    n_val = len(recipe.val_dataloader)
+    val_every = recipe.step_scheduler.val_every_steps
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    sa.fwd_launches = sa.bwd_launches = 0     # zeroed just before the run
+    lce.fwd_launches = lce.dlogits_launches = lce.dh_launches = 0
+    lce.dw_launches = 0
+    t0 = time.perf_counter()
+    recipe.run_train_validation_loop()
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+    counts = dict(attn_fwd=sa.fwd_launches, attn_bwd=sa.bwd_launches,
+                  lce_fwd=lce.fwd_launches, dlogits=lce.dlogits_launches,
+                  dh=lce.dh_launches, dw=lce.dw_launches)
+    peak = torch.cuda.max_memory_allocated()
+    del recipe._run_train_optim_step
+    check(len(recipe.history) == warmup + steps == len(seen),
+          f"{label}: {len(recipe.history)} steps, {len(seen)} groups")
+    shapes = [[mb["labels"].shape for mb in g] for g in seen]
+    micro = sum(len(g) for g in shapes)
+    vals = len(recipe.val_history)
+    check(vals == (warmup + steps) // val_every,
+          f"{label}: {vals} validations in {warmup + steps} steps "
+          f"(val_every_steps {val_every})")
+    per_call = sum(lce.bwd_launches_per_call(b * t) for g in shapes
+                   for b, t in g)
+    want = dict(attn_fwd=2 * L * micro + L * n_val * vals,
+                attn_bwd=L * micro, lce_fwd=micro + n_val * vals,
+                dlogits=per_call, dh=per_call, dw=per_call)
+    check(counts == want,
+          f"{label}: launches {counts} != {want} ({micro} microbatches of "
+          f"{shapes}, {vals} validations of {n_val} batches)")
+    for m in recipe.history:
+        check(all(map(math.isfinite, (m["loss"], m["grad_norm"]))),
+              f"{label} step {m['step']}: non-finite loss/grad_norm")
+    timed = recipe.history[warmup:]
+    timed_shapes = shapes[warmup:]
+    tokens = sum(b * t for g in timed_shapes for b, t in g)
+    step_s = sum(m["step_time"] for m in timed)
+    tok_s = tokens / step_s
+    if vals == 0:      # the YAML validates later: the 64 rows, read once
+        val_loss = recipe._run_validation_epoch()
+    else:
+        val_loss = recipe.val_history[-1][1]
+    check(math.isfinite(val_loss), f"{label}: validation loss {val_loss}")
+
+    # a profiled window of two more steps (no checkpoint in it)
+    recipe.checkpoint_config.enabled = False
+
+    def more():
+        recipe.step_scheduler.max_steps += SFT_PROFILED
+        recipe.run_train_validation_loop()
+
+    prof = profile_window(more, SFT_PROFILED,
+                          f"{label}_b{timed_shapes[0][0][0]}_s"
+                          f"{timed_shapes[0][0][1]}", ("Splash<",))
+    flops = (model.flops_per_token()
+             + model.attention_flops_per_token(timed_shapes[0][0][1]))
+    report = dict(
+        yaml=os.path.relpath(yaml_path, REPO), repo_id=repo_id,
+        snapshot=snap, written_tensors_held=held, setup_s=setup_s,
+        warmup_steps=warmup, steps=steps, shapes=[
+            sorted({f"{b}x{t}" for b, t in g}) for g in timed_shapes],
+        tokens=tokens, step_ms=step_s * 1e3 / steps,
+        step_ms_each=[m["step_time"] * 1e3 for m in timed],
+        tokens_per_s=tok_s,
+        nonpad_tokens_per_s=sum(m["tps"] * m["step_time"] for m in timed)
+        / step_s, flops_per_token=flops,
+        mfu=tok_s * flops / BF16_OPS_PER_S, loop_s=loop_s,
+        peak_mem_bytes=peak, launches=counts,
+        validation=dict(batches=n_val, loss=val_loss,
+                        at_steps=[s for s, _ in recipe.val_history]),
+        losses=[m["loss"] for m in recipe.history],
+        grad_norms=[m["grad_norm"] for m in recipe.history],
+        first_step=dict(loss_rel_err=first_step["kernel_vs_plain"][
+            "loss_rel_err"], grad_rel_l2=first_step["kernel_vs_plain"][
+            "grad_rel_l2"]),
+        profile=prof)
+    print(f"{label}_run " + json.dumps(report), flush=True)
+    report["attention_cases"], report["lce_case"] = attn_rows, lce_row
+    del recipe, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(work, ignore_errors=True)
+    shutil.rmtree(os.path.dirname(os.path.dirname(snap)),
+                  ignore_errors=True)
+    return report
+
+
+def serve_qwen2_phase(hf_home, flush):
+    """Qwen2.5-1.5B-Instruct at its published config and all 28 layers
+    (q / k / v biases, G 6, the window fields off), written as an
+    ``HF_HOME`` snapshot and loaded by ``AutoModelForCausalLM.
+    from_pretrained(..., load_weights=True)``: every q / k / v bias and a
+    sample of the other tensors bit for bit as written, then the engine
+    phase (``qwen2_5_1p5b_serve.yaml``'s serving: first-step logits
+    kernel against plain, the 16 requests with paged decode held to 28 x
+    steps, profiled windows), then n-gram speculation on and off (the
+    verify width, S 5) on periodic prompts with the same launch gate and
+    the same tokens."""
+    import numpy as np
+    import torch
+
+    from automodel_tpu_torch.models.auto_model import AutoModelForCausalLM
+
+    repo_id = "Qwen/Qwen2.5-1.5B-Instruct"
+    snap, written = write_hf_model(hf_home, repo_id)
+    t0 = time.perf_counter()
+    model = AutoModelForCausalLM.from_pretrained(repo_id, load_weights=True,
+                                                 device="cuda")
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    check(model.checkpoint_dir == snap, f"serve_qwen2: from {snap}?")
+    check(model.config.attention_bias and model.sliding_window is None,
+          "serve_qwen2: the published config built another model")
+    held = loaded_equal("serve_qwen2", model, written)
+    biases = sum(n.endswith("bias") for n in written)
+    check(biases == 3 * model.config.num_hidden_layers,
+          f"serve_qwen2: {biases} biases held")
+    print(f"serve_qwen2: loaded {snap} in {load_s:.1f} s, {held} tensors "
+          f"({biases} q / k / v biases) bit for bit", flush=True)
+    report = engine_phase(QWEN2_SERVE_YAML, "serve_qwen2", model=model)
+    rng = np.random.default_rng(0)
+    motif = [int(t) for t in rng.integers(1, 2000, 6)]
+    reqs = [((motif * 5)[:24], 0) for _ in range(16)]
+    base = dict(max_num_seqs=8, max_model_len=72)
+    off = feature_run(model, "serve_qwen2_spec_off", base, reqs, 48)
+    on = feature_run(model, "serve_qwen2_spec_on",
+                     {**base, "speculative": "ngram", "spec_k": 4}, reqs, 48)
+    _identical("serve_qwen2 speculative: on vs off", on[1], off[1])
+    st = on[2].stats()
+    check(st["speculative"]["tokens_proposed"] > 0,
+          "serve_qwen2: speculation proposed nothing")
+    report["speculative"] = dict(
+        on=on[0], off=off[0], accept_rate=st["accept_rate"],
+        step_widths=st["step_widths"], tokens_identical_on_vs_off=True)
+    report.update(load_s=load_s, written_tensors_held=held,
+                  biases_held=biases)
+    print("serve_qwen2_run " + json.dumps(
+        {k: v for k, v in report.items() if k not in ("profile_mixed",
+                                                      "profile_decode")}),
+        flush=True)
+    del model, on, off
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(os.path.dirname(os.path.dirname(snap)),
+                  ignore_errors=True)
+    return report
+
+
 T0 = time.perf_counter()
 
 
@@ -3658,8 +4135,13 @@ def main():
     phase_done("serving_features")
     torch.cuda.empty_cache()
     serve_moe = engine_phase(MOE_SERVE_YAML, "serve_moe", flush)
-    del flush
     phase_done("serve_moe")
+    # the HF-directory phases resolve their YAMLs' repo ids here
+    hf_home = tempfile.mkdtemp(prefix="chip_smoke_hf_")
+    os.environ["HF_HOME"] = hf_home
+    torch.cuda.empty_cache()
+    serve_qwen2 = serve_qwen2_phase(hf_home, flush)
+    phase_done("serve_qwen2")
     sft = train_phase("sft", SFT_YAML)
     phase_done("sft")
     torch.cuda.empty_cache()
@@ -3732,6 +4214,18 @@ def main():
     torch.cuda.empty_cache()
     gen_deepseek = generate_deepseek_phase()
     phase_done("generate_deepseek")
+    hf_runs = {}
+    for label, yaml_path, repo_id, kind in (
+            ("sft_qwen3_hellaswag", QWEN3_HELLASWAG_YAML, "Qwen/Qwen3-0.6B",
+             "hellaswag"),
+            ("sft_llama_squad", LLAMA_SQUAD_YAML, "meta-llama/Llama-3.2-1B",
+             "squad")):
+        torch.cuda.empty_cache()
+        hf_runs[label] = hf_sft_phase(label, yaml_path, repo_id, kind,
+                                      hf_home, flush)
+        phase_done(label)
+    del flush
+    shutil.rmtree(hf_home, ignore_errors=True)
     # last: its two recipes are set up and dropped here, after every timed
     # phase
     torch.cuda.empty_cache()
@@ -3774,7 +4268,17 @@ def main():
                 f"{tag}_plain_ms": c["plain_ms"],
                 f"{tag}_bound_ms": c["bound_ms"],
                 f"{tag}_library_ms": c["library_device_ms"]})
+    # Qwen2.5-1.5B's decode and verify shapes (serve_qwen2, G 6)
+    for c in cases:
+        if c["case"].startswith("qwen2_"):
+            tag = c["case"].replace("qwen2_", "qwen2_serve_")
+            kernels[-1].update({
+                f"{tag}_ms": c["device_ms"],
+                f"{tag}_plain_ms": c["plain_ms"],
+                f"{tag}_bound_ms": c["bound_ms"],
+                f"{tag}_library_ms": c["library_device_ms"]})
     kernels[-1]["serve_moe_launches"] = serve_moe["kernel_launches"]
+    kernels[-1]["serve_qwen2_launches"] = serve_qwen2["kernel_launches"]
     kernels[-1]["serving_features_launches"] = {
         "prefix_on_bf16": features["prefix_cache"]["bf16"]["on"][
             "paged_decode_launches"],
@@ -3824,7 +4328,20 @@ def main():
         if part == "fwd":
             kernels[-1]["generate_deepseek_launches"] = gen_deepseek[
                 "launches"]["attention_fwd"]
+        # the HF YAMLs' rows (unpacked, padding folded into segments)
+        for label, run in hf_runs.items():
+            c = run["attention_cases"][0]
+            kernels[-1].update({
+                f"{c['case']}_ms": c[part]["ms"],
+                f"{c['case']}_plain_ms": c[part]["plain_ms"],
+                f"{c['case']}_bound_ms": c[part]["bound_ms"],
+                f"{c['case']}_library_ms": c[part]["library_ms"],
+                f"{label}_launches": run["launches"][f"attn_{part}"]})
+            kernels[-1]["max_abs_err"] = max(kernels[-1]["max_abs_err"],
+                                             c[part]["max_abs_err"])
     rep = lce_cases[0]
+    lce_cases = lce_cases + [r["lce_case"] for r in hf_runs.values()
+                             if r["lce_case"] is not None]
     errs = dict(
         fwd=max(max(c["fwd"]["lse_max_abs_err"], c["fwd"]["pick_max_abs_err"])
                 for c in lce_cases),
@@ -3850,6 +4367,16 @@ def main():
             kernels[-1][f"{name_}_launches"] = run["linear_ce_launches"][part]
         kernels[-1]["sft_deepseek_launches"] = deepseek[
             "linear_ce_launches"][part]
+        for label, run in hf_runs.items():
+            kernels[-1][f"{label}_launches"] = run["launches"][
+                "lce_fwd" if part == "fwd" else part]
+            c = run["lce_case"]
+            if c is not None:       # a vocabulary no earlier phase trains
+                kernels[-1].update({
+                    f"{c['case']}_ms": c[part]["ms"],
+                    f"{c['case']}_plain_ms": c[part]["plain_ms"],
+                    f"{c['case']}_bound_ms": c[part]["bound_ms"],
+                    f"{c['case']}_library_ms": c[part]["library_ms"]})
         if part == "fwd":
             kernels[-1]["product_ms"] = got["product_ms"]
         if part == "dlogits":

@@ -1,7 +1,8 @@
 """The PyTorch port stands alone: no file of ``automodel_tpu_torch/`` nor
 ``chip_smoke.py`` imports JAX or the JAX package (the flash rung, the
-checkpoint and HF-safetensors modules, the optimizer step and the DeepSeek
-families among them),
+checkpoint and HF-safetensors modules, the optimizer step, the DeepSeek
+families, ``from_pretrained`` and the HellaSwag / SQuAD datasets among
+them),
 importing every module loads no JAX, and the kernel build directory is
 ignored by git."""
 
@@ -65,7 +66,10 @@ def test_engine_import_loads_no_jax():
                 "checkpoint.checkpointing", "models.hf_io",
                 "optim.builder", "recipes.base_recipe",
                 "models.deepseek_v3", "models.deepseek_v2", "ops.rotary",
-                "generation.generate", "serving.engine"):
+                "generation.generate", "serving.engine",
+                "models.auto_model", "datasets.llm.hellaswag",
+                "datasets.llm.squad", "datasets.utils",
+                "quantization.weight_only"):
         assert "automodel_tpu_torch." + mod in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"

@@ -484,6 +484,9 @@ LCE_CASES = [
     ("gpt2_vocab", 1000, 512, 50257, 0, 50257),
     ("all_ignored", 200, 128, 512, -100, -99),
     ("bench_shape", 16384, 2048, 128256, 0, 128256),
+    # Qwen3-0.6B's head (sft_qwen3_hellaswag): 151,936 = 593 x 256 + 128,
+    # the first vocabulary whose last 256-column tile is half full
+    ("qwen3_v151936", 2048, 1024, 151936, 0, 151936),
 ]
 
 
@@ -1729,3 +1732,133 @@ def test_cuda_staged_batches_equal_synchronous_ones(cuda_device):
         assert sorted(staged) == sorted(want)
         for k in want:
             assert torch.equal(staged[k], want[k]), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+@pytest.mark.parametrize("S", [1, 5], ids=["decode", "verify_s5"])
+def test_cuda_paged_decode_at_g6_matches_plain(S, kv, cuda_device):
+    """Kernel 1 at Qwen2.5-1.5B's attention (12 / 2 heads, G 6, head_dim
+    128), the first group count off a power of two: a decode step and the
+    speculative verify width against the plain version, contexts up to
+    2048 keys over 16-key blocks."""
+    B, BS, MB, Hq, Hk, D = 8, 16, 128, 12, 2, 128
+    g = torch.Generator(device=cuda_device).manual_seed(60 + S)
+    NB = B * MB + 1
+    if kv == "int8":
+        k, v = (torch.randint(-127, 128, (NB, BS, Hk, D), device=cuda_device,
+                              dtype=torch.int8, generator=g)
+                for _ in range(2))
+        ks, vs = (torch.rand(NB, BS, Hk, device=cuda_device, generator=g)
+                  * 0.01 + 0.005 for _ in range(2))
+    else:
+        k, v = (torch.randn(NB, BS, Hk, D, device=cuda_device,
+                            generator=g).bfloat16() for _ in range(2))
+        ks = vs = None
+    tables = (torch.randperm(NB - 1, device=cuda_device, generator=g)
+              + 1).view(B, MB).int()
+    ctx = torch.randint(S, MB * BS + 1, (B,), device=cuda_device,
+                        generator=g).int()
+    ctx[0], ctx[1] = MB * BS, 37
+    q = torch.randn(B, S, Hq, D, device=cuda_device, generator=g).bfloat16()
+    pos = (ctx[:, None] - S + torch.arange(S, device=cuda_device)[None]
+           ).int()
+    launches = tpak.launches
+    out = tpak.paged_decode_cuda(q, k, v, ks, vs, tables, ctx, pos)
+    torch.cuda.synchronize()
+    assert tpak.launches == launches + 1
+    ref = tpa.paged_attention_plain(q, k, v, ks, vs, tables, ctx, pos)
+    torch.testing.assert_close(out.float(), ref.float(), atol=2e-2,
+                               rtol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+def test_cuda_verify_rows_equal_decode_rows_at_qwen2_heads(kv, cuda_device):
+    """The verify step's rows equal decode's bit for bit at G 6 too."""
+    _verify_rows_equal_decode_rows(kv, 128, 12, 2, 128, cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [256, 384])
+def test_cuda_splash_on_padded_unpacked_rows_at_qwen3_heads(S, cuda_device):
+    """Kernel 9 at Qwen3-0.6B's attention (16 / 8 heads, head_dim 128) on
+    unpacked SFT rows: one sample a row, its padding tail folded into
+    segment 0 as the model folds an ``attention_mask``; forward and
+    backward against the plain versions (padding rows give 0)."""
+    from automodel_tpu_torch.ops import splash_attention as sa
+    from automodel_tpu_torch.ops.attention import fold_padding_into_segments
+
+    B = 8
+    q, k, v, dout, _ = make_attn_case(B, S, 16, 8, 128, False, seed=S)
+    lens = np.random.default_rng(S).integers(60, S, B)
+    lens[0] = S
+    mask = torch.from_numpy(np.arange(S)[None, :] < lens[:, None]).to(
+        cuda_device)
+    seg = fold_padding_into_segments((B, S), None, mask).int().contiguous()
+    kw = dict(causal=True, segment_ids=seg)
+    f0, b0 = sa.fwd_launches, sa.bwd_launches
+    out, lse = sa.flash_attn_fwd_cuda(q, k, v, **kw)
+    grads = sa.flash_attn_bwd_cuda(q, k, v, out, lse, dout, **kw)
+    torch.cuda.synchronize()
+    assert (sa.fwd_launches, sa.bwd_launches) == (f0 + 1, b0 + 1)
+    ref = sa.splash_attention_plain(q, k, v, **kw)
+    refs = sa.splash_attention_bwd_plain(q, k, v, out, lse, dout, **kw)
+    check_attention((out, lse, *grads), (*ref, *refs))
+    assert bool((out[seg == 0] == 0).all())
+
+
+@pytest.mark.cuda
+def test_cuda_moe_backward_is_bitwise_run_to_run(cuda_device):
+    """The sorted expert path's gradients twice on the same inputs, bit for
+    bit: its token gather adds each token's k gradient rows in a fixed
+    order (``ops/moe.py::_SortedGather``) where ``index_select``'s backward
+    used atomics.  At Qwen3-30B-A3B's routing (128 experts, top 8) over
+    4096 tokens, through the gmm kernels, and through a DeepSeek-V2 model's
+    whole step."""
+    from automodel_tpu_torch.loss.masked_ce import MaskedCrossEntropy
+    from automodel_tpu_torch.models.auto_model import build_model
+    from automodel_tpu_torch.ops import moe
+    from automodel_tpu_torch.training.train_step import microbatch_loss
+
+    H, E, inter, k, T = 2048, 128, 768, 8, 4096
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+
+    def w(*shape):
+        return (torch.randn(*shape, device=cuda_device, generator=g)
+                * 0.02).bfloat16()
+
+    gate, wg, wu, wd = w(H, E), w(E, H, inter), w(E, H, inter), w(E, inter, H)
+    x = torch.randn(1, T, H, device=cuda_device, generator=g).bfloat16()
+    cot = torch.randn(1, T, H, device=cuda_device, generator=g).bfloat16()
+
+    def grads():
+        xs = [t.detach().clone().requires_grad_() for t in (x, gate, wg, wu,
+                                                            wd)]
+        out, _ = moe.moe_mlp_block(xs[0], *xs[1:], num_experts_per_tok=k,
+                                   capacity_factor=None, group_size=T)
+        (out.float() * cot.float()).sum().backward()
+        return [t.grad for t in xs]
+
+    a, b = grads(), grads()
+    assert all(torch.equal(p, q) for p, q in zip(a, b))
+
+    model = build_model(dict(
+        model_type="deepseek_v2", vocab_size=512, hidden_size=256,
+        intermediate_size=512, num_hidden_layers=2, num_attention_heads=2,
+        num_key_value_heads=2, kv_lora_rank=64, qk_nope_head_dim=128,
+        qk_rope_head_dim=64, v_head_dim=128, moe_intermediate_size=64,
+        n_routed_experts=8, num_experts_per_tok=2, n_shared_experts=1,
+        first_k_dense_replace=1, moe_capacity_factor=None,
+        torch_dtype="bfloat16"), device=cuda_device, seed=1)
+    B, S = 2, 256
+    ids = torch.randint(1, 512, (B, S), device=cuda_device, generator=g)
+    batch = {"input_ids": ids, "labels": ids.clone(),
+             "position_ids": torch.arange(S, device=cuda_device).expand(B, S)}
+    runs = []
+    for _ in range(2):
+        model.zero_grad(set_to_none=True)
+        microbatch_loss(model, MaskedCrossEntropy(), batch).backward()
+        runs.append([p.grad.clone() for p in model.parameters()
+                     if p.grad is not None])
+    assert all(torch.equal(p, q) for p, q in zip(*runs))
