@@ -4,10 +4,11 @@
 The same verbs and dispatch as the JAX package's CLI: ``finetune llm`` and
 ``pretrain llm`` run the port's SFT recipe
 (``recipes/llm/train_ft.py::main``) with the config and the dotted
-overrides (``parse_cli_overrides``; ``--device cpu`` runs on the CPU).
+overrides (``parse_cli_overrides``; ``--device cpu`` runs on the CPU), and
+``finetune vlm`` the VLM recipe (``recipes/vlm/finetune.py::main``).
 One process drives one card, so ``--nproc-per-node`` is accepted and
-ignored.  ``vlm`` raises (ROADMAP Queue 1 item 10.8), and so does a config
-with a ``slurm:`` or ``k8s:`` section (item 12).
+ignored.  A config with a ``slurm:`` or ``k8s:`` section raises (ROADMAP
+Queue 1 item 12).
 
     python -m automodel_tpu_torch._cli.app finetune llm \\
         -c automodel_tpu_torch/examples/tiny_llama_sft.yaml --device cpu
@@ -26,6 +27,7 @@ logger = logging.getLogger(__name__)
 RECIPES = {
     ("finetune", "llm"): "automodel_tpu_torch.recipes.llm.train_ft",
     ("pretrain", "llm"): "automodel_tpu_torch.recipes.llm.train_ft",
+    ("finetune", "vlm"): "automodel_tpu_torch.recipes.vlm.finetune",
 }
 
 
@@ -47,10 +49,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     logging.basicConfig(level=logging.INFO)
     argv = list(sys.argv[1:] if argv is None else argv)
     args, overrides = build_parser().parse_known_args(argv)
-    if args.domain == "vlm":
-        raise NotImplementedError(
-            "the VLM recipe is not ported yet: it comes with ROADMAP Queue "
-            "1 item 10.8")
+    if (args.command, args.domain) not in RECIPES:
+        raise SystemExit(f"No recipe for {args.command} {args.domain}")
     from automodel_tpu_torch.config.loader import (
         load_yaml_config,
         parse_cli_overrides,

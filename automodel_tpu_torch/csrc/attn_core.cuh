@@ -16,6 +16,17 @@
 // tiles).  Its products are m64n192 wgmma (mma_rs_n192) with three 64-column
 // TMA boxes a row tile.
 //
+// head_dim 256 (Gemma-2 / Gemma-3) runs on the splash rung the same way,
+// with narrower tiles where a 256-wide row would overflow shared memory or
+// registers: the forward's kv tiles are 64 keys in two stages beside the
+// 64 KB Q tile; the dQ pass walks 32-key tiles (three stages of K and V
+// beside Q and dO, 128 KB) and the dK / dV passes 32-row q tiles (two
+// stages of Q and dO beside K and V, 128 KB), each pass holding one
+// 128-register accumulator (m64n256 wgmma, mma_rs_n256; the 32-wide score
+// tiles are m64n32, mma_ss_n32).  A 32-row tile reads the segment meta of
+// the 64-row tile it lies in, which is a superset of its own ids: such a
+// tile is classified as its 64-row tile would be, never skipped wrongly.
+//
 // Operands: q [B, S, Hq, D] or [B, Hq, S, D] (Rung::BHSD), k and v the
 // same with Hk heads (Hq a multiple of Hk: query head h reads kv head
 // h / (Hq / Hk), no repeat), bf16, 16-byte aligned, contiguous.  Every
@@ -116,7 +127,8 @@ constexpr float kLn2 = 0.6931471805599453f;
 enum Cls : int { kSkip = 0, kPartial = 1, kFull = 2 };
 
 // ---------------------------------------------------------------------------
-// wgmma shapes attention needs: SS n64 / n128, RS n64 / n128 / n192 (bf16 in,
+// wgmma shapes attention needs: SS n32 / n64 / n128, RS n64 / n128 / n192 /
+// n256 (bf16 in,
 // fp32 sums; accumulator register i of a thread holds row 16 (warp % 4) + g
 // + 8 ((i / 2) % 2), column 8 (i / 4) + 2 t + (i % 2), g = lane / 4, t =
 // lane % 4)
@@ -141,6 +153,23 @@ __device__ __forceinline__ void mma_ss_n64(float (&d)[32], uint64_t da,
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D (m64n32, fp32) += A B over one K step of 16, A and B bf16 K-major in
+// shared memory; scale_d 0: D = A B (head_dim 256's 32-row tiles)
+__device__ __forceinline__ void mma_ss_n32(float (&d)[16], uint64_t da,
+                                          uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15}"
+      ", %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
@@ -296,11 +325,74 @@ __device__ __forceinline__ void mma_rs_n192(float (&d)[96],
         "n"(TRANS_B));
 }
 
+// D (m64n256, fp32) += A B over one K step of 16, A bf16 from registers
+// (wgmma's A fragment a[4]), B bf16 in shared memory, MN-major (TRANS_B 1)
+// or K-major (0); scale_d 0: D = A B (head_dim 256: Gemma's width)
+template <int TRANS_B>
+__device__ __forceinline__ void mma_rs_n256(float (&d)[128],
+                                           const uint32_t (&a)[4],
+                                           uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63,"
+      " %64, %65, %66, %67, %68, %69, %70, %71,"
+      " %72, %73, %74, %75, %76, %77, %78, %79,"
+      " %80, %81, %82, %83, %84, %85, %86, %87,"
+      " %88, %89, %90, %91, %92, %93, %94, %95,"
+      " %96, %97, %98, %99, %100, %101, %102, %103,"
+      " %104, %105, %106, %107, %108, %109, %110, %111,"
+      " %112, %113, %114, %115, %116, %117, %118, %119,"
+      " %120, %121, %122, %123, %124, %125, %126, %127}"
+      ", {%128, %129, %130, %131}, %132, p, 1, 1, %134;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d),
+        "n"(TRANS_B));
+}
+
 // ---------------------------------------------------------------------------
 // rungs, arguments, maps
 // ---------------------------------------------------------------------------
-// D: head_dim (64, 128, or 192: MLA's qk_nope + qk_rope, the splash rung
-// only); BHSD: [B, H, S, D] operands, else [B, S, H, D];
+// D: head_dim (64, 128, or 192 (MLA's qk_nope + qk_rope) and 256 (Gemma),
+// the splash rung only); BHSD: [B, H, S, D] operands, else [B, S, H, D];
 // SEG_EQ: the equality segment rule, else splash's; EXTRAS: the window and
 // the soft cap compiled in (else both off).  Each rung derives a named type
 // from it (Splash<D, EXTRAS>, Mha<D>), so every kernel's name says its rung
@@ -310,7 +402,8 @@ struct Rung {
   static constexpr int D = D_;
   static constexpr int NC = D / kBox;           // boxes across a row tile
   static constexpr bool BHSD = BHSD_, SEG_EQ = SEG_EQ_, EXTRAS = EXTRAS_;
-  static_assert(D == 64 || D == 128 || D == 192, "head_dim 64, 128 or 192");
+  static_assert(D == 64 || D == 128 || D == 192 || D == 256,
+                "head_dim 64, 128, 192 or 256");
 };
 
 // element strides of one operand: sequence, head, batch
@@ -574,8 +667,10 @@ __device__ __forceinline__ void mma_rs(float (&o)[D / 2],
       mma_rs_n64<1>(o, f[kk], mnmajor(b_tile, b_rows, kk), 1);
     else if constexpr (D == 128)
       mma_rs_n128<1>(o, f[kk], mnmajor(b_tile, b_rows, kk), 1);
-    else
+    else if constexpr (D == 192)
       mma_rs_n192<1>(o, f[kk], mnmajor(b_tile, b_rows, kk), 1);
+    else
+      mma_rs_n256<1>(o, f[kk], mnmajor(b_tile, b_rows, kk), 1);
   }
 }
 
@@ -588,7 +683,8 @@ __device__ __forceinline__ void mma_ss(float (&s)[N / 2], uint32_t a_tile,
   for (int kk = 0; kk < D / 16; ++kk) {
     const uint64_t da = kmajor(a_tile, a_rows, a_row0, kk);
     const uint64_t db = kmajor(b_tile, N, 0, kk);
-    if constexpr (N == 64) mma_ss_n64(s, da, db, kk > 0);
+    if constexpr (N == 32) mma_ss_n32(s, da, db, kk > 0);
+    else if constexpr (N == 64) mma_ss_n64(s, da, db, kk > 0);
     else mma_ss_n128(s, da, db, kk > 0);
   }
 }
@@ -643,12 +739,14 @@ __device__ __forceinline__ void store_row(bf16* row, const float (&o)[D / 2],
 // ---------------------------------------------------------------------------
 // At head_dim 192 a 128-key K + V stage is 96 KB: BN 64 keeps three
 // stages beside the 48 KB Q tile (194 KB), and O's accumulator (96
-// registers a thread) beside a 64-key score tile.
+// registers a thread) beside a 64-key score tile.  At head_dim 256 a 64-key
+// stage is 64 KB: two beside the 64 KB Q tile (193 KB), O's accumulator 128
+// registers.
 template <class R>
 struct FwdCfg {
-  static constexpr int BM = 128, BN = R::D == 192 ? 64 : 128;
+  static constexpr int BM = 128, BN = R::D >= 192 ? 64 : 128;
   static constexpr int kQBufs = R::D == 64 ? 2 : 1;
-  static constexpr int kStages = R::D == 64 ? 4 : 3;
+  static constexpr int kStages = R::D == 64 ? 4 : (R::D == 256 ? 2 : 3);
   static constexpr int kQBytes = BM * R::D * 2;
   static constexpr int kKVBytes = BN * R::D * 2;     // one of K, V
   static constexpr int kSegBytes = BN * 4;           // a K tile's ids
@@ -955,7 +1053,8 @@ fwd_kernel(const __grid_constant__ CUtensorMap tq,
 // delta[b, h, s] = sum_d dout * out (fp32), rows in delta's order: D / 8
 // lanes a row, 16 bytes of each operand a lane, summed across the lanes
 // by shuffles
-// (head_dim 192: 8 lanes a row, 3 chunks of 16 bytes a lane)
+// (head_dim 192: 8 lanes a row, 3 chunks of 16 bytes a lane; 256: a warp
+// a row)
 template <class R>
 __global__ void __launch_bounds__(256)
 delta_kernel(const bf16* __restrict__ out, const bf16* __restrict__ dout,
@@ -991,12 +1090,13 @@ delta_kernel(const bf16* __restrict__ out, const bf16* __restrict__ dout,
   if (in && c == 0) delta[r] = acc;
 }
 
-// head_dim 192: Q and dO take 96 KB, so two 48 KB K + V stages
+// head_dim 192: Q and dO take 96 KB, so two 48 KB K + V stages.  256: Q
+// and dO take 128 KB, so 32-key tiles, three 32 KB K + V stages (226 KB)
 template <class R>
 struct DqCfg {
-  static constexpr int BM = 128, BN = kTile;
+  static constexpr int BM = 128, BN = R::D == 256 ? 32 : kTile;
   static constexpr int kQBufs = R::D == 64 ? 2 : 1;
-  static constexpr int kStages = R::D == 192 ? 2 : 4;
+  static constexpr int kStages = R::D == 192 ? 2 : (R::D == 256 ? 3 : 4);
   static constexpr int kQBytes = BM * R::D * 2;      // one of Q, dO
   static constexpr int kKVBytes = BN * R::D * 2;     // one of K, V
   static constexpr int kSegBytes = BN * 4;           // a K tile's ids
@@ -1068,7 +1168,7 @@ dq_kernel(const __grid_constant__ CUtensorMap tq,
       kv_range(q0, BM, BN, S, p.causal, window, lo, hi);
       for (int j = hi; j >= lo; --j) {
         const int k0 = j * BN;
-        const Meta km = has_seg ? meta_of(p.meta, b, p.n_t, j, 1)
+        const Meta km = has_seg ? meta_of(p.meta, b, p.n_t, k0 / kTile, 1)
                                 : Meta{0, 0, 1};
         if (classify(q0, BM, k0, BN, S, p.causal, window, has_seg, qm, km) ==
             kSkip)
@@ -1129,7 +1229,8 @@ dq_kernel(const __grid_constant__ CUtensorMap tq,
     // the first live kv tile at or below j (lo - 1 when none), its class
     auto next_live = [&](int j, int& cls) {
       for (; j >= lo; --j) {
-        const Meta km = has_seg ? meta_of(p.meta, b, p.n_t, j, 1)
+        const Meta km = has_seg ? meta_of(p.meta, b, p.n_t, j * BN / kTile,
+                                          1)
                                 : Meta{0, 0, 1};
         cls = classify(q0, BM, j * BN, BN, S, p.causal, window, has_seg, qm,
                        km);
@@ -1211,10 +1312,11 @@ dq_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-// head_dim 192: K and V take 96 KB, so two 49 KB stages
+// head_dim 192: K and V take 96 KB, so two 49 KB stages.  256: K and V
+// take 128 KB, so 32-row q tiles, two 33 KB stages
 template <class R>
 struct DkvCfg {
-  static constexpr int BN = 128, BM = kTile;
+  static constexpr int BN = 128, BM = R::D == 256 ? 32 : kTile;
   static constexpr int kKVBufs = R::D == 64 ? 2 : 1;
   static constexpr int kStages = R::D == 64 ? 4 : (R::D == 128 ? 3 : 2);
   static constexpr int kKVBytes = BN * R::D * 2;     // one of K, V
@@ -1239,9 +1341,9 @@ __device__ __forceinline__ void q_range(int k0, int bn, int bm, int S,
 }
 
 // PART: which gradients the pass sums.  kBoth (head_dim 64 and 128): dK
-// and dV together.  At head_dim 192 the two accumulators (96 registers a
-// thread each) and the score tiles do not fit one thread's 232 registers,
-// so the backward runs the pass twice: kDv (S^T, P^T, dV += P^T dO), then
+// and dV together.  At head_dim 192 and 256 the two accumulators (96 or
+// 128 registers a thread each) and the score tiles do not fit one thread's
+// 232 registers, so the backward runs the pass twice: kDv (S^T, P^T, dV += P^T dO), then
 // kDk (S^T, dP^T, dS^T, dK += dS^T Q), each with one accumulator.
 enum Part : int { kBoth = 0, kDv = 1, kDk = 2 };
 
@@ -1317,7 +1419,8 @@ dkv_kernel(const __grid_constant__ CUtensorMap tq,
         const int hq = hk * G + gq;
         for (int qt = lo; qt <= hi; ++qt) {
           const int q0 = qt * BM;
-          const Meta qm = has_seg ? meta_of(p.meta, b, p.n_t, qt, 1)
+          const Meta qm = has_seg ? meta_of(p.meta, b, p.n_t,
+                                            q0 / kTile, 1)
                                   : Meta{0, 0, 1};
           if (classify(q0, BM, k0, BN, S, p.causal, window, has_seg, qm,
                        km) == kSkip)
@@ -1379,7 +1482,7 @@ dkv_kernel(const __grid_constant__ CUtensorMap tq,
     for (int gq = 0; gq < G; ++gq) {
       for (int qt = lo; qt <= hi; ++qt) {
         const int q0 = qt * BM;
-        const Meta qm = has_seg ? meta_of(p.meta, b, p.n_t, qt, 1)
+        const Meta qm = has_seg ? meta_of(p.meta, b, p.n_t, q0 / kTile, 1)
                                 : Meta{0, 0, 1};
         const int cls =
             classify(q0, BM, k0, BN, S, p.causal, window, has_seg, qm, km);
@@ -1508,11 +1611,11 @@ int backward(const void* q, const void* k, const void* v, const Args& p,
   if ((rc = map4(&tk128, k, R::D, p.S, p.Hk, p.B, p.sk, KV::BN))) return rc;
   if ((rc = map4(&tv128, v, R::D, p.S, p.Hk, p.B, p.sk, KV::BN))) return rc;
   const long long rows = (long long)p.B * p.Hq * p.S;
-  if ((rc = map1(&tlse, p.lse, rows, false, kTile))) return rc;
-  if ((rc = map1(&tdl, p.delta, rows, false, kTile))) return rc;
-  static_assert(Q::BN == kTile && KV::BM == kTile, "one segment-id box");
+  if ((rc = map1(&tlse, p.lse, rows, false, KV::BM))) return rc;
+  if ((rc = map1(&tdl, p.delta, rows, false, KV::BM))) return rc;
+  static_assert(Q::BN == KV::BM, "one segment-id box");
   if (p.seg != nullptr &&
-      (rc = map1(&tseg, p.seg, (long long)p.B * p.S, true, kTile)))
+      (rc = map1(&tseg, p.seg, (long long)p.B * p.S, true, Q::BN)))
     return rc;
   if ((rc = launch_meta<R>(p, s))) return rc;
   constexpr int kDeltaLanes = R::D == 192 ? 8 : R::D / 8;
@@ -1533,7 +1636,7 @@ int backward(const void* q, const void* k, const void* v, const Args& p,
         tq64, tk128, tv128, tdo64, tlse, tdl, tseg, p);
     return static_cast<int>(cudaGetLastError());
   };
-  if constexpr (R::D == 192) {       // dV, then dK (see Part)
+  if constexpr (R::D >= 192) {       // dV, then dK (see Part)
     if ((rc = dkv(dkv_kernel<R, kDv>))) return rc;
     return dkv(dkv_kernel<R, kDk>);
   } else {

@@ -47,6 +47,11 @@
 // those keep two ring stages.  The dV launch skips the dP product, so the
 // pair costs one S^T product more than the fused pass.
 
+// head_dim 256 (Gemma-2 / Gemma-3): the same two dK / dV launches, over
+// 32-row q tiles (two stages beside the 128 KB K and V tiles), and a dQ
+// pass over 32-key tiles (three stages beside the 128 KB Q and dO tiles),
+// each pass with one 64 x 256 accumulator.
+
 #include "attn_core.cuh"
 
 namespace {
@@ -74,7 +79,7 @@ extern "C" int flash_attn_bwd(const void* q, const void* k, const void* v,
                               int S, int Hq, int Hk, int D, float scale,
                               float cap, int causal, int window,
                               void* stream) {
-  if ((D != 64 && D != 128 && D != 192) || B <= 0 || S <= 0 || Hk <= 0 ||
+  if ((D != 64 && D != 128 && D != 192 && D != 256) || B <= 0 || S <= 0 || Hk <= 0 ||
       Hq % Hk || (seg != nullptr && meta == nullptr) ||
       (window > 0 && !causal))
     return -1;
@@ -91,5 +96,6 @@ extern "C" int flash_attn_bwd(const void* q, const void* k, const void* v,
   const auto st = static_cast<cudaStream_t>(stream);
   return D == 64    ? run<64>(q, k, v, p, extras, st)
          : D == 128 ? run<128>(q, k, v, p, extras, st)
-                    : run<192>(q, k, v, p, extras, st);
+         : D == 192 ? run<192>(q, k, v, p, extras, st)
+                    : run<256>(q, k, v, p, extras, st);
 }

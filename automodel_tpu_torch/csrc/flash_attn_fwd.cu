@@ -46,6 +46,10 @@
 // thread; at Hq = Hk (MLA's broadcast rope head) each query head is its own
 // kv head.
 
+// head_dim 256 (Gemma-2 / Gemma-3): 64-key K / V tiles in two stages beside
+// the 64 KB Q tile, and O's accumulator of 128 registers a thread (m64n256
+// wgmma).
+
 #include "attn_core.cuh"
 
 namespace {
@@ -63,7 +67,7 @@ int run(const void* q, const void* k, const void* v, const attn::Args& p,
 }  // namespace
 
 // Returns 0 on success, -1 for what the kernels do not take (head_dim
-// other than 64 / 128 / 192, Hq not a multiple of Hk, a window without
+// other than 64 / 128 / 192 / 256, Hq not a multiple of Hk, a window without
 // causal, segment ids without the meta workspace), else a tensor-map error
 // (attn_core.cuh::map4) or the first failed launch's cudaError_t.  seg may
 // be null (no segments); meta is int32 scratch [B, ceil(S / 64), 4] when
@@ -73,7 +77,7 @@ extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
                               float* lse, int B, int S, int Hq, int Hk, int D,
                               float scale, float cap, int causal, int window,
                               void* stream) {
-  if ((D != 64 && D != 128 && D != 192) || B <= 0 || S <= 0 || Hk <= 0 ||
+  if ((D != 64 && D != 128 && D != 192 && D != 256) || B <= 0 || S <= 0 || Hk <= 0 ||
       Hq % Hk || (seg != nullptr && meta == nullptr) ||
       (window > 0 && !causal))
     return -1;
@@ -85,5 +89,6 @@ extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
   const auto st = static_cast<cudaStream_t>(stream);
   return D == 64    ? run<64>(q, k, v, p, extras, st)
          : D == 128 ? run<128>(q, k, v, p, extras, st)
-                    : run<192>(q, k, v, p, extras, st);
+         : D == 192 ? run<192>(q, k, v, p, extras, st)
+                    : run<256>(q, k, v, p, extras, st);
 }

@@ -1,0 +1,183 @@
+"""VLM collators: conversation samples -> numpy batches (counterpart:
+``automodel_tpu/datasets/vlm/collate_fns.py``, its default path; the Qwen
+and Phi collators wait for their families).
+
+The batch the train step consumes:
+
+* ``input_ids [B, S]`` int32, each image expanded to its placeholder
+  tokens by the processor;
+* ``pixel_values [B, I, H, W, C]`` float32: each row's image slots (NHWC;
+  processors emit flat NCHW, converted and re-rowed here), trailing slots
+  zero and never gathered;
+* ``labels [B, S]`` int32: ``input_ids`` shifted by one, -100 on the last
+  position, on pad / image / special tokens and on every target before
+  the start-of-response marker;
+* ``loss_mask`` (token-aligned, for the reference schema; dropped before
+  the step).
+
+``pad_seq_len_divisible`` right-pads the text fields to a multiple;
+``fixed_length`` pads or truncates every batch to one length;
+``max_images_per_example`` fixes the slot count.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional, Sequence
+
+import numpy as np
+
+from automodel_tpu_torch.datasets.utils import CROSS_ENTROPY_IGNORE_IDX
+from automodel_tpu_torch.datasets.vlm.utils import extract_skipped_token_ids
+
+
+def _as_numpy(x: Any) -> np.ndarray:
+    if hasattr(x, "detach"):          # a torch tensor
+        x = x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def to_nhwc(pixel_values) -> np.ndarray:
+    """``[B, C, H, W]`` -> ``[B, H, W, C]``; NHWC passes through."""
+    pv = _as_numpy(pixel_values).astype(np.float32)
+    if pv.ndim == 4 and pv.shape[1] in (1, 3) and pv.shape[-1] not in (1, 3):
+        pv = np.transpose(pv, (0, 2, 3, 1))
+    return pv
+
+
+def find_response_start(input_ids: Sequence[int],
+                        marker_ids: Sequence[int]) -> int:
+    """The index after the first occurrence of ``marker_ids`` (0 when the
+    marker is absent)."""
+    n, m = len(input_ids), len(marker_ids)
+    if m == 0:
+        return 0
+    for i in range(n - m + 1):
+        if list(input_ids[i:i + m]) == list(marker_ids):
+            return i + m
+    return 0
+
+
+def create_loss_mask_with_start_of_response_token(
+        input_ids, processor, start_of_response_token=None) -> List[int]:
+    """1 = the token is supervised, 0 = masked (the prompt up to and
+    including the marker, and padding)."""
+    tokenizer = getattr(processor, "tokenizer", processor)
+    ids = [int(t) for t in _as_numpy(input_ids).reshape(-1)]
+    start = 0
+    if isinstance(start_of_response_token, str):
+        marker = tokenizer(start_of_response_token,
+                           add_special_tokens=False)["input_ids"]
+        start = find_response_start(ids, marker)
+    pad_id = getattr(tokenizer, "pad_token_id", None)
+    return [0 if (i < start or (pad_id is not None and t == pad_id)) else 1
+            for i, t in enumerate(ids)]
+
+
+def _shifted_masked_labels(input_ids: np.ndarray, skipped_ids: Sequence[int],
+                           loss_masks: List[List[int]]) -> np.ndarray:
+    """Next-token labels with skipped tokens and unsupervised targets
+    masked (the token-aligned mask shifted with the labels)."""
+    labels = np.full_like(input_ids, CROSS_ENTROPY_IGNORE_IDX)
+    labels[:, :-1] = input_ids[:, 1:]
+    if len(skipped_ids):
+        labels[np.isin(labels, np.asarray(skipped_ids))] = (
+            CROSS_ENTROPY_IGNORE_IDX)
+    target_masked = np.asarray(loss_masks)[:, 1:] == 0
+    labels[:, :-1][target_masked] = CROSS_ENTROPY_IGNORE_IDX
+    return labels
+
+
+def _gather_images(examples: List[dict]) -> Optional[List[Any]]:
+    """Each example's images, from ``images`` or from ``image`` entries of
+    its conversation's content (None when no example has one)."""
+    out: List[Any] = []
+    found = False
+    for ex in examples:
+        items = list(ex.get("images") or [])
+        if not items:
+            for turn in ex.get("conversation", []):
+                content = turn.get("content")
+                if isinstance(content, list):
+                    items.extend(c["image"] for c in content
+                                 if isinstance(c, dict) and "image" in c)
+        found = found or bool(items)
+        out.append(items)
+    return out if found else None
+
+
+def _row_image_slots(flat: np.ndarray, counts: List[int],
+                     max_images_per_example: Optional[int] = None
+                     ) -> np.ndarray:
+    """Flat ``[sum(counts), H, W, C]`` (the processor's order) -> per-row
+    slots ``[B, I, H, W, C]``, trailing slots zero."""
+    if sum(counts) != flat.shape[0]:
+        raise ValueError(
+            f"processor emitted {flat.shape[0]} images but examples carry "
+            f"{sum(counts)}: image order cannot be trusted for per-row "
+            "slotting")
+    i_max = max(max(counts), 1)
+    if max_images_per_example is not None:
+        if max(counts) > max_images_per_example:
+            raise ValueError(
+                f"an example carries {max(counts)} images > "
+                f"max_images_per_example={max_images_per_example}")
+        i_max = max_images_per_example
+    out = np.zeros((len(counts), i_max) + flat.shape[1:], flat.dtype)
+    pos = 0
+    for r, c in enumerate(counts):
+        out[r, :c] = flat[pos:pos + c]
+        pos += c
+    return out
+
+
+def _pad_text_fields(out: Dict[str, np.ndarray], processor,
+                     divisible: int) -> None:
+    pad = (-out["input_ids"].shape[1]) % divisible
+    if not pad:
+        return
+    tokenizer = getattr(processor, "tokenizer", processor)
+    pad_id = getattr(tokenizer, "pad_token_id", None) or 0
+    out["input_ids"] = np.pad(out["input_ids"], ((0, 0), (0, pad)),
+                              constant_values=pad_id)
+    out["labels"] = np.pad(out["labels"], ((0, 0), (0, pad)),
+                           constant_values=CROSS_ENTROPY_IGNORE_IDX)
+    out["loss_mask"] = np.pad(out["loss_mask"], ((0, 0), (0, pad)))
+
+
+def default_collate_fn(examples: List[dict], processor,
+                       start_of_response_token: Optional[str] = None,
+                       pad_seq_len_divisible: Optional[int] = None,
+                       max_images_per_example: Optional[int] = None,
+                       fixed_length: Optional[int] = None
+                       ) -> Dict[str, np.ndarray]:
+    """Chat template, processor call, per-row image slots, shifted and
+    masked labels (the Gemma-3 default path)."""
+    texts = [processor.apply_chat_template(ex["conversation"], tokenize=False)
+             for ex in examples]
+    kwargs: Dict[str, Any] = dict(padding=True, return_tensors="np")
+    if fixed_length is not None:
+        kwargs.update(padding="max_length", truncation=True,
+                      max_length=int(fixed_length))
+    images = _gather_images(examples)
+    if images is not None:
+        kwargs["images"] = images
+    batch = processor(text=texts, **kwargs)
+    out: Dict[str, np.ndarray] = {
+        "input_ids": _as_numpy(batch["input_ids"]).astype(np.int32)}
+    if batch.get("pixel_values") is not None:
+        counts = [len(imgs) for imgs in (images or [])]
+        out["pixel_values"] = _row_image_slots(
+            to_nhwc(batch["pixel_values"]), counts, max_images_per_example)
+    loss_masks = [create_loss_mask_with_start_of_response_token(
+        row, processor, start_of_response_token) for row in out["input_ids"]]
+    out["labels"] = _shifted_masked_labels(
+        out["input_ids"], extract_skipped_token_ids(processor), loss_masks)
+    out["loss_mask"] = np.asarray(loss_masks, np.float32)
+    if pad_seq_len_divisible:
+        _pad_text_fields(out, processor, int(pad_seq_len_divisible))
+    return out
+
+
+# processor class name -> collate fn; the Qwen2.5-VL and Phi-4-MM
+# collators come with their families
+COLLATE_FNS = {"default": default_collate_fn}

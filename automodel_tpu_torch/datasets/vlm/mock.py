@@ -1,0 +1,158 @@
+"""Mock VLM processor and dataset (counterpart: ``automodel_tpu/datasets/
+vlm/mock.py``): offline stand-ins for an HF ``AutoProcessor`` and hub
+data.
+
+:class:`MockVLMProcessor` speaks the processor surface the collators use:
+``apply_chat_template(conversation, tokenize=False)`` (one ``<image>``
+word per vision token), ``__call__(text=, images=, padding=,
+return_tensors="np")`` (NCHW ``pixel_values``, as HF image processors
+emit), and a ``tokenizer`` with ``get_vocab`` / ``pad_token_id`` /
+callable tokenization (a whitespace word hash into the vocabulary).
+"""
+
+from __future__ import annotations
+
+import hashlib
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+
+IMAGE_PLACEHOLDER = "<image>"
+RESPONSE_MARKER = "<assistant>"
+
+
+class _MockTokenizer:
+    """Whitespace word-hash tokenizer with a stable special-token block."""
+
+    def __init__(self, vocab_size: int, image_token_id: int):
+        self.vocab_size = vocab_size
+        self.pad_token_id = 0
+        self.image_token_id = image_token_id
+        self._special = {
+            "<pad>": 0, "<bos>": 1, "<eos>": 2,
+            RESPONSE_MARKER: 3, "<user>": 4,
+            IMAGE_PLACEHOLDER: image_token_id,
+        }
+
+    def get_vocab(self) -> Dict[str, int]:
+        return dict(self._special)
+
+    def convert_tokens_to_ids(self, token: str) -> Optional[int]:
+        return self._special.get(token)
+
+    def _word_id(self, word: str) -> int:
+        if word in self._special:
+            return self._special[word]
+        h = int.from_bytes(hashlib.md5(word.encode()).digest()[:4], "little")
+        n_reserved = 8
+        return n_reserved + h % (self.vocab_size - n_reserved)
+
+    def __call__(self, text: str, add_special_tokens: bool = True,
+                 **_kw) -> Dict[str, List[int]]:
+        return {"input_ids": [self._word_id(w) for w in text.split()]}
+
+
+class MockVLMProcessor:
+    """``processor._target_: automodel_tpu.datasets.vlm.mock.
+    MockVLMProcessor``: ``(image_size / patch_size) ** 2`` placeholders an
+    image."""
+
+    def __init__(self, vocab_size: int = 512, image_size: int = 32,
+                 patch_size: int = 16, num_channels: int = 3,
+                 image_token_id: int = 7):
+        self.image_size = image_size
+        self.patch_size = patch_size
+        self.num_channels = num_channels
+        self.image_token_id = image_token_id
+        self.num_patches = (image_size // patch_size) ** 2
+        self.tokenizer = _MockTokenizer(vocab_size, image_token_id)
+
+    def apply_chat_template(self, conversation: List[dict],
+                            tokenize: bool = False, **_kw) -> str:
+        """Conversation -> one string, each image expanded to one
+        ``<image>`` word per vision token."""
+        parts: List[str] = []
+        for turn in conversation:
+            parts.append("<user>" if turn["role"] == "user"
+                         else RESPONSE_MARKER)
+            content = turn["content"]
+            if isinstance(content, str):
+                parts.append(content)
+                continue
+            for c in content:
+                if c.get("type") == "image":
+                    parts.extend([IMAGE_PLACEHOLDER] * self.num_patches)
+                elif c.get("type") == "text":
+                    parts.append(c["text"])
+        parts.append("<eos>")
+        text = " ".join(parts)
+        if tokenize:
+            return self.tokenizer(text)["input_ids"]
+        return text
+
+    def _to_pixels(self, img: Any) -> np.ndarray:
+        """An image array -> normalized ``[C, H, W]`` float32 (NCHW),
+        resized by nearest neighbour."""
+        arr = np.asarray(img, dtype=np.float32)
+        if arr.ndim == 2:
+            arr = np.stack([arr] * self.num_channels, axis=-1)
+        s = self.image_size
+        if arr.shape[0] != s or arr.shape[1] != s:
+            yi = (np.arange(s) * arr.shape[0] // s).clip(0, arr.shape[0] - 1)
+            xi = (np.arange(s) * arr.shape[1] // s).clip(0, arr.shape[1] - 1)
+            arr = arr[yi][:, xi]
+        return (arr / 127.5 - 1.0).transpose(2, 0, 1)
+
+    def __call__(self, text: List[str],
+                 images: Optional[List[List[Any]]] = None,
+                 padding: bool = True, return_tensors: str = "np",
+                 truncation: bool = False, max_length: Optional[int] = None,
+                 **_kw) -> Dict[str, np.ndarray]:
+        seqs = [self.tokenizer(t)["input_ids"] for t in text]
+        if truncation and max_length:
+            seqs = [s[:max_length] for s in seqs]
+        width = max(len(s) for s in seqs)
+        if padding == "max_length" and max_length:
+            width = max_length
+        pad = self.tokenizer.pad_token_id
+        batch: Dict[str, np.ndarray] = {
+            "input_ids": np.asarray(
+                [s + [pad] * (width - len(s)) for s in seqs], np.int64),
+            "attention_mask": np.asarray(
+                [[1] * len(s) + [0] * (width - len(s)) for s in seqs],
+                np.int64),
+        }
+        if images is not None:
+            flat = [self._to_pixels(i) for imgs in images for i in imgs]
+            if flat:
+                batch["pixel_values"] = np.stack(flat, axis=0)
+        return batch
+
+
+def make_mock_vlm_dataset(num_samples: int = 64, image_size: int = 32,
+                          seed: int = 0,
+                          limit_dataset_samples: Optional[int] = None,
+                          desc_words: int = 5, **_kw) -> List[dict]:
+    """Synthetic image -> description conversations in the sample format of
+    the real dataset makers (``datasets/vlm/datasets.py``); ``desc_words`` sizes
+    the answer."""
+    rng = np.random.default_rng(seed)
+    n = min(num_samples, limit_dataset_samples or num_samples)
+    words = ["red", "blue", "green", "cat", "dog", "car", "tree", "house",
+             "big", "small", "round", "square"]
+    out = []
+    for _ in range(n):
+        img = rng.integers(0, 256, (image_size, image_size, 3)).astype(
+            np.uint8)
+        desc = " ".join(rng.choice(words, size=int(desc_words)))
+        out.append({
+            "conversation": [
+                {"role": "user", "content": [
+                    {"type": "image"},
+                    {"type": "text", "text": "Describe this image."}]},
+                {"role": "assistant", "content": [
+                    {"type": "text", "text": desc}]},
+            ],
+            "images": [img],
+        })
+    return out

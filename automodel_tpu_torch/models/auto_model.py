@@ -13,7 +13,10 @@ path, or an inline config.
 The families are the JAX registry's names (``automodel_tpu/models/
 registry.py``): ``llama``, and on Llama's class ``mistral``, ``qwen2`` and
 ``qwen3``; ``mixtral``, ``qwen3_moe``, ``deepseek_v2`` and
-``deepseek_v3``.  Other ``model_type`` values raise.  Every model is
+``deepseek_v3``; ``gemma3_text`` and ``gemma2``; and the image-text
+models ``gemma3`` (Gemma-3 multimodal) and ``llava``, which
+:class:`AutoModelForImageTextToText` builds the same way.  Other
+``model_type`` values raise.  Every model is
 built with random weights drawn from ``seed`` first, then loaded where
 asked; ``device`` None is ``cuda`` (raises without a card).  The recipe
 loads the weights of ``model.checkpoint_dir`` itself, after PEFT has
@@ -34,6 +37,13 @@ from automodel_tpu_torch.models.deepseek_v3 import (
     DeepseekV3Config,
     DeepseekV3ForCausalLM,
 )
+from automodel_tpu_torch.models.gemma2 import Gemma2Config, Gemma2ForCausalLM
+from automodel_tpu_torch.models.gemma3 import (
+    Gemma3Config,
+    Gemma3ForCausalLM,
+    Gemma3ForConditionalGeneration,
+    Gemma3VLConfig,
+)
 from automodel_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
 from automodel_tpu_torch.models.mixtral import (
     MixtralConfig,
@@ -42,6 +52,10 @@ from automodel_tpu_torch.models.mixtral import (
 from automodel_tpu_torch.models.qwen3_moe import (
     Qwen3MoeConfig,
     Qwen3MoeForCausalLM,
+)
+from automodel_tpu_torch.models.vlm import (
+    VLMConfig,
+    VLMForConditionalGeneration,
 )
 
 FAMILIES = {
@@ -53,6 +67,11 @@ FAMILIES = {
     "qwen3_moe": (Qwen3MoeConfig, Qwen3MoeForCausalLM),
     "deepseek_v2": (DeepseekV2Config, DeepseekV2ForCausalLM),
     "deepseek_v3": (DeepseekV3Config, DeepseekV3ForCausalLM),
+    "gemma3_text": (Gemma3Config, Gemma3ForCausalLM),
+    "gemma2": (Gemma2Config, Gemma2ForCausalLM),
+    # HF's "gemma3" is the multimodal config (text and vision nested)
+    "gemma3": (Gemma3VLConfig, Gemma3ForConditionalGeneration),
+    "llava": (VLMConfig, VLMForConditionalGeneration),
 }
 
 
@@ -99,7 +118,7 @@ class AutoModelForCausalLM:
                     f"model_type {model_type!r} is not ported (ported: "
                     f"{sorted(FAMILIES)})")
             config = FAMILIES[model_type][0].from_hf_config(config)
-        if config.torch_dtype:
+        if getattr(config, "torch_dtype", None):
             model_kwargs.setdefault("param_dtype", str(config.torch_dtype))
         model = FAMILIES[config.model_type][1](config, device=device,
                                                **model_kwargs)
@@ -128,6 +147,15 @@ class AutoModelForCausalLM:
 
             load_hf_weights(model, ckpt_dir)
         return model
+
+
+class AutoModelForImageTextToText:
+    """The VLM facade (``_target_: automodel_tpu.models.auto_model.
+    AutoModelForImageTextToText.from_pretrained``): the same construction,
+    since ``model_type`` routes to the family, as in JAX."""
+
+    from_config = AutoModelForCausalLM.from_config
+    from_pretrained = AutoModelForCausalLM.from_pretrained
 
 
 def build_model(name_or_path: Optional[Any] = None,

@@ -3,7 +3,8 @@
 
 The key maps are the JAX package's for the ported families (llama and,
 on its map, mistral, qwen2 (q / k / v biases) and qwen3; mixtral,
-qwen3_moe, deepseek_v2, deepseek_v3), keyed by the same JAX tree
+qwen3_moe, deepseek_v2, deepseek_v3; gemma3_text and gemma2, and the
+VLMs gemma3 and llava with their SigLIP tower), keyed by the same JAX tree
 paths that ``models/weights.py::jax_leaves`` walks; an entry is an
 :class:`HfEntry`.  DeepSeek's split stack maps its sub-stacks onto HF's
 one layer index with ``layer_offset`` (``layers[j]`` is HF layer ``j +
@@ -13,6 +14,10 @@ HF stores an ``nn.Linear`` as ``(out, in)``, the port's layout, so
 projections and routers copy as they are; the expert stacks keep the JAX
 layout ``[E, in, out]`` per layer and are split into (joined from) one
 transposed HF tensor per expert (``...experts.{e}.<name>.weight``).
+The vision tower's patch embedding is HF's Conv2d weight ``[H, C, p, p]``
+and the port's ``[H, p * p * C]`` matmul over ``(row, col, channel)``
+patches: the entry's ``view`` reads and writes the one through a permuted
+view of the other.
 
 :func:`save_hf_weights` writes a consolidated HF repo as the JAX writer
 does: ``model.safetensors`` (``model-0000i-of-0000n.safetensors`` past
@@ -38,7 +43,7 @@ import dataclasses
 import json
 import os
 import struct
-from typing import Dict, Iterator, List, NamedTuple, Optional, Tuple
+from typing import Callable, Dict, Iterator, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -66,7 +71,11 @@ _ARCHITECTURES = {"llama": "LlamaForCausalLM",
                   "mixtral": "MixtralForCausalLM",
                   "qwen3_moe": "Qwen3MoeForCausalLM",
                   "deepseek_v2": "DeepseekV2ForCausalLM",
-                  "deepseek_v3": "DeepseekV3ForCausalLM"}
+                  "deepseek_v3": "DeepseekV3ForCausalLM",
+                  "gemma3_text": "Gemma3ForCausalLM",
+                  "gemma2": "Gemma2ForCausalLM",
+                  "gemma3": "Gemma3ForConditionalGeneration",
+                  "llava": "LlavaForConditionalGeneration"}
 
 
 # ---------------------------------------------------------------------------
@@ -141,13 +150,15 @@ class HfEntry(NamedTuple):
     """How one JAX leaf maps onto HF tensors: the name ``template``
     (``{i}`` the HF layer, ``{e}`` the expert), whether the leaf stacks
     experts, the read ``transform`` of an int8 base, the HF layer of the
-    leaf's first stacked slice, and whether a checkpoint without the
-    tensor reads it as zeros."""
+    leaf's first stacked slice, whether a checkpoint without the
+    tensor reads it as zeros, and ``view``: the parameter -> its HF-layout
+    view, where the layouts differ by more than a transpose."""
     template: str
     expert_stacked: bool = False
     transform: Optional[str] = None
     layer_offset: int = 0
     zeros_if_missing: bool = False
+    view: Optional[Callable] = None
 
 
 def llama_key_map(config) -> Dict[Tuple[str, ...], HfEntry]:
@@ -258,12 +269,111 @@ def deepseek_v2_key_map(config) -> Dict[Tuple[str, ...], HfEntry]:
     return m
 
 
+def gemma3_key_map(config) -> Dict[Tuple[str, ...], HfEntry]:
+    """Gemma-3 text and Gemma-2 (HF ``Gemma3ForCausalLM`` /
+    ``Gemma2ForCausalLM`` naming): four norms a layer, q / k norms when
+    the config has them."""
+    m = {
+        ("embed_tokens", "embedding"): HfEntry("model.embed_tokens.weight"),
+        ("norm", "weight"): HfEntry("model.norm.weight"),
+    }
+    for norm in ("input_layernorm", "post_attention_layernorm",
+                 "pre_feedforward_layernorm", "post_feedforward_layernorm"):
+        m[("layers", norm, "weight")] = HfEntry(
+            f"model.layers.{{i}}.{norm}.weight")
+    for proj in ("q_proj", "k_proj", "v_proj", "o_proj"):
+        m[("layers", "self_attn", proj, "kernel")] = HfEntry(
+            f"model.layers.{{i}}.self_attn.{proj}.weight")
+    if config.qk_norm:
+        for norm in ("q_norm", "k_norm"):
+            m[("layers", "self_attn", norm, "weight")] = HfEntry(
+                f"model.layers.{{i}}.self_attn.{norm}.weight")
+    for proj in ("gate_proj", "up_proj", "down_proj"):
+        m[("layers", "mlp", proj, "kernel")] = HfEntry(
+            f"model.layers.{{i}}.mlp.{proj}.weight")
+    if not config.tie_word_embeddings:
+        m[("lm_head", "kernel")] = HfEntry("lm_head.weight")
+    return m
+
+
+def vision_key_map(config, prefix: str = "vision_tower.vision_model."
+                   ) -> Dict[Tuple[str, ...], HfEntry]:
+    """The SigLIP tower (HF ``SiglipVisionModel`` naming under
+    ``prefix``); the patch embedding through a view of HF's Conv2d layout
+    ``[H, C, p, p]``."""
+    p, C = config.patch_size, config.num_channels
+
+    def conv_view(w):            # [H, p * p * C] -> [H, C, p, p]
+        return w.view(w.shape[0], p, p, C).permute(0, 3, 1, 2)
+
+    m = {
+        ("patch_embed", "kernel"): HfEntry(
+            prefix + "embeddings.patch_embedding.weight", view=conv_view),
+        ("patch_embed", "bias"): HfEntry(
+            prefix + "embeddings.patch_embedding.bias"),
+        ("pos_embed", "embedding"): HfEntry(
+            prefix + "embeddings.position_embedding.weight"),
+        ("post_ln", "weight"): HfEntry(prefix + "post_layernorm.weight"),
+        ("post_ln", "bias"): HfEntry(prefix + "post_layernorm.bias"),
+    }
+    layer = prefix + "encoder.layers.{i}."
+    for ours, hf in (("ln_1", "layer_norm1"), ("ln_2", "layer_norm2")):
+        for wb in ("weight", "bias"):
+            m[("layers", ours, wb)] = HfEntry(layer + f"{hf}.{wb}")
+    for proj in ("q_proj", "k_proj", "v_proj", "out_proj"):
+        for wb, leaf in (("weight", "kernel"), ("bias", "bias")):
+            m[("layers", "attn", proj, leaf)] = HfEntry(
+                layer + f"self_attn.{proj}.{wb}")
+    for fc in ("fc1", "fc2"):
+        for wb, leaf in (("weight", "kernel"), ("bias", "bias")):
+            m[("layers", "mlp", fc, leaf)] = HfEntry(
+                layer + f"mlp.{fc}.{wb}")
+    return m
+
+
+def vlm_key_map(config) -> Dict[Tuple[str, ...], HfEntry]:
+    """llava (HF naming: ``language_model.*``,
+    ``vision_tower.vision_model.*``,
+    ``multi_modal_projector.linear_{1,2}``)."""
+    m = {("language_model",) + path: e._replace(
+        template="language_model." + e.template)
+        for path, e in llama_key_map(config.text_config).items()}
+    for path, e in vision_key_map(config.vision_config).items():
+        m[("vision_tower",) + path] = e
+    for ours, hf in (("fc1", "linear_1"), ("fc2", "linear_2")):
+        m[("multi_modal_projector", ours, "kernel")] = HfEntry(
+            f"multi_modal_projector.{hf}.weight")
+        m[("multi_modal_projector", ours, "bias")] = HfEntry(
+            f"multi_modal_projector.{hf}.bias")
+    return m
+
+
+def gemma3_vlm_key_map(config) -> Dict[Tuple[str, ...], HfEntry]:
+    """Gemma-3 multimodal (HF ``Gemma3ForConditionalGeneration`` naming:
+    ``model.language_model.*``, ``model.vision_tower.vision_model.*``,
+    ``model.multi_modal_projector.mm_*``)."""
+    m = {("language_model",) + path: e._replace(
+        template=e.template.replace("model.", "model.language_model.", 1))
+        for path, e in gemma3_key_map(config.text_config).items()}
+    for path, e in vision_key_map(
+            config.vision_config,
+            prefix="model.vision_tower.vision_model.").items():
+        m[("vision_tower",) + path] = e
+    m[("multi_modal_projector", "mm_input_projection_weight")] = HfEntry(
+        "model.multi_modal_projector.mm_input_projection_weight")
+    m[("multi_modal_projector", "mm_soft_emb_norm", "weight")] = HfEntry(
+        "model.multi_modal_projector.mm_soft_emb_norm.weight")
+    return m
+
+
 _KEY_MAPS = {"llama": llama_key_map, "mistral": llama_key_map,
              "qwen2": llama_key_map, "qwen3": llama_key_map,
              "mixtral": mixtral_key_map,
              "qwen3_moe": qwen3_moe_key_map,
              "deepseek_v2": deepseek_v2_key_map,
-             "deepseek_v3": deepseek_v3_key_map}
+             "deepseek_v3": deepseek_v3_key_map,
+             "gemma3_text": gemma3_key_map, "gemma2": gemma3_key_map,
+             "gemma3": gemma3_vlm_key_map, "llava": vlm_key_map}
 
 # the read transforms of an int8 base's two leaves (one HF tensor each)
 INT8_CODES, INT8_SCALE = "int8_codes", "int8_scale"
@@ -324,6 +434,8 @@ def hf_tensors(model, reading: bool = False
                 for e in range(p.shape[0]):
                     yield name.format(e=e), p[e].t(), (p, e, None, False)
             else:
+                if entry.view is not None:
+                    p = entry.view(p)
                 yield name, p, (p, None, transform, entry.zeros_if_missing)
 
 

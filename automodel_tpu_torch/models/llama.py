@@ -311,7 +311,7 @@ class LlamaForCausalLM(nn.Module):
             logger.info("model.scan_unroll=%s: the port runs its layers in "
                         "an eager loop, which has nothing to unroll; the "
                         "knob does nothing here", scan_unroll)
-        self.sliding_window = _sliding_window(config)
+        self.sliding_window = self._uniform_window(config)
         cfg, dt = config, self.param_dtype
         self.embed_tokens = nn.Embedding(cfg.vocab_size, cfg.hidden_size,
                                          dtype=dt, device=device)
@@ -324,10 +324,15 @@ class LlamaForCausalLM(nn.Module):
         inv_freq, self.rope_attention_scaling = rope_tables(
             self._rotary_dim(), cfg.rope_theta, cfg.rope_scaling,
             max_position_embeddings=cfg.max_position_embeddings,
-            original_max_position_embeddings=(
-                cfg.original_max_position_embeddings))
+            original_max_position_embeddings=getattr(
+                cfg, "original_max_position_embeddings", None))
         self.register_buffer("inv_freq", torch.from_numpy(inv_freq).to(device),
                              persistent=False)
+
+    def _uniform_window(self, cfg) -> Optional[int]:
+        """The one window every layer attends under (None: causal); the
+        Gemma families, whose window is per layer, override."""
+        return _sliding_window(cfg)
 
     def _build_layers(self, cfg: LlamaConfig, dtype, device) -> None:
         """The decoder stack, ``self.layers`` (the families with a split
@@ -480,6 +485,17 @@ class LlamaForCausalLM(nn.Module):
             self._adapters = None
         return hidden + out, aux
 
+    def _head(self, hidden: torch.Tensor, return_hidden: bool
+              ) -> Dict[str, torch.Tensor]:
+        """The normed hidden states -> ``{"logits"}``, or with
+        ``return_hidden`` ``{"hidden_states", "lm_head_kernel"}``."""
+        # tied: the head is the embedding, whose gradient sums both uses
+        head = (self.embed_tokens.weight if self.lm_head is None
+                else self.lm_head.weight)
+        if return_hidden:
+            return {"hidden_states": hidden, "lm_head_kernel": head.t()}
+        return {"logits": F.linear(hidden, head.to(self.compute_dtype))}
+
     def _combine_aux(self, aux_losses: List[Any]) -> torch.Tensor:
         """Fold the layers' aux values into the scalar ``aux_loss`` output
         (the JAX model's mean); the MoE families override."""
@@ -491,7 +507,7 @@ class LlamaForCausalLM(nn.Module):
         codes and scales), the JAX ``num_params`` over its tree."""
         return (sum(p.numel() for p in self.parameters())
                 + sum(b.numel() for n, b in self.named_buffers()
-                      if not n.endswith("inv_freq")))
+                      if not n.rsplit(".", 1)[-1].startswith("inv_freq")))
 
     def flops_per_token(self) -> float:
         """Training FLOPs per token of the matmul parameters (fwd + bwd =
@@ -538,7 +554,8 @@ class LlamaForCausalLM(nn.Module):
                 attn_impl: Optional[str] = None,
                 adapters: Optional[List[Dict[str, LayerAdapter]]] = None,
                 cache_index: Optional[int] = None,
-                adapter_ids: Optional[torch.Tensor] = None
+                adapter_ids: Optional[torch.Tensor] = None,
+                inputs_embeds: Optional[torch.Tensor] = None
                 ) -> Dict[str, torch.Tensor]:
         """``input_ids [B, S]`` -> ``{"logits": [B, S, V]}`` in the compute
         dtype, or with ``return_hidden`` ``{"hidden_states": [B, S, H],
@@ -557,7 +574,9 @@ class LlamaForCausalLM(nn.Module):
         over the cache (returned updated in place as ``out["kv_cache"]``),
         or None.  ``adapters`` (from ``peft/lora.py::LoRAModel``, or the
         serving slabs of ``serving/adapters.py`` with ``adapter_ids
-        [B]``) holds one ``{name: LayerAdapter}`` per layer."""
+        [B]``) holds one ``{name: LayerAdapter}`` per layer.
+        ``inputs_embeds [B, S, H]`` (the VLM families' merged text and
+        image embeddings) replaces the token embedding of ``input_ids``."""
         B, S = input_ids.shape
         if kv_cache is not None and getattr(self.quant, "enabled", False):
             raise NotImplementedError(
@@ -584,18 +603,24 @@ class LlamaForCausalLM(nn.Module):
                                               slabs.A.shape[0])
         try:
             out = self._forward(input_ids, position_ids, segment_ids,
-                                kv_cache, return_hidden, attn_impl, adapters)
+                                kv_cache, return_hidden, attn_impl, adapters,
+                                inputs_embeds)
         finally:
             self._lora_routing = None
         if dense:
             out["kv_cache"] = kv_cache.cache
         return out
 
+    def _embed(self, input_ids: torch.Tensor) -> torch.Tensor:
+        """The token embeddings of ``input_ids`` in the compute dtype."""
+        return self.embed_tokens.weight[input_ids].to(self.compute_dtype)
+
     def _forward(self, input_ids, position_ids, segment_ids, kv_cache,
-                 return_hidden, attn_impl, adapters):
+                 return_hidden, attn_impl, adapters, inputs_embeds=None):
         remat = (self.remat and kv_cache is None
                  and torch.is_grad_enabled())
-        hidden = self.embed_tokens.weight[input_ids].to(self.compute_dtype)
+        hidden = (self._embed(input_ids) if inputs_embeds is None
+                  else inputs_embeds.to(self.compute_dtype))
         aux_losses = []
         if remat:
             k = self.scan_block
@@ -618,14 +643,7 @@ class LlamaForCausalLM(nn.Module):
                     attn_impl, adapters[i] if adapters else None)
                 if aux is not None:
                     aux_losses.append(aux)
-        hidden = self.norm(hidden)
-        # tied: the head is the embedding, whose gradient sums both uses
-        head = (self.embed_tokens.weight if self.lm_head is None
-                else self.lm_head.weight)
-        if return_hidden:
-            out = {"hidden_states": hidden, "lm_head_kernel": head.t()}
-        else:
-            out = {"logits": F.linear(hidden, head.to(self.compute_dtype))}
+        out = self._head(self.norm(hidden), return_hidden)
         if aux_losses:
             out["aux_loss"] = self._combine_aux(aux_losses)
         return out

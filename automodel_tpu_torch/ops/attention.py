@@ -19,8 +19,9 @@ attending segment 0), its kernels on CUDA tensors and its plain versions
 on CPU tensors; like the JAX rung it refuses a soft cap or a window.  The
 JAX package's XLA SDPA and ring-attention rungs are not ported (ring
 attention waits for multi-GPU).  :func:`cached_attention` is the dense
-decode cache's attention (``generation/generate.py``), plain PyTorch as
-the JAX function is XLA.
+decode cache's attention (``generation/generate.py``), and
+:func:`dot_product_attention` the grouped SDPA the vision tower calls
+(non-causal, no kernel): plain PyTorch both, as the JAX functions are XLA.
 """
 
 from __future__ import annotations
@@ -130,6 +131,29 @@ def attention(
 
 
 _NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
+
+
+def dot_product_attention(
+    q: torch.Tensor,              # [B, S, Hq, D]
+    k: torch.Tensor,              # [B, S, Hk, D]
+    v: torch.Tensor,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Non-causal, unmasked grouped-query SDPA in plain PyTorch (the JAX
+    ``dot_product_attention`` as the vision tower calls it,
+    ``causal=False``): the scores in the operands' dtype, then fp32 times
+    the scale (default ``D ** -0.5``), an fp32 softmax cast to ``v``'s
+    dtype and the product with ``v``.  Masked attention is
+    ``ops/splash_attention.py::splash_attention_plain``."""
+    B, Sq, Hq, D = q.shape
+    Hk = k.shape[2]
+    G = Hq // Hk
+    scale = D ** -0.5 if scale is None else scale
+    logits = torch.einsum("bqhgd,bkhd->bhgqk", q.reshape(B, Sq, Hk, G, D),
+                          k).float() * scale
+    probs = torch.softmax(logits, dim=-1).to(v.dtype)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v)
+    return out.reshape(B, Sq, Hq, D)
 
 
 def cached_attention(

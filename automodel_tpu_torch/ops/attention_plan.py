@@ -14,15 +14,18 @@ segment ids of 64-row tiles (:func:`tile_metas`):
 Tiles and work items per pass (:data:`PASSES`; :func:`tiles` by head_dim):
 
 * ``fwd``: an item is a 128-row q tile of one (head, batch row), the last
-  q tiles first; it visits 128-key tiles (64-key ones at head_dim 192)
-  from the last one its rows may reach down to the first;
-* ``dq``: the same items; 64-key tiles;
+  q tiles first; it visits 128-key tiles (64-key ones at head_dim 192 and
+  256) from the last one its rows may reach down to the first;
+* ``dq``: the same items; 64-key tiles (32-key ones at head_dim 256);
 * ``dkv``: an item is a 128-key tile of one (kv head, batch row), the first
   key tiles first; it visits, for each query head of the group, the 64-row
-  q tiles that may see its keys, in order.  At head_dim 192 the pass runs
-  twice over the same items and tiles, summing dV in the first and dK in
-  the second: the two accumulators do not fit one thread's registers
-  together.
+  q tiles (32-row ones at head_dim 256) that may see its keys, in order.
+  At head_dim 192 and 256 the pass runs twice over the same items and
+  tiles, summing dV in the first and dK in the second: the two
+  accumulators do not fit one thread's registers together.
+
+A tile of 32 rows reads the meta of the 64-row tile it lies in (a
+superset of its ids), as the kernels do.
 
 The segment rule is splash's (segment 0 never attends and is never
 attended) or, with ``seg_eq``, the flash rung's equality (segment 0 attends
@@ -44,11 +47,14 @@ PASSES = {"fwd": (128, 128), "dq": (128, 64), "dkv": (64, 128)}
 # head_dim 192 (MLA): the forward's K + V stage of 128 keys would not fit
 # three times beside the Q tile in shared memory
 PASSES_D192 = {"fwd": (128, 64), "dq": (128, 64), "dkv": (64, 128)}
+# head_dim 256 (Gemma): 256-wide rows halve the dQ pass's key tiles (Q and
+# dO fill 128 KB) and the dK / dV passes' q tiles (K and V fill 128 KB)
+PASSES_D256 = {"fwd": (128, 64), "dq": (128, 32), "dkv": (32, 128)}
 
 
 def tiles(kind: str, head_dim: int = 64) -> Tuple[int, int]:
     """``(q rows, keys)`` of a tile of pass ``kind`` at ``head_dim``."""
-    return (PASSES_D192 if head_dim == 192 else PASSES)[kind]
+    return {192: PASSES_D192, 256: PASSES_D256}.get(head_dim, PASSES)[kind]
 
 
 class Meta(NamedTuple):
@@ -166,7 +172,7 @@ def visits(kind: str, S: int, causal: bool, window: int,
 
     def meta(row, rows):
         return None if metas is None else merged(metas, row // TILE,
-                                                 rows // TILE)
+                                                 max(1, rows // TILE))
 
     out = []
     if kind == "dkv":

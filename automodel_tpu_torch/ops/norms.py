@@ -9,8 +9,10 @@ _PARTIALS = 16
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor,
-             eps: float = 1e-6) -> torch.Tensor:
-    """RMSNorm with the variance in fp32, cast back to ``x``'s dtype.
+             eps: float = 1e-6, offset: float = 0.0) -> torch.Tensor:
+    """RMSNorm with the variance in fp32, cast back to ``x``'s dtype;
+    ``offset=1.0`` scales by ``(1 + w)`` in fp32 (Gemma's zero-centred
+    weights).
 
     On a CUDA tensor the sum of squares is taken in two fixed steps,
     ``_PARTIALS`` partial sums of a row and then their sum, so a row's
@@ -26,4 +28,16 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor,
             -1).sum(-1, keepdim=True) / H
     else:
         var = sq.mean(dim=-1, keepdim=True)
-    return (x32 * torch.rsqrt(var + eps) * weight.float()).to(x.dtype)
+    w = weight.float() + offset if offset else weight.float()
+    return (x32 * torch.rsqrt(var + eps) * w).to(x.dtype)
+
+
+def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm with the mean and the (biased) variance in fp32, scale and
+    bias in fp32, cast back to ``x``'s dtype (the vision tower's)."""
+    x32 = x.float()
+    mean = x32.mean(dim=-1, keepdim=True)
+    var = (x32 - mean).square().mean(dim=-1, keepdim=True)
+    y = (x32 - mean) * torch.rsqrt(var + eps)
+    return (y * weight.float() + bias.float()).to(x.dtype)

@@ -31,9 +31,9 @@ every real row's result is the unpadded one's) and slice the results
 back.
 
 The wrappers check every operand and raise on anything the kernels do not
-take (the kernels take bf16, head_dim 64, 128 or 192 -- MLA's
-``qk_nope + qk_rope`` width, v padded to it by the model --,
-self-attention, any sequence length); they allocate outputs and scratch (the per-tile segment
+take (the kernels take bf16, head_dim 64, 128, 192 -- MLA's
+``qk_nope + qk_rope`` width, v padded to it by the model -- or 256 --
+Gemma's --, self-attention, any sequence length); they allocate outputs and scratch (the per-tile segment
 ranges, delta) with ``torch`` on the current stream and raise if a launch
 failed.  ``fwd_launches`` / ``bwd_launches`` count the
 launches, ``plain_fwd_calls`` the plain forwards.  A remat policy can
@@ -58,7 +58,7 @@ from automodel_tpu_torch.ops.attention_plan import tile_meta_workspace
 from automodel_tpu_torch.ops.kernel_lib.build import ptr
 from automodel_tpu_torch.ops.remat import kept
 
-HEAD_DIMS = (64, 128, 192)
+HEAD_DIMS = (64, 128, 192, 256)
 
 # kernel launches in this process (reset by callers that count a window),
 # and the plain forward's calls through the op

@@ -93,7 +93,14 @@ class Int8Linear(nn.Module):
 
 def _projections(model):
     """``(layer, attribute name)`` of every quantizable projection the
-    model has (the MoE families' experts are no ``nn.Linear``)."""
+    model has (the MoE families' experts are no ``nn.Linear``).  A model
+    without a decoder stack of its own (a VLM) raises: its int8 base is
+    not ported, and the JAX transform fails on its tree as well."""
+    if not hasattr(model, "layers"):
+        raise NotImplementedError(
+            f"int8 base weights need a decoder stack at `layers`; "
+            f"{type(model).__name__} has none (a VLM's quantized base is "
+            f"not ported)")
     for layer in model.layers:
         for _mod, proj in QUANTIZED_MODULES:
             if isinstance(getattr(layer, proj, None), (nn.Linear, Int8Linear)):
@@ -145,6 +152,7 @@ def load_quantized_hf_base(model, ckpt_dir: str) -> None:
 
 
 def is_quantized(model) -> bool:
-    """Whether any decoder projection of ``model`` is an int8 base."""
-    return any(isinstance(getattr(layer, proj), Int8Linear)
+    """Whether any decoder projection of ``model`` is an int8 base (never,
+    for a model without a decoder stack at ``layers``)."""
+    return hasattr(model, "layers") and any(isinstance(getattr(layer, proj), Int8Linear)
                for layer, proj in _projections(model))

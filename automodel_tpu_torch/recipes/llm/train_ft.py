@@ -202,10 +202,11 @@ def _later(what: str) -> NotImplementedError:
         f"{what} is not ported yet: it comes with {_LATER[what]}")
 
 
-def check_ported(cfg: ConfigNode) -> None:
+def check_ported(cfg: ConfigNode, sections=frozenset()) -> None:
     """Raise ``NotImplementedError`` on any knob this slice does not port,
-    instead of training without it."""
-    for name in sorted(set(cfg.to_dict()) - _SECTIONS):
+    instead of training without it (``sections``: a recipe's own, beside
+    ``_SECTIONS``)."""
+    for name in sorted(set(cfg.to_dict()) - _SECTIONS - set(sections)):
         node = cfg.get(name)
         if isinstance(node, ConfigNode) and node.get("enabled") is False:
             continue                      # e.g. ``fp8: {enabled: false}``
@@ -251,19 +252,24 @@ def build_tokenizer(cfg: ConfigNode, model) -> Optional[Any]:
     return None
 
 
+def accepts_kwarg(fn, name: str) -> bool:
+    """Whether ``fn`` takes a keyword argument ``name`` (by name or
+    ``**kwargs``)."""
+    try:
+        params = inspect.signature(fn).parameters
+    except (TypeError, ValueError):
+        return False
+    return name in params or any(
+        p.kind == inspect.Parameter.VAR_KEYWORD for p in params.values())
+
+
 def build_dataset(cfg_ds: ConfigNode, tokenizer=None):
     """Instantiate a dataset section, handing it ``tokenizer`` when there
     is one and the target takes a ``tokenizer`` argument."""
     if cfg_ds.get("_target_") is None:
         raise ValueError("dataset config needs a _target_")
     fn = resolve_target(cfg_ds.get("_target_"))
-    try:
-        params = inspect.signature(fn).parameters
-    except (TypeError, ValueError):
-        params = {}
-    takes = "tokenizer" in params or any(
-        p.kind == inspect.Parameter.VAR_KEYWORD for p in params.values())
-    if tokenizer is not None and takes:
+    if tokenizer is not None and accepts_kwarg(fn, "tokenizer"):
         return cfg_ds.instantiate(tokenizer=tokenizer)
     return cfg_ds.instantiate()
 
@@ -351,6 +357,12 @@ class TrainFinetuneRecipeForNextTokenPrediction(BaseRecipe):
     every step's metrics, ``val_history`` every ``(step, val_loss)`` and,
     under ``profiling``, ``timer_log`` every ``time (ms)`` line's values."""
 
+    # ``max_grad_norm`` when the YAML has none (None: no clip; the VLM
+    # recipe clips at 1.0)
+    _default_max_grad_norm: Optional[float] = None
+    # top-level sections this recipe reads beside ``_SECTIONS``
+    _sections = frozenset()
+
     def __init__(self, cfg: ConfigNode):
         self.cfg = cfg
         self.history: List[Dict[str, Any]] = []
@@ -365,7 +377,7 @@ class TrainFinetuneRecipeForNextTokenPrediction(BaseRecipe):
 
     def setup(self):
         cfg = self.cfg
-        check_ported(cfg)
+        check_ported(cfg, self._sections)
         if cfg.get("compile") is not None and \
                 cfg.get("compile.enabled", True) is not False:
             logger.info("compile: the port runs eagerly and keeps no "
@@ -407,9 +419,8 @@ class TrainFinetuneRecipeForNextTokenPrediction(BaseRecipe):
                 self.model, self.peft_config,
                 seed=self.rng.seed_for(_LORA_INIT_STREAM))
         # parameter freezing, combined with PEFT's mask by AND
-        if cfg.get("freeze_config") is not None:
-            freeze_mask = apply_parameter_freezing(self.model,
-                                                   cfg.get("freeze_config"))
+        freeze_mask = self._build_freeze_mask()
+        if freeze_mask is not None:
             mask = freeze_mask if mask is None else {
                 k: bool(v) and bool(freeze_mask[k]) for k, v in mask.items()}
         if mask is not None:
@@ -439,7 +450,7 @@ class TrainFinetuneRecipeForNextTokenPrediction(BaseRecipe):
             self.optimizer = resolve_target(target)(
                 named, mask=mask, grad_dtype=grad_dtype, **opt_kwargs)
         else:
-            max_gn = cfg.get("max_grad_norm")
+            max_gn = cfg.get("max_grad_norm", self._default_max_grad_norm)
             if max_gn is not None:
                 opt_kwargs.setdefault("grad_clip_norm", float(max_gn))
             if isinstance(target, str):
@@ -468,6 +479,15 @@ class TrainFinetuneRecipeForNextTokenPrediction(BaseRecipe):
         if self.checkpoint_config.enabled:
             self.load_checkpoint()
         return self
+
+    def _build_freeze_mask(self) -> Optional[Dict[str, bool]]:
+        """Apply ``freeze_config`` to the model and return its mask (None
+        without the section); the VLM recipe freezes the embeddings by
+        default."""
+        freeze_cfg = self.cfg.get("freeze_config")
+        if freeze_cfg is None:
+            return None
+        return apply_parameter_freezing(self.model, freeze_cfg)
 
     def _total_optim_steps(self, ss_kwargs: Dict[str, Any]) -> int:
         """The LR schedule's horizon: ``max_steps``, else epochs x steps

@@ -1,0 +1,171 @@
+"""The VLM (image-text-to-text) fine-tuning recipe (counterpart:
+``automodel_tpu/recipes/vlm/finetune.py``).
+
+The LLM recipe (``recipes/llm/train_ft.py``) with two hooks swapped, as in
+JAX: the data path builds a processor (``processor._target_``, else
+``transformers``' ``AutoProcessor`` from the model's checkpoint
+directory where the package is installed) and a VLM collator
+(``dataloader.collate_fn``, else ``COLLATE_FNS`` by the processor's class
+name), padding rows to a multiple of 128 and prefetching two batches
+unless the YAML says otherwise; and the freeze mask defaults to frozen
+embeddings when the YAML has no ``freeze_config``.  ``max_grad_norm``
+defaults to 1.0.  Batches carry ``pixel_values [B, I, H, W, C]``, which
+the train step hands to the model.
+
+    python -m automodel_tpu_torch.recipes.vlm.finetune \\
+        -c examples/vlm_finetune/tiny_vlm_mock.yaml --device cpu
+"""
+
+from __future__ import annotations
+
+import functools
+import logging
+from typing import Any, Callable, Dict, Optional
+
+from automodel_tpu_torch.config.loader import (
+    ConfigNode,
+    parse_args_and_load_config,
+    resolve_target,
+)
+from automodel_tpu_torch.datasets.dataloader import StatefulDataLoader
+from automodel_tpu_torch.datasets.prefetch import wrap_prefetch
+from automodel_tpu_torch.datasets.vlm.collate_fns import COLLATE_FNS
+from automodel_tpu_torch.recipes.llm.train_ft import (
+    TrainFinetuneRecipeForNextTokenPrediction,
+    accepts_kwarg,
+    build_dataset,
+)
+from automodel_tpu_torch.utils.model_utils import apply_parameter_freezing
+
+logger = logging.getLogger(__name__)
+
+
+def build_processor(cfg: ConfigNode, model) -> Any:
+    """``processor._target_`` instantiated, else ``AutoProcessor`` from the
+    model's checkpoint directory; neither raises ``ValueError``."""
+    proc_cfg = cfg.get("processor")
+    if isinstance(proc_cfg, ConfigNode) and "_target_" in proc_cfg.to_dict():
+        return proc_cfg.instantiate()
+    kwargs = proc_cfg.to_dict() if isinstance(proc_cfg, ConfigNode) else {}
+    ckpt_dir = getattr(model, "checkpoint_dir", None)
+    if ckpt_dir is not None:
+        try:
+            from transformers import AutoProcessor
+
+            return AutoProcessor.from_pretrained(ckpt_dir, **kwargs)
+        except Exception as e:
+            logger.warning("AutoProcessor unavailable for %s (%s)",
+                           ckpt_dir, e)
+    raise ValueError(
+        "VLM fine-tuning needs a processor: set `processor._target_` in the "
+        "config (e.g. automodel_tpu.datasets.vlm.mock.MockVLMProcessor for "
+        "offline runs) or point `model` at a checkpoint with processor files")
+
+
+def select_collate_fn(dl_cfg: Optional[ConfigNode], processor) -> Callable:
+    """An explicit ``dataloader.collate_fn`` node (or callable) wins, bound
+    to the processor and handed only the loader's keyword arguments it
+    takes; else ``COLLATE_FNS`` by the processor's class name (``default``
+    when it has none), with ``max_images_per_example`` / ``fixed_length``
+    from the loader's section."""
+    node = dl_cfg.get("collate_fn") if isinstance(dl_cfg, ConfigNode) else None
+
+    def bind(fn, call):
+        def collate(examples, **kw):
+            return call(examples, {k: v for k, v in kw.items()
+                                   if accepts_kwarg(fn, k)})
+        return collate
+
+    if isinstance(node, ConfigNode) and "_target_" in node.to_dict():
+        target = resolve_target(node.get("_target_"))
+        return bind(target, lambda examples, kw: node.instantiate(
+            examples=examples, processor=processor, **kw))
+    if callable(node):
+        return bind(node, lambda examples, kw: node(
+            examples, processor=processor, **kw))
+    name = type(processor).__name__
+    if name not in COLLATE_FNS:
+        logger.warning("No dedicated collate_fn for %s; using default", name)
+        name = "default"
+    fn = COLLATE_FNS[name]
+    extra: Dict[str, Any] = {}
+    for knob in ("max_images_per_example", "fixed_length"):
+        v = dl_cfg.get(knob) if isinstance(dl_cfg, ConfigNode) else None
+        if v is not None and accepts_kwarg(fn, knob):
+            extra[knob] = int(v)
+    return functools.partial(fn, processor=processor, **extra)
+
+
+def build_vlm_dataloader(cfg: ConfigNode, dataset, processor, cfg_key: str,
+                         batch_size: int, seed: int):
+    """The loader of ``cfg[cfg_key]`` (its ``_target_``, else
+    :class:`StatefulDataLoader`) over ``dataset`` with the VLM collator,
+    handed the section's keys it takes, wrapped in the async input pipeline
+    at ``prefetch_depth``."""
+    dl_cfg = cfg.get(cfg_key)
+    kwargs: Dict[str, Any] = {}
+    if isinstance(dl_cfg, ConfigNode):
+        kwargs = {k: v for k, v in dl_cfg.to_dict().items()
+                  if k not in ("_target_", "collate_fn")}
+    kwargs.setdefault("batch_size", batch_size)
+    kwargs.setdefault("seed", seed)
+    depth = int(kwargs.pop("prefetch_depth", 0) or 0)
+    target = dl_cfg.get("_target_") if isinstance(dl_cfg, ConfigNode) else None
+    cls = resolve_target(target) if target else StatefulDataLoader
+    # the collator's knobs (fixed_length, max_images_per_example) are not
+    # the loader's
+    kwargs = {k: v for k, v in kwargs.items()
+              if accepts_kwarg(cls.__init__, k)}
+    loader = cls(dataset, collate_fn=select_collate_fn(dl_cfg, processor),
+                 **kwargs)
+    return wrap_prefetch(loader, depth)
+
+
+class FinetuneRecipeForVLM(TrainFinetuneRecipeForNextTokenPrediction):
+    """``setup()`` then ``run_train_validation_loop()``."""
+
+    _default_max_grad_norm = 1.0
+    _sections = frozenset({"processor"})
+
+    def _build_freeze_mask(self):
+        """``freeze_config``, defaulting to frozen embeddings."""
+        freeze_cfg = self.cfg.get("freeze_config")
+        if freeze_cfg is None:
+            freeze_cfg = {"freeze_embeddings": True}
+        return apply_parameter_freezing(self.model, freeze_cfg)
+
+    def _setup_data(self, batch_size: int) -> None:
+        cfg = self.cfg
+        self.processor = build_processor(cfg, self.model)
+        self.tokenizer = getattr(self.processor, "tokenizer", None)
+        dataset = build_dataset(cfg.get("dataset"))
+        # rows padded to multiples of 128 and two batches prefetched,
+        # unless the YAML says otherwise (the JAX recipe's defaults)
+        for key in ("dataloader", "validation_dataloader"):
+            if cfg.get(f"{key}.pad_seq_len_divisible") is None:
+                cfg.set_by_dotted(f"{key}.pad_seq_len_divisible", 128)
+        if cfg.get("dataloader.prefetch_depth") is None:
+            cfg.set_by_dotted("dataloader.prefetch_depth", 2)
+        self.dataloader = build_vlm_dataloader(
+            cfg, dataset, self.processor, "dataloader", batch_size,
+            self.rng.seed)
+        self.val_dataloader = None
+        if cfg.get("validation_dataset") is not None:
+            self.val_dataloader = build_vlm_dataloader(
+                cfg, build_dataset(cfg.get("validation_dataset")),
+                self.processor, "validation_dataloader", batch_size,
+                self.rng.seed)
+
+
+def main(config_path: Optional[str] = None, argv=None):
+    """CLI entry: ``-c <yaml>`` plus dotted overrides (``--device cpu``)."""
+    logging.basicConfig(level=logging.INFO)
+    cfg = parse_args_and_load_config(argv, default_config=config_path)
+    recipe = FinetuneRecipeForVLM(cfg)
+    recipe.setup()
+    recipe.run_train_validation_loop()
+    return recipe
+
+
+if __name__ == "__main__":
+    main()

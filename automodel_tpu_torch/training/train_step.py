@@ -51,8 +51,10 @@ from automodel_tpu_torch.loss.masked_ce import IGNORE_INDEX, MaskedCrossEntropy
 # counts are exact below 2^24 per step).
 PACKED_KEYS = ("loss", "grad_norm", "num_label_tokens")
 
-# Keys the model forward consumes, and keys the step itself consumes.
-_MODEL_KEYS = ("input_ids", "position_ids", "segment_ids", "attention_mask")
+# Keys the model forward consumes (``pixel_values``: the VLM families'
+# per-row image slots), and keys the step itself consumes.
+_MODEL_KEYS = ("input_ids", "position_ids", "segment_ids", "attention_mask",
+               "pixel_values")
 _STEP_KEYS = ("labels",)
 
 
@@ -247,8 +249,10 @@ class MetricsCopy:
 def stack_microbatches(microbatches: List[Dict[str, np.ndarray]]
                        ) -> Dict[str, np.ndarray]:
     """Stack collated microbatches into ``[A, B, S]`` arrays; microbatches
-    of different lengths are right-padded with the per-key pad value.
-    Every microbatch must carry the same keys."""
+    of different lengths are right-padded with the per-key pad value
+    (``pixel_values [B, I, H, W, C]`` along its image slots, with zero
+    images that no placeholder reads).  Every microbatch must carry the
+    same keys."""
     keys = set(microbatches[0])
     for mb in microbatches[1:]:
         if set(mb) != keys:
@@ -257,6 +261,10 @@ def stack_microbatches(microbatches: List[Dict[str, np.ndarray]]
     out = {}
     for k in sorted(keys):
         arrs = [np.asarray(mb[k]) for mb in microbatches]
+        if k == "pixel_values" and arrs[0].ndim == 5:
+            slots = max(a.shape[1] for a in arrs)
+            arrs = [np.pad(a, [(0, 0), (0, slots - a.shape[1])]
+                           + [(0, 0)] * 3) for a in arrs]
         max_s = max(a.shape[-1] for a in arrs)
         if any(a.shape[-1] != max_s for a in arrs):
             pad_val = PAD_TOKEN_IDS.get(k) or 0

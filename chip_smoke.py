@@ -23,7 +23,11 @@ Phases (any failure exits non-zero without the final ``ok`` line):
    version at the SFT path's shapes (batch 8, S 2048, 32/8 heads, head_dim
    64, the segment ids of a packed batch of the SFT YAML's mock data), plus
    pure causal, head_dim 128, window 256, soft cap 30, S 1000 and the
-   MHA head_dim-128 case of the Pallas flash kernel; then the flash rung's
+   MHA head_dim-128 case of the Pallas flash kernel, and the Gemma shapes
+   (``gemma*`` rows: the VLM bench YAML's 16 / 8 heads at head_dim 128 with
+   window 512 and causal, Gemma-3-4B's 8 / 4 heads at head_dim 256 at B 2
+   S 4096 with window 1024 and causal, Gemma-2-2B's with cap 50 and window
+   4096); then the flash rung's
    kernels (``flash_case`` lines) at sft_flash's shape (batch 8, S 2048,
    32 heads over kv repeated from 8, head_dim 64, the bench YAML's first
    batch of segment ids, padding rows included, all rows compared), pure
@@ -89,7 +93,10 @@ Phases (any failure exits non-zero without the final ``ok`` line):
    attention): int8 bit-identical, fp8 within a relative L2 limit, with
    kernel (whole call, and its pack and product launches alone), plain,
    library (torch._scaled_mm / torch._int_mm, quantizing excluded), bf16
-   torch.matmul and bound times (``qdot_case`` lines), then the fp8
+   torch.matmul and bound times (``qdot_case`` lines); beside them the
+   linear-CE kernels at DeepSeek-V2-Lite's head (V 102,400, H 2048, the
+   V2-Lite YAML's first batch's labels: ``sft_deepseek_v102400``); then the
+   fp8
    product's sums against float64 ones with and without its fp32
    promotion (``qdot_fp8_accumulation``);
 7. sft: Llama-3.2-1B at full width and depth trained by the port's recipe
@@ -206,7 +213,26 @@ Phases (any failure exits non-zero without the final ``ok`` line):
    their plain versions, the first step against every plain version, the
    exact launch counts over the steps and the validation passes, step
    time, MFU, peak memory, the validation loss and a profiled window;
-13. quant_check: qdot kernel against qdot plain through a 2-layer Llama at
+13. the VLM recipe (``recipes/vlm/finetune.py``, what ``automodel-torch
+   finetune vlm`` runs): sft_gemma3_vl_bench, the JAX package's
+   ``examples/vlm_finetune/gemma3_vl_bench.yaml`` as written (a 1B-class
+   Gemma-3 text tower of 16 layers, 14 with window 512, SigLIP-base, mock
+   data, fixed rows of 2048, the fused loss, the embeddings frozen); then
+   sft_gemma3_4b_cord, ``gemma3_vl_cord_v2.yaml`` at Gemma-3-4B-it's
+   published config (all 34 text layers, 29 sliding with window 1024, head
+   dim 256, V 262,208, SigLIP-so400m at 896 px) written with random bf16
+   weights as the ``refs/main`` snapshot of ``google/gemma-3-4b-it`` in
+   the temporary ``HF_HOME``, the mock processor at its widths and seeded
+   rows in CORD-v2's schema as local jsonl with ``.npy`` images (the
+   overrides, with the step count and the checkpoint directory, on the
+   phase's line); each: the loaded weights bit for bit, kernel 9 on the
+   first batch's rows and kernels 2-4 at its labels against their plain
+   versions, the first step against every plain version, the exact launch
+   counts (kernel 9 2 x layers x microbatches forward and layers x
+   microbatches backward; no linear-CE dW: the tied head is frozen), step
+   time, text tokens/s, images/s, MFU from both towers, peak memory and a
+   profiled window (``{label}_run`` lines);
+14. quant_check: qdot kernel against qdot plain through a 2-layer Llama at
    sft_fp8's widths on the bench YAML's first batch, attention plain on
    both sides, int8 (bit for bit) and float8 (limits set from a measured
    run), loss and whole gradient (``quant_check_* first step`` lines).
@@ -4069,6 +4095,360 @@ def serve_qwen2_phase(hf_home, flush):
     return report
 
 
+# ---------------------------------------------------------------------------
+# the VLM recipe: Gemma-3-VL through finetune vlm (the bench YAML as
+# written, and Gemma-3-4B-it at its published widths on CORD-v2's schema)
+# ---------------------------------------------------------------------------
+VLM_YAMLS = os.path.join(REPO, "examples", "vlm_finetune")
+GEMMA3_BENCH_YAML = os.path.join(VLM_YAMLS, "gemma3_vl_bench.yaml")
+GEMMA3_CORD_YAML = os.path.join(VLM_YAMLS, "gemma3_vl_cord_v2.yaml")
+GEMMA3_4B = "google/gemma-3-4b-it"
+# Gemma-3-4B-it's published config.json, every text field written out (the
+# JAX Gemma3Config defaults vocab_size to 262,144, HF to 262,208: the file
+# must not lean on a default)
+GEMMA3_4B_CONFIG = dict(
+    architectures=["Gemma3ForConditionalGeneration"], boi_token_index=255999,
+    eoi_token_index=256000, eos_token_id=[1, 106], image_token_index=262144,
+    initializer_range=0.02, mm_tokens_per_image=256, model_type="gemma3",
+    torch_dtype="bfloat16",
+    text_config=dict(
+        model_type="gemma3_text", vocab_size=262208, hidden_size=2560,
+        intermediate_size=10240, num_hidden_layers=34,
+        num_attention_heads=8, num_key_value_heads=4, head_dim=256,
+        query_pre_attn_scalar=256, sliding_window=1024,
+        rope_scaling={"factor": 8.0, "rope_type": "linear"},
+        rope_theta=1000000.0, rope_local_base_freq=10000.0,
+        rms_norm_eps=1e-6, max_position_embeddings=131072,
+        attention_bias=False, hidden_activation="gelu_pytorch_tanh",
+        final_logit_softcapping=None, attn_logit_softcapping=None,
+        tie_word_embeddings=True, torch_dtype="bfloat16"),
+    vision_config=dict(
+        model_type="siglip_vision_model", hidden_size=1152, image_size=896,
+        intermediate_size=4304, num_attention_heads=16,
+        num_hidden_layers=27, patch_size=14, layer_norm_eps=1e-6,
+        vision_use_head=False))
+GEMMA3_4B_SEED = 17
+# the mock processor at the 4B's widths: (896 / 56)^2 = 256 placeholders,
+# the model's mm_tokens_per_image
+GEMMA3_4B_PROCESSOR = ["--processor._target_",
+                       "automodel_tpu.datasets.vlm.mock.MockVLMProcessor",
+                       "--processor.vocab_size", "262208",
+                       "--processor.image_size", "896",
+                       "--processor.patch_size", "56",
+                       "--processor.image_token_id", "262144"]
+VLM_STEPS = {"sft_gemma3_vl_bench": (2, 6, 2),
+             "sft_gemma3_4b_cord": (1, 2, 1)}     # warm-up, timed, profiled
+CORD_ROWS = 192
+# kernel 9 at the Gemma shapes: the bench YAML's rows (16 / 8 heads, D 128,
+# window 512), Gemma-3-4B's (8 / 4, D 256, window 1024) at S 4096, where
+# the window bites, and Gemma-2-2B's (8 / 4, D 256, cap 50, window 4096)
+GEMMA_ATTN_CASES = [
+    ("gemma3_bench_window512_d128", 8, 2048, 16, 8, 128, False, 512, None),
+    ("gemma3_bench_causal_d128", 8, 2048, 16, 8, 128, False, None, None),
+    ("gemma3_4b_window1024_d256", 2, 4096, 8, 4, 256, False, 1024, None),
+    ("gemma3_4b_causal_d256", 2, 4096, 8, 4, 256, False, None, None),
+    ("gemma2_2b_cap50_window4096_d256", 2, 4096, 8, 4, 256, False, 4096,
+     50.0),
+]
+
+
+def cord_rows(work, n, seed):
+    """``n`` rows in CORD-v2's schema as a local jsonl: ``ground_truth`` a
+    JSON string with ``gt_parse`` (menu items of several words each, the
+    total), ``image`` a local ``.npy`` of a receipt-sized uint8 image; the
+    answers' words put rows at 512-1024 tokens with the 256 image tokens."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    os.makedirs(os.path.join(work, "images"), exist_ok=True)
+    rows = []
+    for i in range(n):
+        items, words = [], int(rng.integers(250, 700))
+        while words > 0:
+            k = int(min(words, rng.integers(4, 16)))
+            items.append({"nm": " ".join(rng.choice(WORDS, k)),
+                          "cnt": str(int(rng.integers(1, 5))),
+                          "price": f"{int(rng.integers(1, 99))},000"})
+            words -= k
+        gt = {"gt_parse": {"menu": items, "total": {
+            "total_price": f"{int(rng.integers(10, 999))},000"}}}
+        path = os.path.join(work, "images", f"{i}.npy")
+        np.save(path, rng.integers(0, 256, (320, 240, 3)).astype(np.uint8))
+        rows.append({"ground_truth": json.dumps(gt), "image": path})
+    return write_jsonl(os.path.join(work, "cord.jsonl"), rows)
+
+
+def write_vlm_model(hf_home, repo_id, cfg, seed):
+    """The published config with random bf16 weights from ``seed`` as the
+    ``refs/main`` snapshot of ``repo_id`` under ``hf_home``; returns
+    ``(snapshot, the written tensors the phase checks, on the host)``."""
+    import torch
+
+    from automodel_tpu_torch.models import hf_io
+    from automodel_tpu_torch.models.auto_model import (
+        AutoModelForImageTextToText,
+    )
+
+    repo = os.path.join(hf_home, "hub", "models--" + repo_id.replace("/",
+                                                                      "--"))
+    snap = os.path.join(repo, "snapshots", f"seed{seed}")
+    free = shutil.disk_usage(hf_home).free
+    check(free > 40e9, f"{repo_id}: {free} bytes free under {hf_home}; the "
+          "snapshot (~8.6 GB) and the phase's checkpoint need ~40 GB")
+    t0 = time.perf_counter()
+    model = AutoModelForImageTextToText.from_config(cfg, seed=seed,
+                                                    device="cuda")
+    with torch.no_grad():     # the zero-centred norms and biases away from 0
+        g = torch.Generator(device="cuda").manual_seed(seed + 1)
+        for name, p in model.named_parameters():
+            if name.endswith(("norm.weight", "bias")):
+                p.copy_(torch.randn(p.shape, device="cuda", generator=g)
+                        * 0.1)
+    hf_io.save_hf_weights(model, snap)
+    with open(os.path.join(snap, "config.json"), "w") as f:
+        json.dump(cfg, f, indent=2)
+    os.makedirs(os.path.join(repo, "refs"), exist_ok=True)
+    with open(os.path.join(repo, "refs", "main"), "w") as f:
+        f.write(f"seed{seed}")
+    L = cfg["text_config"]["num_hidden_layers"]
+    lm, vt = "model.language_model.", "model.vision_tower.vision_model."
+    sample = {lm + "embed_tokens.weight", lm + "norm.weight",
+              lm + "layers.0.self_attn.q_proj.weight",
+              lm + "layers.5.self_attn.k_norm.weight",
+              lm + f"layers.{L - 1}.post_feedforward_layernorm.weight",
+              lm + f"layers.{L - 1}.mlp.down_proj.weight",
+              vt + "embeddings.patch_embedding.weight",
+              vt + "embeddings.position_embedding.weight",
+              vt + "encoder.layers.26.self_attn.out_proj.bias",
+              vt + "post_layernorm.weight",
+              "model.multi_modal_projector.mm_input_projection_weight",
+              "model.multi_modal_projector.mm_soft_emb_norm.weight"}
+    written = {n: t.detach().cpu().clone() for n, t, _ in
+               hf_io.hf_tensors(model) if n in sample}
+    check(sorted(written) == sorted(sample),
+          f"{repo_id}: the writer lacks {sorted(sample - set(written))}")
+    nbytes = sum(os.path.getsize(os.path.join(snap, f))
+                 for f in os.listdir(snap))
+    del model
+    torch.cuda.empty_cache()
+    print(f"hf_model {repo_id}: {snap} ({nbytes} bytes) written in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return snap, written
+
+
+def vlm_sft_phase(label, yaml_path, overrides, flush, written=None,
+                  snap=None):
+    """A VLM fine-tuning YAML through the port's VLM recipe on the card
+    (``recipes/vlm/finetune.py``, what ``automodel-torch finetune vlm``
+    runs) with ``overrides``.  Gates: the loaded weights bit for bit as
+    written (``written``, from an ``HF_HOME`` snapshot); kernel 9 at the
+    model's heads and window on the first batch's rows and kernels 2-4 at
+    its labels, each against its plain version; the first step (2 rows)
+    through every kernel against every plain version within the SFT
+    limits; the exact launch counts over the steps (kernel 9: 2 x layers x
+    microbatches forward under remat, layers x microbatches backward;
+    linear CE one forward per microbatch, one dlogits and dh per chunk of
+    rows, dW only when the tied head is trainable).  Reports step time,
+    text tokens/s, images/s, MFU from both towers by the work the step
+    does (text tokens x ``flops_per_token`` less the frozen tied head's dW,
+    + images x ``flops_per_image``, a third of it for a frozen tower that
+    runs forward only, over the bf16 peak) and ``mfu_bench_convention``
+    (both counts in full, as ``bench.py``'s ``vlm`` leg counts them), peak
+    memory and a profiled window's idle share and kernels a step.  The
+    first batch's kernel-9 case carries the segment ids the model folds
+    from that batch: none, as the collate (like the JAX one) gives neither
+    segment ids nor a padding mask."""
+    import numpy as np
+    import torch
+
+    from automodel_tpu_torch.config.loader import parse_args_and_load_config
+    from automodel_tpu_torch.loss.linear_ce import FusedLinearCrossEntropy
+    from automodel_tpu_torch.ops import linear_ce_kernel as lce
+    from automodel_tpu_torch.ops import splash_attention as sa
+    from automodel_tpu_torch.ops.attention import fold_padding_into_segments
+    from automodel_tpu_torch.recipes.vlm.finetune import FinetuneRecipeForVLM
+
+    warmup, steps, profiled = VLM_STEPS[label]
+    cfg = parse_args_and_load_config(
+        ["-c", yaml_path, "--step_scheduler.max_steps", str(warmup + steps),
+         *overrides])
+    t0 = time.perf_counter()
+    recipe = FinetuneRecipeForVLM(cfg).setup()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    model = recipe.model
+    tcfg, vcfg = model.config.text_config, model.config.vision_config
+    lm = model.language_model
+    L = tcfg.num_hidden_layers
+    held = 0
+    if written is not None:
+        held = loaded_equal(label, model, written)
+        check(model.checkpoint_dir == snap,
+              f"{label}: the model came from {model.checkpoint_dir}")
+    check(isinstance(recipe.loss_fn, FusedLinearCrossEntropy),
+          f"{label}: loss {type(recipe.loss_fn).__name__}")
+    windows = [None if layer.full else tcfg.sliding_window
+               for layer in lm.layers]
+    trainable = sum(p.numel() for p in model.parameters() if p.requires_grad)
+    head_trained = lm.embed_tokens.weight.requires_grad
+    tower_trained = any(p.requires_grad
+                        for p in model.vision_tower.parameters())
+    print(f"{label}: {type(model).__name__} text (vocab {tcfg.vocab_size}, "
+          f"hidden {tcfg.hidden_size}, ffn {tcfg.intermediate_size}, layers "
+          f"{L} ({windows.count(None)} full, the others window "
+          f"{tcfg.sliding_window}), heads {tcfg.num_attention_heads}/"
+          f"{tcfg.num_key_value_heads}, head_dim {tcfg.head_dim}), vision "
+          f"(hidden {vcfg.hidden_size}, ffn {vcfg.intermediate_size}, layers "
+          f"{vcfg.num_hidden_layers}, image {vcfg.image_size} / patch "
+          f"{vcfg.patch_size}), {model.num_params} params "
+          f"{model.param_dtype}, {trainable} trainable (tied head "
+          f"{'trained' if head_trained else 'frozen'}, vision tower "
+          f"{'trained' if tower_trained else 'frozen'}), {held} written "
+          f"tensors held bit for bit; loader "
+          f"{type(recipe.dataloader).__name__}, set up in {setup_s:.1f} s",
+          flush=True)
+
+    first = next(iter(recipe.dataloader))
+    B, S = first["input_ids"].shape
+    seg = fold_padding_into_segments(
+        (B, S), *(None if first.get(key) is None
+                  else torch.as_tensor(np.asarray(first[key]))
+                  for key in ("segment_ids", "attention_mask")))
+    attn_rows = attention_phase(
+        flush, None if seg is None else seg.numpy(), [(
+            f"{label}_first_batch_w{tcfg.sliding_window}_d{tcfg.head_dim}",
+            B, S, tcfg.num_attention_heads, tcfg.num_key_value_heads,
+            tcfg.head_dim, seg is not None, tcfg.sliding_window, None)])
+    lce_row = lce_case(f"{label}_v{tcfg.vocab_size}", B * S,
+                       tcfg.hidden_size, tcfg.vocab_size, "bench",
+                       first["labels"], flush, seed=310, parts=True)
+    torch.cuda.empty_cache()
+    plain = FusedLinearCrossEntropy(chunk_len=recipe.loss_fn.chunk_len,
+                                    impl="plain")
+    first_step = first_step_check(
+        recipe, label,
+        [("kernel", recipe.loss_fn, "kernel"), ("plain", plain, "plain"),
+         ("kernel_again", recipe.loss_fn, "kernel")],
+        [("kernel", "plain")])
+
+    seen = []
+    run_step = recipe._run_train_optim_step
+
+    def recording(batches):
+        seen.append(batches)
+        return run_step(batches)
+
+    recipe._run_train_optim_step = recording
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    sa.fwd_launches = sa.bwd_launches = 0     # zeroed just before the run
+    lce.fwd_launches = lce.dlogits_launches = lce.dh_launches = 0
+    lce.dw_launches = 0
+    t0 = time.perf_counter()
+    recipe.run_train_validation_loop()
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+    counts = dict(attn_fwd=sa.fwd_launches, attn_bwd=sa.bwd_launches,
+                  lce_fwd=lce.fwd_launches, dlogits=lce.dlogits_launches,
+                  dh=lce.dh_launches, dw=lce.dw_launches)
+    peak = torch.cuda.max_memory_allocated()
+    del recipe._run_train_optim_step
+    check(len(recipe.history) == warmup + steps == len(seen),
+          f"{label}: {len(recipe.history)} steps, {len(seen)} groups")
+    shapes = [[mb["labels"].shape for mb in g] for g in seen]
+    micro = sum(len(g) for g in shapes)
+    per_call = sum(lce.bwd_launches_per_call(b * t) for g in shapes
+                   for b, t in g)
+    want = dict(attn_fwd=2 * L * micro, attn_bwd=L * micro, lce_fwd=micro,
+                dlogits=per_call, dh=per_call,
+                dw=per_call if head_trained else 0)
+    check(counts == want,
+          f"{label}: launches {counts} != {want} ({micro} microbatches of "
+          f"{shapes})")
+    for m in recipe.history:
+        check(all(map(math.isfinite, (m["loss"], m["grad_norm"]))),
+              f"{label} step {m['step']}: non-finite loss/grad_norm")
+    timed = recipe.history[warmup:]
+    groups = seen[warmup:]
+    tokens = sum(b * t for g in shapes[warmup:] for b, t in g)
+    images = sum(int(np.asarray(mb["pixel_values"]).reshape(
+        *mb["pixel_values"].shape[:2], -1).any(-1).sum())
+        for g in groups for mb in g)
+    step_s = sum(m["step_time"] for m in timed)
+    tok_s, img_s = tokens / step_s, images / step_s
+    fpt, fpi = model.flops_per_token(), model.flops_per_image()
+    # the work the step does: a frozen tied head computes no dW (2 V H a
+    # token less than fpt's 6 V H) and a frozen tower runs forward only
+    # (2x its MACs, not fpi's 6x)
+    fpt_done = fpt - (0.0 if head_trained
+                      else 2.0 * tcfg.vocab_size * tcfg.hidden_size)
+    fpi_done = fpi if tower_trained else fpi / 3.0
+    row_len = shapes[warmup][0][1]
+    recipe.checkpoint_config.enabled = False
+
+    def more():
+        recipe.step_scheduler.max_steps += profiled
+        recipe.run_train_validation_loop()
+
+    prof = profile_window(more, profiled,
+                          f"{label}_b{shapes[warmup][0][0]}_s{row_len}",
+                          ("Splash<",))
+    report = dict(
+        yaml=os.path.relpath(yaml_path, REPO), overrides=list(overrides),
+        snapshot=snap, written_tensors_held=held, setup_s=setup_s,
+        warmup_steps=warmup, steps=steps,
+        shapes=[sorted({f"{b}x{t}" for b, t in g}) for g in shapes[warmup:]],
+        microbatches_per_step=len(shapes[warmup]), text_tokens=tokens,
+        images=images, step_ms=step_s * 1e3 / steps,
+        step_ms_each=[m["step_time"] * 1e3 for m in timed],
+        text_tokens_per_s=tok_s, images_per_s=img_s,
+        label_tokens_per_s=sum(m["num_label_tokens"] for m in timed)
+        / step_s, flops_per_token=fpt, flops_per_image=fpi,
+        flops_per_token_done=fpt_done, flops_per_image_done=fpi_done,
+        mfu=(tok_s * fpt_done + img_s * fpi_done) / BF16_OPS_PER_S,
+        mfu_with_attention=(tok_s * (
+            fpt_done + model.attention_flops_per_token(row_len))
+            + img_s * fpi_done) / BF16_OPS_PER_S,
+        mfu_bench_convention=(tok_s * fpt + img_s * fpi) / BF16_OPS_PER_S,
+        loop_s=loop_s, peak_mem_bytes=peak, launches=counts,
+        trainable_params=trainable, head_trained=head_trained,
+        vision_tower_trained=tower_trained,
+        losses=[m["loss"] for m in recipe.history],
+        grad_norms=[m["grad_norm"] for m in recipe.history],
+        first_step=dict(loss_rel_err=first_step["kernel_vs_plain"][
+            "loss_rel_err"], grad_rel_l2=first_step["kernel_vs_plain"][
+            "grad_rel_l2"]),
+        profile=prof)
+    print(f"{label}_run " + json.dumps(report), flush=True)
+    report["attention_cases"], report["lce_case"] = attn_rows, lce_row
+    del recipe, model, lm
+    gc.collect()
+    torch.cuda.empty_cache()
+    return report
+
+
+def gemma3_4b_cord_phase(hf_home, flush):
+    """``gemma3_vl_cord_v2.yaml`` at Gemma-3-4B-it's published widths: the
+    repo id resolved to an ``HF_HOME`` snapshot of its published config
+    with random bf16 weights, the mock processor at its widths, local
+    jsonl rows in CORD-v2's schema; batch 32 / 2, the frozen vision tower
+    and embeddings, the fused loss, the clip and ``mu_dtype`` as written.
+    The overrides are on the phase's line."""
+    work = tempfile.mkdtemp(prefix="chip_smoke_cord_")
+    snap, written = write_vlm_model(hf_home, GEMMA3_4B, GEMMA3_4B_CONFIG,
+                                    GEMMA3_4B_SEED)
+    overrides = [*GEMMA3_4B_PROCESSOR,
+                 "--dataset.path_or_dataset", cord_rows(work, CORD_ROWS, 23),
+                 "--checkpoint.checkpoint_dir",
+                 os.path.join(work, "checkpoints")]
+    print("sft_gemma3_4b_cord overrides: " + " ".join(overrides), flush=True)
+    report = vlm_sft_phase("sft_gemma3_4b_cord", GEMMA3_CORD_YAML, overrides,
+                           flush, written=written, snap=snap)
+    shutil.rmtree(work, ignore_errors=True)
+    shutil.rmtree(os.path.dirname(os.path.dirname(snap)), ignore_errors=True)
+    return report
+
+
 T0 = time.perf_counter()
 
 
@@ -4111,7 +4491,8 @@ def main():
           f"in parallel) in {time.perf_counter() - t0:.1f} s", flush=True)
 
     seg = first_batch(SFT_YAML)["segment_ids"]
-    lite_seg = first_batch(LITE_YAML)["segment_ids"]
+    lite_first = first_batch(LITE_YAML)
+    lite_seg = lite_first["segment_ids"]
     bench_first = first_batch(BENCH_YAML)
     bench_labels = bench_first["labels"]
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
@@ -4121,10 +4502,17 @@ def main():
     phase_done("lora gmm kernel")
     attn_cases = attention_phase(flush, seg)
     mla_cases = attention_phase(flush, lite_seg, MLA_CASES, MLA_V_HEAD_DIM)
+    gemma_cases = attention_phase(flush, None, GEMMA_ATTN_CASES)
     phase_done("attention kernels")
     flash_cases = flash_phase(flush, bench_first["segment_ids"])
     phase_done("flash kernels")
     lce_cases = linear_ce_phase(flush, bench_labels)
+    # DeepSeek-V2-Lite's head (sft_deepseek's V 102,400) on its first
+    # batch's labels
+    lite_labels = lite_first["labels"]
+    lce_lite = lce_case("sft_deepseek_v102400", lite_labels.size, 2048,
+                        102400, "bench", lite_labels, flush, seed=260,
+                        parts=True)
     phase_done("linear-CE kernels")
     q_cases = qdot_phase(flush)
     phase_done("qdot kernel")
@@ -4224,6 +4612,14 @@ def main():
         hf_runs[label] = hf_sft_phase(label, yaml_path, repo_id, kind,
                                       hf_home, flush)
         phase_done(label)
+    # the VLM recipe: the bench YAML as written, then Gemma-3-4B-it
+    torch.cuda.empty_cache()
+    vlm_runs = {"sft_gemma3_vl_bench": vlm_sft_phase(
+        "sft_gemma3_vl_bench", GEMMA3_BENCH_YAML, (), flush)}
+    phase_done("sft_gemma3_vl_bench")
+    torch.cuda.empty_cache()
+    vlm_runs["sft_gemma3_4b_cord"] = gemma3_4b_cord_phase(hf_home, flush)
+    phase_done("sft_gemma3_4b_cord")
     del flush
     shutil.rmtree(hf_home, ignore_errors=True)
     # last: its two recipes are set up and dropped here, after every timed
@@ -4328,6 +4724,22 @@ def main():
         if part == "fwd":
             kernels[-1]["generate_deepseek_launches"] = gen_deepseek[
                 "launches"]["attention_fwd"]
+        # the Gemma shapes (head_dim 128 and 256, windows, cap 50) and the
+        # VLM phases' first batches and launches
+        for c in gemma_cases + [r["attention_cases"][0]
+                                for r in vlm_runs.values()]:
+            kernels[-1].update({
+                f"{c['case']}_ms": c[part]["ms"],
+                f"{c['case']}_plain_ms": c[part]["plain_ms"],
+                f"{c['case']}_bound_ms": c[part]["bound_ms"],
+                f"{c['case']}_bound_by": c[part]["bound_by"],
+                f"{c['case']}_library_ms": c[part]["library_ms"],
+                f"{c['case']}_attended_pairs": c["attended_pairs"]})
+            kernels[-1]["max_abs_err"] = max(kernels[-1]["max_abs_err"],
+                                             c[part]["max_abs_err"])
+        for label, run in vlm_runs.items():
+            kernels[-1][f"{label}_launches"] = run["launches"][
+                f"attn_{part}"]
         # the HF YAMLs' rows (unpacked, padding folded into segments)
         for label, run in hf_runs.items():
             c = run["attention_cases"][0]
@@ -4340,8 +4752,9 @@ def main():
             kernels[-1]["max_abs_err"] = max(kernels[-1]["max_abs_err"],
                                              c[part]["max_abs_err"])
     rep = lce_cases[0]
+    new_lce = [lce_lite] + [r["lce_case"] for r in vlm_runs.values()]
     lce_cases = lce_cases + [r["lce_case"] for r in hf_runs.values()
-                             if r["lce_case"] is not None]
+                             if r["lce_case"] is not None] + new_lce
     errs = dict(
         fwd=max(max(c["fwd"]["lse_max_abs_err"], c["fwd"]["pick_max_abs_err"])
                 for c in lce_cases),
@@ -4377,6 +4790,17 @@ def main():
                     f"{c['case']}_plain_ms": c[part]["plain_ms"],
                     f"{c['case']}_bound_ms": c[part]["bound_ms"],
                     f"{c['case']}_library_ms": c[part]["library_ms"]})
+        # V 102,400 (sft_deepseek), 32,768 (the VLM bench) and 262,208
+        # (Gemma-3-4B), and the VLM phases' launches
+        for c in new_lce:
+            kernels[-1].update({
+                f"{c['case']}_ms": c[part]["ms"],
+                f"{c['case']}_plain_ms": c[part]["plain_ms"],
+                f"{c['case']}_bound_ms": c[part]["bound_ms"],
+                f"{c['case']}_library_ms": c[part]["library_ms"]})
+        for label, run in vlm_runs.items():
+            kernels[-1][f"{label}_launches"] = run["launches"][
+                "lce_fwd" if part == "fwd" else part]
         if part == "fwd":
             kernels[-1]["product_ms"] = got["product_ms"]
         if part == "dlogits":

@@ -163,6 +163,41 @@ def test_head_dim_192_keeps_the_dq_and_dkv_tiles():
                 == ap.items(kind, 2, 700, 4, 4))
 
 
+@pytest.mark.parametrize("seg_eq", RULES, ids=["splash_rule", "equality"])
+@pytest.mark.parametrize("geom", GEOMETRY,
+                         ids=[f"s{g[0]}_{'causal' if g[1] else 'full'}"
+                              f"_w{g[2]}_{g[3]}" for g in GEOMETRY])
+@pytest.mark.parametrize("kind", list(ap.PASSES))
+def test_head_dim_256_tiles_cover_every_pair_once(kind, geom, seg_eq):
+    """Every pass's tiles at head_dim 256 (Gemma): the forward's 64-key,
+    the dQ pass's 32-key and the dK / dV passes' 32-row tiles, each 32-wide
+    tile classified from the meta of the 64-row tile it lies in; every
+    attended pair in exactly one visited tile per query head, FULL tiles
+    wholly attended, SKIP tiles never attended."""
+    S, causal, window, pack = geom
+    seg = packing(S, pack, np.random.default_rng(S + 7 * window))
+    ok = mask_of(S, causal, window, seg, seg_eq)
+    bm, bn = ap.tiles(kind, 256)
+    assert (bm, bn) == ap.PASSES_D256[kind]
+    groups = 2 if kind == "dkv" else 1
+    count = np.zeros((groups, S, S), np.int64)
+    for _, _, first in ap.items(kind, 1, S, groups, 1, head_dim=256):
+        tiles = ap.visits(kind, S, causal, window, seg, seg_eq, first,
+                          groups, head_dim=256)
+        per = len(tiles) // groups
+        for n, (q0, k0, cls) in enumerate(tiles):
+            region = ok[q0:q0 + bm, k0:k0 + bn]
+            if cls == ap.SKIP:
+                assert not region.any(), (q0, k0)
+                continue
+            count[n // per, q0:q0 + bm, k0:k0 + bn] += 1
+            if cls == ap.FULL:
+                assert q0 + bm <= S and k0 + bn <= S and region.all()
+    for g in range(groups):
+        assert (count[g][ok] == 1).all()
+        assert (count[g] <= 1).all()
+
+
 @pytest.mark.parametrize("kind", list(ap.PASSES))
 def test_items_cover_every_tile_once_the_longest_first(kind):
     B, S, Hq, Hk = 2, 700, 8, 2
@@ -267,14 +302,14 @@ def emulate(q, k, v, dout, seg, causal, window, seg_eq, cap=None):
             0)
     delta = (dout * out).sum(-1).T                       # [Hq, S]
     dq = np.zeros_like(q)
-    bm, bn = ap.PASSES["dq"]
-    for _, h, q0 in ap.items("dq", 1, S, Hq, Hk):
+    bm, bn = ap.tiles("dq", D)
+    for _, h, q0 in ap.items("dq", 1, S, Hq, Hk, head_dim=D):
         qt, dot = _tile(q[:, h], q0, bm), _tile(dout[:, h], q0, bm)
         l2 = _tile(lse[h][:, None], q0, bm)[:, 0] * LOG2E
         dl = _tile(delta[h][:, None], q0, bm)[:, 0]
         acc = np.zeros((bm, D), np.float32)
         for _, k0, cls in ap.visits("dq", S, causal, window, seg, seg_eq,
-                                    q0):
+                                    q0, head_dim=D):
             if cls == ap.SKIP:
                 continue
             kt, vt = _tile(k[:, h // G], k0, bn), _tile(v[:, h // G], k0, bn)
@@ -287,12 +322,13 @@ def emulate(q, k, v, dout, seg, causal, window, seg_eq, cap=None):
         n = min(bm, S - q0)
         dq[q0:q0 + n, h] = acc[:n] * scale
     dk, dv = np.zeros_like(k), np.zeros_like(v)
-    bm, bn = ap.PASSES["dkv"]
-    for _, hk, k0 in ap.items("dkv", 1, S, Hq, Hk):
+    bm, bn = ap.tiles("dkv", D)
+    for _, hk, k0 in ap.items("dkv", 1, S, Hq, Hk, head_dim=D):
         kt, vt = _tile(k[:, hk], k0, bn), _tile(v[:, hk], k0, bn)
         ak = np.zeros((bn, D), np.float32)
         av = np.zeros((bn, D), np.float32)
-        tiles = ap.visits("dkv", S, causal, window, seg, seg_eq, k0, G)
+        tiles = ap.visits("dkv", S, causal, window, seg, seg_eq, k0, G,
+                          head_dim=D)
         per = len(tiles) // G
         for n, (q0, _, cls) in enumerate(tiles):
             if cls == ap.SKIP:
@@ -356,6 +392,13 @@ SPLASH_D192_CASES = [
 ]
 
 
+# head_dim 256 (Gemma's width: GQA, the window, the soft cap)
+SPLASH_D256_CASES = [
+    ("gemma_packed_window40_s300", 300, 4, 2, 40, "packed", None),
+    ("gemma2_cap50_s200", 200, 2, 1, None, None, 50.0),
+]
+
+
 @pytest.mark.parametrize("case", SPLASH_CASES,
                          ids=[c[0] for c in SPLASH_CASES])
 def test_emulated_walk_matches_splash_interpret(case):
@@ -366,6 +409,12 @@ def test_emulated_walk_matches_splash_interpret(case):
                          ids=[c[0] for c in SPLASH_D192_CASES])
 def test_emulated_walk_matches_splash_interpret_at_head_dim_192(case):
     _check_against_splash(case, 192)
+
+
+@pytest.mark.parametrize("case", SPLASH_D256_CASES,
+                         ids=[c[0] for c in SPLASH_D256_CASES])
+def test_emulated_walk_matches_splash_interpret_at_head_dim_256(case):
+    _check_against_splash(case, 256)
 
 
 def _check_against_splash(case, D):

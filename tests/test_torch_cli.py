@@ -2,8 +2,9 @@
 and ``pretrain llm`` run the SFT recipe with the config and the dotted
 overrides, giving the direct ``train_ft.main`` run's steps exactly;
 ``python -m automodel_tpu_torch._cli.app`` trains from a shell;
-``--nproc-per-node`` is accepted; ``vlm`` and the ``slurm:`` / ``k8s:``
-launchers raise, naming the ROADMAP item they wait for.
+``--nproc-per-node`` is accepted; ``finetune vlm`` runs the VLM recipe;
+the ``slurm:`` / ``k8s:`` launchers raise, naming the ROADMAP item they
+wait for.
 """
 
 import os
@@ -56,8 +57,12 @@ def test_module_entry_point_trains_from_a_shell():
 
 
 def test_vlm_raises():
-    with pytest.raises(NotImplementedError, match="item 10.8"):
+    """``finetune vlm`` runs the VLM recipe, which raises on a config that
+    names no processor (a text YAML); ``pretrain vlm`` has no recipe."""
+    with pytest.raises(ValueError, match="needs a processor"):
         app.main(["finetune", "vlm", "-c", PORT_YAML, "--device", "cpu"])
+    with pytest.raises(SystemExit):
+        app.main(["pretrain", "vlm", "-c", PORT_YAML, "--device", "cpu"])
 
 
 @pytest.mark.parametrize("launcher", ["slurm", "k8s"])

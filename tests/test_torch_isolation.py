@@ -1,8 +1,8 @@
 """The PyTorch port stands alone: no file of ``automodel_tpu_torch/`` nor
 ``chip_smoke.py`` imports JAX or the JAX package (the flash rung, the
 checkpoint and HF-safetensors modules, the optimizer step, the DeepSeek
-families, ``from_pretrained`` and the HellaSwag / SQuAD datasets among
-them),
+families, ``from_pretrained``, the HellaSwag / SQuAD datasets, the Gemma
+and vision models, the VLM datasets and the VLM recipe among them),
 importing every module loads no JAX, and the kernel build directory is
 ignored by git."""
 
@@ -32,6 +32,12 @@ def test_no_jax_or_jax_package_imports():
     bad = []
     sources = list(_port_sources())
     assert len(sources) > 10
+    rel = {os.path.relpath(p, PORT) for p in sources}
+    for new in ("models/gemma3.py", "models/gemma2.py", "models/vision.py",
+                "models/vlm.py", "datasets/vlm/collate_fns.py",
+                "datasets/vlm/datasets.py", "datasets/vlm/mock.py",
+                "datasets/vlm/utils.py", "recipes/vlm/finetune.py"):
+        assert new in rel, new
     for path in sources:
         with open(path) as f:
             tree = ast.parse(f.read(), path)

@@ -240,6 +240,12 @@ ATTN_CASES = [
     ("packed_mha_d192", 2, 256, 4, 4, 192, True, None, None),
     ("causal_gqa_d192", 2, 300, 8, 2, 192, False, None, None),
     ("ragged_window_cap_d192", 1, 200, 4, 4, 192, True, 40, 30.0),
+    # head_dim 256 (Gemma): BN 64 forward, 32-key dQ tiles, 32-row dK / dV
+    # tiles, dK and dV in two passes
+    ("packed_gqa_d256", 2, 256, 8, 4, 256, True, None, None),
+    ("causal_gqa_d256", 2, 300, 8, 2, 256, False, None, None),
+    ("ragged_window_cap_d256", 1, 300, 4, 2, 256, True, 40, 50.0),
+    ("window1024_d256", 1, 2560, 8, 4, 256, False, 1024, None),
 ]
 
 
@@ -322,6 +328,8 @@ SMOKE_ATTN_CASES = [
     ("qwen3_gqa_d128", 8, 2048, 32, 4, 128, True, None, None),
     ("mla_packed_d192", 8, 2048, 16, 16, 192, True, None, None),
     ("mla_causal_d192", 8, 2048, 16, 16, 192, False, None, None),
+    ("gemma3_4b_window1024_d256", 2, 4096, 8, 4, 256, False, 1024, None),
+    ("gemma2_cap50_window4096_d256", 1, 4096, 8, 4, 256, False, 4096, 50.0),
 ]
 SMOKE_FLASH_CASES = [
     ("sft_flash_packed_d64", 8, 2048, 32, 8, 64, True, True),
@@ -773,7 +781,7 @@ def test_cuda_moe_router_and_routed_rows_do_not_depend_on_the_batch(
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("D", [64, 192])
+@pytest.mark.parametrize("D", [64, 192, 256])
 @pytest.mark.parametrize("S", [477, 502])
 @pytest.mark.parametrize("packed", [True, False], ids=["packed", "causal"])
 def test_cuda_splash_takes_any_sequence_length(packed, S, D, cuda_device):
