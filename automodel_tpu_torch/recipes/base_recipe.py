@@ -98,11 +98,14 @@ class _SaveJob:
 
 class BaseRecipe:
     """Save / resume for a recipe that sets ``checkpoint_config``,
-    ``model``, ``optimizer``, ``lr_scheduler``, ``cfg`` and the objects
-    named in :data:`TRACKED_STATE`."""
+    ``model``, ``optimizer``, ``lr_scheduler`` (None: a constant LR, not
+    saved), ``cfg`` and the objects named in ``tracked_state``."""
 
     _inflight_save: Optional[Dict[str, Any]] = None
     _resumed_from: Optional[str] = None
+    lr_scheduler = None
+    # attribute names of the host-side objects saved as ``<key>.pt``
+    tracked_state = TRACKED_STATE
 
     def _record_timer(self, name: str):
         timers = getattr(self, "timers", None)
@@ -111,7 +114,7 @@ class BaseRecipe:
         return timers.record(name)
 
     def _tracked(self) -> List[tuple]:
-        return [(k, getattr(self, k)) for k in TRACKED_STATE
+        return [(k, getattr(self, k)) for k in self.tracked_state
                 if getattr(self, k, None) is not None]
 
     # -- save ---------------------------------------------------------------
@@ -136,7 +139,7 @@ class BaseRecipe:
                 epoch=epoch, step=step, final=final, cfg=cfg,
                 model=self.model, model_state=None,
                 optimizer=self.optimizer.state_dict(),
-                scheduler=self.lr_scheduler.state_dict(),
+                scheduler=self._scheduler_state(),
                 host_state=[(k, o.state_dict()) for k, o in self._tracked()],
                 config=config, resumed_from=self._resumed_from)
             self._run_commit_protocol(job)
@@ -148,7 +151,7 @@ class BaseRecipe:
             model_state=(adapter_state(self.model) if cfg.is_peft
                          else hf_state(self.model)),
             optimizer=_to_cpu(self.optimizer.state_dict()),
-            scheduler=_to_cpu(self.lr_scheduler.state_dict()),
+            scheduler=_to_cpu(self._scheduler_state()),
             host_state=[(k, _to_cpu(o.state_dict()))
                         for k, o in self._tracked()],
             config=config, resumed_from=self._resumed_from)
@@ -164,6 +167,10 @@ class BaseRecipe:
         logger.info("checkpoint %s dispatched to the background committer",
                     final)
         return final
+
+    def _scheduler_state(self) -> Optional[Dict[str, Any]]:
+        return (None if self.lr_scheduler is None
+                else self.lr_scheduler.state_dict())
 
     def _record_save(self, final: str, stall_s: float,
                      background_s: float) -> None:
@@ -222,7 +229,8 @@ class BaseRecipe:
             optim = os.path.join(path, "optim")
             os.makedirs(optim, exist_ok=True)
             ckpt.save_stateful(optim, "optimizer", job.optimizer, cfg)
-            ckpt.save_stateful(optim, "lr_scheduler", job.scheduler, cfg)
+            if job.scheduler is not None:
+                ckpt.save_stateful(optim, "lr_scheduler", job.scheduler, cfg)
             for key, sd in job.host_state:
                 ckpt.save_stateful(path, key, sd, cfg)
 
@@ -270,7 +278,8 @@ class BaseRecipe:
         optim = os.path.join(path, "optim")
         ckpt.load_stateful(optim, "optimizer", self.optimizer, cfg,
                            map_location=self.device)
-        ckpt.load_stateful(optim, "lr_scheduler", self.lr_scheduler, cfg)
+        if self.lr_scheduler is not None:
+            ckpt.load_stateful(optim, "lr_scheduler", self.lr_scheduler, cfg)
         for key, obj in self._tracked():
             if ckpt.has_stateful(path, key):
                 ckpt.load_stateful(path, key, obj, cfg)

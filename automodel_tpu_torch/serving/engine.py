@@ -10,8 +10,9 @@ block tables and context lengths on the host, and one forward through the
 model writes the step's k/v into the paged pools and attends through the
 paged-decode kernel (``ops/paged_attention_kernel.py``).  The step's
 ``[B, W]`` argmax is the engine's one host sync; ``do_sample`` configs
-sample host-side from the returned last-token logits with the engine's
-``torch.Generator``.
+draw every sampling row's token from the returned last-token logits in
+one ``sample_logits`` call with the engine's ``torch.Generator`` (one
+more sync).
 
 The serving features of the JAX engine, ported:
 
@@ -365,7 +366,9 @@ class DecodeEngine:
         ``state_dict`` shape (tensors) or a JAX params tree (numpy, through
         ``models/weights.py::load_jax_params``); every shape and dtype must
         match, and the weights are copied into the engine's model in place
-        (in-flight sequences go on under the new weights, as in JAX).
+        (in-flight sequences go on under the new weights, as in JAX) and
+        the prefix cache forgets its blocks, whose k/v the old weights
+        computed (JAX's engine keeps them).
         ``adapter_slot`` / ``adapters`` load or hot-swap one tenant's
         adapter (:meth:`load_adapter`), alone or with new base weights."""
         if adapter_slot is not None:
@@ -396,6 +399,10 @@ class DecodeEngine:
             from automodel_tpu_torch.models.weights import load_jax_params
 
             load_jax_params(self.model, params)
+        if self.prefix_index is not None:
+            # cached blocks hold k/v of the old weights: a later prompt
+            # must not reuse them
+            self.prefix_index.flush()
         self.weight_syncs += 1
 
     # -- multi-tenant adapter slots ------------------------------------------
@@ -612,15 +619,17 @@ class DecodeEngine:
         # slot -> the row's chain: column t-1 is the next token, columns
         # t .. t+d-1 the argmax at the d draft positions (the verify)
         sampled = {}
-        for w in plan.active:
-            if not w.samples_next:
-                continue
-            b, t = w.req.slot, len(w.tokens)
-            if self.generation.do_sample:
-                sampled[b] = [int(sample_logits(
-                    self.last_logits[b:b + 1], self.generation,
-                    self._generator)[0])]
-            else:
+        rows = [w for w in plan.active if w.samples_next]
+        if self.generation.do_sample and rows:
+            # one draw over every sampling row (plan order), one host sync
+            slots = [w.req.slot for w in rows]
+            idx = torch.tensor(slots, device=self.last_logits.device)
+            drawn = sample_logits(self.last_logits[idx], self.generation,
+                                  self._generator).tolist()
+            sampled = {b: [int(t)] for b, t in zip(slots, drawn)}
+        elif rows:
+            for w in rows:
+                b, t = w.req.slot, len(w.tokens)
                 sampled[b] = greedy[b, t - 1:t + len(w.draft)].tolist()
         self.steps_run += 1
         # under speculation a decode step is spec_k + 1 wide: classify by

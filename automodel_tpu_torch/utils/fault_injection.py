@@ -53,8 +53,21 @@ Multi-tenant adapters (``serving/adapters.py``):
     adapter_swap      at the top of a hot-swap of a loaded slot: a typed
                       ``AdapterLoadError``, the slot keeps its old adapter.
 
-The JAX module's checkpoint, elastic, fleet and rollout points wait for
-those slices of the port.
+Post-training rollouts (``post_training/rollout.py``):
+
+    rollout_weight_sync
+                      at the top of the weight handoff into the decode
+                      engine: the engine keeps its previous weights, a
+                      typed ``RolloutError``, the next rollout re-syncs.
+    rollout_engine_step
+                      in the rollout drive loop, before each engine step:
+                      every in-flight request of the rollout is aborted
+                      (blocks reclaimed), a typed ``RolloutError``.
+    reward_fn         in ``compute_rewards``: the completed rollout is
+                      discarded, a typed ``RolloutError``.
+
+The JAX module's checkpoint, elastic and fleet points wait for those
+slices of the port.
 """
 
 from __future__ import annotations
@@ -82,6 +95,9 @@ KNOWN_FAULT_POINTS = frozenset({
     "spec_verify",
     "adapter_load",
     "adapter_swap",
+    "rollout_weight_sync",
+    "rollout_engine_step",
+    "reward_fn",
 })
 
 

@@ -60,9 +60,11 @@ Phases (any failure exits non-zero without the final ``ok`` line):
    second pass at twice the rate with deadlines, ``max_waiting`` and
    ``by_deadline`` shedding, and an armed ``serve_watchdog_stall``
    recovery whose tokens match an unarmed run;
-   serve_moe: Qwen3-30B-A3B at its published widths and all 48 layers
-   (``qwen3_30b_a3b_serve.yaml``, ~61 GB of bf16 weights) through the same
-   engine phase: first the gmm kernel at the engine's routed shapes (a
+   serve_moe: Qwen3-30B-A3B at its published widths and 24 of its 48
+   layers (``qwen3_30b_a3b_serve.yaml``, the depth cut to
+   ``MOE_SERVE_LAYERS`` for the script's time limit; all 48, ~61 GB of
+   bf16 weights, served in PRs 15-17) through the same engine phase:
+   first the gmm kernel at the engine's routed shapes (a
    decode step's 64 assignments and a prefill chunk's 2048 over 128
    experts, block-padded), the first step through every kernel against
    every plain version, the 16 requests with paged decode held to layers
@@ -219,8 +221,10 @@ Phases (any failure exits non-zero without the final ``ok`` line):
    Gemma-3 text tower of 16 layers, 14 with window 512, SigLIP-base, mock
    data, fixed rows of 2048, the fused loss, the embeddings frozen); then
    sft_gemma3_4b_cord, ``gemma3_vl_cord_v2.yaml`` at Gemma-3-4B-it's
-   published config (all 34 text layers, 29 sliding with window 1024, head
-   dim 256, V 262,208, SigLIP-so400m at 896 px) written with random bf16
+   published config at 12 of its 34 text layers (``GEMMA3_4B_LAYERS``,
+   for the script's time limit: two of its blocks of 5 sliding layers
+   with window 1024 and 1 full; head dim 256, V 262,208, SigLIP-so400m
+   at 896 px, all 27 tower layers) written with random bf16
    weights as the ``refs/main`` snapshot of ``google/gemma-3-4b-it`` in
    the temporary ``HF_HOME``, the mock processor at its widths and seeded
    rows in CORD-v2's schema as local jsonl with ``.npy`` images (the
@@ -236,6 +240,33 @@ Phases (any failure exits non-zero without the final ``ok`` line):
    sft_fp8's widths on the bench YAML's first batch, attention plain on
    both sides, int8 (bit for bit) and float8 (limits set from a measured
    run), loss and whole gradient (``quant_check_* first step`` lines).
+15. post-training (run after the VLM phases, before quant_check):
+   grpo_llama_1b and dpo_llama_1b, GRPO and DPO on Llama-3.2-1B at its
+   published widths and depth through the recipes' ``setup()`` and
+   ``run_post_training_loop()`` on ``automodel_tpu_torch/examples/
+   llama3_2_1b_{grpo,dpo}.yaml`` (GRPO with the ``lower_vocab_share``
+   reward, named on the phase's line): the first step on one fixed batch
+   (GRPO: the first rollout's 64 sequences; DPO: 32 pairs) through every
+   kernel against every plain version (loss, pg_loss / kl or margin and
+   accuracy, the whole gradient, the logprobs); for GRPO, after the
+   warm-up step, the weight handoff (the engine keeps its last sync's
+   weights until the next sync, then holds the trainer's bit for bit), a
+   temperature-0 rollout of the synced engine token-identical to a fresh
+   engine's on the post-step weights and to itself with prefix caching on
+   (the group forks' saved prefill printed), and ``generate()`` on the
+   post-step weights equal up to near-ties; then 3 timed steps with the
+   launch counts of kernels 1-4 and 9 held to the geometry's (kernel 1
+   once per layer and decode step, the prefill chunk of 128 on the plain
+   gather; kernel 9 3 x layers forward and layers backward per pass of
+   the policy with its reference; kernel 2 one per pass, 3-4 one per
+   2048 rows of the policy's), step ms, the rollout / logprob / train
+   split, rollout tok/s, ``sync_ms``, completion tokens/s, pairs/s, peak
+   memory and a profiled step (``{label}_run`` lines); before them the
+   paged-decode kernel at GRPO's batch 64 (``grpo_decode_b64_d64_bf16``)
+   the linear-CE kernels at T 16,384 / 8,192 with the GRPO / DPO
+   cotangents (``grpo_t16384``, ``dpo_t8192``) and kernel 9 at their
+   causal rows of 256 (``grpo_rows_64x256_causal``,
+   ``dpo_rows_32x256_causal``).
 
 The second-to-last line is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.
@@ -404,7 +435,11 @@ KERNEL_CASES = [
     # the first group count off a power of two
     ("qwen2_decode_d128_g6", 1, 128, "bf16", None, None),
     ("qwen2_verify_s5_d128_g6", 5, 128, "bf16", None, None),
+    # GRPO's rollouts (grpo_llama_1b): 64 rows, contexts up to 256
+    ("grpo_decode_b64_d64_bf16", 1, 64, "bf16", None, None),
 ]
+# (B, MB) of a case, else batch 8 of up to 128 blocks (2048 keys)
+KERNEL_CASE_GEOMETRY = {"grpo_decode_b64_d64_bf16": dict(B=64, MB=16)}
 # (Hq, Hk) of a case, else Llama-3.2-1B's 32 / 8
 KERNEL_CASE_HEADS = {"qwen3_decode_d128_g8": (32, 4),
                      "qwen3_verify_s5_d128_g8": (32, 4),
@@ -423,7 +458,8 @@ SPAN_SWEEP_CASES = ("decode_d64_bf16", "verify_s5_d64_bf16",
 def make_paged_case(S, D, kv, seed, B=8, Hq=32, Hk=8, BS=16, MB=128):
     """Operands at the engine's layout: scrambled per-row tables whose
     entries past the context point at the null page 0, ragged contexts up
-    to MB * BS = 2048 (row 0 full), consecutive positions ending at ctx-1."""
+    to MB * BS (2048 by default; row 0 full), consecutive positions ending
+    at ctx-1."""
     import torch
 
     dev = torch.device("cuda")
@@ -511,8 +547,9 @@ def kernel_phase(flush):
     rows = []
     for i, (name, S, D, kv, cap, win) in enumerate(KERNEL_CASES):
         Hq, Hk = KERNEL_CASE_HEADS.get(name, (32, 8))
-        q, k, v, ks, vs, tables, ctx, pos = make_paged_case(S, D, kv, seed=i,
-                                                            Hq=Hq, Hk=Hk)
+        q, k, v, ks, vs, tables, ctx, pos = make_paged_case(
+            S, D, kv, seed=i, Hq=Hq, Hk=Hk,
+            **KERNEL_CASE_GEOMETRY.get(name, {}))
         kw = dict(logits_soft_cap=cap, local_window_size=win)
         args = (q, k, v, ks, vs, tables, ctx, pos)
         out = pak.paged_decode_cuda(*args, **kw)
@@ -940,8 +977,56 @@ LCE_CASES = [
     ("ragged_rows", 1000, 2048, 128256, "random"),
     ("h4096", 4096, 4096, 128256, "random"),           # Llama-3-8B's width
     ("all_ignored", 4096, 2048, 128256, "ignored"),
+    # the post-training phases' logprob passes: GRPO's [64, 256] rows and
+    # DPO's [32, 256] per half, with their objectives' per-row cotangents
+    ("grpo_t16384", 16384, 2048, 128256, "grpo"),
+    ("dpo_t8192", 8192, 2048, 128256, "dpo"),
 ]
 LCE_PARTS = ("dlogits", "dh", "dw")
+
+
+# the post-training shapes' rows and cotangents (pt_lce_inputs)
+PT_LCE_KINDS = ("grpo", "dpo")
+
+
+def pt_lce_inputs(kind, T, V, g):
+    """Labels and per-row ``(dlse, dpick)`` cotangents of the logprob pass
+    at the post-training YAMLs' shapes, rows of S 256 = a 128-token prompt
+    and its completion: ``grpo`` -- every completion 128 tokens (rows 127
+    to 254 of a sequence supervised), the GRPO objective's cotangent of
+    each token's logprob, ``(-A_b + kl_coef (1 - exp(ref - lp))) / n``
+    with A_b the sequence's advantage (8 groups of 8, normalized) and
+    ``ref - lp`` N(0, 0.3); ``dpo`` -- completions of 96 +- 16 tokens,
+    the cotangent ``-(beta / B) sigmoid(-m_b)`` of each token of sequence
+    b for margins m_b N(0, 1) (constant within a sequence).  ``dpick`` is
+    that cotangent, ``dlse`` its negative, both 0 on prompt and pad rows."""
+    import torch
+
+    dev = torch.device("cuda")
+    S, P = 256, 128
+    B = T // S
+    labels = torch.full((B, S), -100, dtype=torch.int32, device=dev)
+    if kind == "grpo":
+        n_comp = torch.full((B,), 128, device=dev)
+        adv = torch.randn(B // 8, 8, device=dev, generator=g)
+        adv = ((adv - adv.mean(1, keepdim=True))
+               / (adv.std(1, keepdim=True, unbiased=False) + 1e-4))
+        per_row = adv.reshape(B, 1).expand(B, S)
+        delta = 0.3 * torch.randn(B, S, device=dev, generator=g)
+        n = float(B * 128)
+        dlp = (-per_row + 0.05 * (1 - torch.exp(delta))) / n
+    else:
+        n_comp = (96 + 16 * torch.randn(B, device=dev, generator=g)).clamp(
+            1, 127).round().long() + 1           # + eos
+        m = torch.randn(B, device=dev, generator=g)
+        dlp = (-(0.1 / B) * torch.sigmoid(-m))[:, None].expand(B, S)
+    pos = torch.arange(S, device=dev)[None, :]
+    supervised = (pos >= P - 1) & (pos < P - 1 + n_comp[:, None])
+    tokens = torch.randint(0, V, (B, S), device=dev, generator=g,
+                           dtype=torch.int32)
+    labels = torch.where(supervised, tokens, labels).reshape(-1)
+    dpick = torch.where(supervised, dlp, torch.zeros_like(dlp)).reshape(-1)
+    return labels, -dpick, dpick
 
 
 def lce_bounds(T, H, V):
@@ -1008,10 +1093,16 @@ def lce_case(name, T, H, V, kind, bench_labels, flush, seed, parts):
     elif kind == "random":
         labels = torch.randint(0, V, (T,), device=dev, generator=g,
                                dtype=torch.int32)
+    elif kind in PT_LCE_KINDS:
+        labels, dlse, dpick = pt_lce_inputs(kind, T, V, g)
     else:
         labels = torch.full((T,), -100, dtype=torch.int32, device=dev)
     valid = (labels != -100).float()
-    dlse, dpick = valid, -valid          # the summed loss's cotangents
+    if kind not in PT_LCE_KINDS:
+        dlse, dpick = valid, -valid      # the summed loss's cotangents
+    # the loss whose gradient these cotangents are: sum of weight x CE per
+    # row (the weight is dlse; -dpick on every valid row)
+    weight = dlse.float()
 
     lse, pick = lce.linear_ce_fwd_cuda(h, w, labels)
     torch.cuda.synchronize()
@@ -1082,10 +1173,14 @@ def lce_case(name, T, H, V, kind, bench_labels, flush, seed, parts):
     lab64 = labels.long()
 
     def lib_fwd():
-        return F.cross_entropy(F.linear(h, ws).float(), lab64,
-                               ignore_index=-100, reduction="sum")
+        if kind not in PT_LCE_KINDS:
+            return F.cross_entropy(F.linear(h, ws).float(), lab64,
+                                   ignore_index=-100, reduction="sum")
+        return (F.cross_entropy(F.linear(h, ws).float(), lab64,
+                                ignore_index=-100, reduction="none")
+                * weight).sum()
 
-    ref_loss = float((valid * (ref_lse - ref_pick)).sum())
+    ref_loss = float((weight * valid * (ref_lse - ref_pick)).sum())
     lib_loss = float(lib_fwd())
     check(abs(lib_loss - ref_loss) <= 1e-2 * max(abs(ref_loss), 1.0),
           f"{name}: the library yardstick computes something else "
@@ -1093,7 +1188,10 @@ def lce_case(name, T, H, V, kind, bench_labels, flush, seed, parts):
     t["fwd_library"] = time_ms(lib_fwd, 3, flush)
     hl, wl = h.detach().requires_grad_(), ws.detach().requires_grad_()
     out = F.cross_entropy(F.linear(hl, wl).float(), lab64, ignore_index=-100,
-                          reduction="sum")
+                          reduction="none" if kind in PT_LCE_KINDS
+                          else "sum")
+    if kind in PT_LCE_KINDS:
+        out = (out * weight).sum()
     t["bwd_library"] = time_ms(
         lambda: torch.autograd.grad(out, (hl, wl), retain_graph=True), 3,
         flush)
@@ -1155,7 +1253,8 @@ def linear_ce_phase(flush, bench_labels):
     rows = []
     for i, (name, T, H, V, kind) in enumerate(LCE_CASES):
         rows.append(lce_case(name, T, H, V, kind, bench_labels, flush,
-                             seed=200 + i, parts=i == 0))
+                             seed=200 + i,
+                             parts=i == 0 or kind in PT_LCE_KINDS))
         torch.cuda.empty_cache()
     return rows
 
@@ -1882,7 +1981,8 @@ def gmm_quant_phase(recipe, batch):
 # ---------------------------------------------------------------------------
 # engine phase
 # ---------------------------------------------------------------------------
-def engine_phase(yaml_path=None, label="engine", flush=None, model=None):
+def engine_phase(yaml_path=None, label="engine", flush=None, model=None,
+                 layers=None):
     """A model at full width through the port's DecodeEngine (the serve
     YAML ``yaml_path``, default Llama-3.2-1B's; weights from seed 0, or
     ``model`` as given, built by the caller): the
@@ -1892,7 +1992,8 @@ def engine_phase(yaml_path=None, label="engine", flush=None, model=None):
     gmm = 3 x routed layers x steps for an MoE model, else 0), then
     profiled prefill and decode windows.  Llama: a shorter int8-KV run
     too.  An MoE model: first the gmm kernel at the engine's routed
-    shapes (``flush`` given), last the prefix cache on and off."""
+    shapes (``flush`` given), last the prefix cache on and off.
+    ``layers`` cuts the YAML model's depth."""
     import gc
 
     import numpy as np
@@ -1913,6 +2014,8 @@ def engine_phase(yaml_path=None, label="engine", flush=None, model=None):
     torch.cuda.empty_cache()
     resident = torch.cuda.memory_allocated()
     cfg = load_yaml_config(yaml_path or SERVE_YAML)
+    if layers is not None:
+        cfg.set_by_dotted("model.config.num_hidden_layers", layers)
     scfg = build_serving_config(cfg)
     gen = GenerationConfig(**cfg.generation.to_dict())
     t0 = time.perf_counter()
@@ -2544,6 +2647,12 @@ def serving_features_phase():
 # ---------------------------------------------------------------------------
 MOE_SERVE_YAML = os.path.join(REPO, "automodel_tpu_torch", "examples",
                               "qwen3_30b_a3b_serve.yaml")
+# serve_moe's depth and sft_gemma3_4b_cord's (GEMMA3_4B_LAYERS): the
+# script must end within 1200 s; uncut it ran 1201.8 s on one H100 (a
+# call whose host ran every phase 20-50 % slower than the call before;
+# serve_moe 154.4 s of it at 48 layers, sft_gemma3_4b_cord 217.1 s at 34),
+# so both run about half their stack, every shape and kernel kept
+MOE_SERVE_LAYERS = 24
 # the engine's routed grouped matmuls: a decode step (8 slots x 1 token x
 # top-8 = 64 assignments over 128 experts) and a prefill-chunk step (8 x
 # 32 tokens = 2048 assignments), each segment block-padded to 128 rows as
@@ -4103,6 +4212,7 @@ VLM_YAMLS = os.path.join(REPO, "examples", "vlm_finetune")
 GEMMA3_BENCH_YAML = os.path.join(VLM_YAMLS, "gemma3_vl_bench.yaml")
 GEMMA3_CORD_YAML = os.path.join(VLM_YAMLS, "gemma3_vl_cord_v2.yaml")
 GEMMA3_4B = "google/gemma-3-4b-it"
+GEMMA3_4B_LAYERS = 12                 # of 34 (see MOE_SERVE_LAYERS)
 # Gemma-3-4B-it's published config.json, every text field written out (the
 # JAX Gemma3Config defaults vocab_size to 262,144, HF to 262,208: the file
 # must not lean on a default)
@@ -4113,7 +4223,7 @@ GEMMA3_4B_CONFIG = dict(
     torch_dtype="bfloat16",
     text_config=dict(
         model_type="gemma3_text", vocab_size=262208, hidden_size=2560,
-        intermediate_size=10240, num_hidden_layers=34,
+        intermediate_size=10240, num_hidden_layers=GEMMA3_4B_LAYERS,
         num_attention_heads=8, num_key_value_heads=4, head_dim=256,
         query_pre_attn_scalar=256, sliding_window=1024,
         rope_scaling={"factor": 8.0, "rope_type": "linear"},
@@ -4449,6 +4559,618 @@ def gemma3_4b_cord_phase(hf_home, flush):
     return report
 
 
+# ---------------------------------------------------------------------------
+# post-training phases (grpo_llama_1b, dpo_llama_1b)
+# ---------------------------------------------------------------------------
+GRPO_YAML = os.path.join(REPO, "automodel_tpu_torch", "examples",
+                         "llama3_2_1b_grpo.yaml")
+DPO_YAML = os.path.join(REPO, "automodel_tpu_torch", "examples",
+                        "llama3_2_1b_dpo.yaml")
+PT_WARM, PT_TIMED, PT_PROFILED = 1, 3, 1
+LLAMA_VOCAB = 128256
+# The first-step check's data terms (GRPO's behaviour and reference
+# logprobs, DPO's reference sums) are the plain reference pass's values
+# plus a seeded offset, the same on every route: at the recipe's own first
+# step the policy is the reference, so ratio, KL and margins sit at 1, 0
+# and 0 and say nothing of the kernels.  The behaviour offset keeps every
+# ratio well inside GRPO's clip band: a token near the band's edge takes
+# the clipped branch on one route and not on the other (the routes'
+# logprobs differ by up to ~0.1 in bf16), and each such flip moves the
+# gradient by a whole term (offsets of 0.5 made kernel and plain 13 %
+# apart, measured on one H100).  The behaviour terms are also shifted by
+# -PT_ADV_SHIFT x the row's advantage, so every ratio is ~exp(0.05 A) and
+# pg_loss ~ -0.05 mean(A^2) is a value of its own: with ratios at 1 it is
+# a mean of terms that cancel (advantages have mean 0 in each group), and
+# its value is rounding noise.  The whole gradient is held to the SFT
+# gradient limit and the logprobs (relative L2 over the supervised
+# positions) to the SFT loss limit.  Each metric M (loss, pg_loss, kl,
+# mean_ratio; loss and margin) is held to the tighter of the SFT phases'
+# limit (1 % of max(|M plain|, 1)) and 1 % of |M plain| plus
+# PT_SPREAD_SIGMAS x its first-order spread: with g_t = dM/dlp_t
+# at the plain logprobs and d_t the measured kernel-minus-plain logprob of
+# the check's own logprob pass, each sequence (GRPO) or pair (DPO) moves M
+# by X_b = sum_t g_t d_t, and the spread is sqrt(sum_b X_b^2), the
+# standard deviation of sum_b X_b if the X_b take random signs.  The SFT
+# limit alone cannot hold a metric well below 1 (GRPO's loss is ~0.007
+# with ratios at 1, its kernel and plain values 5e-4 apart, measured on
+# one H100).
+PT_BEHAVIOR_OFFSET = 0.02
+PT_ADV_SHIFT = 0.05
+PT_SPREAD_SIGMAS = 4.0
+PT_REF_OFFSET = 0.5
+PT_SUM_OFFSET = 10.0
+PT_CHECK_SEED = 31
+# The prefix-cache gates.  Token identity with caching on and off rests
+# on batch invariance, a row's bits the same whatever the step's width:
+# attention widths of at most 8 keep decode's key split and every GEMM
+# has at most 64 rows (cuBLAS bf16 keeps a row's bits from 8 to 64 rows,
+# not at 256).  The exact gate runs two groups of the rollout's prompts
+# through 8 slots and chunks of 8, where both hold.  The recipe's engine
+# (64 slots, prefill chunks of 128 on the plain gather) has neither: a
+# forked member recomputes its last prompt token in a decode step, the
+# unforked one in the 8,192-row prefill step, and their tokens part (at
+# token 8 of a member, measured on one H100).  There, as for generate()
+# (the dense path's plain attention and shapes round otherwise than the
+# engine's kernel), a row may part from the other run only where the two
+# tokens' logits of the post-step model are within PT_TIE_REL of the
+# logit range: the widest such gap measured on one H100 was 0.109 of a
+# range of 7.67 (0.0143).
+PT_FORK_SERVING = dict(max_num_seqs=8, prefill_chunk=8)
+PT_FORK_PROMPTS, PT_FORK_NEW_TOKENS = 2, 16
+PT_TIE_REL = 0.02
+# DPO accuracy: a pair whose plain margin is within this of 0 may take
+# either sign on another route (its margin's rounding noise)
+PT_MARGIN_BAND = 0.1
+
+
+# kernel 9 at the post-training passes' rows: GRPO's 64 and DPO's 32 (per
+# half) causal rows of 256, Llama-3.2-1B's 32 / 8 heads of 64
+PT_ATTN_CASES = [
+    ("grpo_rows_64x256_causal", 64, 256, 32, 8, 64, False, None, None),
+    ("dpo_rows_32x256_causal", 32, 256, 32, 8, 64, False, None, None),
+]
+
+
+def lower_vocab_share(prompt, completion):
+    """The card phase's GRPO reward (``rl.reward_source: callable``): the
+    share of the completion's tokens in the lower half of the vocabulary.
+    With random weights over 128,256 tokens eos almost never comes, so the
+    length reward would give every completion of a group the same value."""
+    return sum(t < LLAMA_VOCAB // 2 for t in completion) / max(
+        len(completion), 1)
+
+
+def _zero_launch_counts():
+    from automodel_tpu_torch.ops import flash_attention as fa
+    from automodel_tpu_torch.ops import gmm_kernel as gk
+    from automodel_tpu_torch.ops import gmm_quant_kernel as gq
+    from automodel_tpu_torch.ops import linear_ce_kernel as lce
+    from automodel_tpu_torch.ops import paged_attention as tpa
+    from automodel_tpu_torch.ops import paged_attention_kernel as pak
+    from automodel_tpu_torch.ops import qdot_kernel as qk
+    from automodel_tpu_torch.ops import splash_attention as sa
+
+    sa.fwd_launches = sa.bwd_launches = 0
+    fa.fwd_launches = fa.bwd_launches = 0
+    lce.fwd_launches = lce.dlogits_launches = lce.dh_launches = 0
+    lce.dw_launches = 0
+    gk.gmm_launches = gk.tgmm_launches = 0
+    qk.qdot_launches = gq.gmm_quant_launches = 0
+    pak.launches = 0
+    tpa.long_q_gather_calls = 0
+
+
+def _launch_counts():
+    from automodel_tpu_torch.ops import flash_attention as fa
+    from automodel_tpu_torch.ops import gmm_kernel as gk
+    from automodel_tpu_torch.ops import gmm_quant_kernel as gq
+    from automodel_tpu_torch.ops import linear_ce_kernel as lce
+    from automodel_tpu_torch.ops import paged_attention as tpa
+    from automodel_tpu_torch.ops import paged_attention_kernel as pak
+    from automodel_tpu_torch.ops import qdot_kernel as qk
+    from automodel_tpu_torch.ops import splash_attention as sa
+
+    return dict(paged_decode=pak.launches,
+                long_q_gather=tpa.long_q_gather_calls,
+                attn_fwd=sa.fwd_launches, attn_bwd=sa.bwd_launches,
+                flash_fwd=fa.fwd_launches, flash_bwd=fa.bwd_launches,
+                lce_fwd=lce.fwd_launches, dlogits=lce.dlogits_launches,
+                dh=lce.dh_launches, dw=lce.dw_launches,
+                gmm=gk.gmm_launches, tgmm=gk.tgmm_launches,
+                gmm_quant=gq.gmm_quant_launches, qdot=qk.qdot_launches)
+
+
+def _rel_l2(a, b):
+    return float((a.float() - b.float()).norm() / b.float().norm())
+
+
+def pt_first_step(label, recipe, batch, objective, metric_keys, lp_batches,
+                  metrics_of):
+    """The first step's loss, metrics and whole gradient on one fixed batch
+    (the recipe's initial weights; nothing is updated) through every
+    kernel (``kernel``, twice) and every plain version (``plain``: the
+    linear-CE route's and the attention's), and the logprobs of
+    ``lp_batches`` through both; the limits are in ``PT_REF_OFFSET``'s
+    note.  ``metrics_of({half: logprobs [B, S]})`` gives the metrics from
+    logprobs (the first-order spread's derivatives).  ``attn_plain`` (the
+    attention alone through its plain version) shows how far the
+    attention's rounding alone moves the gradient."""
+    import torch
+
+    from automodel_tpu_torch.post_training.logprobs import build_logprob_fn
+
+    model = recipe.model
+    trained = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
+    routes = (("kernel", None, None), ("plain", "plain", "plain"),
+              ("kernel_again", None, None), ("attn_plain", None, "plain"))
+    vals, grads = {}, {}
+    for name, impl, attn in routes:
+        model.zero_grad(set_to_none=True)
+        loss, m = objective(model, batch, impl=impl, attn_impl=attn)
+        loss.backward()
+        torch.cuda.synchronize()
+        vals[name] = {k: float(m[k]) for k in metric_keys}
+        grads[name] = [p.grad for _, p in trained]
+        check(all(bool(torch.isfinite(g).all()) for g in grads[name]),
+              f"{label} first step ({name}): non-finite gradient")
+    model.zero_grad(set_to_none=True)
+
+    def grad_rel(a, b, worst=False):
+        per = [(float((x.float() - y.float()).square().sum()),
+                float(y.float().square().sum()), n)
+               for (n, _), x, y in zip(trained, grads[a], grads[b])]
+        rel = (sum(d for d, _, _ in per) / sum(w for _, w, _ in per)) ** 0.5
+        if not worst:
+            return rel
+        return rel, [dict(name=n, rel_l2=(d / max(w, 1e-30)) ** 0.5)
+                     for d, w, n in sorted(
+                         per, key=lambda t: -t[0] / max(t[1], 1e-30))[:3]]
+
+    lp, lps = {}, {}
+    for half, b in lp_batches.items():
+        got = build_logprob_fn()(model, b)
+        want = build_logprob_fn(impl="plain", attn_impl="plain")(model, b)
+        sup = b["labels"] != -100
+        lp[half] = dict(rel_l2=_rel_l2(got[sup], want[sup]),
+                        max_abs_err=float((got - want).abs().max()),
+                        mean_logprob=float(want[sup].mean()))
+        lps[half] = (got, want)
+    # each metric's limit: 1 % of it plus its first-order spread
+    leaves = {h: w.clone().requires_grad_() for h, (_, w) in lps.items()}
+    of_plain = metrics_of(leaves)
+    held = {}
+    for k in metric_keys:
+        if k == "accuracy":
+            continue          # held by its margins (dpo_llama_1b)
+        gs = (torch.autograd.grad(of_plain[k], list(leaves.values()),
+                                  retain_graph=True, allow_unused=True,
+                                  materialize_grads=True)
+              if of_plain[k].requires_grad
+              else [torch.zeros_like(x) for x in leaves.values()])
+        X = sum((g * (lps[h][0] - lps[h][1])).sum(dim=-1)
+                for g, h in zip(gs, leaves))
+        a, b = vals["kernel"][k], vals["plain"][k]
+        spread = float(X.square().sum().sqrt())
+        held[k] = dict(diff=a - b, first_order=float(X.sum()),
+                       spread=spread,
+                       limit=min(SFT_LOSS_REL_TOL * max(abs(b), 1.0),
+                                 SFT_LOSS_REL_TOL * abs(b)
+                                 + PT_SPREAD_SIGMAS * spread))
+    del leaves, of_plain, lps
+    rel, worst = grad_rel("kernel", "plain", worst=True)
+    out = dict(
+        values=vals, grad_rel_l2=rel, worst_params=worst,
+        grad_rel_l2_attn_plain=grad_rel("attn_plain", "kernel"),
+        grad_rel_l2_kernel_vs_kernel=grad_rel("kernel_again", "kernel"),
+        bit_identical_kernel_vs_kernel=vals["kernel"] == vals["kernel_again"]
+        and all(torch.equal(x, y) for x, y in zip(grads["kernel"],
+                                                  grads["kernel_again"])),
+        logprobs=lp, metrics_held=held, metric_rel_tol=SFT_LOSS_REL_TOL,
+        spread_sigmas=PT_SPREAD_SIGMAS, grad_tol=SFT_GRAD_REL_L2,
+        logprob_tol=SFT_LOSS_REL_TOL)
+    del grads
+    torch.cuda.empty_cache()
+    print(f"{label} first step: " + json.dumps(out), flush=True)
+    check(out["grad_rel_l2"] <= SFT_GRAD_REL_L2,
+          f"{label} first-step gradient kernel vs plain: relative L2 "
+          f"{out['grad_rel_l2']:.3e} > {SFT_GRAD_REL_L2}")
+    for half, r in lp.items():
+        check(r["rel_l2"] <= SFT_LOSS_REL_TOL,
+              f"{label} first-step logprobs ({half}) kernel vs plain: "
+              f"relative L2 {r['rel_l2']:.3e} > {SFT_LOSS_REL_TOL}")
+    for k, r in held.items():
+        check(abs(r["diff"]) <= r["limit"],
+              f"{label} first-step {k}: kernel {vals['kernel'][k]} vs plain "
+              f"{vals['plain'][k]}, {r['diff']:.3e} apart > {r['limit']:.3e}"
+              f" (spread {r['spread']:.3e})")
+    return out
+
+
+def _first_divergence(a, b):
+    return next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), None)
+
+
+def _near_tie_rows(label, what, model, prompts, a, b, device):
+    """Row by row, ``a`` against ``b`` (completions of ``prompts``): each
+    row identical, or parting at a token where the two tokens' logits of
+    ``model`` are within ``PT_TIE_REL`` of the logit range."""
+    import torch
+
+    rows = []
+    for r, (p, x, y) in enumerate(zip(prompts, a, b)):
+        y = y[:len(x)]
+        j = _first_divergence(x, y)
+        row = dict(row=r, identical=j is None, tokens=len(x))
+        if j is not None:
+            with torch.no_grad():
+                ids = torch.tensor([list(p) + list(x[:j])], device=device)
+                logits = model(ids)["logits"][0, -1].float()
+            gap = abs(float(logits[x[j]] - logits[y[j]]))
+            span = float(logits.max() - logits.min())
+            row.update(parts_at=j, logit_gap=gap, logit_range=span)
+            check(gap <= PT_TIE_REL * span,
+                  f"{label}: {what} part at row {r} token {j} where the "
+                  f"post-step logits differ by {gap:.4f} (> {PT_TIE_REL} of "
+                  f"their range {span:.3f})")
+        rows.append(row)
+    return rows
+
+
+def grpo_handoff(label, recipe):
+    """After a step: the engine still holds the weights of the last sync
+    (the reference's, the initial ones) and not the trainer's; a sync
+    makes them the trainer's bit for bit; a temperature-0 rollout of the
+    synced engine is token-identical to a fresh engine's on a copy of the
+    post-step weights; with prefix caching on and off, a temperature-0
+    rollout of the synced weights at the batch-invariant geometry
+    (``PT_FORK_SERVING``) is token-identical (the prefill tokens the group
+    forks saved printed); at the recipe's own geometry, the rollout with
+    prefix caching on and ``generate()`` on the post-step weights give
+    the synced engine's tokens up to near-ties (``PT_TIE_REL``), with the
+    rows that match exactly counted."""
+    import torch
+
+    from automodel_tpu_torch.generation import generate
+    from automodel_tpu_torch.post_training.base import PostTrainingRecipeBase
+    from automodel_tpu_torch.post_training.rollout import RolloutWorker
+    from automodel_tpu_torch.serving import DecodeEngine
+
+    eng, model, rc = recipe.engine, recipe.model, recipe.rollout_config
+    own = eng.model.state_dict()
+    pol = model.state_dict()
+    ref = recipe.ref_model.state_dict()
+    check(all(torch.equal(own[k], ref[k]) for k in own),
+          f"{label}: after a step the engine does not hold the weights of "
+          "its last sync")
+    moved = sum(not torch.equal(own[k], pol[k]) for k in own)
+    check(moved > 0, f"{label}: the step changed no tensor the engine holds")
+    sync_s = recipe.rollout_worker.sync_weights(model)
+    check(all(torch.equal(own[k], pol[k]) for k in own),
+          f"{label}: after a sync the engine's weights are not the "
+          "trainer's")
+    greedy = dataclasses.replace(eng.generation, do_sample=False)
+    saved_gen, eng.generation = eng.generation, greedy
+    prompts = recipe._prompts[:rc.rollout_batch_size]
+    G = rc.group_size
+    check((recipe.serving_config.prefix_caching or "off") == "off",
+          f"{label}: the recipe's engine runs with prefix caching on")
+    try:
+        synced = RolloutWorker(eng, rc).generate(prompts)
+        fresh_eng = DecodeEngine(PostTrainingRecipeBase._frozen_copy(model),
+                                 recipe.serving_config, generation=greedy,
+                                 device=recipe.device)
+        fresh = RolloutWorker(fresh_eng, rc).generate(prompts)
+        del fresh_eng
+        torch.cuda.empty_cache()
+        _identical(f"{label} handoff: synced engine vs a fresh engine on "
+                   "the post-step weights", synced.completions,
+                   fresh.completions)
+        # the exact prefix gate at the batch-invariant geometry (PT_FORK_*)
+        fork_rc = dataclasses.replace(
+            rc, rollout_batch_size=PT_FORK_PROMPTS,
+            max_new_tokens=PT_FORK_NEW_TOKENS)
+        fork = {}
+        for mode in ("off", "on"):
+            f_eng = DecodeEngine(eng.model, dataclasses.replace(
+                recipe.serving_config, prefix_caching=mode,
+                **PT_FORK_SERVING), generation=greedy, device=recipe.device)
+            fork[mode] = (RolloutWorker(f_eng, fork_rc).generate(
+                prompts[:PT_FORK_PROMPTS]), f_eng.stats())
+            del f_eng
+        _identical(f"{label} prefix cache on vs off",
+                   fork["on"][0].completions, fork["off"][0].completions)
+        on, on_stats = fork["on"]
+        # prefix caching on at the recipe's geometry; off is `synced`
+        r_eng = DecodeEngine(eng.model, dataclasses.replace(
+            recipe.serving_config, prefix_caching="on"), generation=greedy,
+            device=recipe.device)
+        r_on = RolloutWorker(r_eng, rc).generate(prompts)
+        r_stats = r_eng.stats()
+        del r_eng
+    finally:
+        eng.generation = saved_gen
+    torch.cuda.empty_cache()
+    row_prompts = [p for p in prompts for _ in range(G)]
+    r_rows = _near_tie_rows(label, "prefix cache on and off (recipe "
+                            "geometry)", model, row_prompts,
+                            r_on.completions, synced.completions,
+                            recipe.device)
+    # generate() on the post-step weights, one row per prompt
+    P = max(len(p) for p in prompts)
+    ids = torch.zeros(len(prompts), P, dtype=torch.long)
+    for b, p in enumerate(prompts):
+        ids[b, :len(p)] = torch.tensor(p)
+    lens = [len(p) for p in prompts]
+    dense = [[int(t) for t in row]
+             for row in generate(model, ids.numpy(), lens, greedy)]
+    g_rows = _near_tie_rows(label, "generate() and the synced engine",
+                            model, prompts,
+                            [synced.completions[b * G]
+                             for b in range(len(prompts))],
+                            dense, recipe.device)
+    gaps = [r["logit_gap"] / r["logit_range"] for r in r_rows + g_rows
+            if not r["identical"]]
+    out = dict(sync_ms=sync_s * 1e3, tensors_moved_by_the_step=moved,
+               tensors=len(own),
+               greedy_rollout_rows=len(synced.completions),
+               greedy_new_tokens=rc.max_new_tokens,
+               fresh_engine_identical=True, prefix_on_vs_off_identical=True,
+               prefix_gate=dict(PT_FORK_SERVING, prompts=PT_FORK_PROMPTS,
+                                group_size=G,
+                                new_tokens=PT_FORK_NEW_TOKENS),
+               prefix_on_prefill_tokens_saved=on.stats[
+                   "prefill_tokens_saved"],
+               prefix_on_cache_hit_rate=on.stats["cache_hit_rate"],
+               prefix_on_cow_forks=on_stats["prefix_cache"]["cow_forks"],
+               recipe_geometry_prefix=dict(
+                   max_num_seqs=recipe.serving_config.max_num_seqs,
+                   prefill_chunk=recipe.serving_config.prefill_chunk,
+                   rows=len(r_rows),
+                   rows_identical=sum(r["identical"] for r in r_rows),
+                   prefill_tokens_saved=r_on.stats["prefill_tokens_saved"],
+                   cache_hit_rate=r_on.stats["cache_hit_rate"],
+                   cow_forks=r_stats["prefix_cache"]["cow_forks"],
+                   parted=[r for r in r_rows if not r["identical"]]),
+               tie_rel_limit=PT_TIE_REL,
+               widest_tie_rel=max(gaps, default=0.0),
+               generate_rows_identical=sum(r["identical"] for r in g_rows),
+               generate_rows=g_rows)
+    print(f"{label} handoff " + json.dumps(out), flush=True)
+    return out
+
+
+def post_train_phase(label, yaml_path):
+    """GRPO (``grpo_llama_1b``) or DPO (``dpo_llama_1b``) on Llama-3.2-1B
+    at its published widths through the recipe's ``setup()`` and
+    ``run_post_training_loop()`` on the YAML as written (GRPO with the
+    ``lower_vocab_share`` reward): the first step on one fixed batch (for
+    GRPO the first rollout's) against every plain version
+    (:func:`pt_first_step`), for GRPO the handoff gates
+    (:func:`grpo_handoff`) after the warm-up step, then the timed steps
+    with every launch count zeroed just before and read just after, held
+    to the counts the geometry gives, and a profiled step."""
+    import functools
+
+    import numpy as np
+    import torch
+
+    from automodel_tpu_torch.config.loader import parse_args_and_load_config
+    from automodel_tpu_torch.ops import linear_ce_kernel as lce
+    from automodel_tpu_torch.post_training import steps as pst
+    from automodel_tpu_torch.post_training.logprobs import (
+        batch_to_device,
+        build_logprob_fn,
+        make_sequence_batch,
+    )
+    from automodel_tpu_torch.post_training.losses import (
+        dpo_losses,
+        group_normalized_advantages,
+        grpo_token_objective,
+    )
+    from automodel_tpu_torch.post_training.rollout import compute_rewards
+    from automodel_tpu_torch.recipes.llm import train_dpo, train_grpo
+
+    grpo = label.startswith("grpo")
+    cfg = parse_args_and_load_config(["-c", yaml_path])
+    if grpo:
+        cfg.set_by_dotted("rl.reward_source", "callable")
+        cfg.set_by_dotted("rl.reward_fn", lower_vocab_share)
+    cls = (train_grpo.GRPORecipeForCausalLM if grpo
+           else train_dpo.DPORecipeForCausalLM)
+    t0 = time.perf_counter()
+    recipe = cls(cfg).setup()
+    torch.cuda.synchronize()
+    model, rc, dev = recipe.model, recipe.rollout_config, recipe.device
+    mcfg = model.config
+    L = mcfg.num_hidden_layers
+    print(f"{label}: {type(recipe).__name__} on "
+          f"{os.path.relpath(yaml_path, REPO)}"
+          + (" with rl.reward_source callable, rl.reward_fn "
+             "chip_smoke.lower_vocab_share" if grpo else "")
+          + f"; widths (vocab {mcfg.vocab_size}, hidden {mcfg.hidden_size}, "
+          f"ffn {mcfg.intermediate_size}, layers {L}, heads "
+          f"{mcfg.num_attention_heads}/{mcfg.num_key_value_heads}, head_dim "
+          f"{mcfg.head_dim}), {sum(p.numel() for p in model.parameters())} "
+          f"params {model.param_dtype}, compute {model.compute_dtype}; "
+          f"set up in {time.perf_counter() - t0:.1f} s, "
+          f"{torch.cuda.memory_allocated()} bytes allocated", flush=True)
+
+    # one fixed batch with its data terms (PT_REF_OFFSET)
+    g = torch.Generator(device=dev).manual_seed(PT_CHECK_SEED)
+    plain_lp = build_logprob_fn(impl="plain", attn_impl="plain")
+    if grpo:
+        rb = recipe.rollout_worker.generate(
+            recipe._prompts[:rc.rollout_batch_size], params=model)
+        compute_rewards(rb, rc)
+        batch = batch_to_device(make_sequence_batch(
+            rb.sequences, rb.prompt_lens, pad_id=rc.pad_token_id,
+            pad_to=rc.sequence_length), dev)
+        batch["advantages"] = group_normalized_advantages(
+            rb.rewards, rc.group_size).to(dev)
+        base = plain_lp(recipe.ref_model, batch)
+        for key, scale in (("behavior_logps", PT_BEHAVIOR_OFFSET),
+                           ("ref_logps", PT_REF_OFFSET)):
+            batch[key] = base + scale * torch.randn(
+                base.shape, device=dev, generator=g)
+        batch["behavior_logps"] -= PT_ADV_SHIFT * batch["advantages"][:, None]
+        kw = dict(kl_coef=float(rc.kl_coef or 0.0), clip_eps=rc.clip_eps)
+        objective = functools.partial(pst.grpo_objective, **kw)
+        keys = ("loss", "pg_loss", "kl", "mean_ratio")
+        lp_batches = {"rollout": batch}
+        mask = (batch["labels"] != -100).float()
+
+        def metrics_of(lps):
+            loss_sum, aux = grpo_token_objective(
+                lps["rollout"], batch["behavior_logps"], batch["ref_logps"],
+                batch["advantages"], mask, **kw)
+            n = mask.sum()
+            return dict(loss=loss_sum / n, pg_loss=aux["pg_sum"] / n,
+                        kl=aux["kl_sum"] / n, mean_ratio=aux["ratio_sum"] / n)
+    else:
+        batch = batch_to_device(recipe._pair_batch(
+            recipe._pairs[:rc.rollout_batch_size]), dev)
+        lp_batches = {h: pst.pair_half(batch, h)
+                      for h in ("chosen", "rejected")}
+        for half, b in lp_batches.items():
+            s = plain_lp(recipe.ref_model, b).sum(dim=-1)
+            batch[f"ref_{half}_logp"] = s + PT_SUM_OFFSET * torch.randn(
+                s.shape, device=dev, generator=g)
+        objective = functools.partial(pst.dpo_objective, beta=recipe.beta)
+        keys = ("loss", "accuracy", "margin")
+
+        def metrics_of(lps):
+            losses, margins = dpo_losses(
+                lps["chosen"].sum(-1), lps["rejected"].sum(-1),
+                batch["ref_chosen_logp"], batch["ref_rejected_logp"],
+                beta=recipe.beta)
+            return dict(loss=losses.mean(), margin=margins.mean())
+    first = pt_first_step(label, recipe, batch, objective, keys, lp_batches,
+                          metrics_of)
+    if not grpo:
+        # accuracy: only pairs whose margin is within the band may flip
+        with torch.no_grad():
+            m = {}
+            for name, impl in (("kernel", None), ("plain", "plain")):
+                fn = build_logprob_fn(impl=impl, attn_impl=impl)
+                sums = {h: fn(model, b).sum(-1)
+                        for h, b in lp_batches.items()}
+                m[name] = recipe.beta * (
+                    (sums["chosen"] - batch["ref_chosen_logp"])
+                    - (sums["rejected"] - batch["ref_rejected_logp"]))
+        near = int((m["plain"].abs() < PT_MARGIN_BAND).sum())
+        flips = int(((m["kernel"] > 0) != (m["plain"] > 0)).sum())
+        first["pairs_near_zero"], first["pairs_flipped"] = near, flips
+        check(flips <= near,
+              f"{label}: {flips} pairs' margins change sign kernel vs plain, "
+              f"{near} within {PT_MARGIN_BAND} of 0")
+    del batch, lp_batches, metrics_of
+    torch.cuda.empty_cache()
+
+    recipe.max_steps = PT_WARM
+    recipe.run_post_training_loop()               # warm-up step
+    torch.cuda.synchronize()
+    handoff = grpo_handoff(label, recipe) if grpo else None
+
+    eng = recipe.engine
+    dec0, mixed0 = ((eng.decode_steps, eng.mixed_steps) if grpo
+                    else (0, 0))
+    cursor0 = recipe.rl_state.data_cursor
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launch_counts()                    # just before the timed steps
+    recipe.max_steps = PT_WARM + PT_TIMED
+    t0 = time.perf_counter()
+    recipe.run_post_training_loop()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    timed = recipe.history[-PT_TIMED:]
+    check(len(recipe.history) == PT_WARM + PT_TIMED,
+          f"{label}: {len(recipe.history)} steps ran")
+    S = rc.sequence_length
+    if grpo:
+        n_seq = rc.rollout_batch_size * rc.group_size
+        halves, T = 1, n_seq * S
+        decode = eng.decode_steps - dec0
+        mixed = eng.mixed_steps - mixed0
+        # every completion runs to max_new_tokens unless it samples eos;
+        # the rollout ends with its longest row
+        check(decode == PT_TIMED * (rc.max_new_tokens - 1),
+              f"{label}: {decode} decode steps != {PT_TIMED} rollouts x "
+              f"{rc.max_new_tokens - 1}")
+        check(mixed == PT_TIMED,
+              f"{label}: {mixed} prefill steps != one per rollout (64 rows "
+              f"x a {rc.max_prompt_len}-token chunk)")
+        want_paged, want_gather = L * decode, L * mixed
+    else:
+        halves, T = 2, rc.rollout_batch_size * S
+        want_paged = want_gather = 0
+    ref_passes = halves if recipe.ref_model is not None else 0
+    per_call = lce.bwd_launches_per_call(T)
+    want = dict(
+        paged_decode=want_paged, long_q_gather=want_gather,
+        # the reference's pass (no remat) and the policy's (forward and
+        # its remat re-forward) per half, one backward per layer and half
+        attn_fwd=PT_TIMED * L * (ref_passes + 2 * halves),
+        attn_bwd=PT_TIMED * L * halves, flash_fwd=0, flash_bwd=0,
+        lce_fwd=PT_TIMED * (ref_passes + halves),
+        dlogits=PT_TIMED * halves * per_call,
+        dh=PT_TIMED * halves * per_call, dw=PT_TIMED * halves * per_call,
+        gmm=0, tgmm=0, gmm_quant=0, qdot=0)
+    print(f"{label}_launches " + json.dumps(dict(got=counts, want=want)),
+          flush=True)
+    check(counts == want, f"{label}: launches {counts} != {want}")
+    for m in recipe.history:
+        check(all(math.isfinite(v) for v in m.values()),
+              f"{label}: non-finite metrics {m}")
+    step_ms = [m["step_time"] * 1e3 for m in timed]
+    split = {k: sum(m.get(f"{k}_ms", 0.0) for m in timed)
+             for k in ("rollout", "logprob", "train")}
+    report = dict(
+        yaml=os.path.relpath(yaml_path, REPO), steps=PT_TIMED,
+        wall_s=wall, step_ms=wall * 1e3 / PT_TIMED, step_ms_each=step_ms,
+        peak_mem_bytes=peak, launches=counts,
+        split_ms=split, **{f"{k}_wall_frac": v / (sum(step_ms) or 1.0)
+                           for k, v in split.items()},
+        first_step=first, losses=[m["loss"] for m in recipe.history])
+    if grpo:
+        tokens = sum(m["num_completion_tokens"] for m in timed)
+        report.update(
+            reward="chip_smoke.lower_vocab_share",
+            sequences_per_step=n_seq, rollout_tok_s=float(np.mean(
+                [m["rollout_tok_s"] for m in timed])),
+            sync_ms=float(np.mean([m["sync_ms"] for m in timed])),
+            completion_tokens=tokens, completion_tokens_per_s=tokens / wall,
+            rewards=[m["reward_mean"] for m in recipe.history],
+            kl=[m["kl"] for m in recipe.history],
+            decode_steps=decode, prefill_steps=mixed, handoff=handoff)
+    else:
+        pairs = [recipe._pairs[i % len(recipe._pairs)] for i in range(
+            cursor0, recipe.rl_state.data_cursor)]
+        tokens = sum(len(c) + len(r) for _, c, r in pairs)
+        report.update(
+            pairs=len(pairs), pairs_per_s=len(pairs) / wall,
+            completion_tokens=tokens, completion_tokens_per_s=tokens / wall,
+            accuracy=[m["accuracy"] for m in recipe.history],
+            margin=[m["margin"] for m in recipe.history])
+    print(f"{label}_run " + json.dumps(report), flush=True)
+
+    def more():
+        recipe.max_steps += PT_PROFILED
+        recipe.run_post_training_loop()
+
+    prof = profile_window(more, PT_PROFILED, f"{label}_s{S}", ("Splash<",))
+    check(prof["device_ms_per_step"] == "not measured"
+          or prof["attention_ms_per_step"] > 0,
+          f"{label}: the profile counts no attention kernel by name")
+    report["profile"] = prof
+    del recipe, model, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return report
+
+
 T0 = time.perf_counter()
 
 
@@ -4503,6 +5225,7 @@ def main():
     attn_cases = attention_phase(flush, seg)
     mla_cases = attention_phase(flush, lite_seg, MLA_CASES, MLA_V_HEAD_DIM)
     gemma_cases = attention_phase(flush, None, GEMMA_ATTN_CASES)
+    pt_attn_cases = attention_phase(flush, None, PT_ATTN_CASES)
     phase_done("attention kernels")
     flash_cases = flash_phase(flush, bench_first["segment_ids"])
     phase_done("flash kernels")
@@ -4522,7 +5245,8 @@ def main():
     features = serving_features_phase()
     phase_done("serving_features")
     torch.cuda.empty_cache()
-    serve_moe = engine_phase(MOE_SERVE_YAML, "serve_moe", flush)
+    serve_moe = engine_phase(MOE_SERVE_YAML, "serve_moe", flush,
+                             layers=MOE_SERVE_LAYERS)
     phase_done("serve_moe")
     # the HF-directory phases resolve their YAMLs' repo ids here
     hf_home = tempfile.mkdtemp(prefix="chip_smoke_hf_")
@@ -4620,6 +5344,13 @@ def main():
     torch.cuda.empty_cache()
     vlm_runs["sft_gemma3_4b_cord"] = gemma3_4b_cord_phase(hf_home, flush)
     phase_done("sft_gemma3_4b_cord")
+    # post-training: GRPO (rollouts through the engine) and DPO
+    pt_runs = {}
+    for label, yaml_path in (("grpo_llama_1b", GRPO_YAML),
+                             ("dpo_llama_1b", DPO_YAML)):
+        torch.cuda.empty_cache()
+        pt_runs[label] = post_train_phase(label, yaml_path)
+        phase_done(label)
     del flush
     shutil.rmtree(hf_home, ignore_errors=True)
     # last: its two recipes are set up and dropped here, after every timed
@@ -4673,6 +5404,16 @@ def main():
                 f"{tag}_plain_ms": c["plain_ms"],
                 f"{tag}_bound_ms": c["bound_ms"],
                 f"{tag}_library_ms": c["library_device_ms"]})
+    # GRPO's rollout decode (batch 64, contexts up to 256) and launches
+    for c in cases:
+        if c["case"].startswith("grpo_"):
+            kernels[-1].update({
+                f"{c['case']}_ms": c["device_ms"],
+                f"{c['case']}_plain_ms": c["plain_ms"],
+                f"{c['case']}_bound_ms": c["bound_ms"],
+                f"{c['case']}_library_ms": c["library_device_ms"]})
+    kernels[-1]["grpo_llama_1b_launches"] = pt_runs["grpo_llama_1b"][
+        "launches"]["paged_decode"]
     kernels[-1]["serve_moe_launches"] = serve_moe["kernel_launches"]
     kernels[-1]["serve_qwen2_launches"] = serve_qwen2["kernel_launches"]
     kernels[-1]["serving_features_launches"] = {
@@ -4724,9 +5465,9 @@ def main():
         if part == "fwd":
             kernels[-1]["generate_deepseek_launches"] = gen_deepseek[
                 "launches"]["attention_fwd"]
-        # the Gemma shapes (head_dim 128 and 256, windows, cap 50) and the
-        # VLM phases' first batches and launches
-        for c in gemma_cases + [r["attention_cases"][0]
+        # the Gemma shapes (head_dim 128 and 256, windows, cap 50), the
+        # post-training rows and the VLM phases' first batches and launches
+        for c in gemma_cases + pt_attn_cases + [r["attention_cases"][0]
                                 for r in vlm_runs.values()]:
             kernels[-1].update({
                 f"{c['case']}_ms": c[part]["ms"],
@@ -4737,7 +5478,7 @@ def main():
                 f"{c['case']}_attended_pairs": c["attended_pairs"]})
             kernels[-1]["max_abs_err"] = max(kernels[-1]["max_abs_err"],
                                              c[part]["max_abs_err"])
-        for label, run in vlm_runs.items():
+        for label, run in {**vlm_runs, **pt_runs}.items():
             kernels[-1][f"{label}_launches"] = run["launches"][
                 f"attn_{part}"]
         # the HF YAMLs' rows (unpacked, padding folded into segments)
@@ -4798,9 +5539,17 @@ def main():
                 f"{c['case']}_plain_ms": c[part]["plain_ms"],
                 f"{c['case']}_bound_ms": c[part]["bound_ms"],
                 f"{c['case']}_library_ms": c[part]["library_ms"]})
-        for label, run in vlm_runs.items():
+        for label, run in {**vlm_runs, **pt_runs}.items():
             kernels[-1][f"{label}_launches"] = run["launches"][
                 "lce_fwd" if part == "fwd" else part]
+        # the post-training shapes with their objectives' cotangents
+        for c in lce_cases:
+            if c["labels"] in PT_LCE_KINDS:
+                kernels[-1].update({
+                    f"{c['case']}_ms": c[part]["ms"],
+                    f"{c['case']}_plain_ms": c[part]["plain_ms"],
+                    f"{c['case']}_bound_ms": c[part]["bound_ms"],
+                    f"{c['case']}_library_ms": c[part]["library_ms"]})
         if part == "fwd":
             kernels[-1]["product_ms"] = got["product_ms"]
         if part == "dlogits":

@@ -2,7 +2,8 @@
 ``chip_smoke.py`` imports JAX or the JAX package (the flash rung, the
 checkpoint and HF-safetensors modules, the optimizer step, the DeepSeek
 families, ``from_pretrained``, the HellaSwag / SQuAD datasets, the Gemma
-and vision models, the VLM datasets and the VLM recipe among them),
+and vision models, the VLM datasets and the VLM recipe, the
+post-training modules and the GRPO / DPO recipes among them),
 importing every module loads no JAX, and the kernel build directory is
 ignored by git."""
 
@@ -36,7 +37,12 @@ def test_no_jax_or_jax_package_imports():
     for new in ("models/gemma3.py", "models/gemma2.py", "models/vision.py",
                 "models/vlm.py", "datasets/vlm/collate_fns.py",
                 "datasets/vlm/datasets.py", "datasets/vlm/mock.py",
-                "datasets/vlm/utils.py", "recipes/vlm/finetune.py"):
+                "datasets/vlm/utils.py", "recipes/vlm/finetune.py",
+                "post_training/__init__.py", "post_training/base.py",
+                "post_training/eval_watch.py", "post_training/logprobs.py",
+                "post_training/losses.py", "post_training/rollout.py",
+                "post_training/steps.py", "recipes/llm/train_grpo.py",
+                "recipes/llm/train_dpo.py"):
         assert new in rel, new
     for path in sources:
         with open(path) as f:

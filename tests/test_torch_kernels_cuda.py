@@ -1870,3 +1870,41 @@ def test_cuda_moe_backward_is_bitwise_run_to_run(cuda_device):
         runs.append([p.grad.clone() for p in model.parameters()
                      if p.grad is not None])
     assert all(torch.equal(p, q) for p, q in zip(*runs))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["grpo", "dpo"])
+def test_cuda_token_nll_row_cotangents_match_plain(kind, cuda_device):
+    """The post-training logprob pass (``post_training/logprobs.py::
+    token_nll``) through the linear-CE kernels against their plain route,
+    under the objectives' cotangents: GRPO's differ in sign and size on
+    every row, DPO's are constant within a sequence; both are 0 on prompt
+    and pad rows.  Values within the forward's limits, dh and dW within
+    the backward's relative L2."""
+    from automodel_tpu_torch.post_training.logprobs import token_nll
+
+    rng = np.random.default_rng(3)
+    B, S, H, V = 4, 96, 256, 1000
+    h = torch.from_numpy(rng.normal(size=(B, S, H)).astype(np.float32))
+    w = torch.from_numpy((rng.normal(size=(V, H)) * 0.05).astype(
+        np.float32))
+    labels = rng.integers(0, V, (B, S)).astype(np.int64)
+    labels[:, :31] = -100                       # the prompt
+    labels[1, 70:] = -100                       # a short completion
+    if kind == "grpo":
+        cot = rng.normal(size=(B, S)).astype(np.float32)
+    else:
+        cot = np.repeat(rng.uniform(-1, 1, (B, 1)), S, 1).astype(np.float32)
+    lab = torch.from_numpy(labels).to(cuda_device)
+    out = {}
+    for impl in (None, "plain"):
+        hh = h.to(cuda_device, torch.bfloat16).requires_grad_()
+        ws = w.to(cuda_device, torch.bfloat16).requires_grad_()
+        nll = token_nll(hh, ws.t(), lab, impl=impl)
+        (nll * torch.from_numpy(cot).to(cuda_device)).sum().backward()
+        out[impl] = (nll.detach(), hh.grad, ws.grad)
+    torch.testing.assert_close(out[None][0], out["plain"][0], atol=LCE_ATOL,
+                               rtol=LCE_RTOL)
+    assert bool((out[None][0][lab == -100] == 0).all())
+    for got, ref in zip(out[None][1:], out["plain"][1:]):
+        assert rel_l2(got, ref) < LCE_GRAD_REL_L2
