@@ -1,5 +1,6 @@
-"""Synthetic Gaussian-length sentences and preference pairs (counterpart:
-``automodel_tpu/datasets/llm/mock.py::build_unpacked_dataset`` and
+"""Synthetic Gaussian-length sentences, classification rows and preference
+pairs (counterpart: ``automodel_tpu/datasets/llm/mock.py::
+build_unpacked_dataset``, ``build_classification_dataset`` and
 ``build_preference_pairs_dataset``).
 
 The same samples from the same seed: the generator is Python's ``random``
@@ -54,6 +55,33 @@ def build_unpacked_dataset(
             "attention_mask": [1] * len(sent),
             "labels": sent.copy(),
             "position_ids": pos_ids,
+        })
+    return examples
+
+
+def build_classification_dataset(
+    *,
+    num_examples: int = 64,
+    num_labels: int = 2,
+    mean_len: float = 20.0,
+    std_len: float = 6.0,
+    vocab_size: int = 100,
+    max_sentence_len: int = 64,
+    seed: int = 0,
+    tokenizer=None,
+) -> List[Dict[str, List[int]]]:
+    """Sequence-classification rows: one sentence and one label each, the
+    label the first token's id modulo ``num_labels`` (learnable in a few
+    steps).  The same rows as JAX from the same seed."""
+    random.seed(seed)
+    vocab = make_vocab(vocab_size)
+    examples = []
+    for _ in range(num_examples):
+        sent = gen_sentence_ids(vocab, mean_len, std_len, max_sentence_len)
+        examples.append({
+            "input_ids": sent,
+            "attention_mask": [1] * len(sent),
+            "labels": sent[0] % num_labels,
         })
     return examples
 

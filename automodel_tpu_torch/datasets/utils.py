@@ -109,6 +109,19 @@ def default_collater(batch: List[dict],
     return out
 
 
+def classification_collater(batch: List[dict],
+                            pad_seq_len_divisible: Optional[int] = None
+                            ) -> Dict[str, np.ndarray]:
+    """Sequence classification (the JAX ``classification_collater``): the
+    token keys pad and stack as :func:`default_collater` does; ``labels``
+    is one int32 per example, ``[B]``.  The rows are left as they are."""
+    labels = np.asarray([ex["labels"] for ex in batch], np.int32)
+    out = default_collater([{k: v for k, v in ex.items() if k != "labels"}
+                            for ex in batch], pad_seq_len_divisible)
+    out["labels"] = labels
+    return out
+
+
 class SFTSingleTurnPreprocessor:
     """Context + target rows -> training rows (the JAX preprocessor):
     ``input_ids`` = the context's tokens then the target's (a trailing

@@ -1,23 +1,31 @@
 """HF safetensors <-> the port's modules (counterpart:
 ``automodel_tpu/models/hf_io.py``).
 
-The key maps are the JAX package's for the ported families (llama and,
-on its map, mistral, qwen2 (q / k / v biases) and qwen3; mixtral,
-qwen3_moe, deepseek_v2, deepseek_v3; gemma3_text and gemma2, and the
-VLMs gemma3 and llava with their SigLIP tower), keyed by the same JAX tree
-paths that ``models/weights.py::jax_leaves`` walks; an entry is an
-:class:`HfEntry`.  DeepSeek's split stack maps its sub-stacks onto HF's
-one layer index with ``layer_offset`` (``layers[j]`` is HF layer ``j +
+The key maps are the JAX package's for the ported families (llama and, on
+its map, mistral, qwen2 (q / k / v biases), qwen3 and granite; olmo2,
+starcoder2, phi3 (fused ``qkv_proj`` / ``gate_up_proj``) and gpt2;
+mixtral, qwen3_moe, deepseek_v2, deepseek_v3; gemma3_text and gemma2, and
+the VLMs gemma3 and llava with their SigLIP tower), keyed by the same JAX
+tree paths that ``models/weights.py::jax_leaves`` walks; an entry is an
+:class:`HfEntry`. A sequence classifier's map is its backbone's re-rooted
+under ``backbone`` without ``lm_head``, plus ``score.weight``, which a
+causal-LM directory lacks: the head then keeps its fresh draw, as HF's
+``from_pretrained`` and the JAX reader give a new head. GPT-2 is written
+with the JAX package's names (``h.{i}.attn.c_attn.weight``, ``wte.weight``
+...) in HF's Conv1D layout ``[in, out]`` (the parameter's transpose); a
+checkpoint whose names carry HF's ``transformer.`` prefix reads too.
+DeepSeek's split stack maps its sub-stacks onto HF's one layer index with
+``layer_offset`` (``layers[j]`` is HF layer ``j +
 first_k_dense_replace``), and a checkpoint without V3's
-``e_score_correction_bias`` loads it as zeros, as the JAX reader does.
-HF stores an ``nn.Linear`` as ``(out, in)``, the port's layout, so
+``e_score_correction_bias`` loads it as zeros, as the JAX reader does. HF
+stores an ``nn.Linear`` as ``(out, in)``, the port's layout, so
 projections and routers copy as they are; the expert stacks keep the JAX
 layout ``[E, in, out]`` per layer and are split into (joined from) one
-transposed HF tensor per expert (``...experts.{e}.<name>.weight``).
-The vision tower's patch embedding is HF's Conv2d weight ``[H, C, p, p]``
-and the port's ``[H, p * p * C]`` matmul over ``(row, col, channel)``
-patches: the entry's ``view`` reads and writes the one through a permuted
-view of the other.
+transposed HF tensor per expert (``...experts.{e}.<name>.weight``). The
+vision tower's patch embedding is HF's Conv2d weight ``[H, C, p, p]`` and
+the port's ``[H, p * p * C]`` matmul over ``(row, col, channel)`` patches:
+the entry's ``view`` reads and writes the one through a permuted view of
+the other.
 
 :func:`save_hf_weights` writes a consolidated HF repo as the JAX writer
 does: ``model.safetensors`` (``model-0000i-of-0000n.safetensors`` past
@@ -68,6 +76,11 @@ _ARCHITECTURES = {"llama": "LlamaForCausalLM",
                   "mistral": "MistralForCausalLM",
                   "qwen2": "Qwen2ForCausalLM",
                   "qwen3": "Qwen3ForCausalLM",
+                  "granite": "GraniteForCausalLM",
+                  "olmo2": "Olmo2ForCausalLM",
+                  "starcoder2": "Starcoder2ForCausalLM",
+                  "phi3": "Phi3ForCausalLM",
+                  "gpt2": "GPT2LMHeadModel",
                   "mixtral": "MixtralForCausalLM",
                   "qwen3_moe": "Qwen3MoeForCausalLM",
                   "deepseek_v2": "DeepseekV2ForCausalLM",
@@ -151,14 +164,22 @@ class HfEntry(NamedTuple):
     (``{i}`` the HF layer, ``{e}`` the expert), whether the leaf stacks
     experts, the read ``transform`` of an int8 base, the HF layer of the
     leaf's first stacked slice, whether a checkpoint without the
-    tensor reads it as zeros, and ``view``: the parameter -> its HF-layout
-    view, where the layouts differ by more than a transpose."""
+    tensor reads it as zeros, ``view``: the parameter -> its HF-layout
+    view, where the layouts differ by more than a transpose, and whether a
+    checkpoint without the tensor leaves the parameter as drawn (a
+    classifier's fresh ``score``)."""
     template: str
     expert_stacked: bool = False
     transform: Optional[str] = None
     layer_offset: int = 0
     zeros_if_missing: bool = False
     view: Optional[Callable] = None
+    fresh_if_missing: bool = False
+
+
+# Prefixes a checkpoint's names may carry that the key maps leave out
+# (HF's ``GPT2LMHeadModel`` writes ``transformer.h.0...``).
+_READ_PREFIXES = ("transformer.",)
 
 
 def llama_key_map(config) -> Dict[Tuple[str, ...], HfEntry]:
@@ -185,6 +206,88 @@ def llama_key_map(config) -> Dict[Tuple[str, ...], HfEntry]:
             f"model.layers.{{i}}.mlp.{proj}.weight")
     if not config.tie_word_embeddings:
         m[("lm_head", "kernel")] = HfEntry("lm_head.weight")
+    return m
+
+
+def olmo2_key_map(config) -> Dict[Tuple[str, ...], HfEntry]:
+    """OLMo-2 (HF ``Olmo2ForCausalLM``): Llama's projections, the
+    post-attention and post-feedforward norms (no input norm), full-width
+    q / k norms."""
+    m = llama_key_map(config)
+    del m[("layers", "input_layernorm", "weight")]
+    m[("layers", "post_feedforward_layernorm", "weight")] = HfEntry(
+        "model.layers.{i}.post_feedforward_layernorm.weight")
+    for norm in ("q_norm", "k_norm"):
+        m[("layers", "self_attn", norm, "weight")] = HfEntry(
+            f"model.layers.{{i}}.self_attn.{norm}.weight")
+    return m
+
+
+def starcoder2_key_map(config) -> Dict[Tuple[str, ...], HfEntry]:
+    """StarCoder-2 (HF ``Starcoder2ForCausalLM``): Llama's attention with
+    biases everywhere, LayerNorms with biases, the ``c_fc`` / ``c_proj``
+    MLP."""
+    m = llama_key_map(config)
+    for proj in ("gate_proj", "up_proj", "down_proj"):
+        del m[("layers", "mlp", proj, "kernel")]
+    for proj in ("c_fc", "c_proj"):
+        m[("layers", "mlp", proj, "kernel")] = HfEntry(
+            f"model.layers.{{i}}.mlp.{proj}.weight")
+        if config.use_bias:
+            m[("layers", "mlp", proj, "bias")] = HfEntry(
+                f"model.layers.{{i}}.mlp.{proj}.bias")
+    if config.use_bias:
+        m[("layers", "self_attn", "o_proj", "bias")] = HfEntry(
+            "model.layers.{i}.self_attn.o_proj.bias")
+    for norm in ("input_layernorm", "post_attention_layernorm"):
+        m[("layers", norm, "bias")] = HfEntry(
+            f"model.layers.{{i}}.{norm}.bias")
+    m[("norm", "bias")] = HfEntry("model.norm.bias")
+    return m
+
+
+def phi3_key_map(config) -> Dict[Tuple[str, ...], HfEntry]:
+    """Phi-3 / Phi-4 text (HF ``Phi3ForCausalLM``): the fused ``qkv_proj``
+    and ``gate_up_proj``."""
+    m = {
+        ("embed_tokens", "embedding"): HfEntry("model.embed_tokens.weight"),
+        ("norm", "weight"): HfEntry("model.norm.weight"),
+    }
+    for norm in ("input_layernorm", "post_attention_layernorm"):
+        m[("layers", norm, "weight")] = HfEntry(
+            f"model.layers.{{i}}.{norm}.weight")
+    for block, proj in (("self_attn", "qkv_proj"), ("self_attn", "o_proj"),
+                        ("mlp", "gate_up_proj"), ("mlp", "down_proj")):
+        m[("layers", block, proj, "kernel")] = HfEntry(
+            f"model.layers.{{i}}.{block}.{proj}.weight")
+    if not config.tie_word_embeddings:
+        m[("lm_head", "kernel")] = HfEntry("lm_head.weight")
+    return m
+
+
+def _conv1d(w):             # nn.Linear [out, in] -> HF Conv1D [in, out]
+    return w.t()
+
+
+def gpt2_key_map(config) -> Dict[Tuple[str, ...], HfEntry]:
+    """GPT-2 under the JAX package's names: ``wte`` / ``wpe`` / ``ln_f``
+    and ``h.{i}.*``, the four linears in Conv1D's ``[in, out]``."""
+    m = {
+        ("wte", "embedding"): HfEntry("wte.weight"),
+        ("wpe", "embedding"): HfEntry("wpe.weight"),
+        ("ln_f", "weight"): HfEntry("ln_f.weight"),
+        ("ln_f", "bias"): HfEntry("ln_f.bias"),
+    }
+    if not config.tie_word_embeddings:
+        m[("lm_head", "kernel")] = HfEntry("lm_head.weight")
+    for ln in ("ln_1", "ln_2"):
+        for wb in ("weight", "bias"):
+            m[("h", ln, wb)] = HfEntry(f"h.{{i}}.{ln}.{wb}")
+    for mod, sub in (("attn", "c_attn"), ("attn", "c_proj"),
+                     ("mlp", "c_fc"), ("mlp", "c_proj")):
+        m[("h", mod, sub, "kernel")] = HfEntry(f"h.{{i}}.{mod}.{sub}.weight",
+                                               view=_conv1d)
+        m[("h", mod, sub, "bias")] = HfEntry(f"h.{{i}}.{mod}.{sub}.bias")
     return m
 
 
@@ -368,6 +471,9 @@ def gemma3_vlm_key_map(config) -> Dict[Tuple[str, ...], HfEntry]:
 
 _KEY_MAPS = {"llama": llama_key_map, "mistral": llama_key_map,
              "qwen2": llama_key_map, "qwen3": llama_key_map,
+             "granite": llama_key_map, "olmo2": olmo2_key_map,
+             "starcoder2": starcoder2_key_map, "phi3": phi3_key_map,
+             "gpt2": gpt2_key_map,
              "mixtral": mixtral_key_map,
              "qwen3_moe": qwen3_moe_key_map,
              "deepseek_v2": deepseek_v2_key_map,
@@ -399,11 +505,22 @@ def quantized_key_map(base_map):
     return m
 
 
+def classifier_key_map(backbone_map) -> Dict[Tuple[str, ...], HfEntry]:
+    """A sequence classifier's map: the backbone's under ``backbone``
+    without ``lm_head``, and ``score.weight`` (fresh when missing)."""
+    m = {("backbone",) + path: e for path, e in backbone_map.items()
+         if path[0] != "lm_head"}
+    m[("score", "kernel")] = HfEntry("score.weight", fresh_if_missing=True)
+    return m
+
+
 def key_map_for(model):
     """The JAX-path -> HF key map of ``model``'s family (the quantized one
-    for an int8 base)."""
+    for an int8 base; a classifier's re-rooted one)."""
     from automodel_tpu_torch.quantization.weight_only import is_quantized
 
+    if hasattr(model, "backbone") and hasattr(model, "score"):
+        return classifier_key_map(key_map_for(model.backbone))
     mt = model.config.model_type
     if mt not in _KEY_MAPS:
         raise NotImplementedError(f"no HF key map for model_type {mt!r}")
@@ -432,11 +549,13 @@ def hf_tensors(model, reading: bool = False
             name = template.format(i=i + entry.layer_offset, e="{e}")
             if expert_stacked:
                 for e in range(p.shape[0]):
-                    yield name.format(e=e), p[e].t(), (p, e, None, False)
+                    yield name.format(e=e), p[e].t(), (p, e, None, False,
+                                                       False)
             else:
                 if entry.view is not None:
                     p = entry.view(p)
-                yield name, p, (p, None, transform, entry.zeros_if_missing)
+                yield name, p, (p, None, transform, entry.zeros_if_missing,
+                                entry.fresh_if_missing)
 
 
 # ---------------------------------------------------------------------------
@@ -501,16 +620,20 @@ def load_hf_weights(model, ckpt_dir: str) -> None:
             f"{ckpt_dir} has no {SAFETENSORS_FILE} or {SAFETENSORS_INDEX}")
     wanted: Dict[str, List[Tuple[str, Tuple]]] = {}
     for name, view, where in hf_tensors(model, reading=True):
-        if name not in weight_map:
+        stored = next((pre + name for pre in ("",) + _READ_PREFIXES
+                       if pre + name in weight_map), None)
+        if stored is None:
             if where[3]:                # e.g. V3's correction bias
                 view.zero_()
                 continue
+            if where[4]:                # a classifier's new score head
+                continue
             raise KeyError(f"{ckpt_dir} lacks {name}")
-        wanted.setdefault(weight_map[name], []).append((name, where))
+        wanted.setdefault(weight_map[stored], []).append((stored, where))
     for fname, entries in wanted.items():
         got = read_safetensors(os.path.join(ckpt_dir, fname),
                                sorted({n for n, _ in entries}))
-        for name, (p, expert, transform, _) in entries:
+        for name, (p, expert, transform, _, _) in entries:
             t = got[name]
             if transform is not None:     # an int8 base, quantized here
                 from automodel_tpu_torch.quantization.weight_only import (
@@ -527,9 +650,21 @@ def load_hf_weights(model, ckpt_dir: str) -> None:
 
 
 def save_hf_config(model, out_dir: str) -> None:
-    """``config.json``: the model config's fields plus ``architectures``."""
+    """``config.json``: the model config's fields plus ``architectures``
+    (and a classifier's ``num_labels``, ``pad_token_id`` and label maps,
+    as the JAX writer)."""
     d = dataclasses.asdict(model.config)
-    d["architectures"] = [_ARCHITECTURES[model.config.model_type]]
+    arch = _ARCHITECTURES[model.config.model_type]
+    if hasattr(model, "num_labels"):
+        n = model.num_labels
+        arch = arch.replace("ForCausalLM", "") + "ForSequenceClassification"
+        d.update(num_labels=n, pad_token_id=model.pad_token_id,
+                 id2label={str(i): f"LABEL_{i}" for i in range(n)},
+                 label2id={f"LABEL_{i}": i for i in range(n)})
+    if d.get("original_max_position_embeddings", 0) is None:
+        # HF reads an absent key as max_position_embeddings (Phi-3)
+        d.pop("original_max_position_embeddings")
+    d["architectures"] = [arch]
     if isinstance(d.get("torch_dtype"), torch.dtype):
         d["torch_dtype"] = str(d["torch_dtype"]).replace("torch.", "")
     d.setdefault("torch_dtype", str(model.param_dtype).replace("torch.", ""))

@@ -70,14 +70,18 @@ from automodel_tpu_torch.ops.attention import (
     fold_padding_into_segments,
 )
 from automodel_tpu_torch.ops.lora_gmm import lora_routing, multi_lora_delta
-from automodel_tpu_torch.ops.norms import rms_norm
+from automodel_tpu_torch.ops.norms import layer_norm, rms_norm
 from automodel_tpu_torch.ops.quant import maybe_qdot
 from automodel_tpu_torch.ops.remat import (
     checkpoint_layer,
     checkpoint_name,
     resolve_remat_policy,
 )
-from automodel_tpu_torch.ops.rotary import apply_rope, rope_tables
+from automodel_tpu_torch.ops.rotary import (
+    apply_rope,
+    longrope_tables,
+    rope_tables,
+)
 from automodel_tpu_torch.utils.device import resolve_device
 
 logger = logging.getLogger(__name__)
@@ -225,10 +229,10 @@ class DenseKVView:
             t = self.cache[name]
             t[:, i:i + S] = x.to(t.dtype)
 
-    def attend(self, q: torch.Tensor, *, local_window_size=None):
+    def attend(self, q: torch.Tensor, *, scale=None, local_window_size=None):
         return cached_attention(
             q, self.cache["k"], self.cache["v"], cache_index=self.cache_index,
-            attention_mask=self.attention_mask,
+            attention_mask=self.attention_mask, scale=scale,
             local_window_size=local_window_size)
 
 
@@ -242,27 +246,55 @@ class RMSNorm(nn.Module):
         return rms_norm(x, self.weight, self.eps)
 
 
+class LayerNorm(nn.Module):
+    """LayerNorm with weight (ones) and bias (zeros), statistics in fp32
+    (``ops/norms.py::layer_norm``, the JAX one): StarCoder-2's and
+    GPT-2's."""
+
+    def __init__(self, size: int, eps: float, dtype, device):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(size, dtype=dtype,
+                                              device=device))
+        self.bias = nn.Parameter(torch.zeros(size, dtype=dtype,
+                                             device=device))
+
+    def forward(self, x):
+        return layer_norm(x, self.weight, self.bias, self.eps)
+
+
 class LlamaDecoderLayer(nn.Module):
     """Attention projections (with Qwen3's per-head ``q_norm`` / ``k_norm``
     when ``cfg.qk_norm``) and the feed-forward block that ``init_mlp``
-    builds: the dense SwiGLU here, routed experts in the MoE families."""
+    builds: the dense SwiGLU here, routed experts in the MoE families.
+    ``norm_cls`` builds the block norms (and the model's final norm):
+    RMSNorm here, a biased LayerNorm in StarCoder-2 (the JAX ``_norm``
+    hook)."""
+
+    norm_cls = RMSNorm
 
     def __init__(self, cfg: LlamaConfig, dtype: torch.dtype, device):
         super().__init__()
         H, D = cfg.hidden_size, cfg.head_dim
+        self.input_layernorm = self.norm_cls(H, cfg.rms_norm_eps, dtype,
+                                             device)
+        self.init_attention(cfg, dtype, device)
+        if cfg.qk_norm:
+            self.q_norm = RMSNorm(D, cfg.rms_norm_eps, dtype, device)
+            self.k_norm = RMSNorm(D, cfg.rms_norm_eps, dtype, device)
+        self.post_attention_layernorm = self.norm_cls(H, cfg.rms_norm_eps,
+                                                      dtype, device)
+        self.init_mlp(cfg, dtype, device)
+
+    def init_attention(self, cfg: LlamaConfig, dtype: torch.dtype,
+                       device) -> None:
+        H, D = cfg.hidden_size, cfg.head_dim
         Hq, Hk = cfg.num_attention_heads, cfg.num_key_value_heads
-        self.input_layernorm = RMSNorm(H, cfg.rms_norm_eps, dtype, device)
         bias = bool(cfg.attention_bias)
         self.q_proj = _linear(H, Hq * D, dtype, device, bias)
         self.k_proj = _linear(H, Hk * D, dtype, device, bias)
         self.v_proj = _linear(H, Hk * D, dtype, device, bias)
         self.o_proj = _linear(Hq * D, H, dtype, device)
-        if cfg.qk_norm:
-            self.q_norm = RMSNorm(D, cfg.rms_norm_eps, dtype, device)
-            self.k_norm = RMSNorm(D, cfg.rms_norm_eps, dtype, device)
-        self.post_attention_layernorm = RMSNorm(H, cfg.rms_norm_eps, dtype,
-                                                device)
-        self.init_mlp(cfg, dtype, device)
 
     def init_mlp(self, cfg: LlamaConfig, dtype: torch.dtype, device) -> None:
         H, I = cfg.hidden_size, cfg.intermediate_size
@@ -307,6 +339,16 @@ class LlamaForCausalLM(nn.Module):
                 f"model.scan_block={scan_block} must divide "
                 f"num_hidden_layers={L}")
         self.scan_block = int(scan_block)
+        # The families' scalar hooks (Granite's multipliers; the JAX
+        # decoder's): token embeddings times ``_embedding_scale``, both
+        # block outputs times ``_residual_scale`` before the residual add,
+        # ``_attn_softmax_scale`` in place of ``head_dim ** -0.5`` (None:
+        # the default), logits divided by ``_logits_divisor`` (folded into
+        # the head for a hidden-state loss).
+        self._embedding_scale = 1.0
+        self._residual_scale = 1.0
+        self._attn_softmax_scale: Optional[float] = None
+        self._logits_divisor = 1.0
         if scan_unroll != 1:
             logger.info("model.scan_unroll=%s: the port runs its layers in "
                         "an eager loop, which has nothing to unroll; the "
@@ -316,18 +358,28 @@ class LlamaForCausalLM(nn.Module):
         self.embed_tokens = nn.Embedding(cfg.vocab_size, cfg.hidden_size,
                                          dtype=dt, device=device)
         self._build_layers(cfg, dt, device)
-        self.norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, dt, device)
+        self.norm = self.layer_cls.norm_cls(cfg.hidden_size,
+                                            cfg.rms_norm_eps, dt, device)
         self.lm_head = None
         if not cfg.tie_word_embeddings:
             self.lm_head = nn.Linear(cfg.hidden_size, cfg.vocab_size,
                                      bias=False, dtype=dt, device=device)
-        inv_freq, self.rope_attention_scaling = rope_tables(
-            self._rotary_dim(), cfg.rope_theta, cfg.rope_scaling,
+        rope_kw = dict(
             max_position_embeddings=cfg.max_position_embeddings,
             original_max_position_embeddings=getattr(
                 cfg, "original_max_position_embeddings", None))
+        inv_freq, self.rope_attention_scaling = rope_tables(
+            self._rotary_dim(), cfg.rope_theta, cfg.rope_scaling, **rope_kw)
         self.register_buffer("inv_freq", torch.from_numpy(inv_freq).to(device),
                              persistent=False)
+        # longrope: the long table and the original length it starts past
+        long = longrope_tables(self._rotary_dim(), cfg.rope_theta,
+                               cfg.rope_scaling, **rope_kw)
+        self.rope_original_max = None if long is None else long[1]
+        if long is not None:
+            self.register_buffer(
+                "inv_freq_long", torch.from_numpy(long[0]).to(device),
+                persistent=False)
 
     def _uniform_window(self, cfg) -> Optional[int]:
         """The one window every layer attends under (None: causal); the
@@ -342,8 +394,53 @@ class LlamaForCausalLM(nn.Module):
              for _ in range(cfg.num_hidden_layers)])
 
     def _rotary_dim(self) -> int:
-        """The channels rope rotates (every head channel here)."""
-        return self.config.head_dim
+        """The channels rope rotates: ``head_dim`` times the config's
+        ``partial_rotary_factor`` (1 but for Phi)."""
+        cfg = self.config
+        return int(cfg.head_dim * getattr(cfg, "partial_rotary_factor", 1.0))
+
+    def _rope_inv_freq(self, position_ids: torch.Tensor) -> torch.Tensor:
+        """This forward's inverse frequencies: longrope's long table when
+        ``max(position_ids) + 1`` passes the original length, else the
+        (short) table, chosen on the device (no host sync)."""
+        if self.rope_original_max is None:
+            return self.inv_freq
+        use_long = position_ids.max() + 1 > self.rope_original_max
+        return torch.where(use_long, self.inv_freq_long, self.inv_freq)
+
+    def _apply_rope(self, q: torch.Tensor, k: torch.Tensor,
+                    position_ids: torch.Tensor):
+        """Rotate q and k; with partial rotary only the first
+        ``_rotary_dim()`` channels (scaled), the rest pass through."""
+        inv = self._rope_inv_freq(position_ids)
+        scaling = self.rope_attention_scaling
+        rd = self._rotary_dim()
+        if rd == q.shape[-1]:
+            return apply_rope(q, k, position_ids, inv, scaling)
+        q_rot, k_rot = apply_rope(q[..., :rd], k[..., :rd], position_ids,
+                                  inv, scaling)
+        return (torch.cat([q_rot, q[..., rd:]], dim=-1),
+                torch.cat([k_rot, k[..., rd:]], dim=-1))
+
+    def _attend(self, q, k, v, segment_ids, kv_cache, attn_impl):
+        """Attention of rotated ``q`` over ``k`` / ``v`` (written into the
+        cache first when there is one), at the family's softmax scale and
+        window; tagged ``attn_core`` for the remat policy."""
+        scale = self._attn_softmax_scale
+        if kv_cache is not None:
+            kv_cache.write(k, v)
+            return kv_cache.attend(q, scale=scale,
+                                   local_window_size=self.sliding_window)
+        attn = attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                         causal=True, segment_ids=segment_ids, scale=scale,
+                         local_window_size=self.sliding_window,
+                         impl=attn_impl)
+        return self._tag(attn, "attn_core")
+
+    def _scale_residual(self, out: torch.Tensor) -> torch.Tensor:
+        """A block's output times ``_residual_scale`` (when not 1)."""
+        return out if self._residual_scale == 1.0 else \
+            out * self._residual_scale
 
     def _stack(self) -> List[nn.Module]:
         """Every decoder layer in order."""
@@ -353,13 +450,12 @@ class LlamaForCausalLM(nn.Module):
     def init_weights(self, seed: int = 0) -> "LlamaForCausalLM":
         """Random weights drawn from ``seed``: N(0, 0.02) for embeddings,
         projections, routers and experts, ones for the norms, zeros for
-        the q / k / v biases (the JAX ``init``'s distribution; not its
-        numbers)."""
+        the biases (the JAX ``init``'s distribution; not its numbers)."""
         gen = torch.Generator(device=self.inv_freq.device).manual_seed(seed)
         for name, p in self.named_parameters():
             if name.endswith("norm.weight"):
                 p.fill_(1.0)
-            elif name.endswith("_proj.bias"):
+            elif name.endswith(".bias"):
                 p.zero_()
             else:
                 p.normal_(0.0, 0.02, generator=gen)
@@ -423,19 +519,10 @@ class LlamaForCausalLM(nn.Module):
         v = self._proj(layer.v_proj, x, "self_attn.v_proj").view(B, S, Hk, D)
         if cfg.qk_norm:
             q, k = layer.q_norm(q), layer.k_norm(k)
-        q, k = apply_rope(q, k, position_ids, self.inv_freq,
-                          self.rope_attention_scaling)
-        if kv_cache is not None:
-            kv_cache.write(k, v)
-            attn = kv_cache.attend(q, local_window_size=self.sliding_window)
-        else:
-            attn = attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                             causal=True, segment_ids=segment_ids,
-                             local_window_size=self.sliding_window,
-                             impl=attn_impl)
-            attn = self._tag(attn, "attn_core")
-        return hidden + self._proj(layer.o_proj, attn.reshape(B, S, Hq * D),
-                                   "self_attn.o_proj")
+        q, k = self._apply_rope(q, k, position_ids)
+        attn = self._attend(q, k, v, segment_ids, kv_cache, attn_impl)
+        return hidden + self._scale_residual(self._proj(
+            layer.o_proj, attn.reshape(B, S, Hq * D), "self_attn.o_proj"))
 
     def _mlp_block(self, x: torch.Tensor, layer: LlamaDecoderLayer):
         """Post-norm feed-forward of one layer -> ``(out, aux | None)``: the
@@ -483,7 +570,7 @@ class LlamaForCausalLM(nn.Module):
                 layer.post_attention_layernorm(hidden), layer)
         finally:
             self._adapters = None
-        return hidden + out, aux
+        return hidden + self._scale_residual(out), aux
 
     def _head(self, hidden: torch.Tensor, return_hidden: bool
               ) -> Dict[str, torch.Tensor]:
@@ -492,9 +579,19 @@ class LlamaForCausalLM(nn.Module):
         # tied: the head is the embedding, whose gradient sums both uses
         head = (self.embed_tokens.weight if self.lm_head is None
                 else self.lm_head.weight)
+        div = self._logits_divisor
         if return_hidden:
+            if div != 1.0:
+                # folded into the head, so a fused loss sees the scaled
+                # logits and the head's gradient carries the factor
+                head = head / torch.tensor(div, dtype=head.dtype,
+                                           device=head.device)
             return {"hidden_states": hidden, "lm_head_kernel": head.t()}
-        return {"logits": F.linear(hidden, head.to(self.compute_dtype))}
+        logits = F.linear(hidden, head.to(self.compute_dtype))
+        if div != 1.0:
+            logits = logits / torch.tensor(div, dtype=logits.dtype,
+                                           device=logits.device)
+        return {"logits": logits}
 
     def _combine_aux(self, aux_losses: List[Any]) -> torch.Tensor:
         """Fold the layers' aux values into the scalar ``aux_loss`` output
@@ -612,8 +709,14 @@ class LlamaForCausalLM(nn.Module):
         return out
 
     def _embed(self, input_ids: torch.Tensor) -> torch.Tensor:
-        """The token embeddings of ``input_ids`` in the compute dtype."""
-        return self.embed_tokens.weight[input_ids].to(self.compute_dtype)
+        """The token embeddings of ``input_ids`` in the compute dtype,
+        times ``_embedding_scale`` in that dtype when it is not 1."""
+        cd = self.compute_dtype
+        hidden = self.embed_tokens.weight[input_ids].to(cd)
+        if self._embedding_scale != 1.0:
+            hidden = hidden * torch.tensor(self._embedding_scale, dtype=cd,
+                                           device=hidden.device)
+        return hidden
 
     def _forward(self, input_ids, position_ids, segment_ids, kv_cache,
                  return_hidden, attn_impl, adapters, inputs_embeds=None):

@@ -57,7 +57,7 @@ def jax_leaves(model: LlamaForCausalLM
         yield (("layers", norm, "weight"),
                [getattr(l, norm).weight for l in layers], False)
     for proj in _ATTN:
-        yield from _projection(layers, "self_attn", proj)
+        yield from projection_leaves(layers, "self_attn", proj)
     if model.config.qk_norm:
         for norm in ("q_norm", "k_norm"):
             yield (("layers", "self_attn", norm, "weight"),
@@ -65,7 +65,7 @@ def jax_leaves(model: LlamaForCausalLM
     block = getattr(layers[0], "moe_block", None)
     if block is None:
         for proj in _MLP:
-            yield from _projection(layers, "mlp", proj)
+            yield from projection_leaves(layers, "mlp", proj)
     else:
         # routed experts: the router [L, H, E] (an nn.Linear [E, H] here)
         # and the expert stacks [L, E, ...], which keep the JAX layout
@@ -80,10 +80,10 @@ def jax_leaves(model: LlamaForCausalLM
         yield ("lm_head", "kernel"), model.lm_head.weight, True
 
 
-def _projection(layers, block: str, proj: str):
+def projection_leaves(layers, block: str, proj: str):
     """A projection's kernel leaf, its ``scale`` leaf when the layers hold
     it as an int8 base (``Int8Linear``), and its ``bias [L, out]`` leaf
-    when it has one (Qwen2's q / k / v)."""
+    when it has one (Qwen2's q / k / v, StarCoder-2's every projection)."""
     mods = [getattr(l, proj) for l in layers]
     yield ("layers", block, proj, "kernel"), [m.weight for m in mods], True
     if hasattr(mods[0], "scale"):

@@ -161,7 +161,9 @@ def paged_decode_cuda(q: torch.Tensor, k_pool: torch.Tensor,
     _check(q.dim() == 4, f"q must be [B, S, Hq, D], got {tuple(q.shape)}")
     B, S, Hq, D = q.shape
     _check(paged_decode_available(S), f"q_seq {S} outside 1..{MAX_CHUNKED_Q}")
-    _check(D in HEAD_DIMS, f"head_dim {D} not in {HEAD_DIMS}")
+    _check(D in HEAD_DIMS, f"head_dim {D} not in {HEAD_DIMS}: the decode "
+           "kernel has no tile config for it (a head_dim-96 decode, "
+           "Phi-3-mini's, is ROADMAP Queue 2 C)")
     _check(q.dtype in (torch.float32, torch.bfloat16),
            f"q dtype {q.dtype} not float32/bfloat16")
     _check(k_pool.dim() == 4 and k_pool.shape == v_pool.shape,

@@ -2,9 +2,13 @@
 
 The frequency tables are computed in numpy float64 exactly as the JAX
 package does, so both sides rotate by the same float32 frequencies.  The
-default, linear, llama3 and yarn rope types are ported (yarn with its
-amplitude factor, ``attention_scaling``); longrope waits for its model
-families (ROADMAP Queue 1 item 10.6).
+default, linear, llama3, yarn and longrope rope types are ported (yarn
+and longrope with their amplitude factor, ``attention_scaling``).
+Longrope (Phi-3's 128k variants) rescales each frequency by a per-dim
+factor list, ``short_factor`` or, once the sequence passes the original
+context length, ``long_factor``: the model holds both tables
+(:func:`longrope_tables`) and picks one from the positions at run time,
+as HF's ``dynamic_rope_update`` and the JAX ``_rope_tables`` do.
 """
 
 from __future__ import annotations
@@ -26,7 +30,8 @@ def rope_type_of(scaling: Optional[dict]) -> str:
 def rope_tables(head_dim: int, theta: float = 10000.0,
                 scaling: Optional[dict] = None, *,
                 max_position_embeddings: Optional[int] = None,
-                original_max_position_embeddings: Optional[int] = None
+                original_max_position_embeddings: Optional[int] = None,
+                seq_len: Optional[int] = None
                 ) -> Tuple[np.ndarray, float]:
     """``(inverse frequencies [D/2] float32 numpy, attention_scaling)``:
     the JAX ``rope_parameters``.  ``attention_scaling`` multiplies the cos
@@ -37,8 +42,15 @@ def rope_tables(head_dim: int, theta: float = 10000.0,
     ``beta_fast`` and ``beta_slow``; its context length is the scaling
     dict's ``original_max_position_embeddings``, else
     ``max_position_embeddings`` (HF reads no config-level original length
-    for yarn, and neither does JAX; ``original_max_position_embeddings``
-    is taken for longrope's sake and refused with it)."""
+    for yarn, and neither does JAX).
+
+    longrope (HF ``_compute_longrope_parameters``) divides each frequency
+    by ``long_factor`` when ``seq_len`` exceeds the original context
+    length, else by ``short_factor``; its amplitude is ``sqrt(1 + ln(f) /
+    ln(original))``.  A config-level ``original_max_position_embeddings``
+    sets the original length and ``f = max_position_embeddings /
+    original``; without it the original length is
+    ``max_position_embeddings`` and ``f`` the dict's ``factor``."""
     inv_freq = 1.0 / (theta ** (np.arange(0, head_dim, 2, dtype=np.float64)
                                 / head_dim))
     attention_scaling = 1.0
@@ -90,11 +102,48 @@ def rope_tables(head_dim: int, theta: float = 10000.0,
         extrapolation = 1.0 - ramp
         inv_freq = (inv_freq / factor * (1 - extrapolation)
                     + inv_freq * extrapolation)
+    elif rope_type == "longrope":
+        if original_max_position_embeddings:
+            old_len = original_max_position_embeddings
+            factor = (max_position_embeddings / old_len
+                      if max_position_embeddings else None)
+        else:
+            old_len = max_position_embeddings
+            factor = scaling.get("factor")
+        use_long = seq_len is not None and old_len and seq_len > old_len
+        ext = np.asarray(scaling["long_factor" if use_long
+                                 else "short_factor"], dtype=np.float64)
+        inv_freq = inv_freq / ext
+        attention_scaling = scaling.get("attention_factor")
+        if attention_scaling is None:
+            attention_scaling = (
+                1.0 if factor is None or factor <= 1.0
+                else float(np.sqrt(1 + np.log(factor) / np.log(old_len))))
     elif rope_type not in ("default", "dynamic"):
         raise NotImplementedError(
-            f"rope_type {rope_type!r} is not ported yet (default, linear, "
-            "llama3 and yarn are; longrope is ROADMAP Queue 1 item 10.6)")
+            f"rope_type {rope_type!r} is not ported (default, linear, "
+            "llama3, yarn and longrope are)")
     return inv_freq.astype(np.float32), float(attention_scaling)
+
+
+def longrope_tables(head_dim: int, theta: float, scaling: Optional[dict], *,
+                    max_position_embeddings: Optional[int] = None,
+                    original_max_position_embeddings: Optional[int] = None
+                    ) -> Optional[Tuple[np.ndarray, int]]:
+    """``(long inverse frequencies, original length)`` for a longrope
+    config, else None: the table a forward switches to once
+    ``max(position_ids) + 1`` passes the original length (the
+    config-level ``original_max_position_embeddings``, else
+    ``max_position_embeddings``, as in HF and JAX)."""
+    original = original_max_position_embeddings or max_position_embeddings
+    if rope_type_of(scaling) != "longrope" or not original:
+        return None
+    inv_long, _ = rope_tables(
+        head_dim, theta, scaling,
+        max_position_embeddings=max_position_embeddings,
+        original_max_position_embeddings=original_max_position_embeddings,
+        seq_len=original + 1)
+    return inv_long, int(original)
 
 
 def get_mscale(scale: float, m: float = 1.0) -> float:

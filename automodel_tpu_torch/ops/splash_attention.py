@@ -33,7 +33,12 @@ back.
 The wrappers check every operand and raise on anything the kernels do not
 take (the kernels take bf16, head_dim 64, 128, 192 -- MLA's
 ``qk_nope + qk_rope`` width, v padded to it by the model -- or 256 --
-Gemma's --, self-attention, any sequence length); they allocate outputs and scratch (the per-tile segment
+Gemma's --, self-attention, any sequence length).  A smaller head_dim
+(Phi-3-mini's 96) runs zero-padded to the next width the kernels take:
+q, k and v gain zero channels, the scale stays the model's ``D ** -0.5``,
+and the outputs (out, dq, dk, dv) are sliced back; zero channels add
+nothing to ``q k^T``, v's give zero output channels, and the padded
+``dout`` leaves ``delta`` unchanged.  The wrappers allocate outputs and scratch (the per-tile segment
 ranges, delta) with ``torch`` on the current stream and raise if a launch
 failed.  ``fwd_launches`` / ``bwd_launches`` count the
 launches, ``plain_fwd_calls`` the plain forwards.  A remat policy can
@@ -88,6 +93,20 @@ def _kernel(name: str):
         fn.restype = ctypes.c_int
         _fns[name] = fn
     return fn
+
+
+def padded_head_dim(D: int) -> Optional[int]:
+    """The width a head_dim ``D`` the kernels do not take natively runs
+    at (the next of :data:`HEAD_DIMS`), or None when it runs as it is or
+    is wider than every width."""
+    if D in HEAD_DIMS or D > HEAD_DIMS[-1]:
+        return None
+    return next(w for w in HEAD_DIMS if w > D)
+
+
+def _pad_channels(width: int, *tensors):
+    return [torch.nn.functional.pad(t, (0, width - t.shape[-1])).contiguous()
+            for t in tensors]
 
 
 def _check(cond: bool, msg: str) -> None:
@@ -159,6 +178,16 @@ def flash_attn_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Launch the forward kernel -> ``(out [B, S, Hq, D] bf16, lse [B, Hq,
     S] fp32)``."""
     global fwd_launches
+    D = q.shape[-1]
+    width = padded_head_dim(D) if q.dim() == 4 else None
+    if width is not None:
+        qp, kp, vp = _pad_channels(width, q, k, v)
+        out, lse = flash_attn_fwd_cuda(
+            qp, kp, vp, causal=causal, segment_ids=segment_ids,
+            scale=D ** -0.5 if scale is None else scale,
+            logits_soft_cap=logits_soft_cap,
+            local_window_size=local_window_size)
+        return out[..., :D].contiguous(), lse
     B, S, Hq, Hk, D, scale, cap, causal_i, window = _check_operands(
         q, k, v, segment_ids, causal, scale, logits_soft_cap,
         local_window_size)
@@ -197,6 +226,16 @@ def flash_attn_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dV pass) -> ``(dq, dk, dv)`` in the operands' dtype; deterministic (no
     atomics: every element is written once)."""
     global bwd_launches
+    D = q.shape[-1]
+    width = padded_head_dim(D) if q.dim() == 4 else None
+    if width is not None:
+        qp, kp, vp, op, dop = _pad_channels(width, q, k, v, out, dout)
+        dq, dk, dv = flash_attn_bwd_cuda(
+            qp, kp, vp, op, lse, dop, causal=causal, segment_ids=segment_ids,
+            scale=D ** -0.5 if scale is None else scale,
+            logits_soft_cap=logits_soft_cap,
+            local_window_size=local_window_size)
+        return tuple(t[..., :D].contiguous() for t in (dq, dk, dv))
     B, S, Hq, Hk, D, scale, cap, causal_i, window = _check_operands(
         q, k, v, segment_ids, causal, scale, logits_soft_cap,
         local_window_size)

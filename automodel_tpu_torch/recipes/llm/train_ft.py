@@ -39,10 +39,11 @@ Qwen3-MoE, whose expert FFNs run through the grouped-matmul kernels on the
 card and whose load-balancing loss the train step folds into each
 microbatch's loss.
 
-``dataloader.prefetch_depth > 0`` wraps the loaders in the async input
-pipeline (``datasets/prefetch.py``): a producer thread reads and collates
-the next batches while the card runs; host-to-device copies stay on the
-training thread, on the copy stream.
+``dataloader.prefetch_depth > 0`` (2 when the YAML does not say, as in
+JAX) wraps the training loader in the async input pipeline
+(``datasets/prefetch.py``): a producer thread reads and collates the next
+batches while the card runs; host-to-device copies stay on the training
+thread, on the copy stream.
 
 ``profiling`` (``training/timers.py``; the section's presence turns it
 on): ``data_wait``, ``data_staging`` / ``data_staging_overlap``,
@@ -247,7 +248,7 @@ def build_tokenizer(cfg: ConfigNode, model) -> Optional[Any]:
         from transformers import AutoTokenizer
 
         return AutoTokenizer.from_pretrained(ckpt_dir)
-    except (ImportError, OSError, ValueError) as e:
+    except Exception as e:       # as JAX: any failure means no tokenizer
         logger.warning("No tokenizer found at %s: %s", ckpt_dir, e)
     return None
 
@@ -527,10 +528,14 @@ class TrainFinetuneRecipeForNextTokenPrediction(BaseRecipe):
         cfg = self.cfg
         self.tokenizer = build_tokenizer(cfg, self.model)
         dataset = build_dataset(cfg.get("dataset"), self.tokenizer)
-        # unpacked rows pad to multiples of 128, as in the JAX recipe
+        # unpacked rows pad to multiples of 128, and the training input
+        # runs the async pipeline two batches deep, unless the YAML says
+        # otherwise (the JAX recipe's defaults)
         if (not int(cfg.get("packed_sequence.packed_sequence_size", 0) or 0)
                 and cfg.get("dataloader.pad_seq_len_divisible") is None):
             cfg.set_by_dotted("dataloader.pad_seq_len_divisible", 128)
+        if cfg.get("dataloader.prefetch_depth") is None:
+            cfg.set_by_dotted("dataloader.prefetch_depth", 2)
         self.dataloader = build_dataloader(cfg, dataset, "dataloader",
                                            batch_size, self.rng.seed)
         self.val_dataloader = None

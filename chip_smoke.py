@@ -60,7 +60,7 @@ Phases (any failure exits non-zero without the final ``ok`` line):
    second pass at twice the rate with deadlines, ``max_waiting`` and
    ``by_deadline`` shedding, and an armed ``serve_watchdog_stall``
    recovery whose tokens match an unarmed run;
-   serve_moe: Qwen3-30B-A3B at its published widths and 24 of its 48
+   serve_moe: Qwen3-30B-A3B at its published widths and 12 of its 48
    layers (``qwen3_30b_a3b_serve.yaml``, the depth cut to
    ``MOE_SERVE_LAYERS`` for the script's time limit; all 48, ~61 GB of
    bf16 weights, served in PRs 15-17) through the same engine phase:
@@ -221,8 +221,8 @@ Phases (any failure exits non-zero without the final ``ok`` line):
    Gemma-3 text tower of 16 layers, 14 with window 512, SigLIP-base, mock
    data, fixed rows of 2048, the fused loss, the embeddings frozen); then
    sft_gemma3_4b_cord, ``gemma3_vl_cord_v2.yaml`` at Gemma-3-4B-it's
-   published config at 12 of its 34 text layers (``GEMMA3_4B_LAYERS``,
-   for the script's time limit: two of its blocks of 5 sliding layers
+   published config at 6 of its 34 text layers (``GEMMA3_4B_LAYERS``,
+   for the script's time limit: one of its blocks of 5 sliding layers
    with window 1024 and 1 full; head dim 256, V 262,208, SigLIP-so400m
    at 896 px, all 27 tower layers) written with random bf16
    weights as the ``refs/main`` snapshot of ``google/gemma-3-4b-it`` in
@@ -267,6 +267,28 @@ Phases (any failure exits non-zero without the final ``ok`` line):
    cotangents (``grpo_t16384``, ``dpo_t8192``) and kernel 9 at their
    causal rows of 256 (``grpo_rows_64x256_causal``,
    ``dpo_rows_32x256_causal``).
+16. pretraining and the remaining text families (after post-training,
+   before quant_check): pretrain_gpt2_nanogpt, the JAX package's
+   ``examples/llm_pretrain/nanogpt_pretrain.yaml`` as written (GPT-2 124M,
+   8 microbatches of 4 rows of 1,024 tokens, collated to 1,152 as in
+   JAX) over seeded token shards, overriding only the shards, the step
+   count and the checkpoint directory: kernel 9 (12 / 12 heads, D 64) and
+   kernels 2-4 (V 50,304) at its shapes, the first step against every
+   plain version, exact launches (whole-block remat: kernel 9's forward
+   twice a layer and microbatch), and the end-of-run safetensors read
+   back bit for bit; sft_seqcls_llama_1b, ``tiny_llama_seqcls_mock
+   .yaml``'s sections over Llama-3.2-1B's published config (a fresh
+   2-label head) with rows of ~256 tokens at V 128,256: kernel 9 on
+   padding-folded segments, no linear-CE launch, the first step against
+   plain attention; sft_granite, sft_olmo2, sft_starcoder2 and sft_phi3,
+   the bench YAML's sections over each family's published ``config.json``
+   (``FAMILY_CONFIGS``) at ``FAMILY_LAYERS`` layers, loaded by
+   ``from_pretrained`` from a temporary ``HF_HOME``: ``train_phase``'s
+   gates, the weights bit for bit, kernel 9 at the family's heads, scale
+   and window (StarCoder-2 in rows of 8,192) and kernels 2-4 at its
+   vocabulary (Granite's divisor folded into the head); then kernel 9 at
+   Phi-3.5-mini's D 96 (padded to 128) and Granite's scale
+   (``FAMILY_ATTN_CASES``).
 
 The second-to-last line is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.
@@ -732,7 +754,10 @@ def attention_phase(flush, seg_np, cases=ATTN_CASES, v_dim=None):
     """Kernel 9 (forward and backward) against its plain version at each
     of ``cases``, with the kernel, plain, SDPA and bound times; ``v_dim``
     zeroes v past that many columns (MLA's padded v), whose output columns
-    must then come out exactly 0."""
+    must then come out exactly 0.  A case may carry a tenth field, the
+    softmax scale (Granite's ``attention_multiplier``; default
+    ``D ** -0.5``).  A head_dim the kernels take zero-padded (96) also
+    gets the bound at the padded width (``padded_bound_ms``)."""
     import torch
 
     from automodel_tpu_torch.ops import splash_attention as sa
@@ -740,7 +765,9 @@ def attention_phase(flush, seg_np, cases=ATTN_CASES, v_dim=None):
 
     dev = torch.device("cuda")
     rows = []
-    for i, (name, B, S, Hq, Hk, D, packed, win, cap) in enumerate(cases):
+    for i, (name, B, S, Hq, Hk, D, packed, win, cap, *rest) in enumerate(
+            cases):
+        scale = rest[0] if rest else None
         g = torch.Generator(device=dev).manual_seed(100 + i)
         q = torch.randn(B, S, Hq, D, device=dev, generator=g).bfloat16()
         k = torch.randn(B, S, Hk, D, device=dev, generator=g).bfloat16()
@@ -751,7 +778,7 @@ def attention_phase(flush, seg_np, cases=ATTN_CASES, v_dim=None):
         seg = (torch.from_numpy(seg_np[:B, :S]).to(dev).contiguous()
                if packed else None)
         kw = dict(causal=True, segment_ids=seg, logits_soft_cap=cap,
-                  local_window_size=win)
+                  local_window_size=win, scale=scale)
         mask = make_attention_mask(S, S, causal=True, segment_ids_q=seg,
                                    segment_ids_kv=seg,
                                    local_window_size=win, device=dev)
@@ -804,7 +831,8 @@ def attention_phase(flush, seg_np, cases=ATTN_CASES, v_dim=None):
         fwd_lib = bwd_lib = None
         if cap is None:
             lib_fwd, lib_bwd, back = attn_library(
-                q, k, v, dout, mask, not packed and win is None, D ** -0.5)
+                q, k, v, dout, mask, not packed and win is None,
+                D ** -0.5 if scale is None else scale)
             lib_err = float((back(lib_fwd().detach()).float() - ref.float())
                             .abs()[valid].max())
             check(lib_err <= KERNEL_ATOL * 4,
@@ -816,7 +844,8 @@ def attention_phase(flush, seg_np, cases=ATTN_CASES, v_dim=None):
         fb, fby = attn_bound(q, k, seg, pairs, False, v_dim)
         bb, bby = attn_bound(q, k, seg, pairs, True, v_dim)
         row = dict(case=name, B=B, S=S, Hq=Hq, Hk=Hk, D=D, packed=packed,
-                   window=win, soft_cap=cap, attended_pairs=pairs,
+                   window=win, soft_cap=cap, scale=scale,
+                   attended_pairs=pairs,
                    fwd=dict(ms=fwd_ms, plain_ms=fwd_plain, library_ms=fwd_lib,
                             library_factor=factor(fwd_ms, fwd_lib),
                             bound_ms=fb, bound_by=fby, max_abs_err=fwd_err,
@@ -830,6 +859,15 @@ def attention_phase(flush, seg_np, cases=ATTN_CASES, v_dim=None):
             for part, backward in (("fwd", False), ("bwd", True)):
                 row[part]["padded_bound_ms"], row[part][
                     "padded_bound_by"] = attn_bound(q, k, seg, pairs,
+                                                    backward)
+        width = sa.padded_head_dim(D)
+        if width is not None:       # the work the padded operands carry
+            row["padded_head_dim"] = width
+            qw = torch.empty(B, S, Hq, width, device="meta")
+            kp = torch.empty(B, S, Hk, width, device="meta")
+            for part, backward in (("fwd", False), ("bwd", True)):
+                row[part]["padded_bound_ms"], row[part][
+                    "padded_bound_by"] = attn_bound(qw, kp, seg, pairs,
                                                     backward)
         print("attention_case " + json.dumps(row), flush=True)
         rows.append(row)
@@ -1074,9 +1112,12 @@ def plain_bwd_parts_ms(h, w, labels, lse, dlse, dpick):
     return total
 
 
-def lce_case(name, T, H, V, kind, bench_labels, flush, seed, parts):
+def lce_case(name, T, H, V, kind, bench_labels, flush, seed, parts,
+             head_divisor=1.0):
     """One linear-CE case: kernels against plain versions on the card,
-    then the times; ``parts`` also times each backward kernel alone."""
+    then the times; ``parts`` also times each backward kernel alone;
+    ``head_divisor`` folds a logits divisor into the head (Granite's
+    ``logits_scaling``, as the model hands the head to the kernels)."""
     import torch
     import torch.nn.functional as F
 
@@ -1086,6 +1127,8 @@ def lce_case(name, T, H, V, kind, bench_labels, flush, seed, parts):
     g = torch.Generator(device=dev).manual_seed(seed)
     h = torch.randn(T, H, device=dev, generator=g).bfloat16()
     ws = (torch.randn(V, H, device=dev, generator=g) * 0.02).bfloat16()
+    if head_divisor != 1.0:
+        ws = ws / torch.tensor(head_divisor, dtype=ws.dtype, device=dev)
     w = ws.t()                     # the model's [H, V] view of [V, H]
     if kind == "bench":
         labels = torch.from_numpy(bench_labels.reshape(-1)).to(dev).int()
@@ -1200,7 +1243,7 @@ def lce_case(name, T, H, V, kind, bench_labels, flush, seed, parts):
 
     bounds = lce_bounds(T, H, V)
     row = dict(case=name, T=T, H=H, V=V, labels=kind,
-               valid_rows=int(valid.sum()),
+               head_divisor=head_divisor, valid_rows=int(valid.sum()),
                fwd=dict(ms=t["fwd"], product_ms=t["fwd_product"],
                         plain_ms=t["fwd_plain"],
                         library_ms=t["fwd_library"], bound_ms=bounds["fwd"][0],
@@ -2651,8 +2694,11 @@ MOE_SERVE_YAML = os.path.join(REPO, "automodel_tpu_torch", "examples",
 # script must end within 1200 s; uncut it ran 1201.8 s on one H100 (a
 # call whose host ran every phase 20-50 % slower than the call before;
 # serve_moe 154.4 s of it at 48 layers, sft_gemma3_4b_cord 217.1 s at 34),
-# so both run about half their stack, every shape and kernel kept
-MOE_SERVE_LAYERS = 24
+# so both ran about half their stack, and since the pretraining,
+# classifier and family phases joined (~190 s more) a quarter: 12 of 48
+# layers, 6 of 34 (one block of Gemma-3's 5 sliding and 1 full layer),
+# every shape and kernel kept
+MOE_SERVE_LAYERS = 12
 # the engine's routed grouped matmuls: a decode step (8 slots x 1 token x
 # top-8 = 64 assignments over 128 experts) and a prefill-chunk step (8 x
 # 32 tokens = 2048 assignments), each segment block-padded to 128 rows as
@@ -3310,8 +3356,23 @@ def long_attention_case(seg_np):
     return row
 
 
+def model_dims(model):
+    """A decoder's widths under one set of names (GPT-2's config names
+    its own: ``n_embd``, ``n_layer``, ``n_head``, a 4x MLP)."""
+    c = model.config
+    if c.model_type == "gpt2":
+        return dict(vocab=c.vocab_size, hidden=c.n_embd, ffn=4 * c.n_embd,
+                    layers=c.n_layer, heads=c.n_head, kv_heads=c.n_head,
+                    head_dim=c.n_embd // c.n_head)
+    return dict(vocab=c.vocab_size, hidden=c.hidden_size,
+                ffn=c.intermediate_size, layers=c.num_hidden_layers,
+                heads=c.num_attention_heads, kv_heads=c.num_key_value_heads,
+                head_dim=c.head_dim)
+
+
 def train_phase(label, yaml_path, overrides=(), bf16=None, attn_impl=None,
-                first_step=None, sync_report=False):
+                first_step=None, sync_report=False, on_setup=None,
+                on_end=None):
     """Set up the SFT recipe on ``yaml_path`` (plus CLI ``overrides``),
     check its first step, run
     2 warm-up steps, then the timed steps with every launch count zeroed
@@ -3350,7 +3411,9 @@ def train_phase(label, yaml_path, overrides=(), bf16=None, attn_impl=None,
     the linear-CE launches per step, and the ``{label}_shapes`` line the
     rows' lengths per step.  ``sync_report`` runs one warmed step's
     dispatch under ``torch.cuda.set_sync_debug_mode("warn")`` and prints
-    the synchronizing calls it makes."""
+    the synchronizing calls it makes.  ``on_setup(recipe)`` runs right
+    after set-up (its dict joins the report), ``on_end(recipe, report)``
+    after the profiled window."""
     import torch
 
     from automodel_tpu_torch.config.loader import parse_args_and_load_config
@@ -3374,20 +3437,21 @@ def train_phase(label, yaml_path, overrides=(), bf16=None, attn_impl=None,
     flash = attn_impl == "flash"
     torch.cuda.synchronize()
     mcfg = recipe.model.config
-    L = mcfg.num_hidden_layers
+    dims = model_dims(recipe.model)
+    L = dims["layers"]
     fused = isinstance(recipe.loss_fn, FusedLinearCrossEntropy)
     is_moe = hasattr(recipe.model, "gmm_impl")
-    quant = recipe.model.quant
+    quant = getattr(recipe.model, "quant", None)
     quantized = quant is not None and quant.enabled
     peft = recipe.peft_config
     ffn = (f"{moe_widths(recipe.model)[0]} experts of "
            f"{moe_widths(recipe.model)[1]}, top-{mcfg.num_experts_per_tok}"
            f" in {moe_layer_count(recipe.model)} layers" if is_moe
-           else str(mcfg.intermediate_size))
+           else str(dims["ffn"]))
     print(f"{label}: {type(recipe.model).__name__} widths (vocab "
-          f"{mcfg.vocab_size}, hidden {mcfg.hidden_size}, ffn {ffn}, layers "
-          f"{L}, heads {mcfg.num_attention_heads}/"
-          f"{mcfg.num_key_value_heads}, head_dim {mcfg.head_dim}), "
+          f"{dims['vocab']}, hidden {dims['hidden']}, ffn {ffn}, layers "
+          f"{L}, heads {dims['heads']}/{dims['kv_heads']}, head_dim "
+          f"{dims['head_dim']}), "
           f"{sum(p.numel() for p in recipe.model.parameters())} params "
           f"{recipe.model.param_dtype}, remat {recipe.model.remat_policy}, "
           f"quantized compute {quant if quantized else 'off'}, "
@@ -3395,6 +3459,7 @@ def train_phase(label, yaml_path, overrides=(), bf16=None, attn_impl=None,
           f"{attn_impl or 'splash'}, loader "
           f"{type(recipe.dataloader).__name__}, "
           f"set up in {time.perf_counter() - t0:.1f} s", flush=True)
+    setup_report = on_setup(recipe) if on_setup is not None else None
     base_before = None
     if peft is not None:
         # the frozen base as it was before any step (host copies)
@@ -3627,6 +3692,10 @@ def train_phase(label, yaml_path, overrides=(), bf16=None, attn_impl=None,
     report["gmm_cases"] = gmm_rows
     if peft is not None:
         report["peft"] = peft_checks(recipe, label, base_before)
+    if setup_report is not None:
+        report.update(setup_report)
+    if on_end is not None:
+        on_end(recipe, report)
     return report
 
 
@@ -3897,18 +3966,26 @@ def write_jsonl(path, rows):
     return path
 
 
-def write_hf_model(hf_home, repo_id):
+def write_hf_model(hf_home, repo_id, layers=None, hold=None):
     """Write the published config and random bf16 weights from ``seed``
     (biases too, away from 0) as the ``refs/main`` snapshot of
     ``repo_id`` under ``hf_home`` (``save_hf_weights``, then the published
-    ``config.json``; the seed is ``HF_SEEDS[repo_id]``); returns ``(snapshot dir, the written tensors that
-    the phase checks, on the host)``."""
+    ``config.json``; the config is ``HF_CONFIGS[repo_id]`` and the seed
+    ``HF_SEEDS[repo_id]``, or ``FAMILY_CONFIGS`` / ``FAMILY_SEEDS``);
+    ``layers`` cuts the depth (the config's ``num_hidden_layers``);
+    returns ``(snapshot dir, the written tensors that the phase checks,
+    on the host)``: a sample of names, or those ``hold(name)`` picks."""
     import torch
 
     from automodel_tpu_torch.models import hf_io
     from automodel_tpu_torch.models.auto_model import AutoModelForCausalLM
 
-    cfg, seed = HF_CONFIGS[repo_id], HF_SEEDS[repo_id]
+    if repo_id in HF_CONFIGS:
+        cfg, seed = HF_CONFIGS[repo_id], HF_SEEDS[repo_id]
+    else:
+        cfg, seed = FAMILY_CONFIGS[repo_id], FAMILY_SEEDS[repo_id]
+    if layers is not None:
+        cfg = dict(cfg, num_hidden_layers=layers)
     repo = os.path.join(hf_home, "hub", "models--" + repo_id.replace("/",
                                                                       "--"))
     snap = os.path.join(repo, "snapshots", f"seed{seed}")
@@ -3928,11 +4005,12 @@ def write_hf_model(hf_home, repo_id):
         f.write(f"seed{seed}")
     L = cfg["num_hidden_layers"]
     sample = [n for n, _, _ in hf_io.hf_tensors(model)
-              if n in ("model.embed_tokens.weight", "model.norm.weight",
-                       "model.layers.0.self_attn.q_proj.weight",
-                       "model.layers.0.self_attn.k_norm.weight",
-                       f"model.layers.{L - 1}.mlp.down_proj.weight")
-              or n.endswith("_proj.bias")]
+              if (hold(n) if hold is not None else
+                  n in ("model.embed_tokens.weight", "model.norm.weight",
+                        "model.layers.0.self_attn.q_proj.weight",
+                        "model.layers.0.self_attn.k_norm.weight",
+                        f"model.layers.{L - 1}.mlp.down_proj.weight")
+                  or n.endswith("_proj.bias"))]
     written = {n: t.detach().cpu().clone() for n, t, _ in
                hf_io.hf_tensors(model) if n in sample}
     nbytes = sum(os.path.getsize(os.path.join(snap, f))
@@ -4212,7 +4290,7 @@ VLM_YAMLS = os.path.join(REPO, "examples", "vlm_finetune")
 GEMMA3_BENCH_YAML = os.path.join(VLM_YAMLS, "gemma3_vl_bench.yaml")
 GEMMA3_CORD_YAML = os.path.join(VLM_YAMLS, "gemma3_vl_cord_v2.yaml")
 GEMMA3_4B = "google/gemma-3-4b-it"
-GEMMA3_4B_LAYERS = 12                 # of 34 (see MOE_SERVE_LAYERS)
+GEMMA3_4B_LAYERS = 6                  # of 34 (see MOE_SERVE_LAYERS)
 # Gemma-3-4B-it's published config.json, every text field written out (the
 # JAX Gemma3Config defaults vocab_size to 262,144, HF to 262,208: the file
 # must not lean on a default)
@@ -4554,6 +4632,426 @@ def gemma3_4b_cord_phase(hf_home, flush):
     print("sft_gemma3_4b_cord overrides: " + " ".join(overrides), flush=True)
     report = vlm_sft_phase("sft_gemma3_4b_cord", GEMMA3_CORD_YAML, overrides,
                            flush, written=written, snap=snap)
+    shutil.rmtree(work, ignore_errors=True)
+    shutil.rmtree(os.path.dirname(os.path.dirname(snap)), ignore_errors=True)
+    return report
+
+
+# ---------------------------------------------------------------------------
+# pretraining (pretrain_gpt2_nanogpt), sequence classification
+# (sft_seqcls_llama_1b) and the Granite / OLMo-2 / StarCoder-2 / Phi-3
+# families (sft_granite, sft_olmo2, sft_starcoder2, sft_phi3)
+# ---------------------------------------------------------------------------
+NANOGPT_YAML = os.path.join(REPO, "examples", "llm_pretrain",
+                            "nanogpt_pretrain.yaml")
+# uint16 token shards written with the port's write_shard: seeded tokens
+# below GPT-2's 50,257, 510 windows of 1,025 tokens (the 11 steps' 352)
+NANOGPT_SHARDS, NANOGPT_SHARD_TOKENS, NANOGPT_SEED = 2, 1 << 18, 41
+NANOGPT_WIDTHS = dict(vocab_size=50304, n_positions=1024, n_embd=768,
+                      n_layer=12, n_head=12)
+
+
+def pretrain_gpt2_phase(flush):
+    """``examples/llm_pretrain/nanogpt_pretrain.yaml`` as written through
+    the SFT recipe (``automodel-torch pretrain llm`` runs the same): GPT-2
+    124M at full widths and depth, 8 microbatches of 4 rows a step, the
+    fused linear CE, AdamW (weight decay 0.1, betas 0.9 / 0.95), the
+    cosine schedule.  Overrides: ``dataset.file_pattern`` (seeded shards
+    in a temporary directory), ``step_scheduler.max_steps`` (the phase's
+    steps) and ``checkpoint.checkpoint_dir``.  The rows collate to 1,152
+    tokens (1,024 and a 128-token pad, labels -100), as in the JAX recipe.
+    ``train_phase``'s gates (the first step through every plain version,
+    exact launch counts: whole-block remat runs kernel 9's forward twice a
+    layer and microbatch), kernel 9 and kernels 2-4 at the phase's shapes,
+    and the checkpoint the YAML asks for: saves are held back during the
+    timed and profiled steps and one more step runs with them on, whose
+    end-of-run safetensors must read back bit for bit."""
+    import numpy as np
+    import torch
+
+    from automodel_tpu_torch.datasets.llm.nanogpt_dataset import write_shard
+    from automodel_tpu_torch.models import hf_io
+    from automodel_tpu_torch.models.auto_model import AutoModelForCausalLM
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_nanogpt_")
+    rng = np.random.default_rng(NANOGPT_SEED)
+    for i in range(NANOGPT_SHARDS):
+        write_shard(os.path.join(work, f"fineweb_train_{i:06d}.bin"),
+                    rng.integers(0, 50257, NANOGPT_SHARD_TOKENS)
+                    .astype(np.uint16))
+    ckpt_dir = os.path.join(work, "checkpoints")
+    overrides = ["--dataset.file_pattern", os.path.join(work, "*.bin"),
+                 "--checkpoint.checkpoint_dir", ckpt_dir]
+    print("pretrain_gpt2_nanogpt overrides: " + " ".join(overrides),
+          flush=True)
+
+    def on_setup(recipe):
+        c = recipe.model.config
+        got = {k: getattr(c, k) for k in NANOGPT_WIDTHS}
+        check(got == NANOGPT_WIDTHS, f"pretrain_gpt2_nanogpt: widths {got}")
+        check(recipe.step_scheduler.grad_acc_steps == 8,
+              f"pretrain_gpt2_nanogpt: {recipe.step_scheduler.grad_acc_steps}"
+              " microbatches a step")
+        check(recipe.checkpoint_config.enabled
+              and recipe.checkpoint_config.model_save_format == "safetensors",
+              "pretrain_gpt2_nanogpt: the YAML's checkpoint is not on")
+        recipe.checkpoint_config.enabled = False     # until the last step
+        first = next(iter(recipe.dataloader))
+        B, S = first["input_ids"].shape
+        attn = attention_phase(flush, None, [
+            ("gpt2_124m_mha_d64", B, S, c.n_head, c.n_head,
+             c.n_embd // c.n_head, False, None, None)])
+        lce = lce_case("gpt2_v50304", B * S, c.n_embd, c.vocab_size,
+                       "bench", first["labels"], flush, seed=310, parts=True)
+        torch.cuda.empty_cache()
+        return dict(rows=[B, S], attention_cases=attn, lce_case=lce)
+
+    def on_end(recipe, report):
+        recipe.checkpoint_config.enabled = True
+        recipe.step_scheduler.max_steps += 1
+        t0 = time.perf_counter()
+        recipe.run_train_validation_loop()
+        torch.cuda.synchronize()
+        step = recipe.step_scheduler.step
+        saved = [d for d in os.listdir(ckpt_dir)
+                 if d.endswith(f"_step_{step}")]
+        check(len(saved) == 1, f"pretrain_gpt2_nanogpt: checkpoints "
+              f"{os.listdir(ckpt_dir)} at step {step}")
+        model_dir = os.path.join(ckpt_dir, saved[0], "model")
+        back = AutoModelForCausalLM.from_pretrained(
+            model_dir, load_weights=True, device="cuda")
+        live = {n: t.detach() for n, t, _ in hf_io.hf_tensors(recipe.model)}
+        read = {n: t.detach() for n, t, _ in hf_io.hf_tensors(back)}
+        check(sorted(live) == sorted(read),
+              "pretrain_gpt2_nanogpt: the checkpoint's tensors differ")
+        differ = [n for n in live if not torch.equal(live[n], read[n])]
+        check(not differ, f"pretrain_gpt2_nanogpt: {differ[:3]} read back "
+              "differently")
+        ck = dict(step=step, dir=os.path.relpath(model_dir, work),
+                  tensors=len(live), bytes=sum(
+                      os.path.getsize(os.path.join(model_dir, f))
+                      for f in os.listdir(model_dir)),
+                  save_and_step_s=time.perf_counter() - t0,
+                  bit_identical=True)
+        print("pretrain_gpt2_nanogpt_checkpoint " + json.dumps(ck),
+              flush=True)
+        report["checkpoint"] = ck
+        del back, live, read
+
+    report = train_phase("pretrain_gpt2_nanogpt", NANOGPT_YAML, overrides,
+                         first_step="all_plain", on_setup=on_setup,
+                         on_end=on_end)
+    shutil.rmtree(work, ignore_errors=True)
+    return report
+
+
+SEQCLS_YAML = os.path.join(HF_YAMLS, "tiny_llama_seqcls_mock.yaml")
+SEQCLS_REPO = "meta-llama/Llama-3.2-1B"
+# the YAML's dataset at Llama-3.2-1B's vocabulary, rows of ~256 tokens
+SEQCLS_DATASET = ["--dataset.vocab_size", "128256", "--dataset.mean_len",
+                  "256", "--dataset.std_len", "64",
+                  "--dataset.max_sentence_len", "511"]
+# The classifier's first-step loss is the CE of 2 pooled tokens, with no
+# average over thousands of tokens as an SFT loss has: it moves as much
+# as each pooled hidden state does, which after 16 random bf16 layers is
+# as much as the whole gradient (kernel against plain attention: loss
+# 5.67 %, gradient 5.95 % relative, on one H100 80GB HBM3 at 700 W).  So
+# both are held to the SFT gradient limit (10 %); a wrong pooling or
+# attention mask moves them by O(1).
+SEQCLS_FIRST_STEP_LIMITS = (SFT_GRAD_REL_L2, SFT_GRAD_REL_L2)
+# warm-up, timed and profiled steps: a step is host-bound (16 layers x 8
+# microbatches of 2 short rows, ~31,000 launches), so fewer than the SFT
+# phases' for the script's time limit
+SEQCLS_WARMUP, SEQCLS_STEPS, SEQCLS_PROFILED = 2, 4, 1
+
+
+def seqcls_phase(hf_home, flush):
+    """``tiny_llama_seqcls_mock.yaml``'s sections with two changes: the
+    model is ``build_sequence_classifier(name_or_path=...)`` over
+    Llama-3.2-1B's published config (all 16 layers; random bf16 weights
+    from a seed written as an ``HF_HOME`` snapshot, a causal-LM directory:
+    the ``score`` head is fresh), and the dataset is at V 128,256 with rows
+    of mean length 256.  Padded rows (multiples of 128), no packing, one
+    label per row under ``MaskedCrossEntropy``.  Gates: the backbone's
+    weights as written; kernel 9 at the first batch's rows (padding folded
+    into segments) against plain; the first step (2 rows) kernel against
+    plain attention within ``SEQCLS_FIRST_STEP_LIMITS``; kernel 9's
+    launches exactly (2
+    forward and 1 backward a layer and microbatch) and no linear-CE
+    launch.  Reports step ms, examples/s, peak memory, a profile."""
+    import torch
+
+    from automodel_tpu_torch.config.loader import parse_args_and_load_config
+    from automodel_tpu_torch.loss.masked_ce import MaskedCrossEntropy
+    from automodel_tpu_torch.models.sequence_classification import (
+        ForSequenceClassification,
+    )
+    from automodel_tpu_torch.ops import linear_ce_kernel as lce
+    from automodel_tpu_torch.ops import splash_attention as sa
+    from automodel_tpu_torch.recipes.llm import train_ft
+
+    label = "sft_seqcls_llama_1b"
+    snap, written = write_hf_model(hf_home, SEQCLS_REPO)
+    cfg = parse_args_and_load_config(
+        ["-c", SEQCLS_YAML, "--step_scheduler.max_steps",
+         str(SEQCLS_WARMUP), *SEQCLS_DATASET])
+    cfg.set_by_dotted("model", {
+        "_target_": "automodel_tpu.models.auto_model."
+                    "build_sequence_classifier",
+        "name_or_path": SEQCLS_REPO,
+        "num_labels": cfg.get("model.num_labels"),
+        "pad_token_id": cfg.get("model.pad_token_id")})
+    t0 = time.perf_counter()
+    recipe = train_ft.TrainFinetuneRecipeForNextTokenPrediction(cfg).setup()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    model = recipe.model
+    check(isinstance(model, ForSequenceClassification)
+          and isinstance(recipe.loss_fn, MaskedCrossEntropy),
+          f"{label}: {type(model).__name__} with "
+          f"{type(recipe.loss_fn).__name__}")
+    held = loaded_equal(label, model.backbone, written)
+    check(float(model.score.weight.detach().abs().max()) > 0,
+          f"{label}: the fresh score head is zero")
+    dims = model_dims(model.backbone)
+    L = dims["layers"]
+    print(f"{label}: {type(model.backbone).__name__} backbone {dims}, "
+          f"{model.num_labels} labels, pad {model.pad_token_id}, "
+          f"{model.num_params} params {model.param_dtype}, {held} written "
+          f"tensors held bit for bit, set up in {setup_s:.1f} s",
+          flush=True)
+    first = next(iter(recipe.dataloader))
+    B, S = first["input_ids"].shape
+    attn = attention_phase(flush, first["attention_mask"].astype("int32"), [
+        (f"{label}_padded_d{dims['head_dim']}", B, S, dims["heads"],
+         dims["kv_heads"], dims["head_dim"], True, None, None)])
+    torch.cuda.empty_cache()
+    fs = first_step_check(
+        recipe, label,
+        [("kernel", recipe.loss_fn, "kernel"),
+         ("plain", recipe.loss_fn, "plain"),
+         ("kernel_again", recipe.loss_fn, "kernel")],
+        [("kernel", "plain")], limits=SEQCLS_FIRST_STEP_LIMITS)
+
+    seen = []
+    run_step = recipe._run_train_optim_step
+
+    def recording(batches):
+        seen.append(batches)
+        return run_step(batches)
+
+    recipe._run_train_optim_step = recording
+    recipe.run_train_validation_loop()                   # warm-up steps
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    sa.fwd_launches = sa.bwd_launches = 0     # zeroed just before the run
+    lce.fwd_launches = lce.dlogits_launches = lce.dh_launches = 0
+    lce.dw_launches = 0
+    recipe.step_scheduler.max_steps = SEQCLS_WARMUP + SEQCLS_STEPS
+    t0 = time.perf_counter()
+    recipe.run_train_validation_loop()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(attn_fwd=sa.fwd_launches, attn_bwd=sa.bwd_launches,
+                  lce_fwd=lce.fwd_launches, dlogits=lce.dlogits_launches,
+                  dh=lce.dh_launches, dw=lce.dw_launches)
+    peak = torch.cuda.max_memory_allocated()
+    del recipe._run_train_optim_step
+    groups = seen[SEQCLS_WARMUP:]
+    check(len(groups) == SEQCLS_STEPS, f"{label}: {len(groups)} timed groups")
+    micro = sum(len(g) for g in groups)
+    want = dict(attn_fwd=2 * L * micro, attn_bwd=L * micro, lce_fwd=0,
+                dlogits=0, dh=0, dw=0)
+    check(counts == want, f"{label}: launches {counts} != {want} ({micro} "
+          f"microbatches, {L} layers)")
+    for m in recipe.history:
+        check(all(map(math.isfinite, (m["loss"], m["grad_norm"]))),
+              f"{label} step {m['step']}: non-finite loss/grad_norm")
+    examples = sum(mb["labels"].shape[0] for g in groups for mb in g)
+    tokens = sum(int(mb["attention_mask"].sum()) for g in groups for mb in g)
+    padded = sum(mb["input_ids"].size for g in groups for mb in g)
+    timed = recipe.history[SEQCLS_WARMUP:]
+    check(all(m["num_label_tokens"] == 16 for m in timed),
+          f"{label}: label counts {[m['num_label_tokens'] for m in timed]}")
+
+    def more():
+        recipe.step_scheduler.max_steps += SEQCLS_PROFILED
+        recipe.run_train_validation_loop()
+
+    prof = profile_window(more, SEQCLS_PROFILED, f"{label}_b{B}",
+                          ("Splash<",))
+    report = dict(
+        yaml=os.path.relpath(SEQCLS_YAML, REPO), model=SEQCLS_REPO,
+        snapshot=snap, written_tensors_held=held, setup_s=setup_s,
+        dataset_overrides=SEQCLS_DATASET, steps=SEQCLS_STEPS,
+        microbatches=micro, examples=examples,
+        shapes=[sorted({f"{mb['input_ids'].shape[0]}x"
+                        f"{mb['input_ids'].shape[1]}" for mb in g})
+                for g in groups],
+        nonpad_tokens=tokens, padded_tokens=padded, wall_s=wall,
+        step_ms=wall * 1e3 / SEQCLS_STEPS, examples_per_s=examples / wall,
+        nonpad_tokens_per_s=tokens / wall, peak_mem_bytes=peak,
+        launches=counts, losses=[m["loss"] for m in recipe.history],
+        grad_norms=[m["grad_norm"] for m in recipe.history],
+        first_step=dict(loss_rel_err=fs["kernel_vs_plain"]["loss_rel_err"],
+                        grad_rel_l2=fs["kernel_vs_plain"]["grad_rel_l2"]),
+        profile=prof)
+    print(f"{label}_run " + json.dumps(report), flush=True)
+    report["attention_cases"] = attn
+    del recipe, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(os.path.dirname(os.path.dirname(snap)), ignore_errors=True)
+    return report
+
+
+# The published config.json of each family's model (every key HF writes;
+# the port reads the ones it knows), written as an HF_HOME snapshot with
+# its depth cut to FAMILY_LAYERS; the SFT recipe loads it through
+# from_pretrained with the bench YAML's other sections.
+FAMILY_CONFIGS = {
+    "ibm-granite/granite-3.0-2b-instruct": dict(
+        architectures=["GraniteForCausalLM"], attention_bias=False,
+        attention_dropout=0.1, attention_multiplier=0.015625,
+        bos_token_id=0, embedding_multiplier=12.0, eos_token_id=0,
+        hidden_act="silu", hidden_size=2048, initializer_range=0.02,
+        intermediate_size=8192, logits_scaling=8.0,
+        max_position_embeddings=4096, mlp_bias=False, model_type="granite",
+        num_attention_heads=32, num_hidden_layers=40, num_key_value_heads=8,
+        pad_token_id=0, residual_multiplier=0.22, rms_norm_eps=1e-05,
+        rope_scaling=None, rope_theta=10000.0, tie_word_embeddings=True,
+        torch_dtype="bfloat16", transformers_version="4.46.0.dev0",
+        use_cache=True, vocab_size=49155),
+    "allenai/OLMo-2-1124-7B": dict(
+        architectures=["Olmo2ForCausalLM"], attention_bias=False,
+        attention_dropout=0.0, eos_token_id=100257, hidden_act="silu",
+        hidden_size=4096, initializer_range=0.02, intermediate_size=11008,
+        max_position_embeddings=4096, model_type="olmo2",
+        num_attention_heads=32, num_hidden_layers=32, num_key_value_heads=32,
+        pad_token_id=100277, rms_norm_eps=1e-06, rope_scaling=None,
+        rope_theta=500000, tie_word_embeddings=False, torch_dtype="float32",
+        transformers_version="4.47.0.dev0", use_cache=True,
+        vocab_size=100352),
+    "bigcode/starcoder2-3b": dict(
+        architectures=["Starcoder2ForCausalLM"], attention_dropout=0.1,
+        residual_dropout=0.1, embedding_dropout=0.1, bos_token_id=0,
+        eos_token_id=0, hidden_act="gelu_pytorch_tanh", hidden_size=3072,
+        initializer_range=0.018042, intermediate_size=12288,
+        max_position_embeddings=16384, mlp_type="default",
+        model_type="starcoder2", norm_epsilon=1e-05, norm_type="layer_norm",
+        num_attention_heads=24, num_hidden_layers=30, num_key_value_heads=2,
+        rope_theta=999999.4420358813, sliding_window=4096,
+        torch_dtype="bfloat16", transformers_version="4.37.0.dev0",
+        use_bias=True, use_cache=True, vocab_size=49152),
+    "microsoft/phi-4": dict(
+        architectures=["Phi3ForCausalLM"], attention_bias=False,
+        attention_dropout=0.0, bos_token_id=100257, embd_pdrop=0.0,
+        eos_token_id=100265, hidden_act="silu", hidden_size=5120,
+        initializer_range=0.02, intermediate_size=17920,
+        max_position_embeddings=16384, model_type="phi3",
+        num_attention_heads=40, num_hidden_layers=40, num_key_value_heads=10,
+        original_max_position_embeddings=16384, pad_token_id=100349,
+        resid_pdrop=0.0, rms_norm_eps=1e-05, rope_scaling=None,
+        rope_theta=250000, sliding_window=None, tie_word_embeddings=False,
+        torch_dtype="bfloat16", transformers_version="4.47.0",
+        use_cache=True, vocab_size=100352),
+}
+FAMILY_SEEDS = {"ibm-granite/granite-3.0-2b-instruct": 61,
+                "allenai/OLMo-2-1124-7B": 62, "bigcode/starcoder2-3b": 63,
+                "microsoft/phi-4": 64}
+FAMILY_LAYERS = 2
+# StarCoder-2 in rows of 8,192 holding documents of ~6,144 tokens, so its
+# 4,096-key window cuts into them (2 rows a step: the bench's 16,384
+# tokens)
+STARCODER2_ROWS = ["--packed_sequence.packed_sequence_size", "8192",
+                   "--step_scheduler.global_batch_size", "2",
+                   "--step_scheduler.local_batch_size", "2",
+                   "--dataset.num_sentences", "64",
+                   "--dataset.mean_len", "6144", "--dataset.std_len", "1024",
+                   "--dataset.max_sentence_len", "8191"]
+FAMILY_PHASES = [
+    # (label, repo id, overrides, first-step routes)
+    ("sft_granite", "ibm-granite/granite-3.0-2b-instruct", (), "all_plain"),
+    ("sft_olmo2", "allenai/OLMo-2-1124-7B", (), "all_plain"),
+    # rows of 8,192: the plain attention's [2, 24, 8192, 8192] scores per
+    # layer are left out of the first step (the attention case holds
+    # kernel 9 against plain on one such row)
+    ("sft_starcoder2", "bigcode/starcoder2-3b", STARCODER2_ROWS, None),
+    ("sft_phi3", "microsoft/phi-4", (), "all_plain"),
+]
+# kernel 9 at Phi-3.5-mini's attention (3,072 / 32 heads: D 96, run
+# zero-padded to 128) and at Granite-3.0-2B's (32 / 8 at 64, its
+# attention_multiplier as the scale) on the bench YAML's packing
+FAMILY_ATTN_CASES = [
+    ("phi3_5_mini_packed_d96", 8, 2048, 32, 32, 96, True, None, None),
+    ("granite_2b_packed_d64_scale", 8, 2048, 32, 8, 64, True, None, None,
+     0.015625),
+]
+
+
+def family_yaml(repo_id, work):
+    """The bench YAML with its model built by ``from_pretrained`` of
+    ``repo_id`` (written to ``work``)."""
+    import yaml
+
+    with open(BENCH_YAML) as f:
+        cfg = yaml.safe_load(f)
+    cfg["model"] = {"_target_": "automodel_tpu.models.auto_model."
+                                "AutoModelForCausalLM.from_pretrained",
+                    "pretrained_model_name_or_path": repo_id}
+    path = os.path.join(work, repo_id.replace("/", "--") + ".yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    return path
+
+
+def family_sft_phase(label, repo_id, overrides, first_step, hf_home, flush):
+    """The SFT recipe over ``repo_id``'s published config at
+    ``FAMILY_LAYERS`` layers (random bf16 weights from a seed, an
+    ``HF_HOME`` snapshot; OLMo-2's published float32), loaded by
+    ``from_pretrained`` with the bench YAML's fused linear CE, packing and
+    optimizer: ``train_phase``'s gates, after which the loaded weights
+    must equal the written ones bit for bit (every tensor but the second
+    layer's), and kernel 9 (the model's heads, scale and window, on the
+    first batch's packing; one row at StarCoder-2's 8,192) and kernels 2-4
+    (the model's vocabulary, Granite's divisor folded into the head) on
+    this path's shapes against plain."""
+    import torch
+
+    work = tempfile.mkdtemp(prefix=f"chip_smoke_{label}_")
+    snap, written = write_hf_model(
+        hf_home, repo_id, layers=FAMILY_LAYERS,
+        hold=lambda n: ".layers.1." not in n)
+    yaml_path = family_yaml(repo_id, work)
+
+    def on_setup(recipe):
+        model = recipe.model
+        held = loaded_equal(label, model, written)
+        check(model.checkpoint_dir == snap,
+              f"{label}: the model came from {model.checkpoint_dir}")
+        d = model_dims(model)
+        first = next(iter(recipe.dataloader))
+        B, S = first["input_ids"].shape
+        rows = 1 if S > 4096 else B
+        attn = attention_phase(flush, first["segment_ids"], [
+            (f"{label}_d{d['head_dim']}", rows, S, d["heads"], d["kv_heads"],
+             d["head_dim"], True, model.sliding_window, None,
+             model._attn_softmax_scale)])
+        lce = lce_case(f"{label}_v{d['vocab']}", B * S, d["hidden"],
+                       d["vocab"], "bench", first["labels"], flush,
+                       seed=320 + FAMILY_SEEDS[repo_id], parts=True,
+                       head_divisor=model._logits_divisor)
+        torch.cuda.empty_cache()
+        info = dict(repo_id=repo_id, snapshot=snap, layers=FAMILY_LAYERS,
+                    published_layers=FAMILY_CONFIGS[repo_id][
+                        "num_hidden_layers"], written_tensors_held=held,
+                    model_type=model.config.model_type,
+                    param_dtype=str(model.param_dtype))
+        print(f"{label}_hf_model " + json.dumps(info), flush=True)
+        return dict(hf_model=info, attention_cases=attn, lce_case=lce)
+
+    report = train_phase(label, yaml_path, overrides, first_step=first_step,
+                         on_setup=on_setup)
     shutil.rmtree(work, ignore_errors=True)
     shutil.rmtree(os.path.dirname(os.path.dirname(snap)), ignore_errors=True)
     return report
@@ -5351,6 +5849,21 @@ def main():
         torch.cuda.empty_cache()
         pt_runs[label] = post_train_phase(label, yaml_path)
         phase_done(label)
+    # pretraining (the nanoGPT YAML), sequence classification and the
+    # Granite / OLMo-2 / StarCoder-2 / Phi-3 families
+    torch.cuda.empty_cache()
+    text_runs = {"pretrain_gpt2_nanogpt": pretrain_gpt2_phase(flush)}
+    phase_done("pretrain_gpt2_nanogpt")
+    torch.cuda.empty_cache()
+    seqcls = seqcls_phase(hf_home, flush)
+    phase_done("sft_seqcls_llama_1b")
+    for label, repo_id, over, first_step in FAMILY_PHASES:
+        torch.cuda.empty_cache()
+        text_runs[label] = family_sft_phase(label, repo_id, over,
+                                              first_step, hf_home, flush)
+        phase_done(label)
+    family_attn = attention_phase(flush, seg, FAMILY_ATTN_CASES)
+    phase_done("family attention cases")
     del flush
     shutil.rmtree(hf_home, ignore_errors=True)
     # last: its two recipes are set up and dropped here, after every timed
@@ -5481,6 +5994,27 @@ def main():
         for label, run in {**vlm_runs, **pt_runs}.items():
             kernels[-1][f"{label}_launches"] = run["launches"][
                 f"attn_{part}"]
+        # this slice's shapes: GPT-2 124M, the classifier's padded rows,
+        # the four families' first batches (Granite's scale, StarCoder-2's
+        # window 4,096 at S 8,192, Phi-4), Phi-3.5-mini's D 96 (padded) and
+        # Granite's scale on the bench packing, and each phase's launches
+        for c in family_attn + seqcls["attention_cases"] + [
+                r["attention_cases"][0] for r in text_runs.values()]:
+            kernels[-1].update({
+                f"{c['case']}_ms": c[part]["ms"],
+                f"{c['case']}_plain_ms": c[part]["plain_ms"],
+                f"{c['case']}_bound_ms": c[part]["bound_ms"],
+                f"{c['case']}_bound_by": c[part]["bound_by"],
+                f"{c['case']}_library_ms": c[part]["library_ms"]})
+            if "padded_bound_ms" in c[part]:
+                kernels[-1][f"{c['case']}_padded_bound_ms"] = c[part][
+                    "padded_bound_ms"]
+            kernels[-1]["max_abs_err"] = max(kernels[-1]["max_abs_err"],
+                                             c[part]["max_abs_err"])
+        for label, run in text_runs.items():
+            kernels[-1][f"{label}_launches"] = run[f"{part}_launches"]
+        kernels[-1]["sft_seqcls_llama_1b_launches"] = seqcls["launches"][
+            f"attn_{part}"]
         # the HF YAMLs' rows (unpacked, padding folded into segments)
         for label, run in hf_runs.items():
             c = run["attention_cases"][0]
@@ -5493,7 +6027,8 @@ def main():
             kernels[-1]["max_abs_err"] = max(kernels[-1]["max_abs_err"],
                                              c[part]["max_abs_err"])
     rep = lce_cases[0]
-    new_lce = [lce_lite] + [r["lce_case"] for r in vlm_runs.values()]
+    new_lce = ([lce_lite] + [r["lce_case"] for r in vlm_runs.values()]
+               + [r["lce_case"] for r in text_runs.values()])
     lce_cases = lce_cases + [r["lce_case"] for r in hf_runs.values()
                              if r["lce_case"] is not None] + new_lce
     errs = dict(
@@ -5542,6 +6077,12 @@ def main():
         for label, run in {**vlm_runs, **pt_runs}.items():
             kernels[-1][f"{label}_launches"] = run["launches"][
                 "lce_fwd" if part == "fwd" else part]
+        # GPT-2's and the families' heads (Granite's divisor folded in);
+        # the classifier launches none
+        for label, run in text_runs.items():
+            kernels[-1][f"{label}_launches"] = run["linear_ce_launches"][part]
+        kernels[-1]["sft_seqcls_llama_1b_launches"] = seqcls["launches"][
+            "lce_fwd" if part == "fwd" else part]
         # the post-training shapes with their objectives' cotangents
         for c in lce_cases:
             if c["labels"] in PT_LCE_KINDS:

@@ -245,10 +245,20 @@ def test_yarn_tables_match_jax(name):
 
 
 def test_longrope_still_raises():
-    with pytest.raises(NotImplementedError, match="longrope"):
-        rotary.rope_tables(32, 10000.0, {"rope_type": "longrope",
-                                         "short_factor": [1.0] * 16,
-                                         "long_factor": [1.0] * 16})
+    """Longrope, once refused here, is ported: its short and long tables
+    and amplitude equal JAX's (an unknown rope type still raises)."""
+    scaling = {"rope_type": "longrope", "factor": 8.0,
+               "short_factor": [1.0 + 0.1 * i for i in range(16)],
+               "long_factor": [1.5 + 0.3 * i for i in range(16)]}
+    for seq_len in (1, 4096, 4097):
+        kw = dict(max_position_embeddings=32768, seq_len=seq_len)
+        got, got_scale = rotary.rope_tables(32, 10000.0, scaling, **kw)
+        want, want_scale = jrotary.rope_parameters(32, 10000.0, scaling,
+                                                   **kw)
+        np.testing.assert_array_equal(got, want)
+        assert got_scale == want_scale
+    with pytest.raises(NotImplementedError, match="rope_type"):
+        rotary.rope_tables(32, 10000.0, {"rope_type": "ntk_blend"})
 
 
 def test_softmax_scale_and_rope_amplitude_match_jax(pair):

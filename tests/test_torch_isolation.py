@@ -3,7 +3,9 @@
 checkpoint and HF-safetensors modules, the optimizer step, the DeepSeek
 families, ``from_pretrained``, the HellaSwag / SQuAD datasets, the Gemma
 and vision models, the VLM datasets and the VLM recipe, the
-post-training modules and the GRPO / DPO recipes among them),
+post-training modules and the GRPO / DPO recipes, GPT-2, the
+classifier, Granite / OLMo-2 / StarCoder-2 / Phi-3 and the pretraining
+entry among them),
 importing every module loads no JAX, and the kernel build directory is
 ignored by git."""
 
@@ -42,7 +44,11 @@ def test_no_jax_or_jax_package_imports():
                 "post_training/eval_watch.py", "post_training/logprobs.py",
                 "post_training/losses.py", "post_training/rollout.py",
                 "post_training/steps.py", "recipes/llm/train_grpo.py",
-                "recipes/llm/train_dpo.py"):
+                "recipes/llm/train_dpo.py", "models/gpt2.py",
+                "models/granite.py", "models/olmo2.py",
+                "models/starcoder2.py", "models/phi3.py",
+                "models/sequence_classification.py",
+                "examples/pretrain.py"):
         assert new in rel, new
     for path in sources:
         with open(path) as f:
@@ -81,7 +87,9 @@ def test_engine_import_loads_no_jax():
                 "generation.generate", "serving.engine",
                 "models.auto_model", "datasets.llm.hellaswag",
                 "datasets.llm.squad", "datasets.utils",
-                "quantization.weight_only"):
+                "quantization.weight_only", "models.gpt2",
+                "models.sequence_classification", "models.phi3",
+                "examples.pretrain"):
         assert "automodel_tpu_torch." + mod in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"

@@ -246,6 +246,9 @@ ATTN_CASES = [
     ("causal_gqa_d256", 2, 300, 8, 2, 256, False, None, None),
     ("ragged_window_cap_d256", 1, 300, 4, 2, 256, True, 40, 50.0),
     ("window1024_d256", 1, 2560, 8, 4, 256, False, 1024, None),
+    # head_dim 96 (Phi-3-mini): zero-padded to 128 in the wrappers
+    ("packed_mha_d96_padded", 2, 256, 4, 4, 96, True, None, None),
+    ("ragged_window_gqa_d96_padded", 1, 300, 8, 2, 96, False, 40, None),
 ]
 
 
@@ -330,6 +333,11 @@ SMOKE_ATTN_CASES = [
     ("mla_causal_d192", 8, 2048, 16, 16, 192, False, None, None),
     ("gemma3_4b_window1024_d256", 2, 4096, 8, 4, 256, False, 1024, None),
     ("gemma2_cap50_window4096_d256", 1, 4096, 8, 4, 256, False, 4096, 50.0),
+    # GPT-2 124M (12 / 12 at 64), StarCoder2-3B (24 / 2 at 128, window
+    # 4,096 at S 8,192), Phi-3.5-mini (32 / 32 at 96, padded)
+    ("gpt2_mha_d64", 4, 1152, 12, 12, 64, False, None, None),
+    ("starcoder2_window4096_d128", 1, 8192, 24, 2, 128, False, 4096, None),
+    ("phi3_mini_packed_d96", 4, 2048, 32, 32, 96, True, None, None),
 ]
 SMOKE_FLASH_CASES = [
     ("sft_flash_packed_d64", 8, 2048, 32, 8, 64, True, True),
@@ -395,6 +403,32 @@ def test_cuda_splash_kernels_match_plain_at_the_smoke_shapes(case,
     ref = sa.splash_attention_plain(q, k, v, **kw)
     refs = sa.splash_attention_bwd_plain(q, k, v, out, lse, dout, **kw)
     check_attention((out, lse, *grads), (*ref, *refs))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scale", [0.015625, 0.2])
+def test_cuda_splash_kernels_take_a_custom_scale(scale, cuda_device):
+    """Granite's ``attention_multiplier`` replaces ``D ** -0.5``: kernel 9
+    at Granite-3.0-2B's heads (32 / 8 at 64) with that scale against the
+    plain versions with the same scale."""
+    from automodel_tpu_torch.ops import splash_attention as sa
+
+    B, S, Hq, Hk, D = 2, 1024, 32, 8, 64
+    g = torch.Generator(device=cuda_device).manual_seed(13)
+    q, dout = (torch.randn(B, S, Hq, D, device=cuda_device, generator=g)
+               .bfloat16() for _ in range(2))
+    k, v = (torch.randn(B, S, Hk, D, device=cuda_device, generator=g)
+            .bfloat16() for _ in range(2))
+    seg = torch.from_numpy(packed_segments(B, S, 3, mean=300)).to(cuda_device)
+    kw = dict(causal=True, segment_ids=seg, scale=scale)
+    out, lse = sa.flash_attn_fwd_cuda(q, k, v, **kw)
+    grads = sa.flash_attn_bwd_cuda(q, k, v, out, lse, dout, **kw)
+    torch.cuda.synchronize()
+    ref = sa.splash_attention_plain(q, k, v, **kw)
+    refs = sa.splash_attention_bwd_plain(q, k, v, out, lse, dout, **kw)
+    check_attention((out, lse, *grads), (*ref, *refs))
+    default = sa.flash_attn_fwd_cuda(q, k, v, causal=True, segment_ids=seg)
+    assert not torch.equal(out, default[0])
 
 
 @pytest.mark.cuda
@@ -564,6 +598,60 @@ def test_cuda_linear_ce_matches_plain(case, chunk_rows, cuda_device):
     for gname, got, ref in (("dh", dh, ref_dh), ("dw", dw, ref_dw)):
         assert bool(torch.isfinite(got).all()), gname
         assert rel_l2(got, ref) < LCE_GRAD_REL_L2, (gname, rel_l2(got, ref))
+
+
+# the heads of this slice's families with their logits divisor folded in
+# (name, T, H, V, divisor): Granite-3.0-2B (V 49,155 = 192 x 256 + 3, odd
+# rows of dlogits), OLMo-2 / Phi-4 (V 100,352), GPT-2 124M (V 50,304)
+DIVISOR_LCE_CASES = [
+    ("granite_v49155_div8", 4096, 2048, 49155, 8.0),
+    ("olmo2_v100352", 2048, 4096, 100352, 1.0),
+    ("gpt2_v50304", 4096, 768, 50304, 1.0),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", DIVISOR_LCE_CASES,
+                         ids=[c[0] for c in DIVISOR_LCE_CASES])
+def test_cuda_linear_ce_with_a_folded_divisor_matches_plain(case,
+                                                            cuda_device):
+    """Kernels 2-4 on the head the model hands them, ``(W / d)`` as the
+    ``[H, V]`` view of a row-major ``[V, H]`` tensor, against the plain
+    versions on the same operand, and against the plain lse of the logits
+    divided after the product."""
+    from automodel_tpu_torch.ops import linear_ce_kernel as lce
+
+    _, T, H, V, div = case
+    h, w, labels, dlse, dpick = make_lce_case(T, H, V, 0, V, seed=3)
+    head = (w.t() / torch.tensor(div, dtype=w.dtype, device=w.device)).t()
+    assert head.t().is_contiguous()
+    lse, pick = lce.linear_ce_fwd_cuda(h, head, labels)
+    dh, dw = lce.linear_ce_bwd_cuda(h, head, labels, lse, dlse, dpick)
+    torch.cuda.synchronize()
+    ref_lse, ref_pick = lce.lse_and_pick_plain(h, head, labels)
+    torch.testing.assert_close(lse, ref_lse, atol=LCE_ATOL, rtol=LCE_RTOL)
+    torch.testing.assert_close(pick, ref_pick, atol=LCE_ATOL, rtol=LCE_RTOL)
+    logits = (h.float() @ w.float()) / div
+    torch.testing.assert_close(lse, torch.logsumexp(logits, -1),
+                               atol=LCE_ATOL, rtol=LCE_RTOL)
+    ref_dh, ref_dw = lce.lse_and_pick_bwd_plain(h, head, labels, ref_lse,
+                                                dlse, dpick)
+    for gname, got, ref in (("dh", dh, ref_dh), ("dw", dw, ref_dw)):
+        assert bool(torch.isfinite(got).all()), gname
+        assert rel_l2(got, ref) < LCE_GRAD_REL_L2, (gname, rel_l2(got, ref))
+
+
+@pytest.mark.cuda
+def test_cuda_decode_kernel_refuses_head_dim_96(cuda_device):
+    """Phi-3-mini's head_dim 96 has no decode tile config: the wrapper
+    raises, naming the width, rather than launching."""
+    args, kw = make_case(CASES[0], D=96)
+    t = _torch(args, cuda_device)
+    t[0], t[1], t[2] = (x.to(torch.bfloat16) for x in t[:3])
+    launches = tpak.launches
+    with pytest.raises(ValueError, match="head_dim 96"):
+        tpak.paged_decode_cuda(*t, **kw)
+    assert tpak.launches == launches
 
 
 @pytest.mark.cuda

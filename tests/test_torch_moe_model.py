@@ -354,8 +354,8 @@ def test_build_model_families_and_the_dispatch_knob():
     assert model.config.qk_norm
     mixtral = dict(FAMILIES["mixtral"][0], model_type="mixtral")
     assert isinstance(build_model(mixtral, device="cpu"), MixtralForCausalLM)
-    with pytest.raises(NotImplementedError, match="phi3"):
-        build_model({"model_type": "phi3"}, device="cpu")
+    with pytest.raises(NotImplementedError, match="gemma3n"):
+        build_model({"model_type": "gemma3n"}, device="cpu")
     recipe = train_ft.TrainFinetuneRecipeForNextTokenPrediction(
         parse_args_and_load_config(["-c", TINY_YAML, "--device", "cpu",
                                     "--moe.dispatch", "onehot"])).setup()
