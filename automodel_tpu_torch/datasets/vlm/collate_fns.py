@@ -1,6 +1,6 @@
 """VLM collators: conversation samples -> numpy batches (counterpart:
-``automodel_tpu/datasets/vlm/collate_fns.py``, its default path; the Qwen
-and Phi collators wait for their families).
+``automodel_tpu/datasets/vlm/collate_fns.py``: its default and Qwen2.5-VL
+paths; the Phi-4-MM collator waits for its family).
 
 The batch the train step consumes:
 
@@ -18,6 +18,12 @@ The batch the train step consumes:
 ``pad_seq_len_divisible`` right-pads the text fields to a multiple;
 ``fixed_length`` pads or truncates every batch to one length;
 ``max_images_per_example`` fixes the slot count.
+
+:func:`qwen2_5_collate_fn` passes Qwen's processor output through as it
+is: flat patch rows ``pixel_values [n_patches, C * tps * ps * ps]`` with
+``image_grid_thw [n_images, 3]`` (videos: ``pixel_values_videos`` and
+``video_grid_thw``), and adds the M-RoPE ``position_ids [B, S, 3]``
+computed here (``datasets/vlm/qwen_rope.py``).
 """
 
 from __future__ import annotations
@@ -87,22 +93,32 @@ def _shifted_masked_labels(input_ids: np.ndarray, skipped_ids: Sequence[int],
     return labels
 
 
-def _gather_images(examples: List[dict]) -> Optional[List[Any]]:
-    """Each example's images, from ``images`` or from ``image`` entries of
-    its conversation's content (None when no example has one)."""
+def _gather_media(examples: List[dict], list_key: str,
+                  item_key: str) -> Optional[List[Any]]:
+    """Each example's media, from its ``list_key`` list or from
+    ``item_key`` entries of its conversation's content (None when no
+    example has any)."""
     out: List[Any] = []
     found = False
     for ex in examples:
-        items = list(ex.get("images") or [])
+        items = list(ex.get(list_key) or [])
         if not items:
             for turn in ex.get("conversation", []):
                 content = turn.get("content")
                 if isinstance(content, list):
-                    items.extend(c["image"] for c in content
-                                 if isinstance(c, dict) and "image" in c)
+                    items.extend(c[item_key] for c in content
+                                 if isinstance(c, dict) and item_key in c)
         found = found or bool(items)
         out.append(items)
     return out if found else None
+
+
+def _gather_images(examples: List[dict]) -> Optional[List[Any]]:
+    return _gather_media(examples, "images", "image")
+
+
+def _gather_videos(examples: List[dict]) -> Optional[List[Any]]:
+    return _gather_media(examples, "videos", "video")
 
 
 def _row_image_slots(flat: np.ndarray, counts: List[int],
@@ -178,6 +194,122 @@ def default_collate_fn(examples: List[dict], processor,
     return out
 
 
-# processor class name -> collate fn; the Qwen2.5-VL and Phi-4-MM
-# collators come with their families
-COLLATE_FNS = {"default": default_collate_fn}
+def _qwen_special(processor) -> Dict[str, int]:
+    """The special-token ids and the merge size of a Qwen processor (real
+    or mock)."""
+    tokenizer = getattr(processor, "tokenizer", processor)
+    convert = getattr(tokenizer, "convert_tokens_to_ids", None)
+    ids = {}
+    for name, tok, default in (
+            ("image_token_id", "<|image_pad|>", 151655),
+            ("video_token_id", "<|video_pad|>", 151656),
+            ("vision_start_token_id", "<|vision_start|>", 151652)):
+        v = convert(tok) if convert is not None else None
+        ids[name] = int(v) if v is not None else default
+    ids["spatial_merge_size"] = int(getattr(
+        getattr(processor, "image_processor", processor), "merge_size", 2))
+    return ids
+
+
+def _resize_square(img: Any, side: int) -> np.ndarray:
+    """An image array resized to ``side x side`` by nearest neighbour: the
+    knob that puts images of any aspect on one fixed grid (the Qwen
+    processor keeps the aspect)."""
+    arr = np.asarray(img)
+    yi = (np.arange(side) * arr.shape[0] // side).clip(0, arr.shape[0] - 1)
+    xi = (np.arange(side) * arr.shape[1] // side).clip(0, arr.shape[1] - 1)
+    return arr[yi][:, xi]
+
+
+def qwen2_5_collate_fn(examples: List[dict], processor,
+                       start_of_response_token: str = "<|im_start|>assistant\n",
+                       pad_seq_len_divisible: Optional[int] = None,
+                       fixed_length: Optional[int] = None,
+                       tokens_per_second: int = 2,
+                       resize_images_to: Optional[int] = None
+                       ) -> Dict[str, np.ndarray]:
+    """Qwen2.5-VL: the ``<|im_start|>assistant`` response marker, the
+    processor's flat patch rows and grids passed through, the M-RoPE
+    position ids computed here (pads: 1).  ``resize_images_to`` squares
+    every image first; a vision span the processor truncated raises
+    ``ValueError``."""
+    from automodel_tpu_torch.datasets.vlm.qwen_rope import (
+        qwen_mrope_position_ids,
+    )
+
+    texts = [processor.apply_chat_template(ex["conversation"], tokenize=False)
+             for ex in examples]
+    kwargs: Dict[str, Any] = dict(padding=True, return_tensors="np")
+    if fixed_length is not None:
+        kwargs.update(padding="max_length", truncation=True,
+                      max_length=int(fixed_length))
+    images = _gather_images(examples)
+    if images is not None:
+        if resize_images_to:
+            images = [[_resize_square(i, int(resize_images_to))
+                       for i in imgs] for imgs in images]
+        kwargs["images"] = images
+    videos = _gather_videos(examples)
+    if videos is not None:
+        kwargs["videos"] = videos
+    batch = processor(text=texts, **kwargs)
+
+    input_ids = _as_numpy(batch["input_ids"]).astype(np.int32)
+    attn = (None if batch.get("attention_mask") is None
+            else _as_numpy(batch["attention_mask"]).astype(np.int32))
+    out: Dict[str, np.ndarray] = {"input_ids": input_ids}
+    grid = vgrid = spg = None
+    if batch.get("pixel_values") is not None:
+        out["pixel_values"] = _as_numpy(batch["pixel_values"]).astype(
+            np.float32)
+        grid = _as_numpy(batch["image_grid_thw"]).astype(np.int32)
+        out["image_grid_thw"] = grid
+    if batch.get("pixel_values_videos") is not None:
+        out["pixel_values_videos"] = _as_numpy(
+            batch["pixel_values_videos"]).astype(np.float32)
+        vgrid = _as_numpy(batch["video_grid_thw"]).astype(np.int32)
+        out["video_grid_thw"] = vgrid
+        if batch.get("second_per_grid_ts") is not None:
+            # read by the position ids' walk only, never by the model
+            spg = np.asarray(_as_numpy(batch["second_per_grid_ts"]),
+                             np.float64)
+
+    loss_masks = [create_loss_mask_with_start_of_response_token(
+        row, processor, start_of_response_token) for row in input_ids]
+    out["labels"] = _shifted_masked_labels(
+        input_ids, extract_skipped_token_ids(processor), loss_masks)
+    out["loss_mask"] = np.asarray(loss_masks, np.float32)
+    sp = _qwen_special(processor)
+    for g, tok_key, name in ((grid, "image_token_id", "image"),
+                             (vgrid, "video_token_id", "video")):
+        if g is None:
+            continue
+        # a truncated vision span would break the position walk and
+        # misplace the features: fail with the cause
+        m = sp["spatial_merge_size"]
+        expect = int(sum(int(t) * (int(h) // m) * (int(w) // m)
+                         for t, h, w in g))
+        got = int((input_ids == sp[tok_key]).sum())
+        if got != expect:
+            raise ValueError(
+                f"batch carries {got} {name} placeholder tokens but "
+                f"{name}_grid_thw implies {expect}: a {name} span was "
+                "truncated (raise fixed_length / max_length) or the "
+                "processor's placeholder expansion disagrees with the grid")
+    out["position_ids"] = qwen_mrope_position_ids(
+        input_ids, grid, attn, video_grid_thw=vgrid,
+        second_per_grid_ts=spg, tokens_per_second=tokens_per_second, **sp)
+    if pad_seq_len_divisible:
+        pad = (-input_ids.shape[1]) % int(pad_seq_len_divisible)
+        _pad_text_fields(out, processor, int(pad_seq_len_divisible))
+        if pad:
+            out["position_ids"] = np.pad(
+                out["position_ids"], ((0, 0), (0, pad), (0, 0)),
+                constant_values=1)       # HF pads M-RoPE positions with 1
+    return out
+
+
+# processor class name -> collate fn; the Phi-4-MM collator comes with
+# its family
+COLLATE_FNS = {"Qwen2_5_VLProcessor": qwen2_5_collate_fn,
+               "default": default_collate_fn}

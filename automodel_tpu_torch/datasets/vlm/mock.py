@@ -8,6 +8,9 @@ word per vision token), ``__call__(text=, images=, padding=,
 return_tensors="np")`` (NCHW ``pixel_values``, as HF image processors
 emit), and a ``tokenizer`` with ``get_vocab`` / ``pad_token_id`` /
 callable tokenization (a whitespace word hash into the vocabulary).
+:class:`Qwen2_5_VLProcessor` is the Qwen processor's stand-in (flat patch
+rows and grids), :func:`make_mock_video_dataset` the video conversations
+it takes.
 """
 
 from __future__ import annotations
@@ -154,5 +157,153 @@ def make_mock_vlm_dataset(num_samples: int = 64, image_size: int = 32,
                     {"type": "text", "text": desc}]},
             ],
             "images": [img],
+        })
+    return out
+
+
+class Qwen2_5_VLProcessor:
+    """``processor._target_: automodel_tpu.datasets.vlm.mock.
+    Qwen2_5_VLProcessor``: the Qwen processor's contract under its real
+    class name (``COLLATE_FNS`` dispatches by it).  The chat template
+    expands an image to ``<|vision_start|>``, one ``<|image_pad|>`` per
+    merged unit and ``<|vision_end|>`` (a video likewise with
+    ``<|video_pad|>``); ``__call__`` emits flat patch rows ``[n_patches,
+    C * tps * ps * ps]`` in merge-unit grouped order with
+    ``image_grid_thw`` (videos: ``pixel_values_videos``,
+    ``video_grid_thw`` and ``second_per_grid_ts``).  The special ids are
+    5 (vision start), 6 (image pad), 7 (vision end), 8-11 (the chat
+    markers) and 12 (video pad)."""
+
+    def __init__(self, vocab_size: int = 256, grid=(1, 4, 4),
+                 patch_size: int = 4, temporal_patch_size: int = 2,
+                 merge_size: int = 2, num_channels: int = 3,
+                 video_grid=(2, 4, 4), second_per_grid_t: float = 1.0):
+        self.grid = tuple(grid)
+        self.video_grid = tuple(video_grid)
+        self.second_per_grid_t = float(second_per_grid_t)
+        self.patch_size = patch_size
+        self.temporal_patch_size = temporal_patch_size
+        self.merge_size = merge_size
+        self.num_channels = num_channels
+        t, h, w = self.grid
+        self.n_units = t * (h // merge_size) * (w // merge_size)
+        vt, vh, vw = self.video_grid
+        self.n_video_units = vt * (vh // merge_size) * (vw // merge_size)
+        self.image_size = (h * patch_size, w * patch_size)
+        self.tokenizer = _MockTokenizer(vocab_size, image_token_id=0)
+        self.tokenizer._special.update({
+            "<|vision_start|>": 5, "<|image_pad|>": 6, "<|vision_end|>": 7,
+            "<|im_start|>": 8, "<|im_end|>": 9, "assistant": 10, "user": 11,
+            "<|video_pad|>": 12,
+        })
+        self.image_processor = self           # exposes .merge_size
+
+    def apply_chat_template(self, conversation, tokenize=False, **_kw):
+        parts = []
+        for turn in conversation:
+            parts += ["<|im_start|>",
+                      "assistant" if turn["role"] == "assistant" else "user"]
+            content = turn["content"]
+            if isinstance(content, str):
+                parts.append(content)
+            else:
+                for c in content:
+                    if c.get("type") == "image":
+                        parts += (["<|vision_start|>"]
+                                  + ["<|image_pad|>"] * self.n_units
+                                  + ["<|vision_end|>"])
+                    elif c.get("type") == "video":
+                        parts += (["<|vision_start|>"]
+                                  + ["<|video_pad|>"] * self.n_video_units
+                                  + ["<|vision_end|>"])
+                    elif c.get("type") == "text":
+                        parts.append(c["text"])
+            parts.append("<|im_end|>")
+        text = " ".join(parts)
+        return self.tokenizer(text)["input_ids"] if tokenize else text
+
+    def _patchify(self, img, grid=None) -> np.ndarray:
+        """An image (or a video's first frame) -> ``[t * h * w, C * tps *
+        ps * ps]`` float32 rows, resized by nearest neighbour, each patch
+        repeated over the temporal patch and the grid's frames."""
+        t, h, w = grid or self.grid
+        ps, tps, C = self.patch_size, self.temporal_patch_size, \
+            self.num_channels
+        if np.asarray(img).ndim == 4:      # a video [frames, H, W, C]
+            img = np.asarray(img)[0]
+        arr = np.asarray(img, np.float32)
+        if arr.ndim == 2:
+            arr = np.stack([arr] * C, axis=-1)
+        hh, ww = h * ps, w * ps
+        yi = (np.arange(hh) * arr.shape[0] // hh).clip(0, arr.shape[0] - 1)
+        xi = (np.arange(ww) * arr.shape[1] // ww).clip(0, arr.shape[1] - 1)
+        arr = arr[yi][:, xi] / 127.5 - 1.0             # [hh, ww, C]
+        m = self.merge_size
+        p = arr.reshape(h // m, m, ps, w // m, m, ps, C)
+        p = p.transpose(0, 3, 1, 4, 6, 2, 5)           # [gh, gw, m, m, C, ps, ps]
+        p = p.reshape(h * w, C, ps, ps)
+        p = np.repeat(p[:, :, None], tps, axis=2)      # temporal repeat
+        p = np.tile(p.reshape(h * w, -1), (t, 1))
+        return p.astype(np.float32)
+
+    def __call__(self, text, images=None, videos=None, padding=True,
+                 return_tensors="np", truncation=False, max_length=None,
+                 **_kw):
+        seqs = [self.tokenizer(t)["input_ids"] for t in text]
+        if truncation and max_length:
+            seqs = [s[:max_length] for s in seqs]
+        width = max(len(s) for s in seqs)
+        if padding == "max_length" and max_length:
+            width = max_length
+        pad = self.tokenizer.pad_token_id
+        batch = {
+            "input_ids": np.asarray(
+                [s + [pad] * (width - len(s)) for s in seqs], np.int64),
+            "attention_mask": np.asarray(
+                [[1] * len(s) + [0] * (width - len(s)) for s in seqs],
+                np.int64),
+        }
+        if images is not None:
+            flat = [self._patchify(i) for imgs in images for i in imgs]
+            if flat:
+                batch["pixel_values"] = np.concatenate(flat, axis=0)
+                batch["image_grid_thw"] = np.asarray(
+                    [list(self.grid)] * len(flat), np.int64)
+        if videos is not None:
+            flat = [self._patchify(v, self.video_grid)
+                    for vids in videos for v in vids]
+            if flat:
+                batch["pixel_values_videos"] = np.concatenate(flat, axis=0)
+                batch["video_grid_thw"] = np.asarray(
+                    [list(self.video_grid)] * len(flat), np.int64)
+                batch["second_per_grid_ts"] = np.asarray(
+                    [self.second_per_grid_t] * len(flat), np.float64)
+        return batch
+
+
+def make_mock_video_dataset(num_samples: int = 32, image_size: int = 16,
+                            num_frames: int = 4, seed: int = 0,
+                            limit_dataset_samples: Optional[int] = None,
+                            **_kw) -> List[dict]:
+    """Synthetic video -> description conversations (the Qwen collator
+    routes them through ``pixel_values_videos``, ``video_grid_thw`` and
+    ``second_per_grid_ts``)."""
+    rng = np.random.default_rng(seed)
+    n = min(num_samples, limit_dataset_samples or num_samples)
+    words = ["walk", "run", "jump", "spin", "fall", "rise", "wave"]
+    out = []
+    for _ in range(n):
+        vid = rng.integers(
+            0, 256, (num_frames, image_size, image_size, 3)).astype(np.uint8)
+        desc = " ".join(rng.choice(words, size=5))
+        out.append({
+            "conversation": [
+                {"role": "user", "content": [
+                    {"type": "video"},
+                    {"type": "text", "text": "Describe this video."}]},
+                {"role": "assistant", "content": [
+                    {"type": "text", "text": desc}]},
+            ],
+            "videos": [vid],
         })
     return out

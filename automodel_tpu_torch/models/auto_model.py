@@ -14,9 +14,11 @@ The families are the JAX registry's names (``automodel_tpu/models/
 registry.py``): ``llama``, and on Llama's class ``mistral``, ``qwen2``,
 ``qwen3``, ``granite``, ``olmo2``, ``starcoder2`` and ``phi3``; ``gpt2``;
 ``mixtral``, ``qwen3_moe``, ``deepseek_v2`` and ``deepseek_v3``;
-``gemma3_text`` and ``gemma2``; and the image-text models ``gemma3``
-(Gemma-3 multimodal) and ``llava``, which
-:class:`AutoModelForImageTextToText` builds the same way.  Other
+``gemma3_text`` and ``gemma2``; ``qwen2_5_vl_text`` (Qwen2.5-VL's
+M-RoPE decoder alone); and the image-text models ``gemma3`` (Gemma-3
+multimodal), ``llava`` and ``qwen2_5_vl``, which
+:class:`AutoModelForImageTextToText` builds the same way (Qwen2.5-VL's
+``image_grid`` / ``video_grid`` pass through as model keywords).  Other
 ``model_type`` values raise.  :class:`AutoModelForSequenceClassification`
 (and ``build_sequence_classifier``) wraps any of the text families in
 ``models/sequence_classification.py``'s ``score`` head.  Every model is
@@ -59,6 +61,12 @@ from automodel_tpu_torch.models.mixtral import (
 )
 from automodel_tpu_torch.models.olmo2 import Olmo2Config, Olmo2ForCausalLM
 from automodel_tpu_torch.models.phi3 import Phi3Config, Phi3ForCausalLM
+from automodel_tpu_torch.models.qwen2_5_vl import (
+    Qwen25VLConfig,
+    Qwen25VLForConditionalGeneration,
+    Qwen25VLTextConfig,
+    Qwen25VLTextModel,
+)
 from automodel_tpu_torch.models.qwen3_moe import (
     Qwen3MoeConfig,
     Qwen3MoeForCausalLM,
@@ -94,6 +102,8 @@ FAMILIES = {
     # HF's "gemma3" is the multimodal config (text and vision nested)
     "gemma3": (Gemma3VLConfig, Gemma3ForConditionalGeneration),
     "llava": (VLMConfig, VLMForConditionalGeneration),
+    "qwen2_5_vl": (Qwen25VLConfig, Qwen25VLForConditionalGeneration),
+    "qwen2_5_vl_text": (Qwen25VLTextConfig, Qwen25VLTextModel),
 }
 
 

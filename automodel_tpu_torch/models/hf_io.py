@@ -5,7 +5,8 @@ The key maps are the JAX package's for the ported families (llama and, on
 its map, mistral, qwen2 (q / k / v biases), qwen3 and granite; olmo2,
 starcoder2, phi3 (fused ``qkv_proj`` / ``gate_up_proj``) and gpt2;
 mixtral, qwen3_moe, deepseek_v2, deepseek_v3; gemma3_text and gemma2, and
-the VLMs gemma3 and llava with their SigLIP tower), keyed by the same JAX
+the VLMs gemma3 and llava with their SigLIP tower, and qwen2_5_vl with its
+windowed ViT and qwen2_5_vl_text), keyed by the same JAX
 tree paths that ``models/weights.py::jax_leaves`` walks; an entry is an
 :class:`HfEntry`. A sequence classifier's map is its backbone's re-rooted
 under ``backbone`` without ``lm_head``, plus ``score.weight``, which a
@@ -25,7 +26,12 @@ transposed HF tensor per expert (``...experts.{e}.<name>.weight``). The
 vision tower's patch embedding is HF's Conv2d weight ``[H, C, p, p]`` and
 the port's ``[H, p * p * C]`` matmul over ``(row, col, channel)`` patches:
 the entry's ``view`` reads and writes the one through a permuted view of
-the other.
+the other (Qwen2.5-VL's Conv3d ``[D, C, tps, ps, ps]`` is a plain view of
+its ``[D, C * tps * ps * ps]`` rows).  A name the key map gives that a
+checkpoint lacks is looked up under the multimodal families' older flat
+names too (``model.language_model.`` <-> ``model.`` /
+``language_model.model.``, ``model.visual.`` <-> ``visual.`` ...), as the
+JAX reader does.
 
 :func:`save_hf_weights` writes a consolidated HF repo as the JAX writer
 does: ``model.safetensors`` (``model-0000i-of-0000n.safetensors`` past
@@ -88,7 +94,9 @@ _ARCHITECTURES = {"llama": "LlamaForCausalLM",
                   "gemma3_text": "Gemma3ForCausalLM",
                   "gemma2": "Gemma2ForCausalLM",
                   "gemma3": "Gemma3ForConditionalGeneration",
-                  "llava": "LlavaForConditionalGeneration"}
+                  "llava": "LlavaForConditionalGeneration",
+                  "qwen2_5_vl": "Qwen2_5_VLForConditionalGeneration",
+                  "qwen2_5_vl_text": "Qwen2_5_VLTextModel"}
 
 
 # ---------------------------------------------------------------------------
@@ -180,6 +188,34 @@ class HfEntry(NamedTuple):
 # Prefixes a checkpoint's names may carry that the key maps leave out
 # (HF's ``GPT2LMHeadModel`` writes ``transformer.h.0...``).
 _READ_PREFIXES = ("transformer.",)
+# The multimodal checkpoints' two namings (the JAX reader's aliases, tried
+# both ways when the key map's name is absent): the maps write
+# ``model.language_model.`` / ``model.visual.`` ..., published hub
+# snapshots may carry the older flat names.
+_LEGACY_KEY_RENAMES = (
+    ("model.language_model.", "language_model.model."),
+    ("model.language_model.", "model."),      # Qwen2.5-VL's flat naming
+    ("model.vision_tower.", "vision_tower."),
+    ("model.multi_modal_projector.", "multi_modal_projector."),
+    ("model.audio_tower.", "audio_tower."),
+    ("model.visual.", "visual."),
+)
+
+
+def stored_name(name: str, weight_map) -> Optional[str]:
+    """The name under which a checkpoint holds the key map's ``name``: the
+    name itself, with a reading prefix, or a legacy alias (None when it
+    holds none of them)."""
+    for pre in ("",) + _READ_PREFIXES:
+        if pre + name in weight_map:
+            return pre + name
+    for a, b in _LEGACY_KEY_RENAMES:
+        for pre, alt_pre in ((a, b), (b, a)):
+            if name.startswith(pre):
+                alt = alt_pre + name[len(pre):]
+                if alt in weight_map:
+                    return alt
+    return None
 
 
 def llama_key_map(config) -> Dict[Tuple[str, ...], HfEntry]:
@@ -469,6 +505,43 @@ def gemma3_vlm_key_map(config) -> Dict[Tuple[str, ...], HfEntry]:
     return m
 
 
+def qwen2_5_vl_key_map(config) -> Dict[Tuple[str, ...], HfEntry]:
+    """Qwen2.5-VL (HF ``Qwen2_5_VLForConditionalGeneration``): the text
+    under ``model.language_model.``, the windowed ViT under
+    ``model.visual.``; the patch embedding through a view of HF's Conv3d
+    layout ``[D, C, tps, ps, ps]`` (the port's ``[D, C * tps * ps * ps]``
+    rows, the JAX kernel's transpose)."""
+    m = {("language_model",) + path: e._replace(
+        template=(e.template.replace("model.", "model.language_model.", 1)
+                  if e.template.startswith("model.") else e.template))
+        for path, e in llama_key_map(config.text_config).items()}
+    vc = config.vision_config
+
+    def conv_view(w):            # [D, C * tps * ps * ps] -> the Conv3d's
+        return w.view(w.shape[0], vc.in_channels, vc.temporal_patch_size,
+                      vc.patch_size, vc.patch_size)
+
+    m[("visual", "patch_embed", "kernel")] = HfEntry(
+        "model.visual.patch_embed.proj.weight", view=conv_view)
+    pre = "model.visual.blocks.{i}."
+    for norm in ("norm1", "norm2"):
+        m[("visual", "blocks", norm, "weight")] = HfEntry(
+            pre + f"{norm}.weight")
+    for part, names in (("attn", ("qkv", "proj")),
+                        ("mlp", ("gate_proj", "up_proj", "down_proj"))):
+        for name in names:
+            for wb, leaf in (("weight", "kernel"), ("bias", "bias")):
+                m[("visual", "blocks", part, name, leaf)] = HfEntry(
+                    pre + f"{part}.{name}.{wb}")
+    m[("visual", "merger", "ln_q", "weight")] = HfEntry(
+        "model.visual.merger.ln_q.weight")
+    for ours, hf in (("fc1", "mlp.0"), ("fc2", "mlp.2")):
+        for wb, leaf in (("weight", "kernel"), ("bias", "bias")):
+            m[("visual", "merger", ours, leaf)] = HfEntry(
+                f"model.visual.merger.{hf}.{wb}")
+    return m
+
+
 _KEY_MAPS = {"llama": llama_key_map, "mistral": llama_key_map,
              "qwen2": llama_key_map, "qwen3": llama_key_map,
              "granite": llama_key_map, "olmo2": olmo2_key_map,
@@ -479,7 +552,9 @@ _KEY_MAPS = {"llama": llama_key_map, "mistral": llama_key_map,
              "deepseek_v2": deepseek_v2_key_map,
              "deepseek_v3": deepseek_v3_key_map,
              "gemma3_text": gemma3_key_map, "gemma2": gemma3_key_map,
-             "gemma3": gemma3_vlm_key_map, "llava": vlm_key_map}
+             "gemma3": gemma3_vlm_key_map, "llava": vlm_key_map,
+             "qwen2_5_vl": qwen2_5_vl_key_map,
+             "qwen2_5_vl_text": llama_key_map}
 
 # the read transforms of an int8 base's two leaves (one HF tensor each)
 INT8_CODES, INT8_SCALE = "int8_codes", "int8_scale"
@@ -620,8 +695,7 @@ def load_hf_weights(model, ckpt_dir: str) -> None:
             f"{ckpt_dir} has no {SAFETENSORS_FILE} or {SAFETENSORS_INDEX}")
     wanted: Dict[str, List[Tuple[str, Tuple]]] = {}
     for name, view, where in hf_tensors(model, reading=True):
-        stored = next((pre + name for pre in ("",) + _READ_PREFIXES
-                       if pre + name in weight_map), None)
+        stored = stored_name(name, weight_map)
         if stored is None:
             if where[3]:                # e.g. V3's correction bias
                 view.zero_()

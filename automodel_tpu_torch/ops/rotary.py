@@ -3,8 +3,9 @@
 The frequency tables are computed in numpy float64 exactly as the JAX
 package does, so both sides rotate by the same float32 frequencies.  The
 default, linear, llama3, yarn and longrope rope types are ported (yarn
-and longrope with their amplitude factor, ``attention_scaling``).
-Longrope (Phi-3's 128k variants) rescales each frequency by a per-dim
+and longrope with their amplitude factor, ``attention_scaling``);
+Qwen2.5-VL's ``mrope`` takes the default frequencies (its sections are
+picked in ``models/qwen2_5_vl.py``).  Longrope (Phi-3's 128k variants) rescales each frequency by a per-dim
 factor list, ``short_factor`` or, once the sequence passes the original
 context length, ``long_factor``: the model holds both tables
 (:func:`longrope_tables`) and picks one from the positions at run time,
@@ -119,10 +120,10 @@ def rope_tables(head_dim: int, theta: float = 10000.0,
             attention_scaling = (
                 1.0 if factor is None or factor <= 1.0
                 else float(np.sqrt(1 + np.log(factor) / np.log(old_len))))
-    elif rope_type not in ("default", "dynamic"):
+    elif rope_type not in ("default", "dynamic", "mrope"):
         raise NotImplementedError(
             f"rope_type {rope_type!r} is not ported (default, linear, "
-            "llama3, yarn and longrope are)")
+            "llama3, yarn, longrope and mrope are)")
     return inv_freq.astype(np.float32), float(attention_scaling)
 
 

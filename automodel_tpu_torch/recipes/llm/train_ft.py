@@ -550,6 +550,11 @@ class TrainFinetuneRecipeForNextTokenPrediction(BaseRecipe):
                 self.rng.seed)
 
     # -- hot loop ------------------------------------------------------------
+    def _check_host_batches(self, batches) -> None:
+        """Checks of a group of collated microbatches on the host, before
+        they go to the device (none here; the VLM recipe holds the image
+        grids against the model's)."""
+
     def _run_train_optim_step(self, batches) -> Optional[Dict[str, Any]]:
         """Dispatch one optimizer step and return the newest finalized
         metrics without waiting for the card: step N's are read once step
@@ -571,6 +576,7 @@ class TrainFinetuneRecipeForNextTokenPrediction(BaseRecipe):
             self.model.set_dropout_step(self.step_scheduler.step)
         staged = self.__dict__.pop("_staged_input", None)
         if staged is None:
+            self._check_host_batches(batches)
             with self.timers.record("data_staging"):
                 batch = to_device_batch(batches, self.device)
             dl_state = None
@@ -685,6 +691,7 @@ class TrainFinetuneRecipeForNextTokenPrediction(BaseRecipe):
             return None
         total = None
         for vb in self.val_dataloader:
+            self._check_host_batches([vb])
             m = self.step_fns.eval_dispatch(
                 to_device_batch([vb], self.device)).double()
             wl = torch.stack([m[0] * m[1].clamp(min=1.0), m[1]])
@@ -751,6 +758,7 @@ class TrainFinetuneRecipeForNextTokenPrediction(BaseRecipe):
         except StopIteration:
             return None
         dl_state = self.dataloader.pending_state()
+        self._check_host_batches(batches)
         with self.timers.record("data_staging_overlap"):
             device_batch = stage_batch(batches, self.device,
                                        self._copy_stream)

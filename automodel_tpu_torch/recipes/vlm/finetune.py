@@ -9,8 +9,10 @@ directory where the package is installed) and a VLM collator
 name), padding rows to a multiple of 128 and prefetching two batches
 unless the YAML says otherwise; and the freeze mask defaults to frozen
 embeddings when the YAML has no ``freeze_config``.  ``max_grad_norm``
-defaults to 1.0.  Batches carry ``pixel_values [B, I, H, W, C]``, which
-the train step hands to the model.
+defaults to 1.0.  Batches carry ``pixel_values [B, I, H, W, C]`` (or
+Qwen2.5-VL's flat patch rows and grids), which the train step hands to the
+model; on the host, before a batch goes to the device, its
+``image_grid_thw`` / ``video_grid_thw`` rows must equal the model's grids.
 
     python -m automodel_tpu_torch.recipes.vlm.finetune \\
         -c examples/vlm_finetune/tiny_vlm_mock.yaml --device cpu
@@ -21,6 +23,8 @@ from __future__ import annotations
 import functools
 import logging
 from typing import Any, Callable, Dict, Optional
+
+import numpy as np
 
 from automodel_tpu_torch.config.loader import (
     ConfigNode,
@@ -62,13 +66,20 @@ def build_processor(cfg: ConfigNode, model) -> Any:
         "offline runs) or point `model` at a checkpoint with processor files")
 
 
-def select_collate_fn(dl_cfg: Optional[ConfigNode], processor) -> Callable:
+def select_collate_fn(dl_cfg: Optional[ConfigNode], processor,
+                      model=None) -> Callable:
     """An explicit ``dataloader.collate_fn`` node (or callable) wins, bound
     to the processor and handed only the loader's keyword arguments it
     takes; else ``COLLATE_FNS`` by the processor's class name (``default``
     when it has none), with ``max_images_per_example`` / ``fixed_length``
-    from the loader's section."""
+    from the loader's section.  A collator knob that must agree with the
+    model -- Qwen's ``tokens_per_second``, which scales the temporal
+    position axis -- defaults to ``model``'s value, unless the node sets
+    it."""
     node = dl_cfg.get("collate_fn") if isinstance(dl_cfg, ConfigNode) else None
+    model_tps = getattr(getattr(getattr(model, "config", None),
+                                "vision_config", None),
+                        "tokens_per_second", None)
 
     def bind(fn, call):
         def collate(examples, **kw):
@@ -78,8 +89,16 @@ def select_collate_fn(dl_cfg: Optional[ConfigNode], processor) -> Callable:
 
     if isinstance(node, ConfigNode) and "_target_" in node.to_dict():
         target = resolve_target(node.get("_target_"))
-        return bind(target, lambda examples, kw: node.instantiate(
-            examples=examples, processor=processor, **kw))
+
+        def call(examples, kw):
+            if (model_tps is not None
+                    and "tokens_per_second" not in node.to_dict()
+                    and accepts_kwarg(target, "tokens_per_second")):
+                kw.setdefault("tokens_per_second", int(model_tps))
+            return node.instantiate(examples=examples, processor=processor,
+                                    **kw)
+
+        return bind(target, call)
     if callable(node):
         return bind(node, lambda examples, kw: node(
             examples, processor=processor, **kw))
@@ -93,11 +112,13 @@ def select_collate_fn(dl_cfg: Optional[ConfigNode], processor) -> Callable:
         v = dl_cfg.get(knob) if isinstance(dl_cfg, ConfigNode) else None
         if v is not None and accepts_kwarg(fn, knob):
             extra[knob] = int(v)
+    if model_tps is not None and accepts_kwarg(fn, "tokens_per_second"):
+        extra["tokens_per_second"] = int(model_tps)
     return functools.partial(fn, processor=processor, **extra)
 
 
 def build_vlm_dataloader(cfg: ConfigNode, dataset, processor, cfg_key: str,
-                         batch_size: int, seed: int):
+                         batch_size: int, seed: int, model=None):
     """The loader of ``cfg[cfg_key]`` (its ``_target_``, else
     :class:`StatefulDataLoader`) over ``dataset`` with the VLM collator,
     handed the section's keys it takes, wrapped in the async input pipeline
@@ -116,7 +137,8 @@ def build_vlm_dataloader(cfg: ConfigNode, dataset, processor, cfg_key: str,
     # the loader's
     kwargs = {k: v for k, v in kwargs.items()
               if accepts_kwarg(cls.__init__, k)}
-    loader = cls(dataset, collate_fn=select_collate_fn(dl_cfg, processor),
+    loader = cls(dataset,
+                 collate_fn=select_collate_fn(dl_cfg, processor, model=model),
                  **kwargs)
     return wrap_prefetch(loader, depth)
 
@@ -126,6 +148,32 @@ class FinetuneRecipeForVLM(TrainFinetuneRecipeForNextTokenPrediction):
 
     _default_max_grad_norm = 1.0
     _sections = frozenset({"processor"})
+
+    def _check_host_batches(self, batches) -> None:
+        """Each microbatch's ``image_grid_thw`` / ``video_grid_thw`` rows
+        (zero rows are stacking pads) against the model's ``image_grid``
+        / ``video_grid``: a batch made for another grid would fail an
+        opaque reshape or, when the patch count happens to divide, train
+        on the wrong rotary tables and windows."""
+        for key, fixed in (("image_grid_thw",
+                            getattr(self.model, "image_grid", None)),
+                           ("video_grid_thw",
+                            getattr(self.model, "video_grid", None))):
+            if fixed is None:
+                continue
+            for mb in batches:
+                g = mb.get(key)
+                if g is None:
+                    continue
+                rows = np.asarray(g)
+                real = rows[np.any(rows != 0, axis=-1)]
+                if real.size and not np.all(real == np.asarray(fixed)):
+                    raise ValueError(
+                        f"{key} rows {real.tolist()} do not match the "
+                        f"model's static grid {tuple(fixed)}: the tower runs "
+                        "one grid; group batches by grid at the collator or "
+                        f"set the model's {key.replace('_thw', '')} to "
+                        "match")
 
     def _build_freeze_mask(self):
         """``freeze_config``, defaulting to frozen embeddings."""
@@ -148,13 +196,13 @@ class FinetuneRecipeForVLM(TrainFinetuneRecipeForNextTokenPrediction):
             cfg.set_by_dotted("dataloader.prefetch_depth", 2)
         self.dataloader = build_vlm_dataloader(
             cfg, dataset, self.processor, "dataloader", batch_size,
-            self.rng.seed)
+            self.rng.seed, model=self.model)
         self.val_dataloader = None
         if cfg.get("validation_dataset") is not None:
             self.val_dataloader = build_vlm_dataloader(
                 cfg, build_dataset(cfg.get("validation_dataset")),
                 self.processor, "validation_dataloader", batch_size,
-                self.rng.seed)
+                self.rng.seed, model=self.model)
 
 
 def main(config_path: Optional[str] = None, argv=None):

@@ -52,7 +52,9 @@ from automodel_tpu_torch.loss.masked_ce import IGNORE_INDEX, MaskedCrossEntropy
 PACKED_KEYS = ("loss", "grad_norm", "num_label_tokens")
 
 # Keys the model forward consumes (``pixel_values``: the VLM families'
-# per-row image slots), and keys the step itself consumes.
+# image slots or patch rows); a model with more inputs names them in its
+# ``extra_batch_keys`` (Qwen2.5-VL's ``image_grid_thw``, video patches and
+# grids).  Keys the step itself consumes.
 _MODEL_KEYS = ("input_ids", "position_ids", "segment_ids", "attention_mask",
                "pixel_values")
 _STEP_KEYS = ("labels",)
@@ -67,14 +69,18 @@ def microbatch_loss(model, loss_fn, mb: Dict[str, torch.Tensor],
     tensors, the plain versions on CPU tensors; ``"plain"`` forces them)."""
     # A batch key nothing consumes would train with that input silently
     # dropped (answers supervised without their context): fail loudly.
-    unconsumed = set(mb) - set(_MODEL_KEYS) - set(_STEP_KEYS)
+    keys = _MODEL_KEYS + tuple(getattr(model, "extra_batch_keys", ()))
+    unconsumed = set(mb) - set(keys) - set(_STEP_KEYS)
     if unconsumed:
         raise ValueError(
             f"batch keys {sorted(unconsumed)} are not consumed by "
-            f"{type(model).__name__} (accepts {sorted(_MODEL_KEYS)}) nor by "
+            f"{type(model).__name__} (accepts {sorted(keys)}) nor by "
             "the train step -- training would silently supervise answers "
-            "whose inputs were dropped")
-    kwargs = {k: mb[k] for k in _MODEL_KEYS[1:] if mb.get(k) is not None}
+            "whose inputs were dropped. Use a model family that implements "
+            "this modality (a model declares extra inputs in "
+            "`extra_batch_keys`), or a collator that does not emit these "
+            "keys.")
+    kwargs = {k: mb[k] for k in keys[1:] if mb.get(k) is not None}
     labels = mb["labels"]
     if getattr(loss_fn, "needs_hidden", False):
         out = model(mb["input_ids"], return_hidden=True, attn_impl=attn_impl,
@@ -248,11 +254,16 @@ class MetricsCopy:
 
 def stack_microbatches(microbatches: List[Dict[str, np.ndarray]]
                        ) -> Dict[str, np.ndarray]:
-    """Stack collated microbatches into ``[A, B, S]`` arrays; microbatches
-    of different lengths are right-padded with the per-key pad value
-    (``pixel_values [B, I, H, W, C]`` along its image slots, with zero
-    images that no placeholder reads).  Every microbatch must carry the
-    same keys."""
+    """Stack collated microbatches into ``[A, B, S]`` arrays (the JAX
+    ``stack_microbatches``).  Microbatches of one shape stack as they are;
+    otherwise each key is padded to the largest: the per-row image slots
+    ``[B, I, H, W, C]`` along ``I`` and flat patch rows (``pixel_values``
+    / ``pixel_values_videos``, ``[n_patches, patch_dim]``) along their
+    rows, with zeros no placeholder reads; ``*_grid_thw`` rows with zero
+    rows; M-RoPE ids ``[B, S, 3]`` along ``S`` with 1 (HF's value for a
+    masked position); the rest
+    along the last axis with the per-key pad value.  Every microbatch must
+    carry the same keys."""
     keys = set(microbatches[0])
     for mb in microbatches[1:]:
         if set(mb) != keys:
@@ -261,16 +272,28 @@ def stack_microbatches(microbatches: List[Dict[str, np.ndarray]]
     out = {}
     for k in sorted(keys):
         arrs = [np.asarray(mb[k]) for mb in microbatches]
-        if k == "pixel_values" and arrs[0].ndim == 5:
-            slots = max(a.shape[1] for a in arrs)
-            arrs = [np.pad(a, [(0, 0), (0, slots - a.shape[1])]
-                           + [(0, 0)] * 3) for a in arrs]
-        max_s = max(a.shape[-1] for a in arrs)
-        if any(a.shape[-1] != max_s for a in arrs):
-            pad_val = PAD_TOKEN_IDS.get(k) or 0
-            arrs = [np.pad(a, [(0, 0)] * (a.ndim - 1)
-                           + [(0, max_s - a.shape[-1])],
-                           constant_values=pad_val) for a in arrs]
+        if all(a.shape == arrs[0].shape for a in arrs[1:]):
+            out[k] = np.stack(arrs, axis=0)
+            continue
+        if k in ("pixel_values", "pixel_values_videos"):
+            axis = 1 if arrs[0].ndim == 5 else 0
+            n = max(a.shape[axis] for a in arrs)
+            arrs = [np.pad(a, [(0, 0)] * axis + [(0, n - a.shape[axis])]
+                           + [(0, 0)] * (a.ndim - axis - 1)) for a in arrs]
+        elif k in ("image_grid_thw", "video_grid_thw"):
+            n = max(a.shape[0] for a in arrs)
+            arrs = [np.pad(a, [(0, n - a.shape[0]), (0, 0)]) for a in arrs]
+        elif k == "position_ids" and arrs[0].ndim == 3:
+            n = max(a.shape[1] for a in arrs)
+            arrs = [np.pad(a, [(0, 0), (0, n - a.shape[1]), (0, 0)],
+                           constant_values=1) for a in arrs]
+        else:
+            max_s = max(a.shape[-1] for a in arrs)
+            if any(a.shape[-1] != max_s for a in arrs):
+                pad_val = PAD_TOKEN_IDS.get(k) or 0
+                arrs = [np.pad(a, [(0, 0)] * (a.ndim - 1)
+                               + [(0, max_s - a.shape[-1])],
+                               constant_values=pad_val) for a in arrs]
         out[k] = np.stack(arrs, axis=0)
     return out
 
@@ -278,7 +301,8 @@ def stack_microbatches(microbatches: List[Dict[str, np.ndarray]]
 def to_device_batch(microbatches: List[Dict[str, np.ndarray]],
                     device) -> Dict[str, torch.Tensor]:
     """Collated numpy microbatches -> ``[A, B, S]`` tensors on ``device``
-    (int32, as the collater made them)."""
+    in the collater's dtypes (int32 ids and grids, float32 pixels and
+    patch rows)."""
     stacked = stack_microbatches(microbatches)
     stacked.pop("loss_mask", None)      # already folded into the labels
     return {k: torch.from_numpy(v).to(device) for k, v in stacked.items()}

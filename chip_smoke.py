@@ -289,6 +289,29 @@ Phases (any failure exits non-zero without the final ``ok`` line):
    vocabulary (Granite's divisor folded into the head); then kernel 9 at
    Phi-3.5-mini's D 96 (padded to 128) and Granite's scale
    (``FAMILY_ATTN_CASES``).
+17. Qwen2.5-VL (after sft_gemma3_4b_cord): kernel 9 non-causal at the
+   tower's shapes (16 / 16 heads, head_dim 80 zero-padded to 128): a
+   full-attention block over one 56 x 56 frame, a window block's 49
+   windows of 64 patches and a 60 x 60 grid's 64 windows with pad slots
+   (``qwen_attn_cases``); then sft_qwen25_vl_3b_rdr,
+   ``examples/vlm_finetune/qwen2_5_vl_3b_rdr.yaml`` at
+   Qwen2.5-VL-3B-Instruct's published widths (``qwen25_vl_3b_config``) at
+   4 of its 36 text layers and vision blocks 0-7 of 32
+   (``QWEN25_VL_TEXT_LAYERS`` / ``QWEN25_VL_VISION_BLOCKS``, for the
+   script's time limit), random bf16 weights as the ``refs/main``
+   snapshot of ``Qwen/Qwen2.5-VL-3B-Instruct`` in the temporary
+   ``HF_HOME``, the processor section replaced by the mock
+   ``Qwen2_5_VLProcessor`` at the published patch geometry, seeded rows
+   in RDR's schema; and sft_qwen25_vl_video_mock,
+   ``tiny_qwen25_vl_video_mock.yaml`` as written (4 steps); each
+   (``qwen_vl_phase``): the loaded weights bit for bit, kernel 9 at the
+   decoder's rows of the first batch against its plain version, the first
+   step against every plain version, the exact launch counts over the
+   timed steps (kernel 9 2 x (text layers + vision blocks) x microbatches
+   forward under remat, half that backward; the plain attention 0), step
+   time, non-pad tokens/s, images/s, peak memory, the losses per step, a
+   profiled window, and the RDR YAML's consolidated checkpoint at one
+   more step read back bit for bit (``{label}_run`` lines).
 
 The second-to-last line is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.
@@ -723,8 +746,8 @@ def attn_bound(q, k, seg, pairs, backward, dv=None):
 def attn_library(q, k, v, dout, mask, causal_only, scale):
     """``scaled_dot_product_attention`` on the same operands ([B, H, S, D]
     copies made here, not timed; ``enable_gqa``; ``is_causal`` or the dense
-    boolean mask): ``(run_fwd, run_bwd, to_bshd)``.  A yardstick only; the
-    port never calls it."""
+    boolean mask, none for full attention): ``(run_fwd, run_bwd,
+    to_bshd)``.  A yardstick only; the port never calls it."""
     import torch
     import torch.nn.functional as F
 
@@ -756,8 +779,12 @@ def attention_phase(flush, seg_np, cases=ATTN_CASES, v_dim=None):
     zeroes v past that many columns (MLA's padded v), whose output columns
     must then come out exactly 0.  A case may carry a tenth field, the
     softmax scale (Granite's ``attention_multiplier``; default
-    ``D ** -0.5``).  A head_dim the kernels take zero-padded (96) also
-    gets the bound at the padded width (``padded_bound_ms``)."""
+    ``D ** -0.5``), and an eleventh, ``causal`` (default True; False is
+    Qwen2.5-VL's tower).  Its ``packed`` field is True (``seg_np``'s
+    segment ids), False (none) or the case's own ``[B, S]`` segment ids
+    (a window batch's key padding).  A head_dim the kernels take
+    zero-padded (80, 96) also gets the bound at the padded width
+    (``padded_bound_ms``)."""
     import torch
 
     from automodel_tpu_torch.ops import splash_attention as sa
@@ -768,6 +795,8 @@ def attention_phase(flush, seg_np, cases=ATTN_CASES, v_dim=None):
     for i, (name, B, S, Hq, Hk, D, packed, win, cap, *rest) in enumerate(
             cases):
         scale = rest[0] if rest else None
+        causal = rest[1] if len(rest) > 1 else True
+        own_seg = not isinstance(packed, bool)
         g = torch.Generator(device=dev).manual_seed(100 + i)
         q = torch.randn(B, S, Hq, D, device=dev, generator=g).bfloat16()
         k = torch.randn(B, S, Hk, D, device=dev, generator=g).bfloat16()
@@ -775,13 +804,19 @@ def attention_phase(flush, seg_np, cases=ATTN_CASES, v_dim=None):
         if v_dim is not None:
             v[..., v_dim:] = 0
         dout = torch.randn(B, S, Hq, D, device=dev, generator=g).bfloat16()
-        seg = (torch.from_numpy(seg_np[:B, :S]).to(dev).contiguous()
-               if packed else None)
-        kw = dict(causal=True, segment_ids=seg, logits_soft_cap=cap,
+        if own_seg:
+            seg = torch.from_numpy(packed).to(dev).contiguous()
+        else:
+            seg = (torch.from_numpy(seg_np[:B, :S]).to(dev).contiguous()
+                   if packed else None)
+        kw = dict(causal=causal, segment_ids=seg, logits_soft_cap=cap,
                   local_window_size=win, scale=scale)
-        mask = make_attention_mask(S, S, causal=True, segment_ids_q=seg,
+        mask = make_attention_mask(S, S, causal=causal, segment_ids_q=seg,
                                    segment_ids_kv=seg,
                                    local_window_size=win, device=dev)
+        full = mask is None                 # non-causal, no segment ids
+        if full:
+            mask = torch.ones(1, 1, S, S, dtype=torch.bool, device=dev)
         mask = mask.expand(B, 1, S, S)
         pairs = int(mask.sum())
         valid = mask.any(-1)[:, 0]                        # [B, S] rows
@@ -831,7 +866,8 @@ def attention_phase(flush, seg_np, cases=ATTN_CASES, v_dim=None):
         fwd_lib = bwd_lib = None
         if cap is None:
             lib_fwd, lib_bwd, back = attn_library(
-                q, k, v, dout, mask, not packed and win is None,
+                q, k, v, dout, None if full else mask,
+                causal and seg is None and win is None,
                 D ** -0.5 if scale is None else scale)
             lib_err = float((back(lib_fwd().detach()).float() - ref.float())
                             .abs()[valid].max())
@@ -843,7 +879,8 @@ def attention_phase(flush, seg_np, cases=ATTN_CASES, v_dim=None):
             del lib_fwd, lib_bwd
         fb, fby = attn_bound(q, k, seg, pairs, False, v_dim)
         bb, bby = attn_bound(q, k, seg, pairs, True, v_dim)
-        row = dict(case=name, B=B, S=S, Hq=Hq, Hk=Hk, D=D, packed=packed,
+        row = dict(case=name, B=B, S=S, Hq=Hq, Hk=Hk, D=D,
+                   packed="own" if own_seg else packed, causal=causal,
                    window=win, soft_cap=cap, scale=scale,
                    attended_pairs=pairs,
                    fwd=dict(ms=fwd_ms, plain_ms=fwd_plain, library_ms=fwd_lib,
@@ -2990,7 +3027,8 @@ def profile_window(run, steps, label, attn_names):
 def first_step_check(recipe, label, routes, compare, quantized=False,
                      rows=2, limits=None, floor_route="kernel_again"):
     """Loss and whole gradient of the first step (``rows`` rows of the
-    first batch, the recipe's initial weights) through each route ``(name,
+    first batch, or all of it for None: flat patch rows cannot be cut by
+    rows; the recipe's initial weights) through each route ``(name,
     loss_fn, attn_impl[, gmm_impl[, qdot_impl[, remat_policy]]])`` (the
     grouped matmuls', the quantized projections' routes and the model's
     remat policy, else its own); nothing is updated.  Each pair
@@ -3017,7 +3055,8 @@ def first_step_check(recipe, label, routes, compare, quantized=False,
     names = [n for n, _ in trained]
     first = next(iter(recipe.dataloader))
     mb = {k: v[0] for k, v in to_device_batch(
-        [{k: v[:rows] for k, v in first.items()}], recipe.device).items()}
+        [first if rows is None else {k: v[:rows] for k, v in first.items()}],
+        recipe.device).items()}
     losses, grads = {}, {}
     for name, loss_fn, attn_impl, *impls in routes:
         if hasattr(model, "gmm_impl"):        # the MoE models' experts
@@ -4034,7 +4073,10 @@ def loaded_equal(label, model, written):
           f"{label}: the model lacks {sorted(set(written) - set(got))}")
     for name, want in written.items():
         t = got[name].detach().cpu()
-        check(t.dtype == want.dtype and bool(torch.equal(t, want)),
+        # a bf16 tensor read into an fp32 parameter widens exactly
+        widened = t.dtype == torch.float32 and want.dtype == torch.bfloat16
+        check((t.dtype == want.dtype or widened)
+              and bool(torch.equal(t, want.to(t.dtype))),
               f"{label}: {name} as loaded differs from the written tensor")
     return len(written)
 
@@ -4366,10 +4408,31 @@ def cord_rows(work, n, seed):
     return write_jsonl(os.path.join(work, "cord.jsonl"), rows)
 
 
-def write_vlm_model(hf_home, repo_id, cfg, seed):
+def gemma3_sample(cfg):
+    """The Gemma-3 VL tensors :func:`write_vlm_model` keeps to check the
+    load against."""
+    L = cfg["text_config"]["num_hidden_layers"]
+    lm, vt = "model.language_model.", "model.vision_tower.vision_model."
+    return {lm + "embed_tokens.weight", lm + "norm.weight",
+            lm + "layers.0.self_attn.q_proj.weight",
+            lm + "layers.5.self_attn.k_norm.weight",
+            lm + f"layers.{L - 1}.post_feedforward_layernorm.weight",
+            lm + f"layers.{L - 1}.mlp.down_proj.weight",
+            vt + "embeddings.patch_embedding.weight",
+            vt + "embeddings.position_embedding.weight",
+            vt + "encoder.layers.26.self_attn.out_proj.bias",
+            vt + "post_layernorm.weight",
+            "model.multi_modal_projector.mm_input_projection_weight",
+            "model.multi_modal_projector.mm_soft_emb_norm.weight"}
+
+
+def write_vlm_model(hf_home, repo_id, cfg, seed, sample=gemma3_sample,
+                    norm_center=0.0):
     """The published config with random bf16 weights from ``seed`` as the
-    ``refs/main`` snapshot of ``repo_id`` under ``hf_home``; returns
-    ``(snapshot, the written tensors the phase checks, on the host)``."""
+    ``refs/main`` snapshot of ``repo_id`` under ``hf_home`` (norm weights
+    ``norm_center`` + N(0, 0.1): Gemma's zero-centred ones, or 1 for the
+    families that scale by ``w``; biases N(0, 0.1)); returns ``(snapshot,
+    the written tensors ``sample(cfg)`` names, on the host)``."""
     import torch
 
     from automodel_tpu_torch.models import hf_io
@@ -4384,12 +4447,16 @@ def write_vlm_model(hf_home, repo_id, cfg, seed):
     check(free > 40e9, f"{repo_id}: {free} bytes free under {hf_home}; the "
           "snapshot (~8.6 GB) and the phase's checkpoint need ~40 GB")
     t0 = time.perf_counter()
-    model = AutoModelForImageTextToText.from_config(cfg, seed=seed,
-                                                    device="cuda")
-    with torch.no_grad():     # the zero-centred norms and biases away from 0
+    model = AutoModelForImageTextToText.from_config(
+        cfg, seed=seed, device="cuda", param_dtype="bfloat16")
+    with torch.no_grad():     # the norms and biases away from their init
         g = torch.Generator(device="cuda").manual_seed(seed + 1)
         for name, p in model.named_parameters():
-            if name.endswith(("norm.weight", "bias")):
+            if name.endswith(("norm.weight", "norm1.weight", "norm2.weight",
+                              "ln_q.weight")):
+                p.copy_(norm_center + torch.randn(
+                    p.shape, device="cuda", generator=g) * 0.1)
+            elif name.endswith("bias"):
                 p.copy_(torch.randn(p.shape, device="cuda", generator=g)
                         * 0.1)
     hf_io.save_hf_weights(model, snap)
@@ -4398,19 +4465,7 @@ def write_vlm_model(hf_home, repo_id, cfg, seed):
     os.makedirs(os.path.join(repo, "refs"), exist_ok=True)
     with open(os.path.join(repo, "refs", "main"), "w") as f:
         f.write(f"seed{seed}")
-    L = cfg["text_config"]["num_hidden_layers"]
-    lm, vt = "model.language_model.", "model.vision_tower.vision_model."
-    sample = {lm + "embed_tokens.weight", lm + "norm.weight",
-              lm + "layers.0.self_attn.q_proj.weight",
-              lm + "layers.5.self_attn.k_norm.weight",
-              lm + f"layers.{L - 1}.post_feedforward_layernorm.weight",
-              lm + f"layers.{L - 1}.mlp.down_proj.weight",
-              vt + "embeddings.patch_embedding.weight",
-              vt + "embeddings.position_embedding.weight",
-              vt + "encoder.layers.26.self_attn.out_proj.bias",
-              vt + "post_layernorm.weight",
-              "model.multi_modal_projector.mm_input_projection_weight",
-              "model.multi_modal_projector.mm_soft_emb_norm.weight"}
+    sample = sample(cfg)
     written = {n: t.detach().cpu().clone() for n, t, _ in
                hf_io.hf_tensors(model) if n in sample}
     check(sorted(written) == sorted(sample),
@@ -4632,6 +4687,352 @@ def gemma3_4b_cord_phase(hf_home, flush):
     print("sft_gemma3_4b_cord overrides: " + " ".join(overrides), flush=True)
     report = vlm_sft_phase("sft_gemma3_4b_cord", GEMMA3_CORD_YAML, overrides,
                            flush, written=written, snap=snap)
+    shutil.rmtree(work, ignore_errors=True)
+    shutil.rmtree(os.path.dirname(os.path.dirname(snap)), ignore_errors=True)
+    return report
+
+
+# ---------------------------------------------------------------------------
+# Qwen2.5-VL (sft_qwen25_vl_3b_rdr, sft_qwen25_vl_video_mock)
+# ---------------------------------------------------------------------------
+QWEN_RDR_YAML = os.path.join(VLM_YAMLS, "qwen2_5_vl_3b_rdr.yaml")
+QWEN_VIDEO_YAML = os.path.join(VLM_YAMLS, "tiny_qwen25_vl_video_mock.yaml")
+QWEN25_VL_3B = "Qwen/Qwen2.5-VL-3B-Instruct"
+QWEN25_VL_3B_SEED = 29
+# the depth the phase runs at for the script's 1200 s limit: 4 of 36 text
+# layers and vision blocks 0-7 of 32 (seven window blocks and the full-
+# attention block 7); every width kept.  All 36 / 32 ran 200.6 s, 8 / 8
+# 66.6 s (development calls, NVIDIA H100 80GB HBM3, 700.00 W)
+QWEN25_VL_TEXT_LAYERS = 4
+QWEN25_VL_VISION_BLOCKS = 8
+# the mock processor at the published patch geometry: the YAML's pinned
+# 614,656 px = 56 x 56 patches of 14 px, 784 merged units an image
+QWEN25_VL_PROCESSOR = {
+    "_target_": "automodel_tpu.datasets.vlm.mock.Qwen2_5_VLProcessor",
+    "vocab_size": 151936, "grid": [1, 56, 56], "patch_size": 14}
+QWEN_STEPS = {"sft_qwen25_vl_3b_rdr": (1, 2, 1),     # warm-up, timed,
+              "sft_qwen25_vl_video_mock": (0, 4, 0)}  # profiled
+RDR_ROWS = 64
+
+
+def qwen25_vl_3b_config(text_layers, vision_blocks):
+    """Qwen2.5-VL-3B-Instruct's published config (the text fields nested
+    under ``text_config``, the layout both packages read) at
+    ``text_layers`` / ``vision_blocks`` (blocks ``0 ..`` with the published
+    full-attention blocks among them).  The image / video / vision-start
+    ids are the mock processor's 5 / 6 / 12 (published 151,652 / 151,655 /
+    151,656): ids, not widths."""
+    return dict(
+        architectures=["Qwen2_5_VLForConditionalGeneration"],
+        model_type="qwen2_5_vl", torch_dtype="bfloat16",
+        tie_word_embeddings=True, bos_token_id=151643,
+        eos_token_id=151645, vision_start_token_id=5,
+        vision_end_token_id=151653, vision_token_id=151654,
+        image_token_id=6, video_token_id=12,
+        text_config=dict(
+            model_type="qwen2_5_vl_text", vocab_size=151936,
+            hidden_size=2048, intermediate_size=11008,
+            num_hidden_layers=text_layers, num_attention_heads=16,
+            num_key_value_heads=2, hidden_act="silu",
+            max_position_embeddings=128000, rms_norm_eps=1e-6,
+            rope_theta=1000000.0,
+            rope_scaling={"type": "mrope", "mrope_section": [16, 24, 24]},
+            sliding_window=32768, use_sliding_window=False,
+            max_window_layers=70, attention_dropout=0.0,
+            tie_word_embeddings=True, torch_dtype="bfloat16"),
+        vision_config=dict(
+            model_type="qwen2_5_vl", depth=vision_blocks, hidden_act="silu",
+            hidden_size=1280, intermediate_size=3420, num_heads=16,
+            in_channels=3, patch_size=14, spatial_merge_size=2,
+            temporal_patch_size=2, tokens_per_second=2, window_size=112,
+            out_hidden_size=2048,
+            fullatt_block_indexes=[i for i in (7, 15, 23, 31)
+                                   if i < vision_blocks]))
+
+
+def qwen25_vl_sample(cfg):
+    """The Qwen2.5-VL tensors :func:`write_vlm_model` keeps to check the
+    load against."""
+    L = cfg["text_config"]["num_hidden_layers"]
+    V = cfg["vision_config"]["depth"]
+    lm, vt = "model.language_model.", "model.visual."
+    return {lm + "embed_tokens.weight", lm + "norm.weight",
+            lm + "layers.0.self_attn.q_proj.bias",
+            lm + f"layers.{L - 1}.mlp.down_proj.weight",
+            vt + "patch_embed.proj.weight", vt + "blocks.0.attn.qkv.bias",
+            vt + f"blocks.{V - 1}.norm2.weight",
+            vt + f"blocks.{V - 1}.mlp.up_proj.weight",
+            vt + "merger.ln_q.weight", vt + "merger.mlp.2.bias"}
+
+
+def qwen_attn_cases():
+    """Kernel 9 at the tower's shapes (Qwen2.5-VL-3B: 16 / 16 heads, head
+    dim 80, zero-padded to 128 by the wrappers; non-causal): a full-
+    attention block over one 56 x 56 frame (3,136 patches), a window block
+    over its 49 windows of 64 patches (every slot valid: the segment ids
+    of ones the all-true pad mask folds into), and the windows of a 60 x
+    60 grid (64 windows, the edge ones with pad slots, segment 0)."""
+    import numpy as np
+
+    from automodel_tpu_torch.models.qwen2_5_vl import _grid_layout
+
+    cases = [("qwen25vl_tower_full_d80", 1, 3136, 16, 16, 80, False, None,
+              None, None, False)]
+    for name, grid in (("qwen25vl_tower_window_d80", (1, 56, 56)),
+                       ("qwen25vl_tower_window_pad_60x60_d80",
+                        (1, 60, 60))):
+        valid = _grid_layout(grid, 2, 112, 14, 80)["valid"]
+        cases.append((name, *valid.shape, 16, 16, 80,
+                      valid.astype(np.int32), None, None, None, False))
+    return cases
+
+
+def rdr_rows(work, n, seed):
+    """``n`` rows in RDR's schema as a local jsonl: ``text`` a product
+    description of 20-90 words, ``image`` a local ``.npy`` of a uint8
+    image of a random aspect (the YAML squares them to 784 px)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    os.makedirs(os.path.join(work, "images"), exist_ok=True)
+    rows = []
+    for i in range(n):
+        h, w = (int(x) for x in rng.integers(400, 1000, 2))
+        path = os.path.join(work, "images", f"{i}.npy")
+        np.save(path, rng.integers(0, 256, (h, w, 3)).astype(np.uint8))
+        rows.append({"text": " ".join(rng.choice(WORDS, int(
+            rng.integers(20, 90)))), "image": path})
+    return write_jsonl(os.path.join(work, "rdr.jsonl"), rows)
+
+
+def qwen_vl_phase(label, yaml_path, flush, text_case, overrides=(),
+                  processor=None, written=None, snap=None, depth_note=None):
+    """A Qwen2.5-VL YAML through the port's VLM recipe on the card
+    (``recipes/vlm/finetune.py``, what ``automodel-torch finetune vlm``
+    runs) with ``overrides`` (and the processor section replaced by
+    ``processor``).  Gates: the loaded weights bit for bit as written;
+    kernel 9 at the decoder's rows of the first batch against its plain
+    version (MaskedCE: no other kernel runs); the first step (the first
+    microbatch) through the kernels against every plain version within
+    the SFT limits; the exact launch counts over the timed steps (kernel
+    9 forward twice per text layer and per vision block and microbatch
+    under remat, backward once; the plain attention never); the
+    checkpoint the YAML asks for, saved at one more step and read back
+    bit for bit.  Reports step time, non-pad tokens/s, images/s, peak
+    memory, the losses per step and a profiled window's device / host
+    time and idle share."""
+    import numpy as np
+    import torch
+
+    from automodel_tpu_torch.config.loader import parse_args_and_load_config
+    from automodel_tpu_torch.loss.masked_ce import MaskedCrossEntropy
+    from automodel_tpu_torch.models import hf_io
+    from automodel_tpu_torch.models.auto_model import (
+        AutoModelForImageTextToText,
+    )
+    from automodel_tpu_torch.ops import splash_attention as sa
+    from automodel_tpu_torch.recipes.vlm.finetune import FinetuneRecipeForVLM
+
+    warmup, steps, profiled = QWEN_STEPS[label]
+    cfg = parse_args_and_load_config(
+        ["-c", yaml_path, "--step_scheduler.max_steps", str(warmup or steps),
+         *overrides])
+    if processor is not None:
+        cfg.set_by_dotted("processor", dict(processor))
+    t0 = time.perf_counter()
+    recipe = FinetuneRecipeForVLM(cfg).setup()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    model = recipe.model
+    tc, vc = model.config.text_config, model.config.vision_config
+    check(isinstance(recipe.loss_fn, MaskedCrossEntropy),
+          f"{label}: loss {type(recipe.loss_fn).__name__}")
+    held = 0
+    if written is not None:
+        held = loaded_equal(label, model, written)
+        check(model.checkpoint_dir == snap,
+              f"{label}: the model came from {model.checkpoint_dir}")
+    ckpt = recipe.checkpoint_config
+    ckpt_on = ckpt.enabled
+    ckpt.enabled = False                 # until the last step
+    trainable = sum(p.numel() for p in model.parameters() if p.requires_grad)
+    tower_trained = any(p.requires_grad for p in model.visual.parameters())
+    embed_trained = model.language_model.embed_tokens.weight.requires_grad
+    print(f"{label}: {type(model).__name__} text (vocab {tc.vocab_size}, "
+          f"hidden {tc.hidden_size}, ffn {tc.intermediate_size}, layers "
+          f"{tc.num_hidden_layers}, heads {tc.num_attention_heads}/"
+          f"{tc.num_key_value_heads}, head_dim {tc.head_dim}, mrope "
+          f"{list(model.config.mrope_section)}), vision (hidden "
+          f"{vc.hidden_size}, ffn {vc.intermediate_size}, blocks {vc.depth} "
+          f"(full attention {list(vc.fullatt_block_indexes)}), heads "
+          f"{vc.num_heads}, head_dim {vc.head_dim}, window {vc.window_size}, "
+          f"patch {vc.patch_size}, out {vc.out_hidden_size}), image grid "
+          f"{model.image_grid}, video grid {model.video_grid}; "
+          f"{depth_note or 'depth as written'}; {model.num_params} params "
+          f"{model.param_dtype}, {trainable} trainable (vision tower "
+          f"{'trained' if tower_trained else 'frozen'}, embeddings "
+          f"{'trained' if embed_trained else 'frozen'}), {held} written "
+          f"tensors held bit for bit; set up in {setup_s:.1f} s", flush=True)
+
+    first = next(iter(recipe.dataloader))
+    B, S = first["input_ids"].shape
+    attn_rows = attention_phase(flush, None, [(
+        text_case, B, S, tc.num_attention_heads,
+        tc.num_key_value_heads, tc.head_dim, False, None, None)])
+    torch.cuda.empty_cache()
+    first_step = first_step_check(
+        recipe, label,
+        [("kernel", recipe.loss_fn, "kernel"),
+         ("plain", recipe.loss_fn, "plain"),
+         ("kernel_again", recipe.loss_fn, "kernel")],
+        [("kernel", "plain")], rows=None)
+
+    seen = []
+    run_step = recipe._run_train_optim_step
+
+    def recording(batches):
+        seen.append(batches)
+        return run_step(batches)
+
+    recipe._run_train_optim_step = recording
+    if warmup:
+        recipe.run_train_validation_loop()
+        recipe.step_scheduler.max_steps += steps
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    sa.fwd_launches = sa.bwd_launches = 0     # zeroed just before the run
+    sa.plain_fwd_calls = 0
+    t0 = time.perf_counter()
+    recipe.run_train_validation_loop()
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+    counts = dict(attn_fwd=sa.fwd_launches, attn_bwd=sa.bwd_launches,
+                  plain_fwd_calls=sa.plain_fwd_calls)
+    peak = torch.cuda.max_memory_allocated()
+    del recipe._run_train_optim_step
+    check(len(recipe.history) == warmup + steps == len(seen),
+          f"{label}: {len(recipe.history)} steps, {len(seen)} groups")
+    timed = seen[warmup:]
+    micro = sum(len(g) for g in timed)
+    # one tower call per microbatch and modality (its images or videos
+    # batched); a trained tower (the YAMLs' freeze misses ``visual``) is
+    # recomputed under remat and differentiated like the decoder
+    tower_calls = sum((mb.get("pixel_values") is not None)
+                      + (mb.get("pixel_values_videos") is not None)
+                      for g in timed for mb in g)
+    text, blocks = tc.num_hidden_layers * micro, vc.depth * tower_calls
+    want = dict(attn_fwd=2 * text + (2 if tower_trained else 1) * blocks,
+                attn_bwd=text + (blocks if tower_trained else 0),
+                plain_fwd_calls=0)
+    check(counts == want, f"{label}: launches {counts} != {want} ({micro} "
+          f"microbatches, {tower_calls} tower calls)")
+    for m in recipe.history:
+        check(all(map(math.isfinite, (m["loss"], m["grad_norm"]))),
+              f"{label} step {m['step']}: non-finite loss/grad_norm")
+    pad = getattr(recipe.tokenizer, "pad_token_id", 0) or 0
+    tokens = sum(int((np.asarray(mb["input_ids"]) != pad).sum())
+                 for g in timed for mb in g)
+    images = sum(int(np.asarray(mb[k]).any(-1).sum()) for g in timed
+                 for mb in g for k in ("image_grid_thw", "video_grid_thw")
+                 if k in mb)
+    step_s = sum(m["step_time"] for m in recipe.history[warmup:])
+    prof = None
+    if profiled:
+        def more():
+            recipe.step_scheduler.max_steps += profiled
+            recipe.run_train_validation_loop()
+
+        prof = profile_window(more, profiled, f"{label}_b{B}_s{S}",
+                              ("Splash<",))
+    report = dict(
+        yaml=os.path.relpath(yaml_path, REPO), overrides=list(overrides),
+        processor=processor, depth=depth_note, snapshot=snap,
+        written_tensors_held=held, setup_s=setup_s, warmup_steps=warmup,
+        steps=steps, microbatches_per_step=len(timed[0]),
+        shapes=sorted({f"{mb['input_ids'].shape[0]}x"
+                       f"{mb['input_ids'].shape[1]}" for g in timed
+                       for mb in g}),
+        non_pad_tokens=tokens, images=images,
+        step_ms=step_s * 1e3 / steps,
+        step_ms_each=[m["step_time"] * 1e3
+                      for m in recipe.history[warmup:]],
+        non_pad_tokens_per_s=tokens / step_s, images_per_s=images / step_s,
+        loop_s=loop_s, peak_mem_bytes=peak, launches=counts,
+        predicted_launches=want, trainable_params=trainable,
+        vision_tower_trained=tower_trained,
+        losses=[m["loss"] for m in recipe.history],
+        grad_norms=[m["grad_norm"] for m in recipe.history],
+        first_step=dict(loss_rel_err=first_step["kernel_vs_plain"][
+            "loss_rel_err"], grad_rel_l2=first_step["kernel_vs_plain"][
+            "grad_rel_l2"], grad_rel_l2_floor=first_step[
+            "grad_rel_l2_floor"]),
+        profile=prof)
+    if ckpt_on:
+        # the YAML's consolidated save, at one more step, read back
+        ckpt.enabled = True
+        recipe.step_scheduler.max_steps += 1
+        t0 = time.perf_counter()
+        recipe.run_train_validation_loop()
+        torch.cuda.synchronize()
+        step = recipe.step_scheduler.step
+        saved = [d for d in os.listdir(ckpt.checkpoint_dir)
+                 if d.endswith(f"_step_{step}")]
+        check(len(saved) == 1, f"{label}: checkpoints "
+              f"{os.listdir(ckpt.checkpoint_dir)} at step {step}")
+        model_dir = os.path.join(ckpt.checkpoint_dir, saved[0], "model")
+        save_s = time.perf_counter() - t0
+        back = AutoModelForImageTextToText.from_pretrained(
+            model_dir, load_weights=True, device="cuda",
+            image_grid=model.image_grid)
+        live = {n: t.detach() for n, t, _ in hf_io.hf_tensors(model)}
+        read = {n: t.detach() for n, t, _ in hf_io.hf_tensors(back)}
+        check(sorted(live) == sorted(read),
+              f"{label}: the checkpoint's tensors differ")
+        differ = [n for n in live if not torch.equal(live[n], read[n])]
+        check(not differ, f"{label}: {differ[:3]} read back differently")
+        report["checkpoint"] = dict(
+            step=step, tensors=len(live), bytes=sum(
+                os.path.getsize(os.path.join(model_dir, f))
+                for f in os.listdir(model_dir)),
+            save_and_step_s=save_s, bit_identical=True)
+        del back, live, read
+    print(f"{label}_run " + json.dumps(report), flush=True)
+    report["attention_cases"] = attn_rows
+    del recipe, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return report
+
+
+def qwen25_vl_3b_rdr_phase(hf_home, flush):
+    """``qwen2_5_vl_3b_rdr.yaml`` at Qwen2.5-VL-3B-Instruct's published
+    widths and ``QWEN25_VL_TEXT_LAYERS`` / ``QWEN25_VL_VISION_BLOCKS``:
+    the repo id resolved to an ``HF_HOME`` snapshot of its
+    published config with random bf16 weights, the processor section
+    replaced by the mock processor at the published patch geometry, local
+    jsonl rows in RDR's schema; batch 8 / 1, ``resize_images_to`` 784, the
+    freeze config, AdamW with ``mu_dtype`` bfloat16 and ``grad_dtype``
+    bfloat16 as written.  The overrides are on the phase's line."""
+    work = tempfile.mkdtemp(prefix="chip_smoke_rdr_")
+    L, V = QWEN25_VL_TEXT_LAYERS, QWEN25_VL_VISION_BLOCKS
+    cfg = qwen25_vl_3b_config(L, V)
+    snap, written = write_vlm_model(hf_home, QWEN25_VL_3B, cfg,
+                                    QWEN25_VL_3B_SEED,
+                                    sample=qwen25_vl_sample, norm_center=1.0)
+    overrides = ["--dataset.path_or_dataset", rdr_rows(work, RDR_ROWS, 37),
+                 "--checkpoint.checkpoint_dir",
+                 os.path.join(work, "checkpoints")]
+    depth = (f"{L} of 36 text layers, vision blocks 0-{V - 1} of 32 (full "
+             f"attention {cfg['vision_config']['fullatt_block_indexes']}); "
+             "image / video / vision-start ids 6 / 12 / 5 (the mock "
+             "processor's), every width as published")
+    print("sft_qwen25_vl_3b_rdr overrides: " + " ".join(overrides)
+          + " processor=" + json.dumps(QWEN25_VL_PROCESSOR) + "; " + depth,
+          flush=True)
+    report = qwen_vl_phase("sft_qwen25_vl_3b_rdr", QWEN_RDR_YAML, flush,
+                           "qwen25vl_text_d128", overrides,
+                           processor=QWEN25_VL_PROCESSOR,
+                           written=written, snap=snap, depth_note=depth)
     shutil.rmtree(work, ignore_errors=True)
     shutil.rmtree(os.path.dirname(os.path.dirname(snap)), ignore_errors=True)
     return report
@@ -5842,6 +6243,19 @@ def main():
     torch.cuda.empty_cache()
     vlm_runs["sft_gemma3_4b_cord"] = gemma3_4b_cord_phase(hf_home, flush)
     phase_done("sft_gemma3_4b_cord")
+    # Qwen2.5-VL: kernel 9 at the tower's non-causal shapes, then the RDR
+    # YAML at Qwen2.5-VL-3B's widths and the video YAML as written
+    torch.cuda.empty_cache()
+    qwen_cases = attention_phase(flush, None, qwen_attn_cases())
+    phase_done("qwen2.5-vl attention cases")
+    qwen_runs = {"sft_qwen25_vl_3b_rdr": qwen25_vl_3b_rdr_phase(hf_home,
+                                                                flush)}
+    phase_done("sft_qwen25_vl_3b_rdr")
+    torch.cuda.empty_cache()
+    qwen_runs["sft_qwen25_vl_video_mock"] = qwen_vl_phase(
+        "sft_qwen25_vl_video_mock", QWEN_VIDEO_YAML, flush,
+        "qwen25vl_video_mock_text_d16")
+    phase_done("sft_qwen25_vl_video_mock")
     # post-training: GRPO (rollouts through the engine) and DPO
     pt_runs = {}
     for label, yaml_path in (("grpo_llama_1b", GRPO_YAML),
@@ -6015,6 +6429,25 @@ def main():
             kernels[-1][f"{label}_launches"] = run[f"{part}_launches"]
         kernels[-1]["sft_seqcls_llama_1b_launches"] = seqcls["launches"][
             f"attn_{part}"]
+        # Qwen2.5-VL: the tower's non-causal shapes at head_dim 80 (the
+        # model's bound and the padded width's), the phases' decoder rows,
+        # and each phase's launches
+        for c in qwen_cases + [r["attention_cases"][0]
+                               for r in qwen_runs.values()]:
+            kernels[-1].update({
+                f"{c['case']}_ms": c[part]["ms"],
+                f"{c['case']}_plain_ms": c[part]["plain_ms"],
+                f"{c['case']}_bound_ms": c[part]["bound_ms"],
+                f"{c['case']}_bound_by": c[part]["bound_by"],
+                f"{c['case']}_library_ms": c[part]["library_ms"]})
+            if "padded_bound_ms" in c[part]:
+                kernels[-1][f"{c['case']}_padded_bound_ms"] = c[part][
+                    "padded_bound_ms"]
+            kernels[-1]["max_abs_err"] = max(kernels[-1]["max_abs_err"],
+                                             c[part]["max_abs_err"])
+        for label, run in qwen_runs.items():
+            kernels[-1][f"{label}_launches"] = run["launches"][
+                f"attn_{part}"]
         # the HF YAMLs' rows (unpacked, padding folded into segments)
         for label, run in hf_runs.items():
             c = run["attention_cases"][0]

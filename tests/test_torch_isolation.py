@@ -4,8 +4,8 @@ checkpoint and HF-safetensors modules, the optimizer step, the DeepSeek
 families, ``from_pretrained``, the HellaSwag / SQuAD datasets, the Gemma
 and vision models, the VLM datasets and the VLM recipe, the
 post-training modules and the GRPO / DPO recipes, GPT-2, the
-classifier, Granite / OLMo-2 / StarCoder-2 / Phi-3 and the pretraining
-entry among them),
+classifier, Granite / OLMo-2 / StarCoder-2 / Phi-3, the pretraining
+entry, Qwen2.5-VL and its M-RoPE position ids among them),
 importing every module loads no JAX, and the kernel build directory is
 ignored by git."""
 
@@ -48,7 +48,8 @@ def test_no_jax_or_jax_package_imports():
                 "models/granite.py", "models/olmo2.py",
                 "models/starcoder2.py", "models/phi3.py",
                 "models/sequence_classification.py",
-                "examples/pretrain.py"):
+                "examples/pretrain.py", "models/qwen2_5_vl.py",
+                "datasets/vlm/qwen_rope.py"):
         assert new in rel, new
     for path in sources:
         with open(path) as f:
@@ -89,7 +90,8 @@ def test_engine_import_loads_no_jax():
                 "datasets.llm.squad", "datasets.utils",
                 "quantization.weight_only", "models.gpt2",
                 "models.sequence_classification", "models.phi3",
-                "examples.pretrain"):
+                "examples.pretrain", "models.qwen2_5_vl",
+                "datasets.vlm.qwen_rope"):
         assert "automodel_tpu_torch." + mod in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"

@@ -1996,3 +1996,138 @@ def test_cuda_token_nll_row_cotangents_match_plain(kind, cuda_device):
     assert bool((out[None][0][lab == -100] == 0).all())
     for got, ref in zip(out[None][1:], out["plain"][1:]):
         assert rel_l2(got, ref) < LCE_GRAD_REL_L2
+
+
+# Qwen2.5-VL's tower: kernel 9 non-causal at 16 heads, head_dim 80 (the
+# wrappers zero-pad it to 128, the scale stays 80 ** -0.5) and 128, over
+# whole frames and over windows whose pad slots are segment 0 (the
+# key-padding mask, folded into segment ids); the decoder's causal rows at
+# 16 / 2 heads (G 8), D 128.  (name, B, S, Hq, Hk, D, causal, key padding)
+QWEN_ATTN_CASES = [
+    ("frame_d80_padded", 2, 784, 16, 16, 80, False, False),
+    ("frame_d128", 2, 784, 16, 16, 128, False, False),
+    ("windows_pad_d80_padded", 12, 64, 16, 16, 80, False, True),
+    ("windows_pad_gqa_d128", 12, 64, 16, 2, 128, False, True),
+    ("ragged_pad_d80_padded", 1, 301, 8, 2, 80, False, True),
+    ("ragged_d128", 1, 477, 4, 4, 128, False, False),
+    ("text_causal_gqa8_d128", 1, 896, 16, 2, 128, True, False),
+]
+
+
+def key_padding(B, S, seed):
+    """Segment ids ``[B, S]``: 1 on valid slots, 0 on pads (every row
+    keeps at least half its slots; a window of pads in the middle and at
+    the end, as a window grid's edge leaves them)."""
+    rng = np.random.default_rng(seed)
+    seg = np.ones((B, S), np.int32)
+    for b in range(B):
+        n = int(rng.integers(0, S // 2))
+        seg[b, rng.choice(S, n, replace=False)] = 0
+        seg[b, 0] = 1
+    return seg
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", QWEN_ATTN_CASES,
+                         ids=[c[0] for c in QWEN_ATTN_CASES])
+def test_cuda_splash_non_causal_matches_plain(case, cuda_device):
+    """Kernel 9 with ``causal=False`` (and the decoder's causal GQA rows):
+    forward and backward against the plain versions; pad slots (segment 0)
+    give 0 output, lse 0 and zero gradients; at head_dim 80 the kernel's
+    result equals the one at the padded width with the model's scale
+    80 ** -0.5 passed explicitly."""
+    from automodel_tpu_torch.ops import splash_attention as sa
+
+    _, B, S, Hq, Hk, D, causal, padded = case
+    q, k, v, dout, _ = make_attn_case(B, S, Hq, Hk, D, False, seed=21)
+    seg = (torch.from_numpy(key_padding(B, S, 22)).to(cuda_device)
+           if padded else None)
+    kw = dict(causal=causal, segment_ids=seg)
+    f0, b0 = sa.fwd_launches, sa.bwd_launches
+    out, lse = sa.flash_attn_fwd_cuda(q, k, v, **kw)
+    grads = sa.flash_attn_bwd_cuda(q, k, v, out, lse, dout, **kw)
+    torch.cuda.synchronize()
+    assert (sa.fwd_launches, sa.bwd_launches) == (f0 + 1, b0 + 1)
+    ref = sa.splash_attention_plain(q, k, v, **kw)
+    refs = sa.splash_attention_bwd_plain(q, k, v, out, lse, dout, **kw)
+    check_attention((out, lse, *grads), (*ref, *refs))
+    if seg is not None:
+        pad = seg == 0
+        assert bool((out[pad] == 0).all())
+        assert bool((lse.transpose(1, 2)[pad] == 0).all())
+        for g in grads:
+            assert bool((g[pad] == 0).all())
+    if D == 80:
+        wide = [torch.nn.functional.pad(t, (0, 48)) for t in (q, k, v)]
+        out_w, lse_w = sa.flash_attn_fwd_cuda(*wide, scale=80 ** -0.5, **kw)
+        assert torch.equal(out, out_w[..., :80].contiguous())
+        assert torch.equal(lse, lse_w)
+        assert not bool(out_w[..., 80:].any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grid", [(1, 60, 60), (2, 56, 56)],
+                         ids=["image_60x60_pads", "video_2x56x56"])
+def test_cuda_qwen_tower_attention_through_the_windows(grid, cuda_device):
+    """The tower's attention as the model calls it (``ops/attention.py::
+    attention``, non-causal) at Qwen2.5-VL-3B's geometry (16 heads, head_dim
+    80, window 112 at patch 14): the window batch of a grid whose windows
+    carry pad slots, and the per-frame full attention of a two-frame
+    video; kernel against plain forward and backward through the gather
+    and the scatter.  The kernel's pad-slot rows are 0; the scatter reads
+    valid slots only, so poisoning the pad rows changes nothing it
+    returns, and pads receive no gradient."""
+    from automodel_tpu_torch.models.qwen2_5_vl import _grid_layout
+    from automodel_tpu_torch.ops import splash_attention as sa
+    from automodel_tpu_torch.ops.attention import attention
+
+    dev = cuda_device
+    lay = _grid_layout(grid, 2, 112, 14, 80)
+    gather = torch.from_numpy(lay["gather"]).long().to(dev)
+    valid = torch.from_numpy(lay["valid"]).to(dev)
+    scatter = torch.from_numpy(lay["scatter"]).long().to(dev)
+    nW, wlen = gather.shape
+    L, H, D = int(np.prod(grid)), 16, 80
+    g = torch.Generator(device=dev).manual_seed(31)
+    q, k, v, dy = (torch.randn(1, L, H, D, device=dev, generator=g)
+                   .bfloat16() for _ in range(4))
+    assert bool(valid.reshape(-1)[scatter].all())
+
+    def windows(impl, leaves):
+        def win(z):
+            return z.index_select(1, gather.reshape(-1)).reshape(
+                nW, wlen, H, D)
+
+        out = attention(*(win(z) for z in leaves), causal=False,
+                        attention_mask=valid, impl=impl)
+        return out, out.reshape(1, nW * wlen, H, D).index_select(1, scatter)
+
+    def frames(impl, leaves):
+        t = grid[0]
+        out = attention(*(z.reshape(t, L // t, H, D) for z in leaves),
+                        causal=False, impl=impl)
+        return out, out.reshape(1, L, H, D)
+
+    run = windows if not lay["valid"].all() else frames
+    results = {}
+    for impl in ("kernel", "plain"):
+        leaves = [z.clone().requires_grad_() for z in (q, k, v)]
+        f0 = sa.fwd_launches
+        raw, y = run(impl, leaves)
+        y.backward(dy)
+        torch.cuda.synchronize()
+        assert sa.fwd_launches - f0 == (1 if impl == "kernel" else 0)
+        results[impl] = (raw.detach(), y.detach(),
+                         [z.grad for z in leaves])
+    raw, y, grads = results["kernel"]
+    raw_p, y_p, grads_p = results["plain"]
+    torch.testing.assert_close(y.float(), y_p.float(), atol=ATTN_ATOL,
+                               rtol=ATTN_RTOL)
+    for name, a, b in zip("qkv", grads, grads_p):
+        assert rel_l2(a, b) < GRAD_REL_L2, (name, rel_l2(a, b))
+    if run is windows:
+        assert bool((raw[~valid] == 0).all())
+        poisoned = raw.clone()
+        poisoned[~valid] = float("nan")
+        again = poisoned.reshape(1, nW * wlen, H, D).index_select(1, scatter)
+        assert torch.equal(again, y)
