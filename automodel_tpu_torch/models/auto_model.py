@@ -14,13 +14,16 @@ The families are the JAX registry's names (``automodel_tpu/models/
 registry.py``): ``llama``, and on Llama's class ``mistral``, ``qwen2``,
 ``qwen3``, ``granite``, ``olmo2``, ``starcoder2`` and ``phi3``; ``gpt2``;
 ``mixtral``, ``qwen3_moe``, ``deepseek_v2`` and ``deepseek_v3``;
-``gemma3_text`` and ``gemma2``; ``qwen2_5_vl_text`` (Qwen2.5-VL's
-M-RoPE decoder alone); and the image-text models ``gemma3`` (Gemma-3
-multimodal), ``llava`` and ``qwen2_5_vl``, which
+``gemma3_text`` and ``gemma2``; ``gemma3n_text`` (Gemma-3n's AltUp /
+Laurel / per-layer-embedding decoder alone); ``qwen2_5_vl_text``
+(Qwen2.5-VL's M-RoPE decoder alone); and the image-text models
+``gemma3`` (Gemma-3 multimodal), ``gemma3n`` (Gemma-3n with its native
+conv tower), ``llava`` and ``qwen2_5_vl``, which
 :class:`AutoModelForImageTextToText` builds the same way (Qwen2.5-VL's
 ``image_grid`` / ``video_grid`` pass through as model keywords).  Other
-``model_type`` values raise.  :class:`AutoModelForSequenceClassification`
-(and ``build_sequence_classifier``) wraps any of the text families in
+``model_type`` values (of the JAX registry: ``phi4_multimodal``) raise.
+:class:`AutoModelForSequenceClassification` (and
+``build_sequence_classifier``) wraps any of the text families in
 ``models/sequence_classification.py``'s ``score`` head.  Every model is
 built with random weights drawn from ``seed`` first, then loaded where
 asked; ``device`` None is ``cuda`` (raises without a card).  The recipe
@@ -53,6 +56,12 @@ from automodel_tpu_torch.models.gemma3 import (
     Gemma3ForCausalLM,
     Gemma3ForConditionalGeneration,
     Gemma3VLConfig,
+)
+from automodel_tpu_torch.models.gemma3n import (
+    Gemma3nForCausalLM,
+    Gemma3nForConditionalGeneration,
+    Gemma3nTextConfig,
+    Gemma3nVLConfig,
 )
 from automodel_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
 from automodel_tpu_torch.models.mixtral import (
@@ -101,6 +110,8 @@ FAMILIES = {
     "gemma2": (Gemma2Config, Gemma2ForCausalLM),
     # HF's "gemma3" is the multimodal config (text and vision nested)
     "gemma3": (Gemma3VLConfig, Gemma3ForConditionalGeneration),
+    "gemma3n_text": (Gemma3nTextConfig, Gemma3nForCausalLM),
+    "gemma3n": (Gemma3nVLConfig, Gemma3nForConditionalGeneration),
     "llava": (VLMConfig, VLMForConditionalGeneration),
     "qwen2_5_vl": (Qwen25VLConfig, Qwen25VLForConditionalGeneration),
     "qwen2_5_vl_text": (Qwen25VLTextConfig, Qwen25VLTextModel),

@@ -6,7 +6,8 @@ its map, mistral, qwen2 (q / k / v biases), qwen3 and granite; olmo2,
 starcoder2, phi3 (fused ``qkv_proj`` / ``gate_up_proj``) and gpt2;
 mixtral, qwen3_moe, deepseek_v2, deepseek_v3; gemma3_text and gemma2, and
 the VLMs gemma3 and llava with their SigLIP tower, and qwen2_5_vl with its
-windowed ViT and qwen2_5_vl_text), keyed by the same JAX
+windowed ViT and qwen2_5_vl_text; gemma3n_text and gemma3n with its
+native conv tower), keyed by the same JAX
 tree paths that ``models/weights.py::jax_leaves`` walks; an entry is an
 :class:`HfEntry`. A sequence classifier's map is its backbone's re-rooted
 under ``backbone`` without ``lm_head``, plus ``score.weight``, which a
@@ -27,7 +28,11 @@ vision tower's patch embedding is HF's Conv2d weight ``[H, C, p, p]`` and
 the port's ``[H, p * p * C]`` matmul over ``(row, col, channel)`` patches:
 the entry's ``view`` reads and writes the one through a permuted view of
 the other (Qwen2.5-VL's Conv3d ``[D, C, tps, ps, ps]`` is a plain view of
-its ``[D, C * tps * ps * ps]`` rows).  A name the key map gives that a
+its ``[D, C * tps * ps * ps]`` rows).  Gemma-3n's native tower has no HF
+counterpart: its kernels are written whole under
+``model.vision_tower.native.*`` in the JAX layout (HWIO, stacked over the
+blocks), the parameters' own, and its norms as they are (Gemma-3n's
+weights scale by ``w``, nothing is centred).  A name the key map gives that a
 checkpoint lacks is looked up under the multimodal families' older flat
 names too (``model.language_model.`` <-> ``model.`` /
 ``language_model.model.``, ``model.visual.`` <-> ``visual.`` ...), as the
@@ -96,7 +101,9 @@ _ARCHITECTURES = {"llama": "LlamaForCausalLM",
                   "gemma3": "Gemma3ForConditionalGeneration",
                   "llava": "LlavaForConditionalGeneration",
                   "qwen2_5_vl": "Qwen2_5_VLForConditionalGeneration",
-                  "qwen2_5_vl_text": "Qwen2_5_VLTextModel"}
+                  "qwen2_5_vl_text": "Qwen2_5_VLTextModel",
+                  "gemma3n_text": "Gemma3nForCausalLM",
+                  "gemma3n": "Gemma3nForConditionalGeneration"}
 
 
 # ---------------------------------------------------------------------------
@@ -423,7 +430,7 @@ def gemma3_key_map(config) -> Dict[Tuple[str, ...], HfEntry]:
     for proj in ("q_proj", "k_proj", "v_proj", "o_proj"):
         m[("layers", "self_attn", proj, "kernel")] = HfEntry(
             f"model.layers.{{i}}.self_attn.{proj}.weight")
-    if config.qk_norm:
+    if getattr(config, "qk_norm", True):      # Gemma-2 has none
         for norm in ("q_norm", "k_norm"):
             m[("layers", "self_attn", norm, "weight")] = HfEntry(
                 f"model.layers.{{i}}.self_attn.{norm}.weight")
@@ -432,6 +439,68 @@ def gemma3_key_map(config) -> Dict[Tuple[str, ...], HfEntry]:
             f"model.layers.{{i}}.mlp.{proj}.weight")
     if not config.tie_word_embeddings:
         m[("lm_head", "kernel")] = HfEntry("lm_head.weight")
+    return m
+
+
+def gemma3n_text_key_map(config) -> Dict[Tuple[str, ...], HfEntry]:
+    """Gemma-3n text (HF ``Gemma3nForCausalLM`` naming): Gemma-3's layer
+    set (always tied) plus the AltUp, Laurel and per-layer-embedding
+    tensors; ``altup_projections.{i}`` / ``altup_unembed_projections.{i}``
+    stack over ``A - 1`` as the layers do."""
+    m = gemma3_key_map(config)
+    m.pop(("lm_head", "kernel"), None)
+    m[("embed_tokens_per_layer", "embedding")] = HfEntry(
+        "model.embed_tokens_per_layer.weight")
+    m[("per_layer_model_projection", "kernel")] = HfEntry(
+        "model.per_layer_model_projection.weight")
+    m[("per_layer_projection_norm", "weight")] = HfEntry(
+        "model.per_layer_projection_norm.weight")
+    for name in ("altup_projections", "altup_unembed_projections"):
+        m[(name, "kernel")] = HfEntry(f"model.{name}.{{i}}.weight")
+    pre = "model.layers.{i}."
+    m[("layers", "altup", "correct_output_scale")] = HfEntry(
+        pre + "altup.correct_output_scale")
+    for lin in ("correction_coefs", "prediction_coefs", "modality_router"):
+        m[("layers", "altup", lin, "kernel")] = HfEntry(
+            pre + f"altup.{lin}.weight")
+    m[("layers", "altup", "router_norm", "weight")] = HfEntry(
+        pre + "altup.router_norm.weight")
+    for lin in ("linear_left", "linear_right"):
+        m[("layers", "laurel", lin, "kernel")] = HfEntry(
+            pre + f"laurel.{lin}.weight")
+    m[("layers", "laurel", "post_laurel_norm", "weight")] = HfEntry(
+        pre + "laurel.post_laurel_norm.weight")
+    for lin in ("per_layer_input_gate", "per_layer_projection"):
+        m[("layers", lin, "kernel")] = HfEntry(pre + f"{lin}.weight")
+    m[("layers", "post_per_layer_input_norm", "weight")] = HfEntry(
+        pre + "post_per_layer_input_norm.weight")
+    return m
+
+
+def gemma3n_vlm_key_map(config) -> Dict[Tuple[str, ...], HfEntry]:
+    """Gemma-3n multimodal (HF ``Gemma3nForConditionalGeneration``
+    naming): the text under ``model.language_model.``, the multimodal
+    embedder under ``model.embed_vision.``, the native tower's stacked
+    HWIO kernels under ``model.vision_tower.native.`` (HF loaders warn and
+    draw their timm tower)."""
+    m = {("language_model",) + path: e._replace(
+        template=e.template.replace("model.", "model.language_model.", 1))
+        for path, e in gemma3n_text_key_map(config.text_config).items()}
+    ev = "model.embed_vision."
+    m[("embed_vision", "embedding", "embedding")] = HfEntry(
+        ev + "embedding.weight")
+    for norm in ("hard_embedding_norm", "soft_embedding_norm"):
+        m[("embed_vision", norm, "weight")] = HfEntry(ev + f"{norm}.weight")
+    m[("embed_vision", "embedding_projection", "kernel")] = HfEntry(
+        ev + "embedding_projection.weight")
+    vt = "model.vision_tower.native."
+    m[("vision_tower", "stem", "kernel")] = HfEntry(vt + "stem.kernel")
+    for name in ("expand", "depthwise", "project"):
+        m[("vision_tower", "blocks", name, "kernel")] = HfEntry(
+            vt + f"blocks.{name}.kernel")
+    m[("vision_tower", "blocks", "norm", "weight")] = HfEntry(
+        vt + "blocks.norm.weight")
+    m[("vision_tower", "head", "kernel")] = HfEntry(vt + "head.kernel")
     return m
 
 
@@ -554,7 +623,9 @@ _KEY_MAPS = {"llama": llama_key_map, "mistral": llama_key_map,
              "gemma3_text": gemma3_key_map, "gemma2": gemma3_key_map,
              "gemma3": gemma3_vlm_key_map, "llava": vlm_key_map,
              "qwen2_5_vl": qwen2_5_vl_key_map,
-             "qwen2_5_vl_text": llama_key_map}
+             "qwen2_5_vl_text": llama_key_map,
+             "gemma3n_text": gemma3n_text_key_map,
+             "gemma3n": gemma3n_vlm_key_map}
 
 # the read transforms of an int8 base's two leaves (one HF tensor each)
 INT8_CODES, INT8_SCALE = "int8_codes", "int8_scale"

@@ -5,7 +5,10 @@ subclasses in ``mixtral.py`` / ``qwen3_moe.py`` and of
 ``deepseek_v3.py`` / ``deepseek_v2.py``), and into the port's SFT recipe,
 so that the two packages can train from the same weights.  The DeepSeek
 tree's two sub-stacks (``dense_layers``, ``layers``) and V2's gate without
-a correction bias come from the model's own ``jax_tree_leaves``.
+a correction bias come from the model's own ``jax_tree_leaves``, as do the
+other families' trees that are not Llama's (Gemma, the VLMs; Gemma-3n's
+``[A - 1, H, H]`` AltUp kernels stacked like layers, its tower's HWIO
+kernels copied as they are).
 
 The JAX tree stacks every layer's leaf along a leading ``[L, ...]`` axis
 and stores projection kernels as ``[in, out]`` (applied as ``x @ w``).

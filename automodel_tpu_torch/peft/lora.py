@@ -19,6 +19,12 @@ cast back to ``W``'s dtype for every target and layer before the forward
 ``models/llama.py::LayerAdapter``s.  ``quantize_base: int8`` turns the
 frozen base into ``quantization/weight_only.py`` int8 codes.
 
+On an image-text model the targets are the projections of its decoder,
+``language_model.layers.*`` (:func:`decoder_prefix`), and the adapters reach
+the decoder through the model's forward keywords.  As in JAX, where a VLM's
+forward takes no ``adapters`` keyword, such a model runs the merge only:
+the bypass, dropout and an int8 base are refused.
+
 With a cache (the decode engine, ``generate()``) the forward merges the
 adapters into the weights (the bypass over an int8 base): a LoRA model
 serves as a single-adapter engine.  :func:`adapter_slab_shapes` gives
@@ -63,6 +69,28 @@ ADAPTER_CONFIG = "adapter_config.json"
 # projections that run through the model's ``_proj`` seam
 _PROJ_BLOCKS = {"self_attn": ("q_proj", "k_proj", "v_proj", "o_proj"),
                 "mlp": ("gate_proj", "up_proj", "down_proj")}
+def decoder_prefix(targets) -> Tuple[str, ...]:
+    """The JAX path of the decoder whose ``layers.*`` projections are all
+    of ``targets`` (``{module path: (kernel path, ...)}``): ``()`` for a
+    text model, ``("language_model",)`` for an image-text one.  A target
+    that is not a layer-stacked attention or dense-MLP projection of that
+    one decoder raises."""
+    first = next(iter(targets.values()))[0]
+    prefix = ("language_model",) if first[0] == "language_model" else ()
+    n = len(prefix)
+    for mod_path, (path, _) in sorted(targets.items()):
+        if (path[:n] != prefix or len(path) != n + 4
+                or path[n] != "layers"):
+            # the JAX adapters hold [L, in, out] kernels only
+            raise ValueError(
+                f"LoRA target {mod_path} is no layer-stacked [L, in, "
+                f"out] kernel of the decoder (expert stacks and tower "
+                f"kernels cannot take adapters here)")
+        if path[n + 2] not in _PROJ_BLOCKS.get(path[n + 1], ()):
+            raise NotImplementedError(
+                f"LoRA on {mod_path} is not ported: adapters reach the "
+                "attention and dense MLP projections only")
+    return prefix
 
 
 @dataclasses.dataclass
@@ -161,57 +189,66 @@ class LoRAModel(nn.Module):
         refusal = getattr(base_model, "peft_refusal", None)
         if refusal:
             raise NotImplementedError(refusal)
+        targets = match_targets(base_model, cfg)
+        if not targets:
+            raise ValueError(
+                f"PEFT matched no modules for targets {cfg.target_modules}")
+        prefix = decoder_prefix(targets)
+        # the JAX LoRA runs the bypass only through a forward with an
+        # ``adapters`` keyword: the text decoders', not the VLMs'
+        supports = not prefix
+        name = type(base_model).__name__
         if cfg.use_rank_r_bypass is not None:
             bypass = bool(cfg.use_rank_r_bypass)
+            if bypass and not supports:
+                raise ValueError(
+                    f"{name} does not support the rank-r bypass forward "
+                    "(no `adapters` kwarg)")
         else:
-            bypass = (cfg.dropout > 0.0 or cfg.quantize_base is not None
-                      or base_model.num_params > 4e9)
+            bypass = supports and (cfg.dropout > 0.0
+                                   or cfg.quantize_base is not None
+                                   or base_model.num_params > 4e9)
         if not bypass and cfg.dropout:
             raise ValueError(
                 "LoRA dropout needs the rank-r bypass forward; "
-                "use_rank_r_bypass=False picks the merged path")
+                + ("use_rank_r_bypass=False picks the merged path"
+                   if supports else f"{name} only supports the merged "
+                   "path"))
         if cfg.quantize_base:
             if cfg.quantize_base != "int8":
                 raise ValueError(
                     f"quantize_base={cfg.quantize_base!r}: only 'int8' "
                     "weight-only quantization is supported")
+            if not supports:
+                raise ValueError(
+                    f"{name} does not support weight-only base "
+                    "quantization")
             if not bypass:
                 raise ValueError(
                     "quantize_base needs the rank-r bypass forward (an int8 "
                     "kernel cannot be merged with the fp adapter delta)")
-        targets = match_targets(base_model, cfg)
-        if not targets:
-            raise ValueError(
-                f"PEFT matched no modules for targets {cfg.target_modules}")
-        for mod_path, (path, _) in targets.items():
-            if len(path) != 4 or path[0] != "layers":
-                # the JAX adapters hold [L, in, out] kernels only
-                raise ValueError(
-                    f"LoRA target {mod_path} is no layer-stacked [L, in, "
-                    f"out] kernel (expert stacks cannot take adapters)")
-            if path[2] not in _PROJ_BLOCKS.get(path[1], ()):
-                raise NotImplementedError(
-                    f"LoRA on {mod_path} is not ported: adapters reach the "
-                    "attention and dense MLP projections only")
         self.base_model = base_model
         self.peft_config = cfg
         self.bypass = bypass
         self.seed = int(seed)
         self._dropout_at = (0, 0)            # (step, microbatch)
+        self._prefix = prefix
+        n = len(prefix)
         # {module path: (tree path, _proj name, layer attribute)}
-        self.targets = {m: (p, PATH_SEP.join(p[1:3]), p[2])
+        self.targets = {m: (p, PATH_SEP.join(p[n + 1:n + 3]), p[n + 2])
                         for m, (p, _) in sorted(targets.items())}
         for p in base_model.parameters():
             p.requires_grad_(False)
         if cfg.quantize_base:
             quantize_base_params(base_model)
+        decoder = self.decoder
         dtype = (as_dtype(cfg.lora_dtype) if cfg.lora_dtype
                  else base_model.param_dtype)
-        dev = base_model.inv_freq.device
+        dev = decoder.inv_freq.device
         r = cfg.dim
         self.adapters = nn.ModuleDict()
         for mod_path, (_, _, attr) in self.targets.items():
-            lins = [getattr(layer, attr) for layer in base_model.layers]
+            lins = [getattr(layer, attr) for layer in decoder.layers]
             self.adapters[self._key(mod_path)] = _Adapter(
                 [nn.Parameter(torch.empty(l.in_features, r, dtype=dtype,
                                           device=dev)) for l in lins],
@@ -237,6 +274,13 @@ class LoRAModel(nn.Module):
             setattr(base, name, value)
         else:
             super().__setattr__(name, value)
+
+    @property
+    def decoder(self):
+        """The decoder whose layers hold the targets: the base model, or
+        an image-text model's ``language_model``."""
+        base = self.base_model
+        return base.language_model if self._prefix else base
 
     @staticmethod
     def _key(mod_path: str) -> str:
@@ -325,7 +369,7 @@ class LoRAModel(nn.Module):
         microbatch's dropout seeds while training.  ``merged`` overrides
         the model's choice (an int8 base cannot merge)."""
         cfg = self.peft_config
-        base = self.base_model
+        layers = self.decoder.layers
         bypass = self.bypass if merged is None else not merged
         seeds = None
         if (bypass and cfg.dropout > 0.0 and self.training
@@ -333,9 +377,9 @@ class LoRAModel(nn.Module):
             step, mb = self._dropout_at
             self._dropout_at = (step, mb + 1)
             seeds = [_stream_seed(self.seed, 1, step, mb, i)
-                     for i in range(len(base.layers))]
+                     for i in range(len(layers))]
         out = []
-        for i, layer in enumerate(base.layers):
+        for i, layer in enumerate(layers):
             d = {}
             for mod_path, (_, name, attr) in self.targets.items():
                 ad = self.adapter(mod_path)

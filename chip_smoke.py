@@ -70,7 +70,7 @@ Phases (any failure exits non-zero without the final ``ok`` line):
    every plain version, the 16 requests with paged decode held to layers
    x steps and gmm to 3 x layers x steps, profiled windows, then the
    prefix cache on and off (tokens identical);
-   serve_qwen2: Qwen2.5-1.5B-Instruct's published config at all 28 layers
+   serve_qwen2: Qwen2.5-1.5B-Instruct's published config at 14 of 28 layers
    (q / k / v biases, 12 / 2 heads: kernel 1 at G 6), written with random
    bf16 weights as the ``refs/main`` snapshot of its repo id in a
    temporary ``HF_HOME``, loaded by ``AutoModelForCausalLM.
@@ -205,7 +205,8 @@ Phases (any failure exits non-zero without the final ``ok`` line):
 12. the JAX package's HF fine-tuning YAMLs as written
    (``examples/llm_finetune/qwen3/qwen3_0p6b_hellaswag.yaml``, phase
    sft_qwen3_hellaswag, and ``llama3_2/llama3_2_1b_squad.yaml``, phase
-   sft_llama_squad): each model's published config at all its layers with
+   sft_llama_squad): each model's published config at half its layers
+   (``HF_LAYERS``: 14 of 28, 8 of 16, for the time limit) with
    random bf16 weights as an ``HF_HOME`` snapshot under the repo id the
    YAML names, seeded rows in the set's schema as local jsonl, and
    :class:`ByteTokenizer` by ``tokenizer._target_`` (the only overrides,
@@ -242,7 +243,8 @@ Phases (any failure exits non-zero without the final ``ok`` line):
    run), loss and whole gradient (``quant_check_* first step`` lines).
 15. post-training (run after the VLM phases, before quant_check):
    grpo_llama_1b and dpo_llama_1b, GRPO and DPO on Llama-3.2-1B at its
-   published widths and depth through the recipes' ``setup()`` and
+   published widths (8 of its 16 layers, ``PT_LAYERS``, for the time
+   limit) through the recipes' ``setup()`` and
    ``run_post_training_loop()`` on ``automodel_tpu_torch/examples/
    llama3_2_1b_{grpo,dpo}.yaml`` (GRPO with the ``lower_vocab_share``
    reward, named on the phase's line): the first step on one fixed batch
@@ -277,7 +279,8 @@ Phases (any failure exits non-zero without the final ``ok`` line):
    plain version, exact launches (whole-block remat: kernel 9's forward
    twice a layer and microbatch), and the end-of-run safetensors read
    back bit for bit; sft_seqcls_llama_1b, ``tiny_llama_seqcls_mock
-   .yaml``'s sections over Llama-3.2-1B's published config (a fresh
+   .yaml``'s sections over Llama-3.2-1B's published config (8 of 16
+   layers, ``SEQCLS_LAYERS``, for the time limit; a fresh
    2-label head) with rows of ~256 tokens at V 128,256: kernel 9 on
    padding-folded segments, no linear-CE launch, the first step against
    plain attention; sft_granite, sft_olmo2, sft_starcoder2 and sft_phi3,
@@ -312,11 +315,36 @@ Phases (any failure exits non-zero without the final ``ok`` line):
    time, non-pad tokens/s, images/s, peak memory, the losses per step, a
    profiled window, and the RDR YAML's consolidated checkpoint at one
    more step read back bit for bit (``{label}_run`` lines).
+18. Gemma-3n (after the Qwen2.5-VL phases): kernel 9 at Gemma-3n-E4B's
+   shapes (B 2, S 4096, 8 / 2 heads at head_dim 256, softmax scale 1.0,
+   window 512 and causal full; ``GEMMA3N_ATTN_CASES``); then
+   sft_gemma3n_e4b_medpix, ``examples/vlm_finetune/gemma3n_vl_medpix
+   .yaml`` at google/gemma-3n-E4B-it's published widths
+   (``gemma3n_e4b_config``) at the first 5 of its 35 layers
+   (``GEMMA3N_E4B_LAYERS``: one published block of 4 sliding and 1 full,
+   all with the sparse gate), random bf16 weights as the ``refs/main``
+   snapshot of ``google/gemma-3n-e4b-it`` in the temporary ``HF_HOME``,
+   the mock processor at 768 px / 48 (256 placeholders), seeded rows in
+   MedPix's schema and ``--checkpoint.save_consolidated true`` (its
+   Orbax save is not ported); sft_gemma3n_e4b_medpix_peft, the PEFT YAML
+   as written over the same snapshot (LoRA merged on the seven decoder
+   projections, ``peft_checks``, the adapter count against the JAX
+   formula); and sft_gemma3n_mock, ``tiny_gemma3n_mock.yaml`` as written
+   (6 steps; a sparse and two dense gates); each (``gemma3n_phase``): the
+   loaded weights bit for bit, kernel 9 at the decoder's rows of the
+   first batch against its plain version, the first step against every
+   plain version, the exact launch counts (kernel 9 2 x layers x
+   microbatches forward under remat, layers x microbatches backward; the
+   plain attention 0), step time, non-pad tokens/s, images/s, MFU by the
+   work done, peak memory, the losses, a profiled window, and the
+   YAML's checkpoint at one more step read back bit for bit
+   (``{label}_run`` lines).
 
 The second-to-last line is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.
 """
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -3024,8 +3052,42 @@ def profile_window(run, steps, label, attn_names):
 # ---------------------------------------------------------------------------
 # sft phase
 # ---------------------------------------------------------------------------
+@contextlib.contextmanager
+def plain_attention_nudged(seed):
+    """The plain attention (``ops/splash_attention.py::
+    splash_attention_plain``) with its bf16 output moved by one ulp, up
+    or down, in a seeded two thirds of its nonzero elements: another
+    rounding of the same fp32 result, as right as the first."""
+    import torch
+
+    from automodel_tpu_torch.ops import splash_attention as sa
+
+    real = sa.splash_attention_plain
+    gens = {}
+
+    def nudged(*args, **kw):
+        out, lse = real(*args, **kw)
+        if out.dtype == torch.bfloat16:
+            gen = gens.get(out.device)
+            if gen is None:
+                gen = gens[out.device] = torch.Generator(
+                    device=out.device).manual_seed(seed)
+            step = torch.randint(-1, 2, out.shape, generator=gen,
+                                 device=out.device, dtype=torch.int16)
+            step = torch.where(out != 0, step, torch.zeros_like(step))
+            out = (out.view(torch.int16) + step).view(torch.bfloat16)
+        return out, lse
+
+    sa.splash_attention_plain = nudged
+    try:
+        yield
+    finally:
+        sa.splash_attention_plain = real
+
+
 def first_step_check(recipe, label, routes, compare, quantized=False,
-                     rows=2, limits=None, floor_route="kernel_again"):
+                     rows=2, limits=None, floor_route="kernel_again",
+                     floor_base="kernel", contexts=None, floor_factor=None):
     """Loss and whole gradient of the first step (``rows`` rows of the
     first batch, or all of it for None: flat patch rows cannot be cut by
     rows; the recipe's initial weights) through each route ``(name,
@@ -3037,9 +3099,13 @@ def first_step_check(recipe, label, routes, compare, quantized=False,
     gradient limits, or within ``limits`` ``(loss_tol, grad_tol)`` where
     given.  ``kernel_again`` (a second kernel pass) shows the run-to-run
     spread (0 when every kernel of the route is deterministic); the floor
-    is the kernel route against ``floor_route``, two equally right
-    computations (by default ``kernel_again``).  Returns the printed
-    report."""
+    is ``floor_base`` (the kernel route) against ``floor_route``, two
+    equally right computations (by default ``kernel_again``).
+    ``contexts`` maps a route's name to a context manager factory its pass
+    runs under (``plain_attention_nudged``); with ``floor_factor`` the
+    gradient's limit is the larger of the SFT limit and that many floors
+    (a model whose gradient moves with the rounding of one operation).
+    Returns the printed report."""
     import torch
 
     from automodel_tpu_torch.ops.remat import resolve_remat_policy
@@ -3065,8 +3131,9 @@ def first_step_check(recipe, label, routes, compare, quantized=False,
         model.remat_policy = (resolve_remat_policy(impls[2])
                               if len(impls) > 2 else own_policy)
         model.zero_grad(set_to_none=True)
-        loss = microbatch_loss(model, loss_fn, mb, attn_impl=attn_impl)
-        loss.backward()
+        with (contexts or {}).get(name, contextlib.nullcontext)():
+            loss = microbatch_loss(model, loss_fn, mb, attn_impl=attn_impl)
+            loss.backward()
         torch.cuda.synchronize()
         losses[name] = float(loss.detach())
         grads[name] = [p.grad for _, p in trained]
@@ -3096,8 +3163,8 @@ def first_step_check(recipe, label, routes, compare, quantized=False,
                grad_tol=SFT_GRAD_REL_L2,
                grad_rel_l2_kernel_vs_kernel=rel_l2("kernel_again",
                                                    "kernel")[0],
-               floor_route=floor_route,
-               grad_rel_l2_floor=rel_l2(floor_route, "kernel")[0])
+               floor_route=floor_route, floor_base=floor_base,
+               grad_rel_l2_floor=rel_l2(floor_route, floor_base)[0])
     for a, b in compare:
         rel_grad, worst = rel_l2(a, b)
         rel_loss = abs(losses[a] - losses[b]) / abs(losses[b])
@@ -3111,6 +3178,10 @@ def first_step_check(recipe, label, routes, compare, quantized=False,
         grad_tol = min(QUANT_GRAD_REL_L2_CAP, max(
             SFT_GRAD_REL_L2,
             QUANT_GRAD_FLOOR_FACTOR * out["grad_rel_l2_floor"]))
+    if floor_factor is not None:
+        grad_tol = max(SFT_GRAD_REL_L2,
+                       floor_factor * out["grad_rel_l2_floor"])
+        out["floor_factor"] = floor_factor
     if limits is not None:
         loss_tol, grad_tol = limits
     out["loss_tol"], out["grad_tol"] = loss_tol, grad_tol
@@ -3930,6 +4001,15 @@ HF_CONFIGS = {
 }
 # (warm-up, timed) steps; the SQuAD YAML validates every 10 steps
 HF_STEPS = {"sft_qwen3_hellaswag": (2, 6), "sft_llama_squad": (2, 8)}
+# the depth the HF phases run at for the script's 1200 s limit (every
+# width as published): Qwen3-0.6B 14 of 28 layers, Llama-3.2-1B 8 of 16,
+# Qwen2.5-1.5B (serve_qwen2) 14 of 28; the classifier's Llama-3.2-1B 8 of
+# 16 (SEQCLS_LAYERS).  At full depth, with GRPO / DPO at 16 layers too,
+# the script ended at 1109.7 s (NVIDIA H100 80GB HBM3, 700 W)
+HF_LAYERS = {"sft_qwen3_hellaswag": 14, "sft_llama_squad": 8,
+             "serve_qwen2": 14}
+HF_PUBLISHED_LAYERS = {"sft_qwen3_hellaswag": 28, "sft_llama_squad": 16,
+                       "serve_qwen2": 28}
 HF_SEEDS = {"Qwen/Qwen3-0.6B": 6, "meta-llama/Llama-3.2-1B": 12,
             "Qwen/Qwen2.5-1.5B-Instruct": 25}
 WORDS = ("the", "a", "man", "woman", "dog", "ball", "kitchen", "river",
@@ -4107,7 +4187,7 @@ def hf_sft_phase(label, yaml_path, repo_id, kind, hf_home, flush):
     from automodel_tpu_torch.recipes.llm import train_ft
 
     warmup, steps = HF_STEPS[label]
-    snap, written = write_hf_model(hf_home, repo_id)
+    snap, written = write_hf_model(hf_home, repo_id, layers=HF_LAYERS[label])
     work = tempfile.mkdtemp(prefix=f"chip_smoke_{label}_")
     key = "path_or_dataset" if kind == "hellaswag" else "dataset_name"
     make = hellaswag_rows if kind == "hellaswag" else squad_rows
@@ -4131,9 +4211,11 @@ def hf_sft_phase(label, yaml_path, repo_id, kind, hf_home, flush):
           f"{label}: loss {type(recipe.loss_fn).__name__}")
     print(f"{label}: {type(model).__name__} {mcfg.model_type} (vocab "
           f"{mcfg.vocab_size}, hidden {mcfg.hidden_size}, ffn "
-          f"{mcfg.intermediate_size}, layers {L}, heads "
-          f"{mcfg.num_attention_heads}/{mcfg.num_key_value_heads}, head_dim "
-          f"{mcfg.head_dim}, qk_norm {mcfg.qk_norm}), {model.num_params} "
+          f"{mcfg.intermediate_size}, layers {L} of "
+          f"{HF_PUBLISHED_LAYERS[label]} (depth cut for the time limit), "
+          f"heads {mcfg.num_attention_heads}/{mcfg.num_key_value_heads}, "
+          f"head_dim {mcfg.head_dim}, qk_norm {mcfg.qk_norm}), "
+          f"{model.num_params} "
           f"params {model.param_dtype}, from {snap}, {held} written tensors "
           f"held bit for bit; loader {type(recipe.dataloader).__name__} of "
           f"{len(recipe.dataloader)} batches, set up in {setup_s:.1f} s",
@@ -4264,14 +4346,16 @@ def hf_sft_phase(label, yaml_path, repo_id, kind, hf_home, flush):
 
 
 def serve_qwen2_phase(hf_home, flush):
-    """Qwen2.5-1.5B-Instruct at its published config and all 28 layers
-    (q / k / v biases, G 6, the window fields off), written as an
+    """Qwen2.5-1.5B-Instruct at its published config and 14 of its 28
+    layers (``HF_LAYERS``; q / k / v biases, G 6, the window fields off),
+    written as an
     ``HF_HOME`` snapshot and loaded by ``AutoModelForCausalLM.
     from_pretrained(..., load_weights=True)``: every q / k / v bias and a
     sample of the other tensors bit for bit as written, then the engine
     phase (``qwen2_5_1p5b_serve.yaml``'s serving: first-step logits
-    kernel against plain, the 16 requests with paged decode held to 28 x
-    steps, profiled windows), then n-gram speculation on and off (the
+    kernel against plain, the 16 requests with paged decode held to
+    layers x steps, profiled windows), then n-gram speculation on and off
+    (the
     verify width, S 5) on periodic prompts with the same launch gate and
     the same tokens."""
     import numpy as np
@@ -4280,7 +4364,11 @@ def serve_qwen2_phase(hf_home, flush):
     from automodel_tpu_torch.models.auto_model import AutoModelForCausalLM
 
     repo_id = "Qwen/Qwen2.5-1.5B-Instruct"
-    snap, written = write_hf_model(hf_home, repo_id)
+    snap, written = write_hf_model(hf_home, repo_id,
+                                   layers=HF_LAYERS["serve_qwen2"])
+    print(f"serve_qwen2: {HF_LAYERS['serve_qwen2']} of "
+          f"{HF_PUBLISHED_LAYERS['serve_qwen2']} layers (depth cut for the "
+          "time limit), every width as published", flush=True)
     t0 = time.perf_counter()
     model = AutoModelForCausalLM.from_pretrained(repo_id, load_weights=True,
                                                  device="cuda")
@@ -5039,6 +5127,454 @@ def qwen25_vl_3b_rdr_phase(hf_home, flush):
 
 
 # ---------------------------------------------------------------------------
+# Gemma-3n (sft_gemma3n_e4b_medpix, sft_gemma3n_e4b_medpix_peft,
+# sft_gemma3n_mock)
+# ---------------------------------------------------------------------------
+GEMMA3N_MEDPIX_YAML = os.path.join(VLM_YAMLS, "gemma3n_vl_medpix.yaml")
+GEMMA3N_PEFT_YAML = os.path.join(VLM_YAMLS, "gemma3n_vl_medpix_peft.yaml")
+GEMMA3N_MOCK_YAML = os.path.join(VLM_YAMLS, "tiny_gemma3n_mock.yaml")
+GEMMA3N_E4B = "google/gemma-3n-e4b-it"         # the YAMLs' repo id
+GEMMA3N_E4B_SEED = 43
+# the depth the phases run at: the first 5 of 35 layers (one published
+# block: 4 sliding, 1 full; all sparse), every width kept; the whole depth
+# (~6.9 B parameters, a per-layer table of 2.35 B) would not fit one card
+# with the optimizer's state
+GEMMA3N_E4B_LAYERS = 5
+# the mock processor at the published image geometry: (768 / 48)^2 = 256
+# placeholders, the model's vision_soft_tokens_per_image, at image_token_id
+GEMMA3N_PROCESSOR = {
+    "_target_": "automodel_tpu.datasets.vlm.mock.MockVLMProcessor",
+    "vocab_size": 262400, "image_size": 768, "patch_size": 48,
+    "image_token_id": 262145}
+GEMMA3N_STEPS = {"sft_gemma3n_e4b_medpix": (1, 2, 1),   # warm-up, timed,
+                 "sft_gemma3n_e4b_medpix_peft": (1, 2, 0),   # profiled
+                 "sft_gemma3n_mock": (0, 6, 0)}
+MEDPIX_ROWS = 48
+# the first step's gradient limit in floors (see gemma3n_phase): the
+# kernel route no farther from the plain one than the plain one is from
+# itself with its attention output rounded the other way.  Measured at
+# E4B's widths (NVIDIA H100 80GB HBM3, 700.00 W): that
+# floor 54.8 % of the whole gradient, the kernel 42.9 %, the loss 1.1e-4
+GEMMA3N_FLOOR_FACTOR = 1.0
+# kernel 9 at Gemma-3n-E4B's shapes: GQA 8 / 2 at head_dim 256, softmax
+# scale 1.0 (q / k rms-normed per head), window 512 and causal full
+GEMMA3N_ATTN_CASES = [
+    ("gemma3n_e4b_window512_d256_scale1", 2, 4096, 8, 2, 256, False, 512,
+     None, 1.0),
+    ("gemma3n_e4b_causal_d256_scale1", 2, 4096, 8, 2, 256, False, None,
+     None, 1.0),
+]
+
+
+def gemma3n_e4b_config(layers):
+    """google/gemma-3n-E4B-it's published config.json (its text and vision
+    fields; the audio tower is not ported) at the first ``layers`` of 35:
+    ``layer_types``, ``intermediate_size`` and
+    ``activation_sparsity_pattern`` cut to that prefix."""
+    L = 35
+    return dict(
+        architectures=["Gemma3nForConditionalGeneration"],
+        model_type="gemma3n", torch_dtype="bfloat16",
+        image_token_id=262145, boi_token_id=255999, eoi_token_id=262144,
+        eos_token_id=[1, 106], vision_soft_tokens_per_image=256,
+        audio_soft_tokens_per_image=188, audio_token_id=262273,
+        initializer_range=0.02,
+        text_config=dict(
+            model_type="gemma3n_text", vocab_size=262400,
+            vocab_size_per_layer_input=262144, hidden_size=2048,
+            hidden_size_per_layer_input=256,
+            intermediate_size=[16384] * L, num_hidden_layers=L,
+            num_attention_heads=8, num_key_value_heads=2, head_dim=256,
+            laurel_rank=64, altup_num_inputs=4, altup_active_idx=0,
+            altup_coef_clip=120.0, altup_correct_scale=True,
+            num_kv_shared_layers=15, sliding_window=512,
+            rope_theta=1000000.0, rope_local_base_freq=10000.0,
+            rope_scaling=None, rms_norm_eps=1e-6,
+            max_position_embeddings=32768, final_logit_softcapping=30.0,
+            query_pre_attn_scalar=256, hidden_activation="gelu_pytorch_tanh",
+            attention_bias=False, attention_dropout=0.0,
+            layer_types=["full_attention" if (i + 1) % 5 == 0
+                         else "sliding_attention" for i in range(L)],
+            activation_sparsity_pattern=[0.95] * 10 + [0.0] * 25,
+            torch_dtype="bfloat16"),
+        vision_config=dict(
+            model_type="gemma3n_vision", architecture="mobilenetv5_300m_enc",
+            hidden_size=2048, vocab_size=128, vocab_offset=262144,
+            rms_norm_eps=1e-6, do_pooling=False))
+
+
+def gemma3n_cut(cfg, layers):
+    """``cfg`` at its first ``layers`` text layers."""
+    cfg = json.loads(json.dumps(cfg))
+    tc = cfg["text_config"]
+    tc["num_hidden_layers"] = layers
+    for key in ("layer_types", "intermediate_size",
+                "activation_sparsity_pattern"):
+        tc[key] = tc[key][:layers]
+    return cfg
+
+
+def gemma3n_sample(cfg):
+    """The Gemma-3n tensors :func:`write_vlm_model` keeps to check the load
+    against."""
+    L = cfg["text_config"]["num_hidden_layers"]
+    lm, vt = "model.language_model.", "model.vision_tower.native."
+    return {lm + "embed_tokens.weight", lm + "embed_tokens_per_layer.weight",
+            lm + "per_layer_model_projection.weight", lm + "norm.weight",
+            lm + "altup_projections.2.weight",
+            lm + "altup_unembed_projections.0.weight",
+            lm + "layers.0.self_attn.q_norm.weight",
+            lm + "layers.0.laurel.linear_left.weight",
+            lm + f"layers.{L - 1}.altup.correct_output_scale",
+            lm + f"layers.{L - 1}.altup.prediction_coefs.weight",
+            lm + f"layers.{L - 1}.mlp.down_proj.weight",
+            lm + f"layers.{L - 1}.per_layer_projection.weight",
+            "model.embed_vision.embedding.weight",
+            "model.embed_vision.embedding_projection.weight",
+            vt + "stem.kernel", vt + "blocks.depthwise.kernel",
+            vt + "blocks.norm.weight", vt + "head.kernel"}
+
+
+def medpix_rows(work, n, seed):
+    """``n`` rows in MedPix-VQA's schema as a local jsonl: ``question`` of
+    6-16 words, ``answer`` of 10-120, ``image`` a local ``.npy`` of a
+    uint8 image of a random aspect (the processor resizes to 768 px)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    os.makedirs(os.path.join(work, "images"), exist_ok=True)
+    rows = []
+    for i in range(n):
+        h, w = (int(x) for x in rng.integers(400, 1000, 2))
+        path = os.path.join(work, "images", f"{i}.npy")
+        np.save(path, rng.integers(0, 256, (h, w, 3)).astype(np.uint8))
+        rows.append({
+            "question": " ".join(rng.choice(WORDS, int(rng.integers(6, 17)))),
+            "answer": " ".join(rng.choice(WORDS, int(rng.integers(10, 121)))),
+            "image": path})
+    return write_jsonl(os.path.join(work, "medpix.jsonl"), rows)
+
+
+def gemma3n_phase(label, yaml_path, flush, overrides=(), processor=None,
+                  written=None, snap=None, depth_note=None):
+    """A Gemma-3n YAML through the port's VLM recipe on the card
+    (``recipes/vlm/finetune.py``, what ``automodel-torch finetune vlm``
+    runs) with ``overrides`` (and the processor section replaced by
+    ``processor``).  Gates: the loaded weights bit for bit as written;
+    kernel 9 at the decoder's rows of the first batch (scale 1.0, window
+    ``sliding_window``) against its plain version (MaskedCE: the soft cap
+    keeps the fused linear CE away, as in JAX); the first step (the first
+    microbatch) through the kernels against every plain version within the
+    SFT limits; the exact launch counts over the timed steps (kernel 9
+    forward twice per layer and microbatch under remat, backward once; the
+    plain attention never); under PEFT the ``peft_checks`` (the base bit
+    for bit, adapters saved and read back) and the adapter count against
+    the JAX formula over the seven projections; the checkpoint the YAML
+    asks for at one more step, read back bit for bit.  Reports step time,
+    non-pad tokens/s, images/s, MFU by the work done (text tokens x
+    ``flops_per_token`` less what frozen weights skip: the tied head's dW
+    when the embeddings are frozen, every dW of the frozen base under
+    PEFT; images x the conv tower's ``flops_per_image``, a third of it for
+    a frozen tower that runs forward only), peak memory and a profiled
+    window's device / host time and idle share."""
+    import numpy as np
+    import torch
+
+    from automodel_tpu_torch.config.loader import parse_args_and_load_config
+    from automodel_tpu_torch.loss.masked_ce import MaskedCrossEntropy
+    from automodel_tpu_torch.models import hf_io
+    from automodel_tpu_torch.models.auto_model import (
+        AutoModelForImageTextToText,
+    )
+    from automodel_tpu_torch.ops import splash_attention as sa
+    from automodel_tpu_torch.peft.lora import load_adapters
+    from automodel_tpu_torch.recipes.vlm.finetune import FinetuneRecipeForVLM
+
+    warmup, steps, profiled = GEMMA3N_STEPS[label]
+    cfg = parse_args_and_load_config(
+        ["-c", yaml_path, "--step_scheduler.max_steps", str(warmup or steps),
+         *overrides])
+    if processor is not None:
+        cfg.set_by_dotted("processor", dict(processor))
+    t0 = time.perf_counter()
+    recipe = FinetuneRecipeForVLM(cfg).setup()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    model = recipe.model
+    peft = recipe.peft_config is not None
+    base = model.base_model if peft else model
+    tc, vc = base.config.text_config, base.config.vision_config
+    lm = base.language_model
+    check(isinstance(recipe.loss_fn, MaskedCrossEntropy),
+          f"{label}: loss {type(recipe.loss_fn).__name__}")
+    held = 0
+    if written is not None:
+        held = loaded_equal(label, base, written)
+        check(base.checkpoint_dir == snap,
+              f"{label}: the model came from {base.checkpoint_dir}")
+    base_before = ([t.cpu().clone() for t in base.state_dict().values()]
+                   if peft else None)
+    ckpt = recipe.checkpoint_config
+    ckpt_on = ckpt.enabled
+    ckpt.enabled = False                 # until the last step
+    trainable = sum(p.numel() for p in model.parameters() if p.requires_grad)
+    tower_trained = any(p.requires_grad
+                        for p in base.vision_tower.parameters())
+    embed_trained = lm.embed_tokens.weight.requires_grad
+    ple_trained = lm.embed_tokens_per_layer.weight.requires_grad
+    image_side = int(getattr(recipe.processor, "image_size"))
+    sparse = [i for i, l in enumerate(lm.layers) if l.std_mult is not None]
+    full = [i for i, l in enumerate(lm.layers) if l.full]
+    print(f"{label}: {type(base).__name__} text (vocab {tc.vocab_size}, "
+          f"per-layer vocab {tc.vocab_size_per_layer_input} x "
+          f"{tc.hidden_size_per_layer_input}, hidden {tc.hidden_size}, ffn "
+          f"{tc.intermediate_size}, layers {tc.num_hidden_layers} (full "
+          f"{full}, the others window {tc.sliding_window}; sparse gate "
+          f"{sparse}), heads {tc.num_attention_heads}/"
+          f"{tc.num_key_value_heads}, head_dim {tc.head_dim}, laurel "
+          f"{tc.laurel_rank}, altup {tc.altup_num_inputs}, softcap "
+          f"{tc.final_logit_softcapping}), vision (native tower: stem "
+          f"{vc.stem_channels}, {vc.depth} blocks x{vc.expand_ratio}, hidden "
+          f"{vc.hidden_size}, {base.config.vision_soft_tokens_per_image} "
+          f"soft tokens, image {image_side} px); "
+          f"{depth_note or 'depth as written'}; {base.num_params} params "
+          f"{base.param_dtype}, {trainable} trainable (vision tower "
+          f"{'trained' if tower_trained else 'frozen'}, embeddings "
+          f"{'trained' if embed_trained else 'frozen'}, per-layer table "
+          f"{'trained' if ple_trained else 'frozen'}"
+          f"{', LoRA merged' if peft and not model.bypass else ''}), "
+          f"{held} written tensors held bit for bit; set up in "
+          f"{setup_s:.1f} s", flush=True)
+    if peft:
+        want = lora_trainable_count(tc, recipe.peft_config.dim)
+        check(trainable == want == model.num_trainable_params,
+              f"{label}: {trainable} trainable, the JAX formula {want}")
+        targets = sorted(model.targets)
+        check(len(targets) == 7 and all(
+            m.startswith("language_model.layers.") for m in targets),
+              f"{label}: LoRA targets {targets}")
+        print(f"{label} peft_trainable " + json.dumps(dict(
+            trainable=trainable, jax_formula=want, targets=targets,
+            bypass=model.bypass)), flush=True)
+
+    first = next(iter(recipe.dataloader))
+    B, S = first["input_ids"].shape
+    attn_rows = attention_phase(flush, None, [(
+        f"{label}_first_batch_w{tc.sliding_window}_d{tc.head_dim}_scale1",
+        B, S, tc.num_attention_heads, tc.num_key_value_heads, tc.head_dim,
+        False, tc.sliding_window, None, 1.0)])
+    torch.cuda.empty_cache()
+    # scale 1.0 over unit-rms q / k rows (norm weights around 1) makes the
+    # attention sharp: a row's dS = P (dP - rowsum(dO O)) is then a small
+    # difference of two large terms, and the bf16 rounding of O (in the
+    # kernel, the plain version and JAX's splash alike) decides much of
+    # it.  The whole gradient moves with that rounding alone, so its limit
+    # is the larger of the SFT limit and GEMMA3N_FLOOR_FACTOR times that
+    # floor (plain against plain with its output nudged one ulp), measured
+    # in the same pass; the kernel itself is held to 2e-2 on this batch's
+    # rows by the attention case above
+    first_step = first_step_check(
+        recipe, label,
+        [("kernel", recipe.loss_fn, "kernel"),
+         ("plain", recipe.loss_fn, "plain"),
+         ("kernel_again", recipe.loss_fn, "kernel"),
+         ("plain_nudged", recipe.loss_fn, "plain")],
+        [("kernel", "plain")], rows=None, floor_route="plain_nudged",
+        floor_base="plain", floor_factor=GEMMA3N_FLOOR_FACTOR,
+        contexts={"plain_nudged": lambda: plain_attention_nudged(53)})
+
+    seen = []
+    run_step = recipe._run_train_optim_step
+
+    def recording(batches):
+        seen.append(batches)
+        return run_step(batches)
+
+    recipe._run_train_optim_step = recording
+    if warmup:
+        recipe.run_train_validation_loop()
+        recipe.step_scheduler.max_steps += steps
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    sa.fwd_launches = sa.bwd_launches = 0     # zeroed just before the run
+    sa.plain_fwd_calls = 0
+    t0 = time.perf_counter()
+    recipe.run_train_validation_loop()
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+    counts = dict(attn_fwd=sa.fwd_launches, attn_bwd=sa.bwd_launches,
+                  plain_fwd_calls=sa.plain_fwd_calls)
+    peak = torch.cuda.max_memory_allocated()
+    del recipe._run_train_optim_step
+    check(len(recipe.history) == warmup + steps == len(seen),
+          f"{label}: {len(recipe.history)} steps, {len(seen)} groups")
+    timed = seen[warmup:]
+    micro = sum(len(g) for g in timed)
+    L = tc.num_hidden_layers
+    want = dict(attn_fwd=2 * L * micro, attn_bwd=L * micro,
+                plain_fwd_calls=0)
+    check(counts == want, f"{label}: launches {counts} != {want} ({micro} "
+          "microbatches)")
+    for m in recipe.history:
+        check(all(map(math.isfinite, (m["loss"], m["grad_norm"]))),
+              f"{label} step {m['step']}: non-finite loss/grad_norm")
+    pad = getattr(recipe.tokenizer, "pad_token_id", 0) or 0
+    tokens = sum(int((np.asarray(mb["input_ids"]) != pad).sum())
+                 for g in timed for mb in g)
+    rows = sum(int(np.asarray(mb["input_ids"]).size) for g in timed
+               for mb in g)
+    images = sum(int(np.asarray(mb["pixel_values"]).reshape(
+        *mb["pixel_values"].shape[:2], -1).any(-1).sum())
+        for g in timed for mb in g)
+    step_s = sum(m["step_time"] for m in recipe.history[warmup:])
+    tok_s, img_s = tokens / step_s, images / step_s
+    fpt, fpi = base.flops_per_token(), base.flops_per_image(image_side)
+    if peft:
+        fpt_done = fpt * 2.0 / 3.0           # no weight gradient anywhere
+    else:
+        fpt_done = fpt - (0.0 if embed_trained
+                          else 2.0 * tc.vocab_size * tc.hidden_size)
+    fpi_done = fpi if tower_trained else fpi / 3.0
+    prof = None
+    if profiled:
+        def more():
+            recipe.step_scheduler.max_steps += profiled
+            recipe.run_train_validation_loop()
+
+        prof = profile_window(more, profiled, f"{label}_b{B}_s{S}",
+                              ("Splash<",))
+    report = dict(
+        yaml=os.path.relpath(yaml_path, REPO), overrides=list(overrides),
+        processor=processor, depth=depth_note, snapshot=snap,
+        written_tensors_held=held, setup_s=setup_s, warmup_steps=warmup,
+        steps=steps, microbatches_per_step=len(timed[0]),
+        shapes=sorted({f"{mb['input_ids'].shape[0]}x"
+                       f"{mb['input_ids'].shape[1]}" for g in timed
+                       for mb in g}),
+        non_pad_tokens=tokens, padded_tokens=rows, images=images,
+        step_ms=step_s * 1e3 / steps,
+        step_ms_each=[m["step_time"] * 1e3
+                      for m in recipe.history[warmup:]],
+        non_pad_tokens_per_s=tok_s, images_per_s=img_s,
+        flops_per_token=fpt, flops_per_image=fpi,
+        flops_per_token_done=fpt_done, flops_per_image_done=fpi_done,
+        mfu=(tok_s * fpt_done + img_s * fpi_done) / BF16_OPS_PER_S,
+        mfu_padded_rows=(rows / step_s * fpt_done + img_s * fpi_done)
+        / BF16_OPS_PER_S,
+        loop_s=loop_s, peak_mem_bytes=peak, launches=counts,
+        predicted_launches=want, trainable_params=trainable,
+        vision_tower_trained=tower_trained, embeddings_trained=embed_trained,
+        per_layer_table_trained=ple_trained,
+        losses=[m["loss"] for m in recipe.history],
+        grad_norms=[m["grad_norm"] for m in recipe.history],
+        first_step=dict(loss_rel_err=first_step["kernel_vs_plain"][
+            "loss_rel_err"], grad_rel_l2=first_step["kernel_vs_plain"][
+            "grad_rel_l2"], grad_rel_l2_floor=first_step[
+            "grad_rel_l2_floor"], grad_tol=first_step["grad_tol"]),
+        profile=prof)
+    if peft:
+        report["peft"] = peft_checks(recipe, label, base_before)
+    if ckpt_on:
+        # the YAML's save (consolidated weights, or the adapters under
+        # PEFT) at one more step, read back
+        ckpt.enabled = True
+        recipe.step_scheduler.max_steps += 1
+        t0 = time.perf_counter()
+        recipe.run_train_validation_loop()
+        torch.cuda.synchronize()
+        step = recipe.step_scheduler.step
+        saved = [d for d in os.listdir(ckpt.checkpoint_dir)
+                 if d.endswith(f"_step_{step}")]
+        check(len(saved) == 1, f"{label}: checkpoints "
+              f"{os.listdir(ckpt.checkpoint_dir)} at step {step}")
+        model_dir = os.path.join(ckpt.checkpoint_dir, saved[0], "model")
+        save_s = time.perf_counter() - t0
+        if peft:
+            live = [p.detach().clone() for p in model.adapters.parameters()]
+            with torch.no_grad():
+                for p in model.adapters.parameters():
+                    p.zero_()
+            load_adapters(model, model_dir)
+            differ = [i for i, (a, b) in enumerate(zip(
+                model.adapters.parameters(), live)) if not torch.equal(a, b)]
+            n = len(live)
+        else:
+            back = AutoModelForImageTextToText.from_pretrained(
+                model_dir, load_weights=True, device=recipe.device)
+            live = {n: t.detach() for n, t, _ in hf_io.hf_tensors(model)}
+            read = {n: t.detach() for n, t, _ in hf_io.hf_tensors(back)}
+            check(sorted(live) == sorted(read),
+                  f"{label}: the checkpoint's tensors differ")
+            differ = [n for n in live if not torch.equal(live[n], read[n])]
+            n = len(live)
+            del back, read
+        check(not differ, f"{label}: {differ[:3]} read back differently")
+        report["checkpoint"] = dict(
+            step=step, tensors=n, bytes=sum(
+                os.path.getsize(os.path.join(model_dir, f))
+                for f in os.listdir(model_dir)),
+            save_and_step_s=save_s, bit_identical=True)
+        del live
+    print(f"{label}_run " + json.dumps(report), flush=True)
+    report["attention_cases"] = attn_rows
+    del recipe, model, base, lm
+    gc.collect()
+    torch.cuda.empty_cache()
+    return report
+
+
+def gemma3n_phases(hf_home, flush):
+    """The two MedPix YAMLs at Gemma-3n-E4B-it's published widths and
+    ``GEMMA3N_E4B_LAYERS`` layers (the repo id resolved to an ``HF_HOME``
+    snapshot of its published config with random bf16 weights, norms
+    around 1: Gemma-3n scales by ``w``), the processor section replaced
+    by the mock processor at the published image geometry, local jsonl
+    rows in MedPix's schema; batch 8 / 1, the freeze config, the clip,
+    AdamW with ``mu_dtype`` bfloat16 and ``grad_dtype`` bfloat16 as
+    written; the full fine-tuning YAML with
+    ``--checkpoint.save_consolidated true`` (its Orbax save is not
+    ported); then ``tiny_gemma3n_mock.yaml`` as written.  The overrides
+    are on each phase's line."""
+    import torch
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_medpix_")
+    L = GEMMA3N_E4B_LAYERS
+    cfg = gemma3n_cut(gemma3n_e4b_config(35), L)
+    snap, written = write_vlm_model(hf_home, GEMMA3N_E4B, cfg,
+                                    GEMMA3N_E4B_SEED, sample=gemma3n_sample,
+                                    norm_center=1.0)
+    rows = medpix_rows(work, MEDPIX_ROWS, 47)
+    depth = (f"the first {L} of 35 text layers (layer_types, "
+             "intermediate_size and activation_sparsity_pattern cut to "
+             "that prefix), every width as published")
+    runs = {}
+    for label, yaml_path, extra in (
+            ("sft_gemma3n_e4b_medpix", GEMMA3N_MEDPIX_YAML,
+             ["--checkpoint.save_consolidated", "true",
+              "--validation_dataset.path_or_dataset", rows]),
+            ("sft_gemma3n_e4b_medpix_peft", GEMMA3N_PEFT_YAML, [])):
+        overrides = ["--dataset.path_or_dataset", rows, *extra,
+                     "--checkpoint.checkpoint_dir",
+                     os.path.join(work, label)]
+        print(f"{label} overrides: " + " ".join(overrides) + " processor="
+              + json.dumps(GEMMA3N_PROCESSOR) + "; " + depth, flush=True)
+        torch.cuda.empty_cache()
+        runs[label] = gemma3n_phase(label, yaml_path, flush, overrides,
+                                    processor=GEMMA3N_PROCESSOR,
+                                    written=written, snap=snap,
+                                    depth_note=depth)
+        shutil.rmtree(os.path.join(work, label), ignore_errors=True)
+        phase_done(label)
+    shutil.rmtree(work, ignore_errors=True)
+    shutil.rmtree(os.path.dirname(os.path.dirname(snap)), ignore_errors=True)
+    torch.cuda.empty_cache()
+    runs["sft_gemma3n_mock"] = gemma3n_phase(
+        "sft_gemma3n_mock", GEMMA3N_MOCK_YAML, flush)
+    phase_done("sft_gemma3n_mock")
+    return runs
+
+
+# ---------------------------------------------------------------------------
 # pretraining (pretrain_gpt2_nanogpt), sequence classification
 # (sft_seqcls_llama_1b) and the Granite / OLMo-2 / StarCoder-2 / Phi-3
 # families (sft_granite, sft_olmo2, sft_starcoder2, sft_phi3)
@@ -5148,6 +5684,7 @@ def pretrain_gpt2_phase(flush):
 
 SEQCLS_YAML = os.path.join(HF_YAMLS, "tiny_llama_seqcls_mock.yaml")
 SEQCLS_REPO = "meta-llama/Llama-3.2-1B"
+SEQCLS_LAYERS = 8                     # of 16 (see HF_LAYERS)
 # the YAML's dataset at Llama-3.2-1B's vocabulary, rows of ~256 tokens
 SEQCLS_DATASET = ["--dataset.vocab_size", "128256", "--dataset.mean_len",
                   "256", "--dataset.std_len", "64",
@@ -5169,7 +5706,8 @@ SEQCLS_WARMUP, SEQCLS_STEPS, SEQCLS_PROFILED = 2, 4, 1
 def seqcls_phase(hf_home, flush):
     """``tiny_llama_seqcls_mock.yaml``'s sections with two changes: the
     model is ``build_sequence_classifier(name_or_path=...)`` over
-    Llama-3.2-1B's published config (all 16 layers; random bf16 weights
+    Llama-3.2-1B's published config (8 of its 16 layers, ``SEQCLS_LAYERS``,
+    for the time limit; random bf16 weights
     from a seed written as an ``HF_HOME`` snapshot, a causal-LM directory:
     the ``score`` head is fresh), and the dataset is at V 128,256 with rows
     of mean length 256.  Padded rows (multiples of 128), no packing, one
@@ -5192,7 +5730,7 @@ def seqcls_phase(hf_home, flush):
     from automodel_tpu_torch.recipes.llm import train_ft
 
     label = "sft_seqcls_llama_1b"
-    snap, written = write_hf_model(hf_home, SEQCLS_REPO)
+    snap, written = write_hf_model(hf_home, SEQCLS_REPO, layers=SEQCLS_LAYERS)
     cfg = parse_args_and_load_config(
         ["-c", SEQCLS_YAML, "--step_scheduler.max_steps",
          str(SEQCLS_WARMUP), *SEQCLS_DATASET])
@@ -5217,6 +5755,7 @@ def seqcls_phase(hf_home, flush):
     dims = model_dims(model.backbone)
     L = dims["layers"]
     print(f"{label}: {type(model.backbone).__name__} backbone {dims}, "
+          f"{SEQCLS_LAYERS} of 16 layers (depth cut for the time limit), "
           f"{model.num_labels} labels, pad {model.pad_token_id}, "
           f"{model.num_params} params {model.param_dtype}, {held} written "
           f"tensors held bit for bit, set up in {setup_s:.1f} s",
@@ -5516,6 +6055,9 @@ PT_CHECK_SEED = 31
 # range of 7.67 (0.0143).
 PT_FORK_SERVING = dict(max_num_seqs=8, prefill_chunk=8)
 PT_FORK_PROMPTS, PT_FORK_NEW_TOKENS = 2, 16
+# the depth GRPO and DPO run at for the script's 1200 s limit (the YAMLs'
+# 16; every width as written; see HF_LAYERS)
+PT_LAYERS = 8
 PT_TIE_REL = 0.02
 # DPO accuracy: a pair whose plain margin is within this of 0 may take
 # either sign on another route (its margin's rounding noise)
@@ -5841,8 +6383,9 @@ def grpo_handoff(label, recipe):
 def post_train_phase(label, yaml_path):
     """GRPO (``grpo_llama_1b``) or DPO (``dpo_llama_1b``) on Llama-3.2-1B
     at its published widths through the recipe's ``setup()`` and
-    ``run_post_training_loop()`` on the YAML as written (GRPO with the
-    ``lower_vocab_share`` reward): the first step on one fixed batch (for
+    ``run_post_training_loop()`` on the YAML as written but for its depth
+    (``PT_LAYERS`` of 16; GRPO with the ``lower_vocab_share`` reward): the
+    first step on one fixed batch (for
     GRPO the first rollout's) against every plain version
     (:func:`pt_first_step`), for GRPO the handoff gates
     (:func:`grpo_handoff`) after the warm-up step, then the timed steps
@@ -5870,7 +6413,9 @@ def post_train_phase(label, yaml_path):
     from automodel_tpu_torch.recipes.llm import train_dpo, train_grpo
 
     grpo = label.startswith("grpo")
-    cfg = parse_args_and_load_config(["-c", yaml_path])
+    cfg = parse_args_and_load_config(
+        ["-c", yaml_path, "--model.config.num_hidden_layers",
+         str(PT_LAYERS)])
     if grpo:
         cfg.set_by_dotted("rl.reward_source", "callable")
         cfg.set_by_dotted("rl.reward_fn", lower_vocab_share)
@@ -5887,7 +6432,8 @@ def post_train_phase(label, yaml_path):
           + (" with rl.reward_source callable, rl.reward_fn "
              "chip_smoke.lower_vocab_share" if grpo else "")
           + f"; widths (vocab {mcfg.vocab_size}, hidden {mcfg.hidden_size}, "
-          f"ffn {mcfg.intermediate_size}, layers {L}, heads "
+          f"ffn {mcfg.intermediate_size}, layers {L} of 16 (depth cut for "
+          f"the time limit), heads "
           f"{mcfg.num_attention_heads}/{mcfg.num_key_value_heads}, head_dim "
           f"{mcfg.head_dim}), {sum(p.numel() for p in model.parameters())} "
           f"params {model.param_dtype}, compute {model.compute_dtype}; "
@@ -6256,6 +6802,13 @@ def main():
         "sft_qwen25_vl_video_mock", QWEN_VIDEO_YAML, flush,
         "qwen25vl_video_mock_text_d16")
     phase_done("sft_qwen25_vl_video_mock")
+    # Gemma-3n: kernel 9 at E4B's shapes (GQA 8 / 2 at D 256, scale 1.0,
+    # window 512 and full), then the two MedPix YAMLs at E4B's widths and
+    # the tiny mock YAML as written
+    torch.cuda.empty_cache()
+    gemma3n_cases = attention_phase(flush, None, GEMMA3N_ATTN_CASES)
+    phase_done("gemma3n attention cases")
+    g3n_runs = gemma3n_phases(hf_home, flush)
     # post-training: GRPO (rollouts through the engine) and DPO
     pt_runs = {}
     for label, yaml_path in (("grpo_llama_1b", GRPO_YAML),
@@ -6446,6 +6999,21 @@ def main():
             kernels[-1]["max_abs_err"] = max(kernels[-1]["max_abs_err"],
                                              c[part]["max_abs_err"])
         for label, run in qwen_runs.items():
+            kernels[-1][f"{label}_launches"] = run["launches"][
+                f"attn_{part}"]
+        # Gemma-3n: E4B's shapes at scale 1.0, the phases' decoder rows,
+        # and each phase's launches
+        for c in gemma3n_cases + [r["attention_cases"][0]
+                                  for r in g3n_runs.values()]:
+            kernels[-1].update({
+                f"{c['case']}_ms": c[part]["ms"],
+                f"{c['case']}_plain_ms": c[part]["plain_ms"],
+                f"{c['case']}_bound_ms": c[part]["bound_ms"],
+                f"{c['case']}_bound_by": c[part]["bound_by"],
+                f"{c['case']}_library_ms": c[part]["library_ms"]})
+            kernels[-1]["max_abs_err"] = max(kernels[-1]["max_abs_err"],
+                                             c[part]["max_abs_err"])
+        for label, run in g3n_runs.items():
             kernels[-1][f"{label}_launches"] = run["launches"][
                 f"attn_{part}"]
         # the HF YAMLs' rows (unpacked, padding folded into segments)

@@ -5,7 +5,7 @@ families, ``from_pretrained``, the HellaSwag / SQuAD datasets, the Gemma
 and vision models, the VLM datasets and the VLM recipe, the
 post-training modules and the GRPO / DPO recipes, GPT-2, the
 classifier, Granite / OLMo-2 / StarCoder-2 / Phi-3, the pretraining
-entry, Qwen2.5-VL and its M-RoPE position ids among them),
+entry, Qwen2.5-VL and its M-RoPE position ids, Gemma-3n among them),
 importing every module loads no JAX, and the kernel build directory is
 ignored by git."""
 
@@ -49,7 +49,7 @@ def test_no_jax_or_jax_package_imports():
                 "models/starcoder2.py", "models/phi3.py",
                 "models/sequence_classification.py",
                 "examples/pretrain.py", "models/qwen2_5_vl.py",
-                "datasets/vlm/qwen_rope.py"):
+                "datasets/vlm/qwen_rope.py", "models/gemma3n.py"):
         assert new in rel, new
     for path in sources:
         with open(path) as f:

@@ -2131,3 +2131,82 @@ def test_cuda_qwen_tower_attention_through_the_windows(grid, cuda_device):
         poisoned[~valid] = float("nan")
         again = poisoned.reshape(1, nW * wlen, H, D).index_select(1, scatter)
         assert torch.equal(again, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [512, None], ids=["window512", "full"])
+def test_cuda_splash_at_gemma3n_e4b_shapes(window, cuda_device):
+    """Kernel 9 as Gemma-3n-E4B calls it: GQA 8 / 2 at head_dim 256,
+    softmax scale 1.0 over q / k rms-normed per head (unit rows, so the
+    logits stay within +-256), window 512 on the sliding layers and
+    causal full on the others; forward and backward against the plain
+    versions with the same scale."""
+    from automodel_tpu_torch.models.gemma3n import _rms_norm
+    from automodel_tpu_torch.ops import splash_attention as sa
+
+    B, S, Hq, Hk, D = 2, 2048, 8, 2, 256
+    g = torch.Generator(device=cuda_device).manual_seed(21)
+    q, dout = (torch.randn(B, S, Hq, D, device=cuda_device, generator=g)
+               .bfloat16() for _ in range(2))
+    k, v = (torch.randn(B, S, Hk, D, device=cuda_device, generator=g)
+            .bfloat16() for _ in range(2))
+    q, k, v = (_rms_norm(t) for t in (q, k, v))
+    kw = dict(causal=True, scale=1.0, local_window_size=window)
+    out, lse = sa.flash_attn_fwd_cuda(q, k, v, **kw)
+    grads = sa.flash_attn_bwd_cuda(q, k, v, out, lse, dout, **kw)
+    torch.cuda.synchronize()
+    ref = sa.splash_attention_plain(q, k, v, **kw)
+    refs = sa.splash_attention_bwd_plain(q, k, v, out, lse, dout, **kw)
+    check_attention((out, lse, *grads), (*ref, *refs))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("full", [False, True], ids=["sliding", "full"])
+def test_cuda_gemma3n_layer_at_e4b_widths(full, cuda_device):
+    """One Gemma-3n-E4B decoder layer at its published widths (hidden
+    2,048, 8 / 2 heads at 256, ffn 16,384, PLE 256, Laurel 64, AltUp 4;
+    the sliding layer with window 512 and a sparse gate, or the full
+    one), bf16, rows of 1,024: the loss and every gradient through
+    kernel 9 against the plain attention route, one forward and one
+    backward launch."""
+    from automodel_tpu_torch.loss.masked_ce import MaskedCrossEntropy
+    from automodel_tpu_torch.models.auto_model import build_model
+    from automodel_tpu_torch.ops import splash_attention as sa
+    from automodel_tpu_torch.training.train_step import microbatch_loss
+
+    model = build_model(dict(
+        model_type="gemma3n_text", vocab_size=4096,
+        vocab_size_per_layer_input=2048, hidden_size=2048,
+        hidden_size_per_layer_input=256, intermediate_size=16384,
+        num_hidden_layers=1, num_attention_heads=8, num_key_value_heads=2,
+        head_dim=256, laurel_rank=64, altup_num_inputs=4,
+        sliding_window=512, num_kv_shared_layers=0,
+        layer_types=["full_attention" if full else "sliding_attention"],
+        activation_sparsity_pattern=[0.0 if full else 0.95]),
+        device=cuda_device, seed=3, remat=False)
+    with torch.no_grad():
+        for layer in model.layers:
+            layer.altup.correct_output_scale.normal_(0.0, 0.5)
+    g = torch.Generator(device=cuda_device).manual_seed(4)
+    B, S = 2, 1024
+    ids = torch.randint(0, 4096, (B, S), device=cuda_device, generator=g)
+    batch = {"input_ids": ids, "labels": ids.clone()}
+    res = {}
+    for impl in ("kernel", "plain"):
+        model.zero_grad(set_to_none=True)
+        f0, b0 = sa.fwd_launches, sa.bwd_launches
+        loss = microbatch_loss(model, MaskedCrossEntropy(), batch,
+                               attn_impl=impl)
+        loss.backward()
+        torch.cuda.synchronize()
+        counts = (sa.fwd_launches - f0, sa.bwd_launches - b0)
+        assert counts == ((1, 1) if impl == "kernel" else (0, 0)), counts
+        res[impl] = (float(loss), [p.grad.float().clone() for p in
+                                   model.parameters() if p.grad is not None])
+    assert len(res["kernel"][1]) == len(res["plain"][1]) > 20
+    assert abs(res["kernel"][0] - res["plain"][0]) <= 1e-2 * abs(
+        res["plain"][0])
+    num = sum(float((a - b).square().sum())
+              for a, b in zip(res["kernel"][1], res["plain"][1]))
+    den = sum(float(b.square().sum()) for b in res["plain"][1])
+    assert (num / den) ** 0.5 < 0.1
