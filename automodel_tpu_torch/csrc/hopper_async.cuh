@@ -27,6 +27,15 @@ typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,
                                 CUtensorMapFloatOOBfill);
 
 inline EncodeTiled encode_tiled() {
+  // The encoding needs a current context. A thread that has made no
+  // runtime call yet has none (autograd's device thread, when the first
+  // op of a backward is a kernel's own): cudaFree(0) binds the device's
+  // primary context to it, once per thread.
+  static thread_local bool bound = false;
+  if (!bound) {
+    cudaFree(0);
+    bound = true;
+  }
   static EncodeTiled fn = nullptr;
   if (fn == nullptr) {
     void* p = nullptr;

@@ -1,6 +1,6 @@
 """VLM collators: conversation samples -> numpy batches (counterpart:
-``automodel_tpu/datasets/vlm/collate_fns.py``: its default and Qwen2.5-VL
-paths; the Phi-4-MM collator waits for its family).
+``automodel_tpu/datasets/vlm/collate_fns.py``: its default, Qwen2.5-VL
+and Phi-4-multimodal paths).
 
 The batch the train step consumes:
 
@@ -23,17 +23,22 @@ The batch the train step consumes:
 is: flat patch rows ``pixel_values [n_patches, C * tps * ps * ps]`` with
 ``image_grid_thw [n_images, 3]`` (videos: ``pixel_values_videos`` and
 ``video_grid_thw``), and adds the M-RoPE ``position_ids [B, S, 3]``
-computed here (``datasets/vlm/qwen_rope.py``).
+computed here (``datasets/vlm/qwen_rope.py``).  :func:`phi4_mm_collate_fn`
+passes the audio processor's ``input_audio_embeds`` /
+``audio_embed_sizes`` / ``audio_attention_mask`` through.
 """
 
 from __future__ import annotations
 
+import logging
 from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 
 from automodel_tpu_torch.datasets.utils import CROSS_ENTROPY_IGNORE_IDX
 from automodel_tpu_torch.datasets.vlm.utils import extract_skipped_token_ids
+
+logger = logging.getLogger(__name__)
 
 
 def _as_numpy(x: Any) -> np.ndarray:
@@ -309,7 +314,67 @@ def qwen2_5_collate_fn(examples: List[dict], processor,
     return out
 
 
-# processor class name -> collate fn; the Phi-4-MM collator comes with
-# its family
+def phi4_mm_collate_fn(examples: List[dict], processor,
+                       max_length: int = 1024,
+                       pad_seq_len_divisible: Optional[int] = None
+                       ) -> Dict[str, np.ndarray]:
+    """Phi-4-multimodal's audio path: ``[user, assistant]`` conversations
+    with ``audio`` (``{"array", "sampling_rate"}``); the supervised span is
+    the assistant turn's own token ids found in ``input_ids`` (no response
+    marker), with a warning and no supervised tokens when they are not
+    found.  The processor's audio keys pass through (``input_audio_embeds
+    [N, T, F]``, ``audio_embed_sizes [N]``, ``audio_attention_mask [N,
+    T]``).  The assistant content is tokenized as a string, as in JAX: a
+    list of content parts raises there and here."""
+    conversations = [ex["conversation"] for ex in examples]
+    for conv in conversations:
+        if len(conv) < 2 or conv[1].get("role") != "assistant":
+            raise ValueError(
+                "phi4_mm_collate_fn expects [user, assistant] conversations; "
+                f"got {len(conv)} turns, turn-1 role "
+                f"{conv[1].get('role') if len(conv) > 1 else None!r}")
+    texts = [processor.apply_chat_template(c, tokenize=False)
+             for c in conversations]
+    audios = []
+    for ex in examples:
+        a = ex.get("audio")
+        audios.append((a["array"], a["sampling_rate"])
+                      if isinstance(a, dict) else a)
+    batch = processor(text=texts, audios=audios, padding=True,
+                      truncation=True, max_length=max_length,
+                      return_tensors="np")
+    input_ids = _as_numpy(batch["input_ids"]).astype(np.int32)
+    tokenizer = getattr(processor, "tokenizer", processor)
+    loss_masks: List[List[int]] = []
+    for row, conv in zip(input_ids, conversations):
+        ids = [int(t) for t in row]
+        answer = tokenizer(conv[1]["content"],
+                           add_special_tokens=False)["input_ids"]
+        mask = [0] * len(ids)
+        start = find_response_start(ids, answer)
+        if start:       # the matched answer span itself
+            mask[start - len(answer):start] = [1] * len(answer)
+        else:
+            logger.warning(
+                "phi4_mm_collate_fn: assistant answer not found in input_ids "
+                "(truncated at max_length=%d, or context-dependent "
+                "tokenization); example contributes no supervised tokens",
+                max_length)
+        loss_masks.append(mask)
+    out: Dict[str, np.ndarray] = {"input_ids": input_ids}
+    for key in ("input_audio_embeds", "audio_embed_sizes",
+                "audio_attention_mask"):
+        if batch.get(key) is not None:
+            out[key] = _as_numpy(batch[key])
+    out["labels"] = _shifted_masked_labels(
+        input_ids, extract_skipped_token_ids(processor), loss_masks)
+    out["loss_mask"] = np.asarray(loss_masks, np.float32)
+    if pad_seq_len_divisible:
+        _pad_text_fields(out, processor, int(pad_seq_len_divisible))
+    return out
+
+
+# processor class name -> collate fn
 COLLATE_FNS = {"Qwen2_5_VLProcessor": qwen2_5_collate_fn,
+               "Phi4MMProcessor": phi4_mm_collate_fn,
                "default": default_collate_fn}

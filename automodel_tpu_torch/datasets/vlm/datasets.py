@@ -1,6 +1,6 @@
 """VLM dataset makers (counterpart: ``automodel_tpu/datasets/vlm/
-datasets.py``): rows -> ``{"conversation": [...], "images": [array]}``,
-the format the collators take.
+datasets.py``): rows -> ``{"conversation": [...], "images": [array]}``
+(CommonVoice: ``"audio"``), the format the collators take.
 
 The rows come from an in-memory list of row dicts or from local json /
 jsonl files (``path_or_dataset``); a Hugging Face repo id such as
@@ -87,3 +87,25 @@ def make_medpix_dataset(path_or_dataset: Any = "mmoukouba/MedPix-VQA",
     return _build(path_or_dataset, limit_dataset_samples,
                   lambda ex: _conversation(ex["question"], ex["answer"],
                                            ex["image"]))
+
+
+def make_cv17_dataset(path_or_dataset: Any = "ysdede/commonvoice_17_tr_fixed",
+                      split: str = "train", limit_dataset_samples=None,
+                      **kwargs) -> List[dict]:
+    """CommonVoice 17 audio: ``audio`` -> a transcription of ``sentence``
+    (the assistant turn as a list of text parts, as in JAX, which
+    ``phi4_mm_collate_fn`` does not take)."""
+    def fmt(ex):
+        return {
+            "conversation": [
+                {"role": "user", "content": [
+                    {"type": "audio"},
+                    {"type": "text",
+                     "text": "Transcribe the audio clip into text."}]},
+                {"role": "assistant", "content": [
+                    {"type": "text", "text": ex["sentence"]}]},
+            ],
+            "audio": ex["audio"],
+        }
+
+    return _build(path_or_dataset, limit_dataset_samples, fmt)

@@ -10,7 +10,8 @@ emit), and a ``tokenizer`` with ``get_vocab`` / ``pad_token_id`` /
 callable tokenization (a whitespace word hash into the vocabulary).
 :class:`Qwen2_5_VLProcessor` is the Qwen processor's stand-in (flat patch
 rows and grids), :func:`make_mock_video_dataset` the video conversations
-it takes.
+it takes; :class:`Phi4MMProcessor` Phi-4-multimodal's (audio frames and
+placeholders), :func:`make_mock_audio_dataset` its audio conversations.
 """
 
 from __future__ import annotations
@@ -305,5 +306,92 @@ def make_mock_video_dataset(num_samples: int = 32, image_size: int = 16,
                     {"type": "text", "text": desc}]},
             ],
             "videos": [vid],
+        })
+    return out
+
+
+class Phi4MMProcessor:
+    """``processor._target_: automodel_tpu.datasets.vlm.mock.
+    Phi4MMProcessor``, with the real processor's class name
+    (``COLLATE_FNS`` dispatches by it): ``[user, assistant]``
+    conversations with an optional audio clip.  ``__call__`` cuts each clip
+    into frames of ``input_size`` samples (a clip shorter than
+    ``time_reduction`` frames is zero-padded to that many), puts
+    ``ceil(frames / time_reduction)`` audio tokens before the row's text,
+    and emits ``input_audio_embeds [N, T, input_size]`` (padded to the
+    longest clip), ``audio_embed_sizes [N]`` and ``audio_attention_mask
+    [N, T]``."""
+
+    AUDIO_TOKEN = "<|audio|>"
+
+    def __init__(self, vocab_size: int = 256, input_size: int = 20,
+                 time_reduction: int = 4, audio_token_id: int = 6):
+        self.input_size = input_size
+        self.time_reduction = time_reduction
+        self.audio_token_id = audio_token_id
+        self.tokenizer = _MockTokenizer(vocab_size, image_token_id=0)
+        self.tokenizer._special[self.AUDIO_TOKEN] = audio_token_id
+
+    def apply_chat_template(self, conversation, tokenize=False, **_kw):
+        parts = []
+        for turn in conversation:
+            parts.append("<user>" if turn["role"] == "user" else "<assistant>")
+            content = turn["content"]
+            parts.append(content if isinstance(content, str) else " ".join(
+                c.get("text", "") for c in content))
+        text = " ".join(parts)
+        return self.tokenizer(text)["input_ids"] if tokenize else text
+
+    def __call__(self, text, audios=None, padding=True, return_tensors="np",
+                 truncation=False, max_length=None, **_kw):
+        feats, sizes, seqs = [], [], []
+        for i, t in enumerate(text):
+            ids = self.tokenizer(t)["input_ids"]
+            a = audios[i] if audios is not None else None
+            if a is not None:
+                arr, _sr = a if isinstance(a, tuple) else (a, 16000)
+                arr = np.asarray(arr, np.float32)
+                frames = max(len(arr) // self.input_size, self.time_reduction)
+                need = frames * self.input_size
+                if len(arr) < need:
+                    arr = np.pad(arr, (0, need - len(arr)))
+                feats.append(arr[:need].reshape(frames, self.input_size))
+                n_tok = int(np.ceil(frames / self.time_reduction))
+                ids = [self.audio_token_id] * n_tok + ids
+                sizes.append(n_tok)
+            seqs.append(ids)
+        if truncation and max_length:
+            seqs = [s[:max_length] for s in seqs]
+        width = max(len(s) for s in seqs)
+        pad = self.tokenizer.pad_token_id
+        out = {"input_ids": np.asarray(
+            [s + [pad] * (width - len(s)) for s in seqs], np.int64)}
+        if feats:
+            t_max = max(f.shape[0] for f in feats)
+            out["input_audio_embeds"] = np.stack([
+                np.pad(f, ((0, t_max - f.shape[0]), (0, 0))) for f in feats])
+            out["audio_embed_sizes"] = np.asarray(sizes, np.int64)
+            out["audio_attention_mask"] = np.asarray(
+                [[1] * f.shape[0] + [0] * (t_max - f.shape[0])
+                 for f in feats], np.int64)
+        return out
+
+
+def make_mock_audio_dataset(num_samples: int = 32, seed: int = 0,
+                            **_kw) -> List[dict]:
+    """``[user, assistant]`` conversations with an 80-200 sample clip each
+    (the JAX rows from the same seed)."""
+    rng = np.random.default_rng(seed)
+    words = ["yes", "no", "music", "speech", "noise", "quiet", "loud"]
+    out = []
+    for _ in range(num_samples):
+        audio = rng.normal(size=(rng.integers(80, 200),)).astype(np.float32)
+        out.append({
+            "conversation": [
+                {"role": "user", "content": "What do you hear?"},
+                {"role": "assistant",
+                 "content": " ".join(rng.choice(words, size=4))},
+            ],
+            "audio": {"array": audio, "sampling_rate": 16000},
         })
     return out

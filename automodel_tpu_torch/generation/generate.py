@@ -9,10 +9,20 @@ prefill forward writes the cache and gives each row's first token, then
 ``max_new_tokens - 1`` single-token forwards follow.  Finished rows emit
 ``pad_token_id`` after their eos.  Serving workloads go through the
 paged decode engine (``serving/engine.py``), whose greedy output is
-token-identical to this loop.  The DeepSeek families, which the engine
-does not serve, run here over their split dense cache: the prefill
-attends through the attention dispatcher (kernel 9 on the card), each
-single-token step through the plain ``cached_attention``.
+token-identical to this loop.  Every family's prefill attends its own
+keys through the attention dispatcher (kernel 9 on the card; the
+prefill's ``attn_impl="plain"`` forces the plain version), each
+single-token step the cache through the plain ``cached_attention``, as
+the JAX cached layers do.  The DeepSeek families, which the engine does
+not serve, run here over their split dense cache; the VLMs (Gemma-3,
+llava, Qwen2.5-VL, Phi-4-multimodal) take their images, videos or audio
+as prefill keywords (``pixel_values``, ``pixel_values_videos``,
+``input_audio_embeds`` ...; numpy arrays are moved to the model's
+device).  Their features follow the placeholders wherever the
+left-alignment puts them (each row's, or the batch's, placeholders keep
+their order), so right-padded prompts with ``prompt_lens`` serve as
+well as left-padded ones with ``prompt_lens=None``.  Positions are 1-D
+text positions, as in JAX: Qwen2.5-VL decodes without M-RoPE ids.
 
 Randomness comes from an explicit ``torch.Generator``; it will not draw
 the numbers ``jax.random`` draws from the same seed.
@@ -79,10 +89,14 @@ def generate(model, input_ids, prompt_lens=None,
     [B]`` the true lengths, default S) on the model's device ->
     ``[B, max_new_tokens]`` int32 numpy, ``pad_token_id`` after eos.
     ``prefill_kwargs`` go to the prefill forward only, as in JAX (e.g.
-    ``attn_impl="plain"``).  The decode steps are plain PyTorch ops: the
-    JAX loop runs no Pallas kernel there either."""
+    ``attn_impl="plain"``, or a VLM's ``pixel_values``).  The decode
+    steps are plain PyTorch ops: the JAX loop runs no Pallas kernel there
+    either."""
     cfg = config or GenerationConfig()
-    dev = model.inv_freq.device
+    dev = next(model.parameters()).device
+    prefill_kwargs = {k: torch.from_numpy(np.asarray(v)).to(dev)
+                      if isinstance(v, np.ndarray) else v
+                      for k, v in prefill_kwargs.items()}
     ids = torch.as_tensor(np.asarray(input_ids), dtype=torch.long,
                           device=dev)
     B, S = ids.shape

@@ -18,10 +18,11 @@ registry.py``): ``llama``, and on Llama's class ``mistral``, ``qwen2``,
 Laurel / per-layer-embedding decoder alone); ``qwen2_5_vl_text``
 (Qwen2.5-VL's M-RoPE decoder alone); and the image-text models
 ``gemma3`` (Gemma-3 multimodal), ``gemma3n`` (Gemma-3n with its native
-conv tower), ``llava`` and ``qwen2_5_vl``, which
+conv tower), ``llava``, ``qwen2_5_vl`` and ``phi4_multimodal``
+(Phi-4-multimodal's audio and text), which
 :class:`AutoModelForImageTextToText` builds the same way (Qwen2.5-VL's
-``image_grid`` / ``video_grid`` pass through as model keywords).  Other
-``model_type`` values (of the JAX registry: ``phi4_multimodal``) raise.
+``image_grid`` / ``video_grid`` pass through as model keywords): all 22
+of the JAX registry's types.  Any other ``model_type`` raises.
 :class:`AutoModelForSequenceClassification` (and
 ``build_sequence_classifier``) wraps any of the text families in
 ``models/sequence_classification.py``'s ``score`` head.  Every model is
@@ -70,6 +71,10 @@ from automodel_tpu_torch.models.mixtral import (
 )
 from automodel_tpu_torch.models.olmo2 import Olmo2Config, Olmo2ForCausalLM
 from automodel_tpu_torch.models.phi3 import Phi3Config, Phi3ForCausalLM
+from automodel_tpu_torch.models.phi4_mm import (
+    Phi4MMConfig,
+    Phi4MMForCausalLM,
+)
 from automodel_tpu_torch.models.qwen2_5_vl import (
     Qwen25VLConfig,
     Qwen25VLForConditionalGeneration,
@@ -115,6 +120,7 @@ FAMILIES = {
     "llava": (VLMConfig, VLMForConditionalGeneration),
     "qwen2_5_vl": (Qwen25VLConfig, Qwen25VLForConditionalGeneration),
     "qwen2_5_vl_text": (Qwen25VLTextConfig, Qwen25VLTextModel),
+    "phi4_multimodal": (Phi4MMConfig, Phi4MMForCausalLM),
 }
 
 

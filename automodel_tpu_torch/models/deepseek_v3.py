@@ -56,7 +56,7 @@ from automodel_tpu_torch.models.llama import (
     RMSNorm,
 )
 from automodel_tpu_torch.ops import moe
-from automodel_tpu_torch.ops.attention import attention, cached_attention
+from automodel_tpu_torch.ops.attention import attention
 from automodel_tpu_torch.ops.quant import quant_for
 from automodel_tpu_torch.ops.rotary import apply_rope, get_mscale
 
@@ -357,18 +357,8 @@ class DeepseekV3ForCausalLM(LlamaForCausalLM):
                             scale=self.attn_scale, impl=attn_impl)
         else:
             kv_cache.write(kh, vh)
-            if S > 1:           # a prefill attends its own keys
-                mask = kv_cache.attention_mask
-                out = attention(
-                    qh, kh, vh, causal=True,
-                    attention_mask=None if mask is None else mask[:, :S],
-                    scale=self.attn_scale, impl=attn_impl)
-            else:
-                out = cached_attention(
-                    qh, kv_cache.cache["k"], kv_cache.cache["v"],
-                    cache_index=kv_cache.cache_index,
-                    attention_mask=kv_cache.attention_mask,
-                    scale=self.attn_scale)
+            out = kv_cache.attend(qh, kh, vh, scale=self.attn_scale,
+                                  impl=attn_impl)
         out = out[..., :dv].reshape(B, S, Hq * dv)
         return hidden + self._mm(p.o_proj, out)
 

@@ -32,8 +32,9 @@ down to ``mm_tokens_per_image`` tokens as a reshape-mean, ``(1 + w)``
 RMSNorm ``mm_soft_emb_norm``, then ``x @ mm_input_projection_weight [Hv,
 Ht]``) and the decoder; image features overwrite the placeholder tokens'
 embeddings after the ``sqrt(H)`` scale (``models/vlm.py::
-merge_image_embeds``).  Decoding with a cache (serving, ``generate()``)
-is not ported for these families yet.
+merge_image_embeds``).  Both decode through ``generate()`` over the
+dense cache (the VLM's ``init_kv_cache`` is its decoder's); the paged
+serving engine does not take them, as in JAX.
 """
 
 from __future__ import annotations
@@ -45,7 +46,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from automodel_tpu_torch.models.llama import LlamaForCausalLM
+from automodel_tpu_torch.models.llama import DenseKVView, LlamaForCausalLM
 from automodel_tpu_torch.models.vision import VisionConfig
 from automodel_tpu_torch.models.vlm import ImageTextModel
 from automodel_tpu_torch.ops.attention import attention
@@ -140,7 +141,12 @@ class Gemma3DecoderLayer(nn.Module):
 
 class Gemma3ForCausalLM(LlamaForCausalLM):
     """``device`` None is ``cuda`` (raises without a card).  ``remat``,
-    ``remat_policy`` and ``scan_block`` as the Llama class's."""
+    ``remat_policy`` and ``scan_block`` as the Llama class's.  With the
+    dense cache of ``init_kv_cache`` (``generate()``) each layer writes
+    k / v at ``cache_index``; a prefill attends its own keys through
+    kernel 9, a decode step the cache through the plain
+    ``cached_attention``, both at the layer's window, scale and soft cap
+    (the JAX cached layer; Gemma-2 inherits it, as in JAX)."""
 
     def __init__(self, config: Gemma3Config, **kwargs):
         super().__init__(config, **kwargs)
@@ -204,10 +210,11 @@ class Gemma3ForCausalLM(LlamaForCausalLM):
     def _attention_block(self, layer: Gemma3DecoderLayer, hidden,
                          position_ids, segment_ids, kv_cache, attn_impl):
         cfg = self.config
-        if kv_cache is not None:
+        if kv_cache is not None and not isinstance(kv_cache, DenseKVView):
             raise NotImplementedError(
-                "decoding the Gemma families with a cache (serving, "
-                "generate()) is not ported yet: ROADMAP Queue 1 item 10.8")
+                "the Gemma families decode over the dense cache of "
+                "init_kv_cache (generate()); the paged serving engine does "
+                "not take them, as in JAX")
         B, S, _ = hidden.shape
         D, Hq, Hk = cfg.head_dim, cfg.num_attention_heads, \
             cfg.num_key_value_heads
@@ -219,13 +226,17 @@ class Gemma3ForCausalLM(LlamaForCausalLM):
             q, k = layer.q_norm(q), layer.k_norm(k)
         q, k = apply_rope(q, k, position_ids,
                           self.inv_freq if layer.full else self.inv_freq_local)
-        attn = attention(
-            q.contiguous(), k.contiguous(), v.contiguous(), causal=True,
-            segment_ids=segment_ids,
-            scale=float(cfg.query_pre_attn_scalar) ** -0.5,
-            logits_soft_cap=cfg.attn_logit_softcapping,
-            local_window_size=None if layer.full else int(cfg.sliding_window),
-            impl=attn_impl)
+        kw = dict(scale=float(cfg.query_pre_attn_scalar) ** -0.5,
+                  logits_soft_cap=cfg.attn_logit_softcapping,
+                  local_window_size=(None if layer.full
+                                     else int(cfg.sliding_window)),
+                  impl=attn_impl)
+        if kv_cache is not None:
+            kv_cache.write(k, v)
+            attn = kv_cache.attend(q, k, v, **kw)
+        else:
+            attn = attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                             causal=True, segment_ids=segment_ids, **kw)
         out = self._proj(layer.o_proj, attn.reshape(B, S, Hq * D),
                          "self_attn.o_proj")
         return hidden + layer.post_attention_layernorm(out)

@@ -934,6 +934,9 @@ class Gemma3nForConditionalGeneration(nn.Module):
                                  gathered.to(cd), embeds)
         return lm(input_ids, inputs_embeds=embeds, **kwargs)
 
+    def init_kv_cache(self, *args, **kwargs):
+        raise NotImplementedError(_NO_CACHE)
+
     @property
     def num_params(self) -> int:
         return sum(p.numel() for p in self.parameters())

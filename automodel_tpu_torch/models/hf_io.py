@@ -7,7 +7,8 @@ starcoder2, phi3 (fused ``qkv_proj`` / ``gate_up_proj``) and gpt2;
 mixtral, qwen3_moe, deepseek_v2, deepseek_v3; gemma3_text and gemma2, and
 the VLMs gemma3 and llava with their SigLIP tower, and qwen2_5_vl with its
 windowed ViT and qwen2_5_vl_text; gemma3n_text and gemma3n with its
-native conv tower), keyed by the same JAX
+native conv tower; phi4_multimodal with its conformer audio encoder),
+keyed by the same JAX
 tree paths that ``models/weights.py::jax_leaves`` walks; an entry is an
 :class:`HfEntry`. A sequence classifier's map is its backbone's re-rooted
 under ``backbone`` without ``lm_head``, plus ``score.weight``, which a
@@ -103,7 +104,8 @@ _ARCHITECTURES = {"llama": "LlamaForCausalLM",
                   "qwen2_5_vl": "Qwen2_5_VLForConditionalGeneration",
                   "qwen2_5_vl_text": "Qwen2_5_VLTextModel",
                   "gemma3n_text": "Gemma3nForCausalLM",
-                  "gemma3n": "Gemma3nForConditionalGeneration"}
+                  "gemma3n": "Gemma3nForConditionalGeneration",
+                  "phi4_multimodal": "Phi4MultimodalForCausalLM"}
 
 
 # ---------------------------------------------------------------------------
@@ -305,6 +307,84 @@ def phi3_key_map(config) -> Dict[Tuple[str, ...], HfEntry]:
             f"model.layers.{{i}}.{block}.{proj}.weight")
     if not config.tie_word_embeddings:
         m[("lm_head", "kernel")] = HfEntry("lm_head.weight")
+    return m
+
+
+def phi4_mm_key_map(config) -> Dict[Tuple[str, ...], HfEntry]:
+    """Phi-4-multimodal, audio and text (HF ``Phi4MultimodalForCausalLM``
+    naming, no ``image_embed``): the Phi decoder's map under
+    ``language_model`` (HF names unchanged), the conformer encoder under
+    ``model.embed_tokens_extend.audio_embed.encoder.`` with the nemo
+    ``embed.conv.{i}`` indices (``conv0`` at 0, then ``dw{s}`` / ``pw{s}``
+    at ``3 s - 1`` / ``3 s``), its conv1d products as ``(O, I, 1)``
+    views, the depthwise kernel as a ``(C, 1, k)`` view and the GLU's
+    ``b1`` / ``b2`` as ``(1, E, 1)`` views."""
+    m = {("language_model",) + path: e
+         for path, e in phi3_key_map(config.text_config).items()}
+    ae = "model.embed_tokens_extend.audio_embed."
+    enc = ae + "encoder."
+    blk = enc + "encoders.{i}."
+    p = ("audio_embed", "encoder")
+
+    def conv1d(w):           # [O, I] -> (O, I, 1)
+        return w.view(w.shape[0], w.shape[1], 1)
+
+    def depthwise(w):        # [C, k] -> (C, 1, k)
+        return w.view(w.shape[0], 1, w.shape[1])
+
+    def channel(w):          # [E] -> (1, E, 1)
+        return w.view(1, -1, 1)
+
+    m[p + ("encoder_embedding", "global_mean")] = HfEntry(
+        enc + "encoder_embedding.global_mean")
+    m[p + ("encoder_embedding", "global_invstd")] = HfEntry(
+        enc + "encoder_embedding.global_invstd")
+    m[p + ("relative_attention_bias", "weight")] = HfEntry(
+        enc + "relative_attention_bias_layer.bias_values.weight")
+    conv_idx = {"conv0": 0}
+    for s in range(1, config.audio_config.n_stages):
+        conv_idx[f"dw{s}"], conv_idx[f"pw{s}"] = 3 * s - 1, 3 * s
+    for ours, idx in conv_idx.items():
+        for leaf, wb in (("kernel", "weight"), ("bias", "bias")):
+            m[p + ("embed", ours, leaf)] = HfEntry(
+                enc + f"embed.conv.{idx}.{wb}")
+    for leaf, wb in (("kernel", "weight"), ("bias", "bias")):
+        m[p + ("embed", "out", leaf)] = HfEntry(enc + f"embed.out.{wb}")
+
+    def lin(path, name, view=None):
+        m[p + ("encoders",) + path + ("kernel",)] = HfEntry(
+            blk + name + ".weight", view=view)
+        m[p + ("encoders",) + path + ("bias",)] = HfEntry(
+            blk + name + ".bias")
+
+    def ln(path, name):
+        for wb in ("weight", "bias"):
+            m[p + ("encoders",) + path + (wb,)] = HfEntry(
+                blk + f"{name}.{wb}")
+
+    for mod in ("feed_forward_in", "feed_forward_out"):
+        ln((mod, "layer_norm"), mod + ".layer_norm")
+        lin((mod, "gate_up_proj"), mod + ".gate_up_proj")
+        lin((mod, "down_proj"), mod + ".down_proj")
+    ln(("layer_norm_att",), "layer_norm_att")
+    ln(("layer_norm",), "layer_norm")
+    for proj in ("q_proj", "k_proj", "v_proj", "o_proj"):
+        lin(("self_attn", proj), "self_attn." + proj)
+    ln(("conv", "layer_norm"), "conv.layer_norm")
+    lin(("conv", "glu"), "conv.glu.ext_pw_conv_1d", conv1d)
+    for b in ("b1", "b2"):
+        m[p + ("encoders", "conv", f"glu_{b}")] = HfEntry(
+            blk + f"conv.glu.{b}", view=channel)
+    m[p + ("encoders", "conv", "dw_conv", "kernel")] = HfEntry(
+        blk + "conv.dw_sep_conv_1d.dw_conv.weight", view=depthwise)
+    m[p + ("encoders", "conv", "dw_conv", "bias")] = HfEntry(
+        blk + "conv.dw_sep_conv_1d.dw_conv.bias")
+    lin(("conv", "pw_conv"), "conv.dw_sep_conv_1d.pw_conv", conv1d)
+    lin(("conv", "ext_pw_conv"), "conv.ext_pw_conv_1d", conv1d)
+    for proj in ("up_proj_for_speech", "down_proj_for_speech",
+                 "up_proj_for_vision_speech", "down_proj_for_vision_speech"):
+        for leaf, wb in (("kernel", "weight"), ("bias", "bias")):
+            m[("audio_embed", proj, leaf)] = HfEntry(ae + f"{proj}.{wb}")
     return m
 
 
@@ -625,7 +705,8 @@ _KEY_MAPS = {"llama": llama_key_map, "mistral": llama_key_map,
              "qwen2_5_vl": qwen2_5_vl_key_map,
              "qwen2_5_vl_text": llama_key_map,
              "gemma3n_text": gemma3n_text_key_map,
-             "gemma3n": gemma3n_vlm_key_map}
+             "gemma3n": gemma3n_vlm_key_map,
+             "phi4_multimodal": phi4_mm_key_map}
 
 # the read transforms of an int8 base's two leaves (one HF tensor each)
 INT8_CODES, INT8_SCALE = "int8_codes", "int8_scale"
@@ -795,10 +876,13 @@ def load_hf_weights(model, ckpt_dir: str) -> None:
 
 
 def save_hf_config(model, out_dir: str) -> None:
-    """``config.json``: the model config's fields plus ``architectures``
-    (and a classifier's ``num_labels``, ``pad_token_id`` and label maps,
+    """``config.json``: the model config's fields (a model's own
+    ``hf_config_dict`` where it has one: Phi-4-multimodal writes HF's
+    layout, text fields at the top level) plus ``architectures`` (and a
+    classifier's ``num_labels``, ``pad_token_id`` and label maps,
     as the JAX writer)."""
-    d = dataclasses.asdict(model.config)
+    d = (model.hf_config_dict() if hasattr(model, "hf_config_dict")
+         else dataclasses.asdict(model.config))
     arch = _ARCHITECTURES[model.config.model_type]
     if hasattr(model, "num_labels"):
         n = model.num_labels

@@ -24,8 +24,10 @@ with a cache: a :class:`~automodel_tpu_torch.serving.kv_cache.PagedKVView`
 (the serving path: each layer writes its k/v into the paged pools, then
 attends through ``ops/paged_attention.py``) or the dense decode cache of
 :meth:`LlamaForCausalLM.init_kv_cache` (``generation/generate.py``: k/v
-written at ``cache_index``, attended by the plain
-``ops/attention.py::cached_attention``, as JAX's XLA path).  The
+written at ``cache_index``; a prefill attends its own keys through
+``ops/attention.py::attention``, kernel 9 on the card, each decode step
+the cache through the plain ``cached_attention``, as JAX's cached
+layer).  The
 feed-forward block is a hook
 (``_mlp_block``) that the MoE families (``models/mixtral.py``) replace with
 routed experts; their per-layer routing statistics come back through remat
@@ -229,10 +231,27 @@ class DenseKVView:
             t = self.cache[name]
             t[:, i:i + S] = x.to(t.dtype)
 
-    def attend(self, q: torch.Tensor, *, scale=None, local_window_size=None):
+    def attend(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+               scale=None, logits_soft_cap=None, local_window_size=None,
+               impl: Optional[str] = None) -> torch.Tensor:
+        """This step's attention after :meth:`write`, as the JAX cached
+        layer's: a prefill (S > 1) attends its own S keys through the
+        attention dispatcher (kernel 9 on the card; ``impl`` as
+        ``ops.attention.attention``'s), the padding mask's first S columns
+        folded into segments; a decode step (S = 1) attends the cache
+        through the plain ``cached_attention``."""
+        S = q.shape[1]
+        if S > 1:
+            mask = self.attention_mask
+            return attention(
+                q.contiguous(), k.contiguous(), v.contiguous(), causal=True,
+                attention_mask=None if mask is None else mask[:, :S],
+                scale=scale, logits_soft_cap=logits_soft_cap,
+                local_window_size=local_window_size, impl=impl)
         return cached_attention(
             q, self.cache["k"], self.cache["v"], cache_index=self.cache_index,
             attention_mask=self.attention_mask, scale=scale,
+            logits_soft_cap=logits_soft_cap,
             local_window_size=local_window_size)
 
 
@@ -429,8 +448,9 @@ class LlamaForCausalLM(nn.Module):
         scale = self._attn_softmax_scale
         if kv_cache is not None:
             kv_cache.write(k, v)
-            return kv_cache.attend(q, scale=scale,
-                                   local_window_size=self.sliding_window)
+            return kv_cache.attend(q, k, v, scale=scale,
+                                   local_window_size=self.sliding_window,
+                                   impl=attn_impl)
         attn = attention(q.contiguous(), k.contiguous(), v.contiguous(),
                          causal=True, segment_ids=segment_ids, scale=scale,
                          local_window_size=self.sliding_window,

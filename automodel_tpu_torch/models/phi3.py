@@ -15,8 +15,8 @@ The Llama decoder of ``models/llama.py`` with the Phi layout:
 
 Phi-3-mini's and Phi-3.5-mini's head_dim 96 runs kernel 9 through its
 zero-padded route (``ops/splash_attention.py``); the decode kernel takes
-64 and 128 only and raises at 96.  The audio tower and
-``Phi4MMForCausalLM`` are not ported (ROADMAP Queue 1 item 10.8).
+64 and 128 only and raises at 96.  Phi-4-multimodal's decoder is this
+class (``models/phi4_mm.py``).
 """
 
 from __future__ import annotations

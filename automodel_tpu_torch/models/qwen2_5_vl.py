@@ -519,6 +519,11 @@ class Qwen25VLForConditionalGeneration(nn.Module):
         for path, t, tr in self.visual.jax_tree_leaves():
             yield ("visual",) + path, t, tr
 
+    def init_kv_cache(self, batch: int, max_len: int, dtype=None):
+        """The decoder's dense decode cache (``generate()``, whose 1-D
+        positions take the plain rope, as in JAX)."""
+        return self.language_model.init_kv_cache(batch, max_len, dtype)
+
     @property
     def num_params(self) -> int:
         return sum(p.numel() for p in self.parameters())

@@ -6,6 +6,8 @@ into the token stream wherever ``input_ids == image_token_id``
 (:func:`merge_image_embeds`, shared with ``models/gemma3.py``), the
 placeholder expansion the VLM collators produce
 (``datasets/vlm/collate_fns.py``).  The token embeddings are not scaled.
+``init_kv_cache`` is the decoder's: ``generate()`` decodes these models
+over the dense cache, the images on the prefill only.
 """
 
 from __future__ import annotations
@@ -156,6 +158,11 @@ class ImageTextModel(nn.Module):
                                         self.encode_images,
                                         self.image_token_id)
         return lm(input_ids, inputs_embeds=embeds, **kwargs)
+
+    def init_kv_cache(self, batch: int, max_len: int, dtype=None):
+        """The decoder's dense decode cache (``generate()``); ``forward``
+        hands ``kv_cache`` / ``cache_index`` to the decoder."""
+        return self.language_model.init_kv_cache(batch, max_len, dtype)
 
     @property
     def num_params(self) -> int:

@@ -127,7 +127,19 @@ def attention(
         q, k, v, causal=causal, segment_ids=segment_ids,
         attention_mask=attention_mask, scale=scale,
         logits_soft_cap=logits_soft_cap,
-        local_window_size=local_window_size, impl=impl)
+        local_window_size=dispatched_window(local_window_size, q.shape[1]),
+        impl=impl)
+
+
+def dispatched_window(local_window_size: Optional[int],
+                      rows: int) -> Optional[int]:
+    """The window :func:`attention` runs over ``rows`` rows: None (the
+    causal plan, without the window's partial tiles, so the same output
+    bit for bit) where the window is at least as long as the rows and so
+    masks nothing that causal does not (Phi-4's 262,144)."""
+    if local_window_size is not None and local_window_size >= rows:
+        return None
+    return local_window_size
 
 
 _NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)

@@ -383,10 +383,13 @@ class PagedKVView:
                     0, slots, sc)
             pool.view(-1, Hk, D).index_copy_(0, slots, flat.to(pool.dtype))
 
-    def attend(self, q: torch.Tensor, *, scale=None, logits_soft_cap=None,
-               local_window_size=None) -> torch.Tensor:
+    def attend(self, q: torch.Tensor, k=None, v=None, *, scale=None,
+               logits_soft_cap=None, local_window_size=None,
+               impl=None) -> torch.Tensor:
         """Paged attention of ``q [B, S, Hq, D]`` over the (freshly written)
-        pools."""
+        pools.  ``k`` / ``v`` and ``impl`` are taken for the dense view's
+        signature and unused: the keys are in the pools, and the engine
+        chose the route (``attn_impl``)."""
         from automodel_tpu_torch.ops.paged_attention import paged_attention
 
         return paged_attention(

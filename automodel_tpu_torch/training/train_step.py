@@ -260,8 +260,10 @@ def stack_microbatches(microbatches: List[Dict[str, np.ndarray]]
     ``[B, I, H, W, C]`` along ``I`` and flat patch rows (``pixel_values``
     / ``pixel_values_videos``, ``[n_patches, patch_dim]``) along their
     rows, with zeros no placeholder reads; ``*_grid_thw`` rows with zero
-    rows; M-RoPE ids ``[B, S, 3]`` along ``S`` with 1 (HF's value for a
-    masked position); the rest
+    rows; audio frames ``input_audio_embeds [N, T, F]`` along ``T`` with
+    zeros (their ``audio_attention_mask [N, T]`` is a last-axis key);
+    M-RoPE ids ``[B, S, 3]`` along ``S`` with 1 (HF's value for a masked
+    position); the rest
     along the last axis with the per-key pad value.  Every microbatch must
     carry the same keys."""
     keys = set(microbatches[0])
@@ -283,6 +285,10 @@ def stack_microbatches(microbatches: List[Dict[str, np.ndarray]]
         elif k in ("image_grid_thw", "video_grid_thw"):
             n = max(a.shape[0] for a in arrs)
             arrs = [np.pad(a, [(0, n - a.shape[0]), (0, 0)]) for a in arrs]
+        elif k == "input_audio_embeds":
+            n = max(a.shape[1] for a in arrs)
+            arrs = [np.pad(a, [(0, 0), (0, n - a.shape[1]), (0, 0)])
+                    for a in arrs]
         elif k == "position_ids" and arrs[0].ndim == 3:
             n = max(a.shape[1] for a in arrs)
             arrs = [np.pad(a, [(0, 0), (0, n - a.shape[1]), (0, 0)],

@@ -154,7 +154,8 @@ Phases (any failure exits non-zero without the final ``ok`` line):
    attention, then the timed steps with the flash kernels held to 2
    forward and 1 backward launches per layer and microbatch and the
    splash kernels to none;
-   ckpt: the same YAML with ``--checkpoint.enabled true`` (a temporary
+   ckpt: the same YAML at 4 of its 16 layers (``CKPT_LAYERS``, for the
+   script's time limit) with ``--checkpoint.enabled true`` (a temporary
    directory, ``keep_last_k`` 1): inline saves, then asynchronous ones,
    each with its train-loop stall, background commit time and bytes
    (``ckpt_save`` lines), every committed directory verified; then a fresh
@@ -339,6 +340,47 @@ Phases (any failure exits non-zero without the final ``ok`` line):
    work done, peak memory, the losses, a profiled window, and the
    YAML's checkpoint at one more step read back bit for bit
    (``{label}_run`` lines).
+19. Phi-4-multimodal (after the Gemma-3n phases): sft_phi4_mm_mock,
+   ``examples/vlm_finetune/tiny_phi4_mm_mock.yaml`` as written (6 steps of
+   8 one-row microbatches; the tiny decoder's head_dim 16 on kernel 9
+   zero-padded); sft_phi4_mm_audio, the same YAML at
+   Phi-4-multimodal-instruct's published widths (``phi4_mm_config``: text
+   H 3,072, 24 / 8 heads at head_dim 128, partial rotary 0.75, V 200,064,
+   window 262,144; the conformer's D 1,024, 16 heads, time reduction 8)
+   at 4 of its 32 decoder layers and 6 of its 24 conformer blocks
+   (``PHI4_MM_TEXT_LAYERS`` / ``PHI4_MM_AUDIO_BLOCKS``), random bf16
+   weights as the ``refs/main`` snapshot of
+   ``microsoft/Phi-4-multimodal-instruct`` in the temporary ``HF_HOME``,
+   the mock ``Phi4MMProcessor`` at the published widths, seeded audio
+   rows (``phi4_audio_rows``: clips of 3-15 s), global batch 8 / local 4
+   and a consolidated checkpoint; each (``phi4_mm_phase``): the loaded
+   weights bit for bit, kernel 9 at the decoder's rows of the first batch
+   (causal, and the raw kernel at the published window, which
+   ``attention()`` runs as causal over these rows) against its plain
+   version, the first step against
+   every plain version, the exact launch counts (kernel 9 2 x layers x
+   microbatches forward under remat, layers x microbatches backward; the
+   conformer none), step time, non-pad tokens/s, audio seconds/s, MFU by
+   the work done (decoder, encoder and projector) beside JAX's decoder
+   count, peak memory, the conformer's parts (its plain attention core,
+   convolution module and subsampling, forward and backward, device
+   times from a ``torch.profiler`` trace, and their share of the
+   profiled step's device time and of its wall time), a profiled window, and the checkpoint read back
+   bit for bit (``{label}_run`` lines).
+20. VLM decode with a cache: generate_gemma3_4b_cord (after
+   sft_gemma3_4b_cord) and generate_qwen25_vl_3b_rdr (after
+   sft_qwen25_vl_3b_rdr), each over its SFT phase's consolidated export
+   through ``from_pretrained`` and ``generate()`` (the exports' depth:
+   6 of 34 and 4 of 36 text layers): 4 prompts of one image each (the
+   mock processor's ids and pixels), right-padded and left-aligned by
+   ``generate()``, 32 new tokens greedy, with the kernel prefill and with
+   the plain one (``vlm_generate_phase``): the prefill's last logits
+   within 5 % of the logit range and the prompts' first tokens equal;
+   kernel 9 launches exactly once per decoder layer on the prefill (plus
+   the Qwen2.5-VL tower's 8 blocks) and never on a decode step; kernel 9
+   against its plain version at the plans the prefill runs on its rows
+   (Gemma-3's window 1,024 spans its 322 rows, so both its layer kinds
+   run full causal); prefill ms and decode tokens/s.
 
 The second-to-last line is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.
@@ -816,7 +858,10 @@ def attention_phase(flush, seg_np, cases=ATTN_CASES, v_dim=None):
     import torch
 
     from automodel_tpu_torch.ops import splash_attention as sa
-    from automodel_tpu_torch.ops.attention import make_attention_mask
+    from automodel_tpu_torch.ops.attention import (
+        dispatched_window,
+        make_attention_mask,
+    )
 
     dev = torch.device("cuda")
     rows = []
@@ -910,6 +955,9 @@ def attention_phase(flush, seg_np, cases=ATTN_CASES, v_dim=None):
         row = dict(case=name, B=B, S=S, Hq=Hq, Hk=Hk, D=D,
                    packed="own" if own_seg else packed, causal=causal,
                    window=win, soft_cap=cap, scale=scale,
+                   # False: attention() runs these rows on another plan
+                   # (a window at least as long as the rows as causal)
+                   on_path=dispatched_window(win, S) == win,
                    attended_pairs=pairs,
                    fwd=dict(ms=fwd_ms, plain_ms=fwd_plain, library_ms=fwd_lib,
                             library_factor=factor(fwd_ms, fwd_lib),
@@ -2943,8 +2991,7 @@ def generate_deepseek_phase():
         dv3.attention = attend
 
     def parting(a_run, b_run):
-        return [int(np.argmax(a != b)) if (a != b).any() else None
-                for a, b in zip(out[a_run], out[b_run])]
+        return _first_parting(out[a_run], out[b_run])
 
     same = bool((out["kernel"] == out["plain"]).all())
     parts = parting("kernel", "plain")
@@ -2994,6 +3041,43 @@ KERNEL_KINDS = [
 NAMED_KERNELS = ("tgmm_reduce",)
 
 
+def traced_kernels(prof, steps):
+    """``(device ms, launches, name)`` per step of each kernel a
+    ``torch.profiler`` trace holds (its own time, the card's clock),
+    largest first."""
+    import torch
+
+    kernels = []
+    for evt in prof.key_averages():
+        dev_us = getattr(evt, "self_device_time_total",
+                         getattr(evt, "self_cuda_time_total", 0))
+        if (dev_us > 0 and evt.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(evt, "is_user_annotation", False)):
+            kernels.append((dev_us / 1e3 / steps, evt.count / steps,
+                            evt.key[:80]))
+    return sorted(kernels, reverse=True)
+
+
+def traced_device_ms(fn, iters, warmup=1):
+    """Mean device time of ``fn``: the sum of its kernels' own times under
+    ``torch.profiler`` (the card's activity only), so the host's gaps
+    between the launches of an eager forward and backward are not
+    counted, as CUDA events would count them; None where the trace shows
+    no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    kernels = traced_kernels(prof, iters)
+    return sum(k[0] for k in kernels) if kernels else None
+
+
 def profile_window(run, steps, label, attn_names):
     """Run ``run()`` (``steps`` steps) under ``torch.profiler`` and print
     the host time per step, the device time per step (sum of the kernels'
@@ -3014,15 +3098,7 @@ def profile_window(run, steps, label, attn_names):
         run()
         torch.cuda.synchronize()
         host_ms = (time.perf_counter() - t0) * 1e3 / steps
-    kernels = []
-    for evt in prof.key_averages():
-        dev_us = getattr(evt, "self_device_time_total",
-                         getattr(evt, "self_cuda_time_total", 0))
-        if (dev_us > 0 and evt.device_type == torch.autograd.DeviceType.CUDA
-                and not getattr(evt, "is_user_annotation", False)):
-            kernels.append((dev_us / 1e3 / steps, evt.count / steps,
-                            evt.key[:80]))
-    kernels.sort(reverse=True)
+    kernels = traced_kernels(prof, steps)
     device_ms = sum(k[0] for k in kernels)
     attn_ms = sum(k[0] for k in kernels
                   if any(n in k[2] for n in attn_names))
@@ -3123,7 +3199,7 @@ def first_step_check(recipe, label, routes, compare, quantized=False,
     mb = {k: v[0] for k, v in to_device_batch(
         [first if rows is None else {k: v[:rows] for k, v in first.items()}],
         recipe.device).items()}
-    losses, grads = {}, {}
+    losses, grads, no_grad = {}, {}, {}
     for name, loss_fn, attn_impl, *impls in routes:
         if hasattr(model, "gmm_impl"):        # the MoE models' experts
             model.gmm_impl = impls[0] if impls else None
@@ -3136,7 +3212,17 @@ def first_step_check(recipe, label, routes, compare, quantized=False,
             loss.backward()
         torch.cuda.synchronize()
         losses[name] = float(loss.detach())
-        grads[name] = [p.grad for _, p in trained]
+        # a trained leaf the forward does not use (Phi-4-multimodal's
+        # vision-speech projectors) has no gradient: zeros, as in JAX.
+        # Every route must leave the same leaves without one, so a kernel
+        # backward that drops a gradient fails here
+        no_grad[name] = sorted(n for n, p in trained if p.grad is None)
+        check(no_grad[name] == next(iter(no_grad.values())),
+              f"{label} first step ({name}): no gradient for "
+              f"{no_grad[name]}, where {next(iter(no_grad))} has none for "
+              f"{next(iter(no_grad.values()))}")
+        grads[name] = [torch.zeros_like(p) if p.grad is None else p.grad
+                       for _, p in trained]
         check(all(bool(torch.isfinite(g).all()) for g in grads[name]),
               f"{label} first step ({name}): non-finite gradient")
     model.zero_grad(set_to_none=True)
@@ -3159,6 +3245,7 @@ def first_step_check(recipe, label, routes, compare, quantized=False,
         torch.equal(x, y) for x, y in zip(grads[a], grads[b]))
         for a, b in compare}
     out = dict(rows=rows, losses=losses, bit_identical=bitwise,
+               no_grad=next(iter(no_grad.values())),
                loss_tol=SFT_LOSS_REL_TOL,
                grad_tol=SFT_GRAD_REL_L2,
                grad_rel_l2_kernel_vs_kernel=rel_l2("kernel_again",
@@ -3813,6 +3900,10 @@ def train_phase(label, yaml_path, overrides=(), bf16=None, attn_impl=None,
 # ckpt phase
 # ---------------------------------------------------------------------------
 CKPT_SAVES = 1          # per mode: inline, then asynchronous
+# the bench YAML's depth in the ckpt phase: 4 of 16 layers, widths kept
+# (the saves' bytes, and so the phase's time, fall to ~40 %; cut for the
+# script's time limit when the Phi-4-multimodal and VLM-decode phases came)
+CKPT_LAYERS = 4
 
 
 def _states_equal(a, b):
@@ -3835,7 +3926,8 @@ def _states_equal(a, b):
 
 
 def ckpt_phase():
-    """The bench YAML at full width with checkpointing on (``keep_last_k``
+    """The bench YAML at full width and ``CKPT_LAYERS`` layers with
+    checkpointing on (``keep_last_k``
     1, a temporary directory removed at the end): CKPT_SAVES inline saves,
     then CKPT_SAVES asynchronous ones, one training step before each, with
     the train-loop stall and the background commit time of each; every
@@ -3861,7 +3953,8 @@ def ckpt_phase():
 
         def recipe(max_steps):
             cfg = parse_args_and_load_config(
-                ["-c", BENCH_YAML, "--checkpoint.enabled", "true",
+                ["-c", BENCH_YAML, "--model.config.num_hidden_layers",
+                 str(CKPT_LAYERS), "--checkpoint.enabled", "true",
                  "--checkpoint.checkpoint_dir", root,
                  "--checkpoint.keep_last_k", "1",
                  "--step_scheduler.ckpt_every_steps", "0",
@@ -4596,7 +4689,10 @@ def vlm_sft_phase(label, yaml_path, overrides, flush, written=None,
     from automodel_tpu_torch.loss.linear_ce import FusedLinearCrossEntropy
     from automodel_tpu_torch.ops import linear_ce_kernel as lce
     from automodel_tpu_torch.ops import splash_attention as sa
-    from automodel_tpu_torch.ops.attention import fold_padding_into_segments
+    from automodel_tpu_torch.ops.attention import (
+        dispatched_window,
+        fold_padding_into_segments,
+    )
     from automodel_tpu_torch.recipes.vlm.finetune import FinetuneRecipeForVLM
 
     warmup, steps, profiled = VLM_STEPS[label]
@@ -4645,11 +4741,13 @@ def vlm_sft_phase(label, yaml_path, overrides, flush, written=None,
         (B, S), *(None if first.get(key) is None
                   else torch.as_tensor(np.asarray(first[key]))
                   for key in ("segment_ids", "attention_mask")))
+    win = dispatched_window(tcfg.sliding_window, S)
     attn_rows = attention_phase(
         flush, None if seg is None else seg.numpy(), [(
-            f"{label}_first_batch_w{tcfg.sliding_window}_d{tcfg.head_dim}",
+            f"{label}_first_batch_{'causal' if win is None else f'w{win}'}"
+            f"_d{tcfg.head_dim}",
             B, S, tcfg.num_attention_heads, tcfg.num_key_value_heads,
-            tcfg.head_dim, seg is not None, tcfg.sliding_window, None)])
+            tcfg.head_dim, seg is not None, win, None)])
     lce_row = lce_case(f"{label}_v{tcfg.vocab_size}", B * S,
                        tcfg.hidden_size, tcfg.vocab_size, "bench",
                        first["labels"], flush, seed=310, parts=True)
@@ -4775,8 +4873,14 @@ def gemma3_4b_cord_phase(hf_home, flush):
     print("sft_gemma3_4b_cord overrides: " + " ".join(overrides), flush=True)
     report = vlm_sft_phase("sft_gemma3_4b_cord", GEMMA3_CORD_YAML, overrides,
                            flush, written=written, snap=snap)
-    shutil.rmtree(work, ignore_errors=True)
     shutil.rmtree(os.path.dirname(os.path.dirname(snap)), ignore_errors=True)
+    # the YAML's consolidated save at the last step: the generate phase's
+    # export (the caller removes ``work``)
+    ckpts = os.path.join(work, "checkpoints")
+    saved = sorted(d for d in os.listdir(ckpts) if "_step_" in d)
+    check(len(saved) == 1, f"sft_gemma3_4b_cord: checkpoints {saved}")
+    report["export_dir"] = os.path.join(ckpts, saved[0], "model")
+    report["work_dir"] = work
     return report
 
 
@@ -5083,6 +5187,7 @@ def qwen_vl_phase(label, yaml_path, flush, text_case, overrides=(),
                 os.path.getsize(os.path.join(model_dir, f))
                 for f in os.listdir(model_dir)),
             save_and_step_s=save_s, bit_identical=True)
+        report["export_dir"] = model_dir
         del back, live, read
     print(f"{label}_run " + json.dumps(report), flush=True)
     report["attention_cases"] = attn_rows
@@ -5121,8 +5226,8 @@ def qwen25_vl_3b_rdr_phase(hf_home, flush):
                            "qwen25vl_text_d128", overrides,
                            processor=QWEN25_VL_PROCESSOR,
                            written=written, snap=snap, depth_note=depth)
-    shutil.rmtree(work, ignore_errors=True)
     shutil.rmtree(os.path.dirname(os.path.dirname(snap)), ignore_errors=True)
+    report["work_dir"] = work          # the caller removes it
     return report
 
 
@@ -5287,6 +5392,7 @@ def gemma3n_phase(label, yaml_path, flush, overrides=(), processor=None,
         AutoModelForImageTextToText,
     )
     from automodel_tpu_torch.ops import splash_attention as sa
+    from automodel_tpu_torch.ops.attention import dispatched_window
     from automodel_tpu_torch.peft.lora import load_adapters
     from automodel_tpu_torch.recipes.vlm.finetune import FinetuneRecipeForVLM
 
@@ -5359,10 +5465,12 @@ def gemma3n_phase(label, yaml_path, flush, overrides=(), processor=None,
 
     first = next(iter(recipe.dataloader))
     B, S = first["input_ids"].shape
+    win = dispatched_window(tc.sliding_window, S)
     attn_rows = attention_phase(flush, None, [(
-        f"{label}_first_batch_w{tc.sliding_window}_d{tc.head_dim}_scale1",
+        f"{label}_first_batch_{'causal' if win is None else f'w{win}'}"
+        f"_d{tc.head_dim}_scale1",
         B, S, tc.num_attention_heads, tc.num_key_value_heads, tc.head_dim,
-        False, tc.sliding_window, None, 1.0)])
+        False, win, None, 1.0)])
     torch.cuda.empty_cache()
     # scale 1.0 over unit-rms q / k rows (norm weights around 1) makes the
     # attention sharp: a row's dS = P (dP - rowsum(dO O)) is then a small
@@ -6616,6 +6724,642 @@ def post_train_phase(label, yaml_path):
     return report
 
 
+# ---------------------------------------------------------------------------
+# Phi-4-multimodal (sft_phi4_mm_mock, sft_phi4_mm_audio) and VLM decode
+# with a cache (generate_gemma3_4b_cord, generate_qwen25_vl_3b_rdr)
+# ---------------------------------------------------------------------------
+PHI4_MM_MOCK_YAML = os.path.join(VLM_YAMLS, "tiny_phi4_mm_mock.yaml")
+PHI4_MM = "microsoft/Phi-4-multimodal-instruct"
+PHI4_MM_SEED = 59
+# the depth the audio phase runs at: 4 of 32 decoder layers and 6 of 24
+# conformer blocks, every width kept (the whole model, ~4.3 B parameters
+# without vision, with fp32 masters and Adam leaves no room on one card
+# for the phase's time)
+PHI4_MM_TEXT_LAYERS = 4
+PHI4_MM_AUDIO_BLOCKS = 6
+PHI4_MM_STEPS = {"sft_phi4_mm_mock": (0, 6, 0),    # warm-up, timed, profiled
+                 "sft_phi4_mm_audio": (1, 2, 1)}
+PHI4_AUDIO_ROWS = 48
+PHI4_AUDIO_HOP_S = 0.01        # a frame of input_size features: 10 ms
+# the published values this script cannot read from a source here, and
+# what it takes (named on the phase's line)
+PHI4_MM_TAKEN = {
+    "sliding_window": "262144 (the published config's, from memory)",
+    "bias_max_distance": "500 (the original config's t5_bias_max_distance, "
+                         "from memory; transformers' default is 1000)",
+    "rope_scaling": "longrope with short_factor / long_factor written as "
+                    "48 ones each (the published 48-entry lists are not "
+                    "on this machine); the longrope amplitude kept",
+}
+PHI4_MM_PROCESSOR = {
+    "_target_": "automodel_tpu.datasets.vlm.mock.Phi4MMProcessor",
+    "vocab_size": 200064, "input_size": 80, "time_reduction": 8,
+    "audio_token_id": 200011}
+
+
+def phi4_mm_config(text_layers, audio_blocks):
+    """Phi-4-multimodal-instruct's published text and audio config (HF's
+    layout: text fields at the top level, ``audio_config`` nested; no
+    vision tower, the JAX scope) at ``text_layers`` / ``audio_blocks``;
+    ``PHI4_MM_TAKEN`` names the values not read from a source here."""
+    return dict(
+        architectures=["Phi4MultimodalForCausalLM"],
+        model_type="phi4_multimodal", vocab_size=200064, hidden_size=3072,
+        intermediate_size=8192, num_hidden_layers=text_layers,
+        num_attention_heads=24, num_key_value_heads=8,
+        partial_rotary_factor=0.75, tie_word_embeddings=True,
+        rms_norm_eps=1e-5, rope_theta=10000.0,
+        original_max_position_embeddings=4096,
+        max_position_embeddings=131072, sliding_window=262144,
+        rope_scaling={"type": "longrope", "short_factor": [1.0] * 48,
+                      "long_factor": [1.0] * 48},
+        bos_token_id=199999, eos_token_id=199999, pad_token_id=199999,
+        audio_config=dict(
+            hidden_size=1024, intermediate_size=1536,
+            num_blocks=audio_blocks, num_attention_heads=16, chunk_size=-1,
+            left_chunk=18, ext_pw_out_channel=1024,
+            depthwise_separable_out_channel=1024, depthwise_multiplier=1,
+            kernel_size=3, input_size=80, time_reduction=8,
+            bias_max_distance=500, bias_symmetric=False,
+            nemo_conv_channels=1024, downsample_rate=1,
+            audio_token_id=200011))
+
+
+def phi4_mm_sample(cfg):
+    """The Phi-4-multimodal tensors :func:`write_vlm_model` keeps to check
+    the load against."""
+    L = cfg["num_hidden_layers"]
+    A = cfg["audio_config"]["num_blocks"]
+    enc = "model.embed_tokens_extend.audio_embed.encoder."
+    return {"model.embed_tokens.weight", "model.norm.weight",
+            "model.layers.0.self_attn.qkv_proj.weight",
+            f"model.layers.{L - 1}.mlp.gate_up_proj.weight",
+            enc + "encoder_embedding.global_invstd", enc + "embed.conv.0.weight",
+            enc + "embed.conv.5.weight", enc + "embed.out.weight",
+            enc + "relative_attention_bias_layer.bias_values.weight",
+            enc + f"encoders.{A - 1}.conv.glu.b1",
+            enc + f"encoders.{A - 1}.conv.dw_sep_conv_1d.dw_conv.weight",
+            enc + "encoders.0.feed_forward_in.gate_up_proj.weight",
+            "model.embed_tokens_extend.audio_embed.up_proj_for_speech.bias"}
+
+
+def phi4_audio_rows(num_samples=PHI4_AUDIO_ROWS, seed=0, **_kw):
+    """``num_samples`` rows in the mock audio set's schema
+    (``make_mock_audio_dataset``'s: a user turn, an assistant answer, an
+    ``audio`` clip): clips of 24,000-120,000 samples, i.e. 300-1,500
+    frames of 80 features (3-15 s at the published 10 ms hop, 38-188 audio
+    tokens, under the encoder's 500 frames after subsampling), answers of
+    4-24 words; the audio phase's ``dataset._target_``."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    rows = []
+    for _ in range(int(num_samples)):
+        audio = rng.normal(size=(int(rng.integers(24000, 120001)),)).astype(
+            np.float32)
+        rows.append({
+            "conversation": [
+                {"role": "user", "content": "What do you hear?"},
+                {"role": "assistant", "content": " ".join(
+                    rng.choice(WORDS, int(rng.integers(4, 25))))}],
+            "audio": {"array": audio, "sampling_rate": 16000}})
+    return rows
+
+
+def conformer_times(model, mb):
+    """The conformer's parts on one microbatch ``mb`` (device tensors),
+    forward and backward, device times (the kernels' own times in a
+    ``torch.profiler`` trace: these eager calls are host-bound, so CUDA
+    events would time the host's launch gaps): the whole encoder
+    (its blocks recomputed, as in training), the subsampling stack, one
+    block's attention core (fp32 logits with the bias and the +1 mask,
+    softmax, values) and one block's convolution module; the per-block
+    parts times the blocks."""
+    import torch
+
+    enc = model.audio_embed.encoder
+    ac = enc.config
+    feats = mb["input_audio_embeds"]
+    mask = mb.get("audio_attention_mask")
+    cd = enc.compute_dtype
+    N = feats.shape[0]
+    T = enc.out_frames(feats.shape[1])
+    H, Dh, D = ac.num_attention_heads, ac.head_dim, ac.hidden_size
+    g = torch.Generator(device="cuda").manual_seed(5)
+
+    def leaf(*shape):
+        return torch.randn(*shape, device="cuda", generator=g).to(
+            cd).requires_grad_()
+
+    def fwd_bwd(fn, *args):
+        def run():
+            out = fn(*args)
+            out.float().sum().backward()
+        return run
+
+    def whole():
+        return enc(feats, mask)
+
+    def sub():
+        return enc.subsample(feats.float())
+
+    q, k, v, x = leaf(N, T, H, Dh), leaf(N, T, H, Dh), leaf(N, T, H, Dh), \
+        leaf(N, T, D)
+    add = (torch.zeros(N, H, T, T, device="cuda")
+           + enc.rel_bias(T).float()).detach()
+
+    def core():
+        logits = torch.einsum("bqhd,bkhd->bhqk", q, k).float()
+        w = torch.softmax(logits * Dh ** -0.5 + add, dim=-1).to(cd)
+        return torch.einsum("bhqk,bkhd->bqhd", w, v)
+
+    def conv():
+        return enc._conv_module(enc.blocks[0].conv, x)
+
+    times = {}
+    for name, fn in (("encoder", whole), ("subsample", sub),
+                     ("attention_core_per_block", core),
+                     ("conv_module_per_block", conv)):
+        with torch.enable_grad():
+            times[name + "_ms"] = traced_device_ms(fwd_bwd(fn), 3)
+        model.zero_grad(set_to_none=True)
+    blocks = ac.num_blocks
+    for part in ("attention_core", "conv_module"):
+        one = times[f"{part}_per_block_ms"]
+        times[f"{part}_ms"] = None if one is None else one * blocks
+    times.update(clips=N, frames=int(feats.shape[1]), encoder_frames=T,
+                 blocks=blocks)
+    return times
+
+
+def phi4_mm_phase(label, flush, overrides=(), sections=None, written=None,
+                  snap=None, depth_note=None):
+    """``tiny_phi4_mm_mock.yaml`` through the port's VLM recipe on the card
+    (``recipes/vlm/finetune.py``, what ``automodel-torch finetune vlm``
+    runs) with ``overrides`` and the ``sections`` replaced whole (the
+    model and the processor of the published phase).  Gates: the loaded
+    weights bit for bit as written; kernel 9 at the decoder's heads on the
+    first batch's rows, causal and (the raw kernel, which ``attention()``
+    runs as causal where the window spans the rows) at the config's
+    window, each against its plain version; the first step (the first batch) through the
+    kernels against the plain versions within the SFT limits; the exact
+    launch counts over the timed steps (kernel 9 forward twice per layer
+    and microbatch under remat, backward once, the plain attention never;
+    the conformer runs none); the checkpoint the run asks for at one more
+    step, read back bit for bit.  Reports step time, non-pad tokens/s,
+    audio seconds/s, MFU by the work done (non-pad tokens x
+    ``flops_per_token`` less the frozen tied head's dW, plus the encoder
+    and the speech projector on the padded frames) beside the JAX count
+    (decoder only, ``mfu_jax_count``), peak memory, the conformer's parts
+    on the first microbatch and a profiled window's idle share."""
+    import numpy as np
+    import torch
+
+    from automodel_tpu_torch.config.loader import parse_args_and_load_config
+    from automodel_tpu_torch.loss.masked_ce import MaskedCrossEntropy
+    from automodel_tpu_torch.models import hf_io
+    from automodel_tpu_torch.models.auto_model import (
+        AutoModelForImageTextToText,
+    )
+    from automodel_tpu_torch.ops import splash_attention as sa
+    from automodel_tpu_torch.recipes.vlm.finetune import FinetuneRecipeForVLM
+    from automodel_tpu_torch.training.train_step import to_device_batch
+
+    warmup, steps, profiled = PHI4_MM_STEPS[label]
+    cfg = parse_args_and_load_config(
+        ["-c", PHI4_MM_MOCK_YAML, "--step_scheduler.max_steps",
+         str(warmup or steps), *overrides])
+    for key, value in (sections or {}).items():
+        cfg.set_by_dotted(key, dict(value))
+    t0 = time.perf_counter()
+    recipe = FinetuneRecipeForVLM(cfg).setup()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    model = recipe.model
+    tc, ac = model.config.text_config, model.config.audio_config
+    lm = model.language_model
+    check(isinstance(recipe.loss_fn, MaskedCrossEntropy),
+          f"{label}: loss {type(recipe.loss_fn).__name__}")
+    held = 0
+    if written is not None:
+        held = loaded_equal(label, model, written)
+        check(model.checkpoint_dir == snap,
+              f"{label}: the model came from {model.checkpoint_dir}")
+    ckpt = recipe.checkpoint_config
+    ckpt_on = ckpt.enabled
+    ckpt.enabled = False                 # until the last step
+    trainable = sum(p.numel() for p in model.parameters() if p.requires_grad)
+    embed_trained = lm.embed_tokens.weight.requires_grad
+    window = lm.sliding_window
+    L, Hq, Hk, D = (tc.num_hidden_layers, tc.num_attention_heads,
+                    tc.num_key_value_heads, tc.head_dim)
+    print(f"{label}: {type(model).__name__} text (vocab {tc.vocab_size}, "
+          f"hidden {tc.hidden_size}, ffn {tc.intermediate_size}, layers {L}, "
+          f"heads {Hq}/{Hk}, head_dim {D}, rotary "
+          f"{lm._rotary_dim()} of {D}, window {window}, rope "
+          f"{(tc.rope_scaling or {}).get('type', 'default')}, tied "
+          f"{tc.tie_word_embeddings}), audio (conformer: {ac.num_blocks} "
+          f"blocks, hidden {ac.hidden_size}, ffn {ac.intermediate_size}, "
+          f"heads {ac.num_attention_heads}, nemo {ac.nemo_conv_channels} "
+          f"channels, time_reduction {ac.time_reduction}, input "
+          f"{ac.input_size}, bias distance {ac.bias_max_distance}); "
+          f"{depth_note or 'depth as written'}; {model.num_params} params "
+          f"{model.param_dtype}, {trainable} trainable (embeddings "
+          f"{'trained' if embed_trained else 'frozen'}), {held} written "
+          f"tensors held bit for bit; set up in {setup_s:.1f} s", flush=True)
+
+    first = next(iter(recipe.dataloader))
+    B, S = first["input_ids"].shape
+    cases = [(f"{label}_first_batch_d{D}", B, S, Hq, Hk, D, False, None,
+              None)]
+    if window is not None:
+        cases.append((f"{label}_first_batch_w{window}_d{D}", B, S, Hq, Hk,
+                      D, False, window, None))
+    attn_rows = attention_phase(flush, None, cases)
+    torch.cuda.empty_cache()
+    first_step = first_step_check(
+        recipe, label,
+        [("kernel", recipe.loss_fn, "kernel"),
+         ("plain", recipe.loss_fn, "plain"),
+         ("kernel_again", recipe.loss_fn, "kernel")],
+        [("kernel", "plain")], rows=None)
+
+    seen = []
+    run_step = recipe._run_train_optim_step
+
+    def recording(batches):
+        seen.append(batches)
+        return run_step(batches)
+
+    recipe._run_train_optim_step = recording
+    if warmup:
+        recipe.run_train_validation_loop()
+        recipe.step_scheduler.max_steps += steps
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    sa.fwd_launches = sa.bwd_launches = 0     # zeroed just before the run
+    sa.plain_fwd_calls = 0
+    t0 = time.perf_counter()
+    recipe.run_train_validation_loop()
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+    counts = dict(attn_fwd=sa.fwd_launches, attn_bwd=sa.bwd_launches,
+                  plain_fwd_calls=sa.plain_fwd_calls)
+    peak = torch.cuda.max_memory_allocated()
+    del recipe._run_train_optim_step
+    check(len(recipe.history) == warmup + steps == len(seen),
+          f"{label}: {len(recipe.history)} steps, {len(seen)} groups")
+    timed = seen[warmup:]
+    micro = sum(len(g) for g in timed)
+    want = dict(attn_fwd=2 * L * micro, attn_bwd=L * micro,
+                plain_fwd_calls=0)
+    check(counts == want, f"{label}: launches {counts} != {want} ({micro} "
+          "microbatches)")
+    for m in recipe.history:
+        check(all(map(math.isfinite, (m["loss"], m["grad_norm"]))),
+              f"{label} step {m['step']}: non-finite loss/grad_norm")
+    pad = getattr(recipe.tokenizer, "pad_token_id", 0) or 0
+    tokens = sum(int((np.asarray(mb["input_ids"]) != pad).sum())
+                 for g in timed for mb in g)
+    frames = sum(int(np.asarray(mb["audio_attention_mask"]).sum())
+                 for g in timed for mb in g)
+    audio_flops = sum(model.audio_flops(*np.asarray(
+        mb["input_audio_embeds"]).shape[:2]) for g in timed for mb in g)
+    step_s = sum(m["step_time"] for m in recipe.history[warmup:])
+    tok_s = tokens / step_s
+    fpt = model.flops_per_token()
+    fpt_done = fpt - (0.0 if embed_trained
+                      else 2.0 * tc.vocab_size * tc.hidden_size)
+    mb0 = {k: v[0] for k, v in to_device_batch([first],
+                                               recipe.device).items()}
+    parts = conformer_times(model, mb0)
+    step_ms = step_s * 1e3 / steps
+    per_step_micro = len(timed[0])
+    prof = None
+    if profiled:
+        def more():
+            recipe.step_scheduler.max_steps += profiled
+            recipe.run_train_validation_loop()
+
+        prof = profile_window(more, profiled, f"{label}_b{B}_s{S}",
+                              ("Splash<",))
+    # each part's device time for a step's microbatches (the first
+    # microbatch's times) over the profiled step's device time and over
+    # the step's wall time
+    device_step = (prof or {}).get("device_ms_per_step")
+    for part in ("encoder", "attention_core", "conv_module", "subsample"):
+        ms = parts[f"{part}_ms"]
+        ms = None if ms is None else ms * per_step_micro
+        parts[f"{part}_share_of_step"] = (
+            "not measured" if ms is None else ms / step_ms)
+        parts[f"{part}_share_of_device_time"] = (
+            ms / device_step if ms is not None
+            and isinstance(device_step, float) else "not measured")
+    report = dict(
+        overrides=list(overrides), sections=sections, depth=depth_note,
+        snapshot=snap, written_tensors_held=held, setup_s=setup_s,
+        warmup_steps=warmup, steps=steps,
+        microbatches_per_step=per_step_micro,
+        shapes=sorted({f"{mb['input_ids'].shape[0]}x"
+                       f"{mb['input_ids'].shape[1]}" for g in timed
+                       for mb in g}),
+        audio_shapes=sorted({"x".join(map(str, mb[
+            "input_audio_embeds"].shape)) for g in timed for mb in g}),
+        non_pad_tokens=tokens, audio_frames=frames,
+        audio_s=frames * PHI4_AUDIO_HOP_S, step_ms=step_ms,
+        step_ms_each=[m["step_time"] * 1e3
+                      for m in recipe.history[warmup:]],
+        non_pad_tokens_per_s=tok_s,
+        audio_s_per_s=frames * PHI4_AUDIO_HOP_S / step_s,
+        flops_per_token=fpt, flops_per_token_done=fpt_done,
+        audio_flops=audio_flops,
+        mfu=(tok_s * fpt_done + audio_flops / step_s) / BF16_OPS_PER_S,
+        mfu_jax_count=tok_s * fpt / BF16_OPS_PER_S,
+        loop_s=loop_s, peak_mem_bytes=peak, launches=counts,
+        predicted_launches=want, trainable_params=trainable,
+        embeddings_trained=embed_trained,
+        conformer=parts,
+        losses=[m["loss"] for m in recipe.history],
+        grad_norms=[m["grad_norm"] for m in recipe.history],
+        first_step=dict(loss_rel_err=first_step["kernel_vs_plain"][
+            "loss_rel_err"], grad_rel_l2=first_step["kernel_vs_plain"][
+            "grad_rel_l2"], grad_rel_l2_floor=first_step[
+            "grad_rel_l2_floor"]),
+        profile=prof)
+    if ckpt_on:
+        # the consolidated save at one more step, read back
+        ckpt.enabled = True
+        recipe.step_scheduler.max_steps += 1
+        t0 = time.perf_counter()
+        recipe.run_train_validation_loop()
+        torch.cuda.synchronize()
+        step = recipe.step_scheduler.step
+        saved = [d for d in os.listdir(ckpt.checkpoint_dir)
+                 if d.endswith(f"_step_{step}")]
+        check(len(saved) == 1, f"{label}: checkpoints "
+              f"{os.listdir(ckpt.checkpoint_dir)} at step {step}")
+        model_dir = os.path.join(ckpt.checkpoint_dir, saved[0], "model")
+        save_s = time.perf_counter() - t0
+        back = AutoModelForImageTextToText.from_pretrained(
+            model_dir, load_weights=True, device=recipe.device)
+        live = {n: t.detach() for n, t, _ in hf_io.hf_tensors(model)}
+        read = {n: t.detach() for n, t, _ in hf_io.hf_tensors(back)}
+        check(sorted(live) == sorted(read),
+              f"{label}: the checkpoint's tensors differ")
+        differ = [n for n in live if not torch.equal(live[n], read[n])]
+        check(not differ, f"{label}: {differ[:3]} read back differently")
+        report["checkpoint"] = dict(
+            step=step, tensors=len(live), bytes=sum(
+                os.path.getsize(os.path.join(model_dir, f))
+                for f in os.listdir(model_dir)),
+            save_and_step_s=save_s, bit_identical=True)
+        del back, live, read
+    print(f"{label}_run " + json.dumps(report), flush=True)
+    report["attention_cases"] = attn_rows
+    del recipe, model, lm
+    gc.collect()
+    torch.cuda.empty_cache()
+    return report
+
+
+def phi4_mm_phases(hf_home, flush):
+    """``tiny_phi4_mm_mock.yaml`` as written, then the same YAML at
+    Phi-4-multimodal-instruct's published widths (``PHI4_MM_TEXT_LAYERS``
+    of 32 decoder layers, ``PHI4_MM_AUDIO_BLOCKS`` of 24 conformer
+    blocks): the model section replaced by the repo id resolved to an
+    ``HF_HOME`` snapshot of the published config with random bf16 weights
+    (norms around 1, biases N(0, 0.1)), the processor section by the mock
+    processor at the published widths, seeded rows in the mock audio
+    set's schema (:func:`phi4_audio_rows`), global batch 8 / local 4 and
+    a consolidated checkpoint.  The overrides and the values taken are on
+    the phase's line."""
+    import torch
+
+    runs = {"sft_phi4_mm_mock": phi4_mm_phase("sft_phi4_mm_mock", flush)}
+    phase_done("sft_phi4_mm_mock")
+    torch.cuda.empty_cache()
+    work = tempfile.mkdtemp(prefix="chip_smoke_phi4_")
+    L, A = PHI4_MM_TEXT_LAYERS, PHI4_MM_AUDIO_BLOCKS
+    cfg = phi4_mm_config(L, A)
+    snap, written = write_vlm_model(hf_home, PHI4_MM, cfg, PHI4_MM_SEED,
+                                    sample=phi4_mm_sample, norm_center=1.0)
+    overrides = ["--dataset._target_", "chip_smoke.phi4_audio_rows",
+                 "--dataset.num_samples", str(PHI4_AUDIO_ROWS),
+                 "--step_scheduler.local_batch_size", "4",
+                 "--checkpoint.enabled", "true",
+                 "--checkpoint.checkpoint_dir", os.path.join(work, "ckpt")]
+    sections = {"model": {"_target_": "automodel_tpu.models.auto_model."
+                          "AutoModelForImageTextToText.from_pretrained",
+                          "pretrained_model_name_or_path": PHI4_MM},
+                "processor": PHI4_MM_PROCESSOR}
+    depth = (f"{L} of 32 decoder layers, {A} of 24 conformer blocks, every "
+             "width as published; taken: " + json.dumps(PHI4_MM_TAKEN))
+    print("sft_phi4_mm_audio overrides: " + " ".join(overrides)
+          + " sections=" + json.dumps(sections) + "; " + depth, flush=True)
+    runs["sft_phi4_mm_audio"] = phi4_mm_phase(
+        "sft_phi4_mm_audio", flush, overrides, sections, written=written,
+        snap=snap, depth_note=depth)
+    shutil.rmtree(work, ignore_errors=True)
+    shutil.rmtree(os.path.dirname(os.path.dirname(snap)), ignore_errors=True)
+    phase_done("sft_phi4_mm_audio")
+    return runs
+
+
+def _first_parting(a, b):
+    """The token at which each row of ``a`` and ``b`` parts (None: equal)."""
+    import numpy as np
+
+    return [int(np.argmax(x != y)) if (x != y).any() else None
+            for x, y in zip(a, b)]
+
+
+def vlm_generate_phase(label, export_dir, batch, flush, depth_note,
+                       windows, tower_blocks=0, model_kwargs=None):
+    """Greedy decode through the port's ``generate()`` of an SFT phase's
+    consolidated export (``AutoModelForImageTextToText.from_pretrained``):
+    ``batch`` holds the mock processor's right-padded prompts, one image
+    each, with their ``attention_mask`` and pixels, which ``generate()``
+    left-aligns (the padding folded into the prefill's segments).  The
+    prefill alone first, through kernel 9 and through the plain version:
+    its last logits within 5 % of the logit range and the same argmax;
+    then ``GEN_NEW`` tokens a prompt with the kernel prefill and with the
+    plain one, the first token of each prompt equal (later tokens
+    reported, with the token at which each prompt's runs part, and the
+    rows that match exactly).  Kernel 9 launches once per decoder layer
+    on the prefill (plus ``tower_blocks``, the Qwen2.5-VL tower's non-
+    causal launches) and never on a decode step; the plain prefill
+    launches none.  Kernel 9 is held against its plain version at the
+    prefill's rows (``windows``: each layer kind's window).  Reports the
+    prefill's ms and the decode's tokens/s."""
+    import numpy as np
+    import torch
+
+    from automodel_tpu_torch.generation import GenerationConfig, generate
+    from automodel_tpu_torch.generation.generate import left_align
+    from automodel_tpu_torch.models.auto_model import (
+        AutoModelForImageTextToText,
+    )
+    from automodel_tpu_torch.ops import splash_attention as sa
+    from automodel_tpu_torch.ops.attention import dispatched_window
+
+    t0 = time.perf_counter()
+    model = AutoModelForImageTextToText.from_pretrained(
+        export_dir, load_weights=True, device="cuda", **(model_kwargs or {}))
+    load_s = time.perf_counter() - t0
+    dev = next(model.parameters()).device
+    tc = model.config.text_config
+    L = tc.num_hidden_layers
+    ids = np.asarray(batch["input_ids"], np.int64)
+    lens = np.asarray(batch["attention_mask"]).sum(1)
+    B, S = ids.shape
+    kw = {k: torch.as_tensor(np.asarray(v), device=dev)
+          for k, v in batch.items() if k.startswith("pixel_values")}
+    print(f"{label}: {type(model).__name__} from {export_dir} ({L} text "
+          f"layers, heads {tc.num_attention_heads}/"
+          f"{tc.num_key_value_heads}, head_dim {tc.head_dim}; "
+          f"{depth_note}), {model.param_dtype}, loaded in {load_s:.1f} s; "
+          f"{B} prompts of {lens.tolist()} tokens", flush=True)
+    generate(model, ids, lens, GenerationConfig(max_new_tokens=2), **kw)
+    seg = (np.arange(S)[None, :] >= (S - lens)[:, None]).astype(np.int32)
+    # the plans the prefill runs: a window at least as long as the rows
+    # runs as full causal (the dispatcher's rule)
+    cases = [(f"{label}_prefill_{'full' if w is None else f'w{w}'}"
+              f"_d{tc.head_dim}", B, S, tc.num_attention_heads,
+              tc.num_key_value_heads, tc.head_dim, seg, w, None)
+             for w in dict.fromkeys(dispatched_window(w, S)
+                                    for w in windows)]
+    attn_rows = attention_phase(flush, None, cases)
+    ids_t = torch.as_tensor(ids, device=dev)
+    lens_t = torch.as_tensor(lens, device=dev)
+    last, prefill_ms = {}, {}
+    with torch.inference_mode():
+        left = left_align(ids_t, lens_t, 0)
+        mask = (torch.arange(S + 1, device=dev)[None, :]
+                >= (S - lens_t)[:, None])
+        pos = (torch.arange(S, device=dev)[None, :]
+               - (S - lens_t)[:, None]).clamp(min=0)
+        for impl in ("kernel", "plain"):
+            def prefill():
+                cache = model.init_kv_cache(B, S + 1)
+                return model(left, position_ids=pos, attention_mask=mask,
+                             kv_cache=cache, cache_index=0, attn_impl=impl,
+                             **kw)["logits"][:, -1].float()
+            last[impl] = prefill()
+            prefill_ms[impl] = time_ms(prefill, 3, warmup=1)
+    span = float(last["plain"].abs().max())
+    err = float((last["kernel"] - last["plain"]).abs().max())
+    logits = dict(max_abs_err=err, logit_range=span,
+                  tol=LOGITS_REL_TOL * span,
+                  argmax_equal=bool((last["kernel"].argmax(-1)
+                                     == last["plain"].argmax(-1)).all()))
+    check(err <= LOGITS_REL_TOL * span,
+          f"{label} prefill logits: kernel vs plain max_abs_err {err:.4f} "
+          f"> {LOGITS_REL_TOL} * {span:.3f}")
+    gcfg = GenerationConfig(max_new_tokens=GEN_NEW)
+    out, times, launches = {}, {}, {}
+    for impl in ("kernel", "plain"):
+        torch.cuda.synchronize()
+        sa.fwd_launches = sa.plain_fwd_calls = 0
+        t0 = time.perf_counter()
+        out[impl] = generate(model, ids, lens, gcfg, attn_impl=impl, **kw)
+        torch.cuda.synchronize()
+        times[impl] = time.perf_counter() - t0
+        launches[impl] = dict(attention_fwd=sa.fwd_launches,
+                              plain_fwd_calls=sa.plain_fwd_calls)
+        want = L + tower_blocks if impl == "kernel" else 0
+        check(sa.fwd_launches == want,
+              f"{label} ({impl} prefill): {sa.fwd_launches} kernel 9 "
+              f"launches != {want}")
+    decode_s = times["kernel"] - prefill_ms["kernel"] / 1e3
+    first_equal = bool((out["kernel"][:, 0] == out["plain"][:, 0]).all())
+    report = dict(
+        export=export_dir, depth=depth_note, prompts=B,
+        prompt_lens=lens.tolist(), row_len=S, new_tokens=GEN_NEW,
+        load_s=load_s, prefill_ms=prefill_ms["kernel"],
+        plain_prefill_ms=prefill_ms["plain"],
+        decode_tok_s=B * (GEN_NEW - 1) / decode_s,
+        generate_s=times["kernel"], plain_generate_s=times["plain"],
+        tok_s=B * GEN_NEW / times["kernel"], launches=launches["kernel"],
+        plain_launches=launches["plain"], prefill_logits=logits,
+        first_tokens_equal=first_equal,
+        rows_identical=int(sum(bool((a == b).all()) for a, b in
+                               zip(out["kernel"], out["plain"]))),
+        first_parting_token=_first_parting(out["kernel"], out["plain"]))
+    print(f"{label} " + json.dumps(report), flush=True)
+    check(first_equal and logits["argmax_equal"],
+          f"{label}: the prompts' first tokens differ between the kernel and "
+          f"the plain prefill ({out['kernel'][:, 0]} vs {out['plain'][:, 0]})")
+    report["attention_cases"] = attn_rows
+    report["launches"] = dict(attn_fwd=launches["kernel"]["attention_fwd"])
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return report
+
+
+def _prompt_words(rng, n):
+    return " ".join(rng.choice(WORDS, n))
+
+
+def generate_gemma3_4b_phase(export_dir, flush):
+    """``generate_gemma3_4b_cord``: 4 prompts of one receipt-sized image
+    and 8-64 words each through the mock processor at Gemma-3-4B's widths
+    (896 px, 256 placeholders) over ``sft_gemma3_4b_cord``'s export."""
+    import numpy as np
+
+    from automodel_tpu_torch.datasets.vlm.collate_fns import to_nhwc
+    from automodel_tpu_torch.datasets.vlm.mock import MockVLMProcessor
+
+    rng = np.random.default_rng(83)
+    proc = MockVLMProcessor(vocab_size=262208, image_size=896, patch_size=56,
+                            image_token_id=262144)
+    texts, images = [], []
+    for n in (8, 24, 40, 64):
+        conv = [{"role": "user", "content": [
+            {"type": "image"}, {"type": "text", "text": _prompt_words(rng,
+                                                                      n)}]}]
+        texts.append(proc.apply_chat_template(conv))
+        images.append([rng.integers(0, 256, (320, 240, 3)).astype(
+            np.uint8)])
+    batch = proc(text=texts, images=images)
+    batch["pixel_values"] = to_nhwc(batch["pixel_values"])
+    return vlm_generate_phase(
+        "generate_gemma3_4b_cord", export_dir, batch, flush,
+        f"{GEMMA3_4B_LAYERS} of 34 text layers, the depth "
+        "sft_gemma3_4b_cord trains at", windows=(1024, None))
+
+
+def generate_qwen25_vl_3b_phase(export_dir, flush):
+    """``generate_qwen25_vl_3b_rdr``: 4 prompts of one image and 8-64
+    words each through the mock processor at the published patch geometry
+    (56 x 56 patches, 784 merged units) over ``sft_qwen25_vl_3b_rdr``'s
+    export; 1-D text positions, as JAX's ``generate()`` passes them."""
+    import numpy as np
+
+    from automodel_tpu_torch.datasets.vlm.mock import Qwen2_5_VLProcessor
+
+    rng = np.random.default_rng(89)
+    proc = Qwen2_5_VLProcessor(vocab_size=151936, grid=(1, 56, 56),
+                               patch_size=14)
+    texts, images = [], []
+    for n in (8, 24, 40, 64):
+        conv = [{"role": "user", "content": [
+            {"type": "image"}, {"type": "text", "text": _prompt_words(rng,
+                                                                      n)}]}]
+        texts.append(proc.apply_chat_template(conv))
+        images.append([rng.integers(0, 256, (600, 800, 3)).astype(
+            np.uint8)])
+    batch = proc(text=texts, images=images)
+    batch.pop("image_grid_thw")
+    return vlm_generate_phase(
+        "generate_qwen25_vl_3b_rdr", export_dir, batch, flush,
+        f"{QWEN25_VL_TEXT_LAYERS} of 36 text layers and vision blocks "
+        f"0-{QWEN25_VL_VISION_BLOCKS - 1} of 32, the depth "
+        "sft_qwen25_vl_3b_rdr trains at", windows=(None,),
+        tower_blocks=QWEN25_VL_VISION_BLOCKS,
+        model_kwargs=dict(image_grid=(1, 56, 56)))
+
+
 T0 = time.perf_counter()
 
 
@@ -6789,6 +7533,13 @@ def main():
     torch.cuda.empty_cache()
     vlm_runs["sft_gemma3_4b_cord"] = gemma3_4b_cord_phase(hf_home, flush)
     phase_done("sft_gemma3_4b_cord")
+    # greedy decode over that phase's export (kernel 9 on the prefill)
+    torch.cuda.empty_cache()
+    cord = vlm_runs["sft_gemma3_4b_cord"]
+    gen_runs = {"generate_gemma3_4b_cord": generate_gemma3_4b_phase(
+        cord["export_dir"], flush)}
+    shutil.rmtree(cord["work_dir"], ignore_errors=True)
+    phase_done("generate_gemma3_4b_cord")
     # Qwen2.5-VL: kernel 9 at the tower's non-causal shapes, then the RDR
     # YAML at Qwen2.5-VL-3B's widths and the video YAML as written
     torch.cuda.empty_cache()
@@ -6797,6 +7548,12 @@ def main():
     qwen_runs = {"sft_qwen25_vl_3b_rdr": qwen25_vl_3b_rdr_phase(hf_home,
                                                                 flush)}
     phase_done("sft_qwen25_vl_3b_rdr")
+    torch.cuda.empty_cache()
+    rdr = qwen_runs["sft_qwen25_vl_3b_rdr"]
+    gen_runs["generate_qwen25_vl_3b_rdr"] = generate_qwen25_vl_3b_phase(
+        rdr["export_dir"], flush)
+    shutil.rmtree(rdr["work_dir"], ignore_errors=True)
+    phase_done("generate_qwen25_vl_3b_rdr")
     torch.cuda.empty_cache()
     qwen_runs["sft_qwen25_vl_video_mock"] = qwen_vl_phase(
         "sft_qwen25_vl_video_mock", QWEN_VIDEO_YAML, flush,
@@ -6809,6 +7566,11 @@ def main():
     gemma3n_cases = attention_phase(flush, None, GEMMA3N_ATTN_CASES)
     phase_done("gemma3n attention cases")
     g3n_runs = gemma3n_phases(hf_home, flush)
+    # Phi-4-multimodal: the tiny YAML as written, then the published
+    # widths (the conformer audio encoder, the fused Phi decoder on
+    # kernel 9)
+    torch.cuda.empty_cache()
+    phi4_runs = phi4_mm_phases(hf_home, flush)
     # post-training: GRPO (rollouts through the engine) and DPO
     pt_runs = {}
     for label, yaml_path in (("grpo_llama_1b", GRPO_YAML),
@@ -7016,6 +7778,34 @@ def main():
         for label, run in g3n_runs.items():
             kernels[-1][f"{label}_launches"] = run["launches"][
                 f"attn_{part}"]
+        # Phi-4-multimodal's decoder rows (causal, and the raw kernel at
+        # the published window, which attention() runs as causal: marked
+        # off the path) and each phase's launches; the generate phases'
+        # prefill rows (the prompts' left padding folded into segments)
+        # and their launches (forward only: decode steps take the plain
+        # cache path)
+        for c in [c for r in list(phi4_runs.values())
+                  + list(gen_runs.values()) for c in r["attention_cases"]]:
+            if not c["on_path"]:
+                kernels[-1][f"{c['case']}_on_path"] = False
+            kernels[-1].update({
+                f"{c['case']}_ms": c[part]["ms"],
+                f"{c['case']}_plain_ms": c[part]["plain_ms"],
+                f"{c['case']}_bound_ms": c[part]["bound_ms"],
+                f"{c['case']}_bound_by": c[part]["bound_by"],
+                f"{c['case']}_library_ms": c[part]["library_ms"]})
+            if "padded_bound_ms" in c[part]:
+                kernels[-1][f"{c['case']}_padded_bound_ms"] = c[part][
+                    "padded_bound_ms"]
+            kernels[-1]["max_abs_err"] = max(kernels[-1]["max_abs_err"],
+                                             c[part]["max_abs_err"])
+        for label, run in phi4_runs.items():
+            kernels[-1][f"{label}_launches"] = run["launches"][
+                f"attn_{part}"]
+        if part == "fwd":
+            for label, run in gen_runs.items():
+                kernels[-1][f"{label}_launches"] = run["launches"][
+                    "attn_fwd"]
         # the HF YAMLs' rows (unpacked, padding folded into segments)
         for label, run in hf_runs.items():
             c = run["attention_cases"][0]

@@ -49,7 +49,8 @@ def test_no_jax_or_jax_package_imports():
                 "models/starcoder2.py", "models/phi3.py",
                 "models/sequence_classification.py",
                 "examples/pretrain.py", "models/qwen2_5_vl.py",
-                "datasets/vlm/qwen_rope.py", "models/gemma3n.py"):
+                "datasets/vlm/qwen_rope.py", "models/gemma3n.py",
+                "models/phi4_mm.py", "examples/vlm_generate.py"):
         assert new in rel, new
     for path in sources:
         with open(path) as f:

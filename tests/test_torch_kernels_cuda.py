@@ -2210,3 +2210,231 @@ def test_cuda_gemma3n_layer_at_e4b_widths(full, cuda_device):
               for a, b in zip(res["kernel"][1], res["plain"][1]))
     den = sum(float(b.square().sum()) for b in res["plain"][1])
     assert (num / den) ** 0.5 < 0.1
+
+
+@pytest.mark.cuda
+def test_cuda_splash_at_phi4_mm_window_equals_causal(cuda_device):
+    """Kernel 9 as Phi-4-multimodal's decoder calls it: GQA 24 / 8 at
+    head_dim 128, causal and at the published window 262,144, forward and
+    backward against the plain versions; through the dispatcher
+    (``ops/attention.py::attention``, what the model calls) that window
+    spans every row and gives the causal output and gradients bit for
+    bit, one forward and one backward launch each."""
+    from automodel_tpu_torch.ops import splash_attention as sa
+    from automodel_tpu_torch.ops.attention import attention
+
+    B, S, Hq, Hk, D = 4, 256, 24, 8, 128
+    g = torch.Generator(device=cuda_device).manual_seed(31)
+    q, dout = (torch.randn(B, S, Hq, D, device=cuda_device, generator=g)
+               .bfloat16() for _ in range(2))
+    k, v = (torch.randn(B, S, Hk, D, device=cuda_device, generator=g)
+            .bfloat16() for _ in range(2))
+    got = {}
+    for window in (None, 262144):
+        kw = dict(causal=True, local_window_size=window)
+        out, lse = sa.flash_attn_fwd_cuda(q, k, v, **kw)
+        grads = sa.flash_attn_bwd_cuda(q, k, v, out, lse, dout, **kw)
+        torch.cuda.synchronize()
+        ref = sa.splash_attention_plain(q, k, v, **kw)
+        refs = sa.splash_attention_bwd_plain(q, k, v, out, lse, dout, **kw)
+        check_attention((out, lse, *grads), (*ref, *refs))
+        qq, kk, vv = (t.clone().requires_grad_() for t in (q, k, v))
+        f0, b0 = sa.fwd_launches, sa.bwd_launches
+        o = attention(qq, kk, vv, causal=True, local_window_size=window,
+                      impl="kernel")
+        o.backward(dout)
+        torch.cuda.synchronize()
+        assert (sa.fwd_launches - f0, sa.bwd_launches - b0) == (1, 1)
+        got[window] = (o.detach(), qq.grad, kk.grad, vv.grad)
+    assert all(torch.equal(a, b) for a, b in zip(got[None], got[262144]))
+
+
+def _phi4_published(text_layers=1, audio_blocks=1, vocab=4096):
+    return dict(
+        model_type="phi4_multimodal", vocab_size=vocab, hidden_size=3072,
+        intermediate_size=8192, num_hidden_layers=text_layers,
+        num_attention_heads=24, num_key_value_heads=8,
+        partial_rotary_factor=0.75, tie_word_embeddings=True,
+        rope_theta=10000.0, original_max_position_embeddings=4096,
+        max_position_embeddings=131072, sliding_window=262144,
+        rope_scaling={"type": "longrope", "short_factor": [1.0] * 48,
+                      "long_factor": [1.0] * 48},
+        audio_config=dict(num_blocks=audio_blocks, bias_max_distance=500,
+                          audio_token_id=vocab - 1))
+
+
+@pytest.mark.cuda
+def test_cuda_phi4_mm_decoder_layer_at_published_widths(cuda_device):
+    """One Phi-4-multimodal decoder layer at its published widths (hidden
+    3,072, 24 / 8 heads at 128 with rope on 96 channels, ffn 8,192,
+    window 262,144; a 4,096-token vocabulary), bf16, rows of 1,024: the
+    loss and every gradient through kernel 9 against the plain attention
+    route, one forward and one backward launch."""
+    from automodel_tpu_torch.loss.masked_ce import MaskedCrossEntropy
+    from automodel_tpu_torch.models.phi4_mm import build_phi4_mm
+    from automodel_tpu_torch.ops import splash_attention as sa
+    from automodel_tpu_torch.training.train_step import microbatch_loss
+
+    model = build_phi4_mm(_phi4_published(), device=cuda_device, seed=3,
+                          remat=False)
+    g = torch.Generator(device=cuda_device).manual_seed(4)
+    B, S = 2, 1024
+    ids = torch.randint(0, 4000, (B, S), device=cuda_device, generator=g)
+    batch = {"input_ids": ids, "labels": ids.clone()}
+    res = {}
+    for impl in ("kernel", "plain"):
+        model.zero_grad(set_to_none=True)
+        f0, b0 = sa.fwd_launches, sa.bwd_launches
+        loss = microbatch_loss(model, MaskedCrossEntropy(), batch,
+                               attn_impl=impl)
+        loss.backward()
+        torch.cuda.synchronize()
+        counts = (sa.fwd_launches - f0, sa.bwd_launches - b0)
+        assert counts == ((1, 1) if impl == "kernel" else (0, 0)), counts
+        res[impl] = (float(loss), [p.grad.float().clone() for p in
+                                   model.language_model.parameters()
+                                   if p.grad is not None])
+    assert len(res["kernel"][1]) == len(res["plain"][1]) >= 7
+    assert abs(res["kernel"][0] - res["plain"][0]) <= 1e-2 * abs(
+        res["plain"][0])
+    num = sum(float((a - b).square().sum())
+              for a, b in zip(res["kernel"][1], res["plain"][1]))
+    den = sum(float(b.square().sum()) for b in res["plain"][1])
+    assert (num / den) ** 0.5 < 0.1
+
+
+@pytest.mark.cuda
+def test_cuda_phi4_mm_conformer_block_at_published_widths(cuda_device):
+    """One conformer block at Phi-4-multimodal's published widths (D
+    1,024, 16 heads, ffn 1,536, nemo 1,024 channels, time reduction 8) on
+    the card in bf16 against the same weights on the CPU in fp32: two
+    clips of 1,200 and 700 frames of 80 features (the +1 mask on the
+    shorter), the encoder's output within 2e-2 of its largest magnitude
+    and the same on every gradient's relative L2 norm within 0.1.  The
+    block runs plain PyTorch on both (no kernel of the port)."""
+    from automodel_tpu_torch.models.phi4_mm import (
+        Phi4MMAudioConfig,
+        Phi4MMAudioEncoder,
+    )
+
+    cfg = Phi4MMAudioConfig(num_blocks=1, bias_max_distance=500)
+    encs = {}
+    for dev, cd in ((cuda_device, torch.bfloat16), ("cpu", torch.float32)):
+        enc = Phi4MMAudioEncoder(cfg, compute_dtype=cd, device=dev,
+                                 remat=False)
+        enc.init_weights(torch.Generator(device=dev).manual_seed(5))
+        encs[str(dev)] = enc
+    gpu, cpu = encs[str(cuda_device)], encs["cpu"]
+    with torch.no_grad():
+        for a, b in zip(cpu.parameters(), gpu.parameters()):
+            a.copy_(b.cpu())
+    rng = np.random.default_rng(6)
+    feats = np.zeros((2, 1200, 80), np.float32)
+    mask = np.zeros((2, 1200), bool)
+    for i, n in enumerate((1200, 700)):
+        feats[i, :n] = rng.normal(size=(n, 80))
+        mask[i, :n] = True
+    outs, grads = {}, {}
+    for name, enc in (("gpu", gpu), ("cpu", cpu)):
+        dev = next(enc.parameters()).device
+        out = enc(torch.from_numpy(feats).to(dev),
+                  torch.from_numpy(mask).to(dev))
+        out.float().square().mean().backward()
+        outs[name] = out.detach().float().cpu()
+        grads[name] = [p.grad.float().cpu() for p in enc.parameters()]
+    assert outs["gpu"].shape == (2, 150, 1024)
+    top = float(outs["cpu"].abs().max())
+    assert float((outs["gpu"] - outs["cpu"]).abs().max()) <= 2e-2 * top
+    for a, b in zip(grads["gpu"], grads["cpu"]):
+        assert float((a - b).norm()) <= 0.1 * float(b.norm()) + 1e-6
+
+
+@pytest.mark.cuda
+def test_cuda_gemma3_prefill_then_decode_at_d256(cuda_device):
+    """Gemma-3 with a cache at head_dim 256 (8 / 4 heads; five sliding
+    layers at window 64 and a full one, rows of 100-160 tokens past the
+    window): ``generate()``'s prefill through kernel 9 (one forward
+    launch a layer, none on a decode step) against the plain prefill:
+    the prefill's last logits within 5 % of their range, the first tokens
+    equal; and a decode step over the kernel-written cache against the
+    full forward's last row."""
+    from automodel_tpu_torch.generation import GenerationConfig, generate
+    from automodel_tpu_torch.models.auto_model import build_model
+    from automodel_tpu_torch.ops import splash_attention as sa
+
+    model = build_model(dict(
+        model_type="gemma3_text", vocab_size=4096, hidden_size=1024,
+        intermediate_size=2048, num_hidden_layers=6, num_attention_heads=8,
+        num_key_value_heads=4, head_dim=256, query_pre_attn_scalar=256,
+        sliding_window=64), device=cuda_device, seed=7)
+    rng = np.random.default_rng(8)
+    lens = np.asarray([160, 100, 131, 117])
+    ids = np.zeros((4, 160), np.int64)
+    for b, n in enumerate(lens):
+        ids[b, :n] = rng.integers(1, 4096, n)
+    out = {}
+    for impl in ("kernel", "plain"):
+        sa.fwd_launches = 0
+        out[impl] = generate(model, ids, lens,
+                             GenerationConfig(max_new_tokens=6),
+                             attn_impl=impl)
+        assert sa.fwd_launches == (6 if impl == "kernel" else 0)
+    assert (out["kernel"][:, 0] == out["plain"][:, 0]).all()
+    t = torch.as_tensor(ids[:1, :160], device=cuda_device)
+    with torch.inference_mode():
+        full = model(t)["logits"][:, -1].float()
+        cache = model.init_kv_cache(1, 161)
+        mask = torch.ones(1, 161, dtype=torch.bool, device=cuda_device)
+        model(t[:, :159], attention_mask=mask, kv_cache=cache, cache_index=0)
+        step = model(t[:, 159:], attention_mask=mask, kv_cache=cache,
+                     cache_index=159)["logits"][:, -1].float()
+    span = float(full.abs().max())
+    assert float((step - full).abs().max()) <= 5e-2 * span
+
+
+@pytest.mark.cuda
+def test_cuda_llama_generate_prefill_on_kernel9(cuda_device):
+    """Llama-3.2-1B at its published widths and depth (random weights):
+    ``generate()`` over 4 ragged prompts of 64-300 tokens, the prefill
+    through kernel 9 (16 forward launches, one a layer; none on the 7
+    decode steps) against the plain prefill: the prefill's last logits
+    within 5 % of their range, the first tokens equal."""
+    from automodel_tpu_torch.generation import GenerationConfig, generate
+    from automodel_tpu_torch.generation.generate import left_align
+    from automodel_tpu_torch.models.auto_model import build_model
+    from automodel_tpu_torch.models.llama import llama3_2_1b_config
+    from automodel_tpu_torch.ops import splash_attention as sa
+
+    model = build_model(llama3_2_1b_config(), device=cuda_device, seed=0,
+                        param_dtype="bfloat16")
+    rng = np.random.default_rng(9)
+    lens = np.asarray([300, 64, 211, 150])
+    ids = np.zeros((4, 300), np.int64)
+    for b, n in enumerate(lens):
+        ids[b, :n] = rng.integers(1, 128000, n)
+    last = {}
+    with torch.inference_mode():
+        ids_t = torch.as_tensor(ids, device=cuda_device)
+        lens_t = torch.as_tensor(lens, device=cuda_device)
+        left = left_align(ids_t, lens_t, 0)
+        mask = (torch.arange(301, device=cuda_device)[None]
+                >= (300 - lens_t)[:, None])
+        pos = (torch.arange(300, device=cuda_device)[None]
+               - (300 - lens_t)[:, None]).clamp(min=0)
+        for impl in ("kernel", "plain"):
+            last[impl] = model(left, position_ids=pos, attention_mask=mask,
+                               kv_cache=model.init_kv_cache(4, 301),
+                               cache_index=0, attn_impl=impl)[
+                                   "logits"][:, -1].float()
+    span = float(last["plain"].abs().max())
+    assert float((last["kernel"] - last["plain"]).abs().max()) <= 5e-2 * span
+    out = {}
+    for impl in ("kernel", "plain"):
+        sa.fwd_launches = sa.plain_fwd_calls = 0
+        out[impl] = generate(model, ids, lens,
+                             GenerationConfig(max_new_tokens=8),
+                             attn_impl=impl)
+        torch.cuda.synchronize()
+        assert sa.fwd_launches == (16 if impl == "kernel" else 0)
+        assert sa.plain_fwd_calls == (0 if impl == "kernel" else 16)
+    assert (out["kernel"][:, 0] == out["plain"][:, 0]).all()
