@@ -212,7 +212,8 @@ def validate_config_enums(cfg: ConfigNode) -> None:
     (null spellings mean the default), at load time and again after the
     CLI overrides, as the JAX loader does; the port checks
     ``moe.dispatch``, ``fp8.dtype``, ``fp8.recipe_name``,
-    ``post_training.algorithm`` and ``rl.reward_source``."""
+    ``post_training.algorithm``, ``rl.reward_source`` and
+    ``serving.router_policy``."""
     from automodel_tpu_torch.ops.moe import (
         normalize_moe_dispatch,
         validate_moe_dispatch,
@@ -225,13 +226,15 @@ def validate_config_enums(cfg: ConfigNode) -> None:
     )
     from automodel_tpu_torch.post_training.losses import PT_ALGORITHMS
     from automodel_tpu_torch.post_training.rollout import REWARD_SOURCES
+    from automodel_tpu_torch.serving.fleet import ROUTER_POLICIES
     from automodel_tpu_torch.serving.kv_cache import normalize_null_spelling
 
     validate_moe_dispatch(normalize_moe_dispatch(cfg.get("moe.dispatch")))
     validate_quant_dtype(normalize_quant_dtype(cfg.get("fp8.dtype")))
     validate_quant_recipe(normalize_quant_recipe(cfg.get("fp8.recipe_name")))
     for dotted, allowed in (("post_training.algorithm", PT_ALGORITHMS),
-                            ("rl.reward_source", REWARD_SOURCES)):
+                            ("rl.reward_source", REWARD_SOURCES),
+                            ("serving.router_policy", ROUTER_POLICIES)):
         v = normalize_null_spelling(cfg.get(dotted))
         if v is not None and v not in allowed:
             raise ValueError(

@@ -170,7 +170,10 @@ class AutoModelForCausalLM:
                     **model_kwargs) -> LlamaForCausalLM:
         """Build from an HF-style config dict (or a config dataclass) with
         random weights drawn from ``seed``.  ``param_dtype`` defaults to
-        the config's ``torch_dtype``, as in the JAX package."""
+        the config's ``torch_dtype``, as in the JAX package; the other
+        keywords reach the family's constructor (``weight_only_quant:
+        int8`` builds the int8 base, as a serve YAML's ``model`` node may
+        ask)."""
         if hasattr(config, "to_dict"):
             config = config.to_dict()
         if isinstance(config, dict):
@@ -198,9 +201,17 @@ class AutoModelForCausalLM:
             hf_cfg, seed=seed, device=device, **model_kwargs)
         model.checkpoint_dir = ckpt_dir
         if load_weights:
-            from automodel_tpu_torch.models.hf_io import load_hf_weights
+            if getattr(model, "weight_only_quant", None) == "int8":
+                from automodel_tpu_torch.quantization.weight_only import (
+                    load_quantized_hf_base,
+                )
 
-            load_hf_weights(model, ckpt_dir)
+                # the HF weights quantized on the host as they stream in
+                load_quantized_hf_base(model, ckpt_dir)
+            else:
+                from automodel_tpu_torch.models.hf_io import load_hf_weights
+
+                load_hf_weights(model, ckpt_dir)
         return model
 
 

@@ -29,8 +29,8 @@ family folds no load-balancing loss, as in JAX.
 
 Projections are plain products in the compute dtype (the JAX family's
 ``proj``): quantized compute reaches the routed experts only
-(``mlp.experts``), and LoRA on the MLA projections is refused, as JAX
-refuses its rank-r bypass there.  Decoding uses the dense cache of
+(``mlp.experts``), with a cache or without, and LoRA on the MLA
+projections is refused, as JAX refuses its rank-r bypass there.  Decoding uses the dense cache of
 :meth:`init_kv_cache` (expanded per-head keys and padded values per
 sub-stack; MLA's latent cache is not wired, in JAX either): a prefill
 (more than one token) attends its own keys through the dispatcher, the
@@ -421,10 +421,6 @@ class DeepseekV3ForCausalLM(LlamaForCausalLM):
                 "the DeepSeek families decode over their dense cache "
                 "(init_kv_cache, generate()); the paged engine does not "
                 "serve MLA")
-        if getattr(self.quant, "enabled", False):
-            raise NotImplementedError(
-                "quantized compute while decoding is not ported yet: "
-                "ROADMAP Queue 1 item 6")
         if cache_index is None:
             raise ValueError("a dense kv_cache needs cache_index")
         B, S = input_ids.shape

@@ -46,7 +46,10 @@ or adds the rank-r bypass ``s ((x m?) A) B`` to its base product, with
 inverted dropout before (``pre``) or after (``post``) the adapter while
 training.  An int8 base is dequantized in the compute dtype before the
 product; the base product goes through ``maybe_qdot`` either way, the
-adapter's delta stays in the compute dtype.  Multi-tenant serving hands
+adapter's delta stays in the compute dtype.  ``weight_only_quant="int8"``
+builds that base at construction (the JAX init's transform), and quantized
+compute runs with or without a cache (the serving engine's decode rows and
+prefill chunks included), as in JAX.  Multi-tenant serving hands
 ``_proj`` per-layer slabs ``A [E, in, r]`` / ``B [E, r, out]`` and the
 forward ``adapter_ids [B]`` (0 = base, a zero slab): each row's delta
 then runs through ``ops/lora_gmm.py`` (the gmm kernel on the card), with
@@ -243,16 +246,35 @@ class DenseKVView:
         S = q.shape[1]
         if S > 1:
             mask = self.attention_mask
-            return attention(
+            out = attention(
                 q.contiguous(), k.contiguous(), v.contiguous(), causal=True,
                 attention_mask=None if mask is None else mask[:, :S],
                 scale=scale, logits_soft_cap=logits_soft_cap,
                 local_window_size=local_window_size, impl=impl)
+            if mask is None:
+                return out
+            return _masked_rows_as_jax(out, v, mask[:, :S])
         return cached_attention(
             q, self.cache["k"], self.cache["v"], cache_index=self.cache_index,
             attention_mask=self.attention_mask, scale=scale,
             logits_soft_cap=logits_soft_cap,
             local_window_size=local_window_size)
+
+
+def _masked_rows_as_jax(out: torch.Tensor, v: torch.Tensor,
+                        mask: torch.Tensor) -> torch.Tensor:
+    """A left-padded prefill's pad queries (``mask`` False: every key they
+    may see is a pad) as the JAX cached layer computes them: its softmax
+    over an all-masked row is uniform over the S keys, so such a row is
+    the mean of ``v`` (weights ``1 / S`` in v's dtype).  Real rows never
+    read them, but a tensorwise quantized projection takes its scale from
+    every row of its input, pads included."""
+    B, S, Hq, D = out.shape
+    w = torch.tensor(1.0 / S, dtype=v.dtype, device=v.device)
+    mean = (v * w).float().sum(dim=1).to(out.dtype)        # [B, Hk, D]
+    mean = mean.repeat_interleave(Hq // v.shape[2], dim=1)  # [B, Hq, D]
+    pad = ~mask.bool()
+    return torch.where(pad[:, :, None, None], mean[:, None], out)
 
 
 class RMSNorm(nn.Module):
@@ -337,9 +359,20 @@ class LlamaForCausalLM(nn.Module):
                  param_dtype=torch.float32, compute_dtype=torch.bfloat16,
                  remat: bool = True,
                  remat_policy: Optional[str] = "nothing_saveable",
+                 weight_only_quant: Optional[str] = None,
                  scan_unroll: int = 1, scan_block: int = 1, device=None):
         super().__init__()
         device = resolve_device(device)
+        if isinstance(weight_only_quant, str) and \
+                weight_only_quant.lower() in ("none", "null", ""):
+            weight_only_quant = None
+        if weight_only_quant not in (None, "int8"):
+            raise ValueError(
+                f"model.weight_only_quant must be 'int8' or null, got "
+                f"{weight_only_quant!r}")
+        # "int8": the seven decoder projections are int8 codes and fp32
+        # scales (quantization/weight_only.py), the JAX init's QLoRA base
+        self.weight_only_quant = weight_only_quant
         self.quant = None        # set by quantization.fp8.apply_fp8_to_model
         self._adapters = None    # the running layer's LoRA (see _layer)
         self._lora_routing = None   # a multi-tenant forward's row sort
@@ -399,6 +432,28 @@ class LlamaForCausalLM(nn.Module):
             self.register_buffer(
                 "inv_freq_long", torch.from_numpy(long[0]).to(device),
                 persistent=False)
+        if self.weight_only_quant == "int8":
+            self._quantize_base()
+
+    def _quantize_base(self) -> None:
+        """The int8 base of ``weight_only_quant``: every layer's seven
+        projections become ``Int8Linear`` codes of their weights (the JAX
+        ``quantize_base_params``, which needs all seven: a family without
+        them raises, as the JAX transform's lookup does)."""
+        from automodel_tpu_torch.quantization.weight_only import (
+            QUANTIZED_MODULES,
+            quantize_base_params,
+        )
+
+        for layer in getattr(self, "layers", ()):
+            missing = [p for _, p in QUANTIZED_MODULES
+                       if getattr(layer, p, None) is None]
+            if missing:
+                raise ValueError(
+                    f"weight_only_quant='int8' quantizes the seven dense "
+                    f"decoder projections; {type(self).__name__}'s layers "
+                    f"lack {missing}")
+        quantize_base_params(self)
 
     def _uniform_window(self, cfg) -> Optional[int]:
         """The one window every layer attends under (None: causal); the
@@ -471,6 +526,16 @@ class LlamaForCausalLM(nn.Module):
         """Random weights drawn from ``seed``: N(0, 0.02) for embeddings,
         projections, routers and experts, ones for the norms, zeros for
         the biases (the JAX ``init``'s distribution; not its numbers)."""
+        from automodel_tpu_torch.quantization.weight_only import (
+            dequantize_base_params,
+            is_quantized,
+        )
+
+        # an int8 base draws its dense weights as the dense model would
+        # (same order, same numbers), then quantizes them, as JAX's init
+        int8 = self.weight_only_quant == "int8" and is_quantized(self)
+        if int8:
+            dequantize_base_params(self, self.param_dtype)
         gen = torch.Generator(device=self.inv_freq.device).manual_seed(seed)
         for name, p in self.named_parameters():
             if name.endswith("norm.weight"):
@@ -479,6 +544,8 @@ class LlamaForCausalLM(nn.Module):
                 p.zero_()
             else:
                 p.normal_(0.0, 0.02, generator=gen)
+        if int8:
+            self._quantize_base()
         return self
 
     def _proj(self, lin: nn.Module, x: torch.Tensor, name: str
@@ -695,10 +762,6 @@ class LlamaForCausalLM(nn.Module):
         ``inputs_embeds [B, S, H]`` (the VLM families' merged text and
         image embeddings) replaces the token embedding of ``input_ids``."""
         B, S = input_ids.shape
-        if kv_cache is not None and getattr(self.quant, "enabled", False):
-            raise NotImplementedError(
-                "quantized compute while serving (fp8 serving) is not "
-                "ported yet: ROADMAP Queue 1 item 6")
         dense = isinstance(kv_cache, dict)
         if dense:
             if cache_index is None:

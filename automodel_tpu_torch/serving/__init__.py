@@ -1,6 +1,5 @@
 """Serving of the port: the paged-KV decode engine and its features
-(counterpart: ``automodel_tpu/serving``; the elastic fleet, ``fleet.py``,
-is not ported: ROADMAP Queue 1 item 2.8).
+(counterpart: ``automodel_tpu/serving``).
 
 Layout::
 
@@ -15,6 +14,9 @@ Layout::
                     watchdog and the graceful drain
       speculative.py
                     the n-gram draft proposer and the acceptance rule
+      fleet.py      the elastic fleet: routing, the fleet-level shed,
+                    replica loss -> replay on survivors, grow-back warmed
+                    from a live peer's weights
       adapters.py   multi-tenant LoRA slots: device slabs, hot-swap,
                     per-row routing through the gmm kernel
       eval.py       greedy continuation scoring via the engine or
@@ -30,6 +32,10 @@ from automodel_tpu_torch.serving.engine import (  # noqa: F401
     DecodeEngine,
     ServingConfig,
     build_serving_config,
+)
+from automodel_tpu_torch.serving.fleet import (  # noqa: F401
+    ROUTER_POLICIES,
+    FleetRouter,
 )
 from automodel_tpu_torch.serving.kv_cache import (  # noqa: F401
     KV_CACHE_DTYPES,

@@ -36,11 +36,13 @@ The serving features of the JAX engine, ported:
   rebuilds its donated ones), flushes the prefix index and replays the
   admitted requests pinned -- greedy output stays token-identical;
 * **graceful drain** (:meth:`DecodeEngine.drain`) bounded by
-  ``drain_grace_s``; ``tools/serve.py`` wires it to SIGTERM / SIGINT.
-
-The fleet keys (``replicas`` > 1, ``router_policy``,
-``fleet_probation_polls``) are refused: the elastic fleet is ROADMAP
-Queue 1 item 2.8.
+  ``drain_grace_s``; ``tools/serve.py`` wires it to SIGTERM / SIGINT;
+* **the fleet's hooks** (``serving/fleet.py``, keys ``replicas``,
+  ``router_policy``, ``fleet_probation_polls``):
+  :meth:`DecodeEngine.harvest_for_replay` strips a lost replica's
+  unfinished requests (every block table released) and
+  :meth:`DecodeEngine.adopt_for_replay` parks one on a survivor for the
+  recompute replay.
 """
 
 from __future__ import annotations
@@ -111,9 +113,6 @@ logger = logging.getLogger(__name__)
 # None means unbounded)
 _GRACE_FROM_CONFIG = object()
 
-_FLEET = "the elastic serving fleet is not ported yet: ROADMAP Queue 1 " \
-    "item 2.8"
-
 
 @dataclasses.dataclass
 class ServingConfig:
@@ -137,9 +136,9 @@ class ServingConfig:
     drain_grace_s: Optional[float] = None    # None -> unbounded drain
     speculative: Optional[str] = None        # None -> off (off/ngram, bools)
     spec_k: Optional[int] = None             # None -> default (4)
-    replicas: Optional[int] = None           # refused above 1 (item 2.8)
-    router_policy: Optional[str] = None      # refused (item 2.8)
-    fleet_probation_polls: Optional[int] = None   # refused (item 2.8)
+    replicas: Optional[int] = None           # None -> 1 (single engine)
+    router_policy: Optional[str] = None      # None -> round_robin
+    fleet_probation_polls: Optional[int] = None   # None -> default (3)
     max_adapters: Optional[int] = None       # None -> multi-LoRA off
     adapter_rank: Optional[int] = None       # None -> default (8)
     tenant_quota: Optional[int] = None       # None -> no per-tenant cap
@@ -188,16 +187,14 @@ class ServingConfig:
             normalize_scheduler_policy(self.scheduler_policy))
         self.shed_policy = validate_shed_policy(
             normalize_shed_policy(self.shed_policy))
-        self.router_policy = normalize_null_spelling(self.router_policy)
-        if self.replicas not in (None, 1):
-            raise ValueError(f"serving.replicas={self.replicas!r}: {_FLEET}")
-        if self.router_policy not in (None, "round_robin"):
-            raise ValueError(
-                f"serving.router_policy={self.router_policy!r}: {_FLEET}")
-        if self.fleet_probation_polls is not None:
-            raise ValueError(
-                f"serving.fleet_probation_polls="
-                f"{self.fleet_probation_polls!r}: {_FLEET}")
+        # lazy: fleet.py imports this module
+        from automodel_tpu_torch.serving.fleet import (
+            normalize_router_policy,
+            validate_router_policy,
+        )
+
+        self.router_policy = validate_router_policy(
+            normalize_router_policy(self.router_policy))
 
     @property
     def blocks_per_seq(self) -> int:
@@ -466,6 +463,31 @@ class DecodeEngine:
         self.requests[req.rid] = req
         self.rejections.extend(rejected)
         return rejected
+
+    def adopt_for_replay(self, req: Request) -> None:
+        """Adopt an admitted request harvested from a lost fleet replica:
+        parked pinned and WAITING with ``num_computed`` reset, so the
+        replay re-prefills prompt + tokens so far here (greedy output stays
+        token-identical across the move)."""
+        self.scheduler.adopt_replay(req)
+        self.requests[req.rid] = req
+
+    def harvest_for_replay(self) -> List[Request]:
+        """Strip every unfinished request off this engine (its replica was
+        declared lost): each row's slot and blocks are released (the
+        allocator ends ``all_free``), ``num_computed`` resets, and the row
+        leaves ``self.requests`` with its tokens so far and its
+        ``was_admitted`` and pin flags; the fleet decides where it lands."""
+        harvested = []
+        for req in list(self.scheduler.active) + list(self.scheduler.waiting):
+            if req.finished:
+                continue
+            self.scheduler._release(req)
+            req.num_computed = 0
+            req.state = RequestState.WAITING
+            harvested.append(req)
+            self.requests.pop(req.rid, None)
+        return harvested
 
     def abort(self, rid: int) -> None:
         """Cancel a request anywhere in its lifecycle; its blocks are freed

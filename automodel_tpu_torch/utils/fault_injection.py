@@ -66,8 +66,31 @@ Post-training rollouts (``post_training/rollout.py``):
     reward_fn         in ``compute_rewards``: the completed rollout is
                       discarded, a typed ``RolloutError``.
 
-The JAX module's checkpoint, elastic and fleet points wait for those
-slices of the port.
+Serving fleet (``serving/fleet.py``):
+
+    fleet_route       in ``FleetRouter._route``, before a placement: a
+                      typed ``RequestRejected`` (reason
+                      ``route(injected)``), never an exception.
+    fleet_replica_loss
+                      in ``FleetRouter.poll_health``: a replica's slice is
+                      declared lost (``AUTOMODEL_LOST_REPLICA`` picks the
+                      victim, default the highest-id live one); its
+                      admitted requests replay on the survivors, queued
+                      ones re-route, every allocator ends ``all_free``.
+    fleet_replica_admit
+                      at the top of a grow-back admission: a typed
+                      ``ReplicaAdmitError`` in the fleet's ``events``, the
+                      replica stays lost and its probation restarts.
+
+Live-params transport (``checkpoint/replication.py``):
+
+    ckpt_replica_restore
+                      at each shard of a live-params fetch: a corrupt
+                      shard; the fetch gives None and the admission fails,
+                      typed.
+
+The JAX module's checkpoint-save and elastic-training points wait for
+those slices of the port.
 """
 
 from __future__ import annotations
@@ -93,6 +116,10 @@ KNOWN_FAULT_POINTS = frozenset({
     "kv_cow_fork",
     "spec_draft",
     "spec_verify",
+    "fleet_route",
+    "fleet_replica_loss",
+    "fleet_replica_admit",
+    "ckpt_replica_restore",
     "adapter_load",
     "adapter_swap",
     "rollout_weight_sync",

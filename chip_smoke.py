@@ -42,6 +42,23 @@ Phases (any failure exits non-zero without the final ``ok`` line):
    requests (prompts of 64-1024 tokens, 64 new tokens each) with the
    launch counts zeroed just before and read just after, then a shorter
    int8-KV run the same way, then two profiled windows;
+   its quantized-serving and fleet legs on the same model (no new model
+   but the serve tool's int8 one): ``serve_fp8`` (float8 tensorwise, the
+   first step through every kernel against every plain version within
+   the larger of 5 % of the logit range and 3 x the run's floor, 8
+   requests of 32 new tokens with qdot once per quantized projection and
+   step, beside bf16 on the same requests, a profiled decode window);
+   ``serve_int8_base`` (the serve YAML plus ``model.weight_only_quant:
+   int8`` through ``tools/serve.py``: every request finished, kernel 1
+   once per layer and step, the same prompts through the plain attention
+   parting only at near-ties, the projections' bytes against bf16);
+   ``serve_fleet`` (the serve tool with ``--replicas 2 --router-policy
+   least_loaded --drill-loss-at 20``: exit 0, one loss with its replays,
+   one readmission whose weights equal its peer's bit for bit, every
+   allocator free, kernel 1 = layers x steps summed over the replicas,
+   the rows against one uninterrupted engine; then a loss at the first
+   poll, the survivor's rows equal to one engine's); the qdot cases at 8
+   decode rows and the 256-row chunk (``serve_fp8_*`` rows);
    before it, the gmm kernel at the multi-tenant LoRA delta's rank-8
    shapes (``lora_gmm_case`` lines: x [m, 2048] x A [17, 2048, 8] and
    h [m, 8] x B [17, 8, 2048], m = 8 and 256) against its plain version,
@@ -69,7 +86,9 @@ Phases (any failure exits non-zero without the final ``ok`` line):
    experts, block-padded), the first step through every kernel against
    every plain version, the 16 requests with paged decode held to layers
    x steps and gmm to 3 x layers x steps, profiled windows, then the
-   prefix cache on and off (tokens identical);
+   prefix cache on and off (tokens identical); its fp8 leg
+   ``serve_moe_fp8`` (qdot 4 x layers and gmm_quant 3 x layers a step,
+   the bf16 gmm never) and gmm_quant (e4m3) at the same routed groups;
    serve_qwen2: Qwen2.5-1.5B-Instruct's published config at 14 of 28 layers
    (q / k / v biases, 12 / 2 heads: kernel 1 at G 6), written with random
    bf16 weights as the ``refs/main`` snapshot of its repo id in a
@@ -200,14 +219,19 @@ Phases (any failure exits non-zero without the final ``ok`` line):
    layer and microbatch; generate_deepseek: that model through
    ``generate()`` (8 ragged prompts, 32 new tokens), the prefill on kernel
    9, its logits and the prompts' first tokens against the plain prefill;
+   then ``generate_deepseek_fp8``: float8 tensorwise on the experts
+   (gmm_quant 3 per routed layer and forward; the MLA projections plain,
+   as JAX's), the prefill's logits gated as the bf16 leg's (or 3 x the
+   run's floor) and its first tokens equal, a profiled window;
    (the attention phase above also holds kernel 9 at head_dim 192 on the
    V2-Lite YAML's first batch, ``mla_*_d192``, v padded with zeros, and
    the paged-decode phase Qwen3's G 8 decode and verify, ``qwen3_*``);
 12. the JAX package's HF fine-tuning YAMLs as written
    (``examples/llm_finetune/qwen3/qwen3_0p6b_hellaswag.yaml``, phase
    sft_qwen3_hellaswag, and ``llama3_2/llama3_2_1b_squad.yaml``, phase
-   sft_llama_squad): each model's published config at half its layers
-   (``HF_LAYERS``: 14 of 28, 8 of 16, for the time limit) with
+   sft_llama_squad): each model's published config at a quarter of its
+   layers (``HF_LAYERS``: 7 of 28, 4 of 16, for the time limit; half
+   until the quantized-serving and fleet legs joined) with
    random bf16 weights as an ``HF_HOME`` snapshot under the repo id the
    YAML names, seeded rows in the set's schema as local jsonl, and
    :class:`ByteTokenizer` by ``tokenizer._target_`` (the only overrides,
@@ -280,8 +304,9 @@ Phases (any failure exits non-zero without the final ``ok`` line):
    plain version, exact launches (whole-block remat: kernel 9's forward
    twice a layer and microbatch), and the end-of-run safetensors read
    back bit for bit; sft_seqcls_llama_1b, ``tiny_llama_seqcls_mock
-   .yaml``'s sections over Llama-3.2-1B's published config (8 of 16
-   layers, ``SEQCLS_LAYERS``, for the time limit; a fresh
+   .yaml``'s sections over Llama-3.2-1B's published config (4 of 16
+   layers, ``SEQCLS_LAYERS``, for the time limit, 8 before the fleet legs;
+   a fresh
    2-label head) with rows of ~256 tokens at V 128,256: kernel 9 on
    padding-folded segments, no linear-CE launch, the first step against
    plain attention; sft_granite, sft_olmo2, sft_starcoder2 and sft_phi3,
@@ -1741,6 +1766,8 @@ QDOT_SHAPES = [
     # (projection, k, n) of Llama-3.2-1B's layers at m = 8 x 2048 tokens
     ("q_o_proj", 2048, 2048), ("k_v_proj", 2048, 512),
     ("gate_up_proj", 2048, 8192), ("down_proj", 8192, 2048)]
+# the serving engine's rows a step: 8 decode rows, a 256-row prefill chunk
+SERVE_QDOT_ROWS = (8, 256)
 QDOT_PAIRS = {   # (a, b) operand types of each product (_gemm_dtypes)
     ("float8", "forward"): ("float8_e4m3fn", "float8_e4m3fn"),
     ("float8", "dgrad"): ("float8_e5m2", "float8_e4m3fn"),
@@ -1781,6 +1808,11 @@ def qdot_cases_list():
                *kn(o, k, n))
               for p, k, n in (("q_proj", 2048, 4096), ("o_proj", 4096, 2048))
               for o in ("forward", "dgrad", "wgrad")]
+    # serve_fp8: the engine's forwards at a decode step (8 rows) and a
+    # prefill chunk (8 x 32 rows)
+    cases += [(f"serve_fp8_{p}_m{m}", "float8", "tensorwise", "forward", m,
+               k, n)
+              for m in SERVE_QDOT_ROWS for p, k, n in QDOT_SHAPES]
     return cases
 
 
@@ -1817,6 +1849,11 @@ def qdot_library(a, b, sa, sb, a_q, b_q):
 
     aq = quant_cast(a, sa, a_q).contiguous()
     bq = quant_cast(b, sb, b_q).t().contiguous().t()
+    m = aq.shape[0]
+    if m % 16 and a_q != torch.int8 and sa.numel() == 1:
+        # _scaled_mm takes rows in multiples of 16: the decode rows padded
+        # with zero codes (their outputs dropped)
+        aq = torch.cat([aq, aq.new_zeros(16 - m % 16, aq.shape[1])])
     if a_q == torch.int8:
         fn = getattr(torch, "_int_mm", None)
         if fn is None:
@@ -1840,7 +1877,7 @@ def qdot_library(a, b, sa, sb, a_q, b_q):
                       out_dtype=torch.bfloat16)
 
         def to_fp32(out):
-            return out.float()
+            return out[:m].float()
     try:
         run()
         torch.cuda.synchronize()
@@ -2158,8 +2195,10 @@ def engine_phase(yaml_path=None, label="engine", flush=None, model=None,
     from automodel_tpu_torch.config.loader import load_yaml_config
     from automodel_tpu_torch.generation import GenerationConfig
     from automodel_tpu_torch.ops import gmm_kernel as gk
+    from automodel_tpu_torch.ops import gmm_quant_kernel as gq
     from automodel_tpu_torch.ops import paged_attention as tpa
     from automodel_tpu_torch.ops import paged_attention_kernel as pak
+    from automodel_tpu_torch.ops import qdot_kernel as qk
     from automodel_tpu_torch.serving import (
         DecodeEngine,
         RequestState,
@@ -2193,7 +2232,7 @@ def engine_phase(yaml_path=None, label="engine", flush=None, model=None,
           f"{mcfg.head_dim}), {model.num_params} params {model.param_dtype} "
           f"({weight_bytes} bytes; {resident} bytes resident before), built "
           f"in {time.perf_counter() - t0:.1f} s", flush=True)
-    gmm_rows = []
+    gmm_rows, gmm_quant_rows = [], []
     if moe:
         E, inter = moe_widths(model)
         for i, (name, tokens) in enumerate(SERVE_GMM_CASES):
@@ -2201,6 +2240,10 @@ def engine_phase(yaml_path=None, label="engine", flush=None, model=None,
                 tokens, E, mcfg.num_experts_per_tok, 400 + i)
             gmm_rows.append(gmm_case(name, padded, n_pad, mcfg.hidden_size,
                                      inter, flush, seed=410 + i))
+            # kernel 7 (e4m3) at the same groups: the fp8 leg's experts
+            gmm_quant_rows.append(gmm_quant_case(
+                f"{name}_e4m3", padded, n_pad, mcfg.hidden_size, inter,
+                torch.float8_e4m3fn, flush, seed=420 + i))
     rng = np.random.default_rng(0)
     prompts = [rng.integers(1, mcfg.vocab_size, int(n)).tolist()
                for n in rng.integers(64, 1025, 16)]
@@ -2240,13 +2283,18 @@ def engine_phase(yaml_path=None, label="engine", flush=None, model=None,
     warm.run()
     del warm
 
-    def drive(serving, requests, max_new, run):
+    def drive(serving, requests, max_new, run, per_step=None):
+        """``per_step``: the gmm, qdot and gmm_quant launches each engine
+        step must make (default: the bf16 model's, no quantized
+        products)."""
+        per_step = per_step or dict(gmm=routed, qdot=0, gmm_quant=0)
         eng = DecodeEngine(model, serving, generation=gen)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         pak.launches = 0                  # counts zeroed just before the run
         tpa.long_q_gather_calls = 0
         gk.gmm_launches = 0
+        qk.qdot_launches = gq.gmm_quant_launches = 0
         t0 = time.perf_counter()
         for p in requests:
             eng.submit(p, max_new_tokens=max_new)
@@ -2255,6 +2303,7 @@ def engine_phase(yaml_path=None, label="engine", flush=None, model=None,
         wall = time.perf_counter() - t0
         launches, gathers, gmms = (pak.launches, tpa.long_q_gather_calls,
                                    gk.gmm_launches)
+        qdots, gquants = qk.qdot_launches, gq.gmm_quant_launches
         st = eng.stats()
         states = {r.state for r in eng.requests.values()}
         check(states == {RequestState.FINISHED},
@@ -2265,9 +2314,13 @@ def engine_phase(yaml_path=None, label="engine", flush=None, model=None,
         check(launches == L * st["steps"],
               f"{run}: {launches} kernel launches != {L} layers x "
               f"{st['steps']} steps")
-        check(gmms == routed * st["steps"] == eng.gmm_launches,
+        check(gmms == per_step["gmm"] * st["steps"] == eng.gmm_launches,
               f"{run}: {gmms} gmm launches (engine {eng.gmm_launches}) != "
-              f"{routed} x {st['steps']} steps")
+              f"{per_step['gmm']} x {st['steps']} steps")
+        for kind, got in (("qdot", qdots), ("gmm_quant", gquants)):
+            check(got == per_step[kind] * st["steps"],
+                  f"{run}: {got} {kind} launches != {per_step[kind]} x "
+                  f"{st['steps']} steps")
         check(gathers == 0, f"{run}: {gathers} long-query gather calls")
         check(bool(torch.isfinite(eng.last_logits).all()),
               f"{run}: non-finite logits")
@@ -2277,6 +2330,7 @@ def engine_phase(yaml_path=None, label="engine", flush=None, model=None,
             steps=st["steps"], decode_steps=st["decode_steps"],
             mixed_steps=st["mixed_steps"], kernel_launches=launches,
             launches_per_step=launches / st["steps"], gmm_launches=gmms,
+            qdot_launches=qdots, gmm_quant_launches=gquants,
             tokens_generated=st["tokens_generated"],
             preemptions=st["preemptions"], kv_pool_bytes=st["kv_pool_bytes"],
             weight_bytes=weight_bytes,
@@ -2292,6 +2346,16 @@ def engine_phase(yaml_path=None, label="engine", flush=None, model=None,
         int8 = build_serving_config(
             {**cfg.serving.to_dict(), "kv_cache_dtype": "int8"})
         drive(int8, prompts[:8], 32, "int8_kv")
+    # quantized compute with the paged cache: float8 tensorwise on every
+    # eligible projection (and the experts), against the bf16 model on the
+    # same requests
+    if label == "engine" or moe:
+        main["fp8"] = fp8_serving_leg(model, scfg, gen, prompts, drive,
+                                      f"{label}_fp8" if moe
+                                      else "serve_fp8", routed)
+    if label == "engine":
+        main["int8_base"] = int8_base_leg(L)
+        main["fleet"] = fleet_phase(model)
 
     # where a step's time goes: a profiled window of prefill-carrying
     # steps, then one of pure decode steps, on a fresh engine
@@ -2320,10 +2384,432 @@ def engine_phase(yaml_path=None, label="engine", flush=None, model=None,
         main["prefix"] = prefix_leg(model, f"{label}_prefix", ("bf16",),
                                     fork_run=False)
         main["gmm_cases"] = gmm_rows
+        main["gmm_quant_cases"] = gmm_quant_rows
     del model
     gc.collect()
     torch.cuda.empty_cache()
     return main
+
+
+# ---------------------------------------------------------------------------
+# quantized serving and the fleet (legs of the engine phase)
+# ---------------------------------------------------------------------------
+FP8_REQUESTS, FP8_NEW = 8, 32
+INT8_BASE_REQUESTS, INT8_BASE_NEW = 8, 32
+# the fleet drill: 16 requests, prompts below 512 tokens (max_model_len
+# 544 less the 32 new), the loss at the 20th health poll (one a step:
+# mid-decode for every request admitted by then)
+FLEET_REQUESTS, FLEET_NEW, FLEET_MAX_LEN, FLEET_LOSS_AT = 16, 32, 544, 20
+PROJECTIONS = ("q_proj", "k_proj", "v_proj", "o_proj", "gate_proj",
+               "up_proj", "down_proj")
+
+
+def quantized_projections(model):
+    """Projections per forward that ``maybe_qdot`` quantizes: each layer's
+    dense ``*_proj`` (the experts excluded) whose in and out widths are
+    multiples of 16 and that no ``filter_fqns`` entry names."""
+    from torch import nn
+
+    n = 0
+    for layer in model.layers:
+        for name in PROJECTIONS:
+            lin = getattr(layer, name, None)
+            if (isinstance(lin, nn.Linear) and lin.in_features % 16 == 0
+                    and lin.out_features % 16 == 0):
+                n += 1
+    return n
+
+
+def decode_window(make, reqs, label, steps=8, max_new=64):
+    """A profiled window (``profile_window``) of ``steps`` pure-decode
+    steps of ``make()`` (an engine or a fleet) serving ``reqs``, after
+    their prefills; the rest then runs off the profile."""
+    eng = make()
+    for p in reqs:
+        eng.submit(p, max_new_tokens=max_new)
+
+    def engines():
+        return [r.engine for r in eng.replicas] if hasattr(
+            eng, "replicas") else [eng]
+
+    eng.step()
+    while any(e.scheduler.waiting or any(len(r.pending) > 1
+                                         for r in e.scheduler.active)
+              for e in engines()):
+        eng.step()
+    report = profile_window(lambda: [eng.step() for _ in range(steps)],
+                            steps, label, ("paged_decode",))
+    eng.run()
+    return report
+
+
+def fp8_serving_leg(model, scfg, gen, prompts, drive, label, routed):
+    """``apply_fp8_to_model`` (float8 tensorwise) on the engine's model: the
+    first step's logits through every kernel (paged decode, qdot,
+    gmm_quant) against every plain version, their largest difference
+    within the larger of 5 % of the logit range and
+    ``QUANT_GRAD_FLOOR_FACTOR`` times the run's floor (every kernel against
+    every kernel but the attention's plain version: two equally right
+    computations, whose bf16 ulps flip e4m3 codes at rounding midpoints,
+    and the flips compound over the layers); then ``FP8_REQUESTS``
+    requests of ``FP8_NEW`` tokens with the counts zeroed just before and
+    read just after -- qdot once per quantized projection and step,
+    gmm_quant 3 times per routed layer and step, the bf16 gmm never --
+    beside the bf16 model on the same requests."""
+    import torch
+
+    from automodel_tpu_torch.quantization import fp8
+    from automodel_tpu_torch.serving import DecodeEngine
+
+    moe = hasattr(model, "gmm_impl")
+    reqs = prompts[:FP8_REQUESTS]
+    bf16 = drive(scfg, reqs, FP8_NEW, f"{label}_bf16_reference")
+    fp8.apply_fp8_to_model(model, fp8.FP8Config(enabled=True,
+                                                dtype="float8"))
+    try:
+        n_q = quantized_projections(model)
+        firsts = {}
+        # (route, attention, quantized products)
+        for route, attn, prod in (("plain", "plain", "plain"),
+                                  ("kernel", "kernel", "kernel"),
+                                  ("attn_plain", "plain", "kernel")):
+            model.qdot_impl = prod
+            if moe:
+                model.gmm_impl = prod
+            eng = DecodeEngine(model, scfg, generation=gen, attn_impl=attn)
+            for p in reqs:
+                eng.submit(p, max_new_tokens=FP8_NEW)
+            eng.step()
+            firsts[route] = eng.last_logits.clone()
+            del eng
+        model.qdot_impl = None
+        if moe:
+            model.gmm_impl = None
+        torch.cuda.empty_cache()
+        ref, got = firsts["plain"], firsts["kernel"]
+        check(bool(torch.isfinite(got).all()),
+              f"{label}: first-step logits not finite")
+        span = float(ref.abs().max())
+        err = float((got - ref).abs().max())
+        floor = float((got - firsts["attn_plain"]).abs().max())
+        limit = max(LOGITS_REL_TOL * span, QUANT_GRAD_FLOOR_FACTOR * floor)
+        check(err <= limit,
+              f"{label} first-step logits: kernels vs plain max_abs_err "
+              f"{err:.4f} > {limit:.4f} (the larger of {LOGITS_REL_TOL} x "
+              f"range {span:.3f} and {QUANT_GRAD_FLOOR_FACTOR} x floor "
+              f"{floor:.4f})")
+        warm = DecodeEngine(model, scfg, generation=gen)
+        warm.submit(reqs[0][:40], max_new_tokens=4)
+        warm.run()
+        del warm
+        run = drive(scfg, reqs, FP8_NEW, label,
+                    per_step=dict(gmm=0, qdot=n_q, gmm_quant=routed))
+        run["profile_decode"] = decode_window(
+            lambda: DecodeEngine(model, scfg, generation=gen), reqs,
+            f"{label}_decode_w1")
+    finally:
+        model.quant = None
+        model.qdot_impl = None
+        if moe:
+            model.gmm_impl = None
+    report = dict(
+        recipe="float8 tensorwise", quantized_projections_per_step=n_q,
+        gmm_quant_per_step=routed,
+        first_step=dict(max_abs_err=err, logit_range=span,
+                        rel_to_range=err / span, floor_max_abs_err=floor,
+                        limit=limit, argmax_agreement=float(
+                            (got.argmax(-1) == ref.argmax(-1)).float()
+                            .mean()),
+                        rel_l2=float((got - ref).norm() / ref.norm())),
+        decode_tok_s=run["decode_tok_s"],
+        bf16_decode_tok_s=bf16["decode_tok_s"],
+        fp8_over_bf16=run["decode_tok_s"] / bf16["decode_tok_s"],
+        run=run, bf16_run=bf16)
+    print(f"{label} " + json.dumps(report), flush=True)
+    return report
+
+
+def _serve_yaml_copy(tag, edits):
+    """The Llama-3.2-1B serve YAML with ``edits`` ((old line, new lines))
+    applied, written to a fresh temporary directory; returns its path."""
+    import tempfile
+
+    with open(SERVE_YAML) as f:
+        text = f.read()
+    for old, new in edits:
+        check(old in text, f"{tag}: {SERVE_YAML} lacks {old.strip()!r}")
+        text = text.replace(old, new, 1)
+    path = os.path.join(tempfile.mkdtemp(prefix=f"chip_smoke_{tag}_"),
+                        f"llama3_2_1b_serve_{tag}.yaml")
+    with open(path, "w") as f:
+        f.write(text)
+    return path
+
+
+def _same_bits(a, b):
+    """``a`` and ``b`` hold the same bytes (dtype and shape included)."""
+    import torch
+
+    return (a.dtype == b.dtype and a.shape == b.shape
+            and torch.equal(a.contiguous().reshape(-1).view(torch.uint8),
+                            b.contiguous().reshape(-1).view(torch.uint8)))
+
+
+def _rows(eng, first_rid, n):
+    """Generated tokens of requests ``first_rid .. first_rid + n - 1``."""
+    return [list(eng.requests[first_rid + i].out_tokens) for i in range(n)]
+
+
+def _partings(model, prompts, got, want):
+    """Rows of ``got`` and ``want`` (greedy runs of the same prompts):
+    how many are identical, and for each that parts the position, both
+    tokens, and the gap between their logits (``want``'s less ``got``'s)
+    in one dense forward of the prompt and the common prefix."""
+    import torch
+
+    parted = []
+    for i, (g, w) in enumerate(zip(got, want)):
+        if g == w:
+            continue
+        j = next(t for t in range(min(len(g), len(w))) if g[t] != w[t])
+        ids = torch.tensor([prompts[i] + w[:j]], device="cuda")
+        with torch.inference_mode():
+            logits = model(ids)["logits"][0, -1].float()
+        parted.append(dict(row=i, position=j, token=g[j], reference=w[j],
+                           logit_gap=float(logits[w[j]] - logits[g[j]])))
+    return dict(identical_rows=len(got) - len(parted), rows=len(got),
+                parted=parted)
+
+
+def int8_base_leg(L):
+    """The serve YAML with ``model.weight_only_quant: int8`` added, through
+    the port's ``tools/serve.py`` (its ``serve``, the body of ``main``):
+    every request FINISHED, paged decode once per layer and step, the
+    projections int8 codes; then the same int8 model through the plain
+    attention: the first step's logits within 5 % of the logit range, and
+    the same prompts served token for token, where a row may part only at
+    a near-tie -- its two candidates' logits (one dense forward of the
+    prompt and common prefix) closer than the first step's largest
+    kernel-vs-plain difference, the run's own rounding floor (random
+    weights give flat logits: bf16 rounding of the attention flips such
+    ties); the projection weights' bytes against bf16."""
+    import torch
+
+    from automodel_tpu_torch.ops import paged_attention_kernel as pak
+    from automodel_tpu_torch.quantization.weight_only import (
+        Int8Linear,
+        is_quantized,
+    )
+    from automodel_tpu_torch.serving import DecodeEngine
+    from automodel_tpu_torch.tools import serve as serve_tool
+
+    anchor = "  _target_: automodel_tpu_torch.models.auto_model.build_model\n"
+    path = _serve_yaml_copy("int8_base", [
+        (anchor, anchor + "  weight_only_quant: int8\n")])
+    torch.cuda.synchronize()
+    pak.launches = 0                      # counts zeroed just before
+    out = serve_tool.serve(["-c", path, "--requests",
+                            str(INT8_BASE_REQUESTS), "--max-new",
+                            str(INT8_BASE_NEW)])
+    torch.cuda.synchronize()
+    launches = pak.launches
+    eng, prompts = out["engine"], out["prompts"]
+    model = eng.model
+    st = eng.stats()
+    check(out["rc"] == 0, f"serve_int8_base: exit {out['rc']} "
+          f"({st['outcomes']})")
+    check(is_quantized(model), "serve_int8_base: the YAML built no int8 base")
+    check(launches == L * st["steps"] == st["kernel_launches"],
+          f"serve_int8_base: {launches} paged-decode launches != {L} "
+          f"layers x {st['steps']} steps")
+    q = [m for m in model.modules() if isinstance(m, Int8Linear)]
+    int8_bytes = sum(m.weight.numel() + 4 * m.scale.numel() for m in q)
+    bf16_bytes = sum(2 * m.weight.numel() for m in q)
+    firsts = {}
+    for impl in ("plain", "kernel"):
+        first = DecodeEngine(model, eng.config, generation=eng.generation,
+                             attn_impl=impl)
+        for p in prompts:
+            first.submit(p)
+        first.step()
+        firsts[impl] = first.last_logits.clone()
+        del first
+    span = float(firsts["plain"].abs().max())
+    err = float((firsts["kernel"] - firsts["plain"]).abs().max())
+    check(err <= LOGITS_REL_TOL * span,
+          f"serve_int8_base first-step logits: kernel vs plain max_abs_err "
+          f"{err:.4f} > {LOGITS_REL_TOL} * {span:.3f}")
+    ref = DecodeEngine(model, eng.config, generation=eng.generation,
+                       attn_impl="plain")
+    ref.submit(prompts[0])                # the tool's warm-up request
+    ref.run()
+    for p in prompts:
+        ref.submit(p, max_new_tokens=INT8_BASE_NEW)
+    ref.run()
+    rows = _partings(model, prompts, _rows(eng, 1, len(prompts)),
+                     _rows(ref, 1, len(prompts)))
+    profile = decode_window(
+        lambda: DecodeEngine(model, eng.config, generation=eng.generation),
+        prompts, "serve_int8_base_decode_w1")
+    report = dict(
+        requests=INT8_BASE_REQUESTS, new_tokens=INT8_BASE_NEW,
+        decode_tok_s=out["report"]["decode_tok_s"],
+        wall_s=out["report"]["wall_s"], steps=st["steps"],
+        paged_decode_launches=launches, int8_projections=len(q),
+        projection_bytes_int8=int8_bytes, projection_bytes_bf16=bf16_bytes,
+        bytes_ratio=int8_bytes / bf16_bytes,
+        weight_bytes=sum(t.numel() * t.element_size()
+                         for t in model.state_dict().values()),
+        first_step=dict(max_abs_err=err, logit_range=span,
+                        tol=LOGITS_REL_TOL * span),
+        plain_attention_tokens=rows, profile_decode=profile)
+    print("serve_int8_base " + json.dumps(report), flush=True)
+    wide = [r for r in rows["parted"] if abs(r["logit_gap"]) > err]
+    check(not wide,
+          f"serve_int8_base: kernel and plain attention part away from a "
+          f"near-tie (|gap| > the first step's {err:.4f}): {wide}")
+    del eng, ref, model, out
+    torch.cuda.empty_cache()
+    return report
+
+
+def _fleet_drill(model, loss_at, label):
+    """One run of the port's serve tool in fleet mode (``--replicas 2
+    --router-policy least_loaded --drill-loss-at loss_at``) on ``model``,
+    the counts zeroed just before and read just after, with the fleet's
+    gates; returns ``(fleet, prompts, report)``."""
+    import torch
+
+    from automodel_tpu_torch.ops import paged_attention_kernel as pak
+    from automodel_tpu_torch.tools import serve as serve_tool
+
+    path = _serve_yaml_copy("fleet", [
+        ("  max_model_len: 2048\n",
+         f"  max_model_len: {FLEET_MAX_LEN}\n")])
+    L = model.config.num_hidden_layers
+    torch.cuda.synchronize()
+    pak.launches = 0
+    out = serve_tool.serve(
+        ["-c", path, "--requests", str(FLEET_REQUESTS), "--max-new",
+         str(FLEET_NEW), "--replicas", "2", "--router-policy",
+         "least_loaded", "--drill-loss-at", str(loss_at)], model=model)
+    torch.cuda.synchronize()
+    launches = pak.launches
+    fleet, rep = out["engine"], out["report"]
+    check(out["rc"] == 0, f"{label}: exit {out['rc']} ({rep['outcomes']})")
+    check(rep["replica_losses"] == 1 and rep["readmissions"] == 1,
+          f"{label}: {rep['replica_losses']} losses, {rep['readmissions']} "
+          "readmissions (1 and 1 drilled)")
+    check(fleet.all_free(), f"{label}: an allocator is not all free")
+    per = rep["per_replica"]
+    steps = sum(r["steps"] + r["retired_steps"] for r in per.values())
+    counted = sum(r["kernel_launches"] + r["retired_kernel_launches"]
+                  for r in per.values())
+    check(launches == counted == L * steps,
+          f"{label}: {launches} paged-decode launches (replicas counted "
+          f"{counted}) != {L} layers x {steps} steps")
+    check(all(r["watchdog_recoveries"] == 0 for r in per.values()),
+          f"{label}: a watchdog recovery nobody armed")
+    peer = fleet.replicas[0].engine.model.state_dict()
+    new = fleet.replicas[1].engine.model.state_dict()
+    check(fleet.replicas[1].engine.model is not model
+          and set(peer) == set(new)
+          and all(_same_bits(peer[k], new[k]) for k in peer),
+          f"{label}: the admitted replica's weights are not its peer's bit "
+          "for bit")
+    rep = dict(rep, paged_decode_launches=launches, steps_all=steps)
+    return fleet, out["prompts"], rep
+
+
+def _single_engine(model, fleet, prompts):
+    """One uninterrupted engine over ``prompts`` (submitted in order after
+    the tool's warm-up request); ``(engine, wall s)``."""
+    import torch
+
+    from automodel_tpu_torch.serving import DecodeEngine
+
+    eng = DecodeEngine(model, fleet.config, generation=fleet.generation)
+    eng.submit(prompts[0])
+    eng.run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for p in prompts:
+        eng.submit(p)
+    eng.run()
+    torch.cuda.synchronize()
+    return eng, time.perf_counter() - t0
+
+
+def fleet_phase(model):
+    """The elastic fleet through the port's serve tool on the engine
+    phase's Llama-3.2-1B (16 layers, the replicas sharing its weights):
+    ``--replicas 2 --router-policy least_loaded --drill-loss-at 20`` over
+    16 requests of 4-511 prompt tokens and 32 new each: exit 0, one loss
+    with its replays, one readmission after probation whose engine's
+    weights equal its peer's bit for bit, every allocator free, paged
+    decode once per layer and step summed over the replicas (retired
+    engines included); then its rows against one uninterrupted engine
+    (identical rows reported; where a row parts, the token and the logit
+    gap there), and the fleet's tok/s against that engine's.  Second, the
+    loss at the first poll, before any token is sampled: the survivor
+    serves every request and its tokens equal one engine's fed the same
+    order, row for row."""
+    import torch
+
+    from automodel_tpu_torch.serving import FleetRouter
+
+    n = FLEET_REQUESTS
+    fleet, prompts, rep = _fleet_drill(model, FLEET_LOSS_AT, "serve_fleet")
+    check(rep["replays"] >= 1, f"serve_fleet: {rep['replays']} replays")
+    n_warm = len(fleet.replicas)          # one warm-up request a replica
+    got = [list(fleet.requests[n_warm + i].out_tokens) for i in range(n)]
+    single, wall = _single_engine(model, fleet, prompts)
+    mid = _partings(model, prompts, got, _rows(single, 1, n))
+    single_tok_s = n * FLEET_NEW / wall
+    fleet.teardown()
+    # a fleet step: both replicas' engine steps, 8 decode rows each
+    profile = decode_window(
+        lambda: FleetRouter(model, fleet.config, generation=fleet.generation),
+        prompts, "serve_fleet_decode_w1", max_new=FLEET_NEW)
+    del fleet, single
+    torch.cuda.empty_cache()
+
+    fleet2, prompts2, rep2 = _fleet_drill(model, 1, "serve_fleet_early")
+    check(rep2["replays"] == 0,
+          f"serve_fleet_early: {rep2['replays']} replays of requests lost "
+          "before any step")
+    survivor = fleet2.replicas[0].engine
+    order = sorted((r for r in survivor.requests.values()
+                    if r.rid >= n_warm), key=lambda r: r.arrival)
+    check(len(order) == n, f"serve_fleet_early: the survivor served "
+          f"{len(order)} of {n} requests")
+    single2, _ = _single_engine(model, fleet2, [r.prompt for r in order])
+    early = _partings(model, [r.prompt for r in order],
+                      [list(r.out_tokens) for r in order],
+                      _rows(single2, 1, n))
+    fleet2.teardown()
+    report = dict(
+        requests=n, new_tokens=FLEET_NEW, loss_at_poll=FLEET_LOSS_AT,
+        decode_tok_s=rep["decode_tok_s"], single_engine_tok_s=single_tok_s,
+        fleet_over_single=rep["decode_tok_s"] / single_tok_s,
+        wall_s=rep["wall_s"], replica_losses=rep["replica_losses"],
+        replays=rep["replays"], readmissions=rep["readmissions"],
+        fleet_rejected=rep["fleet_rejected"],
+        health_polls=rep["health_polls"], routed=rep["routed"],
+        paged_decode_launches=rep["paged_decode_launches"],
+        steps=rep["steps_all"], weight_bytes=rep["weight_bytes"],
+        per_replica=rep["per_replica"], mid_decode=mid,
+        profile_decode=profile,
+        early=dict(paged_decode_launches=rep2["paged_decode_launches"],
+                   steps=rep2["steps_all"], readmissions=rep2["readmissions"],
+                   tokens=early))
+    print("serve_fleet " + json.dumps(report), flush=True)
+    check(early["identical_rows"] == n,
+          f"serve_fleet_early: the survivor's rows part from one engine's: "
+          f"{early['parted']}")
+    del fleet2, single2, survivor, order
+    torch.cuda.empty_cache()
+    return report
 
 
 # ---------------------------------------------------------------------------
@@ -3015,9 +3501,101 @@ def generate_deepseek_phase():
           f"generate_deepseek: the prompts' first tokens differ between "
           f"the kernel and the plain prefill ({out['kernel'][:, 0]} vs "
           f"{out['plain'][:, 0]})")
+    report["fp8"] = deepseek_fp8_leg(model, ids, lens, left, mask, pos, S,
+                                     gcfg)
     del model
     gc.collect()
     torch.cuda.empty_cache()
+    return report
+
+
+def deepseek_fp8_leg(model, ids, lens, left, mask, pos, S, gcfg):
+    """generate_deepseek with quantized compute (float8 tensorwise): the
+    experts through gmm_quant, the MLA and dense projections plain (the
+    JAX family's ``proj`` never quantizes), the prefill on kernel 9 at
+    head_dim 192.  The prefill's last logits through the kernels against
+    the plain versions (attention and gmm_quant) within 5 % of the logit
+    range (or ``QUANT_GRAD_FLOOR_FACTOR`` floors, as ``fp8_serving_leg``
+    measures them) and with the same argmax (the prompts' first tokens);
+    then the
+    ``GEN_NEW`` tokens through the kernels with the counts zeroed just
+    before and read just after: kernel 9 once a layer, gmm_quant 3 times
+    per routed layer and forward, the bf16 gmm and qdot never."""
+    import torch
+
+    from automodel_tpu_torch.generation import GenerationConfig, generate
+    from automodel_tpu_torch.ops import gmm_kernel as gk
+    from automodel_tpu_torch.ops import gmm_quant_kernel as gq
+    from automodel_tpu_torch.ops import qdot_kernel as qk
+    from automodel_tpu_torch.ops import splash_attention as sa
+    from automodel_tpu_torch.quantization import fp8
+
+    fp8.apply_fp8_to_model(model, fp8.FP8Config(enabled=True,
+                                                dtype="float8"))
+    mcfg = model.config
+    L, L_moe = mcfg.num_hidden_layers, moe_layer_count(model)
+    try:
+        last = {}
+        with torch.inference_mode():
+            # (route, attention, quantized products)
+            for route, attn, prod in (("kernel", "kernel", "kernel"),
+                                      ("plain", "plain", "plain"),
+                                      ("attn_plain", "plain", "kernel")):
+                model.gmm_impl = model.qdot_impl = prod
+                cache = model.init_kv_cache(GEN_PROMPTS, S + 1)
+                last[route] = model(left, position_ids=pos,
+                                    attention_mask=mask, kv_cache=cache,
+                                    cache_index=0, attn_impl=attn)[
+                                        "logits"][:, -1].float()
+                del cache
+        model.gmm_impl = model.qdot_impl = None
+        span = float(last["plain"].abs().max())
+        err = float((last["kernel"] - last["plain"]).abs().max())
+        floor = float((last["kernel"] - last["attn_plain"]).abs().max())
+        limit = max(LOGITS_REL_TOL * span, QUANT_GRAD_FLOOR_FACTOR * floor)
+        argmax_equal = bool((last["kernel"].argmax(-1)
+                             == last["plain"].argmax(-1)).all())
+        check(err <= limit,
+              f"generate_deepseek_fp8 prefill logits: kernels vs plain "
+              f"max_abs_err {err:.4f} > {limit:.4f} (the larger of "
+              f"{LOGITS_REL_TOL} x range {span:.3f} and "
+              f"{QUANT_GRAD_FLOOR_FACTOR} x floor {floor:.4f})")
+        torch.cuda.synchronize()
+        sa.fwd_launches = sa.plain_fwd_calls = 0
+        gk.gmm_launches = gq.gmm_quant_launches = qk.qdot_launches = 0
+        t0 = time.perf_counter()
+        out = generate(model, ids, lens, gcfg)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(attention_fwd=sa.fwd_launches,
+                        gmm_quant=gq.gmm_quant_launches,
+                        gmm=gk.gmm_launches, qdot=qk.qdot_launches)
+        short = GenerationConfig(max_new_tokens=8)
+        profile = profile_window(lambda: generate(model, ids, lens, short),
+                                 8, "generate_deepseek_fp8_w8",
+                                 ("Splash<",))
+    finally:
+        model.quant = None
+        model.gmm_impl = model.qdot_impl = None
+    check(launches == dict(attention_fwd=L, gmm_quant=3 * L_moe * GEN_NEW,
+                           gmm=0, qdot=0),
+          f"generate_deepseek_fp8: launches {launches} (kernel 9 {L}, "
+          f"gmm_quant 3 x {L_moe} routed layers x {GEN_NEW} forwards, "
+          "gmm and qdot 0)")
+    first_equal = bool((torch.as_tensor(out[:, 0], device="cuda")
+                        == last["kernel"].argmax(-1)).all())
+    report = dict(recipe="float8 tensorwise", prompts=GEN_PROMPTS,
+                  new_tokens=GEN_NEW, wall_s=wall,
+                  tok_s=GEN_PROMPTS * GEN_NEW / wall, launches=launches,
+                  prefill_logits=dict(max_abs_err=err, logit_range=span,
+                                      floor_max_abs_err=floor, limit=limit,
+                                      argmax_equal=argmax_equal),
+                  first_tokens_equal=argmax_equal and first_equal,
+                  profile=profile)
+    print("generate_deepseek_fp8 " + json.dumps(report), flush=True)
+    check(report["first_tokens_equal"],
+          "generate_deepseek_fp8: the prompts' first tokens differ between "
+          "the kernel and the plain prefill")
     return report
 
 
@@ -4095,11 +4673,14 @@ HF_CONFIGS = {
 # (warm-up, timed) steps; the SQuAD YAML validates every 10 steps
 HF_STEPS = {"sft_qwen3_hellaswag": (2, 6), "sft_llama_squad": (2, 8)}
 # the depth the HF phases run at for the script's 1200 s limit (every
-# width as published): Qwen3-0.6B 14 of 28 layers, Llama-3.2-1B 8 of 16,
-# Qwen2.5-1.5B (serve_qwen2) 14 of 28; the classifier's Llama-3.2-1B 8 of
+# width as published): Qwen3-0.6B 7 of 28 layers, Llama-3.2-1B 4 of 16,
+# Qwen2.5-1.5B (serve_qwen2) 14 of 28; the classifier's Llama-3.2-1B 4 of
 # 16 (SEQCLS_LAYERS).  At full depth, with GRPO / DPO at 16 layers too,
-# the script ended at 1109.7 s (NVIDIA H100 80GB HBM3, 700 W)
-HF_LAYERS = {"sft_qwen3_hellaswag": 14, "sft_llama_squad": 8,
+# the script ended at 1109.7 s (NVIDIA H100 80GB HBM3, 700 W); the two
+# SFT phases and the classifier went from half to a quarter of their
+# layers when the quantized-serving and fleet legs joined (the script at
+# 1,000.4 s before this cut on one H100 80GB HBM3 at 700 W)
+HF_LAYERS = {"sft_qwen3_hellaswag": 7, "sft_llama_squad": 4,
              "serve_qwen2": 14}
 HF_PUBLISHED_LAYERS = {"sft_qwen3_hellaswag": 28, "sft_llama_squad": 16,
                        "serve_qwen2": 28}
@@ -5792,7 +6373,7 @@ def pretrain_gpt2_phase(flush):
 
 SEQCLS_YAML = os.path.join(HF_YAMLS, "tiny_llama_seqcls_mock.yaml")
 SEQCLS_REPO = "meta-llama/Llama-3.2-1B"
-SEQCLS_LAYERS = 8                     # of 16 (see HF_LAYERS)
+SEQCLS_LAYERS = 4                     # of 16 (see HF_LAYERS)
 # the YAML's dataset at Llama-3.2-1B's vocabulary, rows of ~256 tokens
 SEQCLS_DATASET = ["--dataset.vocab_size", "128256", "--dataset.mean_len",
                   "256", "--dataset.std_len", "64",
@@ -5814,7 +6395,7 @@ SEQCLS_WARMUP, SEQCLS_STEPS, SEQCLS_PROFILED = 2, 4, 1
 def seqcls_phase(hf_home, flush):
     """``tiny_llama_seqcls_mock.yaml``'s sections with two changes: the
     model is ``build_sequence_classifier(name_or_path=...)`` over
-    Llama-3.2-1B's published config (8 of its 16 layers, ``SEQCLS_LAYERS``,
+    Llama-3.2-1B's published config (4 of its 16 layers, ``SEQCLS_LAYERS``,
     for the time limit; random bf16 weights
     from a seed written as an ``HF_HOME`` snapshot, a causal-LM directory:
     the ``score`` head is fresh), and the dataset is at V 128,256 with rows
@@ -7658,6 +8239,15 @@ def main():
         "launches"]["paged_decode"]
     kernels[-1]["serve_moe_launches"] = serve_moe["kernel_launches"]
     kernels[-1]["serve_qwen2_launches"] = serve_qwen2["kernel_launches"]
+    # quantized serving and the fleet
+    kernels[-1]["serve_fp8_launches"] = main_run["fp8"]["run"][
+        "kernel_launches"]
+    kernels[-1]["serve_moe_fp8_launches"] = serve_moe["fp8"]["run"][
+        "kernel_launches"]
+    kernels[-1]["serve_int8_base_launches"] = main_run["int8_base"][
+        "paged_decode_launches"]
+    kernels[-1]["serve_fleet_launches"] = main_run["fleet"][
+        "paged_decode_launches"]
     kernels[-1]["serving_features_launches"] = {
         "prefix_on_bf16": features["prefix_cache"]["bf16"]["on"][
             "paged_decode_launches"],
@@ -7707,6 +8297,8 @@ def main():
         if part == "fwd":
             kernels[-1]["generate_deepseek_launches"] = gen_deepseek[
                 "launches"]["attention_fwd"]
+            kernels[-1]["generate_deepseek_fp8_launches"] = gen_deepseek[
+                "fp8"]["launches"]["attention_fwd"]
         # the Gemma shapes (head_dim 128 and 256, windows, cap 50), the
         # post-training rows and the VLM phases' first batches and launches
         for c in gemma_cases + pt_attn_cases + [r["attention_cases"][0]
@@ -7955,7 +8547,18 @@ def main():
         "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],
         "library_ms": rep["library_ms"],
         "redesigned": "wgmma + TMA, persistent",
+        "serve_fp8_launches": main_run["fp8"]["run"]["qdot_launches"],
+        "serve_moe_fp8_launches": serve_moe["fp8"]["run"]["qdot_launches"],
     })
+    # the engine's decode rows and prefill chunk (serve_fp8)
+    for c in q_cases:
+        if c["case"].startswith("serve_fp8_"):
+            kernels[-1].update({
+                f"{c['case']}_ms": c["ms"],
+                f"{c['case']}_plain_ms": c["plain_ms"],
+                f"{c['case']}_bound_ms": c["bound_ms"],
+                f"{c['case']}_bound_by": c["bound_by"],
+                f"{c['case']}_library_ms": c["library_ms"]})
     gq_cases = moe_fp8["gmm_cases"]
     rep = gq_cases[0]         # routed gate/up rows, int8
     e4m3 = next(c for c in gq_cases if c["case"] == "routed_gate_up_e4m3")
@@ -7972,7 +8575,20 @@ def main():
         "pack_ms": rep["pack_ms"], "product_ms": rep["product_ms"],
         "two_pass_floor_ms": rep["two_pass_floor_ms"],
         "e4m3_ms": e4m3["ms"], "e4m3_library_ms": e4m3["library_ms"],
+        "serve_moe_fp8_launches": serve_moe["fp8"]["run"][
+            "gmm_quant_launches"],
+        "generate_deepseek_fp8_launches": gen_deepseek["fp8"]["launches"][
+            "gmm_quant"],
     })
+    # a decode step's and a prefill chunk's groups (serve_moe_fp8)
+    for c in serve_moe["gmm_quant_cases"]:
+        kernels[-1].update({
+            f"{c['case']}_ms": c["ms"], f"{c['case']}_plain_ms": c["plain_ms"],
+            f"{c['case']}_bound_ms": c["bound_ms"],
+            f"{c['case']}_bound_by": c["bound_by"],
+            f"{c['case']}_library_ms": c["library_ms"]})
+        kernels[-1]["max_abs_err"] = max(kernels[-1]["max_abs_err"],
+                                         c["max_abs_err"])
     for part, launches in (("fwd", sft_flash["fwd_launches"]),
                            ("bwd", sft_flash["bwd_launches"])):
         rep = flash_cases[0][part]

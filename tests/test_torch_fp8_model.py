@@ -207,10 +207,33 @@ def test_apply_fp8_on_a_quantless_family_warns_and_raises_strict(
 
 
 def test_serving_with_quantized_compute_raises():
-    _, _, model = pair("llama")
+    """Serving under quantized compute follows JAX instead of raising:
+    ``DecodeEngine`` over the fp8 model gives the JAX engine's greedy
+    tokens (exact; each step's tensorwise scales span the whole step
+    buffer in both engines), and the steps and tokens counted agree."""
+    from automodel_tpu.generation import GenerationConfig as JaxGen
+    from automodel_tpu.serving import DecodeEngine as JaxEngine
+    from automodel_tpu.serving import ServingConfig as JaxServing
+    from automodel_tpu_torch.generation import GenerationConfig
+    from automodel_tpu_torch.serving import DecodeEngine, ServingConfig
+
+    jm, params, model = pair("llama")
+    jfp8.apply_fp8_to_model(jm, jfp8.FP8Config(enabled=True))
     fp8.apply_fp8_to_model(model, fp8.FP8Config(enabled=True))
-    with pytest.raises(NotImplementedError, match="fp8 serving"):
-        model(torch.zeros(1, 4, dtype=torch.int64), kv_cache=object())
+    prompts = [list(range(3, 3 + n)) for n in (7, 12, 4)]
+    kw = dict(max_model_len=64, prefill_chunk=16)
+    jeng = JaxEngine(jm, params, JaxServing(**kw),
+                     generation=JaxGen(max_new_tokens=5))
+    eng = DecodeEngine(model, ServingConfig(**kw), device="cpu",
+                       generation=GenerationConfig(max_new_tokens=5))
+    for e in (jeng, eng):
+        for p in prompts:
+            e.submit(p)
+    jout = jeng.run()
+    assert eng.run() == {r: [int(t) for t in toks]
+                         for r, toks in jout.items()}
+    for key in ("steps", "tokens_generated", "outcomes"):
+        assert eng.stats()[key] == jeng.stats()[key], key
 
 
 def test_fp8_enums_validated_at_load_and_after_cli_overrides(tmp_path):

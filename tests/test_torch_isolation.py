@@ -5,7 +5,8 @@ families, ``from_pretrained``, the HellaSwag / SQuAD datasets, the Gemma
 and vision models, the VLM datasets and the VLM recipe, the
 post-training modules and the GRPO / DPO recipes, GPT-2, the
 classifier, Granite / OLMo-2 / StarCoder-2 / Phi-3, the pretraining
-entry, Qwen2.5-VL and its M-RoPE position ids, Gemma-3n among them),
+entry, Qwen2.5-VL and its M-RoPE position ids, Gemma-3n, the serving
+fleet and its live-params transport among them),
 importing every module loads no JAX, and the kernel build directory is
 ignored by git."""
 
@@ -50,7 +51,9 @@ def test_no_jax_or_jax_package_imports():
                 "models/sequence_classification.py",
                 "examples/pretrain.py", "models/qwen2_5_vl.py",
                 "datasets/vlm/qwen_rope.py", "models/gemma3n.py",
-                "models/phi4_mm.py", "examples/vlm_generate.py"):
+                "models/phi4_mm.py", "examples/vlm_generate.py",
+                "serving/fleet.py", "utils/elastic.py",
+                "checkpoint/replication.py"):
         assert new in rel, new
     for path in sources:
         with open(path) as f:
@@ -92,7 +95,8 @@ def test_engine_import_loads_no_jax():
                 "quantization.weight_only", "models.gpt2",
                 "models.sequence_classification", "models.phi3",
                 "examples.pretrain", "models.qwen2_5_vl",
-                "datasets.vlm.qwen_rope"):
+                "datasets.vlm.qwen_rope", "serving.fleet",
+                "utils.elastic", "checkpoint.replication"):
         assert "automodel_tpu_torch." + mod in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"

@@ -2438,3 +2438,169 @@ def test_cuda_llama_generate_prefill_on_kernel9(cuda_device):
         assert sa.fwd_launches == (16 if impl == "kernel" else 0)
         assert sa.plain_fwd_calls == (0 if impl == "kernel" else 16)
     assert (out["kernel"][:, 0] == out["plain"][:, 0]).all()
+
+
+# ---------------------------------------------------------------------------
+# quantized serving: qdot at decode rows, gmm_quant at decode groups, and a
+# drilled fleet on the card
+# ---------------------------------------------------------------------------
+# (name, m, k, n): Llama-3.2-1B's q / k-v / gate-up / down projections at
+# the engine's decode widths (1-8 rows) and its prefill chunk (256 rows)
+QDOT_DECODE_SHAPES = [
+    ("q_m1", 1, 2048, 2048), ("kv_m5", 5, 2048, 512),
+    ("gate_m8", 8, 2048, 8192), ("down_m8", 8, 8192, 2048),
+    ("q_m256", 256, 2048, 2048)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pair", [QPAIRS[0], QPAIRS[3]],
+                         ids=[QPAIRS[0][0], QPAIRS[3][0]])
+@pytest.mark.parametrize("shape", QDOT_DECODE_SHAPES,
+                         ids=[s[0] for s in QDOT_DECODE_SHAPES])
+def test_cuda_qdot_decode_rows_match_plain(shape, pair, cuda_device):
+    """``qdot`` at the serving engine's row counts (a 128-row tile holds
+    1-8 real rows) against the plain version, bf16 out as the model asks:
+    int8 bit-identical, e4m3 within ``QDOT_FP8_REL_L2`` of the fp32
+    output; one launch a call."""
+    from automodel_tpu_torch.ops import qdot_kernel as qk
+    from automodel_tpu_torch.ops.quant import _operand_scales
+
+    _, m, k, n = shape
+    _, a_q, b_q = pair
+    a, b = make_qdot_case("forward", m=m, k=k, n=n, seed=11,
+                          device=cuda_device)
+    sa, sb = _operand_scales(a, b, a_q, b_q, False)
+    ref = qk.qdot_plain(a, b, sa, sb, a_q, b_q)
+    before = qk.qdot_launches
+    got = qk.qdot_cuda(a, b, sa, sb, a_q, b_q)
+    got_bf16 = qk.qdot_cuda(a, b, sa, sb, a_q, b_q,
+                            out_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    assert qk.qdot_launches - before == 2
+    assert bool(torch.isfinite(got).all())
+    if a_q == torch.int8:
+        assert torch.equal(got, ref)
+        assert torch.equal(got_bf16, ref.bfloat16())
+    else:
+        assert rel_l2(got, ref) < QDOT_FP8_REL_L2, rel_l2(got, ref)
+        assert rel_l2(got_bf16, ref) < 1e-2
+
+
+def _decode_group_sizes(E, rows, seed):
+    """``[E]`` sizes with ``rows`` rows spread over a few experts (0-2 rows
+    each, most experts empty), as a decode step routes them."""
+    rng = np.random.default_rng(seed)
+    sizes = np.zeros(E, np.int64)
+    for e in rng.choice(E, rows, replace=True):
+        sizes[e] += 1
+    return sizes.tolist()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pair", [QPAIRS[0], QPAIRS[3]],
+                         ids=[QPAIRS[0][0], QPAIRS[3][0]])
+@pytest.mark.parametrize("padded", [False, True],
+                         ids=["raw", "block128"])
+def test_cuda_gmm_quant_decode_groups_match_plain(padded, pair,
+                                                  cuda_device):
+    """``gmm_quant`` over 128 experts at a decode step's groups (empty,
+    one-row and two-row segments; ``block128``: each non-empty segment
+    padded to 128 rows with zero rows, as ``sorted_expert_ffn`` lays
+    them), Qwen3-30B-A3B's gate/up width (2048 -> 768): rows past the
+    groups exactly 0, int8 bit-identical, e4m3 within
+    ``QDOT_FP8_REL_L2``; one launch."""
+    from automodel_tpu_torch.ops import gmm_quant_kernel as gq
+
+    _, a_q, b_q = pair
+    E, k, n = 128, 2048, 768
+    sizes = _decode_group_sizes(E, 24, seed=7)
+    assert 0 in sizes and 1 in sizes
+    if padded:
+        sizes = [-(-s // 128) * 128 for s in sizes]
+    m = sum(sizes) + 16
+    lhs, rhs, _, gs = make_gmm_case(sizes, m, k, n, seed=3,
+                                    device=cuda_device)
+    lhs[sum(sizes):] = 0
+    s_lhs = gq.lhs_scales(lhs, gs, a_q, "tensorwise")
+    s_rhs = gq.rhs_scales(rhs, b_q, "tensorwise").contiguous()
+    before = gq.gmm_quant_launches
+    got = gq.gmm_quant_cuda(lhs, rhs, gs, s_lhs, s_rhs, a_q, b_q,
+                            torch.bfloat16)
+    torch.cuda.synchronize()
+    assert gq.gmm_quant_launches - before == 1
+    ref = gq.gmm_quant_plain(lhs, rhs, gs, s_lhs, s_rhs, a_q, b_q,
+                             torch.bfloat16)
+    assert bool(torch.isfinite(got).all())
+    assert bool((got[sum(sizes):] == 0).all())
+    if a_q == torch.int8:
+        assert torch.equal(got, ref)
+    else:
+        assert rel_l2(got, ref) < QDOT_FP8_REL_L2, rel_l2(got, ref)
+
+
+@pytest.mark.cuda
+def test_cuda_fleet_drill_on_the_card(cuda_device, monkeypatch):
+    """A 2-replica tiny fleet on the card, one replica lost before any
+    token is sampled, then grown back: every request FINISHED, tokens
+    equal to one uninterrupted engine's, the admitted replica's weights
+    equal its peer's bit for bit, every allocator free, and paged-decode
+    launches equal layers x steps summed over the replicas."""
+    from automodel_tpu_torch.checkpoint import replication as rep
+    from automodel_tpu_torch.generation import GenerationConfig
+    from automodel_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from automodel_tpu_torch.serving import (
+        DecodeEngine,
+        FleetRouter,
+        ServingConfig,
+    )
+    from automodel_tpu_torch.utils import fault_injection as fi
+
+    cfg = LlamaConfig(vocab_size=256, hidden_size=256,
+                      intermediate_size=512, num_hidden_layers=2,
+                      num_attention_heads=4, num_key_value_heads=2,
+                      rope_theta=10000.0)
+    model = LlamaForCausalLM(cfg, param_dtype=torch.bfloat16,
+                             device=cuda_device).init_weights(3)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, 256, n).tolist() for n in (9, 40, 3, 70)]
+    gen = GenerationConfig(max_new_tokens=12)
+    scfg = ServingConfig(max_model_len=128, replicas=2,
+                         fleet_probation_polls=2)
+    one = DecodeEngine(model, ServingConfig(max_model_len=128),
+                       generation=gen)
+    for p in prompts:
+        one.submit(p)
+    ref = one.run()
+    monkeypatch.setenv("AUTOMODEL_LOST_REPLICA", "1")
+    fleet = FleetRouter(model, scfg, generation=gen)
+    rids = [fleet.submit(p) for p in prompts]
+    fi.configure_faults("fleet_replica_loss:1")
+    try:
+        fleet.poll_health(step=0)
+    finally:
+        fi.reset_faults()
+    assert fleet.replica_losses == 1 and not fleet.replicas[1].alive
+    fleet.note_return(1)
+    steps = 0
+    while fleet.has_work():
+        fleet.poll_health(step=steps + 1)
+        fleet.step()
+        steps += 1
+    for p in range(2 * fleet.probation_polls):
+        if fleet.replicas[1].alive:
+            break
+        fleet.poll_health(step=steps + 1 + p)
+    assert fleet.readmissions == 1
+    assert [fleet.requests[r].out_tokens for r in rids] == \
+        [ref[i] for i in sorted(ref)]
+    digests = [{k: s[0] for k, s in rep.serialize_tree(
+        r.engine.model.state_dict()).items()} for r in fleet.replicas]
+    assert digests[0] == digests[1]
+    assert fleet.replicas[1].engine.model is not model
+    assert fleet.all_free()
+    st = fleet.stats()
+    for rid_, r in st["per_replica"].items():
+        assert r["kernel_launches"] + r["retired_kernel_launches"] == \
+            2 * (r["steps"] + r["retired_steps"])
+    fleet.teardown()
+    assert rep.live_stores_snapshot() == {}

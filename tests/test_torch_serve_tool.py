@@ -100,3 +100,54 @@ def test_drive_drains_when_signal_handler_trips():
     assert eng.allocator.all_free
     rid = eng.submit([8, 9])
     assert eng.requests[rid].state.value == "rejected"
+
+
+JAX_YAML = os.path.join(REPO, "examples", "serve", "tiny_llama_serve.yaml")
+FLEET_COUNTERS = ("replicas", "alive", "router_policy", "health_polls",
+                  "replica_losses", "replays", "readmissions",
+                  "fleet_rejected", "routed", "outcomes", "not_finished")
+
+
+@pytest.fixture
+def jax_serve_tool():
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "jax_serve_tool_under_test", os.path.join(REPO, "tools", "serve.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.fault
+@pytest.mark.parametrize("policy", ["round_robin", "least_loaded"])
+def test_fleet_drill_exits_and_counts_as_the_jax_tool(capsys, policy,
+                                                     jax_serve_tool):
+    """``--replicas 2 --drill-loss-at 3`` on the JAX package's tiny serve
+    YAML through both tools, the port's model holding the JAX tool's
+    weights (its ``init`` at the same seed): the same exit code (0), and
+    the same fleet counters -- one loss, its replays, one readmission
+    after probation, no fleet shed -- routing and outcomes."""
+    import jax
+    import numpy as np
+
+    from automodel_tpu.config.loader import load_yaml_config as jax_load
+    from automodel_tpu_torch.models.weights import load_jax_params
+
+    argv = ["--config", JAX_YAML, "--requests", "8", "--max-new", "8",
+            "--replicas", "2", "--router-policy", policy,
+            "--drill-loss-at", "3"]
+    jrc = jax_serve_tool.main(argv)
+    jreport = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    params = jax.tree.map(np.asarray, jax_load(JAX_YAML).model.instantiate()
+                          .init(jax.random.key(0)))
+    model = load_yaml_config(JAX_YAML).model.instantiate(device="cpu")
+    load_jax_params(model, params)
+    out = serve_tool.serve(argv + ["--device", "cpu"], model=model)
+    report = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert out["rc"] == jrc == 0
+    assert {k: report[k] for k in FLEET_COUNTERS} == \
+        {k: jreport[k] for k in FLEET_COUNTERS}
+    assert report["replica_losses"] == 1 and report["readmissions"] == 1
+    assert report["replays"] >= 1 and report["fleet_rejected"] == 0
+    assert out["engine"].all_free()

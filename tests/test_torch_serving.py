@@ -165,17 +165,15 @@ def test_engine_host_sampling_path(models, prompts):
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("knob,value", [
     ("prefix_caching", "maybe"), ("speculative", "eagle"),
-    ("max_adapters", 0), ("replicas", 2), ("watchdog_s", -5.0)])
+    ("max_adapters", 0), ("replicas", 0), ("watchdog_s", -5.0)])
 def test_left_out_knobs_raise(knob, value):
-    """The ported knobs raise on a bad value, naming the knob (the JAX
-    validation); the fleet's ``replicas`` > 1 is still refused, naming
-    ROADMAP item 2.8.  Null is the default either way."""
+    """The ported knobs raise on a bad value, naming the knob, where the
+    JAX validation raises too.  Null is the default either way."""
     with pytest.raises(ValueError, match=knob):
         build_serving_config({knob: value})
+    with pytest.raises(ValueError, match=knob):
+        JaxServingConfig(**{knob: value})
     assert build_serving_config({knob: None}) == ServingConfig()
-    if knob == "replicas":
-        with pytest.raises(ValueError, match="2.8"):
-            build_serving_config({knob: value})
 
 
 def test_jax_serving_yaml_loads_unchanged():

@@ -337,12 +337,17 @@ def test_rejection_is_typed_and_generate_refuses_to_pad(models):
     ("spec_k", 0, "spec_k"),
     ("adapter_rank", 0, "adapter_rank"),
     ("tenant_quota", 0, "tenant_quota"),
-    ("router_policy", "least_loaded", "2.8"),
-    ("fleet_probation_polls", 3, "2.8"),
+    ("router_policy", "fastest", "router_policy"),
+    ("fleet_probation_polls", 0, "fleet_probation_polls"),
 ])
 def test_serving_config_validation(key, value, match):
+    """Each bad value raises, naming its key, in the port as in JAX."""
+    from automodel_tpu.serving import ServingConfig as JaxServingConfig
+
     with pytest.raises(ValueError, match=match):
         build_serving_config({key: value})
+    with pytest.raises(ValueError, match=match):
+        JaxServingConfig(**{key: value})
 
 
 def test_every_jax_serving_key_is_accepted():
