@@ -417,8 +417,15 @@ inline Strides strides_of(bool bhsd, int S, int H, int D) {
 }
 
 struct Args {
-  const int* seg;           // [B, S] or null
+  const int* seg;           // [B, S] or null: the queries' ids
   int4* meta;               // [B, n_t] tile metas (tile_meta) when seg
+  // the keys' ids and metas: seg and meta unless a call gives its own
+  // (kv_ids; the ring's blocks pair one shard's queries with another's
+  // keys), when a row with no key writes lse -inf (a block's empty row,
+  // which the ring's merge weighs 0) in place of 0
+  const int* seg_kv;
+  int4* meta_kv;
+  int kv_ids;
   bf16* out;                // forward
   float* lse;               // forward writes, backward reads
   const bf16* o_in;         // backward: out and dout (delta_kernel)
@@ -860,7 +867,7 @@ fwd_kernel(const __grid_constant__ CUtensorMap tq,
       kv_range(q0, BM, BN, S, p.causal, window, lo, hi);
       for (int j = hi; j >= lo; --j) {
         const int k0 = j * BN;
-        const Meta km = has_seg ? meta_of(p.meta, b, p.n_t, k0 / kTile,
+        const Meta km = has_seg ? meta_of(p.meta_kv, b, p.n_t, k0 / kTile,
                                           BN / kTile)
                                 : Meta{0, 0, 1};
         if (classify(q0, BM, k0, BN, S, p.causal, window, has_seg, qm, km) ==
@@ -918,8 +925,8 @@ fwd_kernel(const __grid_constant__ CUtensorMap tq,
     // the first live kv tile at or below j (lo - 1 when none), its class
     auto next_live = [&](int j, int& cls) {
       for (; j >= lo; --j) {
-        const Meta km = has_seg ? meta_of(p.meta, b, p.n_t, j * BN / kTile,
-                                          BN / kTile)
+        const Meta km = has_seg ? meta_of(p.meta_kv, b, p.n_t,
+                                          j * BN / kTile, BN / kTile)
                                 : Meta{0, 0, 1};
         cls = classify(q0, BM, j * BN, BN, S, p.causal, window, has_seg, qm,
                        km);
@@ -1042,7 +1049,9 @@ fwd_kernel(const __grid_constant__ CUtensorMap tq,
                    inv);
       if ((lane & 3) == 0)
         p.lse[((size_t)b * p.Hq + hq) * S + row[h]] =
-            l[h] > 0.f ? (m[h] * mult + log2f(l[h])) * kLn2 : 0.f;
+            l[h] > 0.f   ? (m[h] * mult + log2f(l[h])) * kLn2
+            : p.kv_ids ? -INFINITY
+                       : 0.f;
     }
   }
 }
@@ -1168,7 +1177,7 @@ dq_kernel(const __grid_constant__ CUtensorMap tq,
       kv_range(q0, BM, BN, S, p.causal, window, lo, hi);
       for (int j = hi; j >= lo; --j) {
         const int k0 = j * BN;
-        const Meta km = has_seg ? meta_of(p.meta, b, p.n_t, k0 / kTile, 1)
+        const Meta km = has_seg ? meta_of(p.meta_kv, b, p.n_t, k0 / kTile, 1)
                                 : Meta{0, 0, 1};
         if (classify(q0, BM, k0, BN, S, p.causal, window, has_seg, qm, km) ==
             kSkip)
@@ -1229,8 +1238,8 @@ dq_kernel(const __grid_constant__ CUtensorMap tq,
     // the first live kv tile at or below j (lo - 1 when none), its class
     auto next_live = [&](int j, int& cls) {
       for (; j >= lo; --j) {
-        const Meta km = has_seg ? meta_of(p.meta, b, p.n_t, j * BN / kTile,
-                                          1)
+        const Meta km = has_seg ? meta_of(p.meta_kv, b, p.n_t,
+                                          j * BN / kTile, 1)
                                 : Meta{0, 0, 1};
         cls = classify(q0, BM, j * BN, BN, S, p.causal, window, has_seg, qm,
                        km);
@@ -1401,7 +1410,7 @@ dkv_kernel(const __grid_constant__ CUtensorMap tq,
     for (int i = blockIdx.x; i < n_items; i += gridDim.x, ++n) {
       int b, hk, k0, lo, hi;
       item(i, b, hk, k0);
-      const Meta km = has_seg ? meta_of(p.meta, b, p.n_t, k0 / kTile, 2)
+      const Meta km = has_seg ? meta_of(p.meta_kv, b, p.n_t, k0 / kTile, 2)
                               : Meta{0, 0, 1};
       const int kb = n % KB;
       if (n >= KB) wg::bar_wait(kv_empty + kb, ((n / KB) - 1) & 1);
@@ -1459,9 +1468,9 @@ dkv_kernel(const __grid_constant__ CUtensorMap tq,
   for (int i = blockIdx.x; i < n_items; i += gridDim.x, ++n) {
     int b, hk, k0, lo, hi;
     item(i, b, hk, k0);
-    const Meta km = has_seg ? meta_of(p.meta, b, p.n_t, k0 / kTile, 2)
+    const Meta km = has_seg ? meta_of(p.meta_kv, b, p.n_t, k0 / kTile, 2)
                             : Meta{0, 0, 1};
-    const int* seg_b = has_seg ? p.seg + (size_t)b * S : nullptr;
+    const int* seg_b = has_seg ? p.seg_kv + (size_t)b * S : nullptr;
     const int key[2] = {k0 + rl, k0 + rl + 8};
     RowMask rm[2];
 #pragma unroll
@@ -1570,6 +1579,9 @@ int launch_meta(const Args& p, cudaStream_t s) {
   const int total = p.B * p.n_t;
   tile_meta<R><<<(total * 32 + 255) / 256, 256, 0, s>>>(
       p.seg, p.meta, p.S, p.n_t, total);
+  if (p.kv_ids)
+    tile_meta<R><<<(total * 32 + 255) / 256, 256, 0, s>>>(
+        p.seg_kv, p.meta_kv, p.S, p.n_t, total);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1583,7 +1595,7 @@ int forward(const void* q, const void* k, const void* v, const Args& p,
   if ((rc = map4(&tk, k, R::D, p.S, p.Hk, p.B, p.sk, C::BN))) return rc;
   if ((rc = map4(&tv, v, R::D, p.S, p.Hk, p.B, p.sk, C::BN))) return rc;
   if (p.seg != nullptr &&
-      (rc = map1(&tseg, p.seg, (long long)p.B * p.S, true, C::BN)))
+      (rc = map1(&tseg, p.seg_kv, (long long)p.B * p.S, true, C::BN)))
     return rc;
   if ((rc = launch_meta<R>(p, s))) return rc;
   if ((rc = set_smem(fwd_kernel<R>, C::kSmem))) return rc;
@@ -1599,7 +1611,8 @@ int backward(const void* q, const void* k, const void* v, const Args& p,
              cudaStream_t s) {
   using Q = DqCfg<R>;
   using KV = DkvCfg<R>;
-  CUtensorMap tq, tdo, tk, tv, tq64, tdo64, tk128, tv128, tlse, tdl, tseg{};
+  CUtensorMap tq, tdo, tk, tv, tq64, tdo64, tk128, tv128, tlse, tdl;
+  CUtensorMap tseg_kv{}, tseg_q{};
   int rc;
   if ((rc = map4(&tq, q, R::D, p.S, p.Hq, p.B, p.sq, Q::BM))) return rc;
   if ((rc = map4(&tdo, p.dout, R::D, p.S, p.Hq, p.B, p.sq, Q::BM))) return rc;
@@ -1615,7 +1628,8 @@ int backward(const void* q, const void* k, const void* v, const Args& p,
   if ((rc = map1(&tdl, p.delta, rows, false, KV::BM))) return rc;
   static_assert(Q::BN == KV::BM, "one segment-id box");
   if (p.seg != nullptr &&
-      (rc = map1(&tseg, p.seg, (long long)p.B * p.S, true, Q::BN)))
+      ((rc = map1(&tseg_kv, p.seg_kv, (long long)p.B * p.S, true, Q::BN)) ||
+       (rc = map1(&tseg_q, p.seg, (long long)p.B * p.S, true, KV::BM))))
     return rc;
   if ((rc = launch_meta<R>(p, s))) return rc;
   constexpr int kDeltaLanes = R::D == 192 ? 8 : R::D / 8;
@@ -1626,14 +1640,14 @@ int backward(const void* q, const void* k, const void* v, const Args& p,
   if ((rc = set_smem(dq_kernel<R>, Q::kSmem))) return rc;
   const int q_items = (p.S + Q::BM - 1) / Q::BM * p.B * p.Hq;
   dq_kernel<R><<<grid_for(q_items), kThreads, Q::kSmem, s>>>(tq, tk, tv, tdo,
-                                                            tseg, p);
+                                                            tseg_kv, p);
   if ((rc = static_cast<int>(cudaGetLastError()))) return rc;
   const int kv_items = (p.S + KV::BN - 1) / KV::BN * p.B * p.Hk;
   auto dkv = [&](auto kernel) {
     int r = set_smem(kernel, KV::kSmem);
     if (r) return r;
     kernel<<<grid_for(kv_items), kThreads, KV::kSmem, s>>>(
-        tq64, tk128, tv128, tdo64, tlse, tdl, tseg, p);
+        tq64, tk128, tv128, tdo64, tlse, tdl, tseg_q, p);
     return static_cast<int>(cudaGetLastError());
   };
   if constexpr (R::D >= 192) {       // dV, then dK (see Part)
@@ -1652,6 +1666,9 @@ inline Args make_args(bool bhsd, const int* seg, void* meta, int B, int S,
   Args p{};
   p.seg = seg;
   p.meta = static_cast<int4*>(meta);
+  p.seg_kv = seg;
+  p.meta_kv = p.meta;
+  p.kv_ids = 0;
   p.B = B;
   p.S = S;
   p.Hq = Hq;

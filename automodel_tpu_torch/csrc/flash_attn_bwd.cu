@@ -71,20 +71,28 @@ int run(const void* q, const void* k, const void* v, const attn::Args& p,
 // Returns 0 on success, -1 for what the kernels do not take (as the
 // forward), else a tensor-map error or the first failed launch's
 // cudaError_t.  delta is fp32 scratch [B, Hq, S]; meta int32 scratch [B,
-// ceil(S / 64), 4] when seg is given.
+// ceil(S / 64), 4] when seg is given; seg_kv / meta_kv as the forward's
+// (the keys' ids; lse is the merged one of the ring's rows).
 extern "C" int flash_attn_bwd(const void* q, const void* k, const void* v,
                               const void* out, const void* dout,
                               float* lse, float* delta, const int* seg,
-                              void* meta, void* dq, void* dk, void* dv, int B,
+                              void* meta, const int* seg_kv, void* meta_kv,
+                              void* dq, void* dk, void* dv, int B,
                               int S, int Hq, int Hk, int D, float scale,
                               float cap, int causal, int window,
                               void* stream) {
   if ((D != 64 && D != 128 && D != 192 && D != 256) || B <= 0 || S <= 0 || Hk <= 0 ||
       Hq % Hk || (seg != nullptr && meta == nullptr) ||
+      (seg_kv != nullptr && (seg == nullptr || meta_kv == nullptr)) ||
       (window > 0 && !causal))
     return -1;
   attn::Args p = attn::make_args(false, seg, meta, B, S, Hq, Hk, D, scale,
                                  cap, causal, window);
+  if (seg_kv != nullptr) {
+    p.seg_kv = seg_kv;
+    p.meta_kv = static_cast<int4*>(meta_kv);
+    p.kv_ids = 1;
+  }
   p.lse = lse;
   p.o_in = static_cast<const attn::bf16*>(out);
   p.dout = static_cast<const attn::bf16*>(dout);

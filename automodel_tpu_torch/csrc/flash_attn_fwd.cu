@@ -71,18 +71,29 @@ int run(const void* q, const void* k, const void* v, const attn::Args& p,
 // causal, segment ids without the meta workspace), else a tensor-map error
 // (attn_core.cuh::map4) or the first failed launch's cudaError_t.  seg may
 // be null (no segments); meta is int32 scratch [B, ceil(S / 64), 4] when
-// seg is given; cap <= 0 is no soft cap; window <= 0 is no window.
+// seg is given; cap <= 0 is no soft cap; window <= 0 is no window.  seg_kv
+// (with its own meta_kv scratch) gives the keys ids of their own, upstream
+// splash's SegmentIds(q, kv): the ring pairs one shard's queries with
+// another shard's keys; then a row with no key writes lse -inf.  Null
+// seg_kv is seg for the keys, as before.
 extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
-                              const int* seg, void* meta, void* out,
+                              const int* seg, void* meta, const int* seg_kv,
+                              void* meta_kv, void* out,
                               float* lse, int B, int S, int Hq, int Hk, int D,
                               float scale, float cap, int causal, int window,
                               void* stream) {
   if ((D != 64 && D != 128 && D != 192 && D != 256) || B <= 0 || S <= 0 || Hk <= 0 ||
       Hq % Hk || (seg != nullptr && meta == nullptr) ||
+      (seg_kv != nullptr && (seg == nullptr || meta_kv == nullptr)) ||
       (window > 0 && !causal))
     return -1;
   attn::Args p = attn::make_args(false, seg, meta, B, S, Hq, Hk, D, scale,
                                  cap, causal, window);
+  if (seg_kv != nullptr) {
+    p.seg_kv = seg_kv;
+    p.meta_kv = static_cast<int4*>(meta_kv);
+    p.kv_ids = 1;
+  }
   p.out = static_cast<attn::bf16*>(out);
   p.lse = lse;
   const bool extras = cap > 0.f || window > 0;

@@ -16,8 +16,13 @@ skipping the samples consumed.
 the epoch order is sorted by length (measured once and cached), cut into
 batches, the remainders parked at the end, and the whole batches shuffled
 again batch-wise, as in JAX: rows of a batch then have like lengths, so an
-unpacked batch pads less.  Per-host input sharding (``host_rows``) waits
-for the multi-GPU slice.
+unpacked batch pads less.
+
+``host_rows`` (indices into each global microbatch): a rank collates only
+those rows (over a mesh, the rows of its ``(dcn_dp, dp_replicate,
+dp_shard)`` coordinate, ``distributed/shardings.py::process_batch_rows``;
+its cp and tp peers read the same ones).  The epoch order stays global,
+so the ranks agree on every microbatch's contents.
 """
 
 from __future__ import annotations
@@ -40,6 +45,7 @@ class StatefulDataLoader:
         drop_last: bool = True,
         pad_seq_len_divisible: Optional[int] = None,
         length_bucket_pool: Optional[int] = None,
+        host_rows: Optional[Any] = None,
     ) -> None:
         self.dataset = dataset
         self.batch_size = int(batch_size)
@@ -49,6 +55,11 @@ class StatefulDataLoader:
         self.seed = seed
         self.drop_last = drop_last
         self.length_bucket_pool = length_bucket_pool
+        self.host_rows = (None if host_rows is None
+                          else np.asarray(host_rows, np.int64))
+        if self.host_rows is not None and not drop_last:
+            raise ValueError(
+                "host_rows (per-rank input sharding) requires drop_last=True")
         self.epoch = 0
         self._index = 0          # samples consumed in the current epoch
         self.is_map_style = (
@@ -134,9 +145,18 @@ class StatefulDataLoader:
             else:
                 self._index = 0
                 self.epoch += 1
-            yield self._collate([dict(self.dataset[int(j)]) for j in idxs])
+            yield self._collate([dict(self.dataset[int(j)])
+                                 for j in self._mine(idxs)])
             if not more:
                 return
+
+    def _mine(self, batch):
+        """This rank's rows of a global microbatch (all without
+        ``host_rows``)."""
+        if self.host_rows is None:
+            return batch
+        return [batch[int(r)] for r in self.host_rows
+                if r < len(batch)]
 
     def _iter_stream(self) -> Iterator[Dict[str, np.ndarray]]:
         """An iterable dataset in its own order, after skipping the samples
@@ -149,7 +169,7 @@ class StatefulDataLoader:
             batch.append(dict(sample))
             if len(batch) == self.batch_size:
                 self._index += self.batch_size
-                yield self._collate(batch)
+                yield self._collate(self._mine(batch))
                 batch = []
         if batch and not self.drop_last:
             self._index += len(batch)

@@ -9,8 +9,10 @@ JAX package does, so a shard written by either package reads the same in
 the other.  :class:`NanogptDataset` is iterable: windows of ``seq_len + 1``
 tokens shifted into ``input_ids`` / ``labels``, optionally aligned to BOS
 tokens through a cached ``.bos.idx`` sidecar, split round-robin across
-ranks (``rank`` / ``world_size``; by default this process's
-``torch.distributed`` rank, else 0 of 1).
+hosts (``rank`` / ``world_size``; by default this process's host and the
+host count, as JAX's ``jax.process_index()`` / ``process_count()``: the
+ranks of one host read the same windows, and the loader hands each its
+rows of every global microbatch).
 """
 
 from __future__ import annotations
@@ -70,11 +72,9 @@ def write_shard(path: str, tokens: np.ndarray) -> None:
 
 
 def _default_rank():
-    import torch.distributed as dist
+    from automodel_tpu_torch.distributed.init import host_count, host_index
 
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_rank(), dist.get_world_size()
-    return 0, 1
+    return host_index(), host_count()
 
 
 class NanogptDataset:

@@ -19,13 +19,21 @@ Two routes, as in the JAX package:
   ``torch.utils.checkpoint`` (``jax.checkpoint`` in the JAX scan), so the
   backward recomputes them and peak memory is one ``[B, C, V]`` chunk.
 
-The vocab-parallel combine (``_sharded_lse_pick``) waits for the port's
-multi-GPU slice and raises.
+Under an active sharding context with tp > 1 (``distributed/
+shardings.py``) the head is this rank's vocab slice ``[H, V / tp]`` and
+:func:`_sharded_lse_pick` merges the ranks' ``(lse, pick)``, as the JAX
+one: kernel 2 (or its plain version) at the local slice with the label
+offset (:func:`shard_lse_pick`), then :func:`merge_lse_pick`:
+``lse = max + log(sum_tp exp(lse - max))`` with a stop-gradient max,
+``pick = sum_tp pick``; the backward is kernels 3-4 with their per-row
+cotangents.  FSDP has gathered the head's embed dim already.  Off
+the vocab's split nothing changes: a data-parallel rank's loss is its
+rows' sum, which the train step sums over the ranks.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -34,10 +42,75 @@ from automodel_tpu_torch.loss.masked_ce import IGNORE_INDEX
 from automodel_tpu_torch.ops.linear_ce_kernel import lse_and_pick
 
 
-def _sharded_lse_pick(*args, **kwargs):
-    raise NotImplementedError(
-        "the vocab-parallel fused linear CE (_sharded_lse_pick) is not "
-        "ported: it comes with multi-GPU (ROADMAP Queue 1 item 9)")
+def shard_lse_pick(h: torch.Tensor, kernel: torch.Tensor,
+                   labels: torch.Tensor, rank: int, bwd_mode: str = "pallas",
+                   impl: Optional[str] = None):
+    """One vocab shard's per-row ``(lse, pick)`` ``[N]`` of ``h [N, H]``
+    over ``kernel [H, V / tp]``, the ``rank``-th slice of the head: the
+    labels shifted by the slice's offset (a label outside it picks 0),
+    kernel 2 forward and kernels 3-4 backward (their plain versions on
+    CPU tensors)."""
+    lab = labels.to(torch.int32)
+    local = torch.where(lab == IGNORE_INDEX, lab,
+                        lab - rank * kernel.shape[1])
+    return lse_and_pick(h, kernel, local, bwd_mode, impl=impl)
+
+
+def merge_lse_pick(lse: torch.Tensor, pick: torch.Tensor,
+                   max_over: Callable, sum_over: Callable):
+    """The shards' ``(lse, pick)`` merged: ``m + log(sum exp(lse - m))``
+    with ``m = max_over(lse)`` under a stop-gradient, and
+    ``sum_over(pick)``.  ``max_over`` / ``sum_over`` reduce over the
+    shards: the tp collectives for one rank's shard, or a reduction over
+    a stacked leading dim where one process holds every shard."""
+    gmax = max_over(lse.detach())
+    return gmax + torch.log(sum_over(torch.exp(lse - gmax))), sum_over(pick)
+
+
+def token_ce(lse: torch.Tensor, pick: torch.Tensor,
+             labels: torch.Tensor) -> torch.Tensor:
+    """``lse - pick`` per row, 0 where the label is ignored."""
+    return torch.where(labels != IGNORE_INDEX, lse - pick,
+                       torch.zeros_like(lse))
+
+
+def _sharded_lse_pick(hidden: torch.Tensor, kernel: torch.Tensor,
+                      labels: torch.Tensor, tp, bwd_mode: str = "pallas",
+                      impl: Optional[str] = None) -> torch.Tensor:
+    """Per-token ``lse - pick`` ``[B, S]`` (0 on ignored labels) of
+    ``hidden [B, S, H]`` (the same on every tp rank) over a vocab-sharded
+    head ``kernel [H, V / tp]`` (``tp``: a
+    ``distributed.tensor_parallel.TPContext``): :func:`shard_lse_pick` at
+    this rank's slice, :func:`merge_lse_pick` over the tp group.  The
+    merge's collectives pass whole gradients back, and the hidden states'
+    partial gradients are summed over tp."""
+    from automodel_tpu_torch.distributed import tensor_parallel as T
+
+    B, S, H = hidden.shape
+    h = T.copy_to_tp(hidden, tp).reshape(B * S, H)
+    lab = labels.reshape(B * S)
+    lse, pick = shard_lse_pick(h, kernel, lab, tp.rank, bwd_mode, impl=impl)
+    lse, pick = merge_lse_pick(lse, pick,
+                               lambda t: T.max_over_tp(t, tp),
+                               lambda t: T.reduce_from_tp(t, tp))
+    return token_ce(lse, pick, lab).reshape(B, S)
+
+
+def _tp_context():
+    """The tp group of an active sharding context with tp > 1, else None."""
+    from automodel_tpu_torch.distributed.shardings import current_sharding
+
+    ctx = current_sharding()
+    if ctx is None or ctx[0].tp_size <= 1:
+        return None
+    import torch.distributed as dist
+
+    from automodel_tpu_torch.distributed.mesh import AXIS_TP
+    from automodel_tpu_torch.distributed.tensor_parallel import TPContext
+
+    group = ctx[0].group((AXIS_TP,))
+    return TPContext(group=group, size=ctx[0].tp_size,
+                     rank=dist.get_rank(group))
 
 
 def _chunk_loss(h: torch.Tensor, kernel: torch.Tensor,
@@ -77,16 +150,15 @@ class FusedLinearCrossEntropy:
         self.impl = impl
 
     def _kernel_path(self, hidden_states, lm_head_kernel, labels):
-        if (torch.distributed.is_available()
-                and torch.distributed.is_initialized()
-                and torch.distributed.get_world_size() > 1):
-            return _sharded_lse_pick(hidden_states, lm_head_kernel, labels)
+        tp = _tp_context()
+        if tp is not None:
+            return _sharded_lse_pick(hidden_states, lm_head_kernel, labels,
+                                     tp, self.bwd_mode, impl=self.impl).sum()
         B, S, H = hidden_states.shape
         lse, pick = lse_and_pick(hidden_states.reshape(B * S, H),
                                  lm_head_kernel, labels.reshape(B * S),
                                  self.bwd_mode, impl=self.impl)
-        valid = labels.reshape(B * S) != IGNORE_INDEX
-        return torch.where(valid, lse - pick, torch.zeros_like(lse)).sum()
+        return token_ce(lse, pick, labels.reshape(B * S)).sum()
 
     def __call__(
         self,
@@ -101,6 +173,12 @@ class FusedLinearCrossEntropy:
                                  torch.full_like(labels, IGNORE_INDEX))
         if self.use_kernel is None or self.use_kernel:
             total = self._kernel_path(hidden_states, lm_head_kernel, labels)
+        elif _tp_context() is not None:
+            # a vocab slice has no chunked form of its own: the merge's
+            # plain products
+            total = _sharded_lse_pick(hidden_states, lm_head_kernel, labels,
+                                      _tp_context(), self.bwd_mode,
+                                      impl="plain").sum()
         else:
             B, S, _ = hidden_states.shape
             C = min(self.chunk_len, S)

@@ -377,6 +377,8 @@ class LlamaForCausalLM(nn.Module):
         self._adapters = None    # the running layer's LoRA (see _layer)
         self._lora_routing = None   # a multi-tenant forward's row sort
         self.qdot_impl: Optional[str] = None   # "plain" forces qdot's plain
+        # tensor / sequence parallelism (distributed/shardings.py sets it)
+        self._tp = None
         self.config = config
         self.param_dtype = as_dtype(param_dtype)
         self.compute_dtype = as_dtype(compute_dtype)
@@ -454,6 +456,89 @@ class LlamaForCausalLM(nn.Module):
                     f"decoder projections; {type(self).__name__}'s layers "
                     f"lack {missing}")
         quantize_base_params(self)
+
+    def param_axes(self) -> Dict[str, tuple]:
+        """``{parameter name: logical axis names}`` (the JAX
+        ``param_axes``, on the ``[out, in]`` layout and without the JAX
+        stack's leading ``layers`` axis): the parallel plan's input
+        (``distributed/shardings.py``).  Parameters the table does not
+        name (other families' own) get no logical axes: replicated under
+        tp, sharded along dim 0 by FSDP."""
+        by_suffix = {
+            "embed_tokens.weight": ("vocab", "embed"),
+            "lm_head.weight": ("vocab", "embed"),
+            "q_proj.weight": ("heads", "embed"),
+            "k_proj.weight": ("heads", "embed"),
+            "v_proj.weight": ("heads", "embed"),
+            "o_proj.weight": ("embed", "heads"),
+            "q_proj.bias": ("heads",),
+            "k_proj.bias": ("heads",),
+            "v_proj.bias": ("heads",),
+            "gate_proj.weight": ("mlp", "embed"),
+            "up_proj.weight": ("mlp", "embed"),
+            "down_proj.weight": ("embed", "mlp"),
+            "q_norm.weight": ("head_dim",),
+            "k_norm.weight": ("head_dim",),
+            "input_layernorm.weight": ("norm",),
+            "post_attention_layernorm.weight": ("norm",),
+            "norm.weight": ("norm",),
+        }
+        out = {}
+        for name, p in self.named_parameters():
+            key = ".".join(name.split(".")[-2:])
+            out[name] = by_suffix.get(key, (None,) * p.dim())
+        return out
+
+    # what a tp / cp rank runs: the embedding, the blocks and their
+    # collectives (``_tp_enter`` / ``_tp_leave``), attention (the ring) and
+    # the vocab-parallel head
+    _TP_CP_METHODS = ("forward", "_forward", "_block", "_layer",
+                      "_attention_block", "_mlp_block", "_attend", "_embed",
+                      "_head", "_build_layers", "_stack")
+
+    @classmethod
+    def supports_tp_cp(cls) -> bool:
+        """True when this class runs every method of ``_TP_CP_METHODS`` as
+        Llama's, which honour ``_tp`` and the ring; a family that
+        replaces one of them (its own attention, MLP, layer loop or head)
+        takes neither tensor nor context parallelism yet."""
+        return all(getattr(cls, m) is getattr(LlamaForCausalLM, m)
+                   for m in cls._TP_CP_METHODS)
+
+    def fsdp_units(self) -> List[nn.Module]:
+        """The modules FSDP shards one by one: the decoder layers, when this
+        class's loop runs them (a family with its own ``_forward`` or
+        ``_block`` is sharded at the root only)."""
+        cls = type(self)
+        if (cls._forward is LlamaForCausalLM._forward
+                and cls._block is LlamaForCausalLM._block):
+            return self._stack()
+        return []
+
+    def _run_layer(self, layer, *args):
+        """``self._layer(layer, *args)``, through the layer's own call when
+        FSDP shards it (its hooks gather the layer's parameters)."""
+        if getattr(layer, "_fsdp_unit", False):
+            return layer(self._layer, *args)
+        return self._layer(layer, *args)
+
+    def _tp_enter(self, x: torch.Tensor) -> torch.Tensor:
+        if self._tp is None:
+            return x
+        from automodel_tpu_torch.distributed.tensor_parallel import (
+            enter_block,
+        )
+
+        return enter_block(x, self._tp)
+
+    def _tp_leave(self, y: torch.Tensor) -> torch.Tensor:
+        if self._tp is None:
+            return y
+        from automodel_tpu_torch.distributed.tensor_parallel import (
+            leave_block,
+        )
+
+        return leave_block(y, self._tp)
 
     def _uniform_window(self, cfg) -> Optional[int]:
         """The one window every layer attends under (None: causal); the
@@ -597,10 +682,11 @@ class LlamaForCausalLM(nn.Module):
                          position_ids, segment_ids, kv_cache, attn_impl):
         """``hidden`` plus the layer's attention output."""
         cfg = self.config
-        B, S, _ = hidden.shape
-        D, Hq, Hk = cfg.head_dim, cfg.num_attention_heads, \
-            cfg.num_key_value_heads
-        x = layer.input_layernorm(hidden)
+        tp = 1 if self._tp is None else self._tp.size
+        D, Hq, Hk = cfg.head_dim, cfg.num_attention_heads // tp, \
+            cfg.num_key_value_heads // tp
+        x = self._tp_enter(layer.input_layernorm(hidden))
+        B, S, _ = x.shape
         q = self._proj(layer.q_proj, x, "self_attn.q_proj").view(B, S, Hq, D)
         k = self._proj(layer.k_proj, x, "self_attn.k_proj").view(B, S, Hk, D)
         v = self._proj(layer.v_proj, x, "self_attn.v_proj").view(B, S, Hk, D)
@@ -608,8 +694,8 @@ class LlamaForCausalLM(nn.Module):
             q, k = layer.q_norm(q), layer.k_norm(k)
         q, k = self._apply_rope(q, k, position_ids)
         attn = self._attend(q, k, v, segment_ids, kv_cache, attn_impl)
-        return hidden + self._scale_residual(self._proj(
-            layer.o_proj, attn.reshape(B, S, Hq * D), "self_attn.o_proj"))
+        return hidden + self._scale_residual(self._tp_leave(self._proj(
+            layer.o_proj, attn.reshape(B, S, Hq * D), "self_attn.o_proj")))
 
     def _mlp_block(self, x: torch.Tensor, layer: LlamaDecoderLayer):
         """Post-norm feed-forward of one layer -> ``(out, aux | None)``: the
@@ -638,7 +724,7 @@ class LlamaForCausalLM(nn.Module):
         auxes = []
         stack = self._stack()
         for j in range(self.scan_block):
-            hidden, aux = self._layer(
+            hidden, aux = self._run_layer(
                 stack[first + j], hidden, position_ids, segment_ids,
                 None, attn_impl, adapters[j] if adapters else None)
             auxes.append(aux)
@@ -654,10 +740,10 @@ class LlamaForCausalLM(nn.Module):
             hidden = self._attention_block(layer, hidden, position_ids,
                                            segment_ids, kv_cache, attn_impl)
             out, aux = self._mlp_block(
-                layer.post_attention_layernorm(hidden), layer)
+                self._tp_enter(layer.post_attention_layernorm(hidden)), layer)
         finally:
             self._adapters = None
-        return hidden + self._scale_residual(out), aux
+        return hidden + self._scale_residual(self._tp_leave(out)), aux
 
     def _head(self, hidden: torch.Tensor, return_hidden: bool
               ) -> Dict[str, torch.Tensor]:
@@ -666,6 +752,16 @@ class LlamaForCausalLM(nn.Module):
         # tied: the head is the embedding, whose gradient sums both uses
         head = (self.embed_tokens.weight if self.lm_head is None
                 else self.lm_head.weight)
+        tp = self._tp
+        if tp is not None:
+            # vocab-parallel head on every row of this rank's sequence
+            # slice: the loss (or the logits' gather) merges the vocab
+            from automodel_tpu_torch.distributed import tensor_parallel as T
+
+            if tp.sequence_parallel:
+                hidden = T.gather_seq_whole(hidden, tp)
+            if not return_hidden:
+                hidden = T.copy_to_tp(hidden, tp)
         div = self._logits_divisor
         if return_hidden:
             if div != 1.0:
@@ -675,6 +771,12 @@ class LlamaForCausalLM(nn.Module):
                                            device=head.device)
             return {"hidden_states": hidden, "lm_head_kernel": head.t()}
         logits = F.linear(hidden, head.to(self.compute_dtype))
+        if tp is not None:
+            from automodel_tpu_torch.distributed.tensor_parallel import (
+                gather_vocab,
+            )
+
+            logits = gather_vocab(logits, tp)
         if div != 1.0:
             logits = logits / torch.tensor(div, dtype=logits.dtype,
                                            device=logits.device)
@@ -795,11 +897,33 @@ class LlamaForCausalLM(nn.Module):
         """The token embeddings of ``input_ids`` in the compute dtype,
         times ``_embedding_scale`` in that dtype when it is not 1."""
         cd = self.compute_dtype
-        hidden = self.embed_tokens.weight[input_ids].to(cd)
+        if self._tp is not None:
+            hidden = self._embed_vocab_parallel(input_ids)
+        else:
+            hidden = self.embed_tokens.weight[input_ids].to(cd)
         if self._embedding_scale != 1.0:
             hidden = hidden * torch.tensor(self._embedding_scale, dtype=cd,
                                            device=hidden.device)
         return hidden
+
+    def _embed_vocab_parallel(self, input_ids: torch.Tensor) -> torch.Tensor:
+        """The embedding of this rank's vocab slice (rows outside it are
+        0), summed over tp -- or reduce-scattered over the sequence under
+        sequence parallelism."""
+        from automodel_tpu_torch.distributed import tensor_parallel as T
+
+        tp = self._tp
+        w = self.embed_tokens.weight
+        v_local = w.shape[0]
+        ids = input_ids.long() - tp.rank * v_local
+        mine = (ids >= 0) & (ids < v_local)
+        hidden = w[ids.clamp(0, v_local - 1)].to(self.compute_dtype)
+        hidden = torch.where(mine[..., None], hidden,
+                             torch.zeros((), dtype=hidden.dtype,
+                                         device=hidden.device))
+        if tp.sequence_parallel:
+            return T.reduce_scatter_seq(hidden, tp)
+        return T.reduce_from_tp(hidden, tp)
 
     def _forward(self, input_ids, position_ids, segment_ids, kv_cache,
                  return_hidden, attn_impl, adapters, inputs_embeds=None):
@@ -824,7 +948,7 @@ class LlamaForCausalLM(nn.Module):
             for i, layer in enumerate(self._stack()):
                 view = (kv_cache.layer_view(i) if kv_cache is not None
                         else None)
-                hidden, aux = self._layer(
+                hidden, aux = self._run_layer(
                     layer, hidden, position_ids, segment_ids, view,
                     attn_impl, adapters[i] if adapters else None)
                 if aux is not None:

@@ -16,9 +16,12 @@ plain versions on any device when the caller asks for ``impl="plain"``.
 ``impl="flash"`` runs ``ops/flash_attention.py`` (the Pallas MHA flash
 rung's counterpart: kv heads repeated to the query heads, segment 0
 attending segment 0), its kernels on CUDA tensors and its plain versions
-on CPU tensors; like the JAX rung it refuses a soft cap or a window.  The
-JAX package's XLA SDPA and ring-attention rungs are not ported (ring
-attention waits for multi-GPU).  :func:`cached_attention` is the dense
+on CPU tensors; like the JAX rung it refuses a soft cap or a window.  An
+active sharding context with cp > 1 (``distributed/shardings.py``) routes
+every call to the ring (``ops/ring_attention.py``) ahead of every other
+rung, as the JAX registry's ``attention.ring`` head: under the zig-zag
+layout a rung that assumes arange token order would mask the wrong
+tokens.  The JAX package's XLA SDPA rung is not ported.  :func:`cached_attention` is the dense
 decode cache's attention (``generation/generate.py``), and
 :func:`dot_product_attention` the grouped SDPA the vision tower calls
 (non-causal, no kernel): plain PyTorch both, as the JAX functions are XLA.
@@ -106,6 +109,26 @@ def attention(
     on CPU tensors), which raises on a soft cap or a window."""
     from automodel_tpu_torch.ops.splash_attention import splash_attention_bshd
 
+    ring = _cp_mesh()
+    if ring is not None:
+        from automodel_tpu_torch.distributed.shardings import (
+            current_cp_layout,
+        )
+        from automodel_tpu_torch.ops.ring_attention import (
+            sharded_ring_attention,
+        )
+
+        if local_window_size is not None and not causal:
+            raise NotImplementedError(
+                "local_window_size is defined for causal attention only")
+        seg = fold_padding_into_segments(q.shape[:2], segment_ids,
+                                         attention_mask)
+        return sharded_ring_attention(
+            q, k, v, ring, causal=causal, segment_ids=seg, scale=scale,
+            local_window_size=dispatched_window(local_window_size,
+                                                q.shape[1] * ring.cp_size),
+            logits_soft_cap=logits_soft_cap, layout=current_cp_layout(),
+            impl="plain" if impl == "plain" else None)
     if impl == "flash":
         from automodel_tpu_torch.ops.flash_attention import (
             flash_attention_bshd,
@@ -129,6 +152,17 @@ def attention(
         logits_soft_cap=logits_soft_cap,
         local_window_size=dispatched_window(local_window_size, q.shape[1]),
         impl=impl)
+
+
+def _cp_mesh():
+    """The mesh manager of an active sharding context with cp > 1, else
+    None."""
+    from automodel_tpu_torch.distributed.shardings import current_sharding
+
+    ctx = current_sharding()
+    if ctx is None or ctx[0].cp_size <= 1:
+        return None
+    return ctx[0]
 
 
 def dispatched_window(local_window_size: Optional[int],

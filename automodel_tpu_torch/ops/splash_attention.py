@@ -82,11 +82,13 @@ def _kernel(name: str):
         fn = getattr(build.load(name), name)
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         if name == "flash_attn_fwd":
-            fn.argtypes = [p, p, p, p, p, p, p,         # q k v seg meta out lse
+            fn.argtypes = [p, p, p, p, p, p, p,         # q k v seg meta seg_kv meta_kv
+                           p, p,                        # out lse
                            i, i, i, i, i,               # B S Hq Hk D
                            f, f, i, i, p]               # scale cap causal win stream
         else:
             fn.argtypes = [p, p, p, p, p, p, p, p, p,   # q k v out dout lse delta seg meta
+                           p, p,                        # seg_kv meta_kv
                            p, p, p,                     # dq dk dv
                            i, i, i, i, i,               # B S Hq Hk D
                            f, f, i, i, p]               # scale cap causal win stream
@@ -115,7 +117,7 @@ def _check(cond: bool, msg: str) -> None:
 
 
 def _check_operands(q, k, v, segment_ids, causal, scale, logits_soft_cap,
-                    local_window_size):
+                    local_window_size, kv_segment_ids=None):
     _check(q.is_cuda, f"q must be a CUDA tensor, got {q.device}")
     _check(q.dim() == 4 and k.dim() == 4 and v.dim() == 4,
            "q, k, v must be [B, S, H, D]")
@@ -141,6 +143,15 @@ def _check_operands(q, k, v, segment_ids, causal, scale, logits_soft_cap,
                and segment_ids.is_contiguous()
                and segment_ids.device == q.device,
                f"segment_ids must be contiguous int32 [B, S] on {q.device}")
+    if kv_segment_ids is not None:
+        _check(segment_ids is not None,
+               "kv_segment_ids needs the queries' segment_ids too")
+        _check(kv_segment_ids.dtype == torch.int32
+               and tuple(kv_segment_ids.shape) == (B, S)
+               and kv_segment_ids.is_contiguous()
+               and kv_segment_ids.device == q.device,
+               f"kv_segment_ids must be contiguous int32 [B, S] on "
+               f"{q.device}")
     if local_window_size is not None:
         _check(causal, "a window needs causal attention")
         _check(local_window_size >= 1, "local_window_size must be >= 1")
@@ -154,14 +165,20 @@ def _check_operands(q, k, v, segment_ids, causal, scale, logits_soft_cap,
 ROW_ALIGN = 4       # rows: 4 x 4-byte ids / lse / delta = 16 bytes
 
 
+def _pad_ids(ids, S: int, B: int, device):
+    """Segment ids padded to a multiple of :data:`ROW_ALIGN` rows with
+    segment 0 (1 for every real row without ids)."""
+    seg = (torch.ones(B, S, dtype=torch.int32, device=device)
+           if ids is None else ids)
+    return torch.nn.functional.pad(seg, (0, -S % ROW_ALIGN)).contiguous()
+
+
 def _aligned_rows(S: int, segment_ids, B: int, device, *tensors):
     """``(segment ids, tensors)`` padded along the rows to a multiple of
     :data:`ROW_ALIGN`: the pad rows hold segment 0 (the real rows keep
     theirs, or 1 without segment ids) and zeros."""
     pad = -S % ROW_ALIGN
-    seg = (torch.ones(B, S, dtype=torch.int32, device=device)
-           if segment_ids is None else segment_ids)
-    seg = torch.nn.functional.pad(seg, (0, pad)).contiguous()
+    seg = _pad_ids(segment_ids, S, B, device)
     out = [torch.nn.functional.pad(
         t, (0, pad) if t.dim() == 3 else (0, 0, 0, 0, 0, pad)).contiguous()
         for t in tensors]
@@ -173,10 +190,13 @@ def flash_attn_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         segment_ids: Optional[torch.Tensor] = None,
                         scale: Optional[float] = None,
                         logits_soft_cap: Optional[float] = None,
-                        local_window_size: Optional[int] = None
+                        local_window_size: Optional[int] = None,
+                        kv_segment_ids: Optional[torch.Tensor] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the forward kernel -> ``(out [B, S, Hq, D] bf16, lse [B, Hq,
-    S] fp32)``."""
+    S] fp32)``.  ``kv_segment_ids`` gives the keys ids of their own
+    (``segment_ids`` are then the queries'): a row with no key gets lse
+    ``-inf``."""
     global fwd_launches
     D = q.shape[-1]
     width = padded_head_dim(D) if q.dim() == 4 else None
@@ -186,28 +206,33 @@ def flash_attn_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             qp, kp, vp, causal=causal, segment_ids=segment_ids,
             scale=D ** -0.5 if scale is None else scale,
             logits_soft_cap=logits_soft_cap,
-            local_window_size=local_window_size)
+            local_window_size=local_window_size,
+            kv_segment_ids=kv_segment_ids)
         return out[..., :D].contiguous(), lse
     B, S, Hq, Hk, D, scale, cap, causal_i, window = _check_operands(
         q, k, v, segment_ids, causal, scale, logits_soft_cap,
-        local_window_size)
+        local_window_size, kv_segment_ids)
     if S % ROW_ALIGN:
         seg, (qp, kp, vp) = _aligned_rows(S, segment_ids, B, q.device, q, k,
                                           v)
         out, lse = flash_attn_fwd_cuda(
             qp, kp, vp, causal=causal, segment_ids=seg, scale=scale,
             logits_soft_cap=logits_soft_cap,
-            local_window_size=local_window_size)
+            local_window_size=local_window_size,
+            kv_segment_ids=None if kv_segment_ids is None else _pad_ids(
+                kv_segment_ids, S, B, q.device))
         return out[:, :S].contiguous(), lse[..., :S].contiguous()
     out = torch.empty_like(q)
     lse = torch.empty(B, Hq, S, dtype=torch.float32, device=q.device)
     meta = tile_meta_workspace(segment_ids, B, S)
+    meta_kv = tile_meta_workspace(kv_segment_ids, B, S)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = _kernel("flash_attn_fwd")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), ptr(segment_ids),
-            ptr(meta), out.data_ptr(), lse.data_ptr(), B, S, Hq, Hk, D,
-            scale, cap, causal_i, window, stream)
+            ptr(meta), ptr(kv_segment_ids), ptr(meta_kv), out.data_ptr(),
+            lse.data_ptr(), B, S, Hq, Hk, D, scale, cap, causal_i, window,
+            stream)
     if rc != 0:
         raise RuntimeError(f"flash_attn_fwd launch failed (code {rc})")
     fwd_launches += 1
@@ -220,11 +245,15 @@ def flash_attn_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         segment_ids: Optional[torch.Tensor] = None,
                         scale: Optional[float] = None,
                         logits_soft_cap: Optional[float] = None,
-                        local_window_size: Optional[int] = None
+                        local_window_size: Optional[int] = None,
+                        kv_segment_ids: Optional[torch.Tensor] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch the backward kernels (delta, then the dQ pass, then the dK /
     dV pass) -> ``(dq, dk, dv)`` in the operands' dtype; deterministic (no
-    atomics: every element is written once)."""
+    atomics: every element is written once).  ``kv_segment_ids`` as the
+    forward's; ``out`` and ``lse`` may be a ring's merged ones (a row with
+    no key must then hold a finite lse: its gradient is 0 whatever it
+    is)."""
     global bwd_launches
     D = q.shape[-1]
     width = padded_head_dim(D) if q.dim() == 4 else None
@@ -234,11 +263,12 @@ def flash_attn_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             qp, kp, vp, op, lse, dop, causal=causal, segment_ids=segment_ids,
             scale=D ** -0.5 if scale is None else scale,
             logits_soft_cap=logits_soft_cap,
-            local_window_size=local_window_size)
+            local_window_size=local_window_size,
+            kv_segment_ids=kv_segment_ids)
         return tuple(t[..., :D].contiguous() for t in (dq, dk, dv))
     B, S, Hq, Hk, D, scale, cap, causal_i, window = _check_operands(
         q, k, v, segment_ids, causal, scale, logits_soft_cap,
-        local_window_size)
+        local_window_size, kv_segment_ids)
     for name, t in (("out", out), ("dout", dout)):
         _check(t.shape == q.shape and t.dtype == q.dtype
                and t.device == q.device and t.is_contiguous()
@@ -253,18 +283,22 @@ def flash_attn_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         dq, dk, dv = flash_attn_bwd_cuda(
             qp, kp, vp, op, lp, dop, causal=causal, segment_ids=seg,
             scale=scale, logits_soft_cap=logits_soft_cap,
-            local_window_size=local_window_size)
+            local_window_size=local_window_size,
+            kv_segment_ids=None if kv_segment_ids is None else _pad_ids(
+                kv_segment_ids, S, B, q.device))
         return (dq[:, :S].contiguous(), dk[:, :S].contiguous(),
                 dv[:, :S].contiguous())
     delta = torch.empty(B, Hq, S, dtype=torch.float32, device=q.device)
     meta = tile_meta_workspace(segment_ids, B, S)
+    meta_kv = tile_meta_workspace(kv_segment_ids, B, S)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = _kernel("flash_attn_bwd")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-            ptr(segment_ids), ptr(meta), dq.data_ptr(), dk.data_ptr(),
+            ptr(segment_ids), ptr(meta), ptr(kv_segment_ids), ptr(meta_kv),
+            dq.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), B, S, Hq, Hk, D, scale, cap, causal_i, window,
             stream)
     if rc != 0:
@@ -277,7 +311,7 @@ def flash_attn_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 # plain versions: fp32 torch, the formulas the kernels compute
 # ---------------------------------------------------------------------------
 def _scores(q, k, causal, segment_ids, scale, logits_soft_cap,
-            local_window_size):
+            local_window_size, kv_segment_ids=None):
     """``(x, dx, mask, scale)``: the (soft-capped) scaled scores ``[B, Hk,
     G, S, Skv]`` in fp32, their derivative by the scaled scores (None
     without a cap) and the mask ``[B or 1, 1, 1, S, Skv]`` (or None)."""
@@ -293,7 +327,9 @@ def _scores(q, k, causal, segment_ids, scale, logits_soft_cap,
         dx = 1.0 - th * th
     mask = make_attention_mask(
         S, k.shape[1], causal=causal, segment_ids_q=segment_ids,
-        segment_ids_kv=segment_ids, local_window_size=local_window_size,
+        segment_ids_kv=(segment_ids if kv_segment_ids is None
+                        else kv_segment_ids),
+        local_window_size=local_window_size,
         device=q.device)
     return x, dx, None if mask is None else mask[:, :, None], scale
 
@@ -303,18 +339,24 @@ def splash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            segment_ids: Optional[torch.Tensor] = None,
                            scale: Optional[float] = None,
                            logits_soft_cap: Optional[float] = None,
-                           local_window_size: Optional[int] = None
+                           local_window_size: Optional[int] = None,
+                           kv_segment_ids: Optional[torch.Tensor] = None
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The forward in fp32 -> ``(out [B, S, Hq, D] in q's dtype, lse [B,
-    Hq, S] fp32)``; rows with no key give 0 and 0."""
+    Hq, S] fp32)``; rows with no key give 0 and 0 (lse ``-inf`` with
+    ``kv_segment_ids``, the keys' own ids, as the kernel)."""
     B, S, Hq, D = q.shape
     x, _, mask, _ = _scores(q, k, causal, segment_ids, scale,
-                            logits_soft_cap, local_window_size)
+                            logits_soft_cap, local_window_size,
+                            kv_segment_ids)
     if mask is not None:
         x = x.masked_fill(~mask, float("-inf"))
     lse = torch.logsumexp(x, dim=-1)
-    lse = torch.where(torch.isneginf(lse), torch.zeros_like(lse), lse)
+    empty = torch.isneginf(lse)
+    lse = torch.where(empty, torch.zeros_like(lse), lse)
     p = torch.exp(x - lse[..., None])
+    if kv_segment_ids is not None:
+        lse = torch.where(empty, torch.full_like(lse, float("-inf")), lse)
     out = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
     return (out.reshape(B, S, Hq, D).to(q.dtype).contiguous(),
             lse.reshape(B, Hq, S).contiguous())
@@ -327,7 +369,8 @@ def splash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
                                segment_ids: Optional[torch.Tensor] = None,
                                scale: Optional[float] = None,
                                logits_soft_cap: Optional[float] = None,
-                               local_window_size: Optional[int] = None
+                               local_window_size: Optional[int] = None,
+                               kv_segment_ids: Optional[torch.Tensor] = None
                                ) -> Tuple[torch.Tensor, torch.Tensor,
                                           torch.Tensor]:
     """The backward written out with the formulas the CUDA kernel uses
@@ -339,7 +382,8 @@ def splash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
     Hk = k.shape[2]
     G = Hq // Hk
     x, dx, mask, scale = _scores(q, k, causal, segment_ids, scale,
-                                 logits_soft_cap, local_window_size)
+                                 logits_soft_cap, local_window_size,
+                                 kv_segment_ids)
     p = torch.exp(x - lse.reshape(B, Hk, G, S)[..., None])
     if mask is not None:
         p = torch.where(mask, p, torch.zeros_like(p))

@@ -52,6 +52,14 @@ zero updates, so they are left out here.  SGD and Adafactor are not
 ported.  ``nu`` in fp32 costs 2 bytes per
 parameter more than bf16 moments; the update runs one parameter at a time,
 so no fp32 copy of the whole gradient exists.
+
+Over a mesh (``distributed/shardings.py``) a parameter is a DTensor (FSDP)
+holding this rank's shard (and, under tp, its tp slice): the update runs
+on the local shard with the same arithmetic, so ``mu`` / ``nu`` are local
+shards too.  With :attr:`OptaxAdam.plan` set, :meth:`~OptaxAdam.state_dict`
+gathers each moment into the whole tensor (a collective call) and
+:meth:`~OptaxAdam.load_state_dict` keeps this rank's shard of it, so the
+state saved on one mesh resumes on any other.
 """
 
 from __future__ import annotations
@@ -109,6 +117,9 @@ class OptaxAdam(torch.optim.Optimizer):
         self.grad_dtype = grad_dtype
         self._groups_of = {}
         self._scalars = (None, None)
+        # over a mesh: the parallel plan and {id(param): its module name}
+        self.plan = None
+        self.param_names: Dict[int, str] = {}
 
     def _step_scalars(self, group: dict, count: int, mu_dtype, device):
         """The fp32 scalars of one step as 0-dim views of one device
@@ -146,6 +157,8 @@ class OptaxAdam(torch.optim.Optimizer):
         (consumed: ``g`` is overwritten)."""
         group = self._group(p)
         state = self.state[p]
+        p = _local(p)
+        g = _local(g)
         if not state:
             state["step"] = 0
             state["mu"] = torch.zeros_like(
@@ -180,6 +193,25 @@ class OptaxAdam(torch.optim.Optimizer):
             p.copy_(pf)
         state["step"] = count
 
+    def state_dict(self):
+        """torch's state dict; over a mesh (``plan`` set) every moment is
+        gathered into its whole tensor (collective: every rank calls)."""
+        sd = super().state_dict()
+        if self.plan is None or not self.plan.distributed:
+            return sd
+        params = [p for g in self.param_groups for p in g["params"]]
+        ids = [i for g in sd["param_groups"] for i in g["params"]]
+        state = {}
+        for i, p in zip(ids, params):
+            saved = sd["state"].get(i)
+            if saved is None:
+                continue
+            name = self.param_names[id(p)]
+            state[i] = {k: (self.plan.full_tensor(name, p, local=v)
+                            if torch.is_tensor(v) else v)
+                        for k, v in saved.items()}
+        return {"state": state, "param_groups": sd["param_groups"]}
+
     def load_state_dict(self, state_dict) -> None:
         """Restore ``state_dict()``'s state with the saved dtypes (torch's
         own load casts every floating state to the parameter's dtype,
@@ -200,6 +232,17 @@ class OptaxAdam(torch.optim.Optimizer):
                 continue
             for key, value in saved.items():
                 if torch.is_tensor(value):
+                    if self.plan is not None and self.plan.distributed:
+                        name = self.param_names[id(p)]
+                        want = self.plan.full_shape(name, p)
+                        if tuple(value.shape) != want:
+                            raise ValueError(
+                                f"optimizer state {key} of parameter {i} "
+                                f"is {tuple(value.shape)}, the parameter "
+                                f"{want}")
+                        state[p][key] = self.plan.local_of(
+                            name, p, value.to(_local(p).device)).clone()
+                        continue
                     if value.shape != p.shape:
                         raise ValueError(
                             f"optimizer state {key} of parameter {i} is "
@@ -210,6 +253,12 @@ class OptaxAdam(torch.optim.Optimizer):
         self.state = state
         for group, saved in zip(self.param_groups, saved_groups):
             group.update({k: v for k, v in saved.items() if k != "params"})
+
+
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's local shard (a plain tensor as it is)."""
+    to_local = getattr(t, "to_local", None)
+    return t if to_local is None else to_local()
 
 
 def _group_multipliers(name: str, param_groups) -> Tuple[float, float]:

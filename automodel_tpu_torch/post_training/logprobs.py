@@ -13,9 +13,10 @@ fused linear-CE machinery, so the ``[B, S, V]`` logits never exist:
   with the same hand-written backward.  ``impl="plain"`` forces the plain
   versions on the card, ``impl="kernel"`` the kernels.
 
-The JAX package takes its vocab-parallel ``_sharded_lse_pick`` only under
-a mesh; the port runs one process until multi-GPU (ROADMAP Queue 1 item
-9) and raises there, as ``loss/linear_ce.py`` does.
+Under an active sharding context with tp > 1 the head is a vocab slice
+and ``_sharded_lse_pick`` merges the ranks' ``(lse, pick)``, as the JAX
+package under a mesh (the post-training recipes themselves refuse a mesh
+until ROADMAP Queue 1 item 9's second half).
 
 Batch convention (:func:`make_sequence_batch`): ``input_ids [B, S]``
 padded right, ``labels [B, S]`` holding the next token at every position
@@ -31,7 +32,10 @@ from typing import Any, Callable, Dict, Optional, Sequence
 import numpy as np
 import torch
 
-from automodel_tpu_torch.loss.linear_ce import _sharded_lse_pick
+from automodel_tpu_torch.loss.linear_ce import (
+    _sharded_lse_pick,
+    _tp_context,
+)
 from automodel_tpu_torch.loss.masked_ce import IGNORE_INDEX
 from automodel_tpu_torch.ops.linear_ce_kernel import lse_and_pick
 
@@ -55,10 +59,9 @@ def token_nll(hidden: torch.Tensor, kernel: torch.Tensor,
     ``hidden [B, S, H]``, ``kernel [H, V]`` (the model's head view).
     ``impl`` goes to ``lse_and_pick`` (None: the kernels on CUDA tensors,
     the plain versions on CPU tensors)."""
-    if (torch.distributed.is_available()
-            and torch.distributed.is_initialized()
-            and torch.distributed.get_world_size() > 1):
-        return _sharded_lse_pick(hidden, kernel, labels)
+    tp = _tp_context()
+    if tp is not None:
+        return _sharded_lse_pick(hidden, kernel, labels, tp, impl=impl)
     B, S, H = hidden.shape
     lse, pick = lse_and_pick(hidden.reshape(B * S, H), kernel,
                              labels.reshape(B * S), impl=impl)

@@ -113,6 +113,28 @@ class BaseRecipe:
             return contextlib.nullcontext()
         return timers.record(name)
 
+    def _is_main(self) -> bool:
+        info = getattr(self, "dist_info", None)
+        return info is None or info.is_main
+
+    def _barrier(self) -> None:
+        import torch.distributed as dist
+
+        if dist.is_available() and dist.is_initialized() and \
+                dist.get_world_size() > 1:
+            dist.barrier()
+
+    def _model_state(self):
+        """The model's HF tensors on the host: over a mesh gathered from
+        the shards (a collective call; ``plan.full_params``)."""
+        plan = getattr(self, "plan", None)
+        if plan is None:
+            return (adapter_state(self.model)
+                    if self.checkpoint_config.is_peft
+                    else hf_state(self.model))
+        with plan.full_params(self.model):
+            return hf_state(self.model)
+
     def _tracked(self) -> List[tuple]:
         return [(k, getattr(self, k)) for k in self.tracked_state
                 if getattr(self, k, None) is not None]
@@ -134,27 +156,33 @@ class BaseRecipe:
         final = os.path.join(cfg.checkpoint_dir,
                              ckpt.checkpoint_dir_name(epoch, step))
         config = copy.deepcopy(self.cfg.to_dict())
+        # over a mesh every rank gathers (collectives) and rank 0 writes
+        sharded = getattr(self, "plan", None) is not None
         if not cfg.async_save:
             job = _SaveJob(
                 epoch=epoch, step=step, final=final, cfg=cfg,
-                model=self.model, model_state=None,
+                model=self.model,
+                model_state=self._model_state() if sharded else None,
                 optimizer=self.optimizer.state_dict(),
                 scheduler=self._scheduler_state(),
                 host_state=[(k, o.state_dict()) for k, o in self._tracked()],
                 config=config, resumed_from=self._resumed_from)
-            self._run_commit_protocol(job)
+            if self._is_main():
+                self._run_commit_protocol(job)
+            self._barrier()
             stall = time.perf_counter() - t0
             self._record_save(final, stall, stall)
             return final
         job = _SaveJob(
             epoch=epoch, step=step, final=final, cfg=cfg, model=self.model,
-            model_state=(adapter_state(self.model) if cfg.is_peft
-                         else hf_state(self.model)),
+            model_state=self._model_state(),
             optimizer=_to_cpu(self.optimizer.state_dict()),
             scheduler=_to_cpu(self._scheduler_state()),
             host_state=[(k, _to_cpu(o.state_dict()))
                         for k, o in self._tracked()],
             config=config, resumed_from=self._resumed_from)
+        if not self._is_main():
+            return final
         holder: Dict[str, Any] = {"final": final, "error": None}
         thread = threading.Thread(target=self._commit_in_background,
                                   args=(job, holder),
@@ -262,6 +290,7 @@ class BaseRecipe:
         or uncommitted directory raises ``CheckpointIntegrityError``
         before any state is touched."""
         self.join_pending_save()
+        self._barrier()
         cfg = self.checkpoint_config
         restore_from = restore_from or cfg.restore_from
         path = restore_from or ckpt.find_latest_checkpoint(cfg.checkpoint_dir)
@@ -271,8 +300,12 @@ class BaseRecipe:
             raise FileNotFoundError(
                 f"checkpoint.restore_from={restore_from!r} does not exist")
         ckpt.verify_manifest(path)
+        plan = getattr(self, "plan", None)
         if cfg.is_peft:
             load_adapters(self.model, os.path.join(path, "model"))
+        elif plan is not None:
+            with plan.full_params(self.model, load=True):
+                load_hf_weights(self.model, os.path.join(path, "model"))
         else:
             load_hf_weights(self.model, os.path.join(path, "model"))
         optim = os.path.join(path, "optim")

@@ -89,11 +89,23 @@ set-up from ``restore_from`` or the newest committed checkpoint of
 consolidated HF safetensors, the only ``model_save_format`` ported.  With
 checkpointing off nothing is saved and nothing resumed.
 
+``distributed`` (the JAX ``MeshManager`` section) trains over a device
+mesh when the run is launched with ``torchrun --nproc-per-node N``
+(``distributed/init.py``: NCCL on ``cuda``, gloo with ``--device cpu``):
+the mesh and the parallel plan are built as in JAX (``distributed/
+mesh.py``, ``distributed/shardings.py``: FSDP2 / HSDP / ``dcn_dp`` for
+every text family, tensor and sequence parallelism and the ring of
+context parallelism for the Llama decoder class, the cp layout resolved by
+``_apply_cp_layout_policy``), each rank reads its rows of every global
+microbatch (``local_batch_size x dp_size`` rows) and the train step
+reduces over the mesh.  Pipeline parallelism, expert parallelism with a
+MoE model, quantized compute (fp8 / an int8 base) and PEFT under a mesh
+raise, each citing its ROADMAP item.
+
 Left out of this slice, each raising ``NotImplementedError`` when its
 knob is set (ROADMAP Queue 1 names where each lands): other checkpoint
-formats, pipeline / tensor / context / data parallelism, kernel
-autotuning, the host-offload remat policies, elastic recovery and the
-SLURM / k8s launchers.
+formats, pipeline parallelism, kernel autotuning, the host-offload remat
+policies, elastic recovery and the SLURM / k8s launchers.
 
     python -m automodel_tpu_torch.recipes.llm.train_ft \\
         -c automodel_tpu_torch/examples/tiny_llama_sft.yaml --device cpu
@@ -119,6 +131,12 @@ from automodel_tpu_torch.config.loader import (
     resolve_target,
 )
 from automodel_tpu_torch.datasets.dataloader import StatefulDataLoader
+from automodel_tpu_torch.distributed.init import initialize_distributed
+from automodel_tpu_torch.distributed.mesh import MeshManager
+from automodel_tpu_torch.distributed.shardings import (
+    build_parallel_plan,
+    process_batch_rows,
+)
 from automodel_tpu_torch.datasets.llm.packed_sequence import PackedSequence
 from automodel_tpu_torch.datasets.prefetch import wrap_prefetch
 from automodel_tpu_torch.loss.masked_ce import MaskedCrossEntropy
@@ -189,7 +207,12 @@ _LATER = {
     "checkpoint_format": "Orbax / non-consolidated checkpoints (ROADMAP "
                          "Queue 1 item 7)",
     "pipeline": "pipeline parallelism (ROADMAP Queue 1 item 12)",
-    "distributed": "multi-GPU (ROADMAP Queue 1 item 9)",
+    "distributed": "multi-GPU post-training and VLM recipes (ROADMAP "
+                   "Queue 1 item 9, second half)",
+    "mesh_quant": "quantized compute under a mesh: its tensorwise scales "
+                  "are the global amax (ROADMAP Queue 1 item 9, second half)",
+    "mesh_ep": "expert parallelism (ROADMAP Queue 1 item 9, second half)",
+    "mesh_peft": "PEFT under a mesh (ROADMAP Queue 1 item 9, second half)",
     "autotune": "kernel block-size autotuning (ROADMAP Queue 1 item 3; "
                 "the kernels run their hand-chosen tiles)",
     "elastic": "elastic recovery (ROADMAP Queue 1 item 12)",
@@ -203,10 +226,11 @@ def _later(what: str) -> NotImplementedError:
         f"{what} is not ported yet: it comes with {_LATER[what]}")
 
 
-def check_ported(cfg: ConfigNode, sections=frozenset()) -> None:
+def check_ported(cfg: ConfigNode, sections=frozenset(),
+                 allow_mesh: bool = False) -> None:
     """Raise ``NotImplementedError`` on any knob this slice does not port,
     instead of training without it (``sections``: a recipe's own, beside
-    ``_SECTIONS``)."""
+    ``_SECTIONS``; ``allow_mesh``: the recipe trains over a mesh)."""
     for name in sorted(set(cfg.to_dict()) - _SECTIONS - set(sections)):
         node = cfg.get(name)
         if isinstance(node, ConfigNode) and node.get("enabled") is False:
@@ -223,12 +247,22 @@ def check_ported(cfg: ConfigNode, sections=frozenset()) -> None:
             and (ck.model_save_format != "safetensors"
                  or not ck.save_consolidated)):
         raise _later("checkpoint_format")
-    for axis in ("dp_size", "dp_replicate_size", "dcn_dp_size", "tp_size",
-                 "cp_size", "pp_size"):
-        if cfg.get(f"distributed.{axis}") not in (None, 1):
+    pp = cfg.get("distributed.pp_size")
+    if pp not in (None, 1) and not (isinstance(pp, str) and pp.lower() in (
+            "none", "null", "")):
+        raise _later("pipeline")
+    if not allow_mesh:
+        for axis in ("dp_size", "dp_replicate_size", "dcn_dp_size",
+                     "tp_size", "cp_size"):
+            if cfg.get(f"distributed.{axis}") not in (None, 1):
+                raise _later("distributed")
+        if cfg.get("distributed.sequence_parallel"):
             raise _later("distributed")
-    if cfg.get("distributed.sequence_parallel"):
-        raise _later("distributed")
+        import torch.distributed as dist
+
+        if dist.is_available() and dist.is_initialized() and \
+                dist.get_world_size() > 1:
+            raise _later("distributed")
     # YAML 1.1 reads ``off`` / ``on`` as booleans
     if cfg.get("kernels.autotune") not in (None, False, "off", "none"):
         raise _later("autotune")
@@ -309,10 +343,11 @@ def build_wandb(cfg: ConfigNode):
 
 
 def build_dataloader(cfg: ConfigNode, dataset, cfg_key: str,
-                     batch_size: int, seed: int):
+                     batch_size: int, seed: int, host_rows=None):
     """Dataset (+ packing when ``packed_sequence.packed_sequence_size`` >
     0) -> loader built from ``cfg[cfg_key]``, wrapped in the async input
-    pipeline when its ``prefetch_depth`` is > 0."""
+    pipeline when its ``prefetch_depth`` is > 0; ``host_rows``: the rows
+    of each global microbatch this rank reads."""
     size = int(cfg.get("packed_sequence.packed_sequence_size", 0) or 0)
     if size > 0:
         dataset = PackedSequence(
@@ -326,6 +361,8 @@ def build_dataloader(cfg: ConfigNode, dataset, cfg_key: str,
                   if k not in ("_target_", "prefetch_depth")}
     kwargs.setdefault("batch_size", batch_size)
     kwargs.setdefault("seed", seed)
+    if host_rows is not None:
+        kwargs["host_rows"] = host_rows
     depth = int((dl_cfg.get("prefetch_depth") if isinstance(dl_cfg, ConfigNode)
                  else 0) or 0)
     target = dl_cfg.get("_target_") if isinstance(dl_cfg, ConfigNode) else None
@@ -363,6 +400,10 @@ class TrainFinetuneRecipeForNextTokenPrediction(BaseRecipe):
     _default_max_grad_norm: Optional[float] = None
     # top-level sections this recipe reads beside ``_SECTIONS``
     _sections = frozenset()
+    # trains over a mesh (the VLM recipe does not yet)
+    _mesh_ok = True
+    # batches survive the zig-zag permutation (the JAX recipe's flag)
+    _zigzag_cp_safe = True
 
     def __init__(self, cfg: ConfigNode):
         self.cfg = cfg
@@ -378,16 +419,23 @@ class TrainFinetuneRecipeForNextTokenPrediction(BaseRecipe):
 
     def setup(self):
         cfg = self.cfg
-        check_ported(cfg, self._sections)
+        check_ported(cfg, self._sections, allow_mesh=self._mesh_ok)
         if cfg.get("compile") is not None and \
                 cfg.get("compile.enabled", True) is not False:
             logger.info("compile: the port runs eagerly and keeps no "
                         "compiled program to cache; the section does "
                         "nothing here")
         self.device = resolve_device(cfg.get("device"))
+        env = cfg.get("dist_env")
+        self.dist_info = initialize_distributed(
+            device=self.device,
+            **(env.to_dict() if isinstance(env, ConfigNode) else {}))
+        if self.device.type == "cuda" and self.dist_info.world_size > 1:
+            self.device = torch.device("cuda", self.dist_info.local_rank)
         self.timers = Timers(device=self.device)
         self.profiling = build_profiling_config(cfg.get("profiling"))
-        self.wandb = build_wandb(cfg)
+        # one run's logger: the main rank's
+        self.wandb = build_wandb(cfg) if self.dist_info.is_main else None
         # batch N+1's copy to the card runs here while step N computes
         self._copy_stream = (torch.cuda.Stream(self.device)
                              if self.device.type == "cuda" else None)
@@ -399,9 +447,20 @@ class TrainFinetuneRecipeForNextTokenPrediction(BaseRecipe):
                 seed=int(cfg.get("rng.seed", 42)),
                 ranked=bool(cfg.get("rng.ranked", False)))
 
+        dist_cfg = cfg.get("distributed")
+        if isinstance(dist_cfg, ConfigNode) and \
+                "_target_" in dist_cfg.to_dict():
+            self.mesh_manager = dist_cfg.instantiate()
+        else:
+            self.mesh_manager = MeshManager(
+                **(dist_cfg.to_dict() if isinstance(dist_cfg, ConfigNode)
+                   else {}))
+
         self.model = cfg.get("model").instantiate(
             seed=self.rng.seed_for(_MODEL_INIT_STREAM), device=self.device)
+        self._apply_cp_layout_policy()
         self._apply_moe_dispatch_policy()
+        self._check_mesh_support()
 
         # FP8/int8 quantized compute (optional)
         fp8_cfg = cfg.get("fp8")
@@ -427,6 +486,11 @@ class TrainFinetuneRecipeForNextTokenPrediction(BaseRecipe):
         if mask is not None:
             print_trainable_parameters(self.model)
         load_pretrained_weights(self.model, self.peft_config is not None)
+        # the parallel plan: tp slices, then FSDP over the data mesh (a
+        # no-op on one process without a group)
+        plan = build_parallel_plan(self.model, self.mesh_manager)
+        plan.apply(self.model)
+        self.plan = plan if plan.distributed else None
 
         loss_cfg = cfg.get("loss_fn")
         self.loss_fn = (loss_cfg.instantiate()
@@ -461,17 +525,31 @@ class TrainFinetuneRecipeForNextTokenPrediction(BaseRecipe):
                                       target.rsplit(".", 1)[-1].lower())
             self.optimizer = build_optimizer(named, grad_dtype=grad_dtype,
                                              **opt_kwargs)
+        if self.plan is not None and hasattr(self.optimizer, "param_names"):
+            self.optimizer.plan = self.plan
+            self.optimizer.param_names = {
+                id(p): n for n, p in self.model.named_parameters()}
         self.step_fns = TrainStep(self.model, self.optimizer, self.loss_fn,
-                                  grad_dtype=grad_dtype)
+                                  grad_dtype=grad_dtype, plan=self.plan)
+        self._shard = (self.step_fns.shard_batch
+                       if self.plan is not None and self.plan.cp_size > 1
+                       else None)
         self._check_for_nan = bool(cfg.get("training.check_for_nan", True))
 
         ss_kwargs = (cfg.get("step_scheduler").to_dict()
                      if cfg.get("step_scheduler") is not None else {})
         local_bs = int(ss_kwargs.pop("local_batch_size", 1))
-        self._setup_data(local_bs)
+        # the loader yields global microbatches of local_bs x dp rows, of
+        # which a rank reads those of its data coordinate (JAX's loader)
+        dp = self.mesh_manager.dp_size
+        self._host_rows = None
+        if self.plan is not None and self.mesh_manager.world_size > 1:
+            self._host_rows = process_batch_rows(self.mesh_manager,
+                                                 local_bs * dp)
+        self._setup_data(local_bs * dp)
         self.step_scheduler = StepScheduler(
             local_batch_size=local_bs, dataloader=self.dataloader,
-            **ss_kwargs)
+            dp_size=dp, **ss_kwargs)
         total = self._total_optim_steps(ss_kwargs)
         self.lr_scheduler = build_lr_scheduler(cfg.get("lr_scheduler"),
                                                opt_cfg, total)
@@ -506,6 +584,52 @@ class TrainFinetuneRecipeForNextTokenPrediction(BaseRecipe):
             return 1000
         return max(per_epoch * max(sched.num_epochs, 1), 1)
 
+    def _check_mesh_support(self) -> None:
+        """The refusals of a mesh larger than 1: pipeline parallelism
+        (raised by the mesh manager), expert parallelism with a MoE model,
+        quantized compute and PEFT (a recipe that does not train over a
+        mesh yet was refused by ``check_ported``)."""
+        mm = self.mesh_manager
+        if mm.world_size == 1:
+            return
+        moe = hasattr(getattr(self.model, "config", None), "moe_dispatch")
+        if mm.expert_parallel and moe:
+            raise _later("mesh_ep")
+        fp8 = self.cfg.get("fp8")
+        if (isinstance(fp8, ConfigNode) and fp8.get("enabled", True)
+                is not False) or getattr(self.model, "weight_only_quant",
+                                         None) == "int8" or \
+                self.cfg.get("peft.quantize_base"):
+            raise _later("mesh_quant")
+        if isinstance(self.cfg.get("peft"), ConfigNode):
+            raise _later("mesh_peft")
+
+    def _apply_cp_layout_policy(self) -> None:
+        """The cp sequence layout, resolved before the plan (the JAX
+        recipe's policy): zig-zag by default when cp > 1, dropped back to
+        contiguous for a recipe or model whose batches do not survive the
+        permutation unless the YAML asked for zig-zag."""
+        mm = self.mesh_manager
+        if mm.cp_size <= 1:
+            return
+        from automodel_tpu_torch.ops.zigzag import normalize_cp_layout
+
+        explicit = normalize_cp_layout(
+            self.cfg.get("distributed.cp_layout")) is not None
+        safe = (self._zigzag_cp_safe
+                and getattr(self.model, "zigzag_cp_safe", True))
+        if mm.cp_layout == "zigzag" and not safe and not explicit:
+            logger.warning(
+                "cp=%d: dropping the default zig-zag sequence layout back "
+                "to contiguous — %s/%s consumes the token stream in "
+                "sequence order (set distributed.cp_layout: zigzag to "
+                "force it)", mm.cp_size, type(self).__name__,
+                type(self.model).__name__)
+            mm.cp_layout = "contiguous"
+        if self.dist_info.is_main:
+            logger.info("context parallelism: cp=%d, sequence layout %r",
+                        mm.cp_size, mm.cp_layout)
+
     def _apply_moe_dispatch_policy(self) -> None:
         """Thread the top-level ``moe.dispatch`` knob (``sorted`` |
         ``onehot``; checked at config load) into the model config; on a
@@ -536,8 +660,10 @@ class TrainFinetuneRecipeForNextTokenPrediction(BaseRecipe):
             cfg.set_by_dotted("dataloader.pad_seq_len_divisible", 128)
         if cfg.get("dataloader.prefetch_depth") is None:
             cfg.set_by_dotted("dataloader.prefetch_depth", 2)
+        rows = getattr(self, "_host_rows", None)
         self.dataloader = build_dataloader(cfg, dataset, "dataloader",
-                                           batch_size, self.rng.seed)
+                                           batch_size, self.rng.seed,
+                                           host_rows=rows)
         self.val_dataloader = None
         if cfg.get("validation_dataset") is not None:
             val_ds = build_dataset(cfg.get("validation_dataset"),
@@ -547,7 +673,7 @@ class TrainFinetuneRecipeForNextTokenPrediction(BaseRecipe):
                     "validation_dataloader.pad_seq_len_divisible", 128)
             self.val_dataloader = build_dataloader(
                 cfg, val_ds, "validation_dataloader", batch_size,
-                self.rng.seed)
+                self.rng.seed, host_rows=rows)
 
     # -- hot loop ------------------------------------------------------------
     def _check_host_batches(self, batches) -> None:
@@ -578,7 +704,8 @@ class TrainFinetuneRecipeForNextTokenPrediction(BaseRecipe):
         if staged is None:
             self._check_host_batches(batches)
             with self.timers.record("data_staging"):
-                batch = to_device_batch(batches, self.device)
+                batch = to_device_batch(batches, self.device,
+                                        shard=getattr(self, "_shard", None))
             dl_state = None
         else:
             batch, dl_state = staged
@@ -693,7 +820,8 @@ class TrainFinetuneRecipeForNextTokenPrediction(BaseRecipe):
         for vb in self.val_dataloader:
             self._check_host_batches([vb])
             m = self.step_fns.eval_dispatch(
-                to_device_batch([vb], self.device)).double()
+                to_device_batch([vb], self.device,
+                                shard=getattr(self, "_shard", None))).double()
             wl = torch.stack([m[0] * m[1].clamp(min=1.0), m[1]])
             total = wl if total is None else total + wl
         if total is None:
@@ -761,7 +889,8 @@ class TrainFinetuneRecipeForNextTokenPrediction(BaseRecipe):
         self._check_host_batches(batches)
         with self.timers.record("data_staging_overlap"):
             device_batch = stage_batch(batches, self.device,
-                                       self._copy_stream)
+                                       self._copy_stream,
+                                       shard=getattr(self, "_shard", None))
         return batches, device_batch, dl_state
 
     def _run_epoch_async(self, sched, epoch, preempt) -> bool:

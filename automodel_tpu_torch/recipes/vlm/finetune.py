@@ -148,6 +148,8 @@ class FinetuneRecipeForVLM(TrainFinetuneRecipeForNextTokenPrediction):
 
     _default_max_grad_norm = 1.0
     _sections = frozenset({"processor"})
+    # the VLM recipe under a mesh: ROADMAP Queue 1 item 9, second half
+    _mesh_ok = False
 
     def _check_host_batches(self, batches) -> None:
         """Each microbatch's ``image_grid_thw`` / ``video_grid_thw`` rows

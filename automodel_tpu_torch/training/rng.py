@@ -6,7 +6,11 @@ default generator.  Where the JAX package folds a key per stream
 stream coordinates) with ``np.random.SeedSequence``; the consumer seeds its
 own ``torch.Generator`` with it (``LlamaForCausalLM.init_weights`` does),
 so a stream never depends on how much another one has drawn.  ``ranked``
-offsets the seed by the process rank (0 without ``torch.distributed``).
+offsets the seed by the host index, as JAX's ``jax.process_index()``
+(one process drives a host's devices there): torchrun's node rank, 0 on
+one host (``distributed/init.py::host_index``).  The ranks of one host
+thus draw the same parameters, as JAX's devices share one init, before
+the parallel plan shards them.
 ``state_dict`` / ``load_state_dict`` carry the seed and the three global
 generators' states through a checkpoint.
 """
@@ -24,9 +28,10 @@ class StatefulRNG:
         self.seed = int(seed)
         self.ranked = bool(ranked)
         offset = 0
-        if ranked and torch.distributed.is_available() \
-                and torch.distributed.is_initialized():
-            offset = torch.distributed.get_rank()
+        if ranked:
+            from automodel_tpu_torch.distributed.init import host_index
+
+            offset = host_index()
         self._effective_seed = self.seed + offset
         random.seed(self._effective_seed)
         np.random.seed(self._effective_seed % (2 ** 32))

@@ -275,12 +275,30 @@ class Timers:
     def get_global_elapsed(self, names: List[str], reset: bool = True,
                            normalizer: float = 1.0
                            ) -> Dict[str, Dict[str, float]]:
-        """``{name: {min, max, mean}}`` over processes; one process here
-        (the gather across ranks comes with multi-GPU)."""
+        """``{name: {min, max, mean}}`` over the ranks.  Collective when a
+        process group of more than one rank exists: every rank calls it
+        with the same ``names`` (a timer a rank never started counts 0);
+        gathered over the host's gloo group, off the CUDA streams."""
+        import torch
+        import torch.distributed as dist
+
+        from automodel_tpu_torch.distributed.init import host_group
+
         local = self.get_elapsed(names, reset=reset, normalizer=normalizer)
-        return {k: dict.fromkeys(("min", "max", "mean"),
-                                 float(np.float32(local.get(k, 0.0))))
-                for k in names}
+        values = np.asarray([local.get(k, 0.0) for k in names], np.float32)
+        if dist.is_available() and dist.is_initialized() \
+                and dist.get_world_size() > 1:
+            parts = [torch.zeros(len(names), dtype=torch.float32)
+                     for _ in range(dist.get_world_size())]
+            dist.all_gather(parts, torch.from_numpy(values),
+                            group=host_group())
+            all_values = torch.stack(parts).numpy()
+        else:
+            all_values = values[None]
+        return {k: {"min": float(all_values[:, i].min()),
+                    "max": float(all_values[:, i].max()),
+                    "mean": float(all_values[:, i].mean())}
+                for i, k in enumerate(names)}
 
     def log(self, names: Optional[List[str]] = None, reset: bool = True,
             normalizer: float = 1.0, logger=None,

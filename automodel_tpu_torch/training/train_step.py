@@ -28,6 +28,17 @@ The step trains the parameters that require gradients only: a frozen one
 (PEFT's base, ``freeze_config``) gets no gradient, no accumulation buffer
 and no optimizer state, as the JAX step's trainable-subtree mode.
 
+Over a mesh (``plan``, a ``distributed/shardings.py::ParallelPlan``) each
+rank runs its rows and sequence slice inside the plan's sharding context;
+the label-token count and the loss are summed over the ``dp x cp`` group
+(the JAX ``loss_reduce_size`` group), FSDP sums the gradients over it (no
+average), the tp ranks' partial gradients (norms under sequence
+parallelism, q / k norms) are summed, and the gradient norm adds each
+rank's local squares once per distinct shard: the quotients, the norm and
+the update are then JAX's (``automodel_tpu/training/train_step.py:
+631-634``), up to the reduction order.  :meth:`TrainStep.shard_batch` is
+the host side: the zig-zag permutation and this rank's cp slice.
+
 No step ends in a device sync: :meth:`TrainStep.dispatch` returns the
 step's loss, gradient norm and label-token count packed in one device
 tensor (``PACKED_KEYS``), and :class:`MetricsCopy` brings it to pinned host
@@ -39,6 +50,7 @@ compute stream wait for it.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -115,29 +127,46 @@ def accumulate_grads(params: List[torch.Tensor],
             acc[i] = g if acc[i] is None else acc[i].add_(g)
 
 
+def _local(t):
+    to_local = getattr(t, "to_local", None)
+    return t if to_local is None else to_local()
+
+
 @torch.no_grad()
 def apply_updates(params: List[torch.Tensor],
                   acc: List[Optional[torch.Tensor]], denom: torch.Tensor,
-                  optimizer) -> torch.Tensor:
+                  optimizer, plan=None,
+                  names: Optional[List[str]] = None) -> torch.Tensor:
     """Divide every accumulated gradient by the fp32 token count in fp32,
     hand the quotient to ``optimizer.update`` and return the global L2
     norm of the quotients; one fp32 quotient exists at a time.  A
     parameter without a gradient is updated from zeros, as in the JAX
     step.  The optimizer's ``grad_clip_norm`` clips the quotients by their
-    global norm, taken in a first pass."""
+    global norm, taken in a first pass.  Over a mesh (``plan`` with
+    ``names``, the parameters' module names) the quotients are local
+    shards and the norm sums every distinct shard's squares over the
+    ranks."""
+    sharded = plan is not None and plan.distributed
 
     def quotient(i, p):
         g = acc[i] if acc[i] is not None else p.grad
-        return (torch.zeros_like(p, dtype=torch.float32) if g is None
-                else g.to(torch.float32, copy=True).div_(denom))
+        return (torch.zeros_like(_local(p), dtype=torch.float32) if g is None
+                else _local(g).to(torch.float32, copy=True).div_(denom))
+
+    def norm_of(i, q):
+        if not sharded:
+            return torch.linalg.vector_norm(q)
+        return q.square().sum() / plan.replication(names[i])
 
     def global_norm(norms):
-        return torch.linalg.vector_norm(torch.stack(norms))
+        if not sharded:
+            return torch.linalg.vector_norm(torch.stack(norms))
+        return plan.global_sum(torch.stack(norms).sum()).sqrt()
 
     clip = getattr(optimizer, "grad_clip_norm", None)
     norm = None
     if clip:
-        norm = global_norm([torch.linalg.vector_norm(quotient(i, p))
+        norm = global_norm([norm_of(i, quotient(i, p))
                             for i, p in enumerate(params)])
         below = norm < clip
     norms = []
@@ -147,7 +176,7 @@ def apply_updates(params: List[torch.Tensor],
         if clip:
             q = torch.where(below, q, q.div(norm).mul_(clip))
         else:
-            norms.append(torch.linalg.vector_norm(q))
+            norms.append(norm_of(i, q))
         optimizer.update(p, q)
     return norm if clip else global_norm(norms)
 
@@ -161,7 +190,8 @@ class TrainStep:
     ``"kernel"`` or ``"flash"``)."""
 
     def __init__(self, model, optimizer, loss_fn=None,
-                 grad_dtype=torch.float32, attn_impl: Optional[str] = None):
+                 grad_dtype=torch.float32, attn_impl: Optional[str] = None,
+                 plan=None):
         loss_fn = loss_fn if loss_fn is not None else MaskedCrossEntropy()
         for attr in ("reduction", "needs_hidden"):
             if not hasattr(loss_fn, attr):
@@ -173,7 +203,11 @@ class TrainStep:
                 "the train step normalizes by the global label-token count "
                 "itself; configure the loss with reduction='sum' (got "
                 f"{loss_fn.reduction!r})")
-        self.params = [p for p in model.parameters() if p.requires_grad]
+        named = [(n, p) for n, p in model.named_parameters()
+                 if p.requires_grad]
+        self.params = [p for _, p in named]
+        self.names = [n for n, _ in named]
+        self.plan = plan
         self.model = model
         self.optimizer = optimizer
         self.loss_fn = loss_fn
@@ -185,23 +219,47 @@ class TrainStep:
         tests: the recipe uses :meth:`dispatch`)."""
         return unpack_metrics(self.dispatch(batch).tolist())
 
+    def _context(self):
+        return (self.plan.context() if self.plan is not None
+                else contextlib.nullcontext())
+
+    def _summed(self, t: torch.Tensor) -> torch.Tensor:
+        return t if self.plan is None else self.plan.sum_over_loss_group(t)
+
+    def shard_batch(self, stacked: Dict[str, np.ndarray]
+                    ) -> Dict[str, np.ndarray]:
+        """A stacked host batch of this rank's rows -> its part (the JAX
+        ``shard_batch``'s host side: the zig-zag permutation under that
+        layout, then its cp slice); the batch as it is without a plan."""
+        if self.plan is None:
+            return stacked
+        return self.plan.shard_batch(stacked)
+
     def dispatch(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         """One optimizer step, issued without waiting for the card ->
         ``[loss, grad_norm, num_label_tokens]`` (fp32, on the device)."""
         labels = batch["labels"]
-        num_label_tokens = (labels != IGNORE_INDEX).sum().float()
+        num_label_tokens = self._summed(
+            (labels != IGNORE_INDEX).sum().float())
         denom = num_label_tokens.clamp(min=1.0)
         self.optimizer.zero_grad(set_to_none=True)
         acc: List[Optional[torch.Tensor]] = [None] * len(self.params)
         loss_sum = torch.zeros((), dtype=torch.float32, device=labels.device)
-        for a in range(labels.shape[0]):
-            mb = {k: v[a] for k, v in batch.items()}
-            loss = microbatch_loss(self.model, self.loss_fn, mb,
-                                   attn_impl=self.attn_impl)
-            loss.backward()
-            loss_sum += loss.detach().float()
-            accumulate_grads(self.params, acc, self.grad_dtype)
-        norm = apply_updates(self.params, acc, denom, self.optimizer)
+        with self._context():
+            for a in range(labels.shape[0]):
+                mb = {k: v[a] for k, v in batch.items()}
+                loss = microbatch_loss(self.model, self.loss_fn, mb,
+                                       attn_impl=self.attn_impl)
+                loss.backward()
+                loss_sum += loss.detach().float()
+                accumulate_grads(self.params, acc, self.grad_dtype)
+        if self.plan is not None and self.plan.partial_grads:
+            self.plan.reduce_partial_grads({
+                n: (acc[i] if acc[i] is not None else p.grad)
+                for i, (n, p) in enumerate(zip(self.names, self.params))})
+        norm = apply_updates(self.params, acc, denom, self.optimizer,
+                             plan=self.plan, names=self.names)
+        loss_sum = self._summed(loss_sum)
         return torch.stack([loss_sum / denom, norm.float(), num_label_tokens])
 
     def eval_step(self, batch: Dict[str, torch.Tensor]) -> Dict[str, float]:
@@ -213,12 +271,15 @@ class TrainStep:
         """The mean loss of a batch, issued without waiting -> ``[loss,
         num_label_tokens]`` (fp32, on the device)."""
         labels = batch["labels"]
-        num_label_tokens = (labels != IGNORE_INDEX).sum().float()
+        num_label_tokens = self._summed(
+            (labels != IGNORE_INDEX).sum().float())
         total = torch.zeros((), dtype=torch.float32, device=labels.device)
-        for a in range(labels.shape[0]):
-            total += microbatch_loss(self.model, self.loss_fn,
-                                     {k: v[a] for k, v in batch.items()},
-                                     attn_impl=self.attn_impl).float()
+        with self._context():
+            for a in range(labels.shape[0]):
+                total += microbatch_loss(self.model, self.loss_fn,
+                                         {k: v[a] for k, v in batch.items()},
+                                         attn_impl=self.attn_impl).float()
+        total = self._summed(total)
         return torch.stack([total / num_label_tokens.clamp(min=1.0),
                             num_label_tokens])
 
@@ -305,25 +366,30 @@ def stack_microbatches(microbatches: List[Dict[str, np.ndarray]]
 
 
 def to_device_batch(microbatches: List[Dict[str, np.ndarray]],
-                    device) -> Dict[str, torch.Tensor]:
+                    device, shard=None) -> Dict[str, torch.Tensor]:
     """Collated numpy microbatches -> ``[A, B, S]`` tensors on ``device``
     in the collater's dtypes (int32 ids and grids, float32 pixels and
-    patch rows)."""
+    patch rows); ``shard`` (``TrainStep.shard_batch``) takes this rank's
+    part of the stacked host batch first."""
     stacked = stack_microbatches(microbatches)
     stacked.pop("loss_mask", None)      # already folded into the labels
+    if shard is not None:
+        stacked = shard(stacked)
     return {k: torch.from_numpy(v).to(device) for k, v in stacked.items()}
 
 
 def stage_batch(microbatches: List[Dict[str, np.ndarray]], device,
-                stream: Optional["torch.cuda.Stream"] = None
+                stream: Optional["torch.cuda.Stream"] = None, shard=None
                 ) -> Dict[str, torch.Tensor]:
     """:func:`to_device_batch`, but with ``stream`` (a CUDA stream) the
     copies come from pinned host memory on that stream, without waiting:
     pass the batch through :func:`use_staged` before a step reads it."""
     if stream is None:
-        return to_device_batch(microbatches, device)
+        return to_device_batch(microbatches, device, shard=shard)
     stacked = stack_microbatches(microbatches)
     stacked.pop("loss_mask", None)
+    if shard is not None:
+        stacked = shard(stacked)
     with torch.cuda.stream(stream):
         return {k: torch.from_numpy(v).pin_memory().to(device,
                                                        non_blocking=True)

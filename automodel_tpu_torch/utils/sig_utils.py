@@ -2,9 +2,10 @@
 
 :class:`DistributedSignalHandler` traps one or more signals (SIGTERM and
 SIGINT: a preemption and an operator's ^C take the same grace-window save)
-and records that one arrived.  The port runs one process, so
-:meth:`~DistributedSignalHandler.signals_received` reads the local flag;
-gathering it across ranks comes with multi-GPU (ROADMAP Queue 1 item 9).
+and records that one arrived.
+:meth:`~DistributedSignalHandler.signals_received` gathers the flag
+across the ranks of the process group (the JAX ``process_allgather``), so
+that every rank takes the grace-window save together.
 On exit the previous handlers are restored (``SIG_DFL`` for one installed
 from C, which Python cannot re-install), and a callable previous handler
 is chained; the stdlib ^C handler only on the second ^C, so the first one
@@ -75,8 +76,24 @@ class DistributedSignalHandler:
         return self._received_sig
 
     def signals_received(self) -> bool:
-        """True if a trapped signal arrived (this process's flag)."""
-        return self._received
+        """True if any rank received a trapped signal.  Collective when a
+        process group of more than one rank exists: the flags are gathered
+        over the host's gloo group, so a step's CUDA work is not waited
+        on."""
+        import torch
+        import torch.distributed as dist
+
+        from automodel_tpu_torch.distributed.init import host_group
+
+        if not (dist.is_available() and dist.is_initialized()
+                and dist.get_world_size() > 1):
+            return self._received
+        flags = [torch.zeros(1, dtype=torch.int32)
+                 for _ in range(dist.get_world_size())]
+        dist.all_gather(flags, torch.tensor(
+            [1 if self._received else 0], dtype=torch.int32),
+            group=host_group())
+        return bool(torch.cat(flags).any())
 
 
 def get_signal_name(sig: Optional[int]) -> str:

@@ -406,6 +406,35 @@ Phases (any failure exits non-zero without the final ``ok`` line):
    against its plain version at the plans the prefill runs on its rows
    (Gemma-3's window 1,024 spans its 322 rows, so both its layer kinds
    run full causal); prefill ms and decode tokens/s.
+21. Multi-GPU dense training on one card (after the linear-CE kernels):
+   ring_cp4_llama_1b, ring attention's per-rank block schedule at cp 4
+   in the zig-zag layout at Llama-3.2-1B's attention (B 1, S 8,192, Hq
+   32, Hk 8, D 64, seeded packed segment ids with padding rows), one
+   process with the transfers left out (``ops/ring_attention.py::
+   ring_rank_forward`` / ``ring_rank_backward``): each rank's two 1,024-row
+   chunks against every arriving block on kernel 9 with key-side segment
+   ids, forward and backward, merged by lse; held against kernel 9 over
+   all 8,192 rows and against the ring's plain version (out, dq, dk, dv
+   within ``KERNEL_ATOL`` times the reference's largest magnitude); the
+   ms of the four ranks' schedules, per launched block and per rank, the
+   whole-sequence kernel's, the plain version's, the bound and SDPA's
+   over the sequence (``ring_case`` line).  vocab_tp4_llama_1b: kernels
+   2-4 at V 128,256 cut into 4 shards of 32,064, T the bench YAML's
+   16,384 tokens a microbatch, through the port's own vocab-parallel
+   steps (``loss/linear_ce.py``: ``shard_lse_pick`` per shard,
+   ``merge_lse_pick`` over the stacked shards, ``token_ce``) and their
+   backward through autograd (kernels 3-4 with the merge's cotangents):
+   the merged lse and pick within ``MERGE_ATOL`` absolute of the
+   unsharded kernel's and the plain version's, dh and dW within the
+   kernels' ``LCE_ATOL`` / ``LCE_RTOL`` (``vocab_case`` line); a shard's
+   ms, plain, bound and library times (``lce_case``).  dist_w1_llama_1b: the bench YAML (its
+   ``distributed:`` section) at Llama-3.2-1B's widths and ``DIST_LAYERS``
+   of 16 layers through ``initialize_distributed`` (NCCL, world 1),
+   ``MeshManager`` and ``ParallelPlan`` (FSDP2 on the 1-rank mesh) for
+   ``DIST_STEPS`` steps: its first-step loss against the undistributed
+   path's one step (``DIST_LOSS_REL_TOL``), and its launches of kernels
+   9 and 2-4 against that step's, times the steps.  Collectives across
+   cards need a machine with more than one H100.
 
 The second-to-last line is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.
@@ -7944,6 +7973,340 @@ def generate_qwen25_vl_3b_phase(export_dir, flush):
 T0 = time.perf_counter()
 
 
+# ---------------------------------------------------------------------------
+# multi-GPU dense training: the ring's blocks, the vocab-parallel CE, and
+# the recipe over a 1-rank mesh
+# ---------------------------------------------------------------------------
+RING_CP = 4
+RING_SHAPE = dict(B=1, S=8192, Hq=32, Hk=8, D=64)     # Llama-3.2-1B's attention
+RING_SEED = 412
+VOCAB_TP = 4
+# the merged lse / pick against the unsharded kernel and plain: measured
+# below 1e-5 on the H100; a merge that dropped one of 4 shards would be
+# off by up to log(4/3) ~ 0.29
+MERGE_ATOL = 1e-3
+DIST_LAYERS = 4             # of 16: the 1-rank mesh phase's depth
+DIST_STEPS = 3
+DIST_LOSS_REL_TOL = 1e-5    # first-step loss, 1-rank mesh vs no mesh
+
+
+def packed_ids(S, seed, pad=64):
+    """Seeded packed segment ids ``[1, S]``: documents of 100-2,000 tokens,
+    the last ``pad`` rows padding (segment 0)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    ids, n = [], 1
+    while len(ids) < S:
+        ids += [n] * int(rng.integers(100, 2000))
+        n += 1
+    ids = np.asarray(ids[:S], np.int32)
+    ids[S - pad:] = 0
+    return ids[None]
+
+
+def causal_pairs(seg):
+    """Attended (q, k) pairs of causal attention within contiguous
+    segments (segment 0 attends nothing)."""
+    import numpy as np
+
+    s = seg.reshape(-1)
+    _, counts = np.unique(s[s != 0], return_counts=True)
+    return int((counts * (counts + 1) // 2).sum())
+
+
+def ring_cp4_case(flush):
+    """Ring attention's per-rank schedule at cp 4 in the zig-zag layout,
+    one process, the transfers left out: each rank's two 1,024-row chunks
+    against every arriving block, forward and backward, merged by lse.
+    Held against kernel 9 over all 8,192 rows and against the ring's plain
+    version; the ms of the four ranks' schedules, per launched block, the
+    whole-sequence kernel's, the bound and SDPA's over the sequence."""
+    import torch
+
+    from automodel_tpu_torch.ops import ring_attention as ra
+    from automodel_tpu_torch.ops import splash_attention as sa
+    from automodel_tpu_torch.ops.attention import make_attention_mask
+    from automodel_tpu_torch.ops.zigzag import zigzag_indices
+
+    B, S, Hq, Hk, D = (RING_SHAPE[k] for k in ("B", "S", "Hq", "Hk", "D"))
+    cp, n = RING_CP, S // RING_CP
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(RING_SEED)
+    q = torch.randn(B, S, Hq, D, device=dev, generator=g).bfloat16()
+    k = torch.randn(B, S, Hk, D, device=dev, generator=g).bfloat16()
+    v = torch.randn(B, S, Hk, D, device=dev, generator=g).bfloat16()
+    dout = torch.randn(B, S, Hq, D, device=dev, generator=g).bfloat16()
+    seg_np = packed_ids(S, RING_SEED)
+    seg = torch.from_numpy(seg_np).to(dev)
+    idx = torch.from_numpy(zigzag_indices(S, cp)).to(dev)
+    inv = torch.argsort(idx)
+
+    def shards(t):
+        z = t.index_select(1, idx)
+        return [z[:, r * n:(r + 1) * n].contiguous() for r in range(cp)]
+
+    qs, ks, vs, ss, dos = (shards(t) for t in (q, k, v, seg, dout))
+
+    def blocks(r):
+        return [(ks[(r - t) % cp], vs[(r - t) % cp], ss[(r - t) % cp])
+                for t in range(cp)]
+
+    def forward(impl):
+        return [ra.ring_rank_forward(qs[r], ss[r], blocks(r), r, cp,
+                                     layout="zigzag", impl=impl)
+                for r in range(cp)]
+
+    def backward(fwd, impl):
+        dq = [None] * cp
+        dk = [torch.zeros(B, n, Hk, D, device=dev) for _ in range(cp)]
+        dv = [torch.zeros_like(x) for x in dk]
+        for r in range(cp):
+            out, lse = fwd[r]
+            dq[r], parts = ra.ring_rank_backward(
+                qs[r], ss[r], blocks(r), out, lse, dos[r], r, cp,
+                layout="zigzag", impl=impl)
+            for s_, a, b in parts:
+                dk[s_] += a
+                dv[s_] += b
+        return [torch.cat(x, 1).index_select(1, inv) for x in (dq, dk, dv)]
+
+    def whole(parts):
+        return torch.cat(parts, 1).index_select(1, inv)
+
+    launches0 = sa.fwd_launches
+    fwd_k = forward("kernel")
+    blocks_launched = sa.fwd_launches - launches0
+    out_k = whole([o for o, _ in fwd_k])
+    grads_k = backward(fwd_k, "kernel")
+    fwd_p = forward("plain")
+    out_p = whole([o for o, _ in fwd_p])
+    grads_p = backward(fwd_p, "plain")
+    out_9, lse_9 = sa.flash_attn_fwd_cuda(q, k, v, causal=True,
+                                          segment_ids=seg)
+    grads_9 = sa.flash_attn_bwd_cuda(q, k, v, out_9, lse_9, dout,
+                                     causal=True, segment_ids=seg)
+    torch.cuda.synchronize()
+    errs = {}
+    for what, got, refs in (
+            ("out", out_k, (("kernel9", out_9), ("plain", out_p))),
+            ("dq", grads_k[0], (("kernel9", grads_9[0]),
+                                ("plain", grads_p[0]))),
+            ("dk", grads_k[1], (("kernel9", grads_9[1]),
+                                ("plain", grads_p[1]))),
+            ("dv", grads_k[2], (("kernel9", grads_9[2]),
+                                ("plain", grads_p[2])))):
+        check(bool(torch.isfinite(got.float()).all()),
+              f"ring_cp4_llama_1b: non-finite {what}")
+        for ref_name, ref in refs:
+            err = float((got.float() - ref.float()).abs().max())
+            scale = max(1.0, float(ref.float().abs().max()))
+            errs[f"{what}_vs_{ref_name}"] = err
+            check(err <= KERNEL_ATOL * scale,
+                  f"ring_cp4_llama_1b: {what} disagrees with {ref_name} "
+                  f"(max_abs_err {err:.3e}, limit "
+                  f"{KERNEL_ATOL * scale:.3e})")
+    fwd_ms = time_ms(lambda: forward("kernel"), 5, flush)
+    bwd_ms = time_ms(lambda: backward(fwd_k, "kernel"), 3, flush)
+    plain_fwd_ms = time_ms(lambda: forward("plain"), 2, flush, warmup=1)
+    plain_bwd_ms = time_ms(lambda: backward(fwd_p, "plain"), 2, flush,
+                           warmup=1)
+    whole_fwd_ms = time_ms(lambda: sa.flash_attn_fwd_cuda(
+        q, k, v, causal=True, segment_ids=seg), 10, flush)
+    whole_bwd_ms = time_ms(lambda: sa.flash_attn_bwd_cuda(
+        q, k, v, out_9, lse_9, dout, causal=True, segment_ids=seg), 10,
+        flush)
+    pairs = causal_pairs(seg_np)
+    bound = {p: attn_bound(q, k, seg, pairs, p == "bwd")
+             for p in ("fwd", "bwd")}
+    mask = make_attention_mask(S, S, causal=True, segment_ids_q=seg,
+                               segment_ids_kv=seg, device=dev)
+    lib_fwd, lib_bwd, _ = attn_library(q, k, v, dout, mask, False, None)
+    lib = {"fwd": time_ms(lib_fwd, 5, flush),
+           "bwd": time_ms(lib_bwd, 5, flush)}
+    rep = {"case": "ring_cp4_llama_1b", "cp": cp, "layout": "zigzag",
+           **RING_SHAPE, "attended_pairs": pairs,
+           "blocks_launched": blocks_launched, "max_abs_err": errs}
+    for part, ms, plain, whole_ms in (("fwd", fwd_ms, plain_fwd_ms,
+                                       whole_fwd_ms),
+                                      ("bwd", bwd_ms, plain_bwd_ms,
+                                       whole_bwd_ms)):
+        rep[part] = {"ms": ms, "block_ms": ms / blocks_launched,
+                     "rank_ms": ms / cp, "whole_sequence_ms": whole_ms,
+                     "plain_ms": plain, "bound_ms": bound[part][0],
+                     "bound_by": bound[part][1], "library_ms": lib[part],
+                     "max_abs_err": max(
+                         v_ for k_, v_ in errs.items()
+                         if k_.startswith("out" if part == "fwd" else "d"))}
+    print("ring_case " + json.dumps(rep), flush=True)
+    return rep
+
+
+def vocab_tp4_case(flush, bench_labels):
+    """Kernels 2-4 at Llama-3.2-1B's head cut into 4 vocab shards (V
+    128,256 -> 32,064, T the bench YAML's tokens per microbatch) through
+    the port's vocab-parallel steps: ``shard_lse_pick`` per shard (the
+    label offset, kernel 2), ``merge_lse_pick`` over the stacked shards,
+    ``token_ce``, and the backward through autograd (kernels 3-4 with the
+    merge's cotangents; each shard's hidden states a leaf of their own,
+    as each rank's are, their gradients summed as the tp all-reduce sums
+    them); held against the unsharded kernels and the plain version; a
+    shard's times from ``lce_case``."""
+    import numpy as np
+    import torch
+
+    from automodel_tpu_torch.loss.linear_ce import (
+        merge_lse_pick,
+        shard_lse_pick,
+        token_ce,
+    )
+    from automodel_tpu_torch.ops import linear_ce_kernel as lce
+
+    V, H, tp = 128256, 2048, VOCAB_TP
+    v_local = V // tp
+    labels_np = bench_labels.reshape(-1).astype(np.int32)
+    T = labels_np.size
+    local0 = np.where(labels_np == -100, -100, labels_np).astype(np.int32)
+    shard = lce_case("vocab_tp4_llama_1b", T, H, v_local, "bench", local0,
+                     flush, seed=424, parts=True)
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(425)
+    h = torch.randn(T, H, device=dev, generator=g).bfloat16()
+    ws = (torch.randn(V, H, device=dev, generator=g) * 0.02).bfloat16()
+    labels = torch.from_numpy(labels_np).to(dev)
+    valid = (labels != -100).float()
+    hs, w_ss, lses, picks = [], [], [], []
+    for s in range(tp):
+        h_s = h.detach().requires_grad_()
+        w_s = ws[s * v_local:(s + 1) * v_local].t().detach() \
+            .requires_grad_()
+        l_s, p_s = shard_lse_pick(h_s, w_s, labels, s)
+        hs.append(h_s)
+        w_ss.append(w_s)
+        lses.append(l_s)
+        picks.append(p_s)
+    lse, pick = merge_lse_pick(torch.stack(lses), torch.stack(picks),
+                               lambda t: t.max(0).values,
+                               lambda t: t.sum(0))
+    token_ce(lse, pick, labels).sum().backward()
+    lse, pick = lse.detach(), pick.detach()
+    dh = torch.stack([h_s.grad.float() for h_s in hs]).sum(0)
+    dw = torch.cat([w_s.grad for w_s in w_ss], 1)
+    w = ws.t()
+    lse_1, pick_1 = lce.linear_ce_fwd_cuda(h, w, labels)
+    dh_1, dw_1 = lce.linear_ce_bwd_cuda(h, w, labels, lse_1, valid, -valid)
+    lse_p, pick_p = lce.lse_and_pick_plain(h, w, labels)
+    dh_p, dw_p = lce.lse_and_pick_bwd_plain(h, w, labels, lse_p, valid,
+                                            -valid)
+    torch.cuda.synchronize()
+    errs = {}
+    for what, got, refs in (("lse", lse, (lse_1, lse_p)),
+                            ("pick", pick, (pick_1, pick_p)),
+                            ("dh", dh, (dh_1, dh_p)),
+                            ("dw", dw, (dw_1, dw_p))):
+        check(bool(torch.isfinite(got.float()).all()),
+              f"vocab_tp4_llama_1b: non-finite {what}")
+        for ref_name, ref in zip(("unsharded", "plain"), refs):
+            diff = (got.float() - ref.float()).abs()
+            errs[f"{what}_vs_{ref_name}"] = float(diff.max())
+            limit = (MERGE_ATOL if what in ("lse", "pick") else
+                     LCE_ATOL + LCE_RTOL * ref.float().abs())
+            bad = diff > limit
+            check(not bool(bad.any()),
+                  f"vocab_tp4_llama_1b: merged {what} disagrees with the "
+                  f"{ref_name} version (max_abs_err {float(diff.max()):.3e})")
+    rep = {"case": "vocab_tp4_llama_1b", "T": T, "H": H, "V": V,
+           "tp": tp, "v_local": v_local, "max_abs_err": errs,
+           "shard": {p: {k_: shard[p][k_] for k_ in ("ms", "plain_ms",
+                                                    "bound_ms", "bound_by",
+                                                    "library_ms")}
+                     for p in ("fwd", "dlogits", "dh", "dw")}}
+    print("vocab_case " + json.dumps(rep), flush=True)
+    return shard, rep
+
+
+def _dist_run(overrides, steps, mesh):
+    """The bench YAML at ``DIST_LAYERS`` layers for ``steps`` steps (over
+    the 1-rank mesh when ``mesh``) -> (first loss, per-step losses, launch
+    counts of the steps)."""
+    import torch
+
+    from automodel_tpu_torch.config.loader import parse_args_and_load_config
+    from automodel_tpu_torch.recipes.llm import train_ft
+
+    over = ["--model.config.num_hidden_layers", str(DIST_LAYERS),
+            "--checkpoint.enabled", "false",
+            "--step_scheduler.max_steps", str(steps), *overrides]
+    if mesh:
+        over += ["--distributed._target_",
+                 "automodel_tpu.distributed.mesh.MeshManager",
+                 "--distributed.dp_size", "1", "--distributed.tp_size", "1",
+                 "--distributed.cp_size", "1"]
+    cfg = parse_args_and_load_config(["-c", BENCH_YAML, *over])
+    recipe = train_ft.TrainFinetuneRecipeForNextTokenPrediction(cfg)
+    recipe.setup()
+    if mesh:
+        check(recipe.plan is not None and recipe.plan.fsdp,
+              "dist_w1_llama_1b: the plan did not fully_shard the model")
+    _zero_launch_counts()
+    recipe.run_train_validation_loop()
+    torch.cuda.synchronize()
+    counts = _launch_counts()
+    losses = [m["loss"] for m in recipe.history]
+    del recipe
+    torch.cuda.empty_cache()
+    return losses, counts
+
+
+def dist_w1_phase():
+    """The bench YAML with a ``distributed:`` section through
+    ``initialize_distributed`` (NCCL, world 1), ``MeshManager`` and
+    ``ParallelPlan`` (FSDP2 on the 1-rank mesh): Llama-3.2-1B at published
+    widths and ``DIST_LAYERS`` layers, ``DIST_STEPS`` steps; its first
+    loss against the undistributed path's, its launches of kernels 9 and
+    2-4 against that path's per step."""
+    import socket
+
+    import torch
+    import torch.distributed as dist
+
+    from automodel_tpu_torch.distributed.init import initialize_distributed
+
+    t0 = time.perf_counter()
+    plain_losses, one = _dist_run([], 1, mesh=False)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    info = initialize_distributed(backend="nccl", device="cuda",
+                                  init_method=f"tcp://localhost:{port}")
+    check(dist.is_initialized() and info.world_size == 1
+          and dist.get_backend() == "nccl",
+          "dist_w1_llama_1b: no NCCL process group of world 1")
+    try:
+        losses, counts = _dist_run([], DIST_STEPS, mesh=True)
+    finally:
+        dist.destroy_process_group()
+    rel = abs(losses[0] - plain_losses[0]) / abs(plain_losses[0])
+    check(rel <= DIST_LOSS_REL_TOL,
+          f"dist_w1_llama_1b: first-step loss {losses[0]} vs the "
+          f"undistributed {plain_losses[0]} (rel {rel:.2e} > "
+          f"{DIST_LOSS_REL_TOL})")
+    keys = ("attn_fwd", "attn_bwd", "lce_fwd", "dlogits", "dh", "dw")
+    for key in keys:
+        check(counts[key] == DIST_STEPS * one[key] and one[key] > 0,
+              f"dist_w1_llama_1b: {counts[key]} {key} launches in "
+              f"{DIST_STEPS} steps, {one[key]} a step undistributed")
+    rep = {"label": "dist_w1_llama_1b", "layers": DIST_LAYERS,
+           "steps": DIST_STEPS, "losses": losses,
+           "undistributed_first_loss": plain_losses[0],
+           "first_loss_rel_diff": rel,
+           "launches": {k: counts[k] for k in keys},
+           "launches_per_step": {k: one[k] for k in keys},
+           "seconds": time.perf_counter() - t0}
+    print("dist_w1_llama_1b " + json.dumps(rep), flush=True)
+    return rep
+
+
 def phase_done(name):
     """Print the script's elapsed seconds at the end of a phase."""
     print(f"phase {name} done at {time.perf_counter() - T0:.1f} s",
@@ -8007,6 +8370,16 @@ def main():
                         102400, "bench", lite_labels, flush, seed=260,
                         parts=True)
     phase_done("linear-CE kernels")
+    # multi-GPU dense training on the one card: the ring's cp-4 block
+    # schedule, the vocab-parallel CE at V / 4, the recipe over a 1-rank
+    # mesh (NCCL, FSDP2)
+    ring_case = ring_cp4_case(flush)
+    phase_done("ring_cp4_llama_1b")
+    vocab_shard, _ = vocab_tp4_case(flush, bench_labels)
+    phase_done("vocab_tp4_llama_1b")
+    torch.cuda.empty_cache()
+    dist_w1 = dist_w1_phase()
+    phase_done("dist_w1_llama_1b")
     q_cases = qdot_phase(flush)
     phase_done("qdot kernel")
     main_run = engine_phase()
@@ -8277,6 +8650,19 @@ def main():
         for name_, run in {**peft_runs, **new_runs}.items():
             kernels[-1][f"{name_}_launches"] = run[f"{part}_launches"]
         kernels[-1]["long_16k_ms"] = long_case[part]["ms"]
+        # the ring's blocks at cp 4 (zig-zag, key-side segment ids) and
+        # the recipe over the 1-rank mesh
+        ring = ring_case[part]
+        kernels[-1].update({
+            f"ring_cp4_llama_1b_{k}": ring[k]
+            for k in ("ms", "block_ms", "rank_ms", "whole_sequence_ms",
+                      "plain_ms", "bound_ms", "bound_by", "library_ms")})
+        kernels[-1]["ring_cp4_llama_1b_blocks"] = ring_case[
+            "blocks_launched"]
+        kernels[-1]["max_abs_err"] = max(kernels[-1]["max_abs_err"],
+                                         ring["max_abs_err"])
+        kernels[-1]["dist_w1_llama_1b_launches"] = dist_w1["launches"][
+            f"attn_{part}"]
         # head_dim 192 (MLA, sft_deepseek's packing and pure causal)
         mla = mla_cases[0][part]
         kernels[-1].update({
@@ -8410,7 +8796,8 @@ def main():
             kernels[-1]["max_abs_err"] = max(kernels[-1]["max_abs_err"],
                                              c[part]["max_abs_err"])
     rep = lce_cases[0]
-    new_lce = ([lce_lite] + [r["lce_case"] for r in vlm_runs.values()]
+    new_lce = ([lce_lite, vocab_shard]
+               + [r["lce_case"] for r in vlm_runs.values()]
                + [r["lce_case"] for r in text_runs.values()])
     lce_cases = lce_cases + [r["lce_case"] for r in hf_runs.values()
                              if r["lce_case"] is not None] + new_lce
@@ -8439,6 +8826,8 @@ def main():
             kernels[-1][f"{name_}_launches"] = run["linear_ce_launches"][part]
         kernels[-1]["sft_deepseek_launches"] = deepseek[
             "linear_ce_launches"][part]
+        kernels[-1]["dist_w1_llama_1b_launches"] = dist_w1["launches"][
+            "lce_fwd" if part == "fwd" else part]
         for label, run in hf_runs.items():
             kernels[-1][f"{label}_launches"] = run["launches"][
                 "lce_fwd" if part == "fwd" else part]

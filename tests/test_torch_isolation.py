@@ -6,7 +6,9 @@ and vision models, the VLM datasets and the VLM recipe, the
 post-training modules and the GRPO / DPO recipes, GPT-2, the
 classifier, Granite / OLMo-2 / StarCoder-2 / Phi-3, the pretraining
 entry, Qwen2.5-VL and its M-RoPE position ids, Gemma-3n, the serving
-fleet and its live-params transport among them),
+fleet and its live-params transport, the distributed modules -- process
+group, mesh, parallel plan, tensor-parallel collectives -- the zig-zag
+layout and the ring attention among them),
 importing every module loads no JAX, and the kernel build directory is
 ignored by git."""
 
@@ -53,7 +55,11 @@ def test_no_jax_or_jax_package_imports():
                 "datasets/vlm/qwen_rope.py", "models/gemma3n.py",
                 "models/phi4_mm.py", "examples/vlm_generate.py",
                 "serving/fleet.py", "utils/elastic.py",
-                "checkpoint/replication.py"):
+                "checkpoint/replication.py", "distributed/__init__.py",
+                "distributed/init.py", "distributed/mesh.py",
+                "distributed/shardings.py",
+                "distributed/tensor_parallel.py", "ops/zigzag.py",
+                "ops/ring_attention.py"):
         assert new in rel, new
     for path in sources:
         with open(path) as f:
@@ -96,7 +102,10 @@ def test_engine_import_loads_no_jax():
                 "models.sequence_classification", "models.phi3",
                 "examples.pretrain", "models.qwen2_5_vl",
                 "datasets.vlm.qwen_rope", "serving.fleet",
-                "utils.elastic", "checkpoint.replication"):
+                "utils.elastic", "checkpoint.replication", "distributed",
+                "distributed.init", "distributed.mesh",
+                "distributed.shardings", "distributed.tensor_parallel",
+                "ops.zigzag", "ops.ring_attention"):
         assert "automodel_tpu_torch." + mod in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"

@@ -317,6 +317,76 @@ def test_cuda_flash_attn_matches_plain(case, cuda_device):
         assert bool((dq[pad] == 0).all()) and bool((dk[pad] == 0).all())
 
 
+# key-side segment ids (the ring's blocks): ids of their own for the keys,
+# and ids equal to the queries' giving today's results bit for bit
+KV_ID_CASES = [("kv_ids_causal_d64", 2, 256, 8, 2, 64, True),
+               ("kv_ids_full_d64", 2, 256, 8, 2, 64, False),
+               ("kv_ids_full_d128", 1, 192, 4, 4, 128, False),
+               ("kv_ids_ragged_d64", 1, 202, 4, 2, 64, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", KV_ID_CASES, ids=[c[0] for c in KV_ID_CASES])
+def test_cuda_flash_attn_kv_ids(case, cuda_device):
+    """Kernel 9 with the keys' own segment ids against its plain version
+    (a row with no key: out 0, lse -inf, zero gradient), and with the
+    queries' ids handed as the keys' equal to the form without them."""
+    from automodel_tpu_torch.ops import splash_attention as sa
+
+    _, B, S, Hq, Hk, D, causal = case
+    q, k, v, dout, seg = make_attn_case(B, S, Hq, Hk, D, True, seed=3)
+    seg_kv = torch.roll(seg, 37, dims=1).contiguous()
+    kw = dict(causal=causal, segment_ids=seg, kv_segment_ids=seg_kv)
+    out, lse = sa.flash_attn_fwd_cuda(q, k, v, **kw)
+    ref, ref_lse = sa.splash_attention_plain(q, k, v, **kw)
+    torch.testing.assert_close(out.float(), ref.float(), atol=ATTN_ATOL,
+                               rtol=ATTN_RTOL)
+    empty = torch.isneginf(ref_lse)
+    assert bool(torch.isneginf(lse[empty]).all())
+    torch.testing.assert_close(lse[~empty], ref_lse[~empty], atol=ATTN_ATOL,
+                               rtol=ATTN_RTOL)
+    safe = torch.where(empty, torch.zeros_like(lse), lse)
+    got = sa.flash_attn_bwd_cuda(q, k, v, out, safe, dout, **kw)
+    want = sa.splash_attention_bwd_plain(q, k, v, ref, safe, dout, **kw)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert bool(torch.isfinite(g).all()), name
+        assert rel_l2(g, w) < GRAD_REL_L2, (name, rel_l2(g, w))
+    same = dict(causal=causal, segment_ids=seg)
+    o0, l0 = sa.flash_attn_fwd_cuda(q, k, v, **same)
+    o1, l1 = sa.flash_attn_fwd_cuda(q, k, v, kv_segment_ids=seg.clone(),
+                                    **same)
+    assert torch.equal(o0, o1)
+    pad = (seg == 0)[:, None, :].expand_as(l0)
+    assert torch.equal(l0[~pad], l1[~pad])
+    g0 = sa.flash_attn_bwd_cuda(q, k, v, o0, l0, dout, **same)
+    g1 = sa.flash_attn_bwd_cuda(q, k, v, o0, l0, dout,
+                                kv_segment_ids=seg.clone(), **same)
+    for a, b in zip(g0, g1):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_cuda_mesh_paths_raise_instead_of_falling_back(cuda_device):
+    """On CUDA tensors a ring block with a window or a soft cap, and a
+    vocab shard kernel 2 cannot take (H not a multiple of 8), raise: no
+    plain ring block, no gathered loss."""
+    from automodel_tpu_torch.distributed.tensor_parallel import TPContext
+    from automodel_tpu_torch.loss.linear_ce import _sharded_lse_pick
+    from automodel_tpu_torch.ops import ring_attention as ra
+
+    q, k, v, _, seg = make_attn_case(1, 256, 4, 2, 64, True)
+    blocks = [(k, v, seg)]
+    for kw in (dict(local_window_size=32), dict(logits_soft_cap=30.0)):
+        with pytest.raises(NotImplementedError, match="Queue 2 C"):
+            ra.ring_rank_forward(q, seg, blocks, 0, 1, layout="contiguous",
+                                 **kw)
+    h = torch.randn(2, 8, 100, device=cuda_device).bfloat16()
+    w = torch.randn(64, 100, device=cuda_device).bfloat16().t()
+    labels = torch.randint(0, 128, (2, 8), device=cuda_device)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        _sharded_lse_pick(h, w, labels, TPContext(None, 2, 0))
+
+
 # chip_smoke.py's attention shapes: ATTN_CASES (the splash rung, [B, S, H,
 # D]: name, B, S, Hq, Hk, D, packed, window, cap) and FLASH_CASES (the
 # flash rung, kv repeated to MHA: name, B, S, Hq, Hk, D, causal, packed)
